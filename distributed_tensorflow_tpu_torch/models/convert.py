@@ -1,0 +1,65 @@
+"""Carry GPT weights from the JAX package's parameter tree into the port.
+
+The JAX tree (``distributed_tensorflow_tpu/models/gpt.py GPT.init``) is
+``{"embeddings": {"word", "position"}, "decoder": {...}, "ln_f": {...}}``
+with every ``decoder`` leaf stacked over layers (leading axis ``L``, the
+``vmap`` layout).  The caller hands it over as numpy arrays (for
+example ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
+Weights stay float32, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .gpt import GPT, GPTConfig
+
+__all__ = ["gpt_params_from_jax", "load_jax_params"]
+
+# JAX tree keys that name port configurations this slice does not run
+_UNPORTED = ("lm_head", "moe", "w_gate")
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for key, val in tree.items():
+        if key in _UNPORTED:
+            raise ValueError(f"parameter {prefix}{key!r} belongs to a GPT "
+                             "configuration the port does not run yet")
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", np.asarray(val, np.float32)
+
+
+def gpt_params_from_jax(tree: Dict[str, Any],
+                        config: GPTConfig) -> Dict[str, torch.Tensor]:
+    """The port's ``GPT`` state dict from a JAX GPT parameter tree whose
+    leaves are numpy arrays."""
+    for key in tree:
+        if key not in ("embeddings", "decoder", "ln_f"):
+            raise ValueError(f"parameter {key!r} belongs to a GPT "
+                             "configuration the port does not run yet")
+    emb = tree["embeddings"]
+    if "position" not in emb:
+        raise ValueError("the port runs learned positions only")
+    sd = {"word": emb["word"], "position": emb["position"],
+          "ln_f.gamma": tree["ln_f"]["gamma"],
+          "ln_f.beta": tree["ln_f"]["beta"]}
+    for path, leaf in _flatten(tree["decoder"]):
+        if leaf.shape[0] != config.num_layers:
+            raise ValueError(f"decoder leaf {path} leads with "
+                             f"{leaf.shape[0]}, not {config.num_layers} "
+                             "layers")
+        for i in range(config.num_layers):
+            sd[f"blocks.{i}.{path}"] = leaf[i]
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}
+
+
+def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:
+    """Copy a JAX GPT parameter tree (numpy leaves) into ``model``."""
+    model.load_state_dict(gpt_params_from_jax(tree, model.config),
+                          strict=True)
+    return model

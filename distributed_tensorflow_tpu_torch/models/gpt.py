@@ -1,0 +1,305 @@
+"""GPT decoder for paged serving, in PyTorch.
+
+Counterpart of ``distributed_tensorflow_tpu/models/gpt.py``, the subset
+the paged serving path runs: pre-LN decoder blocks with learned
+positions, LayerNorm, the tanh-gelu FFN and a head tied to the word
+embedding, driven through ``decode_window_paged`` (chunked prefill) and
+``decode_step_slots_paged`` (one token per slot) against a shared KV page
+pool (``serve/pages.py``).
+
+Parameters keep the JAX package's layouts (projection kernels ``[d, h,
+hd]`` and ``[h, hd, d]``) and stay float32; each product casts them to
+the compute dtype, as the JAX code's ``.astype(dtype)`` does.
+``models/convert.py`` loads a JAX parameter tree.
+
+Kernels: every block norm and ``ln_f`` go through
+``ops.kernels.fused.fused_layernorm`` and every paged read through
+``ops.kernels.paged_attention``.  Those wrappers launch the CUDA kernel
+for CUDA tensors and run their plain version only for CPU tensors: the
+tensor's device decides, there is no knob.
+
+Numerics: TF32 stays off.  This module never sets
+``torch.backends.cuda.matmul.allow_tf32`` or
+``torch.backends.cudnn.allow_tf32``, so a float32 model computes in full
+float32 on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from ..ops.attention import affine, ffn_core
+from ..ops.kernels import fused as fused_lib
+from ..ops.kernels import paged_attention as paged_lib
+
+__all__ = ["GPT", "GPTConfig", "gpt_small", "gpt_tiny", "resolve_device"]
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when
+    there is no card (the port never falls back to the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "passes device='cpu'")
+    return device
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 1024
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.float32
+    # grouped-query attention: kv heads (None = num_heads, plain MHA)
+    num_kv_heads: Optional[int] = None
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible "
+                             f"by num_heads {self.num_heads}")
+        if self.kv_heads < 1 or self.num_heads % self.kv_heads:
+            raise ValueError(f"num_kv_heads must be a positive divisor of "
+                             f"num_heads {self.num_heads}; got "
+                             f"{self.num_kv_heads}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return (self.num_heads if self.num_kv_heads is None
+                else self.num_kv_heads)
+
+
+def gpt_small(**kw) -> GPTConfig:
+    """GPT-2 small: vocab 50257, d 768, 12 layers, 12 heads, FFN 3072."""
+    return GPTConfig(**kw)
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    """The JAX package's ``gpt_tiny`` sizes: 2 layers, d 128, 2 heads."""
+    for k, v in dict(hidden_size=128, num_layers=2, num_heads=2,
+                     intermediate_size=512, vocab_size=512,
+                     max_position=128).items():
+        kw.setdefault(k, v)
+    return GPTConfig(**kw)
+
+
+class _Norm(nn.Module):
+    def __init__(self, d, device):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(d, device=device))
+        self.beta = nn.Parameter(torch.zeros(d, device=device))
+
+
+class _Dense(nn.Module):
+    def __init__(self, kernel_shape, bias_shape, device):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(kernel_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(bias_shape, device=device))
+
+
+class _Attention(nn.Module):
+    def __init__(self, c: GPTConfig, device):
+        super().__init__()
+        d, h, kvh, hd = c.hidden_size, c.num_heads, c.kv_heads, c.head_dim
+        self.query = _Dense((d, h, hd), (h, hd), device)
+        self.key = _Dense((d, kvh, hd), (kvh, hd), device)
+        self.value = _Dense((d, kvh, hd), (kvh, hd), device)
+        self.out = _Dense((h, hd, d), (d,), device)
+
+
+class _FFN(nn.Module):
+    def __init__(self, c: GPTConfig, device):
+        super().__init__()
+        self.w_in = _Dense((c.hidden_size, c.intermediate_size),
+                           (c.intermediate_size,), device)
+        self.w_out = _Dense((c.intermediate_size, c.hidden_size),
+                            (c.hidden_size,), device)
+
+
+class _Block(nn.Module):
+    def __init__(self, c: GPTConfig, device):
+        super().__init__()
+        self.ln_1 = _Norm(c.hidden_size, device)
+        self.attention = _Attention(c, device)
+        self.ln_2 = _Norm(c.hidden_size, device)
+        self.ffn = _FFN(c, device)
+
+
+class GPT(nn.Module):
+    """Decoder stack for the paged serving path.
+
+    ``GPT(config, device="cuda", generator=None)``: weights are random,
+    truncated normal (std 0.02, cut at 2 std) from ``generator`` (seed 0
+    when None), biases zero, norms identity.  Raises for ``cuda`` when
+    there is no card; tests pass ``device="cpu"``.
+    """
+
+    def __init__(self, config: GPTConfig, *,
+                 device: Union[str, torch.device] = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        c = self.config = config
+        self.word = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size,
+                                             device=device))
+        self.position = nn.Parameter(torch.empty(
+            c.max_position, c.hidden_size, device=device))
+        self.blocks = nn.ModuleList(_Block(c, device)
+                                    for _ in range(c.num_layers))
+        self.ln_f = _Norm(c.hidden_size, device)
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(0)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name == "word" or name == "position" \
+                        or name.endswith(".kernel"):
+                    nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                          generator=generator)
+        self.requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.word.device
+
+    # -- blocks -----------------------------------------------------------
+    def _norm(self, p: _Norm, x: torch.Tensor) -> torch.Tensor:
+        return fused_lib.fused_layernorm(x.contiguous(), p.gamma, p.beta,
+                                         self.config.layer_norm_eps)
+
+    def _ffn(self, blk: _Block, x: torch.Tensor) -> torch.Tensor:
+        f = blk.ffn
+        return ffn_core(f.w_in.kernel, f.w_in.bias, f.w_out.kernel,
+                        f.w_out.bias, self._norm(blk.ln_2, x))
+
+    @staticmethod
+    def _proj(p: _Dense, h: torch.Tensor) -> torch.Tensor:
+        """``einsum("bsd,dhk->bshk")`` + bias, as one matrix product."""
+        d, nh, hd = p.kernel.shape
+        y = h @ p.kernel.reshape(d, nh * hd).to(h.dtype)
+        return (y + p.bias.reshape(nh * hd).to(h.dtype)).reshape(
+            *h.shape[:-1], nh, hd)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied head -> [..., vocab] f32 logits."""
+        return (hidden @ self.word.T.to(hidden.dtype)).float()
+
+    def _embed(self, token_ids: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        x = self.word[token_ids.long()] + self.position[positions.long()]
+        return x.to(self.config.dtype)
+
+    def _cache_layer(self, blk: _Block, x: torch.Tensor,
+                     kv: Dict[str, torch.Tensor], i: int,
+                     paged, attention: Callable) -> torch.Tensor:
+        """One decoder layer against the page pool.  ``paged``: (page ids
+        [N], offsets [N]) with N = b*s, the pool cell token t of the
+        flattened window writes to.  K/V are written BEFORE attention
+        reads, so the read sees each token's own column.  The write is an
+        in-place ``index_put_`` on layer ``i`` of the pool (the JAX
+        package donates the pool buffer instead)."""
+        h = self._norm(blk.ln_1, x)
+        a = blk.attention
+        q, k, v = self._proj(a.query, h), self._proj(a.key, h), \
+            self._proj(a.value, h)
+        for name, val in (("k", k), ("v", v)):
+            kv[name][i].index_put_(
+                paged, val.reshape(-1, *val.shape[2:]).to(kv[name].dtype))
+        attn = attention(q, kv, i)
+        nh, hd, d = a.out.kernel.shape
+        attn_out = affine(a.out.kernel.reshape(nh * hd, d), a.out.bias,
+                          attn.reshape(*attn.shape[:2], nh * hd))
+        x = x + attn_out
+        return x + self._ffn(blk, x)
+
+    # -- paged decode -----------------------------------------------------
+    def decode_step_slots_paged(self, kv: Dict[str, torch.Tensor],
+                                token_ids: torch.Tensor,
+                                page_tab: torch.Tensor,
+                                write_col: torch.Tensor,
+                                kv_valid: torch.Tensor,
+                                positions: torch.Tensor):
+        """One token per slot row against the page pool.
+
+        token_ids/write_col/positions [b] int32; page_tab [b, P] int32;
+        kv_valid [b, P * page_size] bool.  Row r writes its token's K/V at
+        logical column ``write_col[r]`` (pool cell ``(page_tab[r, col //
+        pg], col % pg)``, the page index clamped so a full slot's frozen
+        write head cannot run off its table row), attends ``kv_valid[r]``
+        OR its own column, and embeds at ``positions[r]``.  Rows whose
+        table maps the trash page 0 are retired: their writes land where
+        no validity mask looks.  Returns (logits [b, vocab] f32, kv); the
+        pool is updated in place."""
+        x = self._embed(token_ids, positions)[:, None, :]
+        page_size = kv["k"].shape[2]
+        P = page_tab.shape[1]
+        cols = torch.arange(P * page_size, device=x.device, dtype=torch.int32)
+        valid = (kv_valid | (cols[None, :] == write_col[:, None])).contiguous()
+        page_idx = torch.clamp(write_col // page_size, max=P - 1)
+        w_pages = page_tab.gather(1, page_idx[:, None].long())[:, 0]
+        paged = (w_pages.long(), (write_col % page_size).long())
+        page_tab = page_tab.to(torch.int32).contiguous()
+
+        def attention(q, kv, i):
+            return paged_lib.paged_decode_attention(q.contiguous(), kv, i,
+                                                    page_tab, valid)
+
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, paged, attention)
+        x = self._norm(self.ln_f, x)
+        return self.logits(x)[:, 0, :], kv
+
+    def decode_window_paged(self, kv: Dict[str, torch.Tensor],
+                            token_ids: torch.Tensor, page_row: torch.Tensor,
+                            pos: int, head: Union[str, int] = "all"):
+        """A batch-1 window of ``s`` tokens at positions ``pos..pos+s-1``
+        through one request's ``page_row`` [P] int32: K/V are written to
+        their pool cells, then row j attends every column ``<= pos + j``
+        (shared prefix pages included) through the window kernel.
+
+        ``head``: ``"all"`` -> [1, s, vocab] f32 logits, ``"none"`` ->
+        None (intermediate prefill windows only feed the pool), or an int
+        j -> [1, vocab] for window row j only (the scheduler's first-token
+        shape; the JAX package computes all rows and picks one).  Pad columns past the row's
+        view write to the trash page 0.  Returns (logits, kv); the pool
+        is updated in place."""
+        b, s = token_ids.shape
+        if b != 1:
+            raise ValueError(f"decode_window_paged is batch-1 (one page "
+                             f"row = one request); got batch {b}")
+        page_size = kv["k"].shape[2]
+        P = page_row.shape[0]
+        cols = pos + torch.arange(s, device=self.device)
+        # pad rows past max_position embed at the last position; they are
+        # never valid and their outputs are never read
+        x = self._embed(token_ids[0],
+                        torch.clamp(cols, max=self.config.max_position - 1))
+        x = x[None]
+        page_row = page_row.to(torch.int32).contiguous()
+        pids = page_row[torch.clamp(cols // page_size, max=P - 1)].long()
+        pids = torch.where(cols < P * page_size, pids, 0)
+        paged = (pids, cols % page_size)
+
+        def attention(q, kv, i):
+            return paged_lib.paged_window_attention(q.contiguous(), kv, i,
+                                                    page_row, pos)
+
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, paged, attention)
+        if head == "none":
+            return None, kv
+        if head == "all":
+            return self.logits(self._norm(self.ln_f, x)), kv
+        x = x[:, head:head + 1, :]
+        return self.logits(self._norm(self.ln_f, x))[:, 0, :], kv

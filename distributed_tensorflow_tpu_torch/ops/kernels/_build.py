@@ -1,0 +1,108 @@
+"""Build the port's CUDA sources and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes), placed in ``build/kernels/`` at the root of
+the checkout.  The file name carries a hash of the source, so an edited
+source builds anew and a stale library is never loaded.  Nothing builds
+at import: the first launch of a kernel builds its library, and
+:func:`build` builds several at once, one ``nvcc`` process each, all
+started together.
+
+A failed build raises with the compiler's output.  Every launch function
+in ``csrc/`` returns ``cudaGetLastError()``; :func:`check` raises when it
+is not 0, so a launch the card refused never passes silently.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["BUILD_DIR", "CSRC", "build", "check", "load", "stream_ptr"]
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels build from source")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _build_locked(names) -> float:
+    t0 = time.perf_counter()
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n"
+                          f"{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build(*names: str) -> float:
+    """Build the named sources (all of ``csrc/`` when none is named) that
+    are not built yet, in parallel; returns the seconds it took."""
+    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    with _lock:
+        return _build_locked(names)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_locked((name,))
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def stream_ptr(tensor) -> int:
+    """The raw handle of PyTorch's current stream on the tensor's card."""
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream

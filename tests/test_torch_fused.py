@@ -1,0 +1,61 @@
+"""The port's LayerNorm (plain version) held against the JAX kernel.
+
+Inputs from one numpy seed go through ``fused_layernorm`` of the JAX
+package (Pallas, interpret mode off a TPU) and the port's
+``fused_layernorm``, which takes its plain version (the f32 formula) for
+CPU tensors.  Tolerance 1e-5 absolute at f32 (another summation order);
+at bf16 the outputs may differ by one bf16 ulp at unit scale (2**-7),
+from rounding the f32 result at another place.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from distributed_tensorflow_tpu.ops.pallas import fused as jfused
+from distributed_tensorflow_tpu_torch.ops.kernels import fused as tfused
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("shape", [(256, 768), (8, 768), (2, 3, 128)],
+                         ids=["window", "decode", "3d"])
+def test_layernorm_matches_pallas_kernel(shape):
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(shape, dtype=np.float32) * 3 + 0.5)
+    d = shape[-1]
+    gamma = rng.standard_normal(d, dtype=np.float32)
+    beta = rng.standard_normal(d, dtype=np.float32)
+    want = jfused.fused_layernorm(jnp.asarray(x), jnp.asarray(gamma),
+                                  jnp.asarray(beta), eps=1e-5)
+    got = tfused.fused_layernorm(torch.from_numpy(x), torch.from_numpy(gamma),
+                                 torch.from_numpy(beta), eps=1e-5)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_layernorm_bf16_output_type_and_agreement():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((8, 768), dtype=np.float32)
+    gamma = np.ones(768, np.float32)
+    beta = np.zeros(768, np.float32)
+    want = jfused.fused_layernorm(jnp.asarray(x, jnp.bfloat16),
+                                  jnp.asarray(gamma), jnp.asarray(beta))
+    got = tfused.fused_layernorm(torch.from_numpy(x).to(torch.bfloat16),
+                                 torch.from_numpy(gamma),
+                                 torch.from_numpy(beta))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2 ** -6,
+                               rtol=0)
+
+
+def test_cpu_wrapper_launches_nothing():
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(0))
+    before = dict(tfused.LAUNCHES)
+    out = tfused.fused_layernorm(x, torch.ones(32), torch.zeros(32))
+    assert torch.equal(out, tfused.layernorm_plain(x, torch.ones(32),
+                                                   torch.zeros(32)))
+    assert dict(tfused.LAUNCHES) == before

@@ -1,0 +1,68 @@
+"""The port imports neither JAX nor the JAX package, and runs on the card
+unless told otherwise.
+
+Grep cannot prove the first: the port's own name begins with the JAX
+package's.  So every port module is imported in a fresh interpreter whose
+meta-path finder refuses the top-level names ``jax`` and
+``distributed_tensorflow_tpu``.
+"""
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import distributed_tensorflow_tpu_torch as port
+
+torch.set_num_threads(1)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_every_port_module_imports_without_jax():
+    modules = _port_modules()
+    assert len(modules) >= 14
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "distributed_tensorflow_tpu"):
+                    raise ImportError("refused: " + name)
+                return None
+        sys.meta_path.insert(0, Refuse())
+        for name in {modules!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "distributed_tensorflow_tpu"))
+        assert not bad, bad
+        print("ok", len({modules!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """On a host without a card, the defaults raise instead of quietly
+    running on the CPU; ``device="cpu"`` is the explicit opt-in."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the defaults would run on it")
+    config = port.gpt_tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.GPT(config)
+    model = port.GPT(config, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.Engine(model, num_slots=1, max_len=32)
+    eng = port.Engine(model, device="cpu", num_slots=1, max_len=32)
+    assert eng.device.type == "cpu"
