@@ -1,0 +1,1027 @@
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ.
+//
+// Replaces the three Pallas kernels of distributed_tensorflow_tpu/ops/
+// pallas/flash_attention.py:
+//   - `_flash_forward` (body `_flash_kernel`): blockwise online-softmax
+//     attention that also emits the row logsumexp;
+//   - `_flash_backward`, first call (body `_flash_dkv_kernel`): dK, dV;
+//   - `_flash_backward`, second call (body `_flash_dq_kernel`): dQ.
+// `D = rowsum(dO * O)` is computed before the backward kernels by the
+// caller, as the JAX package computes it in plain XLA.
+//
+// Layouts (the JAX package's public ones; no transposes on either side):
+//   q, out, do, dq  [B, Sq, H, HD]   bf16 or f32, HD 64 or 128
+//   k, v, dk, dv    [B, Sk, HK, HD]  same type; H % HK == 0 (GQA: query
+//                                    head h reads kv head h / (H / HK))
+//   valid           [B, Sk] uint8 (1 = real key) or NULL (all keys real)
+//   lse, dvec       [B, H, Sq] f32
+//
+// Semantics kept exactly from the Pallas bodies: masked logits are -inf
+// (key padding, the causal rule q_pos >= k_pos aligned top-left, and keys
+// past Sk), the running max starts at -inf and is shifted by 0 while it is
+// not finite, a row with no unmasked key gives out 0 and lse -inf, and the
+// backward's p = exp(s - lse) is 0 on such a row.  Logits, softmax and
+// every accumulator are f32 whatever the input type.
+//
+// Design.  The TPU runs a sequential grid (batch, head, q blocks, k
+// blocks) of 512 x 1024 blocks and carries the softmax state in VMEM
+// scratch from one k step to the next.  Blocks run in parallel on Hopper,
+// so each loop that the TPU grid walked in order is a loop inside one
+// thread block here:
+//   - forward and dQ: one block per (batch, head, 64-row q tile) walks the
+//     64-row K/V tiles (only up to the diagonal when causal);
+//   - dK/dV: one block per (batch, kv head, 64-row k tile) walks every
+//     query head of its group and, for each, the q tiles from the
+//     diagonal on.  Summing the group's heads inside the block writes
+//     dK/dV at [B, Sk, HK, HD] directly, where the TPU wrote per-q-head
+//     outputs and summed them in a second pass.
+// Two routes share that structure and the exact mask semantics:
+//   - bf16 (the training path): tensor cores through mma.sync.m16n8k16,
+//     bf16 tiles in shared memory, f32 accumulators and row statistics in
+//     registers; 4 warps of 16 rows each (see "tensor-core path" below);
+//   - f32: the CUDA cores in full f32 (fused multiply-adds), f32 tiles in
+//     shared memory, 256 threads each owning a 4 x 4 patch of the 64 x 64
+//     score tile, rows reduced over 16 lanes with shuffles.
+//
+// What bounds it on the H100: at the training shapes (Sq = Sk = 256,
+// HD 64, bf16) bytes and flops are about even against the card's peaks
+// (tens of microseconds a call).  This design is far from both: its tiles
+// go through the load/store units into shared memory with no copy/compute
+// overlap (no cp.async, TMA or wgmma yet), and 64-row tiles at Sq 256
+// give causal blocks very unequal work.  Those are the next steps.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <math.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kB = 64;          // rows of a q tile and of a k tile
+constexpr int kThreads = 256;   // 16 row groups x 16 lanes
+constexpr unsigned kFull = 0xffffffffu;
+
+// max / sum over the 16 lanes that share a row (lanes tx = 0..15 of one
+// half-warp)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+template <int HD>
+struct Tile {
+  static constexpr int kLd = HD + 1;       // padded f32 row of a tile
+  static constexpr int kFloats = kB * kLd;
+  static constexpr int kLdS = kB + 1;      // padded row of a score tile
+  static constexpr int kScore = kB * kLdS;
+  static constexpr int kCols = HD / 16;    // accumulator columns a thread owns
+};
+
+// Rows r0 .. r0 + kB - 1 of head `head` of a [B, S, NH, HD] f32 tensor
+// into a padded tile, 16 bytes at a time; rows at or past S are zero.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int b, int r0, int S, int NH,
+                                          int head) {
+  constexpr int kChunks = HD / 4;
+  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S)
+      f = *reinterpret_cast<const float4*>(
+          src + (((int64_t)b * S + r0 + r) * NH + head) * HD + c * 4);
+    float* d = dst + r * Tile<HD>::kLd + c * 4;   // padded: not 16B aligned
+    d[0] = f.x;
+    d[1] = f.y;
+    d[2] = f.z;
+    d[3] = f.w;
+  }
+}
+
+// 1 for key columns c0 .. c0 + kB - 1 that exist and are valid, else 0
+__device__ __forceinline__ void load_keymask(float* dst,
+                                             const uint8_t* __restrict__ valid,
+                                             int b, int c0, int Sk) {
+  for (int c = threadIdx.x; c < kB; c += blockDim.x) {
+    const int col = c0 + c;
+    dst[c] = (col < Sk && (valid == nullptr || valid[(int64_t)b * Sk + col]))
+                 ? 1.f : 0.f;
+  }
+}
+
+// ------------------------------------------ CUDA-core path (f32 only)
+//
+// The kernels for f32 inputs: f32 tiles in shared memory, products in
+// f32 fused multiply-adds (see the header).
+
+// ---------------------------------------------------------------- forward
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v,
+    const uint8_t* __restrict__ valid, float* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int HK, float scale,
+    int causal) {
+  using Tl = Tile<HD>;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / HK);
+  const int q0 = qt * kB;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + Tl::kFloats;
+  float* Vs = Ks + Tl::kFloats;
+  float* Ps = Vs + Tl::kFloats;
+  float* keym = Ps + Tl::kScore;
+
+  load_tile<HD>(Qs, q, b, q0, Sq, H, h);
+
+  float m[4], l[4], acc[4][Tl::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j) acc[i][j] = 0.f;
+  }
+
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, qt + 1);   // tiles above the diagonal add nothing
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    __syncthreads();                  // the last tile's readers are done
+    load_tile<HD>(Ks, k, b, k0, Sk, HK, g);
+    load_tile<HD>(Vs, v, b, k0, Sk, HK, g);
+    load_keymask(keym, valid, b, k0, Sk);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      float qa[4], kb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * Tl::kLd + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * Tl::kLd + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = keym[c] > 0.5f && (!causal || row >= k0 + c);
+        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float shift = isfinite(m_new) ? m_new : 0.f;
+      const float corr = isfinite(m[i]) ? expf(m[i] - shift) : 0.f;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - shift);   // exp(-inf) = 0
+        Ps[r * Tl::kLdS + tx + 16 * j] = p;
+        ps += p;
+      }
+      l[i] = l[i] * corr + row_sum(ps);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < Tl::kCols; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();
+
+    for (int c = 0; c < kB; ++c) {
+      float pa[4], vb[Tl::kCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty * 4 + i) * Tl::kLdS + c];
+#pragma unroll
+      for (int j = 0; j < Tl::kCols; ++j) vb[j] = Vs[c * Tl::kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::kCols; ++j)
+          acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= Sq) continue;
+    const float denom = l[i] > 0.f ? l[i] : 1.f;
+    float* orow = out + (((int64_t)b * Sq + row) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j)
+      orow[tx + 16 * j] = acc[i][j] / denom;
+    if (tx == 0) {
+      const float shift = isfinite(m[i]) ? m[i] : 0.f;
+      lse[((int64_t)b * H + h) * Sq + row] =
+          l[i] > 0.f ? shift + logf(l[i]) : -INFINITY;
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dQ
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v,
+    const uint8_t* __restrict__ valid, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dq, int Sq, int Sk, int H, int HK, float scale,
+    int causal) {
+  using Tl = Tile<HD>;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / HK);
+  const int q0 = qt * kB;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + Tl::kFloats;
+  float* Ks = dOs + Tl::kFloats;
+  float* Vs = Ks + Tl::kFloats;
+  float* dSs = Vs + Tl::kFloats;
+  float* keym = dSs + Tl::kScore;
+  float* lse_s = keym + kB;
+  float* d_s = lse_s + kB;
+
+  load_tile<HD>(Qs, q, b, q0, Sq, H, h);
+  load_tile<HD>(dOs, dout, b, q0, Sq, H, h);
+  for (int r = tid; r < kB; r += kThreads) {
+    const bool in = q0 + r < Sq;
+    const int64_t idx = ((int64_t)b * H + h) * Sq + q0 + r;
+    lse_s[r] = in ? lse[idx] : 0.f;   // padded rows: dO = 0, D = 0
+    d_s[r] = in ? dvec[idx] : 0.f;
+  }
+
+  float acc[4][Tl::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j) acc[i][j] = 0.f;
+
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, qt + 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    __syncthreads();
+    load_tile<HD>(Ks, k, b, k0, Sk, HK, g);
+    load_tile<HD>(Vs, v, b, k0, Sk, HK, g);
+    load_keymask(keym, valid, b, k0, Sk);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      float qa[4], oa[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = Qs[(ty * 4 + i) * Tl::kLd + d];
+        oa[i] = dOs[(ty * 4 + i) * Tl::kLd + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = Ks[(tx + 16 * j) * Tl::kLd + d];
+        vb[j] = Vs[(tx + 16 * j) * Tl::kLd + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      const float L = lse_s[r];
+      const bool live = isfinite(L);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = keym[c] > 0.5f && (!causal || row >= k0 + c);
+        const float sc = ok ? s[i][j] * scale : -INFINITY;
+        const float p = live ? expf(sc - L) : 0.f;
+        dSs[r * Tl::kLdS + c] = p * (dp[i][j] - d_s[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+    for (int c = 0; c < kB; ++c) {
+      float da[4], kb[Tl::kCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[i] = dSs[(ty * 4 + i) * Tl::kLdS + c];
+#pragma unroll
+      for (int j = 0; j < Tl::kCols; ++j) kb[j] = Ks[c * Tl::kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::kCols; ++j)
+          acc[i][j] = fmaf(da[i], kb[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= Sq) continue;
+    float* drow = dq + (((int64_t)b * Sq + row) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j)
+      drow[tx + 16 * j] = acc[i][j];
+  }
+}
+
+// ----------------------------------------------------------------- dK/dV
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v,
+    const uint8_t* __restrict__ valid, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+    int HK, float scale, int causal) {
+  using Tl = Tile<HD>;
+  const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int group = H / HK;
+  const int k0 = kt * kB;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + Tl::kFloats;
+  float* Qs = Vs + Tl::kFloats;
+  float* dOs = Qs + Tl::kFloats;
+  float* Pt = dOs + Tl::kFloats;        // [k row][q col]
+  float* dSt = Pt + Tl::kScore;         // [k row][q col]
+  float* keym = dSt + Tl::kScore;       // per k row of this tile
+  float* lse_s = keym + kB;             // per q row of the current q tile
+  float* d_s = lse_s + kB;
+
+  load_tile<HD>(Ks, k, b, k0, Sk, HK, g);
+  load_tile<HD>(Vs, v, b, k0, Sk, HK, g);
+  load_keymask(keym, valid, b, k0, Sk);
+
+  float dk_acc[4][Tl::kCols], dv_acc[4][Tl::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (Sq + kB - 1) / kB;
+  // q tiles wholly above the diagonal add nothing to this k tile
+  const int qt_first = causal ? kt : 0;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = g * group + gi;
+    for (int qt = qt_first; qt < nq; ++qt) {
+      const int q0 = qt * kB;
+      __syncthreads();
+      load_tile<HD>(Qs, q, b, q0, Sq, H, h);
+      load_tile<HD>(dOs, dout, b, q0, Sq, H, h);
+      for (int r = tid; r < kB; r += kThreads) {
+        const bool in = q0 + r < Sq;
+        const int64_t idx = ((int64_t)b * H + h) * Sq + q0 + r;
+        lse_s[r] = in ? lse[idx] : 0.f;
+        d_s[r] = in ? dvec[idx] : 0.f;
+      }
+      __syncthreads();
+
+      // this thread: k rows ty * 4 + i, q columns tx + 16 * j
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int d = 0; d < HD; ++d) {
+        float ka[4], va[4], qb[4], ob[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = Ks[(ty * 4 + i) * Tl::kLd + d];
+          va[i] = Vs[(ty * 4 + i) * Tl::kLd + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qb[j] = Qs[(tx + 16 * j) * Tl::kLd + d];
+          ob[j] = dOs[(tx + 16 * j) * Tl::kLd + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
+            dp[i][j] = fmaf(va[i], ob[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i, col = k0 + r;
+        const bool key_ok = keym[r] > 0.5f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const float L = lse_s[c];
+          const bool ok = key_ok && (!causal || q0 + c >= col);
+          const float sc = ok ? s[i][j] * scale : -INFINITY;
+          const float p = isfinite(L) ? expf(sc - L) : 0.f;
+          Pt[r * Tl::kLdS + c] = p;
+          dSt[r * Tl::kLdS + c] = p * (dp[i][j] - d_s[c]) * scale;
+        }
+      }
+      __syncthreads();
+
+      for (int c = 0; c < kB; ++c) {
+        float pa[4], da[4], ob[Tl::kCols], qb[Tl::kCols];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = Pt[(ty * 4 + i) * Tl::kLdS + c];
+          da[i] = dSt[(ty * 4 + i) * Tl::kLdS + c];
+        }
+#pragma unroll
+        for (int j = 0; j < Tl::kCols; ++j) {
+          ob[j] = dOs[c * Tl::kLd + tx + 16 * j];
+          qb[j] = Qs[c * Tl::kLd + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < Tl::kCols; ++j) {
+            dv_acc[i][j] = fmaf(pa[i], ob[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(da[i], qb[j], dk_acc[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= Sk) continue;
+    const int64_t off = (((int64_t)b * Sk + row) * HK + g) * HD;
+#pragma unroll
+    for (int j = 0; j < Tl::kCols; ++j) {
+      dk[off + tx + 16 * j] = dk_acc[i][j];
+      dv[off + tx + 16 * j] = dv_acc[i][j];
+    }
+  }
+}
+
+// ------------------------------------------ tensor-core path (bf16 only)
+//
+// For bf16 inputs the same three kernels run their products on the tensor
+// cores with mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  The
+// tiles stay bf16 in shared memory (rows padded by 8 elements, so the
+// fragment loads of a warp hit 32 distinct banks); 4 warps each own 16 of
+// the block's 64 rows (q rows for the forward and dQ, k rows for dK/dV),
+// so a warp's score tile is 16 x 64 in mma accumulator layout: lane
+// (gid = lane / 4, tig = lane % 4) holds rows gid and gid + 8, columns
+// 8 n + 2 tig + {0, 1}, and a row's statistics reduce over its 4 lanes.
+// The probabilities (and dS) are rounded to bf16 to enter the second
+// product, as flash attention does on every GPU; the softmax sums stay
+// f32.  f32 inputs keep the CUDA-core kernels above, which compute in f32
+// throughout.
+
+constexpr int kMmaThreads = 128;
+using bf16 = __nv_bfloat16;
+
+template <int HD>
+struct BTile {
+  static constexpr int kLd = HD + 8;        // bf16 per padded row
+  static constexpr int kElems = kB * kLd;
+};
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// elements idx and idx + 1 of a row
+__device__ __forceinline__ uint32_t ld_pair(const bf16* t, int idx) {
+  return *reinterpret_cast<const uint32_t*>(t + idx);
+}
+
+// (row, col) and (row + 1, col): two elements down a column
+__device__ __forceinline__ uint32_t ld_col_pair(const bf16* t, int row,
+                                                int col, int ld) {
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(t);
+  return (uint32_t)u[row * ld + col] | ((uint32_t)u[(row + 1) * ld + col]
+                                        << 16);
+}
+
+// Rows r0 .. r0 + kB - 1 of head `head` of a [B, S, NH, HD] bf16 tensor
+// into a padded bf16 tile, 16 bytes at a time; rows at or past S are zero.
+template <int HD>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst,
+                                               const bf16* __restrict__ src,
+                                               int b, int r0, int S, int NH,
+                                               int head) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = threadIdx.x; idx < kB * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (r0 + r < S)
+      u = *reinterpret_cast<const uint4*>(
+          src + (((int64_t)b * S + r0 + r) * NH + head) * HD + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * BTile<HD>::kLd + c * 8) = u;
+  }
+}
+
+// s[16 x 64] = rows r0 .. r0 + 15 of tile `ta` times the 64 rows of tile
+// `tb`, transposed, over HD (score layout: s[n][e], see above)
+template <int HD>
+__device__ __forceinline__ void mma_rows_rows(float (*s)[4], const bf16* ta,
+                                              int r0, const bf16* tb,
+                                              int gid, int tig) {
+  constexpr int LD = BTile<HD>::kLd;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk * 16 + tig * 2;
+    const uint32_t a[4] = {ld_pair(ta, (r0 + gid) * LD + c),
+                           ld_pair(ta, (r0 + gid + 8) * LD + c),
+                           ld_pair(ta, (r0 + gid) * LD + c + 8),
+                           ld_pair(ta, (r0 + gid + 8) * LD + c + 8)};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int idx = (n * 8 + gid) * LD + c;
+      mma16816(s[n], a, ld_pair(tb, idx), ld_pair(tb, idx + 8));
+    }
+  }
+}
+
+// acc[16 x HD] += p[16 x 64] (score layout, rounded to bf16) times the 64
+// rows of tile `t`
+template <int HD>
+__device__ __forceinline__ void mma_scores_tile(float (*acc)[4],
+                                                float (*p)[4],
+                                                const bf16* t, int gid,
+                                                int tig) {
+  constexpr int LD = BTile<HD>::kLd;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                           pack_bf16(p[2 * j][2], p[2 * j][3]),
+                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+    const int row = 16 * j + tig * 2;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      mma16816(acc[nd], a, ld_col_pair(t, row, nd * 8 + gid, LD),
+               ld_col_pair(t, row + 8, nd * 8 + gid, LD));
+  }
+}
+
+// rows of tile `src` -> one f32 per row (lse or D), 0 past S
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int64_t base, int r0, int S) {
+  for (int r = threadIdx.x; r < kB; r += blockDim.x)
+    dst[r] = r0 + r < S ? src[base + r0 + r] : 0.f;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
+    bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+    int HK, float scale, int causal) {
+  using Bt = BTile<HD>;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / HK);
+  const int q0 = qt * kB;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + Bt::kElems;
+  bf16* Vs = Ks + Bt::kElems;
+  float* keym = reinterpret_cast<float*>(Vs + Bt::kElems);
+
+  load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
+  float o[HD / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, qt + 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    __syncthreads();
+    load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
+    load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
+    load_keymask(keym, valid, b, k0, Sk);
+    __syncthreads();
+
+    float s[8][4];
+    mma_rows_rows<HD>(s, Qs, r0, Ks, gid, tig);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + r0 + gid + 8 * hr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + tig * 2 + e;
+          const bool ok = keym[c] > 0.5f && (!causal || row >= k0 + c);
+          float& x = s[n][2 * hr + e];
+          x = ok ? x * scale : -INFINITY;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float shift = isfinite(m_new) ? m_new : 0.f;
+      const float corr = isfinite(m[hr]) ? expf(m[hr] - shift) : 0.f;
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hr + e];
+          x = expf(x - shift);               // exp(-inf) = 0
+          ps += x;
+        }
+      ps += __shfl_xor_sync(kFull, ps, 1);
+      ps += __shfl_xor_sync(kFull, ps, 2);
+      l[hr] = l[hr] * corr + ps;
+      m[hr] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        o[nd][2 * hr] *= corr;
+        o[nd][2 * hr + 1] *= corr;
+      }
+    }
+    mma_scores_tile<HD>(o, s, Vs, gid, tig);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + gid + 8 * hr;
+    if (row >= Sq) continue;
+    const float denom = l[hr] > 0.f ? l[hr] : 1.f;
+    bf16* orow = out + (((int64_t)b * Sq + row) * H + h) * HD + tig * 2;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
+          pack_bf16(o[nd][2 * hr] / denom, o[nd][2 * hr + 1] / denom);
+    if (tig == 0) {
+      const float shift = isfinite(m[hr]) ? m[hr] : 0.f;
+      lse[((int64_t)b * H + h) * Sq + row] =
+          l[hr] > 0.f ? shift + logf(l[hr]) : -INFINITY;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, bf16* __restrict__ dq, int Sq, int Sk,
+    int H, int HK, float scale, int causal) {
+  using Bt = BTile<HD>;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / HK);
+  const int q0 = qt * kB;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + Bt::kElems;
+  bf16* Ks = dOs + Bt::kElems;
+  bf16* Vs = Ks + Bt::kElems;
+  float* keym = reinterpret_cast<float*>(Vs + Bt::kElems);
+  float* lse_s = keym + kB;
+  float* d_s = lse_s + kB;
+
+  load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
+  load_tile_bf16<HD>(dOs, dout, b, q0, Sq, H, h);
+  const int64_t rows = ((int64_t)b * H + h) * Sq;
+  load_rows_f32(lse_s, lse, rows, q0, Sq);   // padded rows: dO = 0, D = 0
+  load_rows_f32(d_s, dvec, rows, q0, Sq);
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, qt + 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kB;
+    __syncthreads();
+    load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
+    load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
+    load_keymask(keym, valid, b, k0, Sk);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    mma_rows_rows<HD>(s, Qs, r0, Ks, gid, tig);
+    mma_rows_rows<HD>(dp, dOs, r0, Vs, gid, tig);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + gid + 8 * (e >> 1), c = n * 8 + tig * 2 + (e & 1);
+        const bool ok = keym[c] > 0.5f && (!causal || q0 + r >= k0 + c);
+        const float sc = ok ? s[n][e] * scale : -INFINITY;
+        const float L = lse_s[r];
+        const float p = isfinite(L) ? expf(sc - L) : 0.f;
+        s[n][e] = p * (dp[n][e] - d_s[r]) * scale;
+      }
+    mma_scores_tile<HD>(acc, s, Ks, gid, tig);   // dQ += dS K
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + gid + 8 * hr;
+    if (row >= Sq) continue;
+    bf16* drow = dq + (((int64_t)b * Sq + row) * H + h) * HD + tig * 2;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(drow + nd * 8) =
+          pack_bf16(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Sq, int Sk, int H, int HK, float scale,
+    int causal) {
+  using Bt = BTile<HD>;
+  const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int group = H / HK;
+  const int k0 = kt * kB;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + Bt::kElems;
+  bf16* Qs = Vs + Bt::kElems;
+  bf16* dOs = Qs + Bt::kElems;
+  float* keym = reinterpret_cast<float*>(dOs + Bt::kElems);  // per k row
+  float* lse_s = keym + kB;                                  // per q row
+  float* d_s = lse_s + kB;
+
+  load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
+  load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
+  load_keymask(keym, valid, b, k0, Sk);
+
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+
+  const int nq = (Sq + kB - 1) / kB;
+  const int qt_first = causal ? kt : 0;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = g * group + gi;
+    const int64_t rows = ((int64_t)b * H + h) * Sq;
+    for (int qt = qt_first; qt < nq; ++qt) {
+      const int q0 = qt * kB;
+      __syncthreads();
+      load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
+      load_tile_bf16<HD>(dOs, dout, b, q0, Sq, H, h);
+      load_rows_f32(lse_s, lse, rows, q0, Sq);
+      load_rows_f32(d_s, dvec, rows, q0, Sq);
+      __syncthreads();
+
+      // transposed scores: rows are this warp's keys, columns q rows
+      float st[8][4], dpt[8][4];
+      mma_rows_rows<HD>(st, Ks, r0, Qs, gid, tig);
+      mma_rows_rows<HD>(dpt, Vs, r0, dOs, gid, tig);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + gid + 8 * (e >> 1), c = n * 8 + tig * 2 + (e & 1);
+          const bool ok = keym[r] > 0.5f && (!causal || q0 + c >= k0 + r);
+          const float sc = ok ? st[n][e] * scale : -INFINITY;
+          const float L = lse_s[c];
+          const float p = isfinite(L) ? expf(sc - L) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - d_s[c]) * scale;
+        }
+      mma_scores_tile<HD>(dv_acc, st, dOs, gid, tig);   // dV += P^T dO
+      mma_scores_tile<HD>(dk_acc, dpt, Qs, gid, tig);   // dK += dS^T Q
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = k0 + r0 + gid + 8 * hr;
+    if (row >= Sk) continue;
+    const int64_t off = (((int64_t)b * Sk + row) * HK + g) * HD + tig * 2;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      *reinterpret_cast<uint32_t*>(dk + off + nd * 8) =
+          pack_bf16(dk_acc[nd][2 * hr], dk_acc[nd][2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + nd * 8) =
+          pack_bf16(dv_acc[nd][2 * hr], dv_acc[nd][2 * hr + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- launchers
+
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+template <typename T, int HD>
+size_t smem_bytes(int which) {
+  if (std::is_same<T, bf16>::value)       // bf16 tiles, f32 row terms
+    return sizeof(bf16) * (which == kFwd ? 3 : 4) * BTile<HD>::kElems
+           + sizeof(float) * (which == kFwd ? 1 : 3) * kB;
+  using Tl = Tile<HD>;
+  switch (which) {
+    case kFwd: return sizeof(float) * (3 * Tl::kFloats + Tl::kScore + kB);
+    case kDq: return sizeof(float) * (4 * Tl::kFloats + Tl::kScore + 3 * kB);
+    default: return sizeof(float) * (4 * Tl::kFloats + 2 * Tl::kScore + 3 * kB);
+  }
+}
+
+// raise a kernel's dynamic shared memory cap once, to what it needs
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& cap) {
+  if (bytes <= cap) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) cap = bytes;
+  return err;
+}
+
+struct Args {
+  const void *q, *k, *v, *valid, *dout, *lse_in, *dvec;
+  void *out, *lse_out, *dq, *dk, *dv;
+  int B, Sq, Sk, H, HK;
+  float scale;
+  int causal;
+};
+
+// The kernels of one (type, head dim): the tensor-core ones for bf16, the
+// CUDA-core ones for f32.
+template <typename T, int HD>
+struct Kernels {
+  static constexpr bool kMma = std::is_same<T, bf16>::value;
+  static constexpr int kBlock = kMma ? kMmaThreads : kThreads;
+  static auto fwd() {
+    if constexpr (kMma) return flash_fwd_mma_kernel<HD>;
+    else return flash_fwd_kernel<HD>;
+  }
+  static auto dq() {
+    if constexpr (kMma) return flash_dq_mma_kernel<HD>;
+    else return flash_dq_kernel<HD>;
+  }
+  static auto dkv() {
+    if constexpr (kMma) return flash_dkv_mma_kernel<HD>;
+    else return flash_dkv_kernel<HD>;
+  }
+};
+
+template <typename T, int HD>
+int launch(int which, const Args& a, cudaStream_t st) {
+  using Kn = Kernels<T, HD>;
+  const size_t smem = smem_bytes<T, HD>(which);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const uint8_t* valid = static_cast<const uint8_t*>(a.valid);
+  cudaError_t err;
+  if (which == kFwd) {
+    static size_t cap = 48 * 1024;
+    auto kern = Kn::fwd();
+    if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
+    const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
+    kern<<<grid, Kn::kBlock, smem, st>>>(
+        q, k, v, valid, static_cast<T*>(a.out),
+        static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.H, a.HK, a.scale,
+        a.causal);
+  } else if (which == kDq) {
+    static size_t cap = 48 * 1024;
+    auto kern = Kn::dq();
+    if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
+    const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
+    kern<<<grid, Kn::kBlock, smem, st>>>(
+        q, k, v, valid, static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse_in), static_cast<const float*>(a.dvec),
+        static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.HK, a.scale, a.causal);
+  } else {
+    static size_t cap = 48 * 1024;
+    auto kern = Kn::dkv();
+    if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
+    const dim3 grid((a.Sk + kB - 1) / kB, a.HK, a.B);
+    kern<<<grid, Kn::kBlock, smem, st>>>(
+        q, k, v, valid, static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse_in), static_cast<const float*>(a.dvec),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.HK,
+        a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch(int which, int is_bf16, int hd, const Args& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return is_bf16 ? launch<__nv_bfloat16, 64>(which, a, st)
+                   : launch<float, 64>(which, a, st);
+  if (hd == 128)
+    return is_bf16 ? launch<__nv_bfloat16, 128>(which, a, st)
+                   : launch<float, 128>(which, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a head dim other than 64 or 128.
+
+int flash_forward(const void* q, const void* k, const void* v,
+                  const void* valid, void* out, void* lse, int is_bf16, int B,
+                  int Sq, int Sk, int H, int HK, int hd, float scale,
+                  int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.valid = valid; a.out = out; a.lse_out = lse;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.HK = HK; a.scale = scale;
+  a.causal = causal;
+  return dispatch(kFwd, is_bf16, hd, a, stream);
+}
+
+int flash_backward_dq(const void* q, const void* k, const void* v,
+                      const void* valid, const void* dout, const void* lse,
+                      const void* dvec, void* dq, int is_bf16, int B, int Sq,
+                      int Sk, int H, int HK, int hd, float scale, int causal,
+                      void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.valid = valid; a.dout = dout; a.lse_in = lse;
+  a.dvec = dvec; a.dq = dq;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.HK = HK; a.scale = scale;
+  a.causal = causal;
+  return dispatch(kDq, is_bf16, hd, a, stream);
+}
+
+int flash_backward_dkv(const void* q, const void* k, const void* v,
+                       const void* valid, const void* dout, const void* lse,
+                       const void* dvec, void* dk, void* dv, int is_bf16,
+                       int B, int Sq, int Sk, int H, int HK, int hd,
+                       float scale, int causal, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.valid = valid; a.dout = dout; a.lse_in = lse;
+  a.dvec = dvec; a.dk = dk; a.dv = dv;
+  a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.HK = HK; a.scale = scale;
+  a.causal = causal;
+  return dispatch(kDkv, is_bf16, hd, a, stream);
+}
+
+}  // extern "C"

@@ -1,22 +1,24 @@
-"""Carry GPT weights from the JAX package's parameter tree into the port.
+"""Carry GPT weights between the JAX package's parameter tree and the port.
 
 The JAX tree (``distributed_tensorflow_tpu/models/gpt.py GPT.init``) is
 ``{"embeddings": {"word", "position"}, "decoder": {...}, "ln_f": {...}}``
 with every ``decoder`` leaf stacked over layers (leading axis ``L``, the
 ``vmap`` layout).  The caller hands it over as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
-Weights stay float32, as in the JAX package.
+Weights stay float32, as in the JAX package.  ``gpt_params_to_jax`` goes
+the other way, and since gradients and Adam moments are params-shaped
+dicts under the same names, it carries them too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from .gpt import GPT, GPTConfig
 
-__all__ = ["gpt_params_from_jax", "load_jax_params"]
+__all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params"]
 
 # JAX tree keys that name port configurations this slice does not run
 _UNPORTED = ("lm_head", "moe", "w_gate")
@@ -56,6 +58,38 @@ def gpt_params_from_jax(tree: Dict[str, Any],
             sd[f"blocks.{i}.{path}"] = leaf[i]
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                      config: GPTConfig) -> Dict[str, Any]:
+    """The JAX GPT parameter tree, numpy f32 leaves, from a port state dict
+    (or any dict of tensors under the same names: gradients, moments).
+    Layer ``i``'s ``blocks.<i>.<path>`` become row ``i`` of the stacked
+    leaf ``decoder.<path>``.  The inverse of ``gpt_params_from_jax``."""
+    tree: Dict[str, Any] = {"embeddings": {}, "ln_f": {}, "decoder": {}}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, t in state_dict.items():
+        leaf = t.detach().to("cpu", torch.float32).numpy()
+        head, _, rest = name.partition(".")
+        if name in ("word", "position"):
+            tree["embeddings"][name] = leaf
+        elif head == "ln_f" and rest in ("gamma", "beta"):
+            tree["ln_f"][rest] = leaf
+        elif head == "blocks":
+            i, _, path = rest.partition(".")
+            layers.setdefault(path, {})[int(i)] = leaf
+        else:
+            raise ValueError(f"{name!r} is not a GPT parameter of the port")
+    for path, rows in layers.items():
+        if sorted(rows) != list(range(config.num_layers)):
+            raise ValueError(f"decoder leaf {path} has layers {sorted(rows)}"
+                             f", not 0..{config.num_layers - 1}")
+        node = tree["decoder"]
+        *parents, last = path.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = np.stack([rows[i] for i in range(config.num_layers)])
+    return tree
 
 
 def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:

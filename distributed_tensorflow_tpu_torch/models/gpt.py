@@ -1,11 +1,13 @@
-"""GPT decoder for paged serving, in PyTorch.
+"""GPT decoder for paged serving and causal-LM training, in PyTorch.
 
 Counterpart of ``distributed_tensorflow_tpu/models/gpt.py``, the subset
-the paged serving path runs: pre-LN decoder blocks with learned
-positions, LayerNorm, the tanh-gelu FFN and a head tied to the word
-embedding, driven through ``decode_window_paged`` (chunked prefill) and
+the port's two paths run: pre-LN decoder blocks with learned positions,
+LayerNorm, the tanh-gelu FFN and a head tied to the word embedding.
+Serving drives ``decode_window_paged`` (chunked prefill) and
 ``decode_step_slots_paged`` (one token per slot) against a shared KV page
-pool (``serve/pages.py``).
+pool (``serve/pages.py``), under ``torch.no_grad()``.  Training drives
+``apply`` (the full-sequence forward, causal flash attention) through
+``lm_loss_fn`` (next-token cross-entropy).
 
 Parameters keep the JAX package's layouts (projection kernels ``[d, h,
 hd]`` and ``[h, hd, d]``) and stay float32; each product casts them to
@@ -13,10 +15,14 @@ the compute dtype, as the JAX code's ``.astype(dtype)`` does.
 ``models/convert.py`` loads a JAX parameter tree.
 
 Kernels: every block norm and ``ln_f`` go through
-``ops.kernels.fused.fused_layernorm`` and every paged read through
-``ops.kernels.paged_attention``.  Those wrappers launch the CUDA kernel
-for CUDA tensors and run their plain version only for CPU tensors: the
-tensor's device decides, there is no knob.
+``ops.kernels.fused.fused_layernorm``, every paged read through
+``ops.kernels.paged_attention`` and the training forward's attention
+through ``ops.kernels.flash_attention`` (forward, dK/dV and dQ).  Those
+wrappers launch the CUDA kernel for CUDA tensors and run their plain
+version only for CPU tensors: the tensor's device decides, there is no
+knob.  The JAX package's gates (``use_flash="auto"``,
+``fused_layernorm=False``) are not ported: on the card the kernels are
+always the path.
 
 Numerics: TF32 stays off.  This module never sets
 ``torch.backends.cuda.matmul.allow_tf32`` or
@@ -26,12 +32,15 @@ float32 on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import affine, ffn_core
+from ..ops import losses as loss_lib
+from ..ops.attention import affine, attention_core, dropout, ffn_core, project
+from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
 
@@ -57,6 +66,9 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     max_position: int = 1024
+    # training only (serving never drops); masks come from the step's
+    # torch.Generator, so their bits differ from the JAX package's
+    dropout_rate: float = 0.1
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
     # grouped-query attention: kv heads (None = num_heads, plain MHA)
@@ -138,12 +150,15 @@ class _Block(nn.Module):
 
 
 class GPT(nn.Module):
-    """Decoder stack for the paged serving path.
+    """Decoder stack for paged serving and causal-LM training.
 
     ``GPT(config, device="cuda", generator=None)``: weights are random,
     truncated normal (std 0.02, cut at 2 std) from ``generator`` (seed 0
-    when None), biases zero, norms identity.  Raises for ``cuda`` when
-    there is no card; tests pass ``device="cpu"``.
+    when None), biases zero, norms identity, all float32 and trainable.
+    Raises for ``cuda`` when there is no card; tests pass
+    ``device="cpu"``.  Parameter names (``named_parameters``) are the JAX
+    tree's paths with the decoder unstacked: ``blocks.<i>.<path>`` is
+    layer i of the JAX leaf ``decoder.<path>`` (``models/convert.py``).
     """
 
     def __init__(self, config: GPTConfig, *,
@@ -167,7 +182,6 @@ class GPT(nn.Module):
                         or name.endswith(".kernel"):
                     nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                           generator=generator)
-        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -182,14 +196,6 @@ class GPT(nn.Module):
         f = blk.ffn
         return ffn_core(f.w_in.kernel, f.w_in.bias, f.w_out.kernel,
                         f.w_out.bias, self._norm(blk.ln_2, x))
-
-    @staticmethod
-    def _proj(p: _Dense, h: torch.Tensor) -> torch.Tensor:
-        """``einsum("bsd,dhk->bshk")`` + bias, as one matrix product."""
-        d, nh, hd = p.kernel.shape
-        y = h @ p.kernel.reshape(d, nh * hd).to(h.dtype)
-        return (y + p.bias.reshape(nh * hd).to(h.dtype)).reshape(
-            *h.shape[:-1], nh, hd)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head -> [..., vocab] f32 logits."""
@@ -211,8 +217,8 @@ class GPT(nn.Module):
         package donates the pool buffer instead)."""
         h = self._norm(blk.ln_1, x)
         a = blk.attention
-        q, k, v = self._proj(a.query, h), self._proj(a.key, h), \
-            self._proj(a.value, h)
+        q, k, v = (project(p.kernel, p.bias, h)
+                   for p in (a.query, a.key, a.value))
         for name, val in (("k", k), ("v", v)):
             kv[name][i].index_put_(
                 paged, val.reshape(-1, *val.shape[2:]).to(kv[name].dtype))
@@ -223,7 +229,77 @@ class GPT(nn.Module):
         x = x + attn_out
         return x + self._ffn(blk, x)
 
+    # -- full-sequence forward and the LM loss -----------------------------
+    def apply(self, input_ids: torch.Tensor, train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """input_ids [b, s] -> hidden [b, s, d] in the compute dtype (after
+        ``ln_f``).  Causal attention through the flash kernel.  With
+        ``train`` and a nonzero ``dropout_rate``, dropout (embedding,
+        attention context, both residual branches) draws from
+        ``generator``.  (This replaces ``nn.Module.apply(fn)``, which the
+        port never uses, with the JAX package's name.)"""
+        c = self.config
+        ids = input_ids.to(self.device).long()
+        s = ids.shape[1]
+        x = F.embedding(ids, self.word) + self.position[:s][None]
+        x = dropout(x, c.dropout_rate, generator, train).to(c.dtype)
+        attention_fn = flash_lib.make_flash_attention_fn(causal=True)
+        for blk in self.blocks:
+            a = blk.attention
+            params = {name: {"kernel": p.kernel, "bias": p.bias} for name, p
+                      in (("query", a.query), ("key", a.key),
+                          ("value", a.value), ("out", a.out))}
+            attn = attention_core(params, self._norm(blk.ln_1, x),
+                                  dropout_rate=c.dropout_rate,
+                                  generator=generator, train=train,
+                                  attention_fn=attention_fn)
+            x = x + dropout(attn, c.dropout_rate, generator, train)
+            x = x + dropout(self._ffn(blk, x), c.dropout_rate, generator,
+                            train)
+        return self._norm(self.ln_f, x)
+
+    def lm_loss_fn(self) -> Callable:
+        """``loss_fn(params, model_state, batch, generator, train) ->
+        (loss, (metrics, model_state))``, the contract of
+        ``train.make_custom_train_step``.  ``params`` are this model's own
+        parameters by name (``dict(model.named_parameters())``): the loss
+        reads them through the model, and the step's gradients and updates
+        are taken on those tensors.  ``batch``: ``input_ids`` [b, s] and
+        optional ``loss_mask`` [b, s - 1]; the targets are the inputs
+        shifted by one.  Metrics: ``token_accuracy`` and, under a mask,
+        ``loss_weight`` (its sum)."""
+        own = dict(self.named_parameters())
+
+        def loss_fn(params: Mapping[str, torch.Tensor], model_state: Any,
+                    batch: Mapping[str, torch.Tensor],
+                    generator: Optional[torch.Generator], train: bool):
+            if params.keys() != own.keys() or any(
+                    params[k] is not p for k, p in own.items()):
+                raise ValueError("lm_loss_fn takes the model's own "
+                                 "parameters, dict(model.named_parameters())")
+            ids = batch["input_ids"].to(self.device).long()
+            hidden = self.apply(ids[:, :-1], train=train, generator=generator)
+            targets = ids[:, 1:]
+            mask = batch.get("loss_mask")
+            if mask is not None:
+                mask = mask.to(self.device).float()
+            logits = self.logits(hidden)
+            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
+                logits, targets, where=mask)
+            hits = (logits.argmax(-1) == targets).float()
+            metrics = {}
+            if mask is None:
+                metrics["token_accuracy"] = hits.mean()
+            else:
+                metrics["token_accuracy"] = ((hits * mask).sum()
+                                             / torch.clamp(mask.sum(), min=1.0))
+                metrics["loss_weight"] = mask.sum()
+            return loss, (metrics, model_state)
+
+        return loss_fn
+
     # -- paged decode -----------------------------------------------------
+    @torch.no_grad()
     def decode_step_slots_paged(self, kv: Dict[str, torch.Tensor],
                                 token_ids: torch.Tensor,
                                 page_tab: torch.Tensor,
@@ -260,6 +336,7 @@ class GPT(nn.Module):
         x = self._norm(self.ln_f, x)
         return self.logits(x)[:, 0, :], kv
 
+    @torch.no_grad()
     def decode_window_paged(self, kv: Dict[str, torch.Tensor],
                             token_ids: torch.Tensor, page_row: torch.Tensor,
                             pos: int, head: Union[str, int] = "all"):

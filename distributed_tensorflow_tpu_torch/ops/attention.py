@@ -1,10 +1,13 @@
-"""Attention and FFN bodies of the serving path, in PyTorch.
+"""Attention and FFN bodies of the serving and training paths, in PyTorch.
 
-Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``, only the
-parts the paged serving path runs: ``NEG_INF``, ``dot_product_attention``
-(with the grouped-query contraction) and ``ffn_core``.  Layouts are the
-JAX package's: q/k/v ``[batch, seq, heads, head_dim]``; masks are
-additive (0 / ``NEG_INF``).
+Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``, the parts
+the port's paths run: ``NEG_INF``, ``causal_mask``,
+``dot_product_attention`` (with the grouped-query contraction),
+``attention_core`` (projections, the swappable inner kernel, dropout on
+the context, out projection) and ``ffn_core``.  Layouts are the JAX
+package's: q/k/v ``[batch, seq, heads, head_dim]``, projection kernels
+``[d, heads, head_dim]`` and ``[heads, head_dim, d]``; masks are additive
+(0 / ``NEG_INF``).
 
 Logits and softmax are computed in float32 whatever the input type, and
 the weights are cast back to q's type before the PV product, as in the
@@ -13,14 +16,36 @@ JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "dot_product_attention", "ffn_core"]
+__all__ = ["NEG_INF", "affine", "attention_core", "causal_mask", "dropout",
+           "dot_product_attention", "ffn_core", "project"]
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined in f32
+
+
+def causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """[1, 1, seq, seq] additive f32 mask; position i attends to j <= i."""
+    keep = torch.ones(seq_len, seq_len, dtype=torch.bool,
+                      device=device).tril()
+    return torch.where(keep, 0.0, NEG_INF)[None, None]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout from an explicit generator (the JAX package's
+    ``_dropout``; the bits differ from ``jax.random``'s)."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,6 +77,54 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bkhd->bqhgd", weights, v)
     return ctx.reshape(b, s, hq, head_dim)
+
+
+def project(kernel: torch.Tensor, bias: Optional[torch.Tensor],
+            x: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, kernel) (+ bias)`` as one matrix
+    product in x's type: kernel [d, h, hd], bias [h, hd] -> [..., h, hd]."""
+    d, nh, hd = kernel.shape
+    y = x @ kernel.reshape(d, nh * hd).to(x.dtype)
+    if bias is not None:
+        y = y + bias.reshape(nh * hd).to(x.dtype)
+    return y.reshape(*x.shape[:-1], nh, hd)
+
+
+def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
+                   x: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+                   dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None,
+                   train: bool = False,
+                   attention_fn=dot_product_attention) -> torch.Tensor:
+    """The shared multi-head attention body.
+
+    ``params``: {query, key, value: {kernel [d, h, hd], bias [h, hd]},
+    out: {kernel [h, hd, d], bias [d]}} (a missing bias is skipped).
+    ``attention_fn(q, k, v, mask=...)`` is the inner kernel: the dense
+    ``dot_product_attention`` or the flash kernel
+    (``ops.kernels.flash_attention.make_flash_attention_fn``).  Grouped
+    kv heads are broadcast only for a kernel that does not take them
+    (``supports_gqa``).  Dropout, in train mode, drops the context."""
+    def proj(name, src):
+        p = params[name]
+        return project(p["kernel"], p.get("bias"), src)
+
+    q, k, v = proj("query", x), proj("key", x), proj("value", x)
+    if (k.shape[2] != q.shape[2]
+            and attention_fn is not dot_product_attention
+            and not getattr(attention_fn, "supports_gqa", False)):
+        if q.shape[2] % k.shape[2]:
+            raise ValueError(f"query heads {q.shape[2]} not a multiple of "
+                             f"kv heads {k.shape[2]}")
+        group = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    ctx = attention_fn(q, k, v, mask=mask)
+    ctx = dropout(ctx, dropout_rate, generator, train)
+    out = params["out"]
+    nh, hd, d = out["kernel"].shape
+    return affine(out["kernel"].reshape(nh * hd, d), out.get("bias"),
+                  ctx.reshape(*ctx.shape[:-2], nh * hd))
 
 
 def affine(kernel: torch.Tensor, bias: Optional[torch.Tensor],

@@ -1,33 +1,45 @@
-"""LayerNorm over the last axis: CUDA kernel and plain version.
+"""LayerNorm and one Adam(W) step: CUDA kernels and plain versions.
 
-Replaces the Pallas kernel ``_layernorm_forward`` of
+LayerNorm replaces the Pallas kernel ``_layernorm_forward`` of
 ``distributed_tensorflow_tpu/ops/pallas/fused.py`` (body
 ``_layernorm_kernel``), reached there through ``fused_layernorm``.  The
 kernel is ``csrc/layernorm.cu``: one thread block per row, f32 mean and
-variance by block reductions, output in the input's type.
+variance by block reductions, output in the input's type.  Its backward
+recomputes through the plain version under autograd, as the JAX
+``_layernorm_bwd`` takes ``jax.vjp`` of its XLA reference: the JAX
+package has no backward kernel, so neither has the port.
 
-What bounds it on the H100: bytes (x read once, the output written
-once); at the serving path's 8 to 256 rows of d = 768 the launch itself
-dominates.  The design keeps a row in L1 across its three passes; fusing
-the norm into the next projection is later work.
+``fused_adam_update`` replaces the Pallas kernel of the same name (body
+``_adam_kernel``).  The kernel is ``csrc/adam.cu``: one elementwise pass
+over the flat f32 tensor, four streams in and three out, 16-byte loads;
+the bias correction is folded into ``lr_t``/``eps_t`` on the host, and
+the outputs may be the inputs' own buffers (an in-place update).
 
-Dispatch is by the tensor's device: the plain version (the f32 formula of
-the JAX package's ``_layernorm_reference``, not ``F.layer_norm``) for a
-CPU tensor, the kernel or an exception for a CUDA tensor.  ``LAUNCHES``
-counts kernel launches.
+What bounds both on the H100: bytes.  LayerNorm reads x once and writes
+the output once; at the serving path's 8 to 256 rows of d = 768 the
+launch itself dominates.  Adam moves 28 bytes per element for about 12
+flops.
+
+Dispatch is by the tensor's device: the plain version (the f32 formulas
+of the JAX package, not ``F.layer_norm`` or ``torch.optim``) for a CPU
+tensor, the kernel or an exception for a CUDA tensor.  ``LAUNCHES``
+counts kernel launches ("layernorm", "adam").
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "fused_layernorm", "layernorm_plain"]
+__all__ = ["LAUNCHES", "adam_plain", "fused_adam_update", "fused_layernorm",
+           "layernorm_plain"]
 
-# kernel launches ("layernorm")
+# kernel launches ("layernorm", "adam")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -41,11 +53,7 @@ def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
-def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm of x [..., d] with f32 gamma/beta [d]."""
-    if x.device.type == "cpu":
-        return layernorm_plain(x, gamma, beta, eps)
+def _layernorm_launch(x, gamma, beta, eps):
     d = x.shape[-1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bf16 or f32; got {x.dtype}")
@@ -69,4 +77,117 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             _build.stream_ptr(x))
     _build.check(rc, "layernorm_forward")
     LAUNCHES["layernorm"] += 1
+    return out
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Kernel forward; backward through ``layernorm_plain`` recomputed
+    under autograd (residuals x, gamma, beta, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return _layernorm_launch(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            y = layernorm_plain(*inputs, ctx.eps)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None)
+
+
+def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm of x [..., d] with f32 gamma/beta [d]; differentiable."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, gamma, beta, eps)
+    return _LayerNorm.apply(x, gamma, beta, float(eps))
+
+
+# ---------------------------------------------------------------- Adam
+
+def _adam_scalars(step: int, lr: float, b1: float, b2: float, eps: float,
+                  tf14_eps: bool):
+    """(lr_t, eps_t) in f32, as the JAX wrapper folds them:
+    ``lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)``; ``eps_t = eps`` with
+    ``tf14_eps`` (eps on raw v, the TF-1.4 rule), else
+    ``eps * sqrt(1 - b2^t)``."""
+    f = np.float32
+    t = f(step)
+    bc1 = f(1.0) - np.power(f(b1), t)
+    bc2 = f(1.0) - np.power(f(b2), t)
+    lr_t = f(lr) * np.sqrt(bc2) / bc1
+    eps_t = f(eps) if tf14_eps else f(eps) * np.sqrt(bc2)
+    return float(lr_t), float(eps_t)
+
+
+def adam_plain(params: torch.Tensor, grads: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, step: int, lr: float = 1e-3, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8,
+               weight_decay: float = 0.0, tf14_eps: bool = False,
+               return_delta: bool = False, out=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the Adam kernel, the same formula in torch ops
+    (f32).  ``out``: as for ``fused_adam_update``."""
+    lr_t, eps_t = _adam_scalars(step, lr, b1, b2, eps, tf14_eps)
+    p, g = params.float(), grads.float()
+    new_m = b1 * m.float() + (1.0 - b1) * g
+    new_v = b2 * v.float() + (1.0 - b2) * g * g
+    u = -lr_t * (new_m / (torch.sqrt(new_v) + eps_t))
+    if weight_decay:
+        u = u - float(np.float32(lr) * np.float32(weight_decay)) * p
+    results = (u if return_delta else p + u, new_m, new_v)
+    if out is None:
+        return results
+    return tuple(r if o is None else o.copy_(r)
+                 for r, o in zip(results, out))
+
+
+def fused_adam_update(params: torch.Tensor, grads: torch.Tensor,
+                      m: torch.Tensor, v: torch.Tensor, step: int,
+                      lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                      eps: float = 1e-8, weight_decay: float = 0.0,
+                      tf14_eps: bool = False, return_delta: bool = False,
+                      out: Optional[Sequence[Optional[torch.Tensor]]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One exact Adam(W) step for one f32 tensor.
+
+    ``step`` is the 1-based step count (a host int).  Bias correction is
+    folded into ``lr_t``/``eps_t``; ``tf14_eps=True`` applies eps
+    unscaled on raw v (the TF-1.4 rule ``optim.adam`` documents).
+    ``weight_decay`` subtracts ``lr * wd * p``.  ``return_delta=True``
+    returns ``new_p - p`` in slot 0.  ``out``: optional (p_out, m_out,
+    v_out), any of them None (allocated) or a tensor to write, which may
+    be the input's own buffer.  Returns (new_params_or_delta, new_m,
+    new_v)."""
+    if params.device.type == "cpu":
+        return adam_plain(params, grads, m, v, step, lr, b1, b2, eps,
+                          weight_decay, tf14_eps, return_delta, out)
+    out = tuple(out) if out is not None else (None, None, None)
+    tensors = {"params": params, "grads": grads, "m": m, "v": v}
+    out = tuple(torch.empty_like(params) if o is None else o for o in out)
+    tensors.update(zip(("p_out", "m_out", "v_out"), out))
+    for name, t in tensors.items():
+        if t.device != params.device or t.dtype != torch.float32 \
+                or t.shape != params.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 "
+                             f"{tuple(params.shape)} on {params.device}")
+    if step < 1:
+        raise ValueError(f"step is 1-based; got {step}")
+    lr_t, eps_t = _adam_scalars(step, lr, b1, b2, eps, tf14_eps)
+    n = params.numel()
+    if n:
+        fn = _build.load("adam").adam_update
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
+            ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
+        rc = fn(*(t.data_ptr() for t in (params, grads, m, v, *out)), n,
+                b1, 1.0 - b1, b2, 1.0 - b2, lr_t, eps_t, lr, weight_decay,
+                int(return_delta), _build.stream_ptr(params))
+        _build.check(rc, "adam_update")
+        LAUNCHES["adam"] += 1
     return out

@@ -1,0 +1,193 @@
+"""The port's flash attention (plain versions) held against the JAX kernels.
+
+The same numpy inputs go through the JAX package's ``flash_attention``
+(the Pallas forward and its two backward kernels, in interpret mode off
+a TPU, with small blocks so the grids have several steps) and the port's
+counterparts, which take their plain versions for CPU tensors:
+``flash_attention_plain`` under torch autograd, ``flash_forward_plain``
+(out and the row logsumexp) and the explicit backward formulas
+``flash_backward_dkv_plain`` / ``flash_backward_dq_plain`` that the card
+holds the dK/dV and dQ kernels against.
+
+Tolerances: f32 1e-5 absolute on the forward and the logsumexp, 1e-4 on
+gradients (another summation order); bf16 2e-2 relative to the output's
+scale (both sides compute in f32 from the same bf16 inputs and round
+once; the JAX backward also rounds O to bf16 before D = rowsum(dO * O)).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from distributed_tensorflow_tpu.ops.pallas import flash_attention as jfa
+from distributed_tensorflow_tpu.ops.pallas import make_flash_attention_fn \
+    as jmake_fn
+from distributed_tensorflow_tpu.ops.pallas.flash_attention import \
+    _flash_forward
+from distributed_tensorflow_tpu_torch.ops import attention as tattn
+from distributed_tensorflow_tpu_torch.ops.kernels import flash_attention as tfa
+
+torch.set_num_threads(1)
+
+F32_FWD_TOL = 1e-5
+F32_GRAD_TOL = 1e-4
+BF16_TOL = 2e-2
+
+
+def _inputs(seed, b=2, s=64, h=4, hk=None, d=32, masked=False):
+    rng = np.random.default_rng(seed)
+    hk = hk or h
+    q = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, s, hk, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, hk, d), dtype=np.float32)
+    do = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    valid = None
+    if masked:
+        valid = rng.random((b, s)) < 0.7
+        valid[:, 0] = False        # causal row 0 of every batch: no key
+        valid[1, :] = False        # batch row 1: every row fully masked
+    return q, k, v, do, valid
+
+
+def _jax_out_and_grads(q, k, v, do, valid, causal, dtype, block):
+    jv = None if valid is None else jnp.asarray(valid, jnp.int32)
+
+    def f(q_, k_, v_):
+        return jfa(q_, k_, v_, kv_valid=jv, causal=causal, block_q=block,
+                   block_k=block)
+    args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    out, vjp = jax.vjp(f, *args)
+    grads = vjp(jnp.asarray(do, dtype))
+    return [np.asarray(x, np.float32) for x in (out, *grads)]
+
+
+def _torch_out_and_grads(q, k, v, do, valid, causal, dtype):
+    leaves = [torch.tensor(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    tv = None if valid is None else torch.from_numpy(valid)
+    out = tfa.flash_attention(*leaves, kv_valid=tv, causal=causal)
+    grads = torch.autograd.grad(out, leaves, torch.tensor(do).to(dtype))
+    return [x.detach().float().numpy() for x in (out, *grads)]
+
+
+CASES = {
+    "no_mask": dict(kw={}, causal=False, block=32),
+    "causal": dict(kw={}, causal=True, block=16),
+    "padding_fully_masked_rows": dict(kw=dict(masked=True), causal=True,
+                                      block=16),
+    "ragged_seq": dict(kw=dict(s=50), causal=True, block=16),
+    "gqa_group_2": dict(kw=dict(h=4, hk=2, masked=True), causal=True,
+                        block=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_attention_and_grads_match_jax(name):
+    case = CASES[name]
+    q, k, v, do, valid = _inputs(1, **case["kw"])
+    want = _jax_out_and_grads(q, k, v, do, valid, case["causal"],
+                              jnp.float32, case["block"])
+    got = _torch_out_and_grads(q, k, v, do, valid, case["causal"],
+                               torch.float32)
+    np.testing.assert_allclose(got[0], want[0], atol=F32_FWD_TOL, rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=F32_GRAD_TOL, rtol=0)
+    if valid is not None:
+        # batch row 1 has no valid key: output 0, no gradient into q
+        assert np.all(got[0][1] == 0) and np.all(got[1][1] == 0)
+
+
+@pytest.mark.parametrize("name", ["causal", "padding_fully_masked_rows",
+                                  "gqa_group_2"])
+def test_kernel_plain_versions_match_jax_kernels(name):
+    """Forward (out, lse) against ``_flash_forward``; the explicit dK/dV
+    and dQ formulas against the JAX backward."""
+    case = CASES[name]
+    q, k, v, do, valid = _inputs(2, **case["kw"])
+    causal, block = case["causal"], case["block"]
+    jvalid = (jnp.ones(q.shape[:2], jnp.float32) if valid is None
+              else jnp.asarray(valid, jnp.float32))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jout, jlse = _flash_forward(*(jnp.swapaxes(jnp.asarray(x), 1, 2)
+                                  for x in (q, k, v)), jvalid, scale, causal,
+                                block, block, True)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    out, lse = tfa.flash_forward(tq, tk, tv, tvalid, causal)
+    np.testing.assert_allclose(out.numpy(),
+                               np.swapaxes(np.asarray(jout), 1, 2),
+                               atol=F32_FWD_TOL, rtol=0)
+    jlse = np.asarray(jlse)
+    np.testing.assert_array_equal(np.isfinite(lse.numpy()),
+                                  np.isfinite(jlse))
+    fin = np.isfinite(jlse)
+    np.testing.assert_allclose(lse.numpy()[fin], jlse[fin],
+                               atol=F32_FWD_TOL, rtol=0)
+
+    dvec = tfa.row_dot(tdo, out)
+    dk, dv = tfa.flash_backward_dkv(tq, tk, tv, tvalid, tdo, lse, dvec,
+                                    causal)
+    dq = tfa.flash_backward_dq(tq, tk, tv, tvalid, tdo, lse, dvec, causal)
+    _, jdq, jdk, jdv = _jax_out_and_grads(q, k, v, do, valid, causal,
+                                          jnp.float32, block)
+    for g, w in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(g.numpy(), w, atol=F32_GRAD_TOL, rtol=0)
+
+
+def test_bfloat16_matches_jax():
+    q, k, v, do, _ = _inputs(3, s=48)
+    want = _jax_out_and_grads(q, k, v, do, None, True, jnp.bfloat16, 16)
+    got = _torch_out_and_grads(q, k, v, do, None, True, torch.bfloat16)
+    for g, w in zip(got, want):
+        scale = max(1.0, np.abs(w).max())
+        assert np.abs(g - w).max() <= BF16_TOL * scale
+
+
+def test_padding_adapter_matches_jax():
+    """``make_flash_attention_fn`` takes an additive padding mask."""
+    q, k, v, _, valid = _inputs(4, masked=True)
+    valid[1, 3] = True
+    jmask = jnp.where(jnp.asarray(valid), 0.0, -1e9)[:, None, None, :]
+    want = jmake_fn(causal=False, block_q=32, block_k=32)(
+        *(jnp.asarray(x) for x in (q, k, v)), mask=jmask)
+    tmask = torch.where(torch.from_numpy(valid), 0.0,
+                        tattn.NEG_INF)[:, None, None, :]
+    got = tfa.make_flash_attention_fn(causal=False)(
+        *(torch.from_numpy(x) for x in (q, k, v)), mask=tmask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=F32_FWD_TOL, rtol=0)
+    with pytest.raises(ValueError, match="padding"):
+        tfa.make_flash_attention_fn()(*(torch.from_numpy(x)
+                                        for x in (q, k, v)),
+                                      mask=torch.zeros(1, 1, 64, 64))
+
+
+def test_attention_core_with_flash_matches_dense():
+    """``attention_core`` with the flash adapter (causal) equals the dense
+    ``dot_product_attention`` under ``causal_mask`` at f32."""
+    rng = np.random.default_rng(5)
+    d, h, hd = 32, 4, 8
+    params = {n: {"kernel": torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32) * 0.2), "bias": torch.from_numpy(
+            rng.standard_normal(bshape, dtype=np.float32) * 0.1)}
+        for n, shape, bshape in (("query", (d, h, hd), (h, hd)),
+                                 ("key", (d, 2, hd), (2, hd)),
+                                 ("value", (d, 2, hd), (2, hd)),
+                                 ("out", (h, hd, d), (d,)))}
+    x = torch.from_numpy(rng.standard_normal((2, 20, d), dtype=np.float32))
+    flash = tattn.attention_core(
+        params, x, attention_fn=tfa.make_flash_attention_fn(causal=True))
+    dense = tattn.attention_core(params, x, mask=tattn.causal_mask(20))
+    np.testing.assert_allclose(flash.numpy(), dense.numpy(),
+                               atol=F32_FWD_TOL, rtol=0)
+
+
+def test_cpu_wrappers_launch_nothing():
+    q, k, v, do, _ = _inputs(6, s=16)
+    before = dict(tfa.LAUNCHES)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*leaves, causal=True).sum().backward()
+    tfa.flash_forward(*leaves)
+    assert dict(tfa.LAUNCHES) == before

@@ -67,7 +67,7 @@ def test_convert_covers_every_parameter():
     assert set(sd) == set(model.state_dict())
     q = np.asarray(jparams["decoder"]["attention"]["query"]["kernel"][1])
     np.testing.assert_array_equal(
-        model.blocks[1].attention.query.kernel.numpy(), q)
+        model.blocks[1].attention.query.kernel.detach().numpy(), q)
 
 
 @pytest.mark.parametrize("kw", [{}, {"num_heads": 4, "num_kv_heads": 2}],

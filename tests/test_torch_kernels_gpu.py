@@ -4,14 +4,21 @@ Every test here needs a CUDA card (marker ``gpu``) and skips without one.
 The file imports no JAX, so on a machine with a card and no JAX it runs
 as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py``.
 Tolerances: f32 1e-4 absolute (summation order); bf16 2e-2 absolute for
-attention (the plain version rounds logits and weights to bf16) and
-1e-2 for LayerNorm (about one bf16 ulp at unit scale).
+paged attention (the plain version rounds logits and weights to bf16) and
+1e-2 for LayerNorm (about one bf16 ulp at unit scale).  Flash attention
+is held relative to the output's scale, ``max|got - want| <= tol *
+max(1, max|want|)``: f32 1e-4 (summation order), bf16 1e-2 (both sides
+compute in f32 from the same bf16 inputs and round once, so they differ
+by about one bf16 ulp, 2**-8 relative).  Adam: f32 1e-6 absolute plus
+1e-5 relative (the kernel may contract a multiply-add).
 """
 import numpy as np
 import pytest
 import torch
 
-from distributed_tensorflow_tpu_torch import GPT, Engine, gpt_tiny
+from distributed_tensorflow_tpu_torch import (GPT, Engine, TrainState, adamw,
+                                              gpt_tiny, make_custom_train_step)
+from distributed_tensorflow_tpu_torch.ops.kernels import flash_attention as fa
 from distributed_tensorflow_tpu_torch.ops.kernels import fused
 from distributed_tensorflow_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -111,3 +118,161 @@ def test_engine_on_card_launches_the_kernels(cuda):
     assert pa.LAUNCHES["paged_decode"] > 0
     assert pa.LAUNCHES["paged_window"] > 0
     assert fused.LAUNCHES["layernorm"] > 0
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / max(1.0, want.abs().max().item())
+            ).item()
+
+
+def _same_lse(got, want, tol):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert _rel_err(got[fin], want[fin]) <= tol
+
+
+# (dtype, tol, hd, group, causal, masked, s): the CPU file's cases plus
+# head dim 128
+_FLASH_CASES = [
+    (torch.float32, 1e-4, 64, 1, False, False, 64),
+    (torch.float32, 1e-4, 64, 1, True, False, 64),
+    (torch.float32, 1e-4, 64, 1, False, True, 64),
+    (torch.float32, 1e-4, 64, 1, True, False, 50),
+    (torch.float32, 1e-4, 64, 2, True, True, 70),
+    (torch.bfloat16, 1e-2, 64, 1, True, False, 256),
+    (torch.bfloat16, 1e-2, 64, 2, False, True, 100),
+    (torch.bfloat16, 1e-2, 128, 1, True, False, 130),
+    (torch.float32, 1e-4, 128, 2, True, True, 96),
+]
+
+
+@pytest.mark.parametrize("dtype,tol,hd,group,causal,masked,s", _FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, tol, hd, group, causal,
+                                   masked, s):
+    gen = torch.Generator().manual_seed(4)
+    b, hk = 2, 2
+    h = hk * group
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dtype).to(cuda)
+    q, k, v, do = rnd(b, s, h, hd), rnd(b, s, hk, hd), rnd(b, s, hk, hd), \
+        rnd(b, s, h, hd)
+    valid = None
+    if masked:
+        valid = torch.rand(b, s, generator=gen) < 0.7
+        valid[0, :] = False           # batch row 0: every row fully masked
+        valid[1, 0] = True
+        valid = valid.to(cuda)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_forward(q, k, v, valid, causal)
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, valid, causal)
+    assert _rel_err(out, want_out) <= tol
+    _same_lse(lse, want_lse, 1e-5)
+    dvec = fa.row_dot(do, out)
+    dk, dv = fa.flash_backward_dkv(q, k, v, valid, do, lse, dvec, causal)
+    want_dk, want_dv = fa.flash_backward_dkv_plain(q, k, v, valid, do, lse,
+                                                   dvec, causal)
+    dq = fa.flash_backward_dq(q, k, v, valid, do, lse, dvec, causal)
+    want_dq = fa.flash_backward_dq_plain(q, k, v, valid, do, lse, dvec,
+                                         causal)
+    torch.cuda.synchronize()
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert _rel_err(got, want) <= tol
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        assert fa.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+def test_flash_attention_autograd_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(5)
+    shape_q, shape_kv = (2, 77, 4, 64), (2, 77, 2, 64)
+    leaves = [torch.randn(s, generator=gen).to(cuda).requires_grad_()
+              for s in (shape_q, shape_kv, shape_kv)]
+    do = torch.randn(shape_q, generator=gen).to(cuda)
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
+                              leaves, do)
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(*leaves, causal=True), leaves, do)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-4
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fa.flash_forward(q, q, q)
+
+
+@pytest.mark.parametrize("n", [1000, 768 * 3072, 4099])
+@pytest.mark.parametrize("tf14,wd,delta", [(True, 0.0, True),
+                                           (False, 0.01, False)])
+def test_adam_kernel_matches_plain(cuda, n, tf14, wd, delta):
+    gen = torch.Generator().manual_seed(6)
+    p, g, m = (torch.randn(n, generator=gen).to(cuda) for _ in range(3))
+    v = torch.rand(n, generator=gen).to(cuda)
+    kw = dict(lr=1e-3, weight_decay=wd, tf14_eps=tf14, return_delta=delta)
+    want = fused.adam_plain(p, g, m, v, 3, **kw)
+    before = fused.LAUNCHES["adam"]
+    got = fused.fused_adam_update(p, g, m, v, 3, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["adam"] == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # in place: the outputs are the inputs' own buffers
+    m2, v2 = m.clone(), v.clone()
+    out = fused.fused_adam_update(p, g, m2, v2, 3, out=(None, m2, v2), **kw)
+    assert out[1] is m2 and out[2] is v2
+    torch.testing.assert_close(m2, want[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(v2, want[2], rtol=1e-5, atol=1e-6)
+
+
+def test_layernorm_kernel_gradient_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(5, 7, 128, generator=gen).to(cuda).requires_grad_()
+    gamma = torch.randn(128, generator=gen).to(cuda).requires_grad_()
+    beta = torch.randn(128, generator=gen).to(cuda).requires_grad_()
+    dy = torch.randn(5, 7, 128, generator=gen).to(cuda)
+    got = torch.autograd.grad(fused.fused_layernorm(x, gamma, beta, 1e-5),
+                              (x, gamma, beta), dy)
+    want = torch.autograd.grad(fused.layernorm_plain(x, gamma, beta, 1e-5),
+                               (x, gamma, beta), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_training_on_card_matches_cpu_and_launches_the_kernels(cuda):
+    """Two f32 gpt_tiny steps: card (kernels) against CPU (plain)."""
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (4, 33)))
+    init = GPT(gpt_tiny(), device="cpu").state_dict()
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = GPT(gpt_tiny(dropout_rate=0.0), device=device)
+        model.load_state_dict(init)
+        params = dict(model.named_parameters())
+        opt = adamw(1e-4)
+        state = TrainState.create(params, opt.init(params))
+        step = make_custom_train_step(model.lm_loss_fn(), opt,
+                                      grad_clip_norm=1.0)
+        for c in (fa.LAUNCHES, fused.LAUNCHES):
+            c.clear()
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, {"input_ids": ids})
+            losses.append(metrics["loss"].item())
+        runs.append((losses, {k: p.detach().cpu() for k, p in
+                              params.items()}))
+        if device == "cuda":
+            assert fa.LAUNCHES["flash_forward"] == 2 * 2
+            assert fa.LAUNCHES["flash_backward_dkv"] == 2 * 2
+            assert fa.LAUNCHES["flash_backward_dq"] == 2 * 2
+            assert fused.LAUNCHES["layernorm"] == 2 * 5
+            assert fused.LAUNCHES["adam"] == 2 * len(params)
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = runs
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4, rtol=0)
+    for k in p_cpu:
+        torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=0, atol=1e-3)
