@@ -16,7 +16,12 @@ no result lines:
    1024, prefill windows of 32), the training kernels at the training
    step's (flash attention b 48, s 256, 12 heads of 64, bf16, causal;
    Adam on the 38.6M-element word embedding and a [768, 3072] kernel),
-   plus flash at s 1024 and an f32 GQA / kv-valid / ragged case.  Times
+   plus flash at s 1024 and an f32 GQA / kv-valid / ragged case; the
+   Llama-3-8B serving kernels at its engine's shapes (RMSNorm [8, 4096]
+   and [32, 4096] bf16 and an f32 case; the int8 paged decode at 8 slots
+   of q [8, 1, 32, 128] bf16 over pages of 16, max_len 8192, and the
+   int8 window at q [1, 32, 32, 128] after a prefix of several pages),
+   plus the bf16 GQA head-dim-128 paged case at the same shapes.  Times
    the kernel, the plain version and one PyTorch library call computing
    the same function (CUDA events over many launches), and computes the
    least time the card could take from the bytes and flops these inputs
@@ -41,9 +46,21 @@ no result lines:
    per-step losses and final parameters must agree.
 8. train-then-serve: the trained GPT-2-small weights serve 2 requests
    through ``Engine``; serving builds no autograd graph.
-9. with ``--profile DIR`` only: the engine phase and 3 training steps
-   again under ``torch.profiler``; the device's busy share and its top
-   kernels.
+9. Llama engine: Llama-3-8B at full width and all 32 layers (random
+   weights from ``--seed``, bf16 compute over f32 weights) with an int8
+   KV cache behind ``Engine(num_slots=8, max_len=8192,
+   prefill_chunk=32, tick_steps=8)``, phase 4's 12-request mix drawn
+   from vocab 128256; checks budgets, a prefix hit, that RMSNorm and
+   both int8 paged entries launched and LayerNorm did not, and row
+   independence.  Prints tokens/s, TTFT, peak memory and the pool's
+   bytes beside a bf16 pool's.
+10. Llama reference: a 2-layer f32 Llama with head dim 64 on the card
+   and with the same weights on the CPU: equal greedy tokens with a pool
+   in f32; with an int8 pool, window and decode-step logits within
+   ``INT8_REF_LOGIT_TOL`` (tokens compared and reported).
+11. with ``--profile DIR`` only: the engine phases and 3 training steps
+   again under ``torch.profiler``; the device's busy share, its top
+   kernels and (training, Llama engine) device ms by part.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -69,6 +86,19 @@ F32_TOL = 1e-4        # f32: summation order only
 FLASH_BF16_TOL = 1e-2
 FLASH_F32_TOL = 1e-4
 ADAM_TOL = 1e-6       # f32, |values| <= a few: a contracted multiply-add
+# paged attention over an int8 pool, relative to the output's scale
+# (tol * max(1, max|want|)): both sides dequantize and attend in f32; the
+# kernel folds each scale into the logit and the softmax weight (another
+# rounding order), so f32 queries agree to round-off and bf16 queries to
+# about one bf16 ulp (2**-8) of the single final rounding
+INT8_BF16_TOL = 1e-2
+INT8_F32_TOL = 1e-4
+RMS_TOL = 1e-2        # bf16: about one bf16 ulp at unit scale
+# card vs CPU Llama logits with int8 pools written on each side: an f32
+# round-off difference may flip one int8 rounding by a step of amax/127;
+# one such flip moved a 2-layer model's logits by ~1e-5 in a CPU trial,
+# so 1e-3 leaves room for ~100 flips while a wrong kernel is off by O(0.1)
+INT8_REF_LOGIT_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-4     # card vs CPU, f32 losses: summation order
 # card vs CPU, f32 parameters after 3 Adam steps at lr 1e-4: an element
 # whose gradient is ~0 may step by up to 2 lr differently per step
@@ -77,9 +107,19 @@ TRAIN_PARAM_TOL = 1e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 48, 256, 1e-4
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 
+# the Llama-3-8B engine: 8 slots of 8192 tokens in pages of 16
+LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_PAGE = 8, 8192, 16
+
+
+_T0 = time.perf_counter()
+
 
 def log(obj) -> None:
-    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+    """One line of the log; a dict gets ``t_s``, the seconds since the
+    script started."""
+    if isinstance(obj, dict):
+        obj = json.dumps(dict(obj, t_s=round(time.perf_counter() - _T0, 3)))
+    print(obj, flush=True)
 
 
 def smi_line() -> str:
@@ -283,6 +323,218 @@ def check_kernels(torch, args):
     return records
 
 
+def check_llama_kernels(torch, args):
+    """Phase 3, the Llama-3-8B serving kernels: returns {kernel name:
+    record} for RMSNorm and the int8 paged entries, and checks (and
+    times, without a record) the bf16 GQA head-dim-128 paged case."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.ops import quant
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(args.seed + 2)
+    records = {}
+    site = "distributed_tensorflow_tpu/ops/pallas/"
+
+    # --- RMSNorm at the decode tick's and the window's rows, and f32
+    d = 4096
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    rerr = 0.0
+    for rows, dtype in ((32, torch.float32), (32, torch.bfloat16),
+                        (8, torch.bfloat16)):
+        x = (torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.5).to(
+            dtype)
+        got = fused.fused_rmsnorm(x, gamma, 1e-5)
+        want = fused.rmsnorm_plain(x, gamma, 1e-5)
+        e = (got.float() - want.float()).abs().max().item()
+        tol = RMS_TOL if dtype == torch.bfloat16 else F32_TOL
+        if not e <= tol:
+            raise AssertionError(f"rmsnorm kernel disagrees ({rows}, "
+                                 f"{dtype}): {e}")
+        g_lib = gamma.to(dtype)
+        ms = time_ms(torch, lambda: fused.fused_rmsnorm(x, gamma, 1e-5),
+                     args.iters)
+        plain = time_ms(torch, lambda: fused.rmsnorm_plain(x, gamma, 1e-5),
+                        args.iters)
+        lib = time_ms(torch, lambda: F.rms_norm(x, (d,), g_lib, 1e-5),
+                      args.iters)
+        size = x.element_size()
+        b_ms, b_by = bound_ms(rows * d * size * 2 + d * 4, 4.0 * rows * d)
+        log({"check": "rmsnorm", "shape": [rows, d], "dtype": str(dtype),
+             "max_abs_err": e, "tol": tol, "kernel_ms": ms,
+             "plain_ms": plain, "library_ms": lib,
+             "library": "F.rms_norm", "bound_ms": b_ms, "bound_by": b_by})
+        if dtype == torch.bfloat16:
+            rerr = max(rerr, e)
+        if rows == 8:
+            records["rmsnorm"] = dict(
+                source="distributed_tensorflow_tpu_torch/csrc/rmsnorm.cu",
+                replaces=site + "fused.py:240", max_abs_err=rerr, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+    # --- the pool: Llama-3-8B's kv heads and head dim, pages of 16, 8
+    # slots of 8192 columns (the engine's default pool), 4 layers so the
+    # timing loop reads a cold layer each launch
+    L, h, kvh, hd, pg, S = 4, 32, 8, 128, LLAMA_PAGE, LLAMA_SLOTS
+    P = LLAMA_MAX_LEN // pg
+    NP = S * P + 1
+    view_len = P * pg
+    shape = (L, NP, pg, kvh, hd)
+    kv8, kv16 = {}, {}
+    for name in ("k", "v"):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        qt = quant.quantize_tensor(x, reduce_axes=(-1,))   # the KV write
+        kv16[name] = x
+        kv8[name], kv8[name + "_scale"] = qt.q, qt.scale
+        del x, qt
+
+    # decode: 8 rows at a realistic fill (ragged lengths up to the full
+    # 8192; row 4 starts late; row 6 retired onto the trash page)
+    perm = torch.randperm(NP - 1, generator=gen, device=dev) + 1
+    tab = perm[:S * P].reshape(S, P).to(torch.int32)
+    tab[6] = 0
+    lengths = torch.tensor([296, 1200, 2500, 4000, 700, 8192, 150, 5000],
+                           device=dev)
+    starts = torch.tensor([0, 0, 0, 0, 48, 0, 0, 0], device=dev)
+    cols = torch.arange(view_len, device=dev)[None, :]
+    valid = ((cols >= starts[:, None]) & (cols < lengths[:, None]))
+    valid = valid.contiguous()
+    q = torch.randn(S, 1, h, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    layers = iter(range(10 ** 9))
+
+    def nxt():
+        return next(layers) % L
+
+    n_valid = int(valid.sum())
+    pages = torch.unique(tab.long().repeat_interleave(pg, dim=1)[valid])
+    cells = pages.numel() * pg * kvh
+    side = 2 * S * h * hd * 2 + S * P * 4 + S * view_len
+    flops = 4.0 * n_valid * h * hd
+
+    def sdpa(qq, k, v, mask):
+        return F.scaled_dot_product_attention(
+            qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    def decode_lib(kv):
+        def fn():
+            k, v = pa.paged_layer_kv(kv, nxt(), tab)
+            return sdpa(q, k.to(q.dtype), v.to(q.dtype),
+                        valid[:, None, None, :])
+        return fn
+
+    q32 = q.float()
+    err8, err8_32, scale8 = 0.0, 0.0, 1.0
+    for layer in range(L):
+        e, sc = _err_and_scale(torch, pa.paged_decode_attention(q, kv8, layer, tab,
+                                                      valid),
+                     pa.paged_decode_attention_plain(q, kv8, layer, tab,
+                                                     valid))
+        err8, scale8 = max(err8, e), max(scale8, sc)
+    e32, sc32 = _err_and_scale(torch, pa.paged_decode_attention(q32, kv8, 1, tab,
+                                                      valid),
+                     pa.paged_decode_attention_plain(q32, kv8, 1, tab, valid))
+    log({"check": "paged_decode_int8", "shape": "q[8,1,32,128] bf16 "
+         "pool int8 [4,4097,16,8,128] + f32 scales", "max_abs_err": err8,
+         "tol": INT8_BF16_TOL * scale8, "f32_max_abs_err": e32,
+         "f32_tol": INT8_F32_TOL * sc32})
+    if not (err8 <= INT8_BF16_TOL * scale8 and e32 <= INT8_F32_TOL * sc32):
+        raise AssertionError(f"paged decode int8 kernel disagrees: {err8}, "
+                             f"f32 {e32}")
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(
+        q, kv8, nxt(), tab, valid), args.iters)
+    plain = time_ms(torch, lambda: pa.paged_decode_attention_plain(
+        q, kv8, nxt(), tab, valid), max(5, args.iters // 10))
+    lib = time_ms(torch, decode_lib(kv8), max(5, args.iters // 10))
+    b_ms, b_by = bound_ms(cells * (hd + 4) * 2 + side, flops)
+    records["paged_decode_int8"] = dict(
+        source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
+        replaces=site + "paged_attention.py:226", max_abs_err=err8, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log({"time": "paged_decode_int8", "shape": "q[8,1,32,128] bf16, int8 "
+         "pool, max_len 8192", "valid_cols": n_valid, "kernel_ms": ms,
+         "plain_ms": plain, "library_ms": lib,
+         "library": "dequant + gather + F.scaled_dot_product_attention",
+         "bound_ms": b_ms, "bound_by": b_by})
+
+    # the bf16 GQA head-dim-128 case at the same shapes: a check and a
+    # time beside the int8 branch, no record
+    e16, sc16 = _err_and_scale(torch, pa.paged_decode_attention(q, kv16, 2, tab,
+                                                      valid),
+                     pa.paged_decode_attention_plain(q, kv16, 2, tab, valid))
+    if not e16 <= DECODE_TOL:
+        raise AssertionError(f"paged decode bf16 GQA hd128 disagrees: {e16}")
+    ms16 = time_ms(torch, lambda: pa.paged_decode_attention(
+        q, kv16, nxt(), tab, valid), args.iters)
+    lib16 = time_ms(torch, decode_lib(kv16), max(5, args.iters // 10))
+    b16, _ = bound_ms(cells * hd * 2 * 2 + side, flops)
+    log({"check": "paged_decode_bf16_gqa_hd128", "shape": "q[8,1,32,128] "
+         "bf16 pool [4,4097,16,8,128] bf16", "max_abs_err": e16,
+         "tol": DECODE_TOL, "kernel_ms": ms16, "library_ms": lib16,
+         "bound_ms": b16, "int8_kernel_ms": ms, "int8_bound_ms": b_ms})
+
+    # window: one row of 32 queries after a prefix of several pages
+    row = perm[-P:].to(torch.int32).contiguous()
+    qw = torch.randn(1, 32, h, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    werr, wscale = 0.0, 1.0
+    for pos in (0, 96, 300):
+        e, sc = _err_and_scale(torch, pa.paged_window_attention(qw, kv8, 3, row, pos),
+                     pa.paged_window_attention_plain(qw, kv8, 3, row, pos))
+        werr, wscale = max(werr, e), max(wscale, sc)
+    e32, sc32 = _err_and_scale(torch, pa.paged_window_attention(qw.float(), kv8, 0,
+                                                      row, 300),
+                     pa.paged_window_attention_plain(qw.float(), kv8, 0,
+                                                     row, 300))
+    e16, _ = _err_and_scale(torch, pa.paged_window_attention(qw, kv16, 3, row, 300),
+                  pa.paged_window_attention_plain(qw, kv16, 3, row, 300))
+    log({"check": "paged_window_int8", "shape": "q[1,32,32,128] bf16, pos "
+         "0/96/300", "max_abs_err": werr, "tol": INT8_BF16_TOL * wscale,
+         "f32_max_abs_err": e32, "f32_tol": INT8_F32_TOL * sc32,
+         "bf16_pool_max_abs_err": e16, "bf16_pool_tol": WINDOW_TOL})
+    if not (werr <= INT8_BF16_TOL * wscale and e32 <= INT8_F32_TOL * sc32
+            and e16 <= WINDOW_TOL):
+        raise AssertionError(f"paged window kernels disagree: int8 {werr}, "
+                             f"f32 {e32}, bf16 pool {e16}")
+    pos = 300
+    wmask = (cols <= pos + torch.arange(32, device=dev)[:, None])[None, None]
+
+    def window_lib(kv):
+        def fn():
+            k, v = pa.paged_layer_kv(kv, nxt(), row[None, :])
+            return sdpa(qw, k.to(qw.dtype), v.to(qw.dtype), wmask)
+        return fn
+
+    ms = time_ms(torch, lambda: pa.paged_window_attention(
+        qw, kv8, nxt(), row, pos), args.iters)
+    plain = time_ms(torch, lambda: pa.paged_window_attention_plain(
+        qw, kv8, nxt(), row, pos), max(5, args.iters // 10))
+    lib = time_ms(torch, window_lib(kv8), max(5, args.iters // 10))
+    ms16 = time_ms(torch, lambda: pa.paged_window_attention(
+        qw, kv16, nxt(), row, pos), args.iters)
+    n_pages = len(set(row[:(pos + 31) // pg + 1].tolist()))
+    wside = 2 * 32 * h * hd * 2 + P * 4
+    wflops = 4.0 * sum(pos + j + 1 for j in range(32)) * h * hd
+    b_ms, b_by = bound_ms(n_pages * pg * kvh * (hd + 4) * 2 + wside, wflops)
+    b16, _ = bound_ms(n_pages * pg * kvh * hd * 2 * 2 + wside, wflops)
+    records["paged_window_int8"] = dict(
+        source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
+        replaces=site + "paged_attention.py:226", max_abs_err=werr, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log({"time": "paged_window_int8", "shape": "q[1,32,32,128] pos 300",
+         "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+         "library": "dequant + gather + F.scaled_dot_product_attention",
+         "bound_ms": b_ms, "bound_by": b_by, "bf16_pool_kernel_ms": ms16,
+         "bf16_pool_bound_ms": b16})
+    del kv8, kv16
+    torch.cuda.synchronize()
+    return records
+
+
 def _err_and_scale(torch, got, want):
     """(max |got - want| over want's finite entries, max(1, max |want|));
     the error is inf if the two disagree on which entries are finite (a
@@ -469,12 +721,11 @@ def check_train_kernels(torch, args):
     return records
 
 
-def _requests(np, seed):
+def _requests(np, seed, vocab=50257):
     """12 requests: 4 share a 256-token system prompt (the first goes in
     first, the other 3 last), 8 are independent; budgets 8-64 new
-    tokens."""
+    tokens; token ids below ``vocab``."""
     rng = np.random.default_rng(seed)
-    vocab = 50257
 
     def toks(n):
         return rng.integers(0, vocab, int(n), dtype=np.int32)
@@ -488,12 +739,12 @@ def _requests(np, seed):
     return prompts, budgets
 
 
-def run_engine(torch, model, prompts, budgets, late=0):
+def run_engine(torch, model, prompts, budgets, late=0, max_len=1024):
     """Serve ``prompts`` on a fresh engine and drain it.  The last
     ``late`` requests are submitted once the first one has its first
     token (its prompt pages are then in the radix cache)."""
     from distributed_tensorflow_tpu_torch import Engine
-    eng = Engine(model, device=model.device, num_slots=8, max_len=1024,
+    eng = Engine(model, device=model.device, num_slots=8, max_len=max_len,
                  prefill_chunk=32, tick_steps=8)
     n = len(prompts) - late
     t0 = time.perf_counter()
@@ -543,22 +794,27 @@ def check_engine(torch, np, args, smi):
          "prefill_windows_skipped": st.prefill_windows_skipped_total,
          "launches": launches, "card": smi})
     del eng
+    _row_independence(torch, model, prompts, budgets, hs)
+    return launches
 
-    # row independence: alone == in the batch == on a prefix hit
+
+def _row_independence(torch, model, prompts, budgets, hs, max_len=1024):
+    """A request's tokens alone == in the batch == on a prefix hit."""
     hit = len(prompts) - 1             # a shared-prompt request that hit
     own = 1
     for idx in (own, hit):
         _, (h,), _ = run_engine(torch, model, [prompts[idx]],
-                                [budgets[idx]])
+                                [budgets[idx]], max_len=max_len)
         if h.tokens != hs[idx].tokens:
             raise AssertionError(f"request {idx} alone differs from batch")
-    eng, _, _ = run_engine(torch, model, [prompts[0]], [budgets[0]])
+    eng, _, _ = run_engine(torch, model, [prompts[0]], [budgets[0]],
+                           max_len=max_len)
     h = eng.submit(prompts[hit], budgets[hit])
     eng.drain()
     if eng.stats().prefix_hits_total != 1 or h.tokens != hs[hit].tokens:
         raise AssertionError("prefix-hit tokens differ from the batch")
-    log({"row_independence": "ok", "checked": [own, hit]})
-    return launches
+    log({"row_independence": "ok", "vocab": model.config.vocab_size,
+         "layers": model.config.num_layers, "checked": [own, hit]})
 
 
 def check_reference(torch, np):
@@ -578,6 +834,131 @@ def check_reference(torch, np):
     if outs[0] != outs[1]:
         raise AssertionError(f"card and CPU reference disagree: {outs}")
     log({"reference": "ok", "requests": len(prompts)})
+
+
+def _llama_model(torch, args):
+    """Llama-3-8B at full width and depth, bf16 compute, int8 KV cache,
+    random weights from ``--seed``."""
+    from distributed_tensorflow_tpu_torch import GPT, llama3_8b
+    return GPT(llama3_8b(dtype=torch.bfloat16, kv_cache_dtype="int8"),
+               device="cuda",
+               generator=torch.Generator("cuda").manual_seed(args.seed))
+
+
+def check_llama_engine(torch, np, args, smi, model):
+    """Phase 9, the main path of this slice: returns the launch counts of
+    the Llama engine's run."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+
+    c = model.config
+    prompts, budgets = _requests(np, args.seed, vocab=c.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.LAUNCHES.clear()
+    fused.LAUNCHES.clear()
+    eng, hs, wall = run_engine(torch, model, prompts, budgets, late=3,
+                               max_len=LLAMA_MAX_LEN)
+    launches = {"rmsnorm": fused.LAUNCHES["rmsnorm"],
+                "paged_decode_int8": pa.LAUNCHES["paged_decode_int8"],
+                "paged_window_int8": pa.LAUNCHES["paged_window_int8"]}
+    others = {"layernorm": fused.LAUNCHES["layernorm"],
+              "paged_decode": pa.LAUNCHES["paged_decode"],
+              "paged_window": pa.LAUNCHES["paged_window"]}
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats()
+    kv = eng.scheduler._cache["kv"]
+    pool_bytes = sum(t.numel() * t.element_size() for t in kv.values())
+    bf16_pool_bytes = 2 * kv["k"].numel() * 2
+    for h, b in zip(hs, budgets):
+        if h.status != "ok" or len(h.tokens) != b:
+            raise AssertionError(f"request {h.rid}: status {h.status}, "
+                                 f"{len(h.tokens)} of {b} tokens")
+    if not st.prefix_hit_rate > 0:
+        raise AssertionError("no prefix-cache hit")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    if any(others.values()):
+        raise AssertionError(f"the Llama int8 path launched {others}")
+    ttft = sorted(h.ttft_s for h in hs)
+    n_tok = sum(len(h.tokens) for h in hs)
+    log({"engine": "llama3-8b bf16, int8 KV", "layers": c.num_layers,
+         "requests": len(hs), "prompt_tokens": int(sum(p.size
+                                                       for p in prompts)),
+         "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+         "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+         "prefix_hit_rate": st.prefix_hit_rate,
+         "prefill_windows_skipped": st.prefill_windows_skipped_total,
+         "peak_memory_gb": peak / 1e9,
+         "weights_gb": sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+         "pool_gb": pool_bytes / 1e9, "bf16_pool_gb": bf16_pool_bytes / 1e9,
+         "pool_pages": kv["k"].shape[1], "launches": launches,
+         "card": smi})
+    del eng, kv
+    _row_independence(torch, model, prompts, budgets, hs,
+                      max_len=LLAMA_MAX_LEN)
+    return launches
+
+
+def check_llama_reference(torch, np):
+    """Phase 10: a 2-layer f32 Llama with head dim 64 on the card and,
+    with the same weights, on the CPU: equal greedy tokens with an f32
+    pool; window and decode-step logits within ``INT8_REF_LOGIT_TOL``
+    with int8 pools (tokens compared and reported)."""
+    from distributed_tensorflow_tpu_torch import GPT, Engine, llama_tiny
+    from distributed_tensorflow_tpu_torch.serve import pages
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n, dtype=np.int32) for n in (5, 17, 40)]
+    toks = rng.integers(0, 512, (1, 48), dtype=np.int32)
+    for kv_cache_dtype in (None, "int8"):
+        config = llama_tiny(hidden_size=256, intermediate_size=512,
+                            kv_cache_dtype=kv_cache_dtype)
+        gpu = GPT(config, device="cuda")
+        cpu = GPT(config, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        outs, logits = [], []
+        for model, device in ((gpu, "cuda"), (cpu, "cpu")):
+            eng = Engine(model, device=device, num_slots=2, max_len=128,
+                         prefill_chunk=16, tick_steps=4)
+            outs.append(eng.generate_batch(prompts, 12))
+            # two windows, then decode steps for a live row and a retired
+            # one, straight through the model's entries
+            cache = pages.init_paged_cache(model, 2, 10, 16)
+            kv = cache["kv"]
+            row = torch.arange(1, 9, dtype=torch.int32, device=device)
+            got = []
+            for pos in (0, 32):
+                lg, kv = model.decode_window_paged(
+                    kv, torch.from_numpy(toks[:, pos:pos + 32]).to(device),
+                    row, pos)
+                got.append(lg[0])
+            tab = torch.stack([row, torch.zeros_like(row)])
+            wc = torch.tensor([64, 0], dtype=torch.int32, device=device)
+            cols = torch.arange(128, device=device)[None, :]
+            for t in range(4):
+                valid = cols < wc[:, None]
+                lg, kv = model.decode_step_slots_paged(
+                    kv, torch.tensor([7 + t, 3], dtype=torch.int32,
+                                     device=device), tab, wc, valid, wc)
+                got.append(lg)
+                wc = wc + torch.tensor([1, 0], dtype=torch.int32,
+                                       device=device)
+            logits.append([g.cpu() for g in got])
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(*logits))
+        same = outs[0] == outs[1]
+        log({"llama_reference": kv_cache_dtype or "f32 pool",
+             "tokens_equal": same, "logit_max_abs_err": err,
+             "logit_tol": INT8_REF_LOGIT_TOL if kv_cache_dtype else None})
+        if kv_cache_dtype is None and not same:
+            raise AssertionError(f"card and CPU Llama disagree: {outs}")
+        if kv_cache_dtype == "int8" and not err <= INT8_REF_LOGIT_TOL:
+            raise AssertionError(f"card and CPU Llama int8 logits differ by "
+                                 f"{err}")
 
 
 def _train_setup(torch, model, lr, seed):
@@ -734,35 +1115,47 @@ def check_train_then_serve(torch, np, model):
     log({"train_then_serve": "ok", "tokens": [len(h.tokens) for h in hs]})
 
 
-def profile_engine(torch, np, args, smi):
+def profile_engine(torch, np, args, smi, model, *, max_len=1024,
+                   name="profile", parts=None):
     """``--profile DIR``: the engine phase's requests once more under
-    ``torch.profiler``; writes the kernel table to DIR/profile.txt and
-    prints the device's busy share and the top kernels by device time."""
+    ``torch.profiler``, after a warm-up and an unprofiled run of them;
+    writes the kernel table to DIR/<name>.txt and prints the device's
+    busy share, the top kernels by device time and, given ``parts``
+    ((part, kernel-name marks), first match wins), device ms by part."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_tensorflow_tpu_torch import GPT, gpt_small
-    model = GPT(gpt_small(dtype=torch.bfloat16), device="cuda",
-                generator=torch.Generator("cuda").manual_seed(args.seed))
-    prompts, budgets = _requests(np, args.seed)
-    run_engine(torch, model, prompts[:2], budgets[:2])        # warm-up
-    _, _, plain_wall = run_engine(torch, model, prompts, budgets, late=3)
+    prompts, budgets = _requests(np, args.seed, vocab=model.config.vocab_size)
+    run_engine(torch, model, prompts[:2], budgets[:2], max_len=max_len)
+    _, _, plain_wall = run_engine(torch, model, prompts, budgets, late=3,
+                                  max_len=max_len)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_engine(torch, model, prompts, budgets, late=3)
+        _, _, wall = run_engine(torch, model, prompts, budgets, late=3,
+                                max_len=max_len)
     rows = _kernel_rows(prof)
     busy_s = sum(r[1] for r in rows) / 1e6
     os.makedirs(args.profile, exist_ok=True)
-    with open(os.path.join(args.profile, "profile.txt"), "w") as f:
+    with open(os.path.join(args.profile, f"{name}.txt"), "w") as f:
         f.write(f"{smi}\nwall_s {wall} (unprofiled {plain_wall})\n")
         for key, us, n in rows:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
-    log({"profile": {"wall_s": wall, "unprofiled_wall_s": plain_wall,
-                     "device_busy_s": busy_s,
-                     "busy_share_of_unprofiled_wall": busy_s / plain_wall,
-                     "top": [[k[:80], us / 1e3, n] for k, us, n in rows[:12]],
-                     "card": smi}})
+    result = {"wall_s": wall, "unprofiled_wall_s": plain_wall,
+              "device_busy_s": busy_s,
+              "busy_share_of_unprofiled_wall": busy_s / plain_wall,
+              "top": [[k[:80], us / 1e3, n] for k, us, n in rows[:15]],
+              "card": smi}
+    if parts:
+        by_part = {}
+        for key, us, _ in rows:
+            part = next((p for p, marks in parts
+                         if any(m in key for m in marks)),
+                        "elementwise and reductions")
+            by_part[part] = by_part.get(part, 0.0) + us / 1e3
+        result["device_ms_by_part"] = dict(sorted(by_part.items(),
+                                                  key=lambda kv: -kv[1]))
+    log({name: result})
 
 
 # kernel-name marks of the step's parts, first match wins
@@ -829,6 +1222,14 @@ def profile_training(torch, np, args, smi):
         "card": smi}})
 
 
+# kernel-name marks of the Llama engine's parts, first match wins
+_LLAMA_PARTS = (
+    ("paged attention, int8 (ours)", ("paged_attention_kernel",)),
+    ("RMSNorm (ours)", ("rmsnorm_kernel",)),
+    ("GEMMs", ("nvjet", "gemm", "Gemm", "gemv", "splitK")),
+    ("f32 -> bf16 weight casts and other copies", ("copy", "Copy")),
+)
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -868,6 +1269,7 @@ def main(argv=None) -> int:
     log({"phase": "build", "seconds": secs, "dir": str(_build.BUILD_DIR)})
 
     records = check_kernels(torch, args)
+    records.update(check_llama_kernels(torch, args))
     records.update(check_train_kernels(torch, args))
     launches = check_engine(torch, np, args, smi)
     check_reference(torch, np)
@@ -877,8 +1279,23 @@ def main(argv=None) -> int:
     check_train_reference(torch, np)
     check_train_then_serve(torch, np, model)
     del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = _llama_model(torch, args)
+    torch.cuda.synchronize()
+    log({"phase": "llama init", "seconds": time.perf_counter() - t0})
+    launches.update(check_llama_engine(torch, np, args, smi, model))
     if args.profile:
-        profile_engine(torch, np, args, smi)
+        profile_engine(torch, np, args, smi, model, max_len=LLAMA_MAX_LEN,
+                       name="profile_llama", parts=_LLAMA_PARTS)
+    del model
+    torch.cuda.empty_cache()
+    check_llama_reference(torch, np)
+    if args.profile:
+        from distributed_tensorflow_tpu_torch import GPT, gpt_small
+        profile_engine(torch, np, args, smi, GPT(
+            gpt_small(dtype=torch.bfloat16), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(args.seed)))
         profile_training(torch, np, args, smi)
 
     kernels = [dict(name=k, route="cuda", source=r["source"],
@@ -888,7 +1305,7 @@ def main(argv=None) -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
-    log({"kernels": kernels})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -6,17 +6,23 @@ driven by ``Engine`` over a KV page pool, with hand-written CUDA kernels
 for paged attention and LayerNorm.  Slice 2 is causal-LM training:
 ``GPT.lm_loss_fn``, ``adamw`` and ``make_custom_train_step``, with
 hand-written CUDA kernels for flash attention (forward, dK/dV, dQ) and
-the Adam step.  Kernels live in ``ops/kernels``, their sources in
+the Adam step.  Slice 3 serves the Llama family (``llama3_8b``) with an
+int8 KV cache, with a hand-written RMSNorm kernel and the int8 branch of
+the paged-attention kernel.  Kernels live in ``ops/kernels``, their sources in
 ``csrc/``.  Entry points run on the card unless given ``device="cpu"``.
 """
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
                              load_jax_params)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
+from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
+from .ops.quant import QTensor, dequantize_tensor, quantize_tensor
 from .optim import adam, adamw
 from .serve.engine import Engine, EngineStats, RequestHandle
 from .train import TrainState, make_custom_train_step
 
-__all__ = ["Engine", "EngineStats", "GPT", "GPTConfig", "RequestHandle",
-           "TrainState", "adam", "adamw", "gpt_params_from_jax",
-           "gpt_params_to_jax", "gpt_small", "gpt_tiny", "load_jax_params",
-           "make_custom_train_step"]
+__all__ = ["Engine", "EngineStats", "GPT", "GPTConfig", "QTensor",
+           "RequestHandle", "TrainState", "adam", "adamw",
+           "dequantize_tensor", "gpt_params_from_jax", "gpt_params_to_jax",
+           "gpt_small", "gpt_tiny", "llama2_7b", "llama3_8b", "llama_config",
+           "llama_tiny", "load_jax_params", "make_custom_train_step",
+           "quantize_tensor"]

@@ -8,7 +8,8 @@
 //
 // Layouts (the JAX package's, unchanged):
 //   q         [B, sq, h, hd]            bf16 or f32, hd 64 or 128
-//   k/v pool  [L, NP, pg, kvh, hd]      same type as q
+//   k/v pool  [L, NP, pg, kvh, hd]      q's type, or int8 (the int8 branch)
+//   k/v scale [L, NP, pg, kvh, 1] f32   int8 branch only; NULL otherwise
 //   page_tab  [B, P] int32              row b's logical page j -> pool page
 //   valid     [B, P * pg] uint8 (bool)  decode only; NULL for the window
 //   out       [B, sq, h, hd]            q's type
@@ -50,7 +51,27 @@
 // (split-K across blocks would fill them), and the arithmetic runs on the
 // CUDA cores, not wgmma.
 //
-// The int8 pool (scale planes) is not handled here; the wrapper refuses it.
+// The int8 branch replaces the Pallas body's `quantized` path
+// (paged_attention.py:92-118): K/V are int8 with one f32 scale per
+// (token, kv head) in the pool's k_scale/v_scale planes, dequantized at
+// the operand in f32.  It is a third element type of the same design: a
+// column of one leaf is hd bytes (eight 16-byte cp.async copies at hd
+// 128) and its scale one f32, copied with a 4-byte cp.async.ca into the
+// same stage.  The scales are folded rather than multiplied into each
+// element: the k scale into the logit, `s = (q . k_int8) * k_scale *
+// scale`, and the v scale into the softmax weight that multiplies V,
+// `acc += (p * v_scale) * v_int8`, while the softmax sum l takes p alone.
+// That equals the Pallas `q . (k * k_scale)` and `p . (v * v_scale)` up
+// to f32 rounding order.  Cells never written have scale 0 and
+// dequantize to 0; they are masked anyway.  What bounds the branch is
+// bytes too: (hd + 4) bytes per column per leaf against 2 * hd in bf16,
+// so its bound is about 0.52x the bf16 branch's at hd 128.  Measured on
+// an H100 80GB HBM3 (700 W) at Llama-3-8B's decode shape (8 rows of up
+// to 8192 columns, 32 query / 8 kv heads): 0.51 ms against a 0.014 ms
+// byte bound, and no faster than the bf16 branch: a long row's block
+// walks 256 sub-tiles with one warp per scheduler, each sub-tile a chain
+// of dependent shared loads, shuffles and FMAs, so latency binds first.
+// Split-K across blocks is the next step for both branches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,6 +104,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -106,6 +132,15 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f,
   }
 }
 
+__device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -119,13 +154,17 @@ from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int HD>
+// KT: the pool's element type, T (q's type) or int8_t
+template <typename KT, int HD>
 struct Shape {
-  static constexpr int kVec = 16 / sizeof(T);     // elements per 16 bytes
+  static constexpr bool kQuant = sizeof(KT) == 1;
+  static constexpr int kVec = 16 / sizeof(KT);    // elements per 16 bytes
   static constexpr int kChunks = HD / kVec;       // 16-byte chunks per column
-  static constexpr int kRow = HD * sizeof(T) + 16;  // padded smem row bytes
+  static constexpr int kRow = HD * sizeof(KT) + 16;  // padded smem row bytes
   static constexpr int kDpl = HD / 32;            // dims per lane in P @ V
-  static constexpr size_t kStage = 2ull * 32 * kRow;  // K and V, 32 columns
+  // K and V rows of 32 columns, then (int8) their 32 + 32 f32 scales
+  static constexpr size_t kKV = 2ull * 32 * kRow;
+  static constexpr size_t kStage = kKV + (kQuant ? 2 * 32 * sizeof(float) : 0);
   static size_t smem(int n_sub) {
     return sizeof(float) * (kQB * HD                  // q
                             + kWarps * kQB * 32       // p of each warp
@@ -135,14 +174,15 @@ struct Shape {
   }
 };
 
-template <typename T, int HD, bool kWindow>
+template <typename T, typename KT, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int32_t* __restrict__ page_tab,
+    const T* __restrict__ q, const KT* __restrict__ k_pool,
+    const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ page_tab,
     const uint8_t* __restrict__ valid, T* __restrict__ out, int sq, int h,
     int kvh, int num_pages, int page_size, int pages_per_row, int layer,
     int pos, float scale) {
-  using S = Shape<T, HD>;
+  using S = Shape<KT, HD>;
   const int b = blockIdx.x / kvh;
   const int g = blockIdx.x % kvh;
   const int group = h / kvh;
@@ -209,23 +249,34 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   // lane `lane` copies column 32 * t + lane of sub-tile t into stage st
   auto issue = [&](int t, int st) {
-    unsigned char* ks = my_stages + st * S::kStage + lane * S::kRow;
+    unsigned char* stage = my_stages + st * S::kStage;
+    unsigned char* ks = stage + lane * S::kRow;
     unsigned char* vs = ks + 32 * S::kRow;
+    float* kscl = reinterpret_cast<float*>(stage + S::kKV);
     const int col = t * 32 + lane;
     if (col < view_len) {
       const int page = page_tab[(int64_t)b * pages_per_row + col / page_size];
-      const int64_t e = (((layer_pages + page) * page_size + col % page_size)
-                         * kvh + g) * HD;
+      const int64_t cell = ((layer_pages + page) * page_size + col % page_size)
+                           * kvh + g;
+      const int64_t e = cell * HD;
 #pragma unroll
       for (int k = 0; k < S::kChunks; ++k) {
         cp_async16(ks + 16 * k, k_pool + e + k * S::kVec);
         cp_async16(vs + 16 * k, v_pool + e + k * S::kVec);
+      }
+      if constexpr (S::kQuant) {
+        cp_async4(kscl + lane, k_scale + cell);
+        cp_async4(kscl + 32 + lane, v_scale + cell);
       }
     } else {
 #pragma unroll
       for (int k = 0; k < S::kChunks; ++k) {
         *reinterpret_cast<uint4*>(ks + 16 * k) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(vs + 16 * k) = make_uint4(0, 0, 0, 0);
+      }
+      if constexpr (S::kQuant) {
+        kscl[lane] = 0.f;
+        kscl[32 + lane] = 0.f;
       }
     }
   };
@@ -261,6 +312,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
     for (int k = 0; k < S::kChunks; ++k)
       kr[k] = *reinterpret_cast<const uint4*>(ks + lane * S::kRow + 16 * k);
+    // int8: this lane's column's scales (0 for a column past the view)
+    float k_sc = 1.f, v_sc = 1.f;
+    if constexpr (S::kQuant) {
+      const float* scl = reinterpret_cast<const float*>(ks + S::kKV);
+      k_sc = scl[lane];
+      v_sc = scl[32 + lane];
+    }
 
 #pragma unroll
     for (int qi = 0; qi < kQB; ++qi) {
@@ -270,11 +328,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
       for (int k = 0; k < S::kChunks; ++k) {
         float kf[S::kVec];
-        unpack(kr[k], kf, T());
+        unpack(kr[k], kf, KT());
 #pragma unroll
         for (int v = 0; v < S::kVec; ++v)
           s = fmaf(qrow[k * S::kVec + v], kf[v], s);
       }
+      if constexpr (S::kQuant) s = s * k_sc;
       s = s * scale;
       s = s + valid_add;
       if (kWindow) {
@@ -290,11 +349,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       m[qi] = m_new;
 #pragma unroll
       for (int e = 0; e < S::kDpl; ++e) acc[qi][e] *= alpha;
-      my_p[qi * 32 + lane] = p;
+      my_p[qi * 32 + lane] = S::kQuant ? p * v_sc : p;
     }
     __syncwarp();
     for (int c = 0; c < 32; ++c) {
-      const T* vrow = reinterpret_cast<const T*>(vs + c * S::kRow);
+      const KT* vrow = reinterpret_cast<const KT*>(vs + c * S::kRow);
       float vv[S::kDpl];
 #pragma unroll
       for (int e = 0; e < S::kDpl; ++e)
@@ -343,16 +402,21 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename T, int HD>
-size_t smem_bytes(int view_len) { return Shape<T, HD>::smem((view_len + 31) / 32); }
+template <typename KT, int HD>
+size_t smem_bytes(int view_len) { return Shape<KT, HD>::smem((view_len + 31) / 32); }
 
-template <typename T, int HD, bool kWindow>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* page_tab, const void* valid, void* out, int B, int sq,
-           int h, int kvh, int num_pages, int page_size, int pages_per_row,
-           int layer, int pos, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, HD>(pages_per_row * page_size);
-  auto kernel = paged_attention_kernel<T, HD, kWindow>;
+struct Args {
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_tab, *valid;
+  void* out;
+  int B, sq, h, kvh, num_pages, page_size, pages_per_row, layer, pos;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KT, int HD, bool kWindow>
+int launch(const Args& a) {
+  const size_t smem = smem_bytes<KT, HD>(a.pages_per_row * a.page_size);
+  auto kernel = paged_attention_kernel<T, KT, HD, kWindow>;
   // raise the dynamic shared memory cap once per instantiation to what
   // the largest launch so far needs
   static size_t cap = 48 * 1024;
@@ -362,29 +426,35 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return (int)err;
     cap = smem;
   }
-  const int nq = sq * (h / kvh);
-  const dim3 grid(B * kvh, (nq + kQB - 1) / kQB);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_tab),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), sq, h, kvh,
-      num_pages, page_size, pages_per_row, layer, pos, scale);
+  const int nq = a.sq * (a.h / a.kvh);
+  const dim3 grid(a.B * a.kvh, (nq + kQB - 1) / kQB);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.k_pool),
+      static_cast<const KT*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale),
+      static_cast<const int32_t*>(a.page_tab),
+      static_cast<const uint8_t*>(a.valid), static_cast<T*>(a.out), a.sq, a.h,
+      a.kvh, a.num_pages, a.page_size, a.pages_per_row, a.layer, a.pos,
+      a.scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename KT, int HD>
+int dispatch(int window, const Args& a) {
+  return window ? launch<T, KT, HD, true>(a) : launch<T, KT, HD, false>(a);
+}
+
 template <typename T, int HD>
-int dispatch(int window, const void* q, const void* k_pool,
-             const void* v_pool, const void* page_tab, const void* valid,
-             void* out, int B, int sq, int h, int kvh, int num_pages,
-             int page_size, int pages_per_row, int layer, int pos,
-             float scale, cudaStream_t s) {
-  return window
-      ? launch<T, HD, true>(q, k_pool, v_pool, page_tab, valid, out, B, sq,
-                            h, kvh, num_pages, page_size, pages_per_row,
-                            layer, pos, scale, s)
-      : launch<T, HD, false>(q, k_pool, v_pool, page_tab, valid, out, B, sq,
-                             h, kvh, num_pages, page_size, pages_per_row,
-                             layer, pos, scale, s);
+int dispatch_kv(int kv_int8, int window, const Args& a) {
+  return kv_int8 ? dispatch<T, int8_t, HD>(window, a)
+                 : dispatch<T, T, HD>(window, a);
+}
+
+template <int HD>
+size_t smem_for(int is_bf16, int kv_int8, int view_len) {
+  if (kv_int8) return smem_bytes<int8_t, HD>(view_len);
+  return is_bf16 ? smem_bytes<__nv_bfloat16, HD>(view_len)
+                 : smem_bytes<float, HD>(view_len);
 }
 
 }  // namespace
@@ -393,34 +463,34 @@ extern "C" {
 
 // Shared memory one block needs (bytes), 0 for an unsupported head_dim;
 // the wrapper refuses shapes over the 227 KB a block may use.
-size_t paged_attention_smem_bytes(int is_bf16, int hd, int view_len) {
-  if (hd == 64)
-    return is_bf16 ? smem_bytes<__nv_bfloat16, 64>(view_len)
-                   : smem_bytes<float, 64>(view_len);
-  if (hd == 128)
-    return is_bf16 ? smem_bytes<__nv_bfloat16, 128>(view_len)
-                   : smem_bytes<float, 128>(view_len);
+size_t paged_attention_smem_bytes(int is_bf16, int kv_int8, int hd,
+                                  int view_len) {
+  if (hd == 64) return smem_for<64>(is_bf16, kv_int8, view_len);
+  if (hd == 128) return smem_for<128>(is_bf16, kv_int8, view_len);
   return 0;
 }
 
+// kv_int8 = 1: k_pool/v_pool are int8 and k_scale/v_scale the f32 scale
+// planes; else the pool is in q's type and the scale pointers are NULL.
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for an unsupported head_dim.
 int paged_attention_forward(const void* q, const void* k_pool,
-                            const void* v_pool, const void* page_tab,
+                            const void* v_pool, const void* k_scale,
+                            const void* v_scale, const void* page_tab,
                             const void* valid, void* out, int is_bf16,
-                            int window, int B, int sq, int h, int kvh, int hd,
-                            int num_pages, int page_size, int pages_per_row,
-                            int layer, int pos, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_ARGS window, q, k_pool, v_pool, page_tab, valid, out, B, sq, h, \
-    kvh, num_pages, page_size, pages_per_row, layer, pos, scale, s
+                            int kv_int8, int window, int B, int sq, int h,
+                            int kvh, int hd, int num_pages, int page_size,
+                            int pages_per_row, int layer, int pos,
+                            float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, page_tab, valid, out,
+               B, sq, h, kvh, num_pages, page_size, pages_per_row, layer, pos,
+               scale, static_cast<cudaStream_t>(stream)};
   if (hd == 64)
-    return is_bf16 ? dispatch<__nv_bfloat16, 64>(PA_ARGS)
-                   : dispatch<float, 64>(PA_ARGS);
+    return is_bf16 ? dispatch_kv<__nv_bfloat16, 64>(kv_int8, window, a)
+                   : dispatch_kv<float, 64>(kv_int8, window, a);
   if (hd == 128)
-    return is_bf16 ? dispatch<__nv_bfloat16, 128>(PA_ARGS)
-                   : dispatch<float, 128>(PA_ARGS);
-#undef PA_ARGS
+    return is_bf16 ? dispatch_kv<__nv_bfloat16, 128>(kv_int8, window, a)
+                   : dispatch_kv<float, 128>(kv_int8, window, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,11 @@
 The JAX tree (``distributed_tensorflow_tpu/models/gpt.py GPT.init``) is
 ``{"embeddings": {"word", "position"}, "decoder": {...}, "ln_f": {...}}``
 with every ``decoder`` leaf stacked over layers (leading axis ``L``, the
-``vmap`` layout).  The caller hands it over as numpy arrays (for
-example ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
+``vmap`` layout).  A Llama tree (``models/llama.py``) has no
+``position``, ``beta`` or ``bias`` leaves, a ``w_gate`` in every FFN and
+a top-level ``lm_head`` [vocab, d].  The caller hands it over as numpy
+arrays (for example ``jax.tree.map(np.asarray, params)``); nothing here
+imports JAX.
 Weights stay float32, as in the JAX package.  ``gpt_params_to_jax`` goes
 the other way, and since gradients and Adam moments are params-shaped
 dicts under the same names, it carries them too.
@@ -20,8 +23,8 @@ from .gpt import GPT, GPTConfig
 
 __all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params"]
 
-# JAX tree keys that name port configurations this slice does not run
-_UNPORTED = ("lm_head", "moe", "w_gate")
+# JAX tree keys that name configurations the port does not run yet
+_UNPORTED = ("moe",)
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -40,15 +43,13 @@ def gpt_params_from_jax(tree: Dict[str, Any],
     """The port's ``GPT`` state dict from a JAX GPT parameter tree whose
     leaves are numpy arrays."""
     for key in tree:
-        if key not in ("embeddings", "decoder", "ln_f"):
+        if key not in ("embeddings", "decoder", "ln_f", "lm_head"):
             raise ValueError(f"parameter {key!r} belongs to a GPT "
                              "configuration the port does not run yet")
-    emb = tree["embeddings"]
-    if "position" not in emb:
-        raise ValueError("the port runs learned positions only")
-    sd = {"word": emb["word"], "position": emb["position"],
-          "ln_f.gamma": tree["ln_f"]["gamma"],
-          "ln_f.beta": tree["ln_f"]["beta"]}
+    sd = dict(tree["embeddings"])                  # word (and position)
+    sd.update((f"ln_f.{k}", v) for k, v in tree["ln_f"].items())
+    if "lm_head" in tree:
+        sd["lm_head"] = tree["lm_head"]
     for path, leaf in _flatten(tree["decoder"]):
         if leaf.shape[0] != config.num_layers:
             raise ValueError(f"decoder leaf {path} leads with "
@@ -73,6 +74,8 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor],
         head, _, rest = name.partition(".")
         if name in ("word", "position"):
             tree["embeddings"][name] = leaf
+        elif name == "lm_head" and not config.tied_head:
+            tree["lm_head"] = leaf
         elif head == "ln_f" and rest in ("gamma", "beta"):
             tree["ln_f"][rest] = leaf
         elif head == "blocks":

@@ -3,8 +3,10 @@
 Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``, the parts
 the port's paths run: ``NEG_INF``, ``causal_mask``,
 ``dot_product_attention`` (with the grouped-query contraction),
-``attention_core`` (projections, the swappable inner kernel, dropout on
-the context, out projection) and ``ffn_core``.  Layouts are the JAX
+``attention_core`` (projections, an optional q/k transform such as RoPE,
+the swappable inner kernel, dropout on the context, out projection),
+the RoPE tables (``rope_tables``, ``apply_rope``, ``rotary_embedding``),
+``ffn_core`` (gelu) and ``ffn_swiglu_core`` (Llama).  Layouts are the JAX
 package's: q/k/v ``[batch, seq, heads, head_dim]``, projection kernels
 ``[d, heads, head_dim]`` and ``[heads, head_dim, d]``; masks are additive
 (0 / ``NEG_INF``).
@@ -16,13 +18,14 @@ JAX package.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "affine", "attention_core", "causal_mask", "dropout",
-           "dot_product_attention", "ffn_core", "project"]
+__all__ = ["NEG_INF", "affine", "apply_rope", "attention_core", "causal_mask",
+           "dropout", "dot_product_attention", "ffn_core", "ffn_swiglu_core",
+           "project", "rope_tables", "rotary_embedding"]
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined in f32
 
@@ -95,14 +98,17 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
                    dropout_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
                    train: bool = False,
-                   attention_fn=dot_product_attention) -> torch.Tensor:
+                   attention_fn=dot_product_attention,
+                   qk_transform: Optional[Callable] = None) -> torch.Tensor:
     """The shared multi-head attention body.
 
     ``params``: {query, key, value: {kernel [d, h, hd], bias [h, hd]},
     out: {kernel [h, hd, d], bias [d]}} (a missing bias is skipped).
     ``attention_fn(q, k, v, mask=...)`` is the inner kernel: the dense
     ``dot_product_attention`` or the flash kernel
-    (``ops.kernels.flash_attention.make_flash_attention_fn``).  Grouped
+    (``ops.kernels.flash_attention.make_flash_attention_fn``).
+    ``qk_transform(q, k) -> (q, k)`` runs after the projections (RoPE).
+    Grouped
     kv heads are broadcast only for a kernel that does not take them
     (``supports_gqa``).  Dropout, in train mode, drops the context."""
     def proj(name, src):
@@ -110,6 +116,8 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
         return project(p["kernel"], p.get("bias"), src)
 
     q, k, v = proj("query", x), proj("key", x), proj("value", x)
+    if qk_transform is not None:
+        q, k = qk_transform(q, k)
     if (k.shape[2] != q.shape[2]
             and attention_fn is not dot_product_attention
             and not getattr(attention_fn, "supports_gqa", False)):
@@ -142,3 +150,49 @@ def ffn_core(w_in, b_in, w_out, b_out, x: torch.Tensor) -> torch.Tensor:
     approximation, so this is ``F.gelu(approximate="tanh")``."""
     h = F.gelu(affine(w_in, b_in, x), approximate="tanh")
     return affine(w_out, b_out, h)
+
+
+def ffn_swiglu_core(w_gate, b_gate, w_in, b_in, w_out, b_out,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Gated FFN (Llama): ``w_out(silu(w_gate(x)) * w_in(x))``; ``w_in``
+    is HF's up_proj, ``w_gate`` gate_proj, ``w_out`` down_proj.  Biases
+    may be None."""
+    h = F.silu(affine(w_gate, b_gate, x)) * affine(w_in, b_in, x)
+    return affine(w_out, b_out, h)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                base: float = 10000.0):
+    """(cos, sin) f32 tables for RoPE, shaped to broadcast against [b, s,
+    h, hd/2]: positions [s] give [1, s, 1, hd/2], positions [b, s] give
+    [b, s, 1, hd/2].  Build once per forward and share across layers.
+    The frequencies are computed on the CPU, so every device rotates by
+    the same f32 angles."""
+    if head_dim % 2:
+        raise ValueError(f"RoPE needs an even head_dim, got {head_dim}")
+    half = head_dim // 2
+    freqs = torch.pow(base, -torch.arange(half, dtype=torch.float32) / half)
+    angles = positions.float()[..., None] * freqs.to(positions.device)
+    if angles.ndim == 2:
+        angles = angles[None, :, None, :]
+    else:
+        angles = angles[:, :, None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x [b, s, h, hd] by the tables (rotate-half convention, as
+    HF Llama): f32 arithmetic, cast back to x's type."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
+                     base: float = 10000.0) -> torch.Tensor:
+    """RoPE of x [b, s, h, hd] at ``positions`` [s] or [b, s] in one call."""
+    cos, sin = rope_tables(positions, x.shape[-1], base)
+    return apply_rope(x, cos, sin)

@@ -1,4 +1,4 @@
-"""LayerNorm and one Adam(W) step: CUDA kernels and plain versions.
+"""LayerNorm, RMSNorm and one Adam(W) step: CUDA kernels and plain versions.
 
 LayerNorm replaces the Pallas kernel ``_layernorm_forward`` of
 ``distributed_tensorflow_tpu/ops/pallas/fused.py`` (body
@@ -9,21 +9,30 @@ recomputes through the plain version under autograd, as the JAX
 ``_layernorm_bwd`` takes ``jax.vjp`` of its XLA reference: the JAX
 package has no backward kernel, so neither has the port.
 
+RMSNorm (the Llama block norm) replaces the Pallas kernel
+``_rmsnorm_forward`` of the same file (body ``_rmsnorm_kernel``),
+reached there through ``fused_rmsnorm``.  The kernel is
+``csrc/rmsnorm.cu``: one thread block per row, 16-byte loads, an f32 sum
+of squares by warp shuffles and a block reduction, output in the
+input's type.  Its backward recomputes through ``rmsnorm_plain`` under
+autograd, as the JAX ``_rmsnorm_bwd`` takes ``jax.vjp`` of its reference.
+
 ``fused_adam_update`` replaces the Pallas kernel of the same name (body
 ``_adam_kernel``).  The kernel is ``csrc/adam.cu``: one elementwise pass
 over the flat f32 tensor, four streams in and three out, 16-byte loads;
 the bias correction is folded into ``lr_t``/``eps_t`` on the host, and
 the outputs may be the inputs' own buffers (an in-place update).
 
-What bounds both on the H100: bytes.  LayerNorm reads x once and writes
-the output once; at the serving path's 8 to 256 rows of d = 768 the
-launch itself dominates.  Adam moves 28 bytes per element for about 12
+What bounds all three on the H100: bytes.  The norms read x once and
+write the output once; at the serving paths' 8 to 256 rows of d = 768
+(LayerNorm) and 8 or 32 rows of d = 4096 (RMSNorm) the launch itself
+dominates.  Adam moves 28 bytes per element for about 12
 flops.
 
 Dispatch is by the tensor's device: the plain version (the f32 formulas
 of the JAX package, not ``F.layer_norm`` or ``torch.optim``) for a CPU
 tensor, the kernel or an exception for a CUDA tensor.  ``LAUNCHES``
-counts kernel launches ("layernorm", "adam").
+counts kernel launches ("layernorm", "rmsnorm", "adam").
 """
 from __future__ import annotations
 
@@ -37,9 +46,9 @@ import torch
 from . import _build
 
 __all__ = ["LAUNCHES", "adam_plain", "fused_adam_update", "fused_layernorm",
-           "layernorm_plain"]
+           "fused_rmsnorm", "layernorm_plain", "rmsnorm_plain"]
 
-# kernel launches ("layernorm", "adam")
+# kernel launches ("layernorm", "rmsnorm", "adam")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -106,6 +115,73 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
     return _LayerNorm.apply(x, gamma, beta, float(eps))
+
+
+# ------------------------------------------------------------- RMSNorm
+
+def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * gamma`` in f32, output in x's type
+    (the JAX package's ``_rmsnorm_reference``)."""
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * inv * gamma.float()).to(x.dtype)
+
+
+def _rmsnorm_launch(x, gamma, eps):
+    d = x.shape[-1]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or f32; got {x.dtype}")
+    if gamma.device != x.device or gamma.dtype != torch.float32 \
+            or gamma.shape != (d,) or not gamma.is_contiguous():
+        raise ValueError(f"gamma must be a contiguous f32 [{d}] on "
+                         f"{x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    fn = _build.load("rmsnorm").rmsnorm_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    vec = int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    rc = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16), rows, d, float(eps), vec,
+            _build.stream_ptr(x))
+    _build.check(rc, "rmsnorm_forward")
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Kernel forward; backward through ``rmsnorm_plain`` recomputed
+    under autograd (residuals x and gamma, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rmsnorm_launch(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (x, gamma)]
+            y = rmsnorm_plain(*inputs, ctx.eps)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None)
+
+
+def fused_rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of x [..., d] with an f32 gamma [d]; differentiable."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, gamma, eps)
+    return _RMSNorm.apply(x, gamma, float(eps))
 
 
 # ---------------------------------------------------------------- Adam

@@ -4,7 +4,9 @@ the serving tier, in PyTorch.
 Counterpart of ``distributed_tensorflow_tpu/serve/pages.py``.
 
 * **Device** (torch): one pool of ``num_pages`` pages per K/V leaf,
-  ``[L, num_pages, page_size, kv_heads, head_dim]``, plus the per-slot
+  ``[L, num_pages, page_size, kv_heads, head_dim]`` (int8 under
+  ``kv_cache_dtype="int8"``, beside f32 ``k_scale``/``v_scale`` planes
+  ``[L, num_pages, page_size, kv_heads, 1]``), plus the per-slot
   LOGICAL column state (``start_col``/``write_col``/``positions``).
   Page 0 is the reserved TRASH page: retired rows' frozen writes and
   prefill pad columns land there, and no validity mask ever admits its
@@ -28,8 +30,8 @@ re-prefills its last page into a private copy (the COW split,
 The pool also keeps a bounded digest of its hot chains (chain hash ->
 cached tokens, ``fingerprint``), updated where the tree changes.
 
-Not ported yet: the int8 scale planes and the export/page-wire lease
-handoff (``handoff``, ``chain_pages``).
+Not ported yet: the export/page-wire lease handoff (``handoff``,
+``chain_pages``).
 """
 from __future__ import annotations
 
@@ -97,13 +99,25 @@ def init_paged_cache(model, num_slots: int, num_pages: int,
                      page_size: int):
     """Device state for a paged slot cache on the model's device: the
     page-pool K/V leaves ``[L, num_pages, page_size, kv_heads,
-    head_dim]`` in the model dtype, plus per-slot int32 column state
-    (``start_col``/``write_col``/``positions`` stay LOGICAL columns)."""
+    head_dim]`` in the model dtype, or under ``kv_cache_dtype="int8"``
+    int8 leaves and the f32 ``k_scale``/``v_scale`` planes ``[...,
+    kv_heads, 1]`` (all zero: an unwritten cell dequantizes to 0), plus
+    per-slot int32 column state (``start_col``/``write_col``/``positions``
+    stay LOGICAL columns)."""
     c = model.config
     dev = model.device
     shape = (c.num_layers, num_pages, page_size, c.kv_heads, c.head_dim)
-    kv = {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
-          "v": torch.zeros(shape, dtype=c.dtype, device=dev)}
+    if c.kv_cache_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        kv = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+              "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+              "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                     device=dev),
+              "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                     device=dev)}
+    else:
+        kv = {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+              "v": torch.zeros(shape, dtype=c.dtype, device=dev)}
 
     def col():
         return torch.zeros((num_slots,), dtype=torch.int32, device=dev)

@@ -59,3 +59,59 @@ def test_cpu_wrapper_launches_nothing():
     assert torch.equal(out, tfused.layernorm_plain(x, torch.ones(32),
                                                    torch.zeros(32)))
     assert dict(tfused.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape", [(32, 4096), (8, 4096), (2, 3, 128)],
+                         ids=["window", "decode", "3d"])
+def test_rmsnorm_matches_pallas_kernel(shape):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape, dtype=np.float32) * 3 + 0.5
+    gamma = rng.standard_normal(shape[-1], dtype=np.float32)
+    want = jfused.fused_rmsnorm(jnp.asarray(x), jnp.asarray(gamma), eps=1e-5)
+    got = tfused.fused_rmsnorm(torch.from_numpy(x), torch.from_numpy(gamma),
+                               eps=1e-5)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_rmsnorm_bf16_output_type_and_agreement():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((8, 4096), dtype=np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(4096)).astype(np.float32)
+    want = jfused.fused_rmsnorm(jnp.asarray(x, jnp.bfloat16),
+                                jnp.asarray(gamma))
+    got = tfused.fused_rmsnorm(torch.from_numpy(x).to(torch.bfloat16),
+                               torch.from_numpy(gamma))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2 ** -6,
+                               rtol=0)
+
+
+def test_rmsnorm_gradient_matches_jax():
+    """The backward recomputes through the plain version, as the JAX
+    ``_rmsnorm_bwd`` takes the vjp of its reference."""
+    import jax
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 64), dtype=np.float32)
+    gamma = rng.standard_normal(64, dtype=np.float32)
+    g = rng.standard_normal((6, 64), dtype=np.float32)
+    _, vjp = jax.vjp(lambda a, b: jfused.fused_rmsnorm(a, b, eps=1e-5),
+                     jnp.asarray(x), jnp.asarray(gamma))
+    want_dx, want_dg = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    tg = torch.from_numpy(gamma).requires_grad_()
+    tfused.fused_rmsnorm(tx, tg, eps=1e-5).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tg.grad.numpy(), np.asarray(want_dg),
+                               atol=1e-5, rtol=0)
+
+
+def test_rmsnorm_cpu_wrapper_launches_nothing():
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(1))
+    before = dict(tfused.LAUNCHES)
+    out = tfused.fused_rmsnorm(x, torch.ones(32))
+    assert torch.equal(out, tfused.rmsnorm_plain(x, torch.ones(32)))
+    assert dict(tfused.LAUNCHES) == before

@@ -31,7 +31,9 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 14
+    assert len(modules) >= 16
+    assert {f"{port.__name__}.ops.quant", f"{port.__name__}.models.llama",
+            f"{port.__name__}.ops.kernels.fused"} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:

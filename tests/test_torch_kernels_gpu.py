@@ -10,14 +10,20 @@ is held relative to the output's scale, ``max|got - want| <= tol *
 max(1, max|want|)``: f32 1e-4 (summation order), bf16 1e-2 (both sides
 compute in f32 from the same bf16 inputs and round once, so they differ
 by about one bf16 ulp, 2**-8 relative).  Adam: f32 1e-6 absolute plus
-1e-5 relative (the kernel may contract a multiply-add).
+1e-5 relative (the kernel may contract a multiply-add).  RMSNorm: as
+LayerNorm.  Paged attention over an int8 pool is held relative to the
+output's scale as flash is: f32 queries 1e-4 (the kernel folds each
+scale into the logit and the softmax weight instead of multiplying every
+element: another f32 rounding order), bf16 queries 1e-2 (both sides
+dequantize and attend in f32 and round once to bf16).
 """
 import numpy as np
 import pytest
 import torch
 
 from distributed_tensorflow_tpu_torch import (GPT, Engine, TrainState, adamw,
-                                              gpt_tiny, make_custom_train_step)
+                                              gpt_tiny, llama_tiny,
+                                              make_custom_train_step)
 from distributed_tensorflow_tpu_torch.ops.kernels import flash_attention as fa
 from distributed_tensorflow_tpu_torch.ops.kernels import fused
 from distributed_tensorflow_tpu_torch.ops.kernels import paged_attention as pa
@@ -276,3 +282,150 @@ def test_training_on_card_matches_cpu_and_launches_the_kernels(cuda):
     np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-4, rtol=0)
     for k in p_cpu:
         torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(32, 4096), (8, 4096), (5, 7, 128),
+                                   (3, 100)], ids=["window", "decode", "3d",
+                                                   "unaligned"])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, shape):
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn(*shape, generator=gen) * 2 + 1).to(dtype).to(cuda)
+    gamma = torch.randn(shape[-1], generator=gen).to(cuda)
+    before = fused.LAUNCHES["rmsnorm"]
+    got = fused.fused_rmsnorm(x, gamma, 1e-5)
+    want = fused.rmsnorm_plain(x, gamma, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_rmsnorm_kernel_gradient_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(5, 7, 128, generator=gen).to(cuda).requires_grad_()
+    gamma = torch.randn(128, generator=gen).to(cuda).requires_grad_()
+    dy = torch.randn(5, 7, 128, generator=gen).to(cuda)
+    got = torch.autograd.grad(fused.fused_rmsnorm(x, gamma, 1e-5),
+                              (x, gamma), dy)
+    want = torch.autograd.grad(fused.rmsnorm_plain(x, gamma, 1e-5),
+                               (x, gamma), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _int8_pool(gen, device, L=2, NP=40, pg=16, kvh=2, hd=64):
+    """int8 values and per-(token, kv head) scales as the serving write
+    leaves them (amax / 127 of values of about unit scale); page 39 is
+    left unwritten: values and scales 0."""
+    shape = (L, NP, pg, kvh, hd)
+    kv = {}
+    for name in ("k", "v"):
+        q = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+        sc = 0.01 + 0.02 * torch.rand(shape[:-1] + (1,), generator=gen)
+        q[:, 39] = 0
+        sc[:, 39] = 0.0
+        kv[name], kv[name + "_scale"] = q.to(device), sc.to(device)
+    return kv
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_int8_decode_kernel_matches_plain(cuda, dtype, tol, hd):
+    gen = torch.Generator().manual_seed(10)
+    S, P, pg, kvh, group = 5, 8, 16, 2, 4
+    kv = _int8_pool(gen, cuda, hd=hd)
+    q = torch.randn(S, 1, kvh * group, hd, generator=gen).to(dtype).to(cuda)
+    tab = torch.randint(1, 40, (S, P), generator=gen, dtype=torch.int32)
+    tab[2] = 0                                   # wholly the trash page
+    tab[4, 1] = 39                               # an unwritten page
+    cols = torch.arange(P * pg)[None, :]
+    valid = (cols >= torch.tensor([[0], [5], [0], [0], [3]])) \
+        & (cols < torch.tensor([[37], [70], [9], [128], [100]]))
+    valid[3] = False                             # no valid column at all
+    tab, valid = tab.to(cuda), valid.to(cuda)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_decode_attention(q, kv, 1, tab, valid)
+    want = pa.paged_decode_attention_plain(q, kv, 1, tab, valid)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode_int8"] \
+        == before.get("paged_decode_int8", 0) + 1
+    assert pa.LAUNCHES["paged_decode"] == before.get("paged_decode", 0)
+    assert got.dtype == dtype
+    assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pos", [0, 40, 97])
+def test_paged_int8_window_kernel_matches_plain(cuda, dtype, tol, hd, pos):
+    gen = torch.Generator().manual_seed(11)
+    kv = _int8_pool(gen, cuda, hd=hd)
+    q = torch.randn(1, 32, 8, hd, generator=gen).to(dtype).to(cuda)
+    row = torch.randint(1, 40, (8,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    before = pa.LAUNCHES["paged_window_int8"]
+    got = pa.paged_window_attention(q, kv, 0, row, pos)
+    want = pa.paged_window_attention_plain(q, kv, 0, row, pos)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_window_int8"] == before + 1
+    assert _rel_err(got, want) <= tol
+
+
+def test_paged_kernel_refuses_a_mixed_pool(cuda):
+    """An int8 pool needs both f32 scale planes; a pool in q's type takes
+    none.  Anything else raises before any launch."""
+    gen = torch.Generator().manual_seed(12)
+    kv = _int8_pool(gen, cuda)
+    q = torch.randn(1, 1, 4, 64, generator=gen).to(cuda)
+    tab = torch.ones(1, 8, dtype=torch.int32, device=cuda)
+    valid = torch.ones(1, 128, dtype=torch.bool, device=cuda)
+    before = dict(pa.LAUNCHES)
+    with pytest.raises(ValueError, match="both"):
+        pa.paged_decode_attention(q, {k: v for k, v in kv.items()
+                                      if k != "v_scale"}, 0, tab, valid)
+    with pytest.raises(ValueError, match="k_scale"):
+        pa.paged_decode_attention(
+            q, dict(kv, k_scale=kv["k_scale"].to(torch.bfloat16)), 0, tab,
+            valid)
+    with pytest.raises(TypeError, match="pool"):
+        pa.paged_decode_attention(
+            q, dict(kv, k=kv["k"].float(), v=kv["v"].float()), 0, tab,
+            valid)
+    with pytest.raises(TypeError, match="pool"):
+        pa.paged_decode_attention(
+            q, {"k": kv["k"], "v": kv["v"]}, 0, tab, valid)
+    assert dict(pa.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+def test_llama_engine_on_card_matches_cpu(cuda, kv_cache_dtype):
+    """An f32 Llama with head_dim 64 (the kernels take 64 or 128) on the
+    card and on the CPU from the same weights: rmsnorm and the paged
+    kernels launch, layernorm does not; the greedy tokens agree
+    (int8: up to a rounding step flipped by f32 summation order, so the
+    comparison there is on the first token of each request)."""
+    config = llama_tiny(hidden_size=256, kv_cache_dtype=kv_cache_dtype)
+    gpu = GPT(config, device=cuda)
+    cpu = GPT(config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n, dtype=np.int32) for n in (5, 17, 40)]
+    for c in (pa.LAUNCHES, fused.LAUNCHES):
+        c.clear()
+    outs = []
+    for model, device in ((gpu, cuda), (cpu, "cpu")):
+        eng = Engine(model, device=device, num_slots=2, max_len=128,
+                     prefill_chunk=16, tick_steps=4)
+        outs.append(eng.generate_batch(prompts, 8))
+    suffix = "_int8" if kv_cache_dtype else ""
+    assert pa.LAUNCHES["paged_decode" + suffix] > 0
+    assert pa.LAUNCHES["paged_window" + suffix] > 0
+    assert fused.LAUNCHES["rmsnorm"] > 0 and fused.LAUNCHES["layernorm"] == 0
+    if kv_cache_dtype is None:
+        assert outs[0] == outs[1]
+    else:
+        assert [o[0] for o in outs[0]] == [o[0] for o in outs[1]]
