@@ -23,9 +23,13 @@ no result lines:
    int8 window at q [1, 32, 32, 128] after a prefix of several pages),
    plus the bf16 GQA head-dim-128 paged case at the same shapes.  Times
    the kernel, the plain version and one PyTorch library call computing
-   the same function (CUDA events over many launches), and computes the
-   least time the card could take from the bytes and flops these inputs
-   need (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).
+   the same function (``ms``: CUDA events over many back-to-back calls,
+   what a caller pays, host issue time included when the kernel is
+   shorter), times the kernel and the library call again with the host
+   out of the way (``graph_ms``: the calls captured in one CUDA graph and
+   replayed, the device's own time per call), and computes the least
+   time the card could take from the bytes and flops these inputs need
+   (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).
 4. engine: GPT-2 small at full width (random weights from ``--seed``)
    behind ``Engine``: 12 requests (4 sharing a 256-token system prompt),
    drained; checks budgets, the prefix-cache hit rate, that every
@@ -146,6 +150,44 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int, stream=None) -> float:
+    """Device time per call of ``fn`` with the host out of the way: after
+    a warm-up on the capture stream, ``iters`` calls captured in one CUDA
+    graph; CUDA events around one replay, divided by ``iters``.  Autograd
+    runs a backward on its forward's stream, so a backward is captured on
+    the ``stream`` its forward ran on."""
+    s = stream or torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / iters
+
+
+def _graph_or_why(torch, fn, iters, stream=None):
+    """(graph_ms, None), or (None, why) for a library call that cannot be
+    captured; used for yardsticks only, never for the port's kernels."""
+    try:
+        return graph_ms(torch, fn, iters, stream), None
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -224,6 +266,9 @@ def check_kernels(torch, args):
     plain = time_ms(torch, lambda: pa.paged_decode_attention_plain(
         q, kv, nxt(), tab, valid), args.iters)
     lib = time_ms(torch, sdpa_decode, args.iters)
+    g_ms = graph_ms(torch, lambda: pa.paged_decode_attention(
+        q, kv, nxt(), tab, valid), args.iters)
+    g_lib = graph_ms(torch, sdpa_decode, args.iters)
     # what these inputs need: each pool page some valid column of a row
     # maps, read once per leaf; q, the table, the valid plane, the output
     n_valid = int(valid.sum())
@@ -236,10 +281,11 @@ def check_kernels(torch, args):
         source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
         replaces="distributed_tensorflow_tpu/ops/pallas/paged_attention.py:226",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib)
+        library_ms=lib, graph_ms=g_ms, library_graph_ms=g_lib)
     log({"time": "paged_decode_attention", "shape": "q[8,1,12,64] "
          "pool[12,513,16,12,64] bf16", "valid_cols": n_valid,
          "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+         "graph_ms": g_ms, "library_graph_ms": g_lib,
          "bound_ms": b_ms, "bound_by": b_by})
 
     # --- paged window: one row, 32 queries, pos in {0, 96, 500}
@@ -271,6 +317,9 @@ def check_kernels(torch, args):
     plain = time_ms(torch, lambda: pa.paged_window_attention_plain(
         qw, kv, nxt(), row, pos), args.iters)
     lib = time_ms(torch, sdpa_window, args.iters)
+    g_ms = graph_ms(torch, lambda: pa.paged_window_attention(
+        qw, kv, nxt(), row, pos), args.iters)
+    g_lib = graph_ms(torch, sdpa_window, args.iters)
     last_col = min(pos + 31, view_len - 1)
     n_pages = len(set(row[:last_col // pg + 1].tolist()))
     nbytes = n_pages * pg * kvh * hd * 2 * 2 + 2 * 32 * h * hd * 2 + P * 4
@@ -280,13 +329,15 @@ def check_kernels(torch, args):
         source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
         replaces="distributed_tensorflow_tpu/ops/pallas/paged_attention.py:226",
         max_abs_err=werr, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib)
+        bound_by=b_by, library_ms=lib, graph_ms=g_ms, library_graph_ms=g_lib)
     log({"time": "paged_window_attention", "shape": "q[1,32,12,64] pos 500",
          "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+         "graph_ms": g_ms, "library_graph_ms": g_lib,
          "bound_ms": b_ms, "bound_by": b_by})
     del kv
 
-    # --- LayerNorm at the window's and the decode tick's rows
+    # --- LayerNorm at the window's and the decode tick's rows; the
+    # decode tick's [8, 768] is the record, held to F.layer_norm's times
     d = 768
     gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
     beta = 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -298,24 +349,33 @@ def check_kernels(torch, args):
         want = fused.layernorm_plain(x, gamma, beta, 1e-5)
         e = (got.float() - want.float()).abs().max().item()
         g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-        ms = time_ms(torch, lambda: fused.fused_layernorm(
-            x, gamma, beta, 1e-5), args.iters)
+
+        def kern():
+            return fused.fused_layernorm(x, gamma, beta, 1e-5)
+
+        def library():
+            return F.layer_norm(x, (d,), g16, b16, 1e-5)
+        ms = time_ms(torch, kern, args.iters)
         plain = time_ms(torch, lambda: fused.layernorm_plain(
             x, gamma, beta, 1e-5), args.iters)
-        lib = time_ms(torch, lambda: F.layer_norm(x, (d,), g16, b16, 1e-5),
-                      args.iters)
+        lib = time_ms(torch, library, args.iters)
+        g_ms = graph_ms(torch, kern, args.iters)
+        g_lib = graph_ms(torch, library, args.iters)
         b_ms, b_by = bound_ms(rows * d * 2 * 2 + d * 4 * 2, 8.0 * rows * d)
         log({"check": "layernorm", "shape": [rows, d], "dtype": "bf16",
              "max_abs_err": e, "tol": LN_TOL, "kernel_ms": ms,
-             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-             "bound_by": b_by})
+             "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
+             "library_graph_ms": g_lib, "library": "F.layer_norm",
+             "ms_vs_library": ms / lib, "graph_ms_vs_library": g_ms / g_lib,
+             "bound_ms": b_ms, "bound_by": b_by})
         lerr = max(lerr, e)
         if rows == 8:
             records["layernorm"] = dict(
                 source="distributed_tensorflow_tpu_torch/csrc/layernorm.cu",
                 replaces="distributed_tensorflow_tpu/ops/pallas/fused.py:161",
                 max_abs_err=lerr, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, graph_ms=g_ms,
+                library_graph_ms=g_lib)
     if not lerr <= LN_TOL:
         raise AssertionError(f"layernorm kernel disagrees: {lerr}")
     records["layernorm"]["max_abs_err"] = lerr
@@ -361,19 +421,25 @@ def check_llama_kernels(torch, args):
                         args.iters)
         lib = time_ms(torch, lambda: F.rms_norm(x, (d,), g_lib, 1e-5),
                       args.iters)
+        g_ms = graph_ms(torch, lambda: fused.fused_rmsnorm(x, gamma, 1e-5),
+                        args.iters)
+        g_libms = graph_ms(torch, lambda: F.rms_norm(x, (d,), g_lib, 1e-5),
+                           args.iters)
         size = x.element_size()
         b_ms, b_by = bound_ms(rows * d * size * 2 + d * 4, 4.0 * rows * d)
         log({"check": "rmsnorm", "shape": [rows, d], "dtype": str(dtype),
              "max_abs_err": e, "tol": tol, "kernel_ms": ms,
-             "plain_ms": plain, "library_ms": lib,
-             "library": "F.rms_norm", "bound_ms": b_ms, "bound_by": b_by})
+             "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
+             "library_graph_ms": g_libms, "library": "F.rms_norm",
+             "bound_ms": b_ms, "bound_by": b_by})
         if dtype == torch.bfloat16:
             rerr = max(rerr, e)
         if rows == 8:
             records["rmsnorm"] = dict(
                 source="distributed_tensorflow_tpu_torch/csrc/rmsnorm.cu",
                 replaces=site + "fused.py:240", max_abs_err=rerr, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                graph_ms=g_ms, library_graph_ms=g_libms)
 
     # --- the pool: Llama-3-8B's kv heads and head dim, pages of 16, 8
     # slots of 8192 columns (the engine's default pool), 4 layers so the
@@ -450,14 +516,19 @@ def check_llama_kernels(torch, args):
     plain = time_ms(torch, lambda: pa.paged_decode_attention_plain(
         q, kv8, nxt(), tab, valid), max(5, args.iters // 10))
     lib = time_ms(torch, decode_lib(kv8), max(5, args.iters // 10))
+    g_ms = graph_ms(torch, lambda: pa.paged_decode_attention(
+        q, kv8, nxt(), tab, valid), args.iters)
+    g_lib = graph_ms(torch, decode_lib(kv8), max(5, args.iters // 10))
     b_ms, b_by = bound_ms(cells * (hd + 4) * 2 + side, flops)
     records["paged_decode_int8"] = dict(
         source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
         replaces=site + "paged_attention.py:226", max_abs_err=err8, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        graph_ms=g_ms, library_graph_ms=g_lib)
     log({"time": "paged_decode_int8", "shape": "q[8,1,32,128] bf16, int8 "
          "pool, max_len 8192", "valid_cols": n_valid, "kernel_ms": ms,
-         "plain_ms": plain, "library_ms": lib,
+         "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
+         "library_graph_ms": g_lib,
          "library": "dequant + gather + F.scaled_dot_product_attention",
          "bound_ms": b_ms, "bound_by": b_by})
 
@@ -516,6 +587,9 @@ def check_llama_kernels(torch, args):
     lib = time_ms(torch, window_lib(kv8), max(5, args.iters // 10))
     ms16 = time_ms(torch, lambda: pa.paged_window_attention(
         qw, kv16, nxt(), row, pos), args.iters)
+    g_ms = graph_ms(torch, lambda: pa.paged_window_attention(
+        qw, kv8, nxt(), row, pos), args.iters)
+    g_lib = graph_ms(torch, window_lib(kv8), max(5, args.iters // 10))
     n_pages = len(set(row[:(pos + 31) // pg + 1].tolist()))
     wside = 2 * 32 * h * hd * 2 + P * 4
     wflops = 4.0 * sum(pos + j + 1 for j in range(32)) * h * hd
@@ -524,9 +598,11 @@ def check_llama_kernels(torch, args):
     records["paged_window_int8"] = dict(
         source="distributed_tensorflow_tpu_torch/csrc/paged_attention.cu",
         replaces=site + "paged_attention.py:226", max_abs_err=werr, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        graph_ms=g_ms, library_graph_ms=g_lib)
     log({"time": "paged_window_int8", "shape": "q[1,32,32,128] pos 300",
          "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+         "graph_ms": g_ms, "library_graph_ms": g_lib,
          "library": "dequant + gather + F.scaled_dot_product_attention",
          "bound_ms": b_ms, "bound_by": b_by, "bf16_pool_kernel_ms": ms16,
          "bf16_pool_bound_ms": b16})
@@ -607,7 +683,7 @@ def check_train_kernels(torch, args):
     # GQA (12 query heads on 4 kv heads), a kv-valid plane with fully
     # masked rows, a length no tile divides and head dim 128
     worst = dict.fromkeys(replaces, 0.0)
-    main = None
+    main = long = None
     for label, shape in (
             ("train", (TRAIN_BATCH, TRAIN_SEQ, 12, 12, 64, torch.bfloat16,
                        False)),
@@ -624,20 +700,57 @@ def check_train_kernels(torch, args):
             worst[name] = max(worst[name], err)
         if label == "train":
             main = ops
+        elif label == "s1024":
+            long = ops[:3]
         del ops
+
+    # the forward at s 1024 beside SDPA at s 1024, logged
+    ql, kl, vl = long
+    lt = [x.transpose(1, 2) for x in long]
+    iters = max(20, args.iters // 4)
+
+    def fwd_long():
+        return fa.flash_forward(ql, kl, vl, None, True)
+
+    def sdpa_long():
+        return F.scaled_dot_product_attention(*lt, is_causal=True)
+    log({"time": "flash_forward", "shape": f"q{list(ql.shape)} bf16 causal",
+         "kernel_ms": time_ms(torch, fwd_long, iters),
+         "library_ms": time_ms(torch, sdpa_long, iters),
+         "graph_ms": graph_ms(torch, fwd_long, iters),
+         "library_graph_ms": graph_ms(torch, sdpa_long, iters),
+         "library": "F.scaled_dot_product_attention(is_causal=True)",
+         "bound_ms": bound_ms(4 * ql.numel() * 2 + ql.shape[0] * ql.shape[2]
+                              * ql.shape[1] * 4,
+                              2.0 * ql.numel() * ql.shape[1])[0]})
+    del long, ql, kl, vl, lt
 
     # times at the training shape; the library call is SDPA, causal
     q, k, v, do, lse, dvec = main
     b, s, h, hd = q.shape
-    iters = max(20, args.iters // 4)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
-        iters)
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_out = sdpa_fwd()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_fwd = time_ms(torch, sdpa_fwd, iters)
+    lib_bwd = time_ms(torch, sdpa_bwd, iters)
+    lib_fwd_graph = graph_ms(torch, sdpa_fwd, iters)
+    # the backward is captured on the stream its forward ran on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        side_out = sdpa_fwd()
+    lib_bwd_graph, bwd_why = _graph_or_why(
+        torch, lambda: torch.autograd.grad(side_out, (qt, kt, vt), dot,
+                                           retain_graph=True),
+        iters, stream=side)
     tensor = q.numel() * q.element_size()     # q, k, v, o, do, dq, dk, dv
     row = b * h * s * 4                       # lse or D, f32
     pairs = 0.5 * b * h * s * s * hd          # causal: half of s x s
@@ -661,18 +774,26 @@ def check_train_kernels(torch, args):
     for name, (kern, plain, lib) in calls.items():
         ms = time_ms(torch, kern, iters)
         plain_ms = time_ms(torch, plain, max(5, iters // 10))
+        g_ms = graph_ms(torch, kern, iters)
+        fwd = name == "flash_forward"
         b_ms, b_by = bound_ms(*work[name])
         records[name] = dict(
             source="distributed_tensorflow_tpu_torch/csrc/flash_attention.cu",
             replaces=replaces[name], max_abs_err=worst[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            graph_ms=g_ms,
+            library_graph_ms=lib_fwd_graph if fwd else lib_bwd_graph)
+        if not fwd and bwd_why:
+            records[name]["graph_note"] = ("library backward not captured: "
+                                           + bwd_why)
         log({"time": name, "shape": f"q[{b},{s},{h},{hd}] bf16 causal",
              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+             "graph_ms": g_ms,
+             "library_graph_ms": records[name]["library_graph_ms"],
              "library": "F.scaled_dot_product_attention(is_causal=True)"
-             + ("" if name == "flash_forward" else
-                " backward, dq dk dv together"),
+             + ("" if fwd else " backward, dq dk dv together"),
              "bound_ms": b_ms, "bound_by": b_by})
-    del main, q, k, v, do, lse, dvec, qt, kt, vt, lib_out
+    del main, q, k, v, do, lse, dvec, qt, kt, vt, lib_out, side_out, dot
 
     # Adam on the word embedding and one [768, 3072] kernel, called as the
     # optimizer calls it (delta out, moments in place, decay folded in)
@@ -703,19 +824,31 @@ def check_train_kernels(torch, args):
         lib_opt = torch.optim.AdamW([lib_p], lr=TRAIN_LR, eps=1e-8,
                                     weight_decay=0.01, fused=True)
         lib = time_ms(torch, lib_opt.step, args.iters)
+        g_ms = graph_ms(torch, lambda: fused.fused_adam_update(
+            p, g, m2, v2, 3, out=(None, m2, v2), **kw), args.iters)
+        # a captured optimizer step needs its step count on the card
+        cap_opt = torch.optim.AdamW([lib_p], lr=TRAIN_LR, eps=1e-8,
+                                    weight_decay=0.01, fused=True,
+                                    capturable=True)
+        g_lib, why = _graph_or_why(torch, cap_opt.step, args.iters)
         # 4 f32 streams in, 3 out; about 12 flops an element
         b_ms, b_by = bound_ms(28.0 * p.numel(), 12.0 * p.numel())
         log({"time": "fused_adam", "shape": list(shape), "kernel_ms": ms,
-             "plain_ms": plain, "library_ms": lib,
-             "library": "torch.optim.AdamW(fused=True).step()",
+             "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
+             "library_graph_ms": g_lib,
+             "library": "torch.optim.AdamW(fused=True).step(); graph: "
+                        "capturable=True", "library_graph_note": why,
              "bound_ms": b_ms, "bound_by": b_by})
         if "fused_adam" not in records:      # the word embedding's times
             records["fused_adam"] = dict(
                 source="distributed_tensorflow_tpu_torch/csrc/adam.cu",
                 replaces="distributed_tensorflow_tpu/ops/pallas/fused.py:119",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib)
-        del p, g, m, v, m2, v2, want, got, lib_p, lib_opt
+                library_ms=lib, graph_ms=g_ms, library_graph_ms=g_lib)
+            if why:
+                records["fused_adam"]["graph_note"] = (
+                    "library step not captured: " + why)
+        del p, g, m, v, m2, v2, want, got, lib_p, lib_opt, cap_opt
     records["fused_adam"]["max_abs_err"] = adam_err
     torch.cuda.synchronize()
     return records
@@ -1166,7 +1299,7 @@ _TRAIN_PARTS = (
     ("flash attention (ours)", ("flash_",)),
     ("log-softmax and its gradient", ("SoftMax",)),
     ("Adam (ours)", ("adam_",)),
-    ("LayerNorm forward (ours)", ("layernorm_kernel",)),
+    ("LayerNorm forward (ours)", ("layernorm_",)),
 )
 
 
@@ -1302,7 +1435,11 @@ def main(argv=None) -> int:
                     replaces=r["replaces"], launches=launches[k],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    graph_ms=r["graph_ms"],
+                    library_graph_ms=r["library_graph_ms"],
+                    **({"graph_note": r["graph_note"]}
+                       if "graph_note" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

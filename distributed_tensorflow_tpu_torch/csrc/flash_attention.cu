@@ -28,8 +28,9 @@
 // scratch from one k step to the next.  Blocks run in parallel on Hopper,
 // so each loop that the TPU grid walked in order is a loop inside one
 // thread block here:
-//   - forward and dQ: one block per (batch, head, 64-row q tile) walks the
+//   - forward: one block per (head, batch, 128-row q tile) walks the
 //     64-row K/V tiles (only up to the diagonal when causal);
+//   - dQ: one block per (batch, head, 64-row q tile), the same walk;
 //   - dK/dV: one block per (batch, kv head, 64-row k tile) walks every
 //     query head of its group and, for each, the q tiles from the
 //     diagonal on.  Summing the group's heads inside the block writes
@@ -37,18 +38,29 @@
 //     outputs and summed them in a second pass.
 // Two routes share that structure and the exact mask semantics:
 //   - bf16 (the training path): tensor cores through mma.sync.m16n8k16,
-//     bf16 tiles in shared memory, f32 accumulators and row statistics in
-//     registers; 4 warps of 16 rows each (see "tensor-core path" below);
+//     f32 accumulators and row statistics in registers (see "tensor-core
+//     path" and "forward, bf16" below);
 //   - f32: the CUDA cores in full f32 (fused multiply-adds), f32 tiles in
 //     shared memory, 256 threads each owning a 4 x 4 patch of the 64 x 64
 //     score tile, rows reduced over 16 lanes with shuffles.
 //
-// What bounds it on the H100: at the training shapes (Sq = Sk = 256,
-// HD 64, bf16) bytes and flops are about even against the card's peaks
-// (tens of microseconds a call).  This design is far from both: its tiles
-// go through the load/store units into shared memory with no copy/compute
-// overlap (no cp.async, TMA or wgmma yet), and 64-row tiles at Sq 256
-// give causal blocks very unequal work.  Those are the next steps.
+// What bounds it on the H100: bytes.  At the training shape (B 48, Sq =
+// Sk = 256, 12 heads of 64, bf16, causal) the forward must move 76 MB
+// (q, k, v, out, lse: 22.7 us at 3.35 TB/s) for 4.8 GFLOP of causal
+// products (4.9 us at 989 TFLOP/s), so the design's aim is bytes in
+// flight and no idle tensor cores while they arrive:
+//   - the bf16 forward keeps Q in registers and streams K/V through a
+//     two-stage cp.async ring, so tile t + 1 lands while tile t is
+//     multiplied; XOR-swizzled tiles make every ldmatrix (Q, K, and V
+//     transposed) conflict-free; 128-row q tiles halve the K/V re-reads
+//     of 64-row ones; the mask runs only on the tiles that need it, and
+//     a causal grid's heaviest tiles go first, so its tail is light;
+//   - mma.sync and not wgmma: at this shape the products are a fifth of
+//     the byte time, and mma.sync's per-warp fragments keep the online
+//     softmax in registers with no warpgroup synchronisation;
+//   - dK/dV and dQ still load their tiles through registers between two
+//     barriers (no copy/compute overlap) from padded tiles, and are about
+//     five times their byte bounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -495,11 +507,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 
 // ------------------------------------------ tensor-core path (bf16 only)
 //
-// For bf16 inputs the same three kernels run their products on the tensor
-// cores with mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  The
-// tiles stay bf16 in shared memory (rows padded by 8 elements, so the
-// fragment loads of a warp hit 32 distinct banks); 4 warps each own 16 of
-// the block's 64 rows (q rows for the forward and dQ, k rows for dK/dV),
+// For bf16 inputs the three kernels run their products on the tensor cores
+// with mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  In dQ and
+// dK/dV the tiles stay bf16 in shared memory (rows padded by 8 elements,
+// so the fragment loads of a warp hit 32 distinct banks); 4 warps each own
+// 16 of the block's 64 rows (q rows for dQ, k rows for dK/dV),
 // so a warp's score tile is 16 x 64 in mma accumulator layout: lane
 // (gid = lane / 4, tig = lane % 4) holds rows gid and gid + 8, columns
 // 8 n + 2 tig + {0, 1}, and a row's statistics reduce over its 4 lanes.
@@ -618,100 +630,314 @@ __device__ __forceinline__ void load_rows_f32(float* dst,
     dst[r] = r0 + r < S ? src[base + r0 + r] : 0.f;
 }
 
+// ----------------------------------------- forward, bf16 (Hopper design)
+//
+// One block per (head, batch, 128-row q tile): 8 warps of 16 q rows.  Q
+// is copied once and held in registers as mma A fragments; K and V tiles
+// of 64 keys stream through a ring of kStages shared-memory stages filled
+// by cp.async a tile ahead, so tile t + 1 lands while tile t is
+// multiplied.  Shared tiles are unpadded rows of HD bf16 whose 16-byte
+// chunks are XOR-swizzled by the row (chunk ^ row % 8), so the 8 row
+// addresses of every ldmatrix phase, and every cp.async row, fall in 8
+// distinct bank groups.  K fragments come by ldmatrix.x4, V fragments by
+// ldmatrix.x4.trans (V is read down its columns for P V).  The softmax
+// runs in log2 units (log2(e) folded into the scale, one MUFU ex2 per
+// element); a row's sum stays split over its 4 lanes until the end; the
+// stored lse is converted back to the natural log, which dK/dV and dQ
+// read.  The mask is evaluated only on tiles that need it: with a valid
+// plane, on the ragged last tile, and (causal) on tiles that cross the
+// warp's diagonal; tiles wholly above it are skipped.  Causal grids run
+// their heaviest q tiles first.  Each thread's copy addresses are worked
+// out once (TileLoader), and the epilogue multiplies by one reciprocal a
+// row: the kernel is latency-bound, so every instruction of a warp's
+// dependent chain counts.
+
+constexpr int kFwdRows = 128;                 // q rows of a block
+constexpr int kFwdThreads = kFwdRows / 16 * 32;   // a warp per 16 rows
+constexpr int kStages = 2;                    // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; with src_bytes 0 the 16
+// bytes are zeros (and nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x in one MUFU instruction (denormal results flush to 0; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// byte offset of 16-byte chunk c of row r in a swizzled tile of HD bf16
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * (HD * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// This thread's share of the cp.async copies of an R-row tile of head
+// `head` of a [B, S, NH, HD] bf16 tensor into a swizzled tile: chunk c of
+// rows row0, row0 + kRowStep, ...; their global offset (for tile 0) and
+// swizzled shared offset are worked out once, and tile t adds t * R
+// rows.  Rows at or past S are zeros.
+template <int HD, int R>
+struct TileLoader {
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kPer = R * kChunks / kFwdThreads;
+  static constexpr int kRowStep = kFwdThreads / kChunks;
+  static_assert(R * kChunks % kFwdThreads == 0, "whole chunks a thread");
+  int row0;
+  int64_t off0, row_elems;
+  uint32_t soff0;
+
+  __device__ __forceinline__ TileLoader(int b, int S, int NH, int head) {
+    row0 = threadIdx.x / kChunks;
+    const int c = threadIdx.x % kChunks;
+    row_elems = (int64_t)NH * HD;
+    off0 = ((int64_t)b * S + row0) * row_elems + (int64_t)head * HD + c * 8;
+    soff0 = swz<HD>(row0, c);   // row0 + i * kRowStep: the same swizzle
+  }
+  __device__ __forceinline__ void load(uint32_t dst,
+                                       const bf16* __restrict__ src, int t,
+                                       int S) const {
+    const bf16* base = src + off0 + (int64_t)t * R * row_elems;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const bool in = t * R + row0 + i * kRowStep < S;
+      cp_async16(dst + soff0 + i * kRowStep * HD * 2,
+                 in ? base + i * kRowStep * row_elems : src, in ? 16 : 0);
+    }
+  }
+};
+
+// S = Q K^T for one warp: 16 q rows (fragments qf) by the 64 keys of the
+// swizzled K tile at shared address ks
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4],
+                                        const uint32_t (&qf)[HD / 16][4],
+                                        uint32_t ks, int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ks + swz<HD>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                               kk * 2 + ((lane >> 3) & 1)));
+      mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+      mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+    }
+}
+
+// Two blocks an SM at HD 64 (at most 128 registers a thread); HD 128
+// needs more registers than that for Q, O and the scores.
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, HD == 64 ? 2 : 1)
+flash_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
     bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
-    int HK, float scale, int causal) {
-  using Bt = BTile<HD>;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    int HK, float scale_log2, int causal) {
+  constexpr int kTile = kB * HD * 2;          // bytes of a K or V tile
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int g = h / (H / HK);
-  const int q0 = qt * kB;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int q0 = qt * kFwdRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wr0 = q0 + warp * 16;             // this warp's first q row
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + Bt::kElems;
-  bf16* Vs = Ks + Bt::kElems;
-  float* keym = reinterpret_cast<float*>(Vs + Bt::kElems);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t kv_s = q_s + kFwdRows * HD * 2;   // stage s: K, then V
+  uint8_t* keym = smem_raw + kFwdRows * HD * 2 + kStages * 2 * kTile;
 
-  load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
+  // key tiles any row of this block can see
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, (min(q0 + kFwdRows, Sq) - 1) / kB + 1);
+
+  const TileLoader<HD, kB> kv_load(b, Sk, HK, g);   // the same chunks in K, V
+  auto issue = [&](int t) {
+    const int st = t % kStages;
+    const uint32_t ks = kv_s + st * 2 * kTile;
+    kv_load.load(ks, k, t, Sk);
+    kv_load.load(ks + kTile, v, t, Sk);
+    if (valid != nullptr && threadIdx.x < kB) {
+      const int col = t * kB + threadIdx.x;
+      keym[st * kB + threadIdx.x] =
+          col < Sk ? valid[(int64_t)b * Sk + col] : 0;
+    }
+  };
+
+  TileLoader<HD, kFwdRows>(b, Sq, H, h).load(q_s, q, qt, Sq);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) issue(t);
+    cp_async_commit();
+  }
+
+  // m: running max in log2 units; l: this lane's part of the row sum (the
+  // 4 lanes of a row share m, and their parts are added at the end)
+  uint32_t qf[HD / 16][4];
   float o[HD / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int nd = 0; nd < HD / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
 
-  int nk = (Sk + kB - 1) / kB;
-  if (causal) nk = min(nk, qt + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();
-    load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
-    load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
-    load_keymask(keym, valid, b, k0, Sk);
-    __syncthreads();
-
-    float s[8][4];
-    mma_rows_rows<HD>(s, Qs, r0, Ks, gid, tig);
+  for (int t = 0; t < nk; ++t) {
+    if (t + kStages - 1 < nk) issue(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();     // tile t (and Q) landed for this thread
+    __syncthreads();                  // ... and for every thread
+    if (t == 0) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = q0 + r0 + gid + 8 * hr;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n * 8 + tig * 2 + e;
-          const bool ok = keym[c] > 0.5f && (!causal || row >= k0 + c);
-          float& x = s[n][2 * hr + e];
-          x = ok ? x * scale : -INFINITY;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float shift = isfinite(m_new) ? m_new : 0.f;
-      const float corr = isfinite(m[hr]) ? expf(m[hr] - shift) : 0.f;
-      float ps = 0.f;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ldsm_x4(qf[kk], q_s + swz<HD>(warp * 16 + (lane & 15),
+                                      kk * 2 + (lane >> 4)));
+    }
+    const int k0 = t * kB;
+    const int st = t % kStages;
+    const uint32_t ks = kv_s + st * 2 * kTile, vs = ks + kTile;
+    // rows past Sq are never stored; causal keys past the warp's last row
+    // are all masked
+    if (wr0 < Sq && (!causal || k0 <= wr0 + 15)) {
+      float s[8][4];
+      qk_tile<HD>(s, qf, ks, lane);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * hr + e];
-          x = expf(x - shift);               // exp(-inf) = 0
-          ps += x;
-        }
-      ps += __shfl_xor_sync(kFull, ps, 1);
-      ps += __shfl_xor_sync(kFull, ps, 2);
-      l[hr] = l[hr] * corr + ps;
-      m[hr] = m_new;
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+      // the mask only where some key is masked: a valid plane, the ragged
+      // last tile, a tile crossing the warp's diagonal
+      if (valid != nullptr || k0 + kB > Sk || (causal && k0 + kB - 1 > wr0)) {
+        // element (n, e) is key k0 + 2 tig + off of row wr0 + gid + 8 (e/2)
+        const int keys = Sk - k0 - 2 * tig;     // key exists: off < keys
+        const int diag = wr0 + gid - k0 - 2 * tig;   // row - key at off 0
+        const uint8_t* km = keym + st * kB + 2 * tig;
 #pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        o[nd][2 * hr] *= corr;
-        o[nd][2 * hr + 1] *= corr;
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int off = n * 8 + (e & 1);
+            const bool ok = off < keys &&
+                            (!causal || diag + 8 * (e >> 1) >= off) &&
+                            (valid == nullptr || km[off]);
+            if (!ok) s[n][e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        const float shift = isfinite(m_new) ? m_new : 0.f;
+        const float corr = isfinite(m[hr]) ? ex2(m[hr] - shift) : 0.f;
+        float ps = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+            s[n][e] = ex2(s[n][e] - shift);       // 2^-inf = 0
+            ps += s[n][e];
+          }
+        l[hr] = l[hr] * corr + ps;
+        m[hr] = m_new;
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          o[nd][2 * hr] *= corr;
+          o[nd][2 * hr + 1] *= corr;
+        }
+      }
+      // O += P V: P rounded to bf16 as the A operand, V by ldmatrix.trans
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                               pack_bf16(s[2 * j][2], s[2 * j][3]),
+                               pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                               pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vs + swz<HD>(j * 16 + (lane & 7) +
+                                             (((lane >> 3) & 1) << 3),
+                                         dp * 2 + (lane >> 4)));
+          mma16816(o[2 * dp], a, vb[0], vb[1]);
+          mma16816(o[2 * dp + 1], a, vb[2], vb[3]);
+        }
       }
     }
-    mma_scores_tile<HD>(o, s, Vs, gid, tig);
+    __syncthreads();                  // stage st is free for tile t + kStages
   }
+  cp_async_wait<0>();
+  __syncthreads();                    // Q's copies landed before its reuse
 
+  // out = O / l in bf16, staged through this warp's 16 rows of the Q tile
+  // and written 16 bytes at a time
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + gid + 8 * hr;
-    if (row >= Sq) continue;
-    const float denom = l[hr] > 0.f ? l[hr] : 1.f;
-    bf16* orow = out + (((int64_t)b * Sq + row) * H + h) * HD + tig * 2;
+    l[hr] += __shfl_xor_sync(kFull, l[hr], 1);
+    l[hr] += __shfl_xor_sync(kFull, l[hr], 2);
+    const int r = warp * 16 + gid + 8 * hr;
+    const float inv = l[hr] > 0.f ? 1.f / l[hr] : 1.f;
 #pragma unroll
     for (int nd = 0; nd < HD / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
-          pack_bf16(o[nd][2 * hr] / denom, o[nd][2 * hr + 1] / denom);
-    if (tig == 0) {
+      *reinterpret_cast<uint32_t*>(smem_raw + swz<HD>(r, nd) + 4 * tig) =
+          pack_bf16(o[nd][2 * hr] * inv, o[nd][2 * hr + 1] * inv);
+    const int row = q0 + r;
+    if (tig == 0 && row < Sq) {
       const float shift = isfinite(m[hr]) ? m[hr] : 0.f;
       lse[((int64_t)b * H + h) * Sq + row] =
-          l[hr] > 0.f ? shift + logf(l[hr]) : -INFINITY;
+          l[hr] > 0.f ? (shift + log2f(l[hr])) * kLn2 : -INFINITY;
     }
+  }
+  __syncwarp();
+  constexpr int kChunks = HD / 8;
+#pragma unroll
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int rr = idx / kChunks, c = idx % kChunks;
+    const int row = wr0 + rr;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + row) * H + h) * HD +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(smem_raw +
+                                          swz<HD>(warp * 16 + rr, c));
   }
 }
 
@@ -879,9 +1105,11 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int HD>
 size_t smem_bytes(int which) {
-  if (std::is_same<T, bf16>::value)       // bf16 tiles, f32 row terms
-    return sizeof(bf16) * (which == kFwd ? 3 : 4) * BTile<HD>::kElems
-           + sizeof(float) * (which == kFwd ? 1 : 3) * kB;
+  if (std::is_same<T, bf16>::value) {
+    if (which == kFwd)                    // Q tile, K/V ring, valid bytes
+      return sizeof(bf16) * HD * (kFwdRows + kStages * 2 * kB) + kStages * kB;
+    return sizeof(bf16) * 4 * BTile<HD>::kElems + sizeof(float) * 3 * kB;
+  }
   using Tl = Tile<HD>;
   switch (which) {
     case kFwd: return sizeof(float) * (3 * Tl::kFloats + Tl::kScore + kB);
@@ -915,7 +1143,7 @@ struct Kernels {
   static constexpr bool kMma = std::is_same<T, bf16>::value;
   static constexpr int kBlock = kMma ? kMmaThreads : kThreads;
   static auto fwd() {
-    if constexpr (kMma) return flash_fwd_mma_kernel<HD>;
+    if constexpr (kMma) return flash_fwd_bf16_kernel<HD>;
     else return flash_fwd_kernel<HD>;
   }
   static auto dq() {
@@ -941,11 +1169,20 @@ int launch(int which, const Args& a, cudaStream_t st) {
     static size_t cap = 48 * 1024;
     auto kern = Kn::fwd();
     if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
-    const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
-    kern<<<grid, Kn::kBlock, smem, st>>>(
-        q, k, v, valid, static_cast<T*>(a.out),
-        static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.H, a.HK, a.scale,
-        a.causal);
+    if constexpr (Kn::kMma) {
+      // q tiles slowest, so a causal grid's heavy tiles all go first
+      const dim3 grid(a.H, a.B, (a.Sq + kFwdRows - 1) / kFwdRows);
+      kern<<<grid, kFwdThreads, smem, st>>>(
+          q, k, v, valid, static_cast<T*>(a.out),
+          static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.H, a.HK,
+          a.scale * kLog2e, a.causal);
+    } else {
+      const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
+      kern<<<grid, Kn::kBlock, smem, st>>>(
+          q, k, v, valid, static_cast<T*>(a.out),
+          static_cast<float*>(a.lse_out), a.Sq, a.Sk, a.H, a.HK, a.scale,
+          a.causal);
+    }
   } else if (which == kDq) {
     static size_t cap = 48 * 1024;
     auto kern = Kn::dq();

@@ -12,6 +12,10 @@ started together.
 A failed build raises with the compiler's output.  Every launch function
 in ``csrc/`` returns ``cudaGetLastError()``; :func:`check` raises when it
 is not 0, so a launch the card refused never passes silently.
+
+:func:`bind` hands out a C function with its ctypes signature set once
+and caches it, so a wrapper's launch spends no host time on the lock,
+the library lookup or the signature.
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "check", "load", "stream_ptr"]
+__all__ = ["BUILD_DIR", "CSRC", "bind", "build", "check", "load",
+           "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -96,6 +102,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def bind(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<lib>.cu``, returning ``int``
+    (a CUDA error code) and taking ``argtypes``: built, loaded and typed
+    on the first call, then served from a cache."""
+    fn = _bound.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _bound[(lib, name)] = fn
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if rc != 0:
@@ -103,6 +122,8 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(tensor) -> int:
-    """The raw handle of PyTorch's current stream on the tensor's card."""
+    """The raw handle of PyTorch's current stream on the tensor's card
+    (what ``torch.cuda.current_stream(dev).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
     import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())

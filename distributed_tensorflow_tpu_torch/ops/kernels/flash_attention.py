@@ -6,18 +6,22 @@ Replaces the three Pallas kernels of
 two calls of ``_flash_backward`` (bodies ``_flash_dkv_kernel`` and
 ``_flash_dq_kernel``), reached there through ``flash_attention`` and its
 ``jax.custom_vjp``.  The kernels are ``csrc/flash_attention.cu``; its
-header says how the TPU design was rethought for Hopper.  In short: a
-block per (batch, head, 64-row q tile) streams 64-row K/V tiles through
-shared memory with f32 online-softmax state in registers; dK/dV take a
-block per (batch, kv head, 64-row k tile) that sums its query group
-inside, so GQA needs no second pass.  bf16 runs its products on the
-tensor cores (``mma.sync``, f32 accumulation); f32 runs them on the CUDA
-cores in full f32.  Head dims 64 and 128.
+header says how the TPU design was rethought for Hopper.  In short: the
+bf16 forward takes a block per (head, batch, 128-row q tile), 8 warps of
+16 rows with Q in registers, and streams 64-row K/V tiles through a
+two-stage ring of shared memory filled by ``cp.async`` a tile ahead;
+swizzled tiles feed ``ldmatrix`` and ``mma.sync`` (bf16 operands, f32
+online softmax in log2 units); the mask is evaluated only on the tiles
+that need it and causal grids run their heaviest tiles first.  dQ takes
+a block per (batch, head, 64-row q tile) and dK/dV a block per (batch,
+kv head, 64-row k tile) that sums its query group inside, so GQA needs
+no second pass; both run bf16 products on the tensor cores.  f32 runs
+every product on the CUDA cores in full f32.  Head dims 64 and 128.
 
-What bounds it on the H100: at the training shapes bytes and flops are
-about even against the card's peaks; the kernels are several times
-slower than both, since their tile loads do not overlap their products
-(no cp.async, TMA or wgmma yet).
+What bounds it on the H100: at the training shape (b 48, s 256, 12 heads
+of 64, causal) bytes, about five times the flops' time.  The forward
+overlaps its tile copies with its products; dK/dV and dQ still load
+their tiles synchronously between two barriers.
 
 Contract (that of the JAX ``flash_attention``): q ``[b, s, h, hd]``, k/v
 ``[b, s_k, hk, hd]`` with ``h % hk == 0``; an optional ``kv_valid``
@@ -198,11 +202,11 @@ def _checked(q, k, v, kv_valid, **extra):
 
 
 def _fn(name: str, n_ptrs: int):
-    fn = getattr(_build.load("flash_attention"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    return fn
+    """The bound C entry ``name``: n_ptrs pointers, the type flag and six
+    dims, the scale, the causal flag and the stream."""
+    return _build.bind("flash_attention", name, [ctypes.c_void_p] * n_ptrs
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
 
 
 def _dims(q, k):

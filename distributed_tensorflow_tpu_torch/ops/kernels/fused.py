@@ -3,11 +3,14 @@
 LayerNorm replaces the Pallas kernel ``_layernorm_forward`` of
 ``distributed_tensorflow_tpu/ops/pallas/fused.py`` (body
 ``_layernorm_kernel``), reached there through ``fused_layernorm``.  The
-kernel is ``csrc/layernorm.cu``: one thread block per row, f32 mean and
-variance by block reductions, output in the input's type.  Its backward
-recomputes through the plain version under autograd, as the JAX
-``_layernorm_bwd`` takes ``jax.vjp`` of its XLA reference: the JAX
-package has no backward kernel, so neither has the port.
+kernel is ``csrc/layernorm.cu``: one warp per row, the row read once into
+registers with 16-byte loads, mean and centred variance by warp shuffles
+alone (no shared memory, no barrier), 16-byte stores; a looped scalar
+path for a d or an address that is not 16-byte aligned or a row above
+the register budget.  Its backward recomputes through the plain version
+under autograd, as the JAX ``_layernorm_bwd`` takes ``jax.vjp`` of its
+XLA reference: the JAX package has no backward kernel, so neither has
+the port.
 
 RMSNorm (the Llama block norm) replaces the Pallas kernel
 ``_rmsnorm_forward`` of the same file (body ``_rmsnorm_kernel``),
@@ -23,11 +26,16 @@ over the flat f32 tensor, four streams in and three out, 16-byte loads;
 the bias correction is folded into ``lr_t``/``eps_t`` on the host, and
 the outputs may be the inputs' own buffers (an in-place update).
 
-What bounds all three on the H100: bytes.  The norms read x once and
-write the output once; at the serving paths' 8 to 256 rows of d = 768
-(LayerNorm) and 8 or 32 rows of d = 4096 (RMSNorm) the launch itself
-dominates.  Adam moves 28 bytes per element for about 12
-flops.
+What bounds the H100 here: bytes for Adam (28 bytes an element for about
+12 flops, 85% of the byte bound at the word embedding); for the norms,
+whose rows at the serving paths' shapes (8 to 256 rows of d = 768 for
+LayerNorm, 8 or 32 rows of d = 4096 for RMSNorm) are a few kilobytes, the
+launch.  A launch costs the host's issue time and the kernel's latency.
+The LayerNorm wrapper keeps the host's share small: its C function is
+bound once (``_build.bind``), and when no input needs a gradient
+(serving, under ``torch.no_grad()``) it launches directly, without the
+``autograd.Function``; the kernel's latency is a handful of dependent
+steps (one 16-byte load per vector, ten shuffles, the stores).
 
 Dispatch is by the tensor's device: the plain version (the f32 formulas
 of the JAX package, not ``F.layer_norm`` or ``torch.optim``) for a CPU
@@ -62,7 +70,37 @@ def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
+_LAYERNORM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
 def _layernorm_launch(x, gamma, beta, eps):
+    # one cheap test on the launch path; the message is worked out only
+    # when it fails
+    d = x.shape[-1]
+    dev = x.get_device()
+    if (x.dtype is not torch.bfloat16 and x.dtype is not torch.float32) \
+            or gamma.get_device() != dev or beta.get_device() != dev \
+            or gamma.dtype is not torch.float32 \
+            or beta.dtype is not torch.float32 \
+            or gamma.shape != (d,) or beta.shape != (d,) \
+            or not (x.is_contiguous() and gamma.is_contiguous()
+                    and beta.is_contiguous()):
+        _layernorm_refuse(x, gamma, beta)
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    rc = _build.bind("layernorm", "layernorm_forward", _LAYERNORM_ARGS)(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        x.dtype is torch.bfloat16, rows, d, float(eps), _build.stream_ptr(x))
+    _build.check(rc, "layernorm_forward")
+    LAUNCHES["layernorm"] += 1
+    return out
+
+
+def _layernorm_refuse(x, gamma, beta):
+    """Raise with what the LayerNorm kernel cannot take."""
     d = x.shape[-1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bf16 or f32; got {x.dtype}")
@@ -71,22 +109,15 @@ def _layernorm_launch(x, gamma, beta, eps):
                 or t.shape != (d,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 [{d}] on "
                              f"{x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    rows = x.numel() // d
-    out = torch.empty_like(x)
-    if rows == 0:
-        return out
-    fn = _build.load("layernorm").layernorm_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            int(x.dtype == torch.bfloat16), rows, d, float(eps),
-            _build.stream_ptr(x))
-    _build.check(rc, "layernorm_forward")
-    LAUNCHES["layernorm"] += 1
-    return out
+    raise ValueError("x must be contiguous")
+
+
+def _needs_grad(x: torch.Tensor, gamma: torch.Tensor,
+                beta: torch.Tensor) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and (x.requires_grad
+                                        or gamma.requires_grad
+                                        or beta.requires_grad)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -111,10 +142,14 @@ class _LayerNorm(torch.autograd.Function):
 
 def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm of x [..., d] with f32 gamma/beta [d]; differentiable."""
-    if x.device.type == "cpu":
+    """LayerNorm of x [..., d] with f32 gamma/beta [d]; differentiable.
+    A CUDA call that autograd would not record launches the kernel
+    directly; one it would goes through ``_LayerNorm``."""
+    if x.is_cpu:
         return layernorm_plain(x, gamma, beta, eps)
-    return _LayerNorm.apply(x, gamma, beta, float(eps))
+    if _needs_grad(x, gamma, beta):
+        return _LayerNorm.apply(x, gamma, beta, float(eps))
+    return _layernorm_launch(x, gamma, beta, eps)
 
 
 # ------------------------------------------------------------- RMSNorm

@@ -191,3 +191,25 @@ def test_cpu_wrappers_launch_nothing():
     tfa.flash_attention(*leaves, causal=True).sum().backward()
     tfa.flash_forward(*leaves)
     assert dict(tfa.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("name,n_ptrs", [("flash_forward", 6),
+                                         ("flash_backward_dkv", 9),
+                                         ("flash_backward_dq", 8)])
+def test_kernel_entries_bound_once_with_their_c_signatures(monkeypatch, name,
+                                                           n_ptrs):
+    """Each C entry of csrc/flash_attention.cu takes n_ptrs pointers, the
+    type flag and six dims as ints, the scale as a float, the causal flag
+    and the stream; the wrapper binds it once through ``_build.bind``."""
+    import ctypes
+    from distributed_tensorflow_tpu_torch.ops.kernels import _build
+    calls = []
+
+    def fake_bind(lib, fn_name, argtypes):
+        calls.append((lib, fn_name, list(argtypes)))
+        return object()
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    tfa._fn(name, n_ptrs)
+    assert calls == [("flash_attention", name,
+                      [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])]

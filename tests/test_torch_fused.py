@@ -115,3 +115,55 @@ def test_rmsnorm_cpu_wrapper_launches_nothing():
     out = tfused.fused_rmsnorm(x, torch.ones(32))
     assert torch.equal(out, tfused.rmsnorm_plain(x, torch.ones(32)))
     assert dict(tfused.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("grad_enabled,requires_grad,want", [
+    (True, (False, False, False), False),
+    (True, (True, False, False), True),
+    (True, (False, False, True), True),
+    (False, (True, True, True), False)],
+    ids=["no-input-needs-grad", "x-needs-grad", "beta-needs-grad",
+         "under-no-grad"])
+def test_layernorm_direct_launch_only_when_autograd_would_not_record(
+        grad_enabled, requires_grad, want):
+    """``fused_layernorm`` launches a CUDA call directly when this is
+    False and through ``_LayerNorm.apply`` (kernel forward, plain
+    backward) when it is True."""
+    tensors = [torch.ones(4, 8).requires_grad_(r) for r in requires_grad]
+    with torch.set_grad_enabled(grad_enabled):
+        assert tfused._needs_grad(*tensors) is want
+
+
+def test_layernorm_cpu_under_no_grad_is_the_plain_version():
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 32, generator=gen).requires_grad_()
+    gamma, beta = torch.randn(32, generator=gen), torch.randn(32,
+                                                              generator=gen)
+    before = dict(tfused.LAUNCHES)
+    with torch.no_grad():
+        out = tfused.fused_layernorm(x, gamma, beta, 1e-5)
+    assert not out.requires_grad
+    assert torch.equal(out, tfused.layernorm_plain(x, gamma, beta,
+                                                   1e-5).detach())
+    assert dict(tfused.LAUNCHES) == before
+
+
+def test_bind_types_a_c_function_once_and_caches_it(monkeypatch):
+    """``_build.bind`` loads the library and sets restype/argtypes on the
+    first call only; later calls return the same typed function object
+    without touching the loader.  The C library of this process stands in
+    for a kernel library."""
+    import ctypes
+    from distributed_tensorflow_tpu_torch.ops.kernels import _build
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "_bound", {})
+    fn = _build.bind("libc", "abs", [ctypes.c_int])
+    assert fn.restype is ctypes.c_int and fn.argtypes == [ctypes.c_int]
+    assert fn(-7) == 7
+    assert _build.bind("libc", "abs", [ctypes.c_int]) is fn
+    assert loads == ["libc"]

@@ -5,7 +5,8 @@ The file imports no JAX, so on a machine with a card and no JAX it runs
 as ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py``.
 Tolerances: f32 1e-4 absolute (summation order); bf16 2e-2 absolute for
 paged attention (the plain version rounds logits and weights to bf16) and
-1e-2 for LayerNorm (about one bf16 ulp at unit scale).  Flash attention
+1e-2 for LayerNorm (about one bf16 ulp at unit scale; held per element
+relative to max(1, |want|), one ulp at any magnitude).  Flash attention
 is held relative to the output's scale, ``max|got - want| <= tol *
 max(1, max|want|)``: f32 1e-4 (summation order), bf16 1e-2 (both sides
 compute in f32 from the same bf16 inputs and round once, so they differ
@@ -96,6 +97,16 @@ def test_paged_window_kernel_matches_plain(cuda, dtype, tol, pos):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _norm_close(got, want, tol):
+    """Elementwise ``|got - want| <= tol * max(1, |want|)``: at 1e-2 one
+    bf16 ulp (2**-7 relative) at any magnitude, since the two sides may
+    round f32 results that differ in the last place to neighbouring bf16
+    values."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs()
+                 <= tol * want.abs().clamp(min=1.0)).all())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 def test_layernorm_kernel_matches_plain(cuda, dtype, tol):
@@ -108,6 +119,61 @@ def test_layernorm_kernel_matches_plain(cuda, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("d", [768, 4096, 1000])
+@pytest.mark.parametrize("rows", [1, 8, 33, 256])
+def test_layernorm_kernel_shapes_match_plain(cuda, dtype, tol, d, rows):
+    """The register path (d 768 and 4096, 16-byte aligned) and the looped
+    path (d 1000 in bf16 is 2000 bytes, no multiple of 16)."""
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.randn(rows, d, generator=gen) * 2 + 1).to(dtype).to(cuda)
+    gamma = torch.randn(d, generator=gen).to(cuda)
+    beta = torch.randn(d, generator=gen).to(cuda)
+    before = fused.LAUNCHES["layernorm"]
+    got = fused.fused_layernorm(x, gamma, beta, 1e-5)
+    want = fused.layernorm_plain(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["layernorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _norm_close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_layernorm_kernel_misaligned_input(cuda, dtype, tol):
+    """x at an odd element offset (not 16-byte aligned) takes the looped
+    path and agrees as the aligned one does."""
+    gen = torch.Generator().manual_seed(13)
+    rows, d = 8, 768
+    flat = torch.randn(rows * d + 1, generator=gen).to(dtype).to(cuda)
+    x = flat[1:].view(rows, d).contiguous()
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    gamma = torch.randn(d, generator=gen).to(cuda)
+    beta = torch.randn(d, generator=gen).to(cuda)
+    got = fused.fused_layernorm(x, gamma, beta, 1e-5)
+    want = fused.layernorm_plain(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert _norm_close(got, want, tol)
+
+
+def test_layernorm_kernel_same_output_with_and_without_grad(cuda):
+    """Under no_grad the wrapper launches directly; with a gradient it goes
+    through the autograd Function: the same kernel, the same bits."""
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(33, 768, generator=gen).to(torch.bfloat16).to(cuda)
+    gamma = torch.randn(768, generator=gen).to(cuda).requires_grad_()
+    beta = torch.randn(768, generator=gen).to(cuda).requires_grad_()
+    before = fused.LAUNCHES["layernorm"]
+    with torch.no_grad():
+        plain_call = fused.fused_layernorm(x, gamma, beta, 1e-5)
+    graph_call = fused.fused_layernorm(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["layernorm"] == before + 2
+    assert not plain_call.requires_grad and graph_call.requires_grad
+    assert torch.equal(plain_call, graph_call.detach())
 
 
 def test_engine_on_card_launches_the_kernels(cuda):
@@ -188,6 +254,67 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, hd, group, causal,
         assert _rel_err(got, want) <= tol
     for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
         assert fa.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+# (sq, sk, h, hk, hd, causal, masked): ragged lengths no tile divides,
+# Sq != Sk both ways, GQA 12:4, head dims 64 and 128, causal on and off,
+# kv-valid planes with fully masked rows
+_FLASH_BF16_FWD_CASES = [
+    (300, 300, 12, 4, 64, True, False),
+    (300, 300, 12, 4, 128, False, False),
+    (300, 300, 12, 12, 64, True, True),
+    (200, 333, 12, 4, 64, True, True),
+    (333, 200, 12, 4, 128, True, True),
+    (130, 77, 4, 4, 64, False, True),
+    (1, 129, 12, 4, 64, False, False),
+]
+
+
+@pytest.mark.parametrize("sq,sk,h,hk,hd,causal,masked", _FLASH_BF16_FWD_CASES)
+def test_flash_forward_bf16_matches_plain(cuda, sq, sk, h, hk, hd, causal,
+                                          masked):
+    gen = torch.Generator().manual_seed(15)
+    b = 3
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16).to(cuda)
+    q, k, v = rnd(b, sq, h, hd), rnd(b, sk, hk, hd), rnd(b, sk, hk, hd)
+    valid = None
+    if masked:
+        valid = torch.rand(b, sk, generator=gen) < 0.6
+        valid[0, :] = False           # batch row 0: every row fully masked
+        valid[1, :3] = False          # causal rows 0-2 of batch row 1 too
+        valid = valid.to(cuda)
+    before = fa.LAUNCHES["flash_forward"]
+    out, lse = fa.flash_forward(q, k, v, valid, causal)
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, valid, causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_forward"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel_err(out, want_out) <= 1e-2
+    _same_lse(lse, want_lse, 1e-5)
+    if masked:
+        assert torch.equal(out[0].float(), torch.zeros_like(out[0].float()))
+        assert bool(torch.isneginf(lse[0]).all())
+
+
+def test_flash_attention_bf16_autograd_matches_plain(cuda):
+    """The training path's route in bf16 (GQA 12:4, ragged 300, causal):
+    gradients through the forward's lse and the dK/dV and dQ kernels, held
+    at 2e-2 of the gradient's scale (each side rounds the bf16 output and
+    the kernels also round P and dS to bf16 before their products)."""
+    gen = torch.Generator().manual_seed(16)
+    shape_q, shape_kv = (2, 300, 12, 64), (2, 300, 4, 64)
+    leaves = [torch.randn(s, generator=gen).to(torch.bfloat16).to(cuda)
+              .requires_grad_() for s in (shape_q, shape_kv, shape_kv)]
+    do = torch.randn(shape_q, generator=gen).to(torch.bfloat16).to(cuda)
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
+                              leaves, do)
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(*leaves, causal=True), leaves, do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(g, w) <= 2e-2
 
 
 def test_flash_attention_autograd_matches_plain(cuda):
