@@ -29,7 +29,9 @@ no result lines:
    out of the way (``graph_ms``: the calls captured in one CUDA graph and
    replayed, the device's own time per call), and computes the least
    time the card could take from the bytes and flops these inputs need
-   (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).
+   (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).  Each decode
+   entry also logs its split plan and its graph time at a forced single
+   split and (bf16 q) on the other body, tensor cores or CUDA cores.
 4. engine: GPT-2 small at full width (random weights from ``--seed``)
    behind ``Engine``: 12 requests (4 sharing a 256-token system prompt),
    drained; checks budgets, the prefix-cache hit rate, that every
@@ -64,7 +66,8 @@ no result lines:
    ``INT8_REF_LOGIT_TOL`` (tokens compared and reported).
 11. with ``--profile DIR`` only: the engine phases and 3 training steps
    again under ``torch.profiler``; the device's busy share, its top
-   kernels and (training, Llama engine) device ms by part.
+   kernels, µs per paged-attention launch, and (training, Llama
+   engine) device ms by part.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -195,6 +198,30 @@ def bound_ms(nbytes: float, flops: float):
                                  else "operations")
 
 
+def _decode_variants(torch, pa, q, kv, tab, valid, nxt, iters):
+    """The decode kernel's split plan for these shapes, and its graph time
+    at a forced single split and on the other body (tensor cores against
+    CUDA cores, bf16 q only), beside the planned launch's record."""
+    B, _, h, _ = q.shape
+    kvh, pg = kv["k"].shape[3], kv["k"].shape[2]
+    view = tab.shape[1] * pg
+    tc = q.dtype == torch.bfloat16 and kv["k"].dtype in pa.DECODE_TC_POOLS
+    qb = pa._QB[tc]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, per = pa.split_plan(B * kvh * -(-h // kvh // qb), view, sms, tc)
+
+    def call(**kw):
+        return lambda: pa._launch(q, kv, nxt(), tab, valid, 0, window=False,
+                                  scale=None, **kw)
+    res = {"splits": splits, "subtiles_per_split": per,
+           "graph_ms_one_split": graph_ms(torch, call(splits=1), iters)}
+    if q.dtype == torch.bfloat16:
+        other = "tensor_cores" if not tc else "cuda_cores"
+        res["route"] = "cuda_cores" if not tc else "tensor_cores"
+        res["graph_ms_" + other] = graph_ms(torch, call(tc=not tc), iters)
+    return res
+
+
 def check_kernels(torch, args):
     """Phase 3: returns {kernel name: record} for the kernels line."""
     import torch.nn.functional as F
@@ -286,7 +313,8 @@ def check_kernels(torch, args):
          "pool[12,513,16,12,64] bf16", "valid_cols": n_valid,
          "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
          "graph_ms": g_ms, "library_graph_ms": g_lib,
-         "bound_ms": b_ms, "bound_by": b_by})
+         "bound_ms": b_ms, "bound_by": b_by,
+         **_decode_variants(torch, pa, q, kv, tab, valid, nxt, args.iters)})
 
     # --- paged window: one row, 32 queries, pos in {0, 96, 500}
     row = perm[-P:].to(torch.int32).contiguous()
@@ -431,6 +459,7 @@ def check_llama_kernels(torch, args):
              "max_abs_err": e, "tol": tol, "kernel_ms": ms,
              "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
              "library_graph_ms": g_libms, "library": "F.rms_norm",
+             "ms_vs_library": ms / lib, "graph_ms_vs_library": g_ms / g_libms,
              "bound_ms": b_ms, "bound_by": b_by})
         if dtype == torch.bfloat16:
             rerr = max(rerr, e)
@@ -530,7 +559,8 @@ def check_llama_kernels(torch, args):
          "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
          "library_graph_ms": g_lib,
          "library": "dequant + gather + F.scaled_dot_product_attention",
-         "bound_ms": b_ms, "bound_by": b_by})
+         "bound_ms": b_ms, "bound_by": b_by,
+         **_decode_variants(torch, pa, q, kv8, tab, valid, nxt, args.iters)})
 
     # the bf16 GQA head-dim-128 case at the same shapes: a check and a
     # time beside the int8 branch, no record
@@ -541,12 +571,16 @@ def check_llama_kernels(torch, args):
         raise AssertionError(f"paged decode bf16 GQA hd128 disagrees: {e16}")
     ms16 = time_ms(torch, lambda: pa.paged_decode_attention(
         q, kv16, nxt(), tab, valid), args.iters)
+    g16 = graph_ms(torch, lambda: pa.paged_decode_attention(
+        q, kv16, nxt(), tab, valid), args.iters)
     lib16 = time_ms(torch, decode_lib(kv16), max(5, args.iters // 10))
     b16, _ = bound_ms(cells * hd * 2 * 2 + side, flops)
     log({"check": "paged_decode_bf16_gqa_hd128", "shape": "q[8,1,32,128] "
          "bf16 pool [4,4097,16,8,128] bf16", "max_abs_err": e16,
-         "tol": DECODE_TOL, "kernel_ms": ms16, "library_ms": lib16,
-         "bound_ms": b16, "int8_kernel_ms": ms, "int8_bound_ms": b_ms})
+         "tol": DECODE_TOL, "kernel_ms": ms16, "graph_ms": g16,
+         "library_ms": lib16, "bound_ms": b16, "int8_kernel_ms": ms,
+         "int8_bound_ms": b_ms,
+         **_decode_variants(torch, pa, q, kv16, tab, valid, nxt, args.iters)})
 
     # window: one row of 32 queries after a prefix of several pages
     row = perm[-P:].to(torch.int32).contiguous()
@@ -1278,6 +1312,8 @@ def profile_engine(torch, np, args, smi, model, *, max_len=1024,
               "device_busy_s": busy_s,
               "busy_share_of_unprofiled_wall": busy_s / plain_wall,
               "top": [[k[:80], us / 1e3, n] for k, us, n in rows[:15]],
+              "paged_us_per_launch": {k[:80]: us / n for k, us, n in rows
+                                      if "paged_" in k},
               "card": smi}
     if parts:
         by_part = {}
@@ -1357,7 +1393,7 @@ def profile_training(torch, np, args, smi):
 
 # kernel-name marks of the Llama engine's parts, first match wins
 _LLAMA_PARTS = (
-    ("paged attention, int8 (ours)", ("paged_attention_kernel",)),
+    ("paged attention, int8 (ours)", ("paged_cc_kernel", "paged_tc_kernel")),
     ("RMSNorm (ours)", ("rmsnorm_kernel",)),
     ("GEMMs", ("nvjet", "gemm", "Gemm", "gemv", "splitK")),
     ("f32 -> bf16 weight casts and other copies", ("copy", "Copy")),

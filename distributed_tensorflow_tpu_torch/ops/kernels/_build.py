@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes), placed in ``build/kernels/`` at the root of
-the checkout.  The file name carries a hash of the source, so an edited
-source builds anew and a stale library is never loaded.  Nothing builds
+the checkout.  The file name carries a hash of the source and of every
+``csrc/`` header it includes (``#include "x.cuh"``, followed through the
+headers' own includes), so an edited source or header builds anew and a
+stale library is never loaded.  Nothing builds
 at import: the first launch of a kernel builds its library, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
 started together.
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,11 +54,30 @@ def _nvcc() -> str:
                        "the port's CUDA kernels build from source")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path) -> list:
+    """``path`` and every local header it includes, transitively, in the
+    order first met."""
+    seen, todo = [], [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        for inc in _INCLUDE.findall(p.read_bytes()):
+            dep = (p.parent / inc.decode()).resolve()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _build_locked(names) -> float:
@@ -102,14 +124,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C function ``name`` of ``csrc/<lib>.cu``, returning ``int``
-    (a CUDA error code) and taking ``argtypes``: built, loaded and typed
-    on the first call, then served from a cache."""
+def bind(lib: str, name: str, argtypes: Sequence,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<lib>.cu``, returning
+    ``restype`` (by default ``int``, a CUDA error code) and taking
+    ``argtypes``: built, loaded and typed on the first call, then served
+    from a cache."""
     fn = _bound.get((lib, name))
     if fn is None:
         fn = getattr(load(lib), name)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = list(argtypes)
         _bound[(lib, name)] = fn
     return fn

@@ -31,10 +31,11 @@ What bounds the H100 here: bytes for Adam (28 bytes an element for about
 whose rows at the serving paths' shapes (8 to 256 rows of d = 768 for
 LayerNorm, 8 or 32 rows of d = 4096 for RMSNorm) are a few kilobytes, the
 launch.  A launch costs the host's issue time and the kernel's latency.
-The LayerNorm wrapper keeps the host's share small: its C function is
-bound once (``_build.bind``), and when no input needs a gradient
-(serving, under ``torch.no_grad()``) it launches directly, without the
-``autograd.Function``; the kernel's latency is a handful of dependent
+The norm wrappers keep the host's share small: their C functions are
+bound once (``_build.bind``, as Adam's is), their guards are one
+expression, and when no input needs a gradient (serving, under
+``torch.no_grad()``) they launch directly, without the
+``autograd.Function``; LayerNorm's latency is a handful of dependent
 steps (one 16-byte load per vector, ten shuffles, the stores).
 
 Dispatch is by the tensor's device: the plain version (the f32 formulas
@@ -112,12 +113,9 @@ def _layernorm_refuse(x, gamma, beta):
     raise ValueError("x must be contiguous")
 
 
-def _needs_grad(x: torch.Tensor, gamma: torch.Tensor,
-                beta: torch.Tensor) -> bool:
+def _needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd would record a call on these tensors."""
-    return torch.is_grad_enabled() and (x.requires_grad
-                                        or gamma.requires_grad
-                                        or beta.requires_grad)
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -163,7 +161,35 @@ def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * inv * gamma.float()).to(x.dtype)
 
 
+_RMSNORM_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 def _rmsnorm_launch(x, gamma, eps):
+    # one cheap test on the launch path; the message is worked out only
+    # when it fails
+    d = x.shape[-1]
+    if (x.dtype is not torch.bfloat16 and x.dtype is not torch.float32) \
+            or gamma.get_device() != x.get_device() \
+            or gamma.dtype is not torch.float32 or gamma.shape != (d,) \
+            or not (x.is_contiguous() and gamma.is_contiguous()):
+        _rmsnorm_refuse(x, gamma)
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    xp, op = x.data_ptr(), out.data_ptr()
+    vec = (d * x.element_size()) % 16 == 0 and xp % 16 == 0 and op % 16 == 0
+    rc = _build.bind("rmsnorm", "rmsnorm_forward", _RMSNORM_ARGS)(
+        xp, gamma.data_ptr(), op, x.dtype is torch.bfloat16, rows, d,
+        float(eps), vec, _build.stream_ptr(x))
+    _build.check(rc, "rmsnorm_forward")
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def _rmsnorm_refuse(x, gamma):
+    """Raise with what the RMSNorm kernel cannot take."""
     d = x.shape[-1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bf16 or f32; got {x.dtype}")
@@ -171,24 +197,7 @@ def _rmsnorm_launch(x, gamma, eps):
             or gamma.shape != (d,) or not gamma.is_contiguous():
         raise ValueError(f"gamma must be a contiguous f32 [{d}] on "
                          f"{x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    rows = x.numel() // d
-    out = torch.empty_like(x)
-    if rows == 0:
-        return out
-    fn = _build.load("rmsnorm").rmsnorm_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    vec = int(d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
-    rc = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-            int(x.dtype == torch.bfloat16), rows, d, float(eps), vec,
-            _build.stream_ptr(x))
-    _build.check(rc, "rmsnorm_forward")
-    LAUNCHES["rmsnorm"] += 1
-    return out
+    raise ValueError("x must be contiguous")
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -213,10 +222,14 @@ class _RMSNorm(torch.autograd.Function):
 
 def fused_rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm of x [..., d] with an f32 gamma [d]; differentiable."""
-    if x.device.type == "cpu":
+    """RMSNorm of x [..., d] with an f32 gamma [d]; differentiable.
+    A CUDA call that autograd would not record launches the kernel
+    directly; one it would goes through ``_RMSNorm``."""
+    if x.is_cpu:
         return rmsnorm_plain(x, gamma, eps)
-    return _RMSNorm.apply(x, gamma, float(eps))
+    if _needs_grad(x, gamma):
+        return _RMSNorm.apply(x, gamma, float(eps))
+    return _rmsnorm_launch(x, gamma, eps)
 
 
 # ---------------------------------------------------------------- Adam
@@ -258,6 +271,10 @@ def adam_plain(params: torch.Tensor, grads: torch.Tensor, m: torch.Tensor,
                  for r, o in zip(results, out))
 
 
+_ADAM_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
+    ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
+
+
 def fused_adam_update(params: torch.Tensor, grads: torch.Tensor,
                       m: torch.Tensor, v: torch.Tensor, step: int,
                       lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -292,13 +309,10 @@ def fused_adam_update(params: torch.Tensor, grads: torch.Tensor,
     lr_t, eps_t = _adam_scalars(step, lr, b1, b2, eps, tf14_eps)
     n = params.numel()
     if n:
-        fn = _build.load("adam").adam_update
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
-            ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
-        rc = fn(*(t.data_ptr() for t in (params, grads, m, v, *out)), n,
-                b1, 1.0 - b1, b2, 1.0 - b2, lr_t, eps_t, lr, weight_decay,
-                int(return_delta), _build.stream_ptr(params))
+        rc = _build.bind("adam", "adam_update", _ADAM_ARGS)(
+            *(t.data_ptr() for t in (params, grads, m, v, *out)), n, b1,
+            1.0 - b1, b2, 1.0 - b2, lr_t, eps_t, lr, weight_decay,
+            int(return_delta), _build.stream_ptr(params))
         _build.check(rc, "adam_update")
         LAUNCHES["adam"] += 1
     return out

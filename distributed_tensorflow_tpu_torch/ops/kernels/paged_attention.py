@@ -8,24 +8,29 @@ compute dtype, and the int8 pool (``quantized``: int8 K/V with the
 ``k_scale``/``v_scale`` f32 planes, one scale per token and kv head,
 dequantized at the operand).  The kernel is ``csrc/paged_attention.cu``;
 its header says how the TPU design was rethought for Hopper.  In short:
-a block per (row, kv head, up to 8 query vectors); its 4 warps take the
-row's 32-column sub-tiles in turn, walking the page table inside the
-kernel, copying the next sub-tile's K/V (and, int8, their scales) with
-cp.async while computing on the current one, each with f32
-online-softmax state in registers, merged at the end; the TPU kernel's
-exact finite-mask guards are kept.  The int8 branch is the same kernel
-over a third element type: it folds the k scale into the logit and the
-v scale into the softmax weight (equal to dequantizing each element,
-up to f32 rounding order).  Head dims 64 and 128.
+the grid is (row x kv head, q-block, split); each split walks a share of
+the row's 32-column sub-tiles (split-K, planned here from shapes alone by
+:func:`split_plan`) and the last block of a (row, kv head, q-block) to
+finish merges the splits' f32 partials in the same launch, through a
+per-device workspace and ticket counters.  A decode block scans only its
+share of the valid plane, 16 bytes a thread, and compacts its active
+sub-tiles with warp ballots; a row with no valid column anywhere is
+attended uniformly, decided once by the merge.  Copies are cp.async
+gathers through the page table with each page id loaded a sub-tile
+ahead.  Every bf16 window runs on the tensor cores (``mma.sync``, one
+block holding all of a kv head's query vectors; int8 K/V widened to bf16
+once a sub-tile), as does bf16 decode over a bf16 pool; f32 calls and
+decode over an int8 pool run on the CUDA cores.  The TPU kernel's exact
+finite-mask guards are kept.  The int8 branch folds the k scale into the logit and the v scale into
+the softmax weight (equal to dequantizing each element, up to rounding
+order).  Head dims 64 and 128.
 
 What bounds it on the H100: bytes (the K/V columns it must read: hd*2
 bytes per column per leaf in bf16, hd + 4 in int8, about 0.52x at hd
-128); the flops per byte are far below the tensor-core line.  The
-design reads only sub-tiles that hold an unmasked column and keeps every
-intermediate on chip; it does not yet split the page walk across
-blocks, so at decode batch 8 (64 to 96 blocks) some SMs idle and a long
-row is walked serially: at Llama-3-8B's decode shape (8192-column rows)
-the kernel is latency-bound, int8 and bf16 alike (``PERF.md``).
+128); the flops per byte are far below the tensor-core line.  The host
+side is one bound C function (``_build.bind``), one guard expression,
+and a workspace and shared-memory sizes cached per device: the engines
+are host-bound.
 
 Page-size rule: any ``page_size >= 1`` dividing ``max_len``.  The
 kernel gathers per column, so Mosaic's multiple-of-8 rule does not
@@ -43,10 +48,11 @@ branch: ``paged_decode``, ``paged_window``, ``paged_decode_int8``,
 """
 from __future__ import annotations
 
+import array
 import collections
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -104,7 +110,151 @@ def paged_window_attention_plain(q, kv, layer, page_row, pos, *, scale=None):
     return _plain(q, kv, layer, page_row[None, :], mask, scale)
 
 
-def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale):
+# Split-K plan: aim for about 4 blocks an SM on the CUDA cores (4-warp
+# blocks: two waves at two blocks an SM) and 8 on the tensor cores (a
+# decode block there is one warp), a share of at least 4 sub-tiles (one a
+# warp) on the CUDA cores and 2 on the tensor cores, and at most 16
+# splits to merge (the kernel's kMaxSplits).
+_BLOCKS_PER_SM = {False: 4, True: 8}
+_MAX_SPLITS = 16
+_SUB = 32                 # columns of a sub-tile
+_QB = {False: 8, True: 128}   # query vectors a block: CUDA / tensor cores
+# Routes, from the card's times (PERF.md): every bf16 window on the tensor
+# cores; bf16 decode on the tensor cores over a bf16 pool and on the CUDA
+# cores over an int8 pool; every f32 call on the CUDA cores.
+DECODE_TC_POOLS = (torch.bfloat16,)
+
+# the C entry takes its arguments as one packed int64 block (see
+# csrc/paged_attention.cu) and the scale
+_FORWARD_ARGS = [ctypes.c_void_p, ctypes.c_float]
+_sm_counts: Dict[int, int] = {}
+_smem: Dict[tuple, int] = {}
+_scratch: Dict[int, tuple] = {}     # device -> (workspace f32, tickets int32)
+
+
+def split_plan(blocks: int, n_cols: int, sm_count: int,
+               tc: bool) -> Tuple[int, int]:
+    """(splits, per): how many blocks share each (row, kv head, q-block)
+    of a launch with ``blocks`` of them over ``n_cols`` columns, and the
+    sub-tiles of 32 columns each split walks (the last may walk fewer).
+    From shapes alone, never from the valid plane, so a launch needs no
+    device->host read and can be captured in a CUDA graph."""
+    n_sub = max(1, -(-n_cols // _SUB))
+    want = -(-_BLOCKS_PER_SM[bool(tc)] * sm_count // max(1, blocks))
+    splits = max(1, min(want, _MAX_SPLITS, n_sub // (2 if tc else 4)))
+    per = -(-n_sub // splits)
+    return -(-n_sub // per), per
+
+
+def _sm_count(dev: int) -> int:
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _smem_bytes(key) -> int:
+    n = _smem.get(key)
+    if n is None:
+        n = _smem[key] = _build.bind(
+            "paged_attention", "paged_attention_smem_bytes",
+            [ctypes.c_int] * 7, ctypes.c_size_t)(*key)
+    return n
+
+
+def _workspace(dev: int, n_ws: int, n_tickets: int):
+    """The device's split-K workspace (f32) and ticket counters (int32,
+    all 0 between launches: the merging block of each launch resets its
+    own), grown as needed and kept."""
+    ws, tickets = _scratch.get(dev, (None, None))
+    if ws is None or ws.numel() < n_ws or tickets.numel() < n_tickets:
+        n_ws = max(n_ws, 0 if ws is None else ws.numel(), 1)
+        n_tickets = max(n_tickets, 0 if tickets is None else tickets.numel())
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+        _scratch[dev] = (ws, tickets)
+    return ws, tickets
+
+
+def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale, tc=None,
+            splits=None):
+    """Launch the kernel; ``tc`` (tensor cores) and ``splits`` override
+    the route and the split plan (measurement only)."""
+    k_pool, v_pool = kv["k"], kv["v"]
+    k_scale, v_scale = kv.get("k_scale"), kv.get("v_scale")
+    int8 = k_scale is not None or v_scale is not None
+    pool_dtype = torch.int8 if int8 else q.dtype
+    B, sq, h, hd = q.shape
+    shape = k_pool.shape
+    L, num_pages, page_size, kvh = shape[:4]
+    P = page_tab.shape[-1]
+    dev = q.get_device()
+    # one cheap test on the launch path; the message is worked out only
+    # when it fails
+    if (q.dtype is not torch.bfloat16 and q.dtype is not torch.float32) \
+            or k_pool.dtype is not pool_dtype \
+            or v_pool.dtype is not pool_dtype or v_pool.shape != shape \
+            or shape[4] != hd or h % kvh or page_tab.dtype is not torch.int32 \
+            or page_tab.shape != (B, P) or not 0 <= layer < L \
+            or k_pool.get_device() != dev or v_pool.get_device() != dev \
+            or page_tab.get_device() != dev \
+            or not (q.is_contiguous() and k_pool.is_contiguous()
+                    and v_pool.is_contiguous() and page_tab.is_contiguous()) \
+            or (valid is not None
+                and (valid.dtype is not torch.bool
+                     or valid.shape != (B, P * page_size)
+                     or valid.get_device() != dev
+                     or not valid.is_contiguous())) \
+            or (int8 and (k_scale is None or v_scale is None
+                          or k_scale.dtype is not torch.float32
+                          or v_scale.dtype is not torch.float32
+                          or k_scale.shape != (*shape[:4], 1)
+                          or v_scale.shape != (*shape[:4], 1)
+                          or k_scale.get_device() != dev
+                          or v_scale.get_device() != dev
+                          or not (k_scale.is_contiguous()
+                                  and v_scale.is_contiguous()))):
+        _refuse(q, kv, layer, page_tab, valid)
+    is_bf16 = q.dtype is torch.bfloat16
+    if tc is None:
+        tc = is_bf16 and (window or pool_dtype in DECODE_TC_POOLS)
+    view_len = P * page_size
+    n_cols = min(view_len, pos + sq) if window else view_len
+    qb = _QB[bool(tc)]
+    blocks = B * kvh * -(-sq * (h // kvh) // qb)
+    if splits is None:
+        splits, per = split_plan(blocks, n_cols, _sm_count(dev), tc)
+    else:
+        n_sub = max(1, -(-n_cols // _SUB))
+        per = -(-n_sub // min(splits, _MAX_SPLITS))
+        splits = -(-n_sub // per)
+    smem = _smem_bytes((int(is_bf16), int(int8), hd, int(tc), int(window),
+                        h // kvh, per))
+    if smem == 0 or smem > _SMEM_LIMIT:
+        _refuse_shape(q, k_pool, hd, view_len, smem, tc)
+    ws, tickets = _workspace(dev, blocks * splits * qb * (hd + 4)
+                             if splits > 1 else 0, blocks)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    packed = array.array("q", (
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if int8 else 0, v_scale.data_ptr() if int8 else 0,
+        page_tab.data_ptr(), valid.data_ptr() if valid is not None else 0,
+        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), is_bf16, int8,
+        window, tc, B, sq, h, kvh, hd, num_pages, page_size, P, layer, pos,
+        n_cols, splits, per, _build.stream_ptr(q)))
+    rc = _build.bind("paged_attention", "paged_attention_forward",
+                     _FORWARD_ARGS)(packed.buffer_info()[0], scale)
+    _build.check(rc, "paged_attention_forward")
+    LAUNCHES[("paged_window" if window else "paged_decode")
+             + ("_int8" if int8 else "")] += 1
+    return out
+
+
+def _refuse(q, kv, layer, page_tab, valid):
+    """Raise with what the paged kernel cannot take."""
     k_pool, v_pool = kv["k"], kv["v"]
     int8 = "k_scale" in kv or "v_scale" in kv
     tensors = {"q": q, "k": k_pool, "v": v_pool, "page_tab": page_tab}
@@ -148,41 +298,18 @@ def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale):
     if valid is not None and (valid.dtype != torch.bool
                               or valid.shape != (B, P * page_size)):
         raise ValueError(f"valid must be bool [{B}, {P * page_size}]")
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} outside [0, {L})")
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [
-        ctypes.c_float, ctypes.c_void_p]
-    size = lib.paged_attention_smem_bytes
-    size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int] * 4
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    smem = size(is_bf16, int(int8), hd, P * page_size)
-    if smem == 0:
-        raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a view of {P * page_size} columns at head_dim "
-                         f"{hd} ({k_pool.dtype} pool) needs {smem} bytes of "
-                         f"shared memory per block; the card gives "
-                         f"{_SMEM_LIMIT}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
+    raise ValueError(f"layer {layer} outside [0, {L})")
 
-    def ptr(name):
-        t = tensors.get(name)
-        return t.data_ptr() if t is not None else None
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            ptr("k_scale"), ptr("v_scale"), page_tab.data_ptr(),
-            ptr("valid"), out.data_ptr(), is_bf16, int(int8), int(window),
-            B, sq, h, kvh, hd, num_pages, page_size, P, int(layer), int(pos),
-            float(scale), _build.stream_ptr(q))
-    _build.check(rc, "paged_attention_forward")
-    LAUNCHES[("paged_window" if window else "paged_decode")
-             + ("_int8" if int8 else "")] += 1
-    return out
+
+def _refuse_shape(q, k_pool, hd, view_len, smem, tc):
+    if smem == 0:
+        if hd not in (64, 128):
+            raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
+        raise ValueError(f"the tensor-core route takes bf16 q, not {q.dtype}")
+    raise ValueError(f"a view of {view_len} columns at head_dim {hd} "
+                     f"({k_pool.dtype} pool, {'tensor' if tc else 'CUDA'} "
+                     f"cores) needs {smem} bytes of shared memory per block; "
+                     f"the card gives {_SMEM_LIMIT}")
 
 
 def paged_decode_attention(q: torch.Tensor, kv: Dict[str, torch.Tensor],

@@ -556,3 +556,150 @@ def test_llama_engine_on_card_matches_cpu(cuda, kv_cache_dtype):
         assert outs[0] == outs[1]
     else:
         assert [o[0] for o in outs[0]] == [o[0] for o in outs[1]]
+
+
+# --- split-K paged attention: boundaries, routes, page sizes -------------
+
+def _any_pool(gen, kind, device, hd, pg, NP=48, L=2, kvh=2):
+    if kind == "int8":
+        return _int8_pool(gen, device, L=L, NP=NP, pg=pg, kvh=kvh, hd=hd)
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    return _pool(gen, dtype, device, L=L, NP=NP, pg=pg, kvh=kvh, hd=hd)
+
+
+def _paged_err(got, want, kind, q_dtype):
+    """(error, tol) as the tests above hold each branch: an int8 pool
+    relative to the output's scale, a pool in q's type absolutely."""
+    if kind == "int8":
+        return _rel_err(got, want), (1e-4 if q_dtype == torch.float32
+                                     else 1e-2)
+    return ((got.float() - want.float()).abs().max().item(),
+            1e-4 if q_dtype == torch.float32 else 2e-2)
+
+
+_SPLIT_CASES = [(kind, hd, group, pg)
+                for kind in ("f32", "bf16", "int8") for hd in (64, 128)
+                for group in (1, 2, 4) for pg in (1, 8, 16)
+                if not (kind == "f32" and hd == 128)]   # over shared memory
+
+
+@pytest.mark.parametrize("kind,hd,group,pg", _SPLIT_CASES)
+def test_paged_decode_split_boundaries(cuda, kind, hd, group, pg):
+    """Decode at 1, 2, 3 splits and the planned count, on both bodies,
+    against the plain version: a row whose later splits are all masked, a
+    row whose earlier ones are, a row with no valid column anywhere
+    (every column attended, uniformly across splits), a row wholly on the
+    trash page, a full row; views of 200 or 208 columns (no multiple of
+    32 x splits; 200 also no multiple of 16, the scan's byte path)."""
+    gen = torch.Generator().manual_seed(20 + hd + group + pg)
+    kvh, S = 2, 5
+    P = -(-200 // pg)
+    view = P * pg
+    kv = _any_pool(gen, kind, cuda, hd, pg)
+    tab = torch.randint(1, 48, (S, P), generator=gen, dtype=torch.int32)
+    tab[3] = 0                                   # wholly the trash page
+    cols = torch.arange(view)[None, :]
+    lo = torch.tensor([[0], [150], [0], [0], [0]])
+    hi = torch.tensor([[37], [view], [0], [120], [view]])
+    valid = (cols >= lo) & (cols < hi)           # row 2: no valid column
+    tab, valid = tab.to(cuda), valid.to(cuda)
+    q_dtypes = ([torch.float32] if kind == "f32" else
+                [torch.bfloat16] if kind == "bf16" else
+                [torch.float32, torch.bfloat16])
+    for q_dtype in q_dtypes:
+        q = torch.randn(S, 1, kvh * group, hd, generator=gen).to(
+            q_dtype).to(cuda)
+        want = pa.paged_decode_attention_plain(q, kv, 1, tab, valid)
+        routes = [False] + ([True] if q_dtype == torch.bfloat16 else [])
+        for tc in routes:
+            for splits in (1, 2, 3, None):
+                got = pa._launch(q, kv, 1, tab, valid, 0, window=False,
+                                 scale=None, tc=tc, splits=splits)
+                torch.cuda.synchronize()
+                err, tol = _paged_err(got, want, kind, q_dtype)
+                assert err <= tol, (q_dtype, tc, splits, err)
+        got = pa.paged_decode_attention(q, kv, 1, tab, valid)
+        err, tol = _paged_err(got, want, kind, q_dtype)
+        assert err <= tol
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("pos", [0, 31, 500])
+@pytest.mark.parametrize("sq", [1, 16, 32])
+def test_paged_window_split_and_routes(cuda, kind, hd, group, pos, sq):
+    """The window at pos 0, 31, 500 with 1, 16 or 32 queries a row (up to
+    128 query vectors a kv head, a whole tensor-core block): bf16 q on
+    the tensor cores (planned and forced splits), f32 q on the CUDA
+    cores, against the plain version."""
+    gen = torch.Generator().manual_seed(40 + hd + group + pos + sq)
+    kvh, pg, P = 2, 16, 36                       # a view of 576 columns
+    kv = _any_pool(gen, kind, cuda, hd, pg)
+    row = torch.randint(1, 48, (P,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    for q_dtype in (torch.bfloat16, torch.float32):
+        if q_dtype == torch.float32 and hd == 128 and kind == "bf16":
+            continue                             # f32 pool: not this test
+        kvq = kv if kind == "int8" or q_dtype == torch.bfloat16 else \
+            {k: v.float() for k, v in kv.items()}
+        q = torch.randn(1, sq, kvh * group, hd, generator=gen).to(
+            q_dtype).to(cuda)
+        want = pa.paged_window_attention_plain(q, kvq, 0, row, pos)
+        for splits in ((1, 2, None) if q_dtype == torch.bfloat16 else
+                       (1, None)):
+            got = pa._launch(q, kvq, 0, row[None, :], None, pos, window=True,
+                             scale=None, splits=splits)
+            torch.cuda.synchronize()
+            err, tol = _paged_err(got, want, kind, q_dtype)
+            assert err <= tol, (q_dtype, splits, err)
+
+
+def test_paged_split_tickets_reset_back_to_back_and_in_a_graph(cuda):
+    """The merge's ticket counters are left at 0 by every launch: two
+    calls back to back, then a CUDA graph of one call replayed twice,
+    give the plain version's answer each time."""
+    gen = torch.Generator().manual_seed(60)
+    kv = _int8_pool(gen, cuda, hd=128, NP=48)
+    S, P, pg = 4, 32, 16
+    q = torch.randn(S, 1, 8, 128, generator=gen).to(torch.bfloat16).to(cuda)
+    tab = torch.randint(1, 48, (S, P), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    valid = (torch.arange(P * pg)[None, :]
+             < torch.tensor([[500], [37], [200], [512]])).to(cuda)
+    want = pa.paged_decode_attention_plain(q, kv, 0, tab, valid)
+    for _ in range(2):
+        got = pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None,
+                         splits=4)
+        assert _rel_err(got, want) <= 1e-2
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None,
+                   splits=4)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None,
+                         splits=4)
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert _rel_err(out, want) <= 1e-2
+
+
+def test_rmsnorm_kernel_same_output_with_and_without_grad(cuda):
+    """Under no_grad the wrapper launches directly; with a gradient it goes
+    through the autograd Function: the same kernel, the same bits."""
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn(33, 4096, generator=gen).to(torch.bfloat16).to(cuda)
+    gamma = torch.randn(4096, generator=gen).to(cuda).requires_grad_()
+    before = fused.LAUNCHES["rmsnorm"]
+    with torch.no_grad():
+        plain_call = fused.fused_rmsnorm(x, gamma, 1e-5)
+    graph_call = fused.fused_rmsnorm(x, gamma, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm"] == before + 2
+    assert not plain_call.requires_grad and graph_call.requires_grad
+    assert torch.equal(plain_call, graph_call.detach())
