@@ -30,8 +30,8 @@ no result lines:
    replayed, the device's own time per call), and computes the least
    time the card could take from the bytes and flops these inputs need
    (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).  Each decode
-   entry also logs its split plan and its graph time at a forced single
-   split and (bf16 q) on the other body, tensor cores or CUDA cores.
+   entry also logs its route, its split plan and its graph time at a
+   forced single split.
 4. engine: GPT-2 small at full width (random weights from ``--seed``)
    behind ``Engine``: 12 requests (4 sharing a 256-token system prompt),
    drained; checks budgets, the prefix-cache hit rate, that every
@@ -67,7 +67,9 @@ no result lines:
 11. with ``--profile DIR`` only: the engine phases and 3 training steps
    again under ``torch.profiler``; the device's busy share, its top
    kernels, µs per paged-attention launch, and (training, Llama
-   engine) device ms by part.
+   engine) device ms by part; then µs per paged launch in the Llama
+   engine over 4 requests of the mix at the planned split counts and at
+   one forced split (what split-K gives inside the engine).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -200,26 +202,17 @@ def bound_ms(nbytes: float, flops: float):
 
 def _decode_variants(torch, pa, q, kv, tab, valid, nxt, iters):
     """The decode kernel's split plan for these shapes, and its graph time
-    at a forced single split and on the other body (tensor cores against
-    CUDA cores, bf16 q only), beside the planned launch's record."""
+    at a forced single split, beside the planned launch's record."""
     B, _, h, _ = q.shape
-    kvh, pg = kv["k"].shape[3], kv["k"].shape[2]
-    view = tab.shape[1] * pg
-    tc = q.dtype == torch.bfloat16 and kv["k"].dtype in pa.DECODE_TC_POOLS
-    qb = pa._QB[tc]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits, per = pa.split_plan(B * kvh * -(-h // kvh // qb), view, sms, tc)
-
-    def call(**kw):
-        return lambda: pa._launch(q, kv, nxt(), tab, valid, 0, window=False,
-                                  scale=None, **kw)
-    res = {"splits": splits, "subtiles_per_split": per,
-           "graph_ms_one_split": graph_ms(torch, call(splits=1), iters)}
-    if q.dtype == torch.bfloat16:
-        other = "tensor_cores" if not tc else "cuda_cores"
-        res["route"] = "cuda_cores" if not tc else "tensor_cores"
-        res["graph_ms_" + other] = graph_ms(torch, call(tc=not tc), iters)
-    return res
+    kvh = kv["k"].shape[3]
+    tc = pa.tensor_cores(q.dtype == torch.bfloat16, "k_scale" in kv, False)
+    _, splits, per = pa.launch_plan(B, 1, h, kvh, tab.shape[1] * kv[
+        "k"].shape[2], tc, q.get_device())
+    return {"route": "tensor_cores" if tc else "cuda_cores",
+            "splits": splits, "subtiles_per_split": per,
+            "graph_ms_one_split": graph_ms(torch, lambda: pa._launch(
+                q, kv, nxt(), tab, valid, 0, window=False, scale=None,
+                splits=1), iters)}
 
 
 def check_kernels(torch, args):
@@ -1327,6 +1320,35 @@ def profile_engine(torch, np, args, smi, model, *, max_len=1024,
     log({name: result})
 
 
+def profile_paged_splits(torch, np, args, model):
+    """``--profile DIR``: device µs per paged launch in the Llama engine at
+    the planned split counts and at one forced split, over the same 4
+    requests of the mix (budgets capped at 16), each under
+    ``torch.profiler`` with device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+
+    prompts, budgets = _requests(np, args.seed,
+                                 vocab=model.config.vocab_size)
+    budgets = [min(b, 16) for b in budgets[:4]]
+    planned = pa._MAX_SPLITS
+    result = {}
+    for name, max_splits in (("planned", planned), ("one_split", 1)):
+        pa._MAX_SPLITS = max_splits
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run_engine(torch, model, prompts[:4], budgets,
+                           max_len=LLAMA_MAX_LEN)
+        finally:
+            pa._MAX_SPLITS = planned
+        result[name] = {k[:80]: [us / n, n] for k, us, n in _kernel_rows(prof)
+                        if "paged_" in k}
+    log({"profile_llama_paged_splits": {"us_per_launch_and_launches": result,
+                                        "requests": 4, "budgets": budgets}})
+
+
 # kernel-name marks of the step's parts, first match wins
 _TRAIN_PARTS = (
     ("GEMMs on cuBLAS's align1 path (the vocab-50257 tied head)",
@@ -1457,6 +1479,7 @@ def main(argv=None) -> int:
     if args.profile:
         profile_engine(torch, np, args, smi, model, max_len=LLAMA_MAX_LEN,
                        name="profile_llama", parts=_LLAMA_PARTS)
+        profile_paged_splits(torch, np, args, model)
     del model
     torch.cuda.empty_cache()
     check_llama_reference(torch, np)

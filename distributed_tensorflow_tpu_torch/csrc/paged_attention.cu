@@ -85,8 +85,8 @@
 //
 // Page size: any page_size >= 1.  The kernel gathers per column, so
 // there is no tiling rule like Mosaic's multiple-of-8 sublane rule.
-// Concurrency: the workspace and the counters are per device and per
-// launch; launches that share them must be ordered (one stream).
+// Concurrency: launches that share a workspace and its counters must be
+// ordered; the wrapper keeps one pair per (device, stream).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1069,17 +1069,29 @@ int cc_nq(int window, int group) {
 }
 
 template <typename T, typename KT, int HD>
-int dispatch(int window, int tc, const Args& a) {
-  if (tc) {
-    if constexpr (sizeof(T) == 2)
-      return window ? launch_tc<KT, HD, true>(a) : launch_tc<KT, HD, false>(a);
-    return (int)cudaErrorInvalidValue;      // the tensor cores take bf16 q
-  }
-  if (window) return launch_cc<T, KT, HD, true, kCcQB>(a);
-  switch (cc_nq(window, a.geo.h / a.geo.kvh)) {
+int launch_cc_decode(const Args& a) {
+  switch (cc_nq(0, a.geo.h / a.geo.kvh)) {
     case 1: return launch_cc<T, KT, HD, false, 1>(a);
     case 4: return launch_cc<T, KT, HD, false, 4>(a);
     default: return launch_cc<T, KT, HD, false, kCcQB>(a);
+  }
+}
+
+// Only the routes the wrapper takes, which the dtypes decide: the tensor
+// cores for a bf16 window and for bf16 decode over a bf16 pool, the CUDA
+// cores for f32 q and for bf16 decode over an int8 pool.  Any other tc
+// is refused, so no other body is built.
+template <typename T, typename KT, int HD>
+int dispatch(int window, int tc, const Args& a) {
+  constexpr bool kBf16 = sizeof(T) == 2, kInt8 = sizeof(KT) == 1;
+  if (tc != (kBf16 && (window || !kInt8))) return (int)cudaErrorInvalidValue;
+  if constexpr (kBf16) {
+    if (window) return launch_tc<KT, HD, true>(a);
+    if constexpr (kInt8) return launch_cc_decode<T, KT, HD>(a);
+    else return launch_tc<KT, HD, false>(a);
+  } else {
+    if (window) return launch_cc<T, KT, HD, true, kCcQB>(a);
+    return launch_cc_decode<T, KT, HD>(a);
   }
 }
 
@@ -1121,34 +1133,32 @@ size_t paged_attention_smem_bytes(int is_bf16, int kv_int8, int hd, int tc,
   return 0;
 }
 
-// The launch, its arguments packed into one int64 block (one ctypes
-// argument instead of 29 keeps the host's share of a launch small), in
-// this order:
-//   0 q, 1 k_pool, 2 v_pool, 3 k_scale, 4 v_scale, 5 page_tab, 6 valid,
-//   7 out, 8 ws, 9 tickets (pointers; 3, 4 NULL for a pool in q's type,
-//   6 NULL for the window), 10 is_bf16, 11 kv_int8, 12 window, 13 tc,
-//   14 B, 15 sq, 16 h, 17 kvh, 18 hd, 19 num_pages, 20 page_size,
-//   21 pages_per_row, 22 layer, 23 pos, 24 n_cols, 25 splits, 26 per,
-//   27 stream.
-// kv_int8 = 1: k_pool/v_pool are int8 and k_scale/v_scale the f32 scale
-// planes.  tc = 1: the tensor-core body (bf16 q only).  n_cols: the
-// columns the call may attend (view_len for decode, min(view_len, pos +
-// sq) for the window); `splits` blocks split them in shares of `per`
-// sub-tiles of 32 (splits <= 16).  ws: f32 workspace of B * kvh *
+// The launch.  q .. valid: the layouts above (k_scale/v_scale NULL for
+// a pool in q's type, valid NULL for the window); kv_int8 = 1: k_pool/
+// v_pool are int8 and k_scale/v_scale the f32 scale planes; tc: the
+// route, which must be the one the dtypes decide (see dispatch).  n_cols:
+// the columns the call may attend (view_len for decode, min(view_len,
+// pos + sq) for the window); `splits` blocks split them in shares of
+// `per` sub-tiles of 32 (splits <= 16).  ws: f32 workspace of B * kvh *
 // q-blocks * splits * (8 or 128) * (hd + 4) floats; tickets: B * kvh *
 // q-blocks int32 counters, all 0 (each launch leaves them 0).  Returns
 // cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for an unsupported head_dim.
-int paged_attention_forward(const int64_t* v, float scale) {
-  auto ptr = [&](int i) { return reinterpret_cast<void*>(v[i]); };
-  const int hd = (int)v[18], is_bf16 = (int)v[10], kv_int8 = (int)v[11],
-            window = (int)v[12], tc = (int)v[13];
-  const Args a{ptr(0), ptr(1), ptr(2), ptr(3), ptr(4), ptr(5), ptr(6),
-               ptr(7), ptr(8), ptr(9), (int)v[14], (int)v[25],
-               Geo{(int)v[15], (int)v[16], (int)v[17], (int)v[19],
-                   (int)v[20], (int)v[21], (int)v[22], (int)v[23],
-                   (int)v[24], (int)v[26], scale},
-               static_cast<cudaStream_t>(ptr(27))};
+// cudaErrorInvalidValue for an unsupported head_dim or route.
+int paged_attention_forward(const void* q, const void* k_pool,
+                            const void* v_pool, const void* k_scale,
+                            const void* v_scale, const void* page_tab,
+                            const void* valid, void* out, void* ws,
+                            void* tickets, int is_bf16, int kv_int8,
+                            int window, int tc, int B, int sq, int h,
+                            int kvh, int hd, int num_pages, int page_size,
+                            int pages_per_row, int layer, int pos,
+                            int n_cols, int splits, int per, float scale,
+                            cudaStream_t stream) {
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, page_tab, valid,
+               out, ws, tickets, B, splits,
+               Geo{sq, h, kvh, num_pages, page_size, pages_per_row, layer,
+                   pos, n_cols, per, scale},
+               stream};
   if (hd == 64)
     return is_bf16 ? dispatch_kv<bf16, 64>(kv_int8, window, tc, a)
                    : dispatch_kv<float, 64>(kv_int8, window, tc, a);

@@ -29,8 +29,8 @@ What bounds it on the H100: bytes (the K/V columns it must read: hd*2
 bytes per column per leaf in bf16, hd + 4 in int8, about 0.52x at hd
 128); the flops per byte are far below the tensor-core line.  The host
 side is one bound C function (``_build.bind``), one guard expression,
-and a workspace and shared-memory sizes cached per device: the engines
-are host-bound.
+shared-memory sizes cached per device and a workspace per (device,
+stream): the engines are host-bound.
 
 Page-size rule: any ``page_size >= 1`` dividing ``max_len``.  The
 kernel gathers per column, so Mosaic's multiple-of-8 rule does not
@@ -48,7 +48,6 @@ branch: ``paged_decode``, ``paged_window``, ``paged_decode_int8``,
 """
 from __future__ import annotations
 
-import array
 import collections
 import ctypes
 import math
@@ -119,17 +118,20 @@ _BLOCKS_PER_SM = {False: 4, True: 8}
 _MAX_SPLITS = 16
 _SUB = 32                 # columns of a sub-tile
 _QB = {False: 8, True: 128}   # query vectors a block: CUDA / tensor cores
-# Routes, from the card's times (PERF.md): every bf16 window on the tensor
-# cores; bf16 decode on the tensor cores over a bf16 pool and on the CUDA
-# cores over an int8 pool; every f32 call on the CUDA cores.
-DECODE_TC_POOLS = (torch.bfloat16,)
 
-# the C entry takes its arguments as one packed int64 block (see
-# csrc/paged_attention.cu) and the scale
-_FORWARD_ARGS = [ctypes.c_void_p, ctypes.c_float]
+_FORWARD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 17
+                 + [ctypes.c_float, ctypes.c_void_p])
 _sm_counts: Dict[int, int] = {}
 _smem: Dict[tuple, int] = {}
-_scratch: Dict[int, tuple] = {}     # device -> (workspace f32, tickets int32)
+# (device, stream) -> (workspace f32, tickets int32, retired buffers)
+_scratch: Dict[tuple, tuple] = {}
+
+
+def tensor_cores(is_bf16: bool, int8: bool, window: bool) -> bool:
+    """The route, from the dtypes alone (the card's times, PERF.md): every
+    bf16 window and bf16 decode over a bf16 pool on the tensor cores;
+    every f32 call and decode over an int8 pool on the CUDA cores."""
+    return is_bf16 and (window or not int8)
 
 
 def split_plan(blocks: int, n_cols: int, sm_count: int,
@@ -144,6 +146,19 @@ def split_plan(blocks: int, n_cols: int, sm_count: int,
     splits = max(1, min(want, _MAX_SPLITS, n_sub // (2 if tc else 4)))
     per = -(-n_sub // splits)
     return -(-n_sub // per), per
+
+
+def launch_plan(B: int, sq: int, h: int, kvh: int, n_cols: int, tc: bool,
+                dev: int, splits: Optional[int] = None):
+    """(blocks, splits, per) of a launch: ``blocks`` (row, kv head,
+    q-block) triples, each split ``splits`` ways in shares of ``per``
+    sub-tiles; ``splits`` forces the count (measurement only)."""
+    blocks = B * kvh * -(-sq * (h // kvh) // _QB[tc])
+    if splits is None:
+        return (blocks, *split_plan(blocks, n_cols, _sm_count(dev), tc))
+    n_sub = max(1, -(-n_cols // _SUB))
+    per = -(-n_sub // min(splits, _MAX_SPLITS))
+    return blocks, -(-n_sub // per), per
 
 
 def _sm_count(dev: int) -> int:
@@ -163,24 +178,31 @@ def _smem_bytes(key) -> int:
     return n
 
 
-def _workspace(dev: int, n_ws: int, n_tickets: int):
-    """The device's split-K workspace (f32) and ticket counters (int32,
-    all 0 between launches: the merging block of each launch resets its
-    own), grown as needed and kept."""
-    ws, tickets = _scratch.get(dev, (None, None))
+def _workspace(dev, stream: int, n_ws: int, n_tickets: int):
+    """The split-K workspace (f32) and ticket counters (int32, all 0
+    between launches: the merging block of each launch resets its own) of
+    one stream on one device.  A stream's launches run in order, so they
+    may share them; launches on two streams never do.  Grown at least
+    twofold when a launch needs more, and a buffer once handed out is
+    never freed: a CUDA graph captured earlier goes on using it."""
+    key = (dev, stream)
+    ws, tickets, retired = _scratch.get(key, (None, None, []))
     if ws is None or ws.numel() < n_ws or tickets.numel() < n_tickets:
-        n_ws = max(n_ws, 0 if ws is None else ws.numel(), 1)
-        n_tickets = max(n_tickets, 0 if tickets is None else tickets.numel())
-        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
-        _scratch[dev] = (ws, tickets)
+        if ws is not None:
+            retired.append((ws, tickets))
+            n_ws = max(n_ws, 2 * ws.numel())
+            n_tickets = max(n_tickets, 2 * tickets.numel())
+        ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(max(n_tickets, 1), dtype=torch.int32,
+                              device=dev)
+        _scratch[key] = (ws, tickets, retired)
     return ws, tickets
 
 
-def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale, tc=None,
+def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale,
             splits=None):
-    """Launch the kernel; ``tc`` (tensor cores) and ``splits`` override
-    the route and the split plan (measurement only)."""
+    """Launch the kernel; ``splits`` overrides the split plan
+    (measurement only)."""
     k_pool, v_pool = kv["k"], kv["v"]
     k_scale, v_scale = kv.get("k_scale"), kv.get("v_scale")
     int8 = k_scale is not None or v_scale is not None
@@ -217,36 +239,29 @@ def _launch(q, kv, layer, page_tab, valid, pos, *, window, scale, tc=None,
                                   and v_scale.is_contiguous()))):
         _refuse(q, kv, layer, page_tab, valid)
     is_bf16 = q.dtype is torch.bfloat16
-    if tc is None:
-        tc = is_bf16 and (window or pool_dtype in DECODE_TC_POOLS)
+    tc = tensor_cores(is_bf16, int8, window)
     view_len = P * page_size
     n_cols = min(view_len, pos + sq) if window else view_len
-    qb = _QB[bool(tc)]
-    blocks = B * kvh * -(-sq * (h // kvh) // qb)
-    if splits is None:
-        splits, per = split_plan(blocks, n_cols, _sm_count(dev), tc)
-    else:
-        n_sub = max(1, -(-n_cols // _SUB))
-        per = -(-n_sub // min(splits, _MAX_SPLITS))
-        splits = -(-n_sub // per)
+    blocks, splits, per = launch_plan(B, sq, h, kvh, n_cols, tc, dev, splits)
     smem = _smem_bytes((int(is_bf16), int(int8), hd, int(tc), int(window),
                         h // kvh, per))
     if smem == 0 or smem > _SMEM_LIMIT:
-        _refuse_shape(q, k_pool, hd, view_len, smem, tc)
-    ws, tickets = _workspace(dev, blocks * splits * qb * (hd + 4)
+        _refuse_shape(k_pool, hd, view_len, smem, tc)
+    stream = _build.stream_ptr(q)
+    ws, tickets = _workspace(dev, stream, blocks * splits * _QB[tc] * (hd + 4)
                              if splits > 1 else 0, blocks)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
-    packed = array.array("q", (
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if int8 else 0, v_scale.data_ptr() if int8 else 0,
-        page_tab.data_ptr(), valid.data_ptr() if valid is not None else 0,
-        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), is_bf16, int8,
-        window, tc, B, sq, h, kvh, hd, num_pages, page_size, P, layer, pos,
-        n_cols, splits, per, _build.stream_ptr(q)))
     rc = _build.bind("paged_attention", "paged_attention_forward",
-                     _FORWARD_ARGS)(packed.buffer_info()[0], scale)
+                     _FORWARD_ARGS)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None, page_tab.data_ptr(),
+        valid.data_ptr() if valid is not None else None, out.data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(), is_bf16, int8, window, tc, B, sq,
+        h, kvh, hd, num_pages, page_size, P, layer, pos, n_cols, splits, per,
+        scale, stream)
     _build.check(rc, "paged_attention_forward")
     LAUNCHES[("paged_window" if window else "paged_decode")
              + ("_int8" if int8 else "")] += 1
@@ -301,11 +316,9 @@ def _refuse(q, kv, layer, page_tab, valid):
     raise ValueError(f"layer {layer} outside [0, {L})")
 
 
-def _refuse_shape(q, k_pool, hd, view_len, smem, tc):
+def _refuse_shape(k_pool, hd, view_len, smem, tc):
     if smem == 0:
-        if hd not in (64, 128):
-            raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
-        raise ValueError(f"the tensor-core route takes bf16 q, not {q.dtype}")
+        raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
     raise ValueError(f"a view of {view_len} columns at head_dim {hd} "
                      f"({k_pool.dtype} pool, {'tensor' if tc else 'CUDA'} "
                      f"cores) needs {smem} bytes of shared memory per block; "

@@ -7,7 +7,6 @@ library (Python functions in place of the C ones) and CPU tensors, so
 what they check is the host path itself: the guards, the plan and the
 arguments passed, and that the library is loaded and typed once.
 """
-import ctypes
 import types
 
 import pytest
@@ -47,11 +46,8 @@ def test_split_plan_fills_the_card_at_the_llama_decode_shape():
 
 
 def _fake_paged_lib(calls):
-    def forward(packed, scale):
-        # the packed block (28 int64) and the scale, as the C entry reads
-        # them, with the scale in its place in the named order
-        v = list(ctypes.cast(packed, ctypes.POINTER(ctypes.c_int64 * 28))[0])
-        calls.append(tuple(v[:27]) + (scale, v[27]))
+    def forward(*args):
+        calls.append(args)
         return 0
 
     def smem(is_bf16, kv_int8, hd, tc, window, group, per):
@@ -74,8 +70,8 @@ def fake_paged(monkeypatch):
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(pa, "_smem", {})
     monkeypatch.setattr(pa, "_sm_counts", {-1: 132})
-    monkeypatch.setattr(pa, "_scratch", {-1: (torch.empty(1 << 20),
-                                              torch.zeros(4096, dtype=torch.int32))})
+    monkeypatch.setattr(pa, "_scratch", {(-1, 0): (
+        torch.empty(1 << 20), torch.zeros(4096, dtype=torch.int32), [])})
     return calls, loads
 
 
@@ -94,11 +90,11 @@ def _decode_inputs(dtype=torch.bfloat16, int8=False, S=8, h=32, kvh=8,
     return q, kv, tab, valid
 
 
-# the C entry's arguments, by position
+# the C entry's arguments, by position (csrc/paged_attention.cu)
 _ARG = {name: i for i, name in enumerate(
     "q k v k_scale v_scale page_tab valid out ws tickets is_bf16 kv_int8 "
     "window tc B sq h kvh hd num_pages page_size pages_per_row layer pos "
-    "n_cols splits per scale stream".split())}  # scale: the 2nd C arg
+    "n_cols splits per scale stream".split())}
 
 
 def test_paged_wrapper_binds_once_and_passes_the_plan(fake_paged):
@@ -145,6 +141,58 @@ def test_paged_wrapper_window_plan_and_route(fake_paged):
     assert not args[_ARG["tc"]] and args[_ARG["n_cols"]] == 1024
     assert args[_ARG["splits"]] == 1 and args[_ARG["per"]] == 32
     assert args[_ARG["scale"]] == 0.5
+
+
+@pytest.mark.parametrize("is_bf16,int8,window,want", [
+    (True, False, True, True), (True, True, True, True),
+    (True, False, False, True), (True, True, False, False),
+    (False, False, True, False), (False, True, False, False)],
+    ids=["bf16-window", "int8-window", "bf16-decode", "int8-decode",
+         "f32-window", "f32-int8-decode"])
+def test_paged_route_is_decided_by_the_dtypes(fake_paged, is_bf16, int8,
+                                              window, want):
+    """The tensor cores for every bf16 window and for bf16 decode over a
+    bf16 pool, the CUDA cores otherwise; the launch passes that route and
+    sizes the workspace for its block's query count."""
+    calls, _ = fake_paged
+    assert pa.tensor_cores(is_bf16, int8, window) is want
+    dtype = torch.bfloat16 if is_bf16 else torch.float32
+    q, kv, tab, valid = _decode_inputs(dtype=dtype, int8=int8, S=1, P=16)
+    if window:
+        q = q.expand(1, 16, *q.shape[2:]).contiguous()
+        pa._launch(q, kv, 0, tab, None, 100, window=True, scale=None)
+    else:
+        pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None)
+    assert bool(calls[-1][_ARG["tc"]]) is want
+
+
+def test_paged_workspace_is_per_stream_and_never_freed(monkeypatch):
+    """Each (device, stream) has its own workspace and tickets; a launch
+    that needs more grows them at least twofold and keeps the old pair
+    alive (a CUDA graph captured earlier still uses it); a smaller need
+    reuses what is there."""
+    monkeypatch.setattr(pa, "_scratch", {})
+    ws, tickets = pa._workspace("cpu", 1, 100, 4)
+    assert ws.numel() == 100 and tickets.numel() == 4
+    assert not tickets.any()
+    assert pa._workspace("cpu", 1, 50, 2)[0] is ws
+    other, _ = pa._workspace("cpu", 2, 50, 2)
+    assert other is not ws
+    grown, grown_t = pa._workspace("cpu", 1, 120, 4)
+    assert grown.numel() == 200 and grown_t.numel() == 8
+    assert pa._scratch[("cpu", 1)][2] == [(ws, tickets)]
+    assert pa._workspace("cpu", 1, 10, 1)[0] is grown
+
+
+def test_paged_forced_splits_cover_the_columns():
+    """A forced split count is capped at 16 and at the row's sub-tiles;
+    the shares still cover every column."""
+    for splits, n_cols in ((1, 8192), (3, 200), (40, 8192), (8, 64)):
+        blocks, got, per = pa.launch_plan(8, 1, 32, 8, n_cols, False, -1,
+                                          splits)
+        n_sub = -(-n_cols // 32)
+        assert blocks == 64 and got <= min(splits, 16, n_sub)
+        assert (got - 1) * per < n_sub <= got * per
 
 
 def test_paged_wrapper_refuses_before_any_launch(fake_paged):

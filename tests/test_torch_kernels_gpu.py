@@ -585,8 +585,8 @@ _SPLIT_CASES = [(kind, hd, group, pg)
 
 @pytest.mark.parametrize("kind,hd,group,pg", _SPLIT_CASES)
 def test_paged_decode_split_boundaries(cuda, kind, hd, group, pg):
-    """Decode at 1, 2, 3 splits and the planned count, on both bodies,
-    against the plain version: a row whose later splits are all masked, a
+    """Decode at 1, 2, 3 splits and the planned count, on the body the
+    dtypes route to, against the plain version: a row whose later splits are all masked, a
     row whose earlier ones are, a row with no valid column anywhere
     (every column attended, uniformly across splits), a row wholly on the
     trash page, a full row; views of 200 or 208 columns (no multiple of
@@ -610,14 +610,12 @@ def test_paged_decode_split_boundaries(cuda, kind, hd, group, pg):
         q = torch.randn(S, 1, kvh * group, hd, generator=gen).to(
             q_dtype).to(cuda)
         want = pa.paged_decode_attention_plain(q, kv, 1, tab, valid)
-        routes = [False] + ([True] if q_dtype == torch.bfloat16 else [])
-        for tc in routes:
-            for splits in (1, 2, 3, None):
-                got = pa._launch(q, kv, 1, tab, valid, 0, window=False,
-                                 scale=None, tc=tc, splits=splits)
-                torch.cuda.synchronize()
-                err, tol = _paged_err(got, want, kind, q_dtype)
-                assert err <= tol, (q_dtype, tc, splits, err)
+        for splits in (1, 2, 3, None):
+            got = pa._launch(q, kv, 1, tab, valid, 0, window=False,
+                             scale=None, splits=splits)
+            torch.cuda.synchronize()
+            err, tol = _paged_err(got, want, kind, q_dtype)
+            assert err <= tol, (q_dtype, splits, err)
         got = pa.paged_decode_attention(q, kv, 1, tab, valid)
         err, tol = _paged_err(got, want, kind, q_dtype)
         assert err <= tol
@@ -687,6 +685,65 @@ def test_paged_split_tickets_reset_back_to_back_and_in_a_graph(cuda):
         g.replay()
         torch.cuda.synchronize()
         assert _rel_err(out, want) <= 1e-2
+
+
+def test_paged_graph_replays_after_the_workspace_grows(cuda):
+    """A CUDA graph captured at a small split count keeps the workspace and
+    tickets it was captured with: a later, larger call grows the stream's
+    workspace (and one on another stream gets its own), and the graph
+    still replays the plain version's answer, as does the larger call."""
+    gen = torch.Generator().manual_seed(61)
+    kv = _int8_pool(gen, cuda, hd=128, NP=48)
+    S, P, pg = 2, 16, 16
+    q = torch.randn(S, 1, 8, 128, generator=gen).to(torch.bfloat16).to(cuda)
+    tab = torch.randint(1, 48, (S, P), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    valid = (torch.arange(P * pg)[None, :]
+             < torch.tensor([[200], [256]])).to(cuda)
+    want = pa.paged_decode_attention_plain(q, kv, 0, tab, valid)
+    s = torch.cuda.Stream()
+    key = (q.get_device(), s.cuda_stream)
+    torch.cuda.synchronize()
+    pa._scratch.pop(key, None)      # this stream starts with no workspace
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None,
+                   splits=2)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = pa._launch(q, kv, 0, tab, valid, 0, window=False, scale=None,
+                         splits=2)
+    ws, tickets, _ = pa._scratch[key]
+    captured, sizes = ws.data_ptr(), (ws.numel(), tickets.numel())
+    del ws, tickets
+    big_q = torch.randn(8, 1, 8, 128, generator=gen).to(torch.bfloat16).to(
+        cuda)
+    big_tab = torch.randint(1, 48, (8, P), generator=gen,
+                            dtype=torch.int32).to(cuda)
+    big_valid = torch.ones(8, P * pg, dtype=torch.bool, device=cuda)
+    big_want = pa.paged_decode_attention_plain(big_q, kv, 1, big_tab,
+                                               big_valid)
+    with torch.cuda.stream(s):
+        big = pa._launch(big_q, kv, 1, big_tab, big_valid, 0, window=False,
+                         scale=None, splits=8)
+    other = pa._launch(big_q, kv, 1, big_tab, big_valid, 0, window=False,
+                       scale=None, splits=8)
+    torch.cuda.synchronize()
+    assert pa._scratch[key][0].data_ptr() != captured
+    assert _rel_err(big, big_want) <= 1e-2
+    assert _rel_err(other, big_want) <= 1e-2
+    # what the allocator would hand out again, had the old buffers been
+    # freed, filled with values that would break the replay's merge
+    junk = [torch.full((n,), 7, dtype=dtype, device=cuda)
+            for n, dtype in zip(sizes, (torch.float32, torch.int32))
+            for _ in range(4)]
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert _rel_err(out, want) <= 1e-2
+    del junk
 
 
 def test_rmsnorm_kernel_same_output_with_and_without_grad(cuda):
