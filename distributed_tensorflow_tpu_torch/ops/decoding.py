@@ -46,8 +46,9 @@ def filtered_logits(logits: torch.Tensor, temperature: float = 1.0,
     neg = torch.tensor(float("-inf"), dtype=logits.dtype,
                        device=logits.device)
     if need_p:
+        # stable: among equal logits the lower id first, as lax.top_k
         sorted_logits, sorted_idx = torch.sort(logits, dim=-1,
-                                               descending=True)
+                                               descending=True, stable=True)
         if need_k:
             pos = torch.arange(vocab, device=logits.device)[None, :]
             sorted_logits = torch.where(pos < top_k, sorted_logits, neg)
