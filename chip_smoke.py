@@ -9,7 +9,9 @@ no result lines:
 1. device: requires CUDA; prints the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: compiles every CUDA source of the port (one nvcc each, all at
-   once) and prints the seconds.
+   once) and prints the seconds; then, from ``ptxas -v``, the registers,
+   stack and spill bytes and the dynamic shared memory of the flash
+   backward kernels.
 3. kernels: each kernel at its path's shapes against its plain PyTorch
    version on the card, with the tolerance: the serving kernels at the
    engine's shapes (GPT-2 small, bf16, 8 slots, pages of 16, max_len
@@ -31,7 +33,11 @@ no result lines:
    time the card could take from the bytes and flops these inputs need
    (3.35 TB/s, 989 TFLOP/s bf16: H100 SXM data sheet).  Each decode
    entry also logs its route, its split plan and its graph time at a
-   forced single split.
+   forced single split.  The flash dQ record is the kernel as the
+   backward runs it (computing D from O); the whole backward (dQ, then
+   dK/dV) is logged beside SDPA's backward, whose graph time comes from
+   calling the aten op SDPA dispatches to directly (its device time from
+   ``torch.profiler`` too), and torch's ``row_dot`` D is timed alone.
 4. engine: GPT-2 small at full width (random weights from ``--seed``)
    behind ``Engine``: 12 requests (4 sharing a 256-token system prompt),
    drained; checks budgets, the prefix-cache hit rate, that every
@@ -155,13 +161,11 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(torch, fn, iters: int, stream=None) -> float:
+def graph_ms(torch, fn, iters: int) -> float:
     """Device time per call of ``fn`` with the host out of the way: after
     a warm-up on the capture stream, ``iters`` calls captured in one CUDA
-    graph; CUDA events around one replay, divided by ``iters``.  Autograd
-    runs a backward on its forward's stream, so a backward is captured on
-    the ``stream`` its forward ran on."""
-    s = stream or torch.cuda.Stream()
+    graph; CUDA events around one replay, divided by ``iters``."""
+    s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for _ in range(3):
@@ -183,11 +187,11 @@ def graph_ms(torch, fn, iters: int, stream=None) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _graph_or_why(torch, fn, iters, stream=None):
+def _graph_or_why(torch, fn, iters):
     """(graph_ms, None), or (None, why) for a library call that cannot be
     captured; used for yardsticks only, never for the port's kernels."""
     try:
-        return graph_ms(torch, fn, iters, stream), None
+        return graph_ms(torch, fn, iters), None
     except RuntimeError as e:
         torch.cuda.synchronize()
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
@@ -213,6 +217,27 @@ def _decode_variants(torch, pa, q, kv, tab, valid, nxt, iters):
             "graph_ms_one_split": graph_ms(torch, lambda: pa._launch(
                 q, kv, nxt(), tab, valid, 0, window=False, scale=None,
                 splits=1), iters)}
+
+
+def log_backward_resources(_build) -> None:
+    """Registers, stack and spill bytes (``ptxas -v`` at the build) and
+    dynamic shared memory a block of the bf16 and f32 flash backward
+    kernels, at head dims 64 and 128."""
+    import ctypes
+    smem = _build.bind("flash_attention", "flash_smem_bytes",
+                       [ctypes.c_int] * 3)
+    which = {"dq": 1, "dkv": 2}
+    kernels = {}
+    for name, info in _build.ptxas_report("flash_attention").items():
+        part = next((w for w in which if f"flash_{w}_" in name), None)
+        if part is None:
+            continue
+        hd = int(name[name.index("<") + 1:-1])
+        info = dict(info, dynamic_smem_bytes=smem(
+            which[part], int("mma" in name), hd))
+        kernels[name] = info
+    log({"phase": "ptxas", "source": "flash_attention.cu",
+         "kernels": kernels})
 
 
 def check_kernels(torch, args):
@@ -653,9 +678,10 @@ def _err_and_scale(torch, got, want):
 
 
 def _flash_case(torch, fa, gen, b, s, h, hk, hd, dtype, masked):
-    """Flash forward, dK/dV and dQ (causal) at one shape against their
-    plain versions: returns {kernel: (max abs err, tol)} and the operands
-    (q, k, v, do, lse, dvec)."""
+    """Flash forward, dQ (computing D, and given D), dK/dV and the whole
+    backward as ``_Flash`` runs it (causal) at one shape against their
+    plain versions: returns {record: (max abs err, tol)} and the operands
+    (q, k, v, do, lse, dvec, out)."""
     dev = torch.device("cuda")
 
     def rnd(*shape):
@@ -667,19 +693,26 @@ def _flash_case(torch, fa, gen, b, s, h, hk, hd, dtype, masked):
         valid = torch.rand(b, s, generator=gen, device=dev) < 0.7
         valid[0] = False                   # batch row 0: no valid key
         valid[1:, 0] = True
+    scale = 1.0 / hd ** 0.5
     out, lse = fa.flash_forward(q, k, v, valid, True)
-    dvec = fa.row_dot(do, out)
+    vb = fa._checked(q, k, v, valid)
+    dq, dvec = fa._launch_dq_d(q, k, v, vb, do, out, lse, True, scale)
+    want_dq, want_d = fa.flash_backward_dq_d_plain(q, k, v, valid, do, out,
+                                                   lse, True)
     pairs = {
         "flash_forward": zip((out, lse), fa.flash_forward_plain(
             q, k, v, valid, True)),
+        "flash_backward_dq": [
+            (dq, want_dq), (dvec, want_d),
+            (fa.flash_backward_dq(q, k, v, valid, do, lse, dvec, True),
+             want_dq)],
         "flash_backward_dkv": zip(
             fa.flash_backward_dkv(q, k, v, valid, do, lse, dvec, True),
             fa.flash_backward_dkv_plain(q, k, v, valid, do, lse, dvec,
                                         True)),
-        "flash_backward_dq": [(
-            fa.flash_backward_dq(q, k, v, valid, do, lse, dvec, True),
-            fa.flash_backward_dq_plain(q, k, v, valid, do, lse, dvec,
-                                       True))]}
+        "flash_backward": zip(
+            fa._backward(q, k, v, vb, do, out, lse, True, scale),
+            fa.flash_backward_plain(q, k, v, valid, do, out, lse, True))}
     rel = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
     result = {}
     for name, ps in pairs.items():
@@ -687,7 +720,62 @@ def _flash_case(torch, fa, gen, b, s, h, hk, hd, dtype, masked):
         result[name] = (max(e for e, _ in errs),
                         rel * max(sc for _, sc in errs))
     torch.cuda.synchronize()
-    return result, (q, k, v, do, lse, dvec)
+    return result, (q, k, v, do, lse, dvec, out)
+
+
+def _sdpa_backward_direct(torch, qt, kt, vt, dot, iters):
+    """SDPA's backward (causal, no dropout) timed as the aten op its
+    backend dispatches to, called on the saved forward outputs, so that it
+    can be captured in a CUDA graph (``autograd.grad`` cannot); and its
+    device time from ``torch.profiler`` kernel rows over autograd calls.
+    For timing only: the port never calls it."""
+    from torch.profiler import ProfilerActivity, profile
+    aten = torch.ops.aten
+    res = {"backend": int(aten._fused_sdp_choice(qt, kt, vt, None, 0.0,
+                                                 True))}
+    try:
+        if res["backend"] != 3:         # the backend the H100 runs: cuDNN
+            raise RuntimeError(f"backend {res['backend']}: no direct call")
+        res["op"] = "_scaled_dot_product_cudnn_attention_backward"
+        op = getattr(aten, res["op"])
+        with torch.no_grad():
+            o, lse, cq, ck, mq, mk, seed, off, _ = \
+                aten._scaled_dot_product_cudnn_attention(
+                    qt, kt, vt, None, True, 0.0, True, False)
+            g_o = torch.empty_like(o).copy_(dot)      # o's strides
+
+        def direct():
+            with torch.no_grad():
+                return op(g_o, qt, kt, vt, o, lse, seed, off, None, cq, ck,
+                          mq, mk, 0.0, True)
+        got = direct()
+        want = torch.autograd.grad(
+            torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
+        res["max_abs_diff_vs_autograd"] = max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want))
+        res["ms"] = time_ms(torch, direct, iters)
+        res["graph_ms"], res["graph_note"] = _graph_or_why(torch, direct,
+                                                           iters)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        res["graph_ms"] = None
+        res["graph_note"] = f"{type(e).__name__}: {str(e)[:200]}"
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    for _ in range(3):
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    res["profiler_device_ms"] = sum(r[1] for r in rows) / 1e3 / iters
+    res["profiler_kernels"] = [[k[:100], us / 1e3 / iters, n // iters]
+                               for k, us, n in rows]
+    return res
 
 
 def check_train_kernels(torch, args):
@@ -709,7 +797,7 @@ def check_train_kernels(torch, args):
     # agreement at the training shape, at s 1024, and on an f32 case with
     # GQA (12 query heads on 4 kv heads), a kv-valid plane with fully
     # masked rows, a length no tile divides and head dim 128
-    worst = dict.fromkeys(replaces, 0.0)
+    worst = dict.fromkeys([*replaces, "flash_backward"], 0.0)
     main = long = None
     for label, shape in (
             ("train", (TRAIN_BATCH, TRAIN_SEQ, 12, 12, 64, torch.bfloat16,
@@ -752,9 +840,11 @@ def check_train_kernels(torch, args):
                               2.0 * ql.numel() * ql.shape[1])[0]})
     del long, ql, kl, vl, lt
 
-    # times at the training shape; the library call is SDPA, causal
-    q, k, v, do, lse, dvec = main
+    # times at the training shape; the library call is SDPA, causal; its
+    # backward's graph time is that of the aten op SDPA dispatches to
+    q, k, v, do, lse, dvec, out = main
     b, s, h, hd = q.shape
+    sc = 1.0 / hd ** 0.5
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -769,22 +859,25 @@ def check_train_kernels(torch, args):
     lib_fwd = time_ms(torch, sdpa_fwd, iters)
     lib_bwd = time_ms(torch, sdpa_bwd, iters)
     lib_fwd_graph = graph_ms(torch, sdpa_fwd, iters)
-    # the backward is captured on the stream its forward ran on
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        side_out = sdpa_fwd()
-    lib_bwd_graph, bwd_why = _graph_or_why(
-        torch, lambda: torch.autograd.grad(side_out, (qt, kt, vt), dot,
-                                           retain_graph=True),
-        iters, stream=side)
+    lib_direct = _sdpa_backward_direct(torch, qt, kt, vt, dot, iters)
+    log({"time": "sdpa_backward", "shape": f"q[{b},{s},{h},{hd}] bf16 causal",
+         "autograd_ms": lib_bwd, **lib_direct})
+    lib_bwd_graph = lib_direct["graph_ms"]
+    bwd_note = None
+    if lib_bwd_graph is None:           # the profiler's device time instead
+        lib_bwd_graph = lib_direct["profiler_device_ms"]
+        bwd_note = ("library graph ms: torch.profiler device time of SDPA's "
+                    "backward kernels (" + lib_direct["graph_note"] + ")")
     tensor = q.numel() * q.element_size()     # q, k, v, o, do, dq, dk, dv
     row = b * h * s * 4                       # lse or D, f32
     pairs = 0.5 * b * h * s * s * hd          # causal: half of s x s
     work = {  # (bytes each input read once + output written once, flops)
         "flash_forward": (4 * tensor + row, 4 * pairs),
         "flash_backward_dkv": (6 * tensor + 2 * row, 8 * pairs),
-        "flash_backward_dq": (5 * tensor + 2 * row, 6 * pairs)}
+        # q, k, v, do, o read, dq written; lse read, D written
+        "flash_backward_dq": (6 * tensor + 2 * row, 6 * pairs),
+        # q, k, v, do, o read, dq, dk, dv written; lse read
+        "flash_backward": (8 * tensor + row, 14 * pairs)}
     calls = {
         "flash_forward": (
             lambda: fa.flash_forward(q, k, v, None, True),
@@ -795,32 +888,41 @@ def check_train_kernels(torch, args):
             lambda: fa.flash_backward_dkv_plain(q, k, v, None, do, lse,
                                                 dvec, True), lib_bwd),
         "flash_backward_dq": (
-            lambda: fa.flash_backward_dq(q, k, v, None, do, lse, dvec, True),
-            lambda: fa.flash_backward_dq_plain(q, k, v, None, do, lse, dvec,
-                                               True), lib_bwd)}
+            lambda: fa._launch_dq_d(q, k, v, None, do, out, lse, True, sc),
+            lambda: fa.flash_backward_dq_d_plain(q, k, v, None, do, out, lse,
+                                                 True), lib_bwd),
+        "flash_backward": (
+            lambda: fa._backward(q, k, v, None, do, out, lse, True, sc),
+            lambda: fa.flash_backward_plain(q, k, v, None, do, out, lse,
+                                            True), lib_bwd)}
     for name, (kern, plain, lib) in calls.items():
         ms = time_ms(torch, kern, iters)
         plain_ms = time_ms(torch, plain, max(5, iters // 10))
         g_ms = graph_ms(torch, kern, iters)
         fwd = name == "flash_forward"
         b_ms, b_by = bound_ms(*work[name])
-        records[name] = dict(
+        rec = dict(
             source="distributed_tensorflow_tpu_torch/csrc/flash_attention.cu",
-            replaces=replaces[name], max_abs_err=worst[name], ms=ms,
+            replaces=replaces.get(name), max_abs_err=worst[name], ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             graph_ms=g_ms,
             library_graph_ms=lib_fwd_graph if fwd else lib_bwd_graph)
-        if not fwd and bwd_why:
-            records[name]["graph_note"] = ("library backward not captured: "
-                                           + bwd_why)
+        if not fwd and bwd_note:
+            rec["graph_note"] = bwd_note
+        if name in replaces:            # a kernel (the whole backward is
+            records[name] = rec         # two, logged only)
         log({"time": name, "shape": f"q[{b},{s},{h},{hd}] bf16 causal",
-             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-             "graph_ms": g_ms,
-             "library_graph_ms": records[name]["library_graph_ms"],
+             "kernel_ms": ms, **{k_: v_ for k_, v_ in rec.items()
+                                 if k_ not in ("source", "replaces", "ms")},
              "library": "F.scaled_dot_product_attention(is_causal=True)"
-             + ("" if fwd else " backward, dq dk dv together"),
-             "bound_ms": b_ms, "bound_by": b_by})
-    del main, q, k, v, do, lse, dvec, qt, kt, vt, lib_out, side_out, dot
+             + ("" if fwd else " backward, dq dk dv together")})
+    # D = rowsum(dO * O) as torch computes it (two bf16 reads, f32
+    # temporaries, one f32 [b, h, s] write), which the dQ kernel replaced
+    log({"time": "row_dot", "shape": f"do[{b},{s},{h},{hd}] bf16",
+         "ms": time_ms(torch, lambda: fa.row_dot(do, out), iters),
+         "graph_ms": graph_ms(torch, lambda: fa.row_dot(do, out), iters),
+         "bound_ms": bound_ms(2 * tensor + row, 2.0 * q.numel())[0]})
+    del main, q, k, v, do, lse, dvec, out, qt, kt, vt, lib_out, dot
 
     # Adam on the word embedding and one [768, 3072] kernel, called as the
     # optimizer calls it (delta out, moments in place, decay folded in)
@@ -1458,6 +1560,7 @@ def main(argv=None) -> int:
 
     secs = _build.build()
     log({"phase": "build", "seconds": secs, "dir": str(_build.BUILD_DIR)})
+    log_backward_resources(_build)
 
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))

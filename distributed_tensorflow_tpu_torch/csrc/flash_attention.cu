@@ -6,8 +6,9 @@
 //     attention that also emits the row logsumexp;
 //   - `_flash_backward`, first call (body `_flash_dkv_kernel`): dK, dV;
 //   - `_flash_backward`, second call (body `_flash_dq_kernel`): dQ.
-// `D = rowsum(dO * O)` is computed before the backward kernels by the
-// caller, as the JAX package computes it in plain XLA.
+// `D = rowsum(dO * O)`, which `_flash_backward` computes in plain XLA
+// before its two calls, is computed by the dQ kernel from O (or read,
+// when a caller passes it), and dK/dV runs after dQ and reads it.
 //
 // Layouts (the JAX package's public ones; no transposes on either side):
 //   q, out, do, dq  [B, Sq, H, HD]   bf16 or f32, HD 64 or 128
@@ -30,7 +31,8 @@
 // thread block here:
 //   - forward: one block per (head, batch, 128-row q tile) walks the
 //     64-row K/V tiles (only up to the diagonal when causal);
-//   - dQ: one block per (batch, head, 64-row q tile), the same walk;
+//   - dQ: one block per (batch, head, 64-row q tile), the same walk,
+//     with D of its rows computed first;
 //   - dK/dV: one block per (batch, kv head, 64-row k tile) walks every
 //     query head of its group and, for each, the q tiles from the
 //     diagonal on.  Summing the group's heads inside the block writes
@@ -55,12 +57,15 @@
 //     transposed) conflict-free; 128-row q tiles halve the K/V re-reads
 //     of 64-row ones; the mask runs only on the tiles that need it, and
 //     a causal grid's heaviest tiles go first, so its tail is light;
+//   - the bf16 dQ and dK/dV kernels take the same tools (see "backward,
+//     bf16" below): the walked operand streams through the cp.async ring,
+//     the held one stays in registers (HD 64) or in swizzled tiles (HD
+//     128), every fragment comes by ldmatrix, the softmax is recomputed
+//     with one ex2 an element, and D costs dQ one read of O instead of a
+//     chain of torch elementwise kernels;
 //   - mma.sync and not wgmma: at this shape the products are a fifth of
-//     the byte time, and mma.sync's per-warp fragments keep the online
-//     softmax in registers with no warpgroup synchronisation;
-//   - dK/dV and dQ still load their tiles through registers between two
-//     barriers (no copy/compute overlap) from padded tiles, and are about
-//     five times their byte bounds.
+//     the byte time, and mma.sync's per-warp fragments keep the softmax
+//     in registers with no warpgroup synchronisation.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -264,9 +269,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v,
     const uint8_t* __restrict__ valid, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ dvec,
-    float* __restrict__ dq, int Sq, int Sk, int H, int HK, float scale,
-    int causal) {
+    const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ dvec, float* __restrict__ dq, int Sq, int Sk, int H,
+    int HK, float scale, int causal) {
   using Tl = Tile<HD>;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / HK);
@@ -289,7 +294,27 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     const bool in = q0 + r < Sq;
     const int64_t idx = ((int64_t)b * H + h) * Sq + q0 + r;
     lse_s[r] = in ? lse[idx] : 0.f;   // padded rows: dO = 0, D = 0
-    d_s[r] = in ? dvec[idx] : 0.f;
+    d_s[r] = in && out == nullptr ? dvec[idx] : 0.f;
+  }
+  if (out != nullptr) {
+    // D = rowsum(dO * O) of the block's rows, 16 lanes a row, also
+    // written out for the dK/dV kernel
+    __syncthreads();                  // the dO tile is complete
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      float d = 0.f;
+      if (row < Sq) {
+        const float* orow = out + (((int64_t)b * Sq + row) * H + h) * HD;
+        for (int c = tx; c < HD; c += 16)
+          d = fmaf(dOs[r * Tl::kLd + c], orow[c], d);
+      }
+      d = row_sum(d);
+      if (tx == 0 && row < Sq) {
+        d_s[r] = d;
+        dvec[((int64_t)b * H + h) * Sq + row] = d;
+      }
+    }
   }
 
   float acc[4][Tl::kCols];
@@ -511,113 +536,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 // ------------------------------------------ tensor-core path (bf16 only)
 //
 // For bf16 inputs the three kernels run their products on the tensor cores
-// with mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  In dQ and
-// dK/dV the tiles stay bf16 in shared memory (rows padded by 8 elements,
-// so the fragment loads of a warp hit 32 distinct banks); 4 warps each own
-// 16 of the block's 64 rows (q rows for dQ, k rows for dK/dV),
-// so a warp's score tile is 16 x 64 in mma accumulator layout: lane
-// (gid = lane / 4, tig = lane % 4) holds rows gid and gid + 8, columns
-// 8 n + 2 tig + {0, 1}, and a row's statistics reduce over its 4 lanes.
-// The probabilities (and dS) are rounded to bf16 to enter the second
-// product, as flash attention does on every GPU; the softmax sums stay
-// f32.  f32 inputs keep the CUDA-core kernels above, which compute in f32
-// throughout.
+// with mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  A warp owns
+// 16 rows of a tile, so its score tile is 16 x 64 in mma accumulator
+// layout: lane (gid = lane / 4, tig = lane % 4) holds rows gid and gid + 8,
+// columns 8 n + 2 tig + {0, 1}, and a row's statistics reduce over its 4
+// lanes.  The probabilities (and dS) are rounded to bf16 to enter the
+// second product, as flash attention does on every GPU; the softmax sums
+// stay f32.  f32 inputs keep the CUDA-core kernels above, which compute in
+// f32 throughout.
 
-constexpr int kMmaThreads = 128;
 using bf16 = __nv_bfloat16;
-
-template <int HD>
-struct BTile {
-  static constexpr int kLd = HD + 8;        // bf16 per padded row
-  static constexpr int kElems = kB * kLd;
-};
-
-// elements idx and idx + 1 of a row
-__device__ __forceinline__ uint32_t ld_pair(const bf16* t, int idx) {
-  return *reinterpret_cast<const uint32_t*>(t + idx);
-}
-
-// (row, col) and (row + 1, col): two elements down a column
-__device__ __forceinline__ uint32_t ld_col_pair(const bf16* t, int row,
-                                                int col, int ld) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(t);
-  return (uint32_t)u[row * ld + col] | ((uint32_t)u[(row + 1) * ld + col]
-                                        << 16);
-}
-
-// Rows r0 .. r0 + kB - 1 of head `head` of a [B, S, NH, HD] bf16 tensor
-// into a padded bf16 tile, 16 bytes at a time; rows at or past S are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst,
-                                               const bf16* __restrict__ src,
-                                               int b, int r0, int S, int NH,
-                                               int head) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < kB * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      u = *reinterpret_cast<const uint4*>(
-          src + (((int64_t)b * S + r0 + r) * NH + head) * HD + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * BTile<HD>::kLd + c * 8) = u;
-  }
-}
-
-// s[16 x 64] = rows r0 .. r0 + 15 of tile `ta` times the 64 rows of tile
-// `tb`, transposed, over HD (score layout: s[n][e], see above)
-template <int HD>
-__device__ __forceinline__ void mma_rows_rows(float (*s)[4], const bf16* ta,
-                                              int r0, const bf16* tb,
-                                              int gid, int tig) {
-  constexpr int LD = BTile<HD>::kLd;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    const uint32_t a[4] = {ld_pair(ta, (r0 + gid) * LD + c),
-                           ld_pair(ta, (r0 + gid + 8) * LD + c),
-                           ld_pair(ta, (r0 + gid) * LD + c + 8),
-                           ld_pair(ta, (r0 + gid + 8) * LD + c + 8)};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int idx = (n * 8 + gid) * LD + c;
-      mma16816(s[n], a, ld_pair(tb, idx), ld_pair(tb, idx + 8));
-    }
-  }
-}
-
-// acc[16 x HD] += p[16 x 64] (score layout, rounded to bf16) times the 64
-// rows of tile `t`
-template <int HD>
-__device__ __forceinline__ void mma_scores_tile(float (*acc)[4],
-                                                float (*p)[4],
-                                                const bf16* t, int gid,
-                                                int tig) {
-  constexpr int LD = BTile<HD>::kLd;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
-                           pack_bf16(p[2 * j][2], p[2 * j][3]),
-                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-    const int row = 16 * j + tig * 2;
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd)
-      mma16816(acc[nd], a, ld_col_pair(t, row, nd * 8 + gid, LD),
-               ld_col_pair(t, row + 8, nd * 8 + gid, LD));
-  }
-}
-
-// rows of tile `src` -> one f32 per row (lse or D), 0 past S
-__device__ __forceinline__ void load_rows_f32(float* dst,
-                                              const float* __restrict__ src,
-                                              int64_t base, int r0, int S) {
-  for (int r = threadIdx.x; r < kB; r += blockDim.x)
-    dst[r] = r0 + r < S ? src[base + r0 + r] : 0.f;
-}
 
 // ----------------------------------------- forward, bf16 (Hopper design)
 //
@@ -660,17 +588,18 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * (HD * 2) + ((c ^ (r & 7)) << 4));
 }
 
-// This thread's share of the cp.async copies of an R-row tile of head
-// `head` of a [B, S, NH, HD] bf16 tensor into a swizzled tile: chunk c of
-// rows row0, row0 + kRowStep, ...; their global offset (for tile 0) and
-// swizzled shared offset are worked out once, and tile t adds t * R
-// rows.  Rows at or past S are zeros.
-template <int HD, int R>
+// This thread's share (of NT threads) of the cp.async copies of an R-row
+// tile of head `head` of a [B, S, NH, HD] bf16 tensor into a swizzled
+// tile: chunk c of rows row0, row0 + kRowStep, ...; their global offset
+// (for tile 0) and swizzled shared offset are worked out once, and tile t
+// adds t * R rows (and `extra` elements, another head of the same rows).
+// Rows at or past S are zeros.
+template <int HD, int R, int NT = kFwdThreads>
 struct TileLoader {
   static constexpr int kChunks = HD / 8;
-  static constexpr int kPer = R * kChunks / kFwdThreads;
-  static constexpr int kRowStep = kFwdThreads / kChunks;
-  static_assert(R * kChunks % kFwdThreads == 0, "whole chunks a thread");
+  static constexpr int kPer = R * kChunks / NT;
+  static constexpr int kRowStep = NT / kChunks;
+  static_assert(R * kChunks % NT == 0, "whole chunks a thread");
   int row0;
   int64_t off0, row_elems;
   uint32_t soff0;
@@ -684,8 +613,8 @@ struct TileLoader {
   }
   __device__ __forceinline__ void load(uint32_t dst,
                                        const bf16* __restrict__ src, int t,
-                                       int S) const {
-    const bf16* base = src + off0 + (int64_t)t * R * row_elems;
+                                       int S, int64_t extra = 0) const {
+    const bf16* base = src + off0 + extra + (int64_t)t * R * row_elems;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const bool in = t * R + row0 + i * kRowStep < S;
@@ -897,34 +826,268 @@ flash_fwd_bf16_kernel(
   }
 }
 
+// ---------------------------------------- backward, bf16 (Hopper design)
+//
+// Two kernels and no atomics, so dQ, dK and dV are the same bits from
+// call to call: dQ runs first and also writes D = rowsum(dO * O), which
+// dK/dV then reads.  Both take the forward's tools: a block of 4 warps of
+// 16 rows over 64-row tiles; the operand that the block walks streams
+// through a ring of kStages XOR-swizzled shared stages filled by cp.async
+// a tile ahead (TileLoader); every fragment comes by ldmatrix (x4, or x4
+// .trans for an operand read down its columns); the softmax is recomputed
+// in log2 units, one MUFU ex2 an element from the stored natural-log lse
+// (-inf lse: p = 0); and masks run only on the tiles that need them.
+//   - dQ: one block per (head, batch, q tile), heaviest causal tiles
+//     first.  Q and dO are copied once (held in registers as A fragments
+//     at HD 64, read from their swizzled tiles at HD 128, where registers
+//     run short); the prologue computes D of its rows from O and the dO
+//     tile (or reads a given D) while K/V tile 0 lands; then per K/V tile
+//     S = Q K^T, dP = dO V^T (B by ldmatrix), dS = P (dP - D), dQ += dS K
+//     (B by ldmatrix.trans).  Masked: valid plane, ragged last tile, tiles
+//     crossing a warp's diagonal.
+//   - dK/dV: one block per (kv head, batch, k tile), k tile 0 (the
+//     heaviest when causal) first.  K and V stay (registers at HD 64,
+//     swizzled tiles at HD 128); the block walks every query head of its
+//     group and, for each, the q tiles from the diagonal on, as one
+//     stream of stages of (Q, dO, lse, D).  Per stage S^T = K Q^T and dP^T
+//     = V dO^T take B from Q and dO by ldmatrix; dV += P^T dO and dK +=
+//     dS^T Q take A from P and dS rounded to bf16 and B from the same
+//     tiles by ldmatrix.trans.  A key's dK and dV rows depend on that key
+//     alone, so invalid keys and keys past Sk are simply not kept (their
+//     rows are stored as 0 or not at all), and only the causal diagonal
+//     tile is masked; q rows past Sq arrive as zeros (dO, lse, D) and add
+//     nothing.
+//   - The scale of dS is applied once, to dQ and dK in the epilogue, and
+//     every output leaves through shared memory in 16-byte stores.
+
+constexpr int kBwdThreads = 128;              // 4 warps of 16 rows
+static_assert(kBwdThreads == 2 * kB, "two threads a row of a tile");
+
+struct Frag {
+  uint32_t r[4];
+};
+
+// A warp's 16 rows of a swizzled HD-wide tile as mma A operands: held in
+// registers (hold() after the tile landed) or read by ldmatrix at each use
+template <int HD, bool kHeld>
+struct ARows {
+  Frag f[kHeld ? HD / 16 : 1];
+  uint32_t addr;                // this lane's ldmatrix row
+  int sw, hi;
+
+  __device__ __forceinline__ ARows(uint32_t tile, int r0, int lane) {
+    const int row = r0 + (lane & 15);
+    addr = tile + row * (HD * 2);
+    sw = row & 7;
+    hi = lane >> 4;
+  }
+  __device__ __forceinline__ Frag fetch(int kk) const {
+    Frag x;
+    ldsm_x4(x.r, addr + (((kk * 2 + hi) ^ sw) << 4));
+    return x;
+  }
+  __device__ __forceinline__ void hold() {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) f[kk] = fetch(kk);
+    }
+  }
+  __device__ __forceinline__ Frag get(int kk) const {
+    if constexpr (kHeld) return f[kk];
+    else return fetch(kk);
+  }
+};
+
+// s[16 x 64] = a[16 x HD] times the 64 rows of the swizzled tile bs,
+// transposed (B by ldmatrix.x4, as qk_tile)
+template <int HD, class A>
+__device__ __forceinline__ void score_tile(float (&s)[8][4], const A& a,
+                                           uint32_t bs, int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const Frag af = a.get(kk);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t kb[4];
+      ldsm_x4(kb, bs + swz<HD>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                               kk * 2 + ((lane >> 3) & 1)));
+      mma16816(s[2 * np], af.r, kb[0], kb[1]);
+      mma16816(s[2 * np + 1], af.r, kb[2], kb[3]);
+    }
+  }
+}
+
+// acc[16 x HD] += p[16 x 64] (score layout, rounded to bf16 as the A
+// operand) times the 64 x HD swizzled tile ts (B by ldmatrix.x4.trans)
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(
+__device__ __forceinline__ void acc_tile(float (&acc)[HD / 8][4],
+                                         const float (&p)[8][4], uint32_t ts,
+                                         int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                           pack_bf16(p[2 * j][2], p[2 * j][3]),
+                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, ts + swz<HD>(j * 16 + (lane & 7) +
+                                         (((lane >> 3) & 1) << 3),
+                                     dp * 2 + (lane >> 4)));
+      mma16816(acc[2 * dp], a, vb[0], vb[1]);
+      mma16816(acc[2 * dp + 1], a, vb[2], vb[3]);
+    }
+  }
+}
+
+// A warp's acc[16 x HD] times `mul`, rows with keep false as 0, rounded to
+// bf16 through rows r0 .. r0 + 15 of the swizzled tile `tile`, then
+// written 16 bytes at a time to dst + i * stride for the rows i < rows
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           int64_t stride, int rows,
+                                           unsigned char* tile, int r0,
+                                           const float (&acc)[HD / 8][4],
+                                           float mul, const bool (&keep)[2],
+                                           int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + gid + 8 * hr;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(tile + swz<HD>(r, nd) + 4 * tig) =
+          keep[hr] ? pack_bf16(acc[nd][2 * hr] * mul,
+                               acc[nd][2 * hr + 1] * mul)
+                   : 0u;
+  }
+  __syncwarp();
+  constexpr int kChunks = HD / 8;
+#pragma unroll
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int rr = idx / kChunks, c = idx % kChunks;
+    if (rr < rows)
+      *reinterpret_cast<uint4*>(dst + rr * stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<HD>(r0 + rr, c));
+  }
+}
+
+// d + the sum over 8 bf16 pairs of a * b, in f32 (a bf16 is the upper
+// half of its f32)
+__device__ __forceinline__ float dot2(uint32_t a, uint32_t b, float d) {
+  d = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), d);
+  return fmaf(__uint_as_float(a & 0xffff0000u),
+              __uint_as_float(b & 0xffff0000u), d);
+}
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float d) {
+  d = dot2(a.x, b.x, d);
+  d = dot2(a.y, b.y, d);
+  d = dot2(a.z, b.z, d);
+  return dot2(a.w, b.w, d);
+}
+
+// -log2(e) * lse, or -inf for a row with no unmasked key (so p = 0)
+__device__ __forceinline__ float neg_lse2(float lse) {
+  return isfinite(lse) ? -lse * kLog2e : -INFINITY;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads) flash_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, bf16* __restrict__ dq, int Sq, int Sk,
-    int H, int HK, float scale, int causal) {
-  using Bt = BTile<HD>;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const bf16* __restrict__ dout, const bf16* __restrict__ out,
+    const float* __restrict__ lse, float* __restrict__ dvec,
+    bf16* __restrict__ dq, int Sq, int Sk, int H, int HK, float scale,
+    float scale_log2, int causal) {
+  constexpr int kTile = kB * HD * 2;          // bytes of a 64-row tile
+  constexpr int kChunks = HD / 8;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int g = h / (H / HK);
   const int q0 = qt * kB;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wr0 = q0 + warp * 16;             // this warp's first q row
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + Bt::kElems;
-  bf16* Ks = dOs + Bt::kElems;
-  bf16* Vs = Ks + Bt::kElems;
-  float* keym = reinterpret_cast<float*>(Vs + Bt::kElems);
-  float* lse_s = keym + kB;
-  float* d_s = lse_s + kB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t do_s = q_s + kTile;
+  const uint32_t kv_s = do_s + kTile;         // stage s: K, then V
+  float* d_s = reinterpret_cast<float*>(smem_raw + (2 + 2 * kStages) * kTile);
+  uint8_t* keym = reinterpret_cast<uint8_t*>(d_s + kB);
 
-  load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
-  load_tile_bf16<HD>(dOs, dout, b, q0, Sq, H, h);
+  // key tiles any row of this block can see
+  int nk = (Sk + kB - 1) / kB;
+  if (causal) nk = min(nk, (min(q0 + kB, Sq) - 1) / kB + 1);
+
+  const TileLoader<HD, kB, kBwdThreads> kv_load(b, Sk, HK, g);
+  auto issue = [&](int t) {
+    const int st = t % kStages;
+    const uint32_t ks = kv_s + st * 2 * kTile;
+    kv_load.load(ks, k, t, Sk);
+    kv_load.load(ks + kTile, v, t, Sk);
+    if (valid != nullptr && threadIdx.x < kB) {
+      const int col = t * kB + threadIdx.x;
+      keym[st * kB + threadIdx.x] =
+          col < Sk ? valid[(int64_t)b * Sk + col] : 0;
+    }
+  };
+
+  {
+    const TileLoader<HD, kB, kBwdThreads> q_load(b, Sq, H, h);
+    q_load.load(q_s, q, qt, Sq);
+    q_load.load(do_s, dout, qt, Sq);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) issue(t);
+    cp_async_commit();
+  }
+
+  // this lane's rows: -log2(e) lse, and later D
   const int64_t rows = ((int64_t)b * H + h) * Sq;
-  load_rows_f32(lse_s, lse, rows, q0, Sq);   // padded rows: dO = 0, D = 0
-  load_rows_f32(d_s, dvec, rows, q0, Sq);
+  float nl2[2], dd[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = wr0 + gid + 8 * hr;
+    nl2[hr] = row < Sq ? neg_lse2(lse[rows + row]) : 0.f;
+  }
+
+  cp_async_wait<kStages - 1>();   // Q and dO landed; K/V tile 0 may not
+  __syncthreads();
+  {
+    // D = rowsum(dO * O) of the block's rows, two threads a row (or the
+    // given D)
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = q0 + r;
+    float d = 0.f;
+    if (out != nullptr) {
+      if (row < Sq) {
+        const bf16* orow = out + (((int64_t)b * Sq + row) * H + h) * HD;
+#pragma unroll
+        for (int c = half * kChunks / 2; c < (half + 1) * kChunks / 2; ++c)
+          d = dot8(*reinterpret_cast<const uint4*>(orow + c * 8),
+                   *reinterpret_cast<const uint4*>(smem_raw + kTile +
+                                                   swz<HD>(r, c)), d);
+      }
+      d += __shfl_xor_sync(kFull, d, 1);
+      if (half == 0 && row < Sq) dvec[rows + row] = d;
+    } else if (row < Sq) {
+      d = dvec[rows + row];
+    }
+    if (half == 0) d_s[r] = d;
+  }
+  ARows<HD, HD == 64> qa(q_s, warp * 16, lane), doa(do_s, warp * 16, lane);
+  qa.hold();
+  doa.hold();
+  __syncthreads();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) dd[hr] = d_s[warp * 16 + gid + 8 * hr];
 
   float acc[HD / 8][4];
 #pragma unroll
@@ -932,127 +1095,183 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
-  int nk = (Sk + kB - 1) / kB;
-  if (causal) nk = min(nk, qt + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();
-    load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
-    load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
-    load_keymask(keym, valid, b, k0, Sk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_rows_rows<HD>(s, Qs, r0, Ks, gid, tig);
-    mma_rows_rows<HD>(dp, dOs, r0, Vs, gid, tig);
+  for (int t = 0; t < nk; ++t) {
+    if (t + kStages - 1 < nk) issue(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();     // tile t landed for this thread
+    __syncthreads();                  // ... and for every thread
+    const int k0 = t * kB;
+    const int st = t % kStages;
+    const uint32_t ks = kv_s + st * 2 * kTile, vs = ks + kTile;
+    // rows past Sq are never stored; causal keys past the warp's last row
+    // are all masked
+    if (wr0 < Sq && (!causal || k0 <= wr0 + 15)) {
+      float s[8][4], dp[8][4];
+      score_tile<HD>(s, qa, ks, lane);           // S = Q K^T
+      if (valid != nullptr || k0 + kB > Sk || (causal && k0 + kB - 1 > wr0)) {
+        // element (n, e) is key k0 + 2 tig + off of row wr0 + gid + 8 (e/2)
+        const int keys = Sk - k0 - 2 * tig;     // key exists: off < keys
+        const int diag = wr0 + gid - k0 - 2 * tig;   // row - key at off 0
+        const uint8_t* km = keym + st * kB + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + gid + 8 * (e >> 1), c = n * 8 + tig * 2 + (e & 1);
-        const bool ok = keym[c] > 0.5f && (!causal || q0 + r >= k0 + c);
-        const float sc = ok ? s[n][e] * scale : -INFINITY;
-        const float L = lse_s[r];
-        const float p = isfinite(L) ? expf(sc - L) : 0.f;
-        s[n][e] = p * (dp[n][e] - d_s[r]) * scale;
+          for (int e = 0; e < 4; ++e) {
+            const int off = n * 8 + (e & 1);
+            const bool ok = off < keys &&
+                            (!causal || diag + 8 * (e >> 1) >= off) &&
+                            (valid == nullptr || km[off]);
+            if (!ok) s[n][e] = -INFINITY;
+          }
       }
-    mma_scores_tile<HD>(acc, s, Ks, gid, tig);   // dQ += dS K
+      score_tile<HD>(dp, doa, vs, lane);         // dP = dO V^T
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          const float p = ex2(fmaf(s[n][e], scale_log2, nl2[hr]));
+          s[n][e] = p * (dp[n][e] - dd[hr]);     // dS / scale
+        }
+      acc_tile<HD>(acc, s, ks, lane);            // dQ += dS K
+    }
+    __syncthreads();                  // stage st is free for tile t + kStages
   }
+  cp_async_wait<0>();
+  __syncthreads();                    // the Q tile is free for the output
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + gid + 8 * hr;
-    if (row >= Sq) continue;
-    bf16* drow = dq + (((int64_t)b * Sq + row) * H + h) * HD + tig * 2;
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(drow + nd * 8) =
-          pack_bf16(acc[nd][2 * hr], acc[nd][2 * hr + 1]);
-  }
+  const bool keep[2] = {true, true};
+  store_rows<HD>(dq + (((int64_t)b * Sq + wr0) * H + h) * HD,
+                 (int64_t)H * HD, Sq - wr0, smem_raw, warp * 16, acc, scale,
+                 keep, lane);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_dkv_mma_kernel(
+__global__ void __launch_bounds__(kBwdThreads) flash_dkv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int Sq, int Sk, int H, int HK, float scale,
-    int causal) {
-  using Bt = BTile<HD>;
-  const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+    float scale_log2, int causal) {
+  constexpr int kTile = kB * HD * 2;
+  constexpr int kStage = 2 * kTile + 2 * kB * 4;   // Q, dO, lse, D
+  const int g = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
   const int group = H / HK;
   const int k0 = kt * kB;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kw0 = k0 + warp * 16;             // this warp's first key
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + Bt::kElems;
-  bf16* Qs = Vs + Bt::kElems;
-  bf16* dOs = Qs + Bt::kElems;
-  float* keym = reinterpret_cast<float*>(dOs + Bt::kElems);  // per k row
-  float* lse_s = keym + kB;                                  // per q row
-  float* d_s = lse_s + kB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t k_s = smem_u32(smem_raw);
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t ring = v_s + kTile;
 
-  load_tile_bf16<HD>(Ks, k, b, k0, Sk, HK, g);
-  load_tile_bf16<HD>(Vs, v, b, k0, Sk, HK, g);
-  load_keymask(keym, valid, b, k0, Sk);
+  // the (head, q tile) pairs of the group, q tiles from the diagonal on
+  const int nq = (Sq + kB - 1) / kB;
+  const int qt_first = causal ? kt : 0;
+  const int nqt = max(nq - qt_first, 0);
+  const int T = group * nqt;
 
+  {
+    const TileLoader<HD, kB, kBwdThreads> kv_load(b, Sk, HK, g);
+    kv_load.load(k_s, k, kt, Sk);
+    kv_load.load(v_s, v, kt, Sk);
+  }
+  cp_async_commit();
+  const TileLoader<HD, kB, kBwdThreads> qo_load(b, Sq, H, g * group);
+  auto issue = [&](int t) {
+    const int gi = t / nqt, qt = qt_first + t % nqt;
+    const uint32_t st = ring + (t % kStages) * kStage;
+    qo_load.load(st, q, qt, Sq, (int64_t)gi * HD);
+    qo_load.load(st + kTile, dout, qt, Sq, (int64_t)gi * HD);
+    // lse (threads 0..63) and D (64..127) of the tile's rows; 0 past Sq
+    const int r = threadIdx.x % kB, row = qt * kB + r;
+    const float* src = threadIdx.x < kB ? lse : dvec;
+    const bool in = row < Sq;
+    cp_async4(st + 2 * kTile + (threadIdx.x / kB) * kB * 4 + r * 4,
+              in ? src + ((int64_t)b * H + g * group + gi) * Sq + row : src,
+              in ? 4 : 0);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < T) issue(t);
+    cp_async_commit();
+  }
+
+  // this lane's keys: valid ones keep their rows
+  bool keep[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = kw0 + gid + 8 * hr;
+    keep[hr] = key < Sk && (valid == nullptr ||
+                            valid[(int64_t)b * Sk + key]);
+  }
+
+  ARows<HD, HD == 64> ka(k_s, warp * 16, lane), va(v_s, warp * 16, lane);
   float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
   for (int nd = 0; nd < HD / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
-  const int nq = (Sq + kB - 1) / kB;
-  const int qt_first = causal ? kt : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = g * group + gi;
-    const int64_t rows = ((int64_t)b * H + h) * Sq;
-    for (int qt = qt_first; qt < nq; ++qt) {
-      const int q0 = qt * kB;
-      __syncthreads();
-      load_tile_bf16<HD>(Qs, q, b, q0, Sq, H, h);
-      load_tile_bf16<HD>(dOs, dout, b, q0, Sq, H, h);
-      load_rows_f32(lse_s, lse, rows, q0, Sq);
-      load_rows_f32(d_s, dvec, rows, q0, Sq);
-      __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    if (t + kStages - 1 < T) issue(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();     // K, V and stage t landed here
+    __syncthreads();                  // ... and for every thread
+    if (t == 0) {
+      ka.hold();
+      va.hold();
+    }
+    const int q0 = (qt_first + t % nqt) * kB;
+    const int soff = 2 * kTile + (t % kStages) * kStage;
+    const uint32_t qs = k_s + soff, dos = qs + kTile;
+    const float* ls = reinterpret_cast<const float*>(smem_raw + soff +
+                                                     2 * kTile);
+    const float* ds = ls + kB;
 
-      // transposed scores: rows are this warp's keys, columns q rows
-      float st[8][4], dpt[8][4];
-      mma_rows_rows<HD>(st, Ks, r0, Qs, gid, tig);
-      mma_rows_rows<HD>(dpt, Vs, r0, dOs, gid, tig);
+    // transposed scores: rows are this warp's keys, columns q rows
+    float s[8][4];
+    score_tile<HD>(s, ka, qs, lane);             // S^T = K Q^T
+    if (causal && q0 < kw0 + 15) {               // some q row before a key
+      const int diag = q0 + 2 * tig - kw0 - gid;    // q - key at (0, 0)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + gid + 8 * (e >> 1), c = n * 8 + tig * 2 + (e & 1);
-          const bool ok = keym[r] > 0.5f && (!causal || q0 + c >= k0 + r);
-          const float sc = ok ? st[n][e] * scale : -INFINITY;
-          const float L = lse_s[c];
-          const float p = isfinite(L) ? expf(sc - L) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - d_s[c]) * scale;
-        }
-      mma_scores_tile<HD>(dv_acc, st, dOs, gid, tig);   // dV += P^T dO
-      mma_scores_tile<HD>(dk_acc, dpt, Qs, gid, tig);   // dK += dS^T Q
+        for (int e = 0; e < 4; ++e)
+          if (diag + n * 8 + (e & 1) - 8 * (e >> 1) < 0) s[n][e] = -INFINITY;
     }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 L = *reinterpret_cast<const float2*>(ls + n * 8 + 2 * tig);
+      const float nl[2] = {neg_lse2(L.x), neg_lse2(L.y)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = ex2(fmaf(s[n][e], scale_log2, nl[e & 1]));
+    }
+    acc_tile<HD>(dv_acc, s, dos, lane);          // dV += P^T dO
+    float dp[8][4];
+    score_tile<HD>(dp, va, dos, lane);           // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 D = *reinterpret_cast<const float2*>(ds + n * 8 + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)                // dS / scale
+        dp[n][e] = s[n][e] * (dp[n][e] - ((e & 1) ? D.y : D.x));
+    }
+    acc_tile<HD>(dk_acc, dp, qs, lane);          // dK += dS^T Q
+    __syncthreads();                  // stage t is free for t + kStages
   }
+  cp_async_wait<0>();
+  __syncthreads();                    // K and V tiles are free for output
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = k0 + r0 + gid + 8 * hr;
-    if (row >= Sk) continue;
-    const int64_t off = (((int64_t)b * Sk + row) * HK + g) * HD + tig * 2;
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(dk + off + nd * 8) =
-          pack_bf16(dk_acc[nd][2 * hr], dk_acc[nd][2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + nd * 8) =
-          pack_bf16(dv_acc[nd][2 * hr], dv_acc[nd][2 * hr + 1]);
-    }
-  }
+  const int64_t off = (((int64_t)b * Sk + kw0) * HK + g) * HD;
+  store_rows<HD>(dk + off, (int64_t)HK * HD, Sk - kw0, smem_raw, warp * 16,
+                 dk_acc, scale, keep, lane);
+  store_rows<HD>(dv + off, (int64_t)HK * HD, Sk - kw0, smem_raw + kTile,
+                 warp * 16, dv_acc, 1.f, keep, lane);
 }
 
 // ------------------------------------------------------------- launchers
@@ -1062,9 +1281,16 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 template <typename T, int HD>
 size_t smem_bytes(int which) {
   if (std::is_same<T, bf16>::value) {
-    if (which == kFwd)                    // Q tile, K/V ring, valid bytes
-      return sizeof(bf16) * HD * (kFwdRows + kStages * 2 * kB) + kStages * kB;
-    return sizeof(bf16) * 4 * BTile<HD>::kElems + sizeof(float) * 3 * kB;
+    constexpr size_t kTile = sizeof(bf16) * kB * HD;
+    switch (which) {
+      case kFwd:                          // Q tile, K/V ring, valid bytes
+        return sizeof(bf16) * HD * (kFwdRows + kStages * 2 * kB) +
+               kStages * kB;
+      case kDq:                           // Q, dO, K/V ring, D, valid bytes
+        return (2 + 2 * kStages) * kTile + sizeof(float) * kB + kStages * kB;
+      default:                            // K, V, ring of (Q, dO, lse, D)
+        return 2 * kTile + kStages * (2 * kTile + 2 * sizeof(float) * kB);
+    }
   }
   using Tl = Tile<HD>;
   switch (which) {
@@ -1084,9 +1310,11 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& cap) {
   return err;
 }
 
+// `out` is the forward's output, and dQ's input O (NULL: D is given);
+// `dvec` is D, which dQ writes when it is given O and dK/dV reads
 struct Args {
-  const void *q, *k, *v, *valid, *dout, *lse_in, *dvec;
-  void *out, *lse_out, *dq, *dk, *dv;
+  const void *q, *k, *v, *valid, *dout, *lse_in;
+  void *out, *lse_out, *dvec, *dq, *dk, *dv;
   int B, Sq, Sk, H, HK;
   float scale;
   int causal;
@@ -1097,7 +1325,7 @@ struct Args {
 template <typename T, int HD>
 struct Kernels {
   static constexpr bool kMma = std::is_same<T, bf16>::value;
-  static constexpr int kBlock = kMma ? kMmaThreads : kThreads;
+  static constexpr int kBlock = kMma ? kBwdThreads : kThreads;
   static auto fwd() {
     if constexpr (kMma) return flash_fwd_bf16_kernel<HD>;
     else return flash_fwd_kernel<HD>;
@@ -1143,21 +1371,44 @@ int launch(int which, const Args& a, cudaStream_t st) {
     static size_t cap = 48 * 1024;
     auto kern = Kn::dq();
     if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
-    const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
-    kern<<<grid, Kn::kBlock, smem, st>>>(
-        q, k, v, valid, static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse_in), static_cast<const float*>(a.dvec),
-        static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.HK, a.scale, a.causal);
+    const T* dout = static_cast<const T*>(a.dout);
+    const T* out = static_cast<const T*>(a.out);
+    const float* lse = static_cast<const float*>(a.lse_in);
+    float* dvec = static_cast<float*>(a.dvec);
+    T* dq = static_cast<T*>(a.dq);
+    if constexpr (Kn::kMma) {
+      // q tiles slowest, so a causal grid's heavy tiles all go first
+      const dim3 grid(a.H, a.B, (a.Sq + kB - 1) / kB);
+      kern<<<grid, Kn::kBlock, smem, st>>>(
+          q, k, v, valid, dout, out, lse, dvec, dq, a.Sq, a.Sk, a.H, a.HK,
+          a.scale, a.scale * kLog2e, a.causal);
+    } else {
+      const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
+      kern<<<grid, Kn::kBlock, smem, st>>>(
+          q, k, v, valid, dout, out, lse, dvec, dq, a.Sq, a.Sk, a.H, a.HK,
+          a.scale, a.causal);
+    }
   } else {
     static size_t cap = 48 * 1024;
     auto kern = Kn::dkv();
     if ((err = allow_smem(kern, smem, cap)) != cudaSuccess) return (int)err;
-    const dim3 grid((a.Sk + kB - 1) / kB, a.HK, a.B);
-    kern<<<grid, Kn::kBlock, smem, st>>>(
-        q, k, v, valid, static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse_in), static_cast<const float*>(a.dvec),
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.HK,
-        a.scale, a.causal);
+    const T* dout = static_cast<const T*>(a.dout);
+    const float* lse = static_cast<const float*>(a.lse_in);
+    const float* dvec = static_cast<const float*>(a.dvec);
+    T* dk = static_cast<T*>(a.dk);
+    T* dv = static_cast<T*>(a.dv);
+    if constexpr (Kn::kMma) {
+      // k tiles slowest: a causal grid's k tile 0 (the heaviest) first
+      const dim3 grid(a.HK, a.B, (a.Sk + kB - 1) / kB);
+      kern<<<grid, Kn::kBlock, smem, st>>>(
+          q, k, v, valid, dout, lse, dvec, dk, dv, a.Sq, a.Sk, a.H, a.HK,
+          a.scale, a.scale * kLog2e, a.causal);
+    } else {
+      const dim3 grid((a.Sk + kB - 1) / kB, a.HK, a.B);
+      kern<<<grid, Kn::kBlock, smem, st>>>(
+          q, k, v, valid, dout, lse, dvec, dk, dv, a.Sq, a.Sk, a.H, a.HK,
+          a.scale, a.causal);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1191,14 +1442,16 @@ int flash_forward(const void* q, const void* k, const void* v,
   return dispatch(kFwd, is_bf16, hd, a, stream);
 }
 
+// With `out` (O) the kernel computes D = rowsum(dO * O) and writes it to
+// `dvec`; with out NULL it reads D from `dvec`.
 int flash_backward_dq(const void* q, const void* k, const void* v,
-                      const void* valid, const void* dout, const void* lse,
-                      const void* dvec, void* dq, int is_bf16, int B, int Sq,
-                      int Sk, int H, int HK, int hd, float scale, int causal,
-                      void* stream) {
+                      const void* valid, const void* dout, const void* out,
+                      const void* lse, void* dvec, void* dq, int is_bf16,
+                      int B, int Sq, int Sk, int H, int HK, int hd,
+                      float scale, int causal, void* stream) {
   Args a{};
-  a.q = q; a.k = k; a.v = v; a.valid = valid; a.dout = dout; a.lse_in = lse;
-  a.dvec = dvec; a.dq = dq;
+  a.q = q; a.k = k; a.v = v; a.valid = valid; a.dout = dout;
+  a.out = const_cast<void*>(out); a.lse_in = lse; a.dvec = dvec; a.dq = dq;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.HK = HK; a.scale = scale;
   a.causal = causal;
   return dispatch(kDq, is_bf16, hd, a, stream);
@@ -1211,10 +1464,22 @@ int flash_backward_dkv(const void* q, const void* k, const void* v,
                        float scale, int causal, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.valid = valid; a.dout = dout; a.lse_in = lse;
-  a.dvec = dvec; a.dk = dk; a.dv = dv;
+  a.dvec = const_cast<void*>(dvec); a.dk = dk; a.dv = dv;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.HK = HK; a.scale = scale;
   a.causal = causal;
   return dispatch(kDkv, is_bf16, hd, a, stream);
+}
+
+// Dynamic shared memory of a block of the forward (which 0), dQ (1) or
+// dK/dV (2) kernel, in bytes; -1 for a head dim other than 64 or 128.
+int flash_smem_bytes(int which, int is_bf16, int hd) {
+  if (hd == 64)
+    return (int)(is_bf16 ? smem_bytes<bf16, 64>(which)
+                         : smem_bytes<float, 64>(which));
+  if (hd == 128)
+    return (int)(is_bf16 ? smem_bytes<bf16, 128>(which)
+                         : smem_bytes<float, 128>(which));
+  return -1;
 }
 
 }  // extern "C"

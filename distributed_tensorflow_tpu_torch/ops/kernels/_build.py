@@ -11,7 +11,9 @@ at import: the first launch of a kernel builds its library, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
 started together.
 
-A failed build raises with the compiler's output.  Every launch function
+A failed build raises with the compiler's output; a build that succeeds
+keeps it beside the library (``<library>.log``), where
+:func:`ptxas_report` reads each kernel's registers and spills.  Every launch function
 in ``csrc/`` returns ``cudaGetLastError()``; :func:`check` raises when it
 is not 0, so a launch the card refused never passes silently.
 
@@ -33,12 +35,12 @@ from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
 __all__ = ["BUILD_DIR", "CSRC", "bind", "build", "check", "load",
-           "stream_ptr"]
+           "ptxas_report", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -101,6 +103,7 @@ def _build_locked(names) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_bytes(log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -137,6 +140,49 @@ def bind(lib: str, name: str, argtypes: Sequence,
         fn.argtypes = list(argtypes)
         _bound[(lib, name)] = fn
     return fn
+
+
+_PTXAS_NAME = re.compile(r"(?:Compiling entry function '|Function "
+                         r"properties for )(\w+)")
+_USED = re.compile(r"Used (\d+) registers")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``<identifier>_kernel<first int template argument>`` out of a
+    mangled name (the identifier is the one whose length prefix fits),
+    else the mangled name."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        ident = mangled[end:end + int(m.group(1))]
+        if ident.endswith("_kernel") and ident.isidentifier():
+            t = re.match(r"ILi(-?\d+)E", mangled[end + len(ident):])
+            return f"{ident}<{t.group(1)}>" if t else ident
+    return mangled
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """What ``ptxas -v`` said of each kernel of ``csrc/<name>.cu`` when its
+    library was built (building it first): {"kernel<first int template
+    argument>": {"registers", "stack", "spill_stores", "spill_loads"}}."""
+    load(name)
+    path = _target(name).with_suffix(".log")
+    report: Dict[str, Dict[str, int]] = {}
+    key = None
+    for line in path.read_text(errors="replace").splitlines():
+        m = _PTXAS_NAME.search(line)
+        if m:
+            key = _kernel_name(m.group(1))
+            report.setdefault(key, {})
+        elif key and _FRAME.search(line):
+            f = _FRAME.search(line)
+            report[key].update(stack=int(f.group(1)),
+                               spill_stores=int(f.group(2)),
+                               spill_loads=int(f.group(3)))
+        elif key and _USED.search(line):
+            report[key]["registers"] = int(_USED.search(line).group(1))
+    return report
 
 
 def check(rc: int, what: str) -> None:

@@ -15,21 +15,24 @@ online softmax in log2 units); the mask is evaluated only on the tiles
 that need it and causal grids run their heaviest tiles first.  dQ takes
 a block per (batch, head, 64-row q tile) and dK/dV a block per (batch,
 kv head, 64-row k tile) that sums its query group inside, so GQA needs
-no second pass; both run bf16 products on the tensor cores.  f32 runs
+no second pass; both hold one operand (in registers at head dim 64) and
+stream the other through the same kind of ``cp.async`` ring, with the
+forward's swizzled tiles, ``ldmatrix`` and log2-unit softmax.  f32 runs
 every product on the CUDA cores in full f32.  Head dims 64 and 128.
 
 What bounds it on the H100: at the training shape (b 48, s 256, 12 heads
-of 64, causal) bytes, about five times the flops' time.  The forward
-overlaps its tile copies with its products; dK/dV and dQ still load
-their tiles synchronously between two barriers.
+of 64, causal) bytes, about five times the flops' time, so every kernel
+overlaps its tile copies with its products.
 
 Contract (that of the JAX ``flash_attention``): q ``[b, s, h, hd]``, k/v
 ``[b, s_k, hk, hd]`` with ``h % hk == 0``; an optional ``kv_valid``
 ``[b, s_k]`` (1 = real key); ``causal`` masks ``q_pos < k_pos`` aligned
 top-left; any sequence length; a row with no unmasked key gives 0 and
 its backward contributes 0; no dropout inside (``attention_core`` drops
-the output).  ``D = rowsum(dO * O)`` is a torch reduction before the
-backward kernels, as it is plain XLA in the JAX package.
+the output).  ``D = rowsum(dO * O)``, plain XLA before the JAX
+package's two backward kernels, is computed by the dQ kernel from O
+(``_launch_dq_d``), so the backward launches dQ first and dK/dV reads
+its D; ``flash_backward_dq`` still takes a given D.
 
 Dispatch is by the tensors' device and nothing else: every public
 function here runs its plain version for CPU tensors and launches the
@@ -49,7 +52,8 @@ from . import _build
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_plain",
            "flash_backward_dkv", "flash_backward_dkv_plain",
-           "flash_backward_dq", "flash_backward_dq_plain", "flash_forward",
+           "flash_backward_dq", "flash_backward_dq_d_plain",
+           "flash_backward_dq_plain", "flash_backward_plain", "flash_forward",
            "flash_forward_plain", "make_flash_attention_fn", "row_dot"]
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -158,6 +162,26 @@ def flash_backward_dq_plain(q, k, v, kv_valid, do, lse, dvec, causal=False,
     return dq.to(q.dtype)
 
 
+def flash_backward_dq_d_plain(q, k, v, kv_valid, do, out, lse, causal=False,
+                              scale=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dQ kernel given O: (dq, D) with ``D =
+    row_dot(do, out)``, as ``_flash_backward`` computes it."""
+    dvec = row_dot(do, out)
+    return flash_backward_dq_plain(q, k, v, kv_valid, do, lse, dvec, causal,
+                                   scale), dvec
+
+
+def flash_backward_plain(q, k, v, kv_valid, do, out, lse, causal=False,
+                         scale=None) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the whole backward as ``_Flash`` runs it: (dq, dk,
+    dv), D from the dQ step."""
+    dq, dvec = flash_backward_dq_d_plain(q, k, v, kv_valid, do, out, lse,
+                                         causal, scale)
+    return (dq, *flash_backward_dkv_plain(q, k, v, kv_valid, do, lse, dvec,
+                                          causal, scale))
+
+
 # --------------------------------------------------------------- kernels
 
 def _check_heads(q, k):
@@ -188,10 +212,13 @@ def _checked(q, k, v, kv_valid, **extra):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    for name in ("k", "v", "do"):
+    for name in ("k", "v", "do", "out"):
         t = tensors.get(name)
         if t is not None and t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
+        if name in ("do", "out") and t is not None and t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
     valid = _valid_bool(kv_valid)
     if valid is not None:
         if valid.shape != (b, k.shape[1]) or valid.device != q.device:
@@ -246,16 +273,34 @@ def _launch_dkv(q, k, v, valid, do, lse, dvec, causal, scale):
     return dk, dv
 
 
-def _launch_dq(q, k, v, valid, do, lse, dvec, causal, scale):
+def _launch_dq(q, k, v, valid, do, lse, dvec, causal, scale, out=None):
+    """dQ; given ``out`` (O) the kernel also computes D into ``dvec``,
+    else it reads D there."""
     dq = torch.empty_like(q)
     if q.numel():
-        rc = _fn("flash_backward_dq", 8)(
+        rc = _fn("flash_backward_dq", 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid),
-            do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-            *_dims(q, k), scale, int(causal), _build.stream_ptr(q))
+            do.data_ptr(), _ptr(out), lse.data_ptr(), dvec.data_ptr(),
+            dq.data_ptr(), *_dims(q, k), scale, int(causal),
+            _build.stream_ptr(q))
         _build.check(rc, "flash_backward_dq")
         LAUNCHES["flash_backward_dq"] += 1
     return dq
+
+
+def _launch_dq_d(q, k, v, valid, do, out, lse, causal, scale):
+    """dQ with D computed in the kernel from O: (dq, D [b, h, s] f32)."""
+    dvec = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                       dtype=torch.float32, device=q.device)
+    return _launch_dq(q, k, v, valid, do, lse, dvec, causal, scale,
+                      out=out), dvec
+
+
+def _backward(q, k, v, valid, do, out, lse, causal, scale):
+    """The backward's launches: dQ, which computes D from O, then dK/dV,
+    which reads it; (dq, dk, dv)."""
+    dq, dvec = _launch_dq_d(q, k, v, valid, do, out, lse, causal, scale)
+    return (dq, *_launch_dkv(q, k, v, valid, do, lse, dvec, causal, scale))
 
 
 def _check_row_terms(q, lse, dvec):
@@ -291,7 +336,8 @@ def flash_backward_dkv(q, k, v, kv_valid, do, lse, dvec, causal=False,
 
 def flash_backward_dq(q, k, v, kv_valid, do, lse, dvec, causal=False,
                       scale=None) -> torch.Tensor:
-    """dQ kernel: dq [b, s, h, hd] in q's type."""
+    """dQ kernel with a given ``dvec`` (D): dq [b, s, h, hd] in q's
+    type."""
     if q.device.type == "cpu":
         return flash_backward_dq_plain(q, k, v, kv_valid, do, lse, dvec,
                                        causal, scale)
@@ -309,7 +355,9 @@ def row_dot(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 class _Flash(torch.autograd.Function):
     """The kernels as one differentiable op; residuals (q, k, v, valid,
-    out, lse), as the JAX ``custom_vjp`` keeps them."""
+    out, lse), as the JAX ``custom_vjp`` keeps them.  The backward
+    launches dQ, which also computes D from O, then dK/dV, which reads
+    that D."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, causal, scale):
@@ -321,12 +369,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, valid, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        dvec = row_dot(do, out)
-        dk, dv = _launch_dkv(q, k, v, valid, do, lse, dvec, ctx.causal,
-                             ctx.scale)
-        dq = _launch_dq(q, k, v, valid, do, lse, dvec, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None
+        return (*_backward(q, k, v, valid, do.contiguous(), out, lse,
+                           ctx.causal, ctx.scale), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

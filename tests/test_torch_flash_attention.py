@@ -7,7 +7,9 @@ counterparts, which take their plain versions for CPU tensors:
 ``flash_attention_plain`` under torch autograd, ``flash_forward_plain``
 (out and the row logsumexp) and the explicit backward formulas
 ``flash_backward_dkv_plain`` / ``flash_backward_dq_plain`` that the card
-holds the dK/dV and dQ kernels against.
+holds the dK/dV and dQ kernels against, and the backward as ``_Flash``
+runs it (``flash_backward_plain``: dQ computing D from O, then dK/dV)
+against ``_flash_backward``, which computes D itself.
 
 Tolerances: f32 1e-5 absolute on the forward and the logsumexp, 1e-4 on
 gradients (another summation order); bf16 2e-2 relative to the output's
@@ -25,7 +27,7 @@ from distributed_tensorflow_tpu.ops.pallas import flash_attention as jfa
 from distributed_tensorflow_tpu.ops.pallas import make_flash_attention_fn \
     as jmake_fn
 from distributed_tensorflow_tpu.ops.pallas.flash_attention import \
-    _flash_forward
+    _flash_backward, _flash_forward
 from distributed_tensorflow_tpu_torch.ops import attention as tattn
 from distributed_tensorflow_tpu_torch.ops.kernels import flash_attention as tfa
 
@@ -195,7 +197,7 @@ def test_cpu_wrappers_launch_nothing():
 
 @pytest.mark.parametrize("name,n_ptrs", [("flash_forward", 6),
                                          ("flash_backward_dkv", 9),
-                                         ("flash_backward_dq", 8)])
+                                         ("flash_backward_dq", 9)])
 def test_kernel_entries_bound_once_with_their_c_signatures(monkeypatch, name,
                                                            n_ptrs):
     """Each C entry of csrc/flash_attention.cu takes n_ptrs pointers, the
@@ -213,3 +215,74 @@ def test_kernel_entries_bound_once_with_their_c_signatures(monkeypatch, name,
     assert calls == [("flash_attention", name,
                       [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_with_d_from_o_matches_jax_backward(name):
+    """dQ computing D from O, then dK/dV reading it (the plain versions),
+    against ``_flash_backward`` given the same out and lse and no D;
+    D against the reference's own ``rowsum(dO * O)``."""
+    case = CASES[name]
+    q, k, v, do, valid = _inputs(7, **case["kw"])
+    causal, block = case["causal"], case["block"]
+    jvalid = (jnp.ones(k.shape[:2], jnp.float32) if valid is None
+              else jnp.asarray(valid, jnp.float32))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jq, jk, jv, jdo = (jnp.swapaxes(jnp.asarray(x), 1, 2)
+                       for x in (q, k, v, do))
+    jout, jlse = _flash_forward(jq, jk, jv, jvalid, scale, causal, block,
+                                block, True)
+    want = [np.swapaxes(np.asarray(x), 1, 2) for x in _flash_backward(
+        jq, jk, jv, jvalid, jout, jlse, jdo, scale, causal, block, block,
+        True)]
+    want_d = np.asarray(jnp.sum(jdo * jout, axis=-1))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    tout = torch.from_numpy(np.swapaxes(np.asarray(jout), 1, 2).copy())
+    tlse = torch.from_numpy(np.array(jlse))
+    dq, dvec = tfa.flash_backward_dq_d_plain(tq, tk, tv, tvalid, tdo, tout,
+                                             tlse, causal)
+    np.testing.assert_allclose(dvec.numpy(), want_d, atol=F32_FWD_TOL,
+                               rtol=0)
+    got = tfa.flash_backward_plain(tq, tk, tv, tvalid, tdo, tout, tlse,
+                                   causal)
+    np.testing.assert_array_equal(got[0].numpy(), dq.numpy())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=F32_GRAD_TOL, rtol=0)
+
+
+def test_backward_launches_dq_with_o_then_dkv_with_its_d(monkeypatch):
+    """Host side of the card's backward, over a stand-in library: dQ is
+    launched first, with O and a fresh D buffer, then dK/dV with that same
+    D; ``row_dot`` is not called."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import _build
+    calls = []
+
+    def fake_bind(lib, fn_name, argtypes):
+        def launch(*args):
+            assert len(args) == len(argtypes)
+            calls.append((fn_name, args))
+            return 0
+        return launch
+
+    def no_row_dot(*_):
+        raise AssertionError("row_dot called on the kernel route")
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(tfa, "row_dot", no_row_dot)
+    q, k, v, do, _ = _inputs(8, s=16, h=4, hk=2, d=64)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+              for x in (q, k, v)]
+    before = dict(tfa.LAUNCHES)
+    out = tfa._Flash.apply(*leaves, None, True, 0.125)
+    torch.autograd.grad(out, leaves, torch.from_numpy(do).to(torch.bfloat16))
+    assert [c[0] for c in calls] == ["flash_forward", "flash_backward_dq",
+                                     "flash_backward_dkv"]
+    (_, fwd), (_, dq), (_, dkv) = calls
+    assert dq[5] == fwd[4] and dq[5] is not None     # O: the forward's out
+    assert dq[6] == fwd[5] == dkv[5]                 # lse
+    assert dq[7] == dkv[6] and dq[7] not in fwd      # D: dQ's, read by dK/dV
+    assert dq[4] == dkv[4]                           # dO
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert tfa.LAUNCHES[name] == before.get(name, 0) + 1

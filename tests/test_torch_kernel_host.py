@@ -280,3 +280,42 @@ def test_kernel_sources_share_the_helper_header(name):
     both libraries' names."""
     names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
     assert names == [f"{name}.cu", "hopper.cuh"]
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_dq_mma_\
+kernelILi64EEEvPK13__nv_bfloat16S3_S3_PKhS3_S3_PKfPfPS1_iiiiffi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_dq_mma_\
+kernelILi64EEEvPK13__nv_bfloat16S3_S3_PKhS3_S3_PKfPfPS1_iiiiffi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__af6443_18_flash_\
+attention_cu_115e27c516flash_dkv_kernelILi128EEEvPKfS2_S2_PKhS2_S2_S2_PfS4_iiii\
+fi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__af6443_18_flash_\
+attention_cu_115e27c516flash_dkv_kernelILi128EEEvPKfS2_S2_PKhS2_S2_S2_PfS4_iiii\
+fi
+    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 440 bytes cmem[0]
+ptxas info    : Compiling entry function 'rmsnorm_plain_c' for 'sm_90a'
+ptxas info    : Used 12 registers
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    """The compiler's ``-Xptxas=-v`` output kept beside a library reads as
+    registers, stack and spill bytes per kernel, named by the kernel and
+    its first integer template argument (the head dim), also inside an
+    anonymous namespace whose mangled name ends in digits."""
+    assert "-Xptxas=-v" in _build.NVCC_FLAGS
+    lib = tmp_path / "flash_attention-0123.so"
+    lib.with_suffix(".log").write_text(_PTXAS_LOG)
+    monkeypatch.setattr(_build, "load", lambda name: None)
+    monkeypatch.setattr(_build, "_target", lambda name: lib)
+    assert _build.ptxas_report("flash_attention") == {
+        "flash_dq_mma_kernel<64>": dict(registers=168, stack=0,
+                                        spill_stores=0, spill_loads=0),
+        "flash_dkv_kernel<128>": dict(registers=255, stack=24,
+                                      spill_stores=8, spill_loads=12),
+        "rmsnorm_plain_c": dict(registers=12)}

@@ -10,9 +10,10 @@ relative to max(1, |want|), one ulp at any magnitude).  Flash attention
 is held relative to the output's scale, ``max|got - want| <= tol *
 max(1, max|want|)``: f32 1e-4 (summation order), bf16 1e-2 (both sides
 compute in f32 from the same bf16 inputs and round once, so they differ
-by about one bf16 ulp, 2**-8 relative).  Adam: f32 1e-6 absolute plus
-1e-5 relative (the kernel may contract a multiply-add).  RMSNorm: as
-LayerNorm.  Paged attention over an int8 pool is held relative to the
+by about one bf16 ulp, 2**-8 relative); D = rowsum(dO * O) computed in
+the dQ kernel 1e-5 of its scale (f32 summation order).  Adam: f32 1e-6
+absolute plus 1e-5 relative (the kernel may contract a multiply-add).
+RMSNorm: as LayerNorm.  Paged attention over an int8 pool is held relative to the
 output's scale as flash is: f32 queries 1e-4 (the kernel folds each
 scale into the logit and the softmax weight instead of multiplying every
 element: another f32 rounding order), bf16 queries 1e-2 (both sides
@@ -205,7 +206,9 @@ def _same_lse(got, want, tol):
 
 
 # (dtype, tol, hd, group, causal, masked, s): the CPU file's cases plus
-# head dim 128
+# head dim 128; bf16 lengths no 64-row tile divides (1, 63, 65, 129,
+# 1000), GQA group 4 at head dim 128, and kv-valid planes with fully
+# masked rows, causal and not
 _FLASH_CASES = [
     (torch.float32, 1e-4, 64, 1, False, False, 64),
     (torch.float32, 1e-4, 64, 1, True, False, 64),
@@ -216,6 +219,14 @@ _FLASH_CASES = [
     (torch.bfloat16, 1e-2, 64, 2, False, True, 100),
     (torch.bfloat16, 1e-2, 128, 1, True, False, 130),
     (torch.float32, 1e-4, 128, 2, True, True, 96),
+    (torch.bfloat16, 1e-2, 64, 1, True, False, 1),
+    (torch.bfloat16, 1e-2, 64, 1, True, False, 63),
+    (torch.bfloat16, 1e-2, 64, 2, False, False, 65),
+    (torch.bfloat16, 1e-2, 128, 1, True, False, 129),
+    (torch.bfloat16, 1e-2, 64, 1, True, False, 1000),
+    (torch.bfloat16, 1e-2, 128, 4, True, False, 200),
+    (torch.bfloat16, 1e-2, 64, 2, True, True, 150),
+    (torch.bfloat16, 1e-2, 128, 1, False, True, 77),
 ]
 
 
@@ -296,6 +307,101 @@ def test_flash_forward_bf16_matches_plain(cuda, sq, sk, h, hk, hd, causal,
     if masked:
         assert torch.equal(out[0].float(), torch.zeros_like(out[0].float()))
         assert bool(torch.isneginf(lse[0]).all())
+
+
+def _flash_inputs(cuda, dtype, b, s, h, hk, hd, masked, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dtype).to(cuda)
+    q, k, v, do = rnd(b, s, h, hd), rnd(b, s, hk, hd), rnd(b, s, hk, hd), \
+        rnd(b, s, h, hd)
+    valid = None
+    if masked:
+        valid = torch.rand(b, s, generator=gen) < 0.6
+        valid[0, :] = False           # batch row 0: every row fully masked
+        valid[1, :3] = False          # causal rows 0-2 of batch row 1 too
+        valid = valid.to(cuda)
+    return q, k, v, do, valid
+
+
+# (dtype, hd, s, h, hk, causal, masked)
+_FLASH_D_CASES = [
+    (torch.bfloat16, 64, 256, 12, 12, True, False),
+    (torch.bfloat16, 128, 129, 8, 2, True, True),
+    (torch.bfloat16, 64, 65, 4, 2, False, True),
+    (torch.float32, 64, 70, 4, 2, True, True),
+    (torch.float32, 128, 96, 4, 4, False, False),
+]
+
+
+@pytest.mark.parametrize("dtype,hd,s,h,hk,causal,masked", _FLASH_D_CASES)
+def test_flash_dq_computing_d_equals_the_given_d_route(cuda, dtype, hd, s, h,
+                                                       hk, causal, masked):
+    """The dQ kernel given O writes D = rowsum(dO * O) (within f32
+    summation order of ``row_dot``, 1e-5 of its scale) and the dq that the
+    given-D route computes from that same D, bit for bit; and dq within the
+    flash tolerance of the given-D route fed ``row_dot``'s D."""
+    q, k, v, do, valid = _flash_inputs(cuda, dtype, 2, s, h, hk, hd, masked,
+                                       17)
+    out, lse = fa.flash_forward(q, k, v, valid, causal)
+    vb = fa._checked(q, k, v, valid)
+    before = fa.LAUNCHES["flash_backward_dq"]
+    dq, dvec = fa._launch_dq_d(q, k, v, vb, do, out, lse, causal,
+                               hd ** -0.5)
+    assert fa.LAUNCHES["flash_backward_dq"] == before + 1
+    want_d = fa.row_dot(do, out)
+    assert dvec.shape == want_d.shape and dvec.dtype == torch.float32
+    assert _rel_err(dvec, want_d) <= 1e-5
+    same_d = fa.flash_backward_dq(q, k, v, valid, do, lse, dvec, causal)
+    assert torch.equal(dq, same_d)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(dq, fa.flash_backward_dq(q, k, v, valid, do, lse,
+                                             want_d, causal)) <= tol
+
+
+@pytest.mark.parametrize("hd,h,hk,masked", [(64, 12, 12, False),
+                                            (128, 8, 2, True)])
+def test_flash_backward_is_deterministic(cuda, hd, h, hk, masked):
+    """Two backward passes of the same inputs give the same bits (no
+    atomics: dQ and dK/dV each own their outputs)."""
+    q, k, v, do, valid = _flash_inputs(cuda, torch.bfloat16, 3, 300, h, hk,
+                                       hd, masked, 18)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    runs = [torch.autograd.grad(fa.flash_attention(*leaves, valid,
+                                                   causal=True), leaves, do)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_forward_and_backward_replay_in_a_cuda_graph(cuda):
+    """``_Flash`` forward and backward captured in one CUDA graph replay to
+    the eager results, bit for bit (no allocation or synchronisation
+    inside a launch)."""
+    q, k, v, do, valid = _flash_inputs(cuda, torch.bfloat16, 2, 200, 12, 4,
+                                       64, True, 19)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def step():
+        out = fa.flash_attention(*leaves, valid, causal=True)
+        return (out.detach(), *torch.autograd.grad(out, leaves, do))
+    eager = step()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        step()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        captured = step()
+    for x in captured:
+        x.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bf16_autograd_matches_plain(cuda):
