@@ -11,10 +11,10 @@ common) and continuous normals.  Three filters: nucleus alone, top-k
 then nucleus, top-k alone.
 
 The one exception is a nucleus cut that falls within ``CUT_TOL`` of
-``top_p``: there the two f32 cumulative sums (another summation order;
-XLA's was 3.3e-6 off a float64 sum after 3,500 terms of a bf16-rounded
-row) may keep one token more or less, so tokens at such a position of
-the sorted row are not compared.
+``top_p``: there the two f32 cumulative sums, taken in another order
+over thousands of terms of a vocabulary-50257 row, may keep one token
+more or less, so tokens at such a position of the sorted row (judged by
+a float64 sum) are not compared.
 """
 import numpy as np
 import pytest
