@@ -18,9 +18,13 @@ no result lines:
    1024, prefill windows of 32), the training kernels at the training
    step's (flash attention b 48, s 256, 12 heads of 64, bf16, causal;
    Adam on the 38.6M-element word embedding and a [768, 3072] kernel),
-   plus flash at s 1024 and an f32 GQA / kv-valid / ragged case; the
-   Llama-3-8B serving kernels at its engine's shapes (RMSNorm [8, 4096]
-   and [32, 4096] bf16 and an f32 case; the int8 paged decode at 8 slots
+   plus flash at s 1024, an f32 GQA / kv-valid / ragged case and the
+   decode path's prompt prefills (bf16 causal: GPT-2 [4, 256], beam
+   [2, 127], speculative [1, 256], Llama [4, 512] GQA 32:8 head dim
+   128), and LayerNorm at those prefills' rows ([1024, 768], [254,
+   768]); the Llama-3-8B serving kernels at its engine's shapes
+   (RMSNorm [8, 4096] and [32, 4096] bf16 and an f32 case, and [2048,
+   4096] bf16, its prefill's rows; the int8 paged decode at 8 slots
    of q [8, 1, 32, 128] bf16 over pages of 16, max_len 8192, and the
    int8 window at q [1, 32, 32, 128] after a prefix of several pages),
    plus the bf16 GQA head-dim-128 paged case at the same shapes.  Times
@@ -70,19 +74,57 @@ no result lines:
    and with the same weights on the CPU: equal greedy tokens with a pool
    in f32; with an int8 pool, window and decode-step logits within
    ``INT8_REF_LOGIT_TOL`` (tokens compared and reported).
-11. with ``--profile DIR`` only: the engine phases and 3 training steps
-   again under ``torch.profiler``; the device's busy share, its top
-   kernels, µs per paged-attention launch, and (training, Llama
-   engine) device ms by part; then µs per paged launch in the Llama
+11. decode (run after phase 4, on its model): single-stream decoding on
+   the contiguous cache, GPT-2 small in bf16: ``generate`` on 4 prompts
+   x 256 + 64 new, greedy, with GPT-2's EOS; the same with
+   ``prefill_chunk=64``; a ragged batch of 96-256 tokens through
+   ``prompt_valid``; ``beam_search``, beam 4, on 2 prompts x 128 + 32;
+   ``generate_speculative``, 1 prompt x 256 + 64, gamma 4, with a draft
+   of the target's first 2 layers.  Every run is driven with the launch
+   counts at 0 and checked: the flash forward 12 times for each
+   one-block prefill (12 + 2 for the speculative target and draft), 0 on
+   the chunked and ragged runs, LayerNorm launched, RMSNorm and every
+   paged entry not.  Checks shapes and budgets, and decode_block's
+   last-position logits against one decode_window over the same prompt
+   within ``BLOCK_WINDOW_TOL``.  Prints tokens/s, the prefill ms, the
+   speculative acceptance rate and how many greedy tokens the
+   speculative run shares with ``generate`` before the first divergence
+   (reported, not required: the two round bf16 differently).
+12. contiguous engine (after phase 11): ``Engine(paged=False)`` on phase
+   4's mix; checks budgets, zero page counters, no paged and no flash
+   launch; prints tokens/s and TTFT beside phase 4's and the share of
+   requests whose tokens equal the paged engine's (reported: the paged
+   kernel and the dense stripe round differently in bf16).
+13. decode reference (after phase 5): a 2-layer f32 GPT-2-shaped model
+   (head dim 64) on the card and the same weights on the CPU give equal
+   greedy tokens for ``generate`` (plain, ragged, chunked, EOS),
+   ``beam_search``, ``generate_speculative`` (the model's first layer as
+   the draft; its acceptance must lie strictly between 0 and 1, so that
+   rounds roll back) and ``Engine(paged=False)``; a 2-layer f32 Llama
+   with an int8 contiguous cache gives prefill and decode-step logits
+   within ``INT8_REF_LOGIT_TOL``.
+14. Llama generate (after phase 9, on its model): ``generate`` on 4
+   prompts x 512 + 32 new, greedy, into an int8 contiguous cache; checks
+   32 flash launches (one prefill), RMSNorm launched, LayerNorm and every
+   paged entry not; prints tokens/s, prefill ms, peak memory and the
+   cache's bytes beside a bf16 cache's.  Phase 3 holds the flash forward
+   at this prefill's shape (bf16, GQA 32:8, head dim 128).
+15. with ``--profile DIR`` only: the engine phases, 3 training steps and
+   the GPT-2 and Llama ``generate`` of phases 11 and 14 again under
+   ``torch.profiler``; the device's busy share, its top kernels, µs per
+   paged-attention launch, and (training, Llama engine, generate) device
+   ms by part; then µs per paged launch in the Llama
    engine over 4 requests of the mix at the planned split counts and at
    one forced split (what split-K gives inside the engine).
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (``launches`` from phases 4,
+6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -109,6 +151,10 @@ ADAM_TOL = 1e-6       # f32, |values| <= a few: a contracted multiply-add
 INT8_BF16_TOL = 1e-2
 INT8_F32_TOL = 1e-4
 RMS_TOL = 1e-2        # bf16: about one bf16 ulp at unit scale
+# bf16 RMSNorm, every case: each element within one bf16 ulp of the plain
+# one (at the prompt prefill's rows the outputs reach |4|-|8|, where one
+# ulp is 2^-5 and RMS_TOL, set at unit scale, no longer covers it)
+RMS_ULPS = 1.0
 # card vs CPU Llama logits with int8 pools written on each side: an f32
 # round-off difference may flip one int8 rounding by a step of amax/127;
 # one such flip moved a 2-layer model's logits by ~1e-5 in a CPU trial,
@@ -124,6 +170,23 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 
 # the Llama-3-8B engine: 8 slots of 8192 tokens in pages of 16
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_PAGE = 8, 8192, 16
+
+# single-stream decoding on the contiguous cache: GPT-2 small generates
+# 4 prompts of 256 + 64 new (GPT-2's <|endoftext|> as EOS), beams 2
+# prompts of 128 + 32 at beam 4, speculates 1 prompt of 256 + 64 at
+# gamma 4 with a draft of the target's first 2 layers; Llama-3-8B
+# generates 4 prompts of 512 + 32 into an int8 cache
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GPT2_EOS = 4, 256, 64, 50256
+BEAM_BATCH, BEAM_PROMPT, BEAM_NEW, BEAM_SIZE = 2, 128, 32, 4
+SPEC_GAMMA, SPEC_DRAFT_LAYERS = 4, 2
+LLAMA_GEN_BATCH, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 512, 32
+# decode_block (the flash forward over the block) against one
+# decode_window over the same prompt (dense attention read back from the
+# cache), GPT-2 small in bf16, last-position logits, relative to
+# max(1, max |logit|): each path rounds its bf16 activations on its own
+# (2**-8 relative a rounding) through 12 layers; a wrong kernel is off by
+# the logits' own scale
+BLOCK_WINDOW_TOL = 5e-2
 
 
 _T0 = time.perf_counter()
@@ -382,13 +445,15 @@ def check_kernels(torch, args):
          "bound_ms": b_ms, "bound_by": b_by})
     del kv
 
-    # --- LayerNorm at the window's and the decode tick's rows; the
-    # decode tick's [8, 768] is the record, held to F.layer_norm's times
+    # --- LayerNorm at the decode path's prompt prefills' rows (generate,
+    # beam), the window's and the decode tick's; the decode tick's [8,
+    # 768] is the record, held to F.layer_norm's times
     d = 768
     gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
     beta = 0.1 * torch.randn(d, generator=gen, device=dev)
     lerr = 0.0
-    for rows in (256, 32, 8):
+    for rows in (GEN_BATCH * GEN_PROMPT, BEAM_BATCH * (BEAM_PROMPT - 1),
+                 256, 32, 8):
         x = (torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.5).to(
             torch.bfloat16)
         got = fused.fused_layernorm(x, gamma, beta, 1e-5)
@@ -445,11 +510,13 @@ def check_llama_kernels(torch, args):
     records = {}
     site = "distributed_tensorflow_tpu/ops/pallas/"
 
-    # --- RMSNorm at the decode tick's and the window's rows, and f32
+    # --- RMSNorm at the prompt prefill's, the window's and the decode
+    # tick's rows, and f32
     d = 4096
     gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
     rerr = 0.0
-    for rows, dtype in ((32, torch.float32), (32, torch.bfloat16),
+    for rows, dtype in ((LLAMA_GEN_BATCH * LLAMA_GEN_PROMPT, torch.bfloat16),
+                        (32, torch.float32), (32, torch.bfloat16),
                         (8, torch.bfloat16)):
         x = (torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.5).to(
             dtype)
@@ -457,9 +524,14 @@ def check_llama_kernels(torch, args):
         want = fused.rmsnorm_plain(x, gamma, 1e-5)
         e = (got.float() - want.float()).abs().max().item()
         tol = RMS_TOL if dtype == torch.bfloat16 else F32_TOL
-        if not e <= tol:
+        # the prefill's rows: one bf16 ulp an element; the decode tick's
+        # and the window's (unit scale): RMS_TOL, and one ulp as well
+        ulps = _bf16_ulps(torch, got, want) \
+            if dtype == torch.bfloat16 else 0.0
+        prefill = rows > 32
+        if not ((prefill or e <= tol) and ulps <= RMS_ULPS):
             raise AssertionError(f"rmsnorm kernel disagrees ({rows}, "
-                                 f"{dtype}): {e}")
+                                 f"{dtype}): {e} ({ulps} bf16 ulps)")
         g_lib = gamma.to(dtype)
         ms = time_ms(torch, lambda: fused.fused_rmsnorm(x, gamma, 1e-5),
                      args.iters)
@@ -474,7 +546,8 @@ def check_llama_kernels(torch, args):
         size = x.element_size()
         b_ms, b_by = bound_ms(rows * d * size * 2 + d * 4, 4.0 * rows * d)
         log({"check": "rmsnorm", "shape": [rows, d], "dtype": str(dtype),
-             "max_abs_err": e, "tol": tol, "kernel_ms": ms,
+             "max_abs_err": e, "tol": "1 bf16 ulp" if prefill else tol,
+             "max_bf16_ulps": ulps, "kernel_ms": ms,
              "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
              "library_graph_ms": g_libms, "library": "F.rms_norm",
              "ms_vs_library": ms / lib, "graph_ms_vs_library": g_ms / g_libms,
@@ -663,6 +736,15 @@ def check_llama_kernels(torch, args):
     return records
 
 
+def _bf16_ulps(torch, got, want) -> float:
+    """max |got - want| over the elements, each in units of its plain
+    value's bf16 ulp (2^(e - 8) for |want| in [2^(e-1), 2^e))."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
 def _err_and_scale(torch, got, want):
     """(max |got - want| over want's finite entries, max(1, max |want|));
     the error is inf if the two disagree on which entries are finite (a
@@ -794,9 +876,13 @@ def check_train_kernels(torch, args):
                 "flash_backward_dkv": site + "346",
                 "flash_backward_dq": site + "379"}
 
-    # agreement at the training shape, at s 1024, and on an f32 case with
+    # agreement at the training shape, at s 1024, on an f32 case with
     # GQA (12 query heads on 4 kv heads), a kv-valid plane with fully
-    # masked rows, a length no tile divides and head dim 128
+    # masked rows, a length no tile divides and head dim 128, and at the
+    # decode path's prompt prefills (bf16: GPT-2 generate's 4 prompts of
+    # 256, beam search's 2 of 127, the speculative target's and draft's
+    # 1 of 256, and Llama-3-8B's 4 of 512 with 32 query heads on 8 kv
+    # heads of 128)
     worst = dict.fromkeys([*replaces, "flash_backward"], 0.0)
     main = long = None
     for label, shape in (
@@ -804,7 +890,16 @@ def check_train_kernels(torch, args):
                        False)),
             ("s1024", (12, 1024, 12, 12, 64, torch.bfloat16, False)),
             ("f32_gqa_valid_ragged_hd128", (3, 300, 12, 4, 128,
-                                            torch.float32, True))):
+                                            torch.float32, True)),
+            ("gpt2_prefill_bf16", (GEN_BATCH, GEN_PROMPT, 12, 12, 64,
+                                   torch.bfloat16, False)),
+            ("beam_prefill_bf16_ragged", (BEAM_BATCH, BEAM_PROMPT - 1, 12,
+                                          12, 64, torch.bfloat16, False)),
+            ("spec_prefill_bf16", (1, GEN_PROMPT, 12, 12, 64,
+                                   torch.bfloat16, False)),
+            ("llama_prefill_bf16_gqa_hd128", (LLAMA_GEN_BATCH,
+                                              LLAMA_GEN_PROMPT, 32, 8, 128,
+                                              torch.bfloat16, False))):
         result, ops = _flash_case(torch, fa, gen, *shape)
         for name, (err, tol) in result.items():
             log({"check": name, "case": label, "max_abs_err": err,
@@ -839,6 +934,42 @@ def check_train_kernels(torch, args):
                               * ql.shape[1] * 4,
                               2.0 * ql.numel() * ql.shape[1])[0]})
     del long, ql, kl, vl, lt
+
+    # the forward at the decode path's prompt prefills (phases 11 and 14:
+    # one launch a layer), beside its plain version and SDPA on the same
+    # inputs (their agreement is held above)
+    for label, (b, s, h, hk, hd) in (
+            ("gpt2_prefill", (GEN_BATCH, GEN_PROMPT, 12, 12, 64)),
+            ("beam_prefill", (BEAM_BATCH, BEAM_PROMPT - 1, 12, 12, 64)),
+            ("spec_prefill", (1, GEN_PROMPT, 12, 12, 64)),
+            ("llama_prefill", (LLAMA_GEN_BATCH, LLAMA_GEN_PROMPT, 32, 8,
+                               128))):
+        q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, s, hk, hd, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def fwd():
+            return fa.flash_forward(q, k, v, None, True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=hk != h)
+        lib_graph, why = _graph_or_why(torch, sdpa, iters)
+        b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel())
+                              + 4 * b * h * s, 2.0 * b * h * s * s * hd)
+        log({"time": "flash_forward", "case": label,
+             "shape": f"q[{b},{s},{h},{hd}] kv heads {hk} bf16 causal",
+             "kernel_ms": time_ms(torch, fwd, iters),
+             "graph_ms": graph_ms(torch, fwd, iters),
+             "plain_ms": time_ms(torch, lambda: fa.flash_forward_plain(
+                 q, k, v, None, True), max(5, iters // 10)),
+             "library_ms": time_ms(torch, sdpa, iters),
+             "library_graph_ms": lib_graph, "library_graph_note": why,
+             "library": "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa)", "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, qt, kt, vt
 
     # times at the training shape; the library call is SDPA, causal; its
     # backward's graph time is that of the aten op SDPA dispatches to
@@ -1001,13 +1132,15 @@ def _requests(np, seed, vocab=50257):
     return prompts, budgets
 
 
-def run_engine(torch, model, prompts, budgets, late=0, max_len=1024):
+def run_engine(torch, model, prompts, budgets, late=0, max_len=1024,
+               paged=True):
     """Serve ``prompts`` on a fresh engine and drain it.  The last
     ``late`` requests are submitted once the first one has its first
-    token (its prompt pages are then in the radix cache)."""
+    token (on a paged engine its prompt pages are then in the radix
+    cache)."""
     from distributed_tensorflow_tpu_torch import Engine
     eng = Engine(model, device=model.device, num_slots=8, max_len=max_len,
-                 prefill_chunk=32, tick_steps=8)
+                 prefill_chunk=32, tick_steps=8, paged=paged)
     n = len(prompts) - late
     t0 = time.perf_counter()
     hs = [eng.submit(p, b) for p, b in zip(prompts[:n], budgets[:n])]
@@ -1020,7 +1153,8 @@ def run_engine(torch, model, prompts, budgets, late=0, max_len=1024):
 
 
 def check_engine(torch, np, args, smi):
-    """Phase 4: returns the launch counts of the main path's run."""
+    """Phase 4: returns the launch counts of the main path's run, and the
+    model with the run's tokens, tokens/s and TTFT (for phase 12)."""
     from distributed_tensorflow_tpu_torch import GPT, gpt_small
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     from distributed_tensorflow_tpu_torch.ops.kernels import \
@@ -1057,7 +1191,9 @@ def check_engine(torch, np, args, smi):
          "launches": launches, "card": smi})
     del eng
     _row_independence(torch, model, prompts, budgets, hs)
-    return launches
+    return launches, dict(model=model, tokens=[h.tokens for h in hs],
+                          tokens_per_s=n_tok / wall,
+                          ttft_p50_s=ttft[len(ttft) // 2])
 
 
 def _row_independence(torch, model, prompts, budgets, hs, max_len=1024):
@@ -1096,6 +1232,380 @@ def check_reference(torch, np):
     if outs[0] != outs[1]:
         raise AssertionError(f"card and CPU reference disagree: {outs}")
     log({"reference": "ok", "requests": len(prompts)})
+
+
+def _reset_counts():
+    """Set every kernel launch count to 0."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    for counter in (fa.LAUNCHES, fused.LAUNCHES, pa.LAUNCHES):
+        counter.clear()
+
+
+def _read_counts(torch):
+    """The launch counts since ``_reset_counts``, after a synchronize:
+    flash forward, the two norms, and every paged entry summed."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    torch.cuda.synchronize()
+    return {"flash_forward": fa.LAUNCHES["flash_forward"],
+            "layernorm": fused.LAUNCHES["layernorm"],
+            "rmsnorm": fused.LAUNCHES["rmsnorm"],
+            "paged": sum(pa.LAUNCHES.values())}
+
+
+def _driven(torch, fn):
+    """(fn's result, host seconds, launch counts) of one run of ``fn``,
+    with every count set to 0 just before it and read just after."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    counts = _read_counts(torch)
+    return out, time.perf_counter() - t0, counts
+
+
+def _expect(name, counts, flash, norm):
+    """Fail unless ``counts`` shows ``flash`` flash launches, launches of
+    the ``norm`` kernel only, and no paged launch."""
+    other = "rmsnorm" if norm == "layernorm" else "layernorm"
+    if counts["flash_forward"] != flash or counts[norm] <= 0 \
+            or counts[other] or counts["paged"]:
+        raise AssertionError(f"{name}: launches {counts}; expected "
+                             f"flash_forward {flash}, {norm} > 0, no "
+                             f"{other}, no paged kernel")
+
+
+def _syncs(torch, fn) -> int:
+    """Host syncs in one run of ``fn``: the operations that wait for the
+    card (a read of a device value, a copy from pageable host memory), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _new_tokens(out, plen, eos_id):
+    """Generated tokens per row: up to and including the first EOS."""
+    counts = []
+    for row in out[:, plen:].tolist():
+        counts.append(row.index(eos_id) + 1 if eos_id in row else len(row))
+    return counts
+
+
+def _agree_prefix(a, b):
+    """How many leading entries two token lists share."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _prefill_ms(torch, model, ids, max_len, reps=5):
+    """Device ms of one ``prefill_cache`` (one decode_block) of ``ids``
+    into a fresh cache: CUDA events around ``reps`` calls, after one."""
+    model.prefill_cache(model.init_cache(ids.shape[0], max_len), ids)
+    caches = [model.init_cache(ids.shape[0], max_len) for _ in range(reps)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for cache in caches:
+        model.prefill_cache(cache, ids)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _truncated_draft(torch, model, layers, seed):
+    """The target's first ``layers`` layers under its embeddings, final
+    norm and head, as a shallower model (the JAX bench row's draft)."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch import GPT
+    draft = GPT(dataclasses.replace(model.config, num_layers=layers),
+                device=model.device,
+                generator=torch.Generator(model.device).manual_seed(seed))
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("blocks.")
+            or int(k.split(".")[1]) < layers}
+    draft.load_state_dict(keep)
+    return draft
+
+
+def check_decode(torch, np, args, smi, model):
+    """Phase 11: single-stream decoding on the contiguous cache, GPT-2
+    small at full width in bf16 (phase 4's model).  Returns the flash,
+    LayerNorm and RMSNorm launches of its runs."""
+    from distributed_tensorflow_tpu_torch import generate_speculative
+    c = model.config
+    L = c.num_layers
+    dev = model.device
+    rng = np.random.default_rng(args.seed + 11)
+    ids = torch.from_numpy(rng.integers(0, c.vocab_size, (GEN_BATCH,
+                                                          GEN_PROMPT),
+                                        dtype=np.int32)).to(dev)
+    total = GEN_PROMPT + GEN_NEW
+    model.generate(ids, 2, eos_id=GPT2_EOS)             # warm-up
+    driven = {}
+
+    def run(name, fn, flash):
+        out, wall, counts = _driven(torch, fn)
+        _expect(name, counts, flash, "layernorm")
+        driven[name] = counts
+        return out, wall
+
+    out, wall = run("generate", lambda: model.generate(
+        ids, GEN_NEW, eos_id=GPT2_EOS), L)
+    if out.shape != (GEN_BATCH, total) or out.dtype != torch.int32:
+        raise AssertionError(f"generate gave {tuple(out.shape)} {out.dtype}")
+    if not torch.equal(out[:, :GEN_PROMPT], ids):
+        raise AssertionError("generate changed the prompt")
+    n_new = _new_tokens(out, GEN_PROMPT, GPT2_EOS)
+    prefill = _prefill_ms(torch, model, ids, total)
+    out_chunked, wall_chunked = run("generate prefill_chunk=64",
+                                    lambda: model.generate(
+                                        ids, GEN_NEW, eos_id=GPT2_EOS,
+                                        prefill_chunk=64), 0)
+    # ragged: prompts of 96..256 tokens, left-padded to 256
+    lengths = np.linspace(96, GEN_PROMPT, GEN_BATCH).astype(int)
+    valid = torch.from_numpy(np.arange(GEN_PROMPT)[None, :]
+                             >= GEN_PROMPT - lengths[:, None]).to(dev)
+    out_ragged, wall_ragged = run("generate ragged", lambda: model.generate(
+        ids, GEN_NEW, eos_id=GPT2_EOS, prompt_valid=valid), 0)
+    for name, o in (("chunked", out_chunked), ("ragged", out_ragged)):
+        if o.shape != (GEN_BATCH, total):
+            raise AssertionError(f"{name} gave {tuple(o.shape)}")
+
+    bids = ids[:BEAM_BATCH, :BEAM_PROMPT]
+    beam, wall_beam = run("beam_search", lambda: model.beam_search(
+        bids, BEAM_NEW, beam_size=BEAM_SIZE), L)
+    if beam.shape != (BEAM_BATCH, BEAM_PROMPT + BEAM_NEW) \
+            or not torch.equal(beam[:, :BEAM_PROMPT], bids):
+        raise AssertionError(f"beam_search gave {tuple(beam.shape)}")
+
+    draft = _truncated_draft(torch, model, SPEC_DRAFT_LAYERS, args.seed)
+    (spec, acc), wall_spec = run(
+        "generate_speculative", lambda: generate_speculative(
+            model, draft, ids[:1], GEN_NEW, gamma=SPEC_GAMMA),
+        L + SPEC_DRAFT_LAYERS)
+    greedy = model.generate(ids[:1], GEN_NEW)
+    if spec.shape != (1, total) or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"speculative gave {tuple(spec.shape)}, {acc}")
+    agree_spec = _agree_prefix(spec[0, GEN_PROMPT:].tolist(),
+                               greedy[0, GEN_PROMPT:].tolist())
+
+    # decode_block's logits against one decode_window over the prompt
+    block, _ = model.decode_block(model.init_cache(GEN_BATCH, GEN_PROMPT),
+                                  ids)
+    window, _ = model.decode_window(model.init_cache(GEN_BATCH, GEN_PROMPT),
+                                    ids, head="last")
+    err = (block - window).abs().max().item()
+    tol = BLOCK_WINDOW_TOL * max(1.0, window.abs().max().item())
+    log({"check": "decode_block vs decode_window", "shape": list(ids.shape),
+         "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        raise AssertionError(f"decode_block and decode_window disagree: "
+                             f"{err} > {tol}")
+    # host syncs of each entry point (one extra run each, untimed), over
+    # the positions it generates
+    syncs = {
+        "generate": (_syncs(torch, lambda: model.generate(ids, GEN_NEW)),
+                     GEN_NEW),
+        "generate eos": (_syncs(torch, lambda: model.generate(
+            ids, GEN_NEW, eos_id=GPT2_EOS)), GEN_NEW),
+        "beam_search eos": (_syncs(torch, lambda: model.beam_search(
+            bids, BEAM_NEW, beam_size=BEAM_SIZE, eos_id=GPT2_EOS)),
+            BEAM_NEW),
+        "generate_speculative": (_syncs(torch, lambda: generate_speculative(
+            model, draft, ids[:1], GEN_NEW, gamma=SPEC_GAMMA)), GEN_NEW)}
+    del draft
+
+    def agree(a, b):
+        return [_agree_prefix(x[GEN_PROMPT:].tolist(), y[GEN_PROMPT:].tolist())
+                for x, y in zip(a, b)]
+    log({"decode": "gpt2-small bf16, contiguous cache",
+         "prompt": [GEN_BATCH, GEN_PROMPT], "new": GEN_NEW,
+         "eos_id": GPT2_EOS, "new_tokens": sum(n_new),
+         "generate_wall_s": wall, "tokens_per_s": sum(n_new) / wall,
+         "prefill_ms": prefill,
+         "chunked_wall_s": wall_chunked,
+         "chunked_agree_prefix_with_one_block": agree(out_chunked, out),
+         "ragged_lengths": lengths.tolist(), "ragged_wall_s": wall_ragged,
+         "ragged_full_row_agree_prefix": agree(out_ragged[-1:], out[-1:]),
+         "beam": [BEAM_BATCH, BEAM_PROMPT, BEAM_NEW, BEAM_SIZE],
+         "beam_wall_s": wall_beam,
+         "beam_tokens_per_s": BEAM_BATCH * BEAM_NEW / wall_beam,
+         "speculative_gamma": SPEC_GAMMA,
+         "speculative_draft_layers": SPEC_DRAFT_LAYERS,
+         "speculative_wall_s": wall_spec,
+         "speculative_tokens_per_s": GEN_NEW / wall_spec,
+         "speculative_acceptance": acc,
+         "speculative_greedy_agree_prefix": agree_spec,
+         "syncs": {k: {"syncs": n, "positions": t, "per_position": n / t}
+                   for k, (n, t) in syncs.items()},
+         "launches": driven, "card": smi})
+    return {k: sum(d[k] for d in driven.values())
+            for k in ("flash_forward", "layernorm", "rmsnorm")}
+
+
+def check_contiguous_engine(torch, np, args, smi, paged):
+    """Phase 12: ``Engine(paged=False)`` on phase 4's 12-request mix, with
+    phase 4's paged run (``paged``: its model, tokens, tokens/s and
+    TTFT) beside it."""
+    model = paged["model"]
+    prompts, budgets = _requests(np, args.seed)
+    (eng, hs, wall), _, counts = _driven(torch, lambda: run_engine(
+        torch, model, prompts, budgets, late=3, paged=False))
+    if counts["flash_forward"] or counts["paged"] \
+            or counts["layernorm"] <= 0:
+        raise AssertionError(f"contiguous engine launches {counts}")
+    for h, b in zip(hs, budgets):
+        if h.status != "ok" or len(h.tokens) != b:
+            raise AssertionError(f"request {h.rid}: status {h.status}, "
+                                 f"{len(h.tokens)} of {b} tokens")
+    st = eng.stats()
+    if st.pages_total or st.prefix_lookups_total:
+        raise AssertionError(f"contiguous engine has page counters: {st}")
+    ttft = sorted(h.ttft_s for h in hs)
+    n_tok = sum(len(h.tokens) for h in hs)
+    same = [h.tokens == t for h, t in zip(hs, paged["tokens"])]
+    log({"engine": "gpt2-small bf16, paged=False", "requests": len(hs),
+         "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+         "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+         "paged_tokens_per_s": paged["tokens_per_s"],
+         "paged_ttft_p50_s": paged["ttft_p50_s"],
+         "share_equal_to_paged": sum(same) / len(same),
+         "launches": counts, "card": smi})
+    return {"layernorm": counts["layernorm"]}
+
+
+def check_decode_reference(torch, np):
+    """Phase 13: a 2-layer f32 GPT-2-shaped model (head dim 64) on the
+    card and the same weights on the CPU give EQUAL greedy tokens through
+    every new entry point; a 2-layer f32 Llama with an int8 contiguous
+    cache gives decode-step logits within ``INT8_REF_LOGIT_TOL``."""
+    from distributed_tensorflow_tpu_torch import (GPT, Engine,
+                                                  generate_speculative,
+                                                  gpt_tiny, llama_tiny)
+
+    def pair(config):
+        """The same weights on the card and the CPU, made on the CPU (from
+        its seed-0 generator, so that they do not depend on the card's)."""
+        cpu = GPT(config, device="cpu")
+        gpu = GPT(config, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        return gpu, cpu
+
+    gpu, cpu = pair(gpt_tiny())
+    accepted = {}
+
+    def spec(m):
+        """Greedy speculative decoding with the model's first layer as the
+        draft, so that rounds accept part of the drafts and roll back."""
+        out, acc = generate_speculative(
+            m, _truncated_draft(torch, m, 1, 0), ids[:1], 16, gamma=4)
+        accepted[m.device.type] = acc
+        return out
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 512, (3, 40), dtype=np.int32))
+    valid = torch.from_numpy(np.arange(40)[None, :]
+                             >= np.array([[12], [0], [31]]))
+    eos = int(cpu.generate(ids, 16)[1, 48])
+    runs = {
+        "generate": lambda m: m.generate(ids, 16),
+        "generate ragged": lambda m: m.generate(ids, 16, prompt_valid=valid),
+        "generate chunked": lambda m: m.generate(ids, 16, prefill_chunk=16),
+        "generate eos": lambda m: m.generate(ids, 16, eos_id=eos),
+        "beam_search": lambda m: m.beam_search(ids[:2], 12, beam_size=4,
+                                               eos_id=eos),
+        "generate_speculative": lambda m: spec(m)[0],
+        "Engine(paged=False)": lambda m: torch.tensor(Engine(
+            m, device=m.device, num_slots=2, max_len=128, prefill_chunk=16,
+            tick_steps=4, paged=False).generate_batch(
+                [ids[0, :9].numpy(), ids[1].numpy(), ids[2, :23].numpy()],
+                12)),
+    }
+    for name, fn in runs.items():
+        got, want = fn(gpu).cpu(), fn(cpu)
+        if not torch.equal(got, want):
+            raise AssertionError(f"card and CPU disagree on {name}")
+    log({"decode_reference": "ok", "equal_tokens": sorted(runs),
+         "speculative_acceptance": accepted})
+    if not 0.0 < accepted["cuda"] < 1.0:
+        raise AssertionError(f"the truncated draft's acceptance "
+                             f"{accepted['cuda']} is not partial: no "
+                             f"round rolled back")
+
+    gpu, cpu = pair(llama_tiny(hidden_size=256, intermediate_size=512,
+                               kv_cache_dtype="int8"))
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 24), dtype=np.int32))
+    logits = []
+    for m in (gpu, cpu):
+        lg, cache = m.prefill_cache(m.init_cache(2, 32), toks[:, :20])
+        got = [lg]
+        for t in range(20, 24):
+            lg, cache = m.decode_step(cache, toks[:, t])
+            got.append(lg)
+        logits.append([g.cpu() for g in got])
+    err = max((a - b).abs().max().item() for a, b in zip(*logits))
+    log({"decode_reference": "llama int8 contiguous cache",
+         "logit_max_abs_err": err, "logit_tol": INT8_REF_LOGIT_TOL})
+    if not err <= INT8_REF_LOGIT_TOL:
+        raise AssertionError(f"card and CPU Llama int8 decode logits "
+                             f"differ by {err}")
+
+
+def check_llama_generate(torch, np, args, smi, model):
+    """Phase 14: Llama-3-8B (phase 9's model) ``generate`` into an int8
+    contiguous cache.  Returns its flash and RMSNorm launches."""
+    c = model.config
+    rng = np.random.default_rng(args.seed + 14)
+    ids = torch.from_numpy(rng.integers(
+        0, c.vocab_size, (LLAMA_GEN_BATCH, LLAMA_GEN_PROMPT),
+        dtype=np.int32)).to(model.device)
+    total = LLAMA_GEN_PROMPT + LLAMA_GEN_NEW
+    model.generate(ids, 2)                              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, counts = _driven(torch, lambda: model.generate(
+        ids, LLAMA_GEN_NEW))
+    _expect("llama generate", counts, c.num_layers, "rmsnorm")
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (LLAMA_GEN_BATCH, total) \
+            or not torch.equal(out[:, :LLAMA_GEN_PROMPT], ids) \
+            or int(out.max()) >= c.vocab_size or int(out.min()) < 0:
+        raise AssertionError(f"llama generate gave {tuple(out.shape)}")
+    prefill = _prefill_ms(torch, model, ids, total, reps=3)
+    syncs = _syncs(torch, lambda: model.generate(ids, LLAMA_GEN_NEW))
+    cache = model.init_cache(LLAMA_GEN_BATCH, total)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for n, t in cache.items() if n != "pos")
+    bf16_bytes = 2 * cache["k"].numel() * 2
+    del cache
+    n_tok = LLAMA_GEN_BATCH * LLAMA_GEN_NEW
+    log({"decode": "llama3-8b bf16, int8 contiguous cache",
+         "layers": c.num_layers, "prompt": list(ids.shape),
+         "new": LLAMA_GEN_NEW, "wall_s": wall, "tokens_per_s": n_tok / wall,
+         "prefill_ms": prefill, "peak_memory_gb": peak / 1e9,
+         "syncs": syncs, "syncs_per_position": syncs / LLAMA_GEN_NEW,
+         "cache_gb": cache_bytes / 1e9, "bf16_cache_gb": bf16_bytes / 1e9,
+         "launches": counts, "card": smi})
+    return {k: counts[k] for k in ("flash_forward", "rmsnorm")}
 
 
 def _llama_model(torch, args):
@@ -1422,6 +1932,62 @@ def profile_engine(torch, np, args, smi, model, *, max_len=1024,
     log({name: result})
 
 
+_DECODE_PARTS = (
+    ("flash forward (ours)", ("flash_",)),
+    ("LayerNorm (ours)", ("layernorm_",)),
+    ("RMSNorm (ours)", ("rmsnorm_",)),
+    ("GEMMs", ("nvjet", "gemm", "Gemm", "gemv", "splitK")),
+    ("f32 -> bf16 weight casts and other copies", ("copy", "Copy")),
+)
+
+
+def profile_generate(torch, np, args, smi, model, name, batch, prompt, new):
+    """``--profile DIR``: one greedy ``generate`` of ``batch`` prompts of
+    ``prompt`` tokens + ``new`` under ``torch.profiler``, after an
+    unprofiled run of the same call; writes the kernel table to
+    DIR/<name>.txt and prints the device's busy share of the unprofiled
+    wall and device ms by part."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(args.seed + 15)
+    ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                        (batch, prompt), dtype=np.int32)
+                           ).to(model.device)
+    model.generate(ids, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.generate(ids, new)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.generate(ids, new)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    busy_s = sum(r[1] for r in rows) / 1e6
+    os.makedirs(args.profile, exist_ok=True)
+    with open(os.path.join(args.profile, f"{name}.txt"), "w") as f:
+        f.write(f"{smi}\nunprofiled wall_s {plain_wall}\n")
+        for key, us, n in rows:
+            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+    by_part = {}
+    for key, us, _ in rows:
+        part = next((p for p, marks in _DECODE_PARTS
+                     if any(m in key for m in marks)),
+                    "elementwise, reductions and dense attention")
+        by_part[part] = by_part.get(part, 0.0) + us / 1e3
+    log({name: {"shape": [batch, prompt, new],
+                "unprofiled_wall_s": plain_wall, "device_busy_s": busy_s,
+                "busy_share_of_unprofiled_wall": busy_s / plain_wall,
+                "kernels": sum(n for _, _, n in rows),
+                "device_ms_by_part": dict(sorted(by_part.items(),
+                                                 key=lambda kv: -kv[1])),
+                "top": [[k[:80], us / 1e3, n] for k, us, n in rows[:12]],
+                "card": smi}})
+
+
 def profile_paged_splits(torch, np, args, model):
     """``--profile DIR``: device µs per paged launch in the Llama engine at
     the planned split counts and at one forced split, over the same 4
@@ -1565,8 +2131,17 @@ def main(argv=None) -> int:
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))
     records.update(check_train_kernels(torch, args))
-    launches = check_engine(torch, np, args, smi)
+    launches, paged_run = check_engine(torch, np, args, smi)
+    decode_launches = collections.Counter(
+        check_decode(torch, np, args, smi, paged_run["model"]))
+    decode_launches.update(check_contiguous_engine(torch, np, args, smi,
+                                                   paged_run))
+    if args.profile:
+        profile_generate(torch, np, args, smi, paged_run["model"],
+                         "profile_generate", GEN_BATCH, GEN_PROMPT, GEN_NEW)
+    del paged_run
     check_reference(torch, np)
+    check_decode_reference(torch, np)
     train_launches, model = check_training(torch, np, args, smi)
     launches.update((k, v) for k, v in train_launches.items()
                     if k != "layernorm")     # its record: serving shapes
@@ -1579,6 +2154,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log({"phase": "llama init", "seconds": time.perf_counter() - t0})
     launches.update(check_llama_engine(torch, np, args, smi, model))
+    decode_launches.update(check_llama_generate(torch, np, args, smi, model))
+    if args.profile:
+        profile_generate(torch, np, args, smi, model,
+                         "profile_llama_generate", LLAMA_GEN_BATCH,
+                         LLAMA_GEN_PROMPT, LLAMA_GEN_NEW)
     if args.profile:
         profile_engine(torch, np, args, smi, model, max_len=LLAMA_MAX_LEN,
                        name="profile_llama", parts=_LLAMA_PARTS)
@@ -1601,7 +2181,9 @@ def main(argv=None) -> int:
                     graph_ms=r["graph_ms"],
                     library_graph_ms=r["library_graph_ms"],
                     **({"graph_note": r["graph_note"]}
-                       if "graph_note" in r else {}))
+                       if "graph_note" in r else {}),
+                    **({"decode_launches": decode_launches[k]}
+                       if k in decode_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

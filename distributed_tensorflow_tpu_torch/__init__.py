@@ -8,13 +8,18 @@ for paged attention and LayerNorm.  Slice 2 is causal-LM training:
 hand-written CUDA kernels for flash attention (forward, dK/dV, dQ) and
 the Adam step.  Slice 3 serves the Llama family (``llama3_8b``) with an
 int8 KV cache, with a hand-written RMSNorm kernel and the int8 branch of
-the paged-attention kernel.  Kernels live in ``ops/kernels``, their sources in
-``csrc/``.  Entry points run on the card unless given ``device="cpu"``.
+the paged-attention kernel.  Slice 7 decodes single streams on the
+contiguous KV cache: ``GPT.generate``, ``GPT.beam_search``,
+``GPT.prefill_cache`` and ``generate_speculative``, whose prompt prefill
+runs the flash forward kernel, and ``Engine(paged=False)``.  Kernels live
+in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
+card unless given ``device="cpu"``.
 """
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
                              load_jax_params)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
+from .models.speculative import generate_speculative, speculative_accept
 from .ops.quant import QTensor, dequantize_tensor, quantize_tensor
 from .optim import adam, adamw
 from .serve.engine import Engine, EngineStats, RequestHandle
@@ -22,7 +27,7 @@ from .train import TrainState, make_custom_train_step
 
 __all__ = ["Engine", "EngineStats", "GPT", "GPTConfig", "QTensor",
            "RequestHandle", "TrainState", "adam", "adamw",
-           "dequantize_tensor", "gpt_params_from_jax", "gpt_params_to_jax",
-           "gpt_small", "gpt_tiny", "llama2_7b", "llama3_8b", "llama_config",
-           "llama_tiny", "load_jax_params", "make_custom_train_step",
-           "quantize_tensor"]
+           "dequantize_tensor", "generate_speculative", "gpt_params_from_jax",
+           "gpt_params_to_jax", "gpt_small", "gpt_tiny", "llama2_7b",
+           "llama3_8b", "llama_config", "llama_tiny", "load_jax_params",
+           "make_custom_train_step", "quantize_tensor", "speculative_accept"]

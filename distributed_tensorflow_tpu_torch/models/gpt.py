@@ -1,4 +1,4 @@
-"""GPT decoder for paged serving and causal-LM training, in PyTorch.
+"""GPT decoder for serving, decoding and causal-LM training, in PyTorch.
 
 Counterpart of ``distributed_tensorflow_tpu/models/gpt.py``, the subset
 the port's paths run: pre-LN decoder blocks in two recipes, chosen by
@@ -8,13 +8,23 @@ the tanh-gelu FFN, biases and a head tied to the word embedding.  Llama
 separate ``lm_head`` and grouped-query attention.  Either may keep its
 KV cache in int8 (``kv_cache_dtype="int8"``): each written key and value
 vector is quantized with its own f32 scale (``ops/quant.py``) into the
-pool's ``k_scale``/``v_scale`` planes, and the paged-attention kernel
-dequantizes at the operand.  Serving drives ``decode_window_paged``
-(chunked prefill) and ``decode_step_slots_paged`` (one token per slot)
-against a shared KV page pool (``serve/pages.py``), under
-``torch.no_grad()``.  Training drives
-``apply`` (the full-sequence forward, causal flash attention) through
-``lm_loss_fn`` (next-token cross-entropy).
+cache's ``k_scale``/``v_scale`` planes.
+
+Three ways to hold the KV cache, all under ``torch.no_grad()``:
+
+* the page pool (``serve/pages.py``): ``decode_window_paged`` (chunked
+  prefill) and ``decode_step_slots_paged`` (one token per slot), read
+  through the paged-attention kernel, which dequantizes at the operand;
+* the contiguous cache of one decode stream (``init_cache``: ``[L, b,
+  max_len, kv_heads, head_dim]`` leaves and a host-int ``pos``):
+  ``decode_block`` (the prompt prefill), ``decode_window``,
+  ``decode_step``, ``prefill_cache``, and on top of them ``generate``
+  and ``beam_search`` (``models/speculative.py`` drives two of them);
+* the contiguous slot cache (``serve/slots.py``): ``decode_step_slots``,
+  one token per slot at per-row columns.
+
+Training drives ``apply`` (the full-sequence forward, causal flash
+attention) through ``lm_loss_fn`` (next-token cross-entropy).
 
 Parameters keep the JAX package's layouts (projection kernels ``[d, h,
 hd]`` and ``[h, hd, d]``) and stay float32; each product casts them to
@@ -23,13 +33,18 @@ the compute dtype, as the JAX code's ``.astype(dtype)`` does.
 
 Kernels: every block norm and ``ln_f`` go through
 ``ops.kernels.fused.fused_layernorm`` or ``fused_rmsnorm``, every paged
-read through ``ops.kernels.paged_attention`` and the training forward's
-attention through ``ops.kernels.flash_attention`` (forward, dK/dV and
-dQ).  Those wrappers launch the CUDA kernel for CUDA tensors and run
-their plain version only for CPU tensors: the tensor's device decides,
-there is no knob.  The JAX package's gates (``use_flash="auto"``,
-``fused_layernorm=False``) are not ported: on the card the kernels are
-always the path.
+read through ``ops.kernels.paged_attention``, and the training forward's
+attention and the unpadded prompt prefill (``decode_block`` without
+``kv_valid``) through ``ops.kernels.flash_attention``.  Those wrappers
+launch the CUDA kernel for CUDA tensors and run their plain version only
+for CPU tensors: the tensor's device decides, there is no knob.  The JAX
+package's gates (``use_flash="auto"``, ``fused_layernorm=False``) are not
+ported: on the card the kernels are always the path.  The contiguous
+cache's reads (``decode_step``, ``decode_window``, the ragged
+``decode_block``, ``decode_step_slots``) are dense attention in plain
+torch (``ops/attention.py``), as the JAX package computes them outside
+any Pallas kernel; they read only the cache's first ``pos + s`` columns,
+which the JAX package masks instead.
 
 Numerics: TF32 stays off.  This module never sets
 ``torch.backends.cuda.matmul.allow_tf32`` or
@@ -45,15 +60,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import decoding as dec
 from ..ops import losses as loss_lib
 from ..ops import quant
-from ..ops.attention import (affine, apply_rope, attention_core, dropout,
-                             ffn_core, ffn_swiglu_core, project, rope_tables)
+from ..ops.attention import (NEG_INF, affine, apply_rope, attention_core,
+                             causal_mask, dot_product_attention, dropout,
+                             ffn_core, ffn_swiglu_core, padding_mask, project,
+                             rope_tables)
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
 
 __all__ = ["GPT", "GPTConfig", "gpt_small", "gpt_tiny", "resolve_device"]
+
+
+def _row_write(layer: torch.Tensor, cols: torch.Tensor,
+               val: torch.Tensor) -> None:
+    """``layer[r, cols[r]] = val[r, 0]`` in place for every row r (``val``
+    holds one column), dropping a column past ``layer.shape[1]``: it is
+    aimed at the row's last column and writes back the value already
+    there, so no index leaves the layer (``index_put_`` would raise on
+    the CPU and assert on the card) and no live entry changes.  One
+    gather and one scatter, no host sync."""
+    b, max_len = layer.shape[:2]
+    rows = torch.arange(b, device=layer.device)
+    at = torch.clamp(cols.long(), max=max_len - 1)
+    keep = (cols < max_len).view((b,) + (1,) * (val.dim() - 2))
+    layer.index_put_((rows, at), torch.where(keep, val[:, 0],
+                                             layer[rows, at]))
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -288,15 +322,23 @@ class GPT(nn.Module):
 
     def _cache_layer(self, blk: _Block, x: torch.Tensor,
                      kv: Dict[str, torch.Tensor], i: int,
-                     paged, attention: Callable, rope_cs) -> torch.Tensor:
-        """One decoder layer against the page pool.  ``paged``: (page ids
-        [N], offsets [N]) with N = b*s, the pool cell token t of the
-        flattened window writes to.  In order: RoPE on q and k (when
-        ``rope_cs``), the K/V write (int8 pools: quantized per token and
-        kv head, values and scales written together), then attention, so
-        the read sees each token's own column.  The write is an in-place
-        ``index_put_`` on layer ``i`` of the pool (the JAX package donates
-        the pool buffer instead)."""
+                     attention: Callable, rope_cs, *,
+                     write_pos: Union[int, torch.Tensor, None] = None,
+                     paged=None) -> torch.Tensor:
+        """One decoder layer of every KV-cache path.  In order: RoPE on q
+        and k (when ``rope_cs``), the K/V write into layer ``i`` of ``kv``
+        (int8 caches: quantized per token and kv head, values and scales
+        written together), then ``attention(q, k, v, kv, i)``, so a read
+        through the cache sees each token's own column.
+
+        Where the window's [b, s] tokens are written, in place:
+        ``paged`` (page ids [N], offsets [N], N = b*s): the pool cells of
+        the flattened window (the page pool); else ``write_pos`` an int:
+        columns ``write_pos..write_pos+s-1`` of every row (the generate
+        and beam path); else a [b] tensor: row r's columns from
+        ``write_pos[r]`` on (the slot path), where a column past
+        ``max_len`` is dropped, never clamped onto a live entry.  (The
+        JAX package donates the cache buffer instead.)"""
         h = self._norm(blk.ln_1, x)
         a = blk.attention
         q, k, v = (project(p.kernel, p.bias, h)
@@ -305,8 +347,14 @@ class GPT(nn.Module):
             q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
 
         def write(name, val):
-            kv[name][i].index_put_(
-                paged, val.reshape(-1, *val.shape[2:]).to(kv[name].dtype))
+            buf = kv[name]
+            val = val.to(buf.dtype)
+            if paged is not None:
+                buf[i].index_put_(paged, val.reshape(-1, *val.shape[2:]))
+            elif isinstance(write_pos, int):
+                buf[i, :, write_pos:write_pos + val.shape[1]] = val
+            else:
+                _row_write(buf[i], write_pos, val)
         for name, val in (("k", k), ("v", v)):
             if "k_scale" in kv:
                 qt = quant.quantize_tensor(val, reduce_axes=(-1,))
@@ -314,7 +362,7 @@ class GPT(nn.Module):
                 write(name + "_scale", qt.scale)
             else:
                 write(name, val)
-        attn = attention(q, kv, i)
+        attn = attention(q, k, v, kv, i)
         nh, hd, d = a.out.kernel.shape
         attn_out = affine(a.out.kernel.reshape(nh * hd, d), a.out.bias,
                           attn.reshape(*attn.shape[:2], nh * hd))
@@ -429,14 +477,14 @@ class GPT(nn.Module):
         page_tab = page_tab.to(torch.int32).contiguous()
         rope_cs = self._rope(positions[:, None])
 
-        def attention(q, kv, i):
+        def attention(q, k, v, kv, i):
             return paged_lib.paged_decode_attention(q.contiguous(), kv, i,
                                                     page_tab, valid)
 
         for i, blk in enumerate(self.blocks):
-            x = self._cache_layer(blk, x, kv, i, paged, attention, rope_cs)
-        x = self._norm(self.ln_f, x)
-        return self.logits(x)[:, 0, :], kv
+            x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
+                                  paged=paged)
+        return self._head(x), kv
 
     @torch.no_grad()
     def decode_window_paged(self, kv: Dict[str, torch.Tensor],
@@ -471,15 +519,459 @@ class GPT(nn.Module):
         pids = torch.where(cols < P * page_size, pids, 0)
         paged = (pids, cols % page_size)
 
-        def attention(q, kv, i):
+        def attention(q, k, v, kv, i):
             return paged_lib.paged_window_attention(q.contiguous(), kv, i,
                                                     page_row, pos)
 
         for i, blk in enumerate(self.blocks):
-            x = self._cache_layer(blk, x, kv, i, paged, attention, rope_cs)
+            x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
+                                  paged=paged)
         if head == "none":
             return None, kv
         if head == "all":
             return self.logits(self._norm(self.ln_f, x)), kv
-        x = x[:, head:head + 1, :]
-        return self.logits(self._norm(self.ln_f, x))[:, 0, :], kv
+        return self._head(x[:, head:head + 1, :]), kv
+
+    # -- the contiguous KV cache -------------------------------------------
+    def init_cache(self, batch_size: int, max_len: Optional[int] = None
+                   ) -> Dict[str, Any]:
+        """An empty contiguous cache on the model's device: ``k``/``v``
+        ``[L, b, max_len, kv_heads, head_dim]`` in the compute dtype, or
+        int8 beside f32 ``k_scale``/``v_scale`` ``[..., kv_heads, 1]``
+        planes under ``kv_cache_dtype="int8"`` (zero: an unwritten entry
+        dequantizes to 0), and ``pos``, the next column to write.  ``pos``
+        is a host int (the JAX package keeps a device scalar), so every
+        slice and mask of the decode path is built without a sync."""
+        c = self.config
+        max_len = max_len or c.max_position
+        dev = self.device
+        shape = (c.num_layers, batch_size, max_len, c.kv_heads, c.head_dim)
+        if c.kv_cache_dtype == "int8":
+            sshape = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(sshape, device=dev),
+                    "v_scale": torch.zeros(sshape, device=dev),
+                    "pos": 0}
+        return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=c.dtype, device=dev),
+                "pos": 0}
+
+    @staticmethod
+    def _cache_kv(cache: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """The K/V leaves of a cache dict (everything but ``pos``)."""
+        return {k: v for k, v in cache.items() if k != "pos"}
+
+    def _dequant_layer_kv(self, kv: Mapping[str, torch.Tensor], i: int,
+                          n: Optional[int] = None):
+        """Layer ``i``'s (k, v) ``[b, n, kv_heads, head_dim]`` in the
+        compute dtype (the first ``n`` columns, all when None); int8
+        entries are dequantized here, at the operand."""
+        cols = slice(None) if n is None else slice(0, n)
+        k, v = kv["k"][i, :, cols], kv["v"][i, :, cols]
+        if "k_scale" not in kv:
+            return k, v
+        dtype = self.config.dtype
+        return (quant.dequantize_tensor(
+                    quant.QTensor(k, kv["k_scale"][i, :, cols]), dtype),
+                quant.dequantize_tensor(
+                    quant.QTensor(v, kv["v_scale"][i, :, cols]), dtype))
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """ln_f and the LM head of the window's last position: [b, vocab]."""
+        return self.logits(self._norm(self.ln_f, x[:, -1:, :]))[:, 0, :]
+
+    @torch.no_grad()
+    def decode_step(self, cache: Mapping[str, Any], token_ids: torch.Tensor,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None):
+        """One token per row against the contiguous cache.
+
+        ``token_ids`` [b]: the tokens at column ``cache["pos"]``.  Ragged
+        rows (``generate(prompt_valid=...)``): ``kv_valid`` [b, max_len]
+        also masks cache columns (left pads), and ``positions`` [b] gives
+        each row's position index (column minus its pad count) for the
+        learned table and RoPE.  Returns (logits [b, vocab] f32, the cache
+        with ``pos`` advanced by 1; its tensors are written in place)."""
+        pos = int(cache["pos"])
+        ids = token_ids.to(self.device)
+        at = (torch.full_like(ids, pos) if positions is None
+              else positions.to(self.device))
+        x = self._embed(ids, at)[:, None, :]
+        n = pos + 1
+        # columns past pos are not read at all (the JAX package masks them)
+        mask = None if kv_valid is None else padding_mask(kv_valid[:, :n])
+        rope_cs = self._rope(at[:, None])
+
+        def attention(q, k, v, kv, i):
+            k_cache, v_cache = self._dequant_layer_kv(kv, i, n)
+            return dot_product_attention(q, k_cache, v_cache, mask=mask)
+
+        kv = self._cache_kv(cache)
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
+                                  write_pos=pos)
+        return self._head(x), dict(cache, pos=n)
+
+    @torch.no_grad()
+    def decode_block(self, cache: Mapping[str, Any], token_ids: torch.Tensor,
+                     kv_valid: Optional[torch.Tensor] = None,
+                     positions: Optional[torch.Tensor] = None):
+        """The prompt prefill: a whole [b, s] block into an EMPTY cache
+        (``pos == 0``) in one forward.
+
+        Attention reads the block's own K and V (s x s), never the cache:
+        without ``kv_valid`` through the causal flash forward
+        (``ops.kernels.flash_attention``, one launch a layer on the
+        card); with ``kv_valid`` [b, s] (left-padded ragged rows) through
+        the dense path with causal and padding masks, ``positions`` [b, s]
+        the rows' position indices.  Under an int8 cache the block attends
+        its unquantized K and V, as the JAX package's does; the cache
+        holds the quantized ones.  Returns (logits [b, vocab] f32 at the
+        last position, the cache with ``pos`` = s)."""
+        if int(cache["pos"]) != 0:
+            raise ValueError(f"decode_block needs an empty cache (pos == 0);"
+                             f" got pos={int(cache['pos'])}")
+        ids = token_ids.to(self.device)
+        s = ids.shape[1]
+        at = (torch.arange(s, device=self.device) if positions is None
+              else positions.to(self.device))
+        x = self._embed(ids, at)
+        if kv_valid is None:
+            flash = flash_lib.make_flash_attention_fn(causal=True)
+
+            def block_attn(q, k, v, kv, i):
+                return flash(q.contiguous(), k.contiguous(), v.contiguous())
+        else:
+            mask = (causal_mask(s, device=self.device)
+                    + padding_mask(kv_valid.to(self.device)))
+
+            def block_attn(q, k, v, kv, i):
+                return dot_product_attention(q, k, v, mask=mask)
+
+        rope_cs = self._rope(at)
+        kv = self._cache_kv(cache)
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, block_attn, rope_cs,
+                                  write_pos=0)
+        return self._head(x), dict(cache, pos=s)
+
+    @torch.no_grad()
+    def decode_window(self, cache: Mapping[str, Any], token_ids: torch.Tensor,
+                      head: Union[str, int] = "all"):
+        """``s`` tokens per row against a cache holding ``pos`` columns:
+        K/V written at columns ``pos..pos+s-1``, window row j attends
+        every column ``<= pos + j``, read back through the cache (int8
+        dequantized).  The speculative verifier and the chunked prefill.
+        Rolling back is the caller's: moving ``pos`` back hides the later
+        columns until they are overwritten.
+
+        ``head``: ``"all"`` -> [b, s, vocab] f32, ``"last"`` -> [b, vocab],
+        ``"none"`` -> None (a mid-prefill window only feeds the cache), or
+        an int j -> [b, vocab] for window row j only (the contiguous
+        engine's first token; the JAX package computes all rows and picks
+        one).  Returns (logits, the cache with ``pos`` advanced by s)."""
+        if head not in ("all", "last", "none") and not isinstance(head, int):
+            raise ValueError(f"head must be all|last|none or a row index; "
+                             f"got {head!r}")
+        pos = int(cache["pos"])
+        ids = token_ids.to(self.device)
+        s = ids.shape[1]
+        n = pos + s
+        win_pos = pos + torch.arange(s, device=self.device)
+        x = self._embed(ids, win_pos)
+        cols = torch.arange(n, device=self.device)
+        mask = torch.where(cols[None, :] <= win_pos[:, None], 0.0,
+                           NEG_INF)[None, None]
+        rope_cs = self._rope(win_pos)
+
+        def window_attn(q, k, v, kv, i):
+            k_cache, v_cache = self._dequant_layer_kv(kv, i, n)
+            return dot_product_attention(q, k_cache, v_cache, mask=mask)
+
+        kv = self._cache_kv(cache)
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, window_attn, rope_cs,
+                                  write_pos=pos)
+        new_cache = dict(cache, pos=n)
+        if head == "none":
+            return None, new_cache
+        if head == "last":
+            return self._head(x), new_cache
+        if head == "all":
+            return self.logits(self._norm(self.ln_f, x)), new_cache
+        return self._head(x[:, head:head + 1, :]), new_cache
+
+    @torch.no_grad()
+    def prefill_cache(self, cache: Mapping[str, Any], token_ids: torch.Tensor,
+                      chunk: Optional[int] = None):
+        """The prompt into an EMPTY cache: one ``decode_block`` (``chunk``
+        None or >= s), else ``decode_window`` ``chunk`` tokens at a time,
+        each window attending the cached prefix and itself.  The two agree
+        to round-off, except under an int8 cache: a window reads its own
+        K/V back quantized, the block attends them unquantized, so they
+        agree to quantization tolerance.  Returns (last-position logits
+        [b, vocab] f32, the advanced cache)."""
+        s = token_ids.shape[1]
+        if s == 0:
+            raise ValueError("prefill_cache needs a non-empty prompt")
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"chunk must be >= 1; got {chunk}")
+        if int(cache["pos"]) != 0:
+            raise ValueError(
+                f"prefill_cache needs an empty cache (pos == 0); got pos="
+                f"{int(cache['pos'])}: append to a live cache with "
+                "decode_window instead")
+        if chunk is None or chunk >= s:
+            return self.decode_block(cache, token_ids)
+        logits = None
+        for lo in range(0, s, chunk):
+            logits, cache = self.decode_window(
+                cache, token_ids[:, lo:lo + chunk],
+                head="last" if lo + chunk >= s else "none")
+        return logits, cache
+
+    def _check_gen_lengths(self, plen: int, max_new_tokens: int,
+                           max_len: int) -> None:
+        """The length rules ``generate`` and ``beam_search`` share."""
+        c = self.config
+        if max_len > c.max_position and c.position_embedding == "learned":
+            # only the learned table runs out of rows; RoPE extrapolates
+            raise ValueError(f"generation length {max_len} exceeds "
+                             f"max_position {c.max_position}")
+        if plen + max_new_tokens > max_len:
+            raise ValueError(f"prompt ({plen}) + max_new_tokens "
+                             f"({max_new_tokens}) = {plen + max_new_tokens} "
+                             f"exceeds max_len {max_len}")
+
+    def _prompt(self, prompt_ids, prompt_valid, max_len: int):
+        """(ids [b, plen] int32 on the device, pad_len [b] or None,
+        kv_valid [b, max_len] or None) for ``generate``/``beam_search``."""
+        ids = torch.as_tensor(prompt_ids).to(self.device, torch.int32)
+        if prompt_valid is None:
+            return ids, None, None
+        pad_len, kv_valid = dec.ragged_prompt_masks(
+            torch.as_tensor(prompt_valid).to(self.device), tuple(ids.shape),
+            max_len)
+        return ids, pad_len, kv_valid
+
+    def _ragged_prefill(self, cache, ids, pad_len, kv_valid):
+        """``decode_block`` over left-padded rows, each at its own
+        positions ``max(j - pad_len, 0)``."""
+        s = ids.shape[1]
+        positions = torch.clamp(torch.arange(s, device=self.device)[None, :]
+                                - pad_len[:, None], min=0)
+        return self.decode_block(cache, ids, kv_valid=kv_valid[:, :s],
+                                 positions=positions)
+
+    @torch.no_grad()
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 max_len: Optional[int] = None, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 eos_id: Optional[int] = None, pad_id: Optional[int] = None,
+                 prompt_valid=None,
+                 prefill_chunk: Optional[int] = None) -> torch.Tensor:
+        """Autoregressive decoding with the contiguous KV cache.
+
+        ``prompt_ids`` [b, p] -> [b, p + max_new_tokens] int32 on the
+        model's device.  ``temperature`` 0 is greedy; above 0 tokens are
+        drawn from ``generator`` (on the model's device) after the
+        ``top_k``/``top_p`` filters (``ops.decoding``).  A prompt of more
+        than one token prefills in one ``decode_block`` (the flash
+        forward on the card), or ``prefill_chunk`` tokens at a time
+        through ``decode_window``; then one ``decode_step`` a token.
+
+        ``eos_id``: a row that emits EOS after its prompt is finished and
+        emits ``pad_id`` (default ``eos_id``) from then on; the loop stops
+        once every row has finished (one host read of the finished mask a
+        step).  ``prompt_valid`` [b, p]: LEFT-padded ragged prompts (1 =
+        real token): pads are masked from attention and each row's
+        positions shift by its pad count; it does not compose with
+        ``prefill_chunk``."""
+        if prefill_chunk is not None and prompt_valid is not None:
+            raise ValueError("prefill_chunk does not compose with "
+                             "prompt_valid (ragged prompts prefill as "
+                             "one block)")
+        pad = dec.resolve_pad(eos_id, pad_id)
+        b, plen = torch.as_tensor(prompt_ids).shape
+        total = plen + max_new_tokens
+        max_len = max_len or max(total, 1)
+        self._check_gen_lengths(plen, max_new_tokens, max_len)
+        ids, pad_len, kv_valid = self._prompt(prompt_ids, prompt_valid,
+                                              max_len)
+        cache = self.init_cache(b, max_len)
+        tokens = torch.full((b, total), 0 if eos_id is None else pad,
+                            dtype=torch.int32, device=self.device)
+        tokens[:, :plen] = ids
+
+        def sample(logits):
+            return dec.sample_logits(logits, temperature, top_k, top_p,
+                                     generator=generator)
+
+        def advance(carry, i):
+            tokens, cache, finished = carry
+            if kv_valid is None:
+                logits, cache = self.decode_step(cache, tokens[:, i])
+            else:
+                logits, cache = self.decode_step(
+                    cache, tokens[:, i], kv_valid=kv_valid,
+                    positions=torch.clamp(i - pad_len, min=0))
+            # inside the prompt the next token is the prompt's own
+            if i + 1 >= plen:
+                nxt = sample(logits)
+                if eos_id is not None:
+                    nxt, finished = dec.finish_step(nxt, finished, eos_id,
+                                                    pad)
+                tokens[:, i + 1] = nxt
+            return tokens, cache, finished
+
+        finished = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        start = 0
+        if plen > 1 and max_new_tokens > 0:
+            if kv_valid is None:
+                logits, cache = self.prefill_cache(cache, ids,
+                                                   chunk=prefill_chunk)
+            else:
+                logits, cache = self._ragged_prefill(cache, ids, pad_len,
+                                                     kv_valid)
+            nxt = sample(logits)
+            if eos_id is not None:
+                nxt, finished = dec.finish_step(nxt, finished, eos_id, pad)
+            tokens[:, plen] = nxt
+            start = plen
+        carry = (tokens, cache, finished)
+        if eos_id is None:
+            for i in range(start, total - 1):
+                carry = advance(carry, i)
+        else:
+            carry, _ = dec.decode_loop(advance, carry, total - 1,
+                                       start=start)
+        return carry[0]
+
+    @torch.no_grad()
+    def beam_search(self, prompt_ids, max_new_tokens: int,
+                    beam_size: int = 4, eos_id: Optional[int] = None,
+                    length_penalty: float = 0.6,
+                    max_len: Optional[int] = None, prompt_valid=None,
+                    prefill_chunk: Optional[int] = None) -> torch.Tensor:
+        """Beam search over the contiguous KV cache; returns the best beam
+        of each row, [b, p + max_new_tokens] int32.
+
+        The prompt but its last token prefills at batch b (one
+        ``decode_block``, or ``prefill_chunk`` windows), the cache rows
+        are repeated ``beam_size``-fold, and every expansion reorders them
+        by gather.  Ranking: ``ops.decoding`` (``expand_beams`` keeps the
+        lower index first among tied scores; finished beams extend only
+        with EOS at no cost; GNMT length penalty).  With ``eos_id`` the
+        loop stops once every beam has finished and the rest reads EOS.
+        ``prompt_valid``: LEFT-padded ragged prompts, as ``generate``."""
+        if prefill_chunk is not None and prompt_valid is not None:
+            raise ValueError("prefill_chunk does not compose with "
+                             "prompt_valid (ragged prompts prefill as "
+                             "one block)")
+        b, plen = torch.as_tensor(prompt_ids).shape
+        k = beam_size
+        total = plen + max_new_tokens
+        max_len = max_len or max(total, 1)
+        self._check_gen_lengths(plen, max_new_tokens, max_len)
+        ids, pad_len, kv_valid = self._prompt(prompt_ids, prompt_valid,
+                                              max_len)
+        dev = self.device
+        if kv_valid is not None:
+            kv_valid_folded = kv_valid.repeat_interleave(k, dim=0)
+            pad_len_folded = pad_len.repeat_interleave(k, dim=0)
+
+        cache = self.init_cache(b, max_len)
+        if plen > 1:
+            if kv_valid is None:
+                _, cache = self.prefill_cache(cache, ids[:, :-1],
+                                              chunk=prefill_chunk)
+            else:
+                _, cache = self._ragged_prefill(cache, ids[:, :-1], pad_len,
+                                                kv_valid)
+        # beams fold into the batch: row r of batch i -> i*k + r
+        cache = dict({n: t.repeat_interleave(k, dim=1)
+                      for n, t in self._cache_kv(cache).items()},
+                     pos=cache["pos"])
+        tokens = torch.zeros((b, k, total), dtype=torch.int32, device=dev)
+        tokens[:, :, :plen] = ids[:, None, :]
+        scores = dec.init_beam_scores(b, k, device=dev)
+        finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        batch_base = torch.arange(b, device=dev)[:, None] * k
+
+        def advance(carry, i):
+            tokens, cache, scores, finished = carry
+            tok = tokens.reshape(b * k, total)[:, i]
+            if kv_valid is None:
+                logits, cache = self.decode_step(cache, tok)
+            else:
+                logits, cache = self.decode_step(
+                    cache, tok, kv_valid=kv_valid_folded,
+                    positions=torch.clamp(i - pad_len_folded, min=0))
+            logp = torch.log_softmax(logits, dim=-1).reshape(b, k, -1)
+            logp = dec.freeze_finished(logp, finished, eos_id)
+            scores, beam, nxt = dec.expand_beams(scores, logp)
+            tokens = torch.gather(tokens, 1,
+                                  beam[:, :, None].expand(b, k, total))
+            tokens[:, :, i + 1] = nxt
+            finished = torch.gather(finished, 1, beam)
+            if eos_id is not None:
+                finished = finished | (nxt == eos_id)
+            flat = (batch_base + beam).reshape(-1)
+            cache = dict({n: t.index_select(1, flat)
+                          for n, t in self._cache_kv(cache).items()},
+                         pos=cache["pos"])
+            return tokens, cache, scores, finished
+
+        carry = (tokens, cache, scores, finished)
+        if eos_id is None:
+            for i in range(plen - 1, total - 1):
+                carry = advance(carry, i)
+            tokens, _, scores, _ = carry
+        else:
+            # unwritten tail columns read EOS: what a full run writes, as
+            # frozen beams only ever extend with EOS
+            carry, steps = dec.decode_loop(
+                lambda c_, j: advance(c_, plen - 1 + j), carry,
+                max_new_tokens)
+            tokens, _, scores, _ = carry
+            col = torch.arange(total, device=dev)[None, None, :]
+            tokens = torch.where(col > plen - 1 + steps,
+                                 torch.full_like(tokens, eos_id), tokens)
+        best = dec.rank_beams(scores, tokens[:, :, plen:], eos_id,
+                              max_new_tokens, length_penalty)
+        return tokens[torch.arange(b, device=dev), best]
+
+    @torch.no_grad()
+    def decode_step_slots(self, kv: Dict[str, torch.Tensor],
+                          token_ids: torch.Tensor, write_col: torch.Tensor,
+                          kv_valid: torch.Tensor, positions: torch.Tensor):
+        """One token per slot row against a contiguous SLOT cache.
+
+        ``kv``: the cache leaves without ``pos`` (``serve/slots.py``),
+        whose batch rows are slots.  Row r writes its token at column
+        ``write_col[r]`` (a column past max_len, a dead row's, is
+        dropped), attends ``kv_valid[r]`` [max_len] OR its own column,
+        and embeds at ``positions[r]`` (the learned table's index clamped
+        to its last row: a dead row's output is never read).  Per row
+        this is ``decode_step`` at ``pos = write_col[r]``, and every
+        operation is row-independent.  Returns (logits [b, vocab] f32,
+        kv); the cache is written in place."""
+        c = self.config
+        max_len = kv["k"].shape[2]
+        x = self._embed(token_ids, torch.clamp(
+            positions, max=c.max_position - 1))[:, None, :]
+        cols = torch.arange(max_len, device=self.device)
+        mask = padding_mask(kv_valid | (cols[None, :] == write_col[:, None]))
+        rope_cs = self._rope(positions[:, None])
+
+        def attention(q, k, v, kv, i):
+            k_cache, v_cache = self._dequant_layer_kv(kv, i)
+            return dot_product_attention(q, k_cache, v_cache, mask=mask)
+
+        for i, blk in enumerate(self.blocks):
+            x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
+                                  write_pos=write_col)
+        return self._head(x), kv

@@ -1,7 +1,7 @@
 """Attention and FFN bodies of the serving and training paths, in PyTorch.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/attention.py``, the parts
-the port's paths run: ``NEG_INF``, ``causal_mask``,
+the port's paths run: ``NEG_INF``, ``causal_mask``, ``padding_mask``,
 ``dot_product_attention`` (with the grouped-query contraction),
 ``attention_core`` (projections, an optional q/k transform such as RoPE,
 the swappable inner kernel, dropout on the context, out projection),
@@ -17,6 +17,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Mapping, Optional
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 __all__ = ["NEG_INF", "affine", "apply_rope", "attention_core", "causal_mask",
            "dropout", "dot_product_attention", "ffn_core", "ffn_swiglu_core",
-           "project", "rope_tables", "rotary_embedding"]
+           "padding_mask", "project", "rope_tables", "rotary_embedding"]
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined in f32
 
@@ -35,6 +36,12 @@ def causal_mask(seq_len: int, device=None) -> torch.Tensor:
     keep = torch.ones(seq_len, seq_len, dtype=torch.bool,
                       device=device).tril()
     return torch.where(keep, 0.0, NEG_INF)[None, None]
+
+
+def padding_mask(valid: torch.Tensor) -> torch.Tensor:
+    """valid [b, s_k] bool/int (1 = real token) -> [b, 1, 1, s_k] additive
+    f32 mask."""
+    return torch.where(valid.bool(), 0.0, NEG_INF)[:, None, None, :]
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -161,6 +168,15 @@ def ffn_swiglu_core(w_gate, b_gate, w_in, b_in, w_out, b_out,
     return affine(w_out, b_out, h)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, base: float, device: torch.device) -> torch.Tensor:
+    """RoPE's f32 frequencies, computed on the CPU and copied to ``device``
+    once: a host-to-card copy from pageable memory waits for the stream,
+    so a copy on every decode step would be a host sync a token."""
+    return torch.pow(base, -torch.arange(half, dtype=torch.float32)
+                     / half).to(device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 base: float = 10000.0):
     """(cos, sin) f32 tables for RoPE, shaped to broadcast against [b, s,
@@ -170,9 +186,8 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     the same f32 angles."""
     if head_dim % 2:
         raise ValueError(f"RoPE needs an even head_dim, got {head_dim}")
-    half = head_dim // 2
-    freqs = torch.pow(base, -torch.arange(half, dtype=torch.float32) / half)
-    angles = positions.float()[..., None] * freqs.to(positions.device)
+    angles = positions.float()[..., None] * _rope_freqs(
+        head_dim // 2, float(base), positions.device)
     if angles.ndim == 2:
         angles = angles[None, :, None, :]
     else:

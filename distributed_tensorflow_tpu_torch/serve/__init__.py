@@ -1,4 +1,5 @@
-"""The paged serving tier of the port: page pool, slot scheduler, engine."""
+"""The serving tier of the port: page pool, contiguous slot cache, slot
+scheduler, engine."""
 from .engine import Engine, EngineStats, RequestHandle
 from .pages import PagePool, PagePoolExhausted, auto_page_size
 from .scheduler import Request, SlotScheduler

@@ -1,7 +1,8 @@
 """Engine façade: submit() -> handle, streaming callbacks.
 
 Counterpart of ``distributed_tensorflow_tpu/serve/engine.py`` without
-its metrics registry, tenancy, adapters or migration::
+its metrics registry, tenancy, adapters or migration; ``paged=False``
+serves from contiguous per-slot stripes instead of the page pool::
 
     from distributed_tensorflow_tpu_torch import GPT, Engine, gpt_small
 
@@ -79,12 +80,13 @@ class RequestHandle:
 
 
 class Engine:
-    """Continuous-batching serving engine over a paged KV cache.
+    """Continuous-batching serving engine over a paged (default) or
+    contiguous KV cache.
 
     ``model`` is a port ``GPT`` on ``device`` (default ``"cuda"``).
     Keyword arguments go to ``SlotScheduler`` (num_slots, max_len,
     prefill_chunk, tick_steps, temperature/top_k/top_p, eos_id/pad_id,
-    generator, page_size/num_pages);
+    generator, paged, page_size/num_pages);
     ``default_max_new_tokens`` is the ``submit()`` budget when none is
     given.
     """
