@@ -11,7 +11,8 @@ no result lines:
 2. build: compiles every CUDA source of the port (one nvcc each, all at
    once) and prints the seconds; then, from ``ptxas -v``, the registers,
    stack and spill bytes and the dynamic shared memory of the flash
-   backward kernels.
+   backward kernels, and the registers and spill bytes of every RMSNorm
+   instantiation (a spill fails the run).
 3. kernels: each kernel at its path's shapes against its plain PyTorch
    version on the card, with the tolerance: the serving kernels at the
    engine's shapes (GPT-2 small, bf16, 8 slots, pages of 16, max_len
@@ -24,9 +25,12 @@ no result lines:
    128), and LayerNorm at those prefills' rows ([1024, 768], [254,
    768]); the Llama-3-8B serving kernels at its engine's shapes
    (RMSNorm [8, 4096] and [32, 4096] bf16 and an f32 case, and [2048,
-   4096] bf16, its prefill's rows; the int8 paged decode at 8 slots
-   of q [8, 1, 32, 128] bf16 over pages of 16, max_len 8192, and the
-   int8 window at q [1, 32, 32, 128] after a prefix of several pages),
+   4096] bf16, its prefill's rows, timed also cold: ``RMS_COLD_PAIRS``
+   x/out pairs in turn, 201 MB, beside ``F.rms_norm`` and a copy of x
+   (``torch.clone``: the same bytes moved, no arithmetic) on the same;
+   the int8 paged decode at 8 slots of q [8, 1, 32, 128] bf16 over
+   pages of 16, max_len 8192, and the int8 window at q [1, 32, 32, 128]
+   after a prefix of several pages),
    plus the bf16 GQA head-dim-128 paged case at the same shapes.  Times
    the kernel, the plain version and one PyTorch library call computing
    the same function (``ms``: CUDA events over many back-to-back calls,
@@ -66,10 +70,12 @@ no result lines:
    weights from ``--seed``, bf16 compute over f32 weights) with an int8
    KV cache behind ``Engine(num_slots=8, max_len=8192,
    prefill_chunk=32, tick_steps=8)``, phase 4's 12-request mix drawn
-   from vocab 128256; checks budgets, a prefix hit, that RMSNorm and
-   both int8 paged entries launched and LayerNorm did not, and row
-   independence.  Prints tokens/s, TTFT, peak memory and the pool's
-   bytes beside a bf16 pool's.
+   from vocab 128256; checks budgets, a prefix hit, that both int8
+   paged entries launched and LayerNorm did not, that RMSNorm launched
+   exactly 2 a layer in every forward plus one for each forward with a
+   head (the model's forward entries counted), and row independence.
+   Prints tokens/s, TTFT, peak memory and the pool's bytes beside a
+   bf16 pool's.
 10. Llama reference: a 2-layer f32 Llama with head dim 64 on the card
    and with the same weights on the CPU: equal greedy tokens with a pool
    in f32; with an int8 pool, window and decode-step logits within
@@ -105,8 +111,9 @@ no result lines:
    within ``INT8_REF_LOGIT_TOL``.
 14. Llama generate (after phase 9, on its model): ``generate`` on 4
    prompts x 512 + 32 new, greedy, into an int8 contiguous cache; checks
-   32 flash launches (one prefill), RMSNorm launched, LayerNorm and every
-   paged entry not; prints tokens/s, prefill ms, peak memory and the
+   32 flash launches (one prefill), exactly (2 x 32 + 1) x 32 = 2,080
+   RMSNorm launches (65 a forward, 32 forwards), LayerNorm and every
+   paged entry none; prints tokens/s, prefill ms, peak memory and the
    cache's bytes beside a bf16 cache's.  Phase 3 holds the flash forward
    at this prefill's shape (bf16, GQA 32:8, head dim 128).
 15. with ``--profile DIR`` only: the engine phases, 3 training steps and
@@ -155,6 +162,9 @@ RMS_TOL = 1e-2        # bf16: about one bf16 ulp at unit scale
 # one (at the prompt prefill's rows the outputs reach |4|-|8|, where one
 # ulp is 2^-5 and RMS_TOL, set at unit scale, no longer covers it)
 RMS_ULPS = 1.0
+# RMSNorm at the prefill's rows timed cold: x/out pairs of 16.8 MB each
+# in turn, 201 MB in all, four times the 50 MB L2
+RMS_COLD_PAIRS = 6
 # card vs CPU Llama logits with int8 pools written on each side: an f32
 # round-off difference may flip one int8 rounding by a step of amax/127;
 # one such flip moved a 2-layer model's logits by ~1e-5 in a CPU trial,
@@ -250,6 +260,22 @@ def graph_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rotating(fn, inputs):
+    """A call that applies ``fn`` to the next of ``inputs`` in turn and
+    keeps its output until that input comes round again, so that inputs
+    and outputs both rotate over ``len(inputs)`` buffers: passed to
+    ``graph_ms``, each call finds its data cold once they exceed the
+    50 MB L2."""
+    outs = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        i = turn[0] = (turn[0] + 1) % len(inputs)
+        outs[i] = None
+        outs[i] = fn(inputs[i])
+    return call
+
+
 def _graph_or_why(torch, fn, iters):
     """(graph_ms, None), or (None, why) for a library call that cannot be
     captured; used for yardsticks only, never for the port's kernels."""
@@ -285,7 +311,8 @@ def _decode_variants(torch, pa, q, kv, tab, valid, nxt, iters):
 def log_backward_resources(_build) -> None:
     """Registers, stack and spill bytes (``ptxas -v`` at the build) and
     dynamic shared memory a block of the bf16 and f32 flash backward
-    kernels, at head dims 64 and 128."""
+    kernels, at head dims 64 and 128; registers and spills of every
+    RMSNorm instantiation, none of which may spill."""
     import ctypes
     smem = _build.bind("flash_attention", "flash_smem_bytes",
                        [ctypes.c_int] * 3)
@@ -301,6 +328,12 @@ def log_backward_resources(_build) -> None:
         kernels[name] = info
     log({"phase": "ptxas", "source": "flash_attention.cu",
          "kernels": kernels})
+    norms = _build.ptxas_report("rmsnorm")
+    log({"phase": "ptxas", "source": "rmsnorm.cu", "kernels": norms})
+    spills = [k for k, v in norms.items()
+              if v.get("spill_stores") or v.get("spill_loads")]
+    if spills:
+        raise AssertionError(f"rmsnorm kernels spill: {spills}")
 
 
 def check_kernels(torch, args):
@@ -545,13 +578,38 @@ def check_llama_kernels(torch, args):
                            args.iters)
         size = x.element_size()
         b_ms, b_by = bound_ms(rows * d * size * 2 + d * 4, 4.0 * rows * d)
+        cold = {}
+        if prefill:
+            # the prefill's rows fit the L2 (33.5 MB in and out), so the
+            # warm graph above replays them from it; here each call finds
+            # x and out cold: RMS_COLD_PAIRS pairs in turn (> 100 MB)
+            xs = [(torch.randn(rows, d, generator=gen, device=dev) * 2
+                   + 0.5).to(dtype) for _ in range(RMS_COLD_PAIRS)]
+            c_ms = graph_ms(torch, rotating(
+                lambda xi: fused.fused_rmsnorm(xi, gamma, 1e-5), xs),
+                args.iters)
+            c_lib = graph_ms(torch, rotating(
+                lambda xi: F.rms_norm(xi, (d,), g_lib, 1e-5), xs),
+                args.iters)
+            # what the card takes to move the same bytes with no
+            # arithmetic: a copy of x, over the same rotation
+            c_copy = graph_ms(torch, rotating(torch.clone, xs), args.iters)
+            cold = {"cold_pairs": len(xs),
+                    "cold_mb": 2 * len(xs) * x.numel() * size / 1e6,
+                    "graph_ms_cold": c_ms, "library_graph_ms_cold": c_lib,
+                    "copy_graph_ms_cold": c_copy,
+                    "graph_ms_cold_vs_library": c_ms / c_lib,
+                    "graph_ms_cold_vs_copy": c_ms / c_copy,
+                    "bound_share_cold": b_ms / c_ms,
+                    "bound_share_warm": b_ms / g_ms}
+            del xs
         log({"check": "rmsnorm", "shape": [rows, d], "dtype": str(dtype),
              "max_abs_err": e, "tol": "1 bf16 ulp" if prefill else tol,
              "max_bf16_ulps": ulps, "kernel_ms": ms,
              "plain_ms": plain, "library_ms": lib, "graph_ms": g_ms,
              "library_graph_ms": g_libms, "library": "F.rms_norm",
              "ms_vs_library": ms / lib, "graph_ms_vs_library": g_ms / g_libms,
-             "bound_ms": b_ms, "bound_by": b_by})
+             "bound_ms": b_ms, "bound_by": b_by, **cold})
         if dtype == torch.bfloat16:
             rerr = max(rerr, e)
         if rows == 8:
@@ -1271,14 +1329,17 @@ def _driven(torch, fn):
     return out, time.perf_counter() - t0, counts
 
 
-def _expect(name, counts, flash, norm):
+def _expect(name, counts, flash, norm, n_norm=None):
     """Fail unless ``counts`` shows ``flash`` flash launches, launches of
-    the ``norm`` kernel only, and no paged launch."""
+    the ``norm`` kernel only (exactly ``n_norm`` when given), and no
+    paged launch."""
     other = "rmsnorm" if norm == "layernorm" else "layernorm"
     if counts["flash_forward"] != flash or counts[norm] <= 0 \
+            or n_norm is not None and counts[norm] != n_norm \
             or counts[other] or counts["paged"]:
         raise AssertionError(f"{name}: launches {counts}; expected "
-                             f"flash_forward {flash}, {norm} > 0, no "
+                             f"flash_forward {flash}, {norm} "
+                             f"{'> 0' if n_norm is None else n_norm}, no "
                              f"{other}, no paged kernel")
 
 
@@ -1584,7 +1645,9 @@ def check_llama_generate(torch, np, args, smi, model):
     torch.cuda.reset_peak_memory_stats()
     out, wall, counts = _driven(torch, lambda: model.generate(
         ids, LLAMA_GEN_NEW))
-    _expect("llama generate", counts, c.num_layers, "rmsnorm")
+    # one prefill and LLAMA_GEN_NEW - 1 steps, each 2 norms a layer and ln_f
+    _expect("llama generate", counts, c.num_layers, "rmsnorm",
+            (2 * c.num_layers + 1) * LLAMA_GEN_NEW)
     peak = torch.cuda.max_memory_allocated()
     if out.shape != (LLAMA_GEN_BATCH, total) \
             or not torch.equal(out[:, :LLAMA_GEN_PROMPT], ids) \
@@ -1606,6 +1669,22 @@ def check_llama_generate(torch, np, args, smi, model):
          "cache_gb": cache_bytes / 1e9, "bf16_cache_gb": bf16_bytes / 1e9,
          "launches": counts, "card": smi})
     return {k: counts[k] for k in ("flash_forward", "rmsnorm")}
+
+
+def _count_forwards(model, *names):
+    """Wrap the model's forward entries ``names`` on the instance so that
+    each call is counted by its ``head`` argument ("none": no ln_f and
+    no head); returns {name: Counter}.  ``delattr(model, name)`` undoes
+    a wrap."""
+    counts = {}
+    for name in names:
+        fn, counts[name] = getattr(model, name), collections.Counter()
+
+        def call(*a, _fn=fn, _n=counts[name], **kw):
+            _n["none" if kw.get("head") == "none" else "head"] += 1
+            return _fn(*a, **kw)
+        setattr(model, name, call)
+    return counts
 
 
 def _llama_model(torch, args):
@@ -1630,8 +1709,14 @@ def check_llama_engine(torch, np, args, smi, model):
     torch.cuda.reset_peak_memory_stats()
     pa.LAUNCHES.clear()
     fused.LAUNCHES.clear()
-    eng, hs, wall = run_engine(torch, model, prompts, budgets, late=3,
-                               max_len=LLAMA_MAX_LEN)
+    forwards = _count_forwards(model, "decode_window_paged",
+                               "decode_step_slots_paged")
+    try:
+        eng, hs, wall = run_engine(torch, model, prompts, budgets, late=3,
+                                   max_len=LLAMA_MAX_LEN)
+    finally:
+        for name in forwards:
+            delattr(model, name)
     launches = {"rmsnorm": fused.LAUNCHES["rmsnorm"],
                 "paged_decode_int8": pa.LAUNCHES["paged_decode_int8"],
                 "paged_window_int8": pa.LAUNCHES["paged_window_int8"]}
@@ -1654,6 +1739,15 @@ def check_llama_engine(torch, np, args, smi, model):
             raise AssertionError(f"{name} never launched on the main path")
     if any(others.values()):
         raise AssertionError(f"the Llama int8 path launched {others}")
+    # 2 norms a layer in every forward, and ln_f in those with a head
+    # (a mid prefill window, head="none", has none)
+    n_fwd = sum(sum(f.values()) for f in forwards.values())
+    n_head = n_fwd - sum(f["none"] for f in forwards.values())
+    if launches["rmsnorm"] != 2 * c.num_layers * n_fwd + n_head:
+        raise AssertionError(
+            f"rmsnorm launched {launches['rmsnorm']} times over {n_fwd} "
+            f"forwards, {n_head} with a head; expected "
+            f"{2 * c.num_layers * n_fwd + n_head}")
     ttft = sorted(h.ttft_s for h in hs)
     n_tok = sum(len(h.tokens) for h in hs)
     log({"engine": "llama3-8b bf16, int8 KV", "layers": c.num_layers,
@@ -1668,6 +1762,7 @@ def check_llama_engine(torch, np, args, smi, model):
                            for p in model.parameters()) / 1e9,
          "pool_gb": pool_bytes / 1e9, "bf16_pool_gb": bf16_pool_bytes / 1e9,
          "pool_pages": kv["k"].shape[1], "launches": launches,
+         "forwards": {k: dict(v) for k, v in forwards.items()},
          "card": smi})
     del eng, kv
     _row_independence(torch, model, prompts, budgets, hs,
@@ -2084,7 +2179,7 @@ def profile_training(torch, np, args, smi):
 # kernel-name marks of the Llama engine's parts, first match wins
 _LLAMA_PARTS = (
     ("paged attention, int8 (ours)", ("paged_cc_kernel", "paged_tc_kernel")),
-    ("RMSNorm (ours)", ("rmsnorm_kernel",)),
+    ("RMSNorm (ours)", ("rmsnorm_",)),
     ("GEMMs", ("nvjet", "gemm", "Gemm", "gemv", "splitK")),
     ("f32 -> bf16 weight casts and other copies", ("copy", "Copy")),
 )

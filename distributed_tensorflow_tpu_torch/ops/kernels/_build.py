@@ -149,23 +149,56 @@ _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 
 
+# builtin types in a mangled template argument list
+_BUILTIN = {"a": "signed char", "b": "bool", "c": "char", "f": "float",
+            "h": "unsigned char", "i": "int", "j": "unsigned"}
+_ARG = re.compile(r"L[a-z](n?)(\d+)E|(\d+)|([a-z])")
+
+
+def _template_args(s: str):
+    """The template arguments that ``s`` starts with (``I...E`` of a
+    mangled name: integer literals, builtin types, named types), or None
+    when ``s`` starts with none or with one of another form."""
+    if not s.startswith("I"):
+        return None
+    args, i = [], 1
+    while i < len(s) and s[i] != "E":
+        m = _ARG.match(s, i)
+        if m is None:
+            return None
+        neg, lit, length, builtin = m.groups()
+        if lit is not None:
+            args.append(("-" if neg else "") + lit)
+            i = m.end()
+        elif length is not None:
+            args.append(s[m.end():m.end() + int(length)])
+            i = m.end() + int(length)
+        elif builtin in _BUILTIN:
+            args.append(_BUILTIN[builtin])
+            i = m.end()
+        else:
+            return None
+    return args if i < len(s) else None
+
+
 def _kernel_name(mangled: str) -> str:
-    """``<identifier>_kernel<first int template argument>`` out of a
-    mangled name (the identifier is the one whose length prefix fits),
-    else the mangled name."""
+    """``<identifier>_kernel<template arguments>`` out of a mangled name
+    (the identifier is the one whose length prefix fits; the arguments
+    comma-separated, left out when they do not parse), else the mangled
+    name."""
     for m in re.finditer(r"(?=(\d+))", mangled):
         end = m.start() + len(m.group(1))
         ident = mangled[end:end + int(m.group(1))]
         if ident.endswith("_kernel") and ident.isidentifier():
-            t = re.match(r"ILi(-?\d+)E", mangled[end + len(ident):])
-            return f"{ident}<{t.group(1)}>" if t else ident
+            args = _template_args(mangled[end + len(ident):])
+            return f"{ident}<{','.join(args)}>" if args else ident
     return mangled
 
 
 def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     """What ``ptxas -v`` said of each kernel of ``csrc/<name>.cu`` when its
-    library was built (building it first): {"kernel<first int template
-    argument>": {"registers", "stack", "spill_stores", "spill_loads"}}."""
+    library was built (building it first): {"kernel<template arguments>":
+    {"registers", "stack", "spill_stores", "spill_loads"}}."""
     load(name)
     path = _target(name).with_suffix(".log")
     report: Dict[str, Dict[str, int]] = {}

@@ -15,10 +15,16 @@ the port.
 RMSNorm (the Llama block norm) replaces the Pallas kernel
 ``_rmsnorm_forward`` of the same file (body ``_rmsnorm_kernel``),
 reached there through ``fused_rmsnorm``.  The kernel is
-``csrc/rmsnorm.cu``: one thread block per row, 16-byte loads, an f32 sum
-of squares by warp shuffles and a block reduction, output in the
-input's type.  Its backward recomputes through ``rmsnorm_plain`` under
-autograd, as the JAX ``_rmsnorm_bwd`` takes ``jax.vjp`` of its reference.
+``csrc/rmsnorm.cu``: the row read once into registers with 16-byte
+loads, gamma kept in registers for every row a block does, an f32 sum
+of squares by warp shuffles and one shared-memory exchange a row,
+output in the input's type.  Few rows (up to the SM count) get one
+block a row of up to 512 threads; many rows get as many narrow blocks
+as the card holds, each walking rows with the next row's loads in flight
+(the wrapper passes the SM count, read once per device); a looped path
+for a d or an address that is not 16-byte aligned or a row above 16 KB.
+Its backward recomputes through ``rmsnorm_plain`` under autograd, as the
+JAX ``_rmsnorm_bwd`` takes ``jax.vjp`` of its reference.
 
 ``fused_adam_update`` replaces the Pallas kernel of the same name (body
 ``_adam_kernel``).  The kernel is ``csrc/adam.cu``: one elementwise pass
@@ -30,7 +36,9 @@ What bounds the H100 here: bytes for Adam (28 bytes an element for about
 12 flops, 85% of the byte bound at the word embedding); for the norms,
 whose rows at the serving paths' shapes (8 to 256 rows of d = 768 for
 LayerNorm, 8 or 32 rows of d = 4096 for RMSNorm) are a few kilobytes, the
-launch.  A launch costs the host's issue time and the kernel's latency.
+launch, and at the prompt prefills' rows (RMSNorm's 2048 rows of d =
+4096: 33.5 MB in and out) bytes again.  A launch costs the host's issue
+time and the kernel's latency.
 The norm wrappers keep the host's share small: their C functions are
 bound once (``_build.bind``, as Adam's is), their guards are one
 expression, and when no input needs a gradient (serving, under
@@ -161,16 +169,26 @@ def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * inv * gamma.float()).to(x.dtype)
 
 
+# (x, gamma, out, is_bf16, rows, d, eps, the card's SM count, stream)
 _RMSNORM_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+# SM count by device index, read once per device
+_SMS: dict = {}
+
+
+def _sm_count(dev: int) -> int:
+    n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _rmsnorm_launch(x, gamma, eps):
     # one cheap test on the launch path; the message is worked out only
     # when it fails
     d = x.shape[-1]
+    dev = x.get_device()
     if (x.dtype is not torch.bfloat16 and x.dtype is not torch.float32) \
-            or gamma.get_device() != x.get_device() \
+            or gamma.get_device() != dev \
             or gamma.dtype is not torch.float32 or gamma.shape != (d,) \
             or not (x.is_contiguous() and gamma.is_contiguous()):
         _rmsnorm_refuse(x, gamma)
@@ -178,11 +196,10 @@ def _rmsnorm_launch(x, gamma, eps):
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    xp, op = x.data_ptr(), out.data_ptr()
-    vec = (d * x.element_size()) % 16 == 0 and xp % 16 == 0 and op % 16 == 0
     rc = _build.bind("rmsnorm", "rmsnorm_forward", _RMSNORM_ARGS)(
-        xp, gamma.data_ptr(), op, x.dtype is torch.bfloat16, rows, d,
-        float(eps), vec, _build.stream_ptr(x))
+        x.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+        x.dtype is torch.bfloat16, rows, d, float(eps),
+        _SMS.get(dev) or _sm_count(dev), _build.stream_ptr(x))
     _build.check(rc, "rmsnorm_forward")
     LAUNCHES["rmsnorm"] += 1
     return out

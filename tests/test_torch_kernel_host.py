@@ -212,7 +212,10 @@ def test_paged_wrapper_refuses_before_any_launch(fake_paged):
 
 
 def test_rmsnorm_wrapper_binds_once(monkeypatch):
-    calls, loads = [], []
+    """The C function is loaded and typed once; it gets the shapes and
+    the card's SM count, which the wrapper reads once per device (here
+    the CPU tensors' device index, -1), not once per call."""
+    calls, loads, props = [], [], []
 
     def forward(*args):
         calls.append(args)
@@ -221,23 +224,50 @@ def test_rmsnorm_wrapper_binds_once(monkeypatch):
     def load(name):
         loads.append(name)
         return types.SimpleNamespace(rmsnorm_forward=forward)
+
+    def properties(dev):
+        props.append(dev)
+        return types.SimpleNamespace(multi_processor_count=132 + dev)
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(_build, "_bound", {})
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(fused, "_SMS", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
     x = torch.randn(8, 4096).to(torch.bfloat16)
     gamma = torch.ones(4096)
     before = fused.LAUNCHES["rmsnorm"]
-    for _ in range(2):
+    for _ in range(3):
         out = fused._rmsnorm_launch(x, gamma, 1e-5)
         assert out.shape == x.shape and out.dtype == x.dtype
-    assert loads == ["rmsnorm"] and len(calls) == 2
-    assert fused.LAUNCHES["rmsnorm"] == before + 2
-    _, _, _, is_bf16, rows, d, eps, vec, _ = calls[0]
-    assert (is_bf16, rows, d, vec) == (True, 8, 4096, True)
+    assert loads == ["rmsnorm"] and len(calls) == 3 and props == [-1]
+    assert fused.LAUNCHES["rmsnorm"] == before + 3
+    xp, gp, op, is_bf16, rows, d, eps, sms, _ = calls[0]
+    assert (xp, gp) == (x.data_ptr(), gamma.data_ptr()) and op != xp
+    assert (is_bf16, rows, d, sms) == (True, 8, 4096, 131)
     assert eps == pytest.approx(1e-5)
+    assert fused._SMS == {-1: 131}
+    # another device is read once too
+    assert [fused._SMS.get(1) or fused._sm_count(1) for _ in range(2)] \
+        == [133, 133]
+    assert props == [-1, 1]
     with pytest.raises(ValueError, match="gamma"):
         fused._rmsnorm_launch(x, gamma.double(), 1e-5)
-    assert len(calls) == 2
+    assert len(calls) == 3
+
+
+def test_rmsnorm_wrapper_passes_rows_of_any_leading_shape(monkeypatch):
+    """x [..., d] is rows = numel / d rows of d, in f32 as in bf16; an
+    empty x launches nothing."""
+    calls = []
+    monkeypatch.setattr(_build, "_bound", {("rmsnorm", "rmsnorm_forward"):
+                                           lambda *a: calls.append(a) or 0})
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(fused, "_SMS", {-1: 132})
+    gamma = torch.ones(128)
+    fused._rmsnorm_launch(torch.randn(5, 7, 128), gamma, 1e-6)
+    assert [(c[3], c[4], c[5]) for c in calls] == [(False, 35, 128)]
+    out = fused._rmsnorm_launch(torch.randn(0, 128), gamma, 1e-6)
+    assert out.shape == (0, 128) and len(calls) == 1
 
 
 @pytest.mark.parametrize("grad_enabled,requires_grad,want", [
@@ -303,10 +333,32 @@ ptxas info    : Used 12 registers
 """
 
 
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_118rmsnorm_vec_kernelI13__nv_bfloat16Li4EEEvPKT_PKf"
+     "PS2_iif", "rmsnorm_vec_kernel<__nv_bfloat16,4>"),
+    ("_ZN12_GLOBAL__N_118rmsnorm_vec_kernelIfLi4EEEvPKT_PKfPS1_iif",
+     "rmsnorm_vec_kernel<float,4>"),
+    ("_ZN12_GLOBAL__N_119rmsnorm_loop_kernelIfEEvPKT_PKfPS1_ifi",
+     "rmsnorm_loop_kernel<float>"),
+    ("_ZN12_GLOBAL__N_115paged_cc_kernelI13__nv_bfloat16aLi128ELb1ELi4EEEv"
+     "PKT_", "paged_cc_kernel<__nv_bfloat16,signed char,128,1,4>"),
+    ("_ZN12_GLOBAL__N_18x_kernelILin3EEEvv", "x_kernel<-3>"),
+    ("_ZN12_GLOBAL__N_18x_kernelIPfEEvv", "x_kernel"),
+    ("_ZN12_GLOBAL__N_18x_kernelEv", "x_kernel"),
+    ("rmsnorm_plain_c", "rmsnorm_plain_c")],
+    ids=["bf16", "f32", "loop", "paged", "negative", "pointer-arg",
+         "no-template", "not-a-kernel"])
+def test_kernel_name_keeps_every_template_argument(mangled, name):
+    """Instantiations that differ in any template argument (a type, an
+    integer, a bool) get names of their own; arguments of another form
+    leave the bare kernel name."""
+    assert _build._kernel_name(mangled) == name
+
+
 def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     """The compiler's ``-Xptxas=-v`` output kept beside a library reads as
     registers, stack and spill bytes per kernel, named by the kernel and
-    its first integer template argument (the head dim), also inside an
+    its template arguments (here the head dim), also inside an
     anonymous namespace whose mangled name ends in digits."""
     assert "-Xptxas=-v" in _build.NVCC_FLAGS
     lib = tmp_path / "flash_attention-0123.so"

@@ -13,11 +13,13 @@ compute in f32 from the same bf16 inputs and round once, so they differ
 by about one bf16 ulp, 2**-8 relative); D = rowsum(dO * O) computed in
 the dQ kernel 1e-5 of its scale (f32 summation order).  Adam: f32 1e-6
 absolute plus 1e-5 relative (the kernel may contract a multiply-add).
-RMSNorm: as LayerNorm.  Paged attention over an int8 pool is held relative to the
-output's scale as flash is: f32 queries 1e-4 (the kernel folds each
-scale into the logit and the softmax weight instead of multiplying every
-element: another f32 rounding order), bf16 queries 1e-2 (both sides
-dequantize and attend in f32 and round once to bf16).
+RMSNorm: f32 1e-4 absolute; bf16 one bf16 ulp an element (and 1e-2
+absolute up to 32 x 4096 elements).  Paged attention over an int8 pool
+is held relative to the output's scale as flash is: f32 queries 1e-4
+(the kernel folds each scale into the logit and the softmax weight
+instead of multiplying every element: another f32 rounding order), bf16
+queries 1e-2 (both sides dequantize and attend in f32 and round once to
+bf16).
 """
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ import torch
 from distributed_tensorflow_tpu_torch import (GPT, Engine, TrainState, adamw,
                                               gpt_tiny, llama_tiny,
                                               make_custom_train_step)
+from distributed_tensorflow_tpu_torch.ops.kernels import _build
 from distributed_tensorflow_tpu_torch.ops.kernels import flash_attention as fa
 from distributed_tensorflow_tpu_torch.ops.kernels import fused
 from distributed_tensorflow_tpu_torch.ops.kernels import paged_attention as pa
@@ -517,14 +520,40 @@ def test_training_on_card_matches_cpu_and_launches_the_kernels(cuda):
         torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=0, atol=1e-3)
 
 
+def _bf16_ulps(got, want) -> float:
+    """max |got - want| over the elements, each in units of its plain
+    value's bf16 ulp (2^(e - 8) for |want| in [2^(e-1), 2^e))."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(32, 4096), (8, 4096), (5, 7, 128),
-                                   (3, 100)], ids=["window", "decode", "3d",
-                                                   "unaligned"])
-def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, shape):
+@pytest.mark.parametrize("shape,offset", [
+    ((32, 4096), 0), ((8, 4096), 0), ((5, 7, 128), 0), ((3, 100), 0),
+    ((1, 4096), 0), ((2048, 4096), 0), ((133, 4096), 0), ((2047, 4096), 0),
+    ((20000, 4096), 0), ((4, 16384), 0), ((8, 4096), 1)],
+    ids=["window", "decode", "3d", "unaligned", "one-row", "prefill",
+         "just-many", "uneven", "grid-passes", "above-budget",
+         "misaligned-x"])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, shape, offset):
+    """Both launch shapes of the register path (one block a row up to the
+    SM count, 132 on the H100; above it narrow blocks walking rows: 2047
+    rows leave the last block short, 20000 need several rows a block),
+    and the looped path (a d above the 16 KB register budget, a d whose
+    bytes are no multiple of 16, an x that starts off a 16-byte
+    boundary).  Every bf16 element within one bf16 ulp of the plain one;
+    up to the window's 32 x 4096 elements every case also within ``tol``
+    absolute (over hundreds of rows an f32 round-off in the statistics
+    flips some element of |out| >= 2 to the neighbouring bf16 value,
+    1.6e-2 or more away)."""
     gen = torch.Generator().manual_seed(8)
-    x = (torch.randn(*shape, generator=gen) * 2 + 1).to(dtype).to(cuda)
+    n = int(np.prod(shape))
+    flat = (torch.randn(n + offset, generator=gen) * 2 + 1).to(dtype)
+    x = flat.to(cuda)[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
     gamma = torch.randn(shape[-1], generator=gen).to(cuda)
     before = fused.LAUNCHES["rmsnorm"]
     got = fused.fused_rmsnorm(x, gamma, 1e-5)
@@ -532,7 +561,49 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, shape):
     torch.cuda.synchronize()
     assert fused.LAUNCHES["rmsnorm"] == before + 1
     assert got.dtype == dtype and got.shape == x.shape
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want) <= 1.0
+    if n <= 32 * 4096 or dtype == torch.float32:
+        assert err <= tol
+
+
+@pytest.mark.parametrize("rows", [8, 2048])
+def test_rmsnorm_kernel_replays_in_a_cuda_graph(cuda, rows):
+    """Captured in a CUDA graph (the launch reads nothing from the card
+    and decides its grid from the shapes), the kernel gives the eager
+    output bit for bit."""
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(rows, 4096, generator=gen).to(torch.bfloat16).to(cuda)
+    gamma = torch.randn(4096, generator=gen).to(cuda)
+    eager = fused.fused_rmsnorm(x, gamma, 1e-5)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fused.fused_rmsnorm(x, gamma, 1e-5)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        captured = fused.fused_rmsnorm(x, gamma, 1e-5)
+    captured.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_rmsnorm_kernels_do_not_spill(cuda):
+    """ptxas keeps every RMSNorm instantiation in registers: no spill
+    stores or loads (gamma and two rows of x live in registers on the
+    register path)."""
+    report = _build.ptxas_report("rmsnorm")
+    want = {f"rmsnorm_vec_kernel<{t},{nv}>" for t in ("__nv_bfloat16",
+                                                       "float")
+            for nv in (1, 2, 4)}
+    want |= {"rmsnorm_loop_kernel<__nv_bfloat16>",
+             "rmsnorm_loop_kernel<float>"}
+    assert set(report) == want
+    for name, info in report.items():
+        assert info["spill_stores"] == info["spill_loads"] == 0, name
 
 
 def test_rmsnorm_kernel_gradient_matches_plain(cuda):
