@@ -75,7 +75,13 @@ no result lines:
    exactly 2 a layer in every forward plus one for each forward with a
    head (the model's forward entries counted), and row independence.
    Prints tokens/s, TTFT, peak memory and the pool's bytes beside a
-   bf16 pool's.
+   bf16 pool's.  (d) Then two of the mix's requests, exported
+   mid-decode from one int8 engine over the model, have their pages
+   (int8 ``k``/``v`` and f32 ``k_scale``/``v_scale``) framed, parsed and
+   spliced into a second engine (a second 4.43 GB pool); checks the
+   pages land bit-equal, the resumed prefills skip at least the windows
+   the pages cover, budgets, and RMSNorm and both int8 paged entries
+   launched.
 10. Llama reference: a 2-layer f32 Llama with head dim 64 on the card
    and with the same weights on the CPU: equal greedy tokens with a pool
    in f32; with an int8 pool, window and decode-step logits within
@@ -108,7 +114,12 @@ no result lines:
    the draft; its acceptance must lie strictly between 0 and 1, so that
    rounds roll back) and ``Engine(paged=False)``; a 2-layer f32 Llama
    with an int8 contiguous cache gives prefill and decode-step logits
-   within ``INT8_REF_LOGIT_TOL``.
+   within ``INT8_REF_LOGIT_TOL``.  (e) The same 2-layer shape with its
+   weight matrices scaled 5x (so that greedy tokens vary) and two LoRA
+   adapters: equal card and CPU tokens for a mixed adapter/None batch,
+   an export mid-decode moved through the page wire, and both on
+   ``paged=False``; the adapter requests equal ``generate`` on the
+   merged weights.
 14. Llama generate (after phase 9, on its model): ``generate`` on 4
    prompts x 512 + 32 new, greedy, into an int8 contiguous cache; checks
    32 flash launches (one prefill), exactly (2 x 32 + 1) x 32 = 2,080
@@ -116,6 +127,29 @@ no result lines:
    paged entry none; prints tokens/s, prefill ms, peak memory and the
    cache's bytes beside a bf16 cache's.  Phase 3 holds the flash forward
    at this prefill's shape (bf16, GQA 32:8, head dim 128).
+16. serve surface (after phase 12, on phase 4's model and mix): (a) the
+   mix under 3 LoRA adapters of rank 16 (``SERVE_*``; requests i % 4
+   == 3 without one): budgets, the adapter-free requests' tokens equal
+   phase 4's exactly, every adapter changes some request's tokens; the
+   paged window launches equal phase 4's plus one a layer for each
+   window phase 4's prefix hits skipped and this run's do not (a prefix
+   is matched within one adapter only, and the shared system prompt
+   runs under three adapters and none), and LayerNorm's equal what the
+   run's windows and decode steps fix; prints tokens/s and
+   TTFT beside phase 4's and the share of adapter requests equal to
+   ``generate`` on ``merge_lora`` weights (reported: bf16 rounds the
+   two differently).  (b) Admission: tenant "a" at a token quota it
+   reaches (the next submit raises), a request with ``deadline_s=0``
+   (ends ``deadline_exceeded``), the queue at ``max_queue_depth`` (the
+   next submit raises ``QueueFullError``); the admitted requests' tokens
+   equal phase 4's.  (c) Migration: the mix on engine A for 6 ticks,
+   ``export_inflight``, every snapshot's pages framed, parsed and
+   spliced into engine B (checked bit-equal), imported and drained:
+   budgets, delivered prefixes kept, B's skipped windows at least those
+   the pages cover; prints pages, frame bytes, export, frame/parse and
+   import-to-first-token ms and how many requests end equal to phase 4.
+   Then ``drain(timeout_s=0)`` on a busy engine returns a falsy result
+   whose snapshots finish on B.
 15. with ``--profile DIR`` only: the engine phases, 3 training steps and
    the GPT-2 and Llama ``generate`` of phases 11 and 14 again under
    ``torch.profiler``; the device's busy share, its top kernels, µs per
@@ -197,6 +231,15 @@ LLAMA_GEN_BATCH, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 512, 32
 # (2**-8 relative a rounding) through 12 layers; a wrong kernel is off by
 # the logits' own scale
 BLOCK_WINDOW_TOL = 5e-2
+
+# the serve surface (phase 16): 3 LoRA adapters of rank 16 in a table of
+# 4 rows, a from init_lora (truncated normal, std 0.02), b ~ N(0, 1), so
+# that a delta (~0.08 an entry) outweighs the random kernels' 0.02 and
+# changes tokens; the admission engine's queue bound; page-wire frames
+# of 4 pages; engine B's pool, twice the default so that no shipped
+# chain is evicted before its request is admitted
+SERVE_ADAPTERS, SERVE_CAPACITY, SERVE_RANK, LORA_B_STD = 3, 4, 16, 1.0
+SERVE_QUEUE_DEPTH, WIRE_FRAME_PAGES = 6, 4
 
 
 _T0 = time.perf_counter()
@@ -1190,21 +1233,33 @@ def _requests(np, seed, vocab=50257):
     return prompts, budgets
 
 
+def _serve_engine(model, max_len=1024, **kw):
+    """The engine of every serving phase: 8 slots, prefill windows of 32,
+    ticks of 8 steps."""
+    from distributed_tensorflow_tpu_torch import Engine
+    return Engine(model, device=model.device, num_slots=8, max_len=max_len,
+                  prefill_chunk=32, tick_steps=8, **kw)
+
+
 def run_engine(torch, model, prompts, budgets, late=0, max_len=1024,
-               paged=True):
+               paged=True, adapters=None, adapter_ids=None, **engine_kw):
     """Serve ``prompts`` on a fresh engine and drain it.  The last
     ``late`` requests are submitted once the first one has its first
     token (on a paged engine its prompt pages are then in the radix
-    cache)."""
-    from distributed_tensorflow_tpu_torch import Engine
-    eng = Engine(model, device=model.device, num_slots=8, max_len=max_len,
-                 prefill_chunk=32, tick_steps=8, paged=paged)
+    cache).  ``adapters`` ({id: adapter}) are loaded first and request i
+    goes with ``adapter_ids[i]``."""
+    eng = _serve_engine(model, max_len=max_len, paged=paged, **engine_kw)
+    for name, ad in (adapters or {}).items():
+        eng.load_adapter(name, ad)
+    ids = adapter_ids or [None] * len(prompts)
     n = len(prompts) - late
     t0 = time.perf_counter()
-    hs = [eng.submit(p, b) for p, b in zip(prompts[:n], budgets[:n])]
+    hs = [eng.submit(p, b, adapter_id=a)
+          for p, b, a in zip(prompts[:n], budgets[:n], ids[:n])]
     while late and not hs[0].tokens:
         eng.step()
-    hs += [eng.submit(p, b) for p, b in zip(prompts[n:], budgets[n:])]
+    hs += [eng.submit(p, b, adapter_id=a)
+           for p, b, a in zip(prompts[n:], budgets[n:], ids[n:])]
     eng.drain()
     torch.cuda.synchronize()
     return eng, hs, time.perf_counter() - t0
@@ -1251,7 +1306,8 @@ def check_engine(torch, np, args, smi):
     _row_independence(torch, model, prompts, budgets, hs)
     return launches, dict(model=model, tokens=[h.tokens for h in hs],
                           tokens_per_s=n_tok / wall,
-                          ttft_p50_s=ttft[len(ttft) // 2])
+                          ttft_p50_s=ttft[len(ttft) // 2],
+                          windows_skipped=st.prefill_windows_skipped_total)
 
 
 def _row_independence(torch, model, prompts, budgets, hs, max_len=1024):
@@ -1554,6 +1610,434 @@ def check_contiguous_engine(torch, np, args, smi, paged):
          "share_equal_to_paged": sum(same) / len(same),
          "launches": counts, "card": smi})
     return {"layernorm": counts["layernorm"]}
+
+
+def _check_budgets(hs, budgets, what):
+    for h, b in zip(hs, budgets):
+        if h.status != "ok" or len(h.tokens) != b:
+            raise AssertionError(f"{what}, request {h.rid}: status "
+                                 f"{h.status}, {len(h.tokens)} of {b} "
+                                 "tokens")
+
+
+def _lora_adapters(torch, model, n, seed):
+    """``n`` rank-``SERVE_RANK`` adapters from ``seed``: ``a`` as
+    ``init_lora`` draws it, ``b`` ~ N(0, ``LORA_B_STD``^2)."""
+    gen = torch.Generator(model.device).manual_seed(seed)
+    ads = {}
+    for j in range(n):
+        ad = model.init_lora(gen, rank=SERVE_RANK)
+        for leaves in ad.values():
+            leaves["b"] = LORA_B_STD * torch.randn(
+                leaves["b"].shape, generator=gen, device=model.device)
+        ads[f"adapter{j}"] = ad
+    return ads
+
+
+def _merged_model(torch, model, adapter):
+    """A copy of ``model`` with ``adapter`` merged into its weights."""
+    from distributed_tensorflow_tpu_torch import GPT
+    merged = GPT(model.config, device=model.device,
+                 generator=torch.Generator(model.device).manual_seed(0))
+    merged.load_state_dict(model.merge_lora(adapter))
+    return merged
+
+
+def _pool_counts(pa, fused):
+    return {"paged_decode_attention": pa.LAUNCHES["paged_decode"],
+            "paged_window_attention": pa.LAUNCHES["paged_window"],
+            "layernorm": fused.LAUNCHES["layernorm"]}
+
+
+def _wire(torch, src, dst, snap):
+    """Ship ``snap``'s pages from ``src`` to ``dst``: read them off the
+    card, frame them ``WIRE_FRAME_PAGES`` to a frame, parse the frames,
+    splice the records into ``dst``'s pool, and check that they landed
+    bit-equal.  Returns (pages shipped, frame bytes, export ms,
+    frame + parse ms)."""
+    from distributed_tensorflow_tpu_torch.fleet import pagewire
+    t0 = time.perf_counter()
+    records = src.export_wire_pages(snap)
+    t1 = time.perf_counter()
+    tokens = dict(snap.shipped_pages or ())
+    recs = [pagewire.PageRecord(i, c, tokens[c], p) for i, c, p in records]
+    got, nbytes = [], 0
+    for seq in range(0, len(recs), WIRE_FRAME_PAGES):
+        frame = pagewire.frame_chunk(seq, recs[seq:seq + WIRE_FRAME_PAGES])
+        nbytes += len(frame)
+        got += pagewire.parse_frame(frame)[1]
+    t2 = time.perf_counter()
+    if not recs:
+        return 0, 0, (t1 - t0) * 1e3, 0.0
+    adopted = dst.import_wire_pages(snap, got)
+    if adopted != len(recs):
+        raise AssertionError(f"request {snap.rid}: {adopted} of "
+                             f"{len(recs)} shipped pages adopted")
+    kv = dst.scheduler._cache["kv"]
+    chain = dst.scheduler.pages.chain_pages(snap.context)
+    for (_, page, _), (_, _, payload) in zip(chain, records):
+        for name, leaf in payload.items():
+            if not torch.equal(kv[name][:, page].cpu(), leaf):
+                raise AssertionError(f"request {snap.rid}: shipped page "
+                                     f"{page} leaf {name} differs")
+    return len(recs), nbytes, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _migrate(torch, src, dst, snaps, window):
+    """Ship every snapshot's pages from ``src`` into ``dst`` and import
+    the snapshots there; returns (handles, pages, bytes, export ms,
+    frame + parse ms, prefill windows the shipped pages cover)."""
+    pages = nbytes = covered = 0
+    export_ms = frame_ms = 0.0
+    for snap in snaps:
+        n, b, e_ms, f_ms = _wire(torch, src, dst, snap)
+        pages, nbytes = pages + n, nbytes + b
+        export_ms, frame_ms = export_ms + e_ms, frame_ms + f_ms
+        if n:
+            covered += snap.shipped_pages[n - 1][1] // window
+    hs = [dst.import_request(s) for s in snaps]
+    return hs, pages, nbytes, export_ms, frame_ms, covered
+
+
+def _check_resumed(snaps, hs, what):
+    """Every resumed request met its original budget and kept the tokens
+    delivered before its export."""
+    for snap, h in zip(snaps, hs):
+        kept = h.tokens[:snap.stream_offset] == snap.generated
+        if h.status != "ok" or len(h.tokens) != snap.max_new_tokens \
+                or not kept:
+            raise AssertionError(
+                f"{what}, request {snap.rid}: status {h.status}, "
+                f"{len(h.tokens)} of {snap.max_new_tokens} tokens, "
+                f"delivered prefix kept: {kept}")
+
+
+def _check_serve_launches(model, counts, launches, n_requests, skipped,
+                          skipped4):
+    """The adapter engine's paged and LayerNorm launches against phase
+    4's (``launches``).  A prefix hit is matched within one adapter's
+    namespace only, so the mix's shared system prompt, which runs under
+    three adapters and none, skips ``skipped4 - skipped`` fewer windows
+    than phase 4: exactly that many more windows run (each a launch a
+    layer).  The ticks may differ with them, so the decode launches are
+    checked through LayerNorm's count, which every forward fixes: 2 a
+    layer, plus ``ln_f`` in every decode step and every request's last
+    window."""
+    L = model.config.num_layers
+    windows = counts["paged_window_attention"]
+    steps = counts["paged_decode_attention"]
+    want_windows = launches["paged_window_attention"] \
+        + L * (skipped4 - skipped)
+    want_norms = (2 * L + 1) * steps // L + 2 * windows + n_requests
+    if windows != want_windows or steps <= 0 or steps % L \
+            or counts["layernorm"] != want_norms:
+        raise AssertionError(
+            f"adapter engine launches {counts}; phase 4 {launches} with "
+            f"{skipped4} windows skipped, this run {skipped}: expected "
+            f"{want_windows} windows and {want_norms} layernorms")
+
+
+def check_serve_surface(torch, np, args, smi, paged, launches):
+    """Phase 16: adapters, admission and migration on phase 4's model
+    and mix (``paged``: phase 4's model, tokens, tokens/s and TTFT;
+    ``launches``: its paged and LayerNorm launch counts)."""
+    from distributed_tensorflow_tpu_torch import (QueueFullError,
+                                                  QuotaExceededError,
+                                                  TenantPolicy, TenantQuota)
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+
+    model = paged["model"]
+    prompts, budgets = _requests(np, args.seed)
+    n = len(prompts)
+
+    # (a) adapters: requests i % 4 == 3 without one, the rest in turn
+    ads = _lora_adapters(torch, model, SERVE_ADAPTERS, args.seed + 16)
+    names = sorted(ads)
+    ids, k = [], 0
+    for i in range(n):
+        if i % 4 == 3:
+            ids.append(None)
+        else:
+            ids.append(names[k % len(names)])
+            k += 1
+    (eng, hs, wall), _, _ = _driven(torch, lambda: run_engine(
+        torch, model, prompts, budgets, late=3, adapters=ads,
+        adapter_ids=ids, adapter_capacity=SERVE_CAPACITY,
+        adapter_rank=SERVE_RANK))
+    counts = _pool_counts(pa, fused)
+    _check_budgets(hs, budgets, "adapter engine")
+    _check_serve_launches(model, counts, launches, n,
+                          eng.stats().prefill_windows_skipped_total,
+                          paged["windows_skipped"])
+    for i, (h, a) in enumerate(zip(hs, ids)):
+        if a is None and h.tokens != paged["tokens"][i]:
+            raise AssertionError(f"request {i} without an adapter differs "
+                                 "from phase 4")
+    for name in names:
+        if all(hs[i].tokens == paged["tokens"][i]
+               for i in range(n) if ids[i] == name):
+            raise AssertionError(f"{name} changed no request's tokens")
+    if eng.adapters.pinned():
+        raise AssertionError(f"{eng.adapters.pinned()} adapter pins left")
+    merged_agree = {}
+    for name in names:
+        merged = _merged_model(torch, model, ads[name])
+        for i in (i for i in range(n) if ids[i] == name):
+            out = merged.generate(torch.from_numpy(prompts[i][None]).cuda(),
+                                  budgets[i])
+            merged_agree[i] = _agree_prefix(
+                out[0, prompts[i].size:].tolist(), hs[i].tokens)
+        del merged
+    merged_equal = sum(merged_agree[i] == budgets[i] for i in merged_agree)
+    ttft = sorted(h.ttft_s for h in hs)
+    n_tok = sum(len(h.tokens) for h in hs)
+    n_ad = sum(a is not None for a in ids)
+    log({"serve_surface": "adapters", "adapters": len(names),
+         "rank": SERVE_RANK, "requests": n, "adapter_requests": n_ad,
+         "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+         "ttft_p50_s": ttft[len(ttft) // 2],
+         "phase4_tokens_per_s": paged["tokens_per_s"],
+         "phase4_ttft_p50_s": paged["ttft_p50_s"],
+         "share_equal_to_merged_generate": merged_equal / n_ad,
+         "merged_generate_agree_prefix": [merged_agree[i]
+                                          for i in sorted(merged_agree)],
+         "adapter_loads": eng.adapters.loads,
+         "windows_skipped": eng.stats().prefill_windows_skipped_total,
+         "phase4_windows_skipped": paged["windows_skipped"],
+         "launches": counts, "phase4_launches": launches,
+         "card": smi})
+    del eng
+
+    # (b) admission: tenant "a" up to a token quota it reaches, a request
+    # that expires at once, and a queue at its bound
+    quota = sum(budgets[:3])
+    eng = _serve_engine(model, max_queue_depth=SERVE_QUEUE_DEPTH,
+                        tenancy=TenantPolicy(
+                            {"a": TenantQuota(max_tokens_inflight=quota)}))
+    hs = [eng.submit(prompts[i], budgets[i], tenant="a") for i in range(3)]
+    try:
+        eng.submit(prompts[3], 1, tenant="a")
+        raise AssertionError("the token quota did not raise")
+    except QuotaExceededError:
+        pass
+    late = eng.submit(prompts[3], budgets[3], tenant="b", deadline_s=0.0)
+    hs += [eng.submit(prompts[i], budgets[i], tenant="b")
+           for i in range(4, SERVE_QUEUE_DEPTH)]
+    try:
+        eng.submit(prompts[n - 1], budgets[n - 1], tenant="b")
+        raise AssertionError("the queue bound did not raise")
+    except QueueFullError:
+        pass
+    eng.drain()
+    kept = [0, 1, 2] + list(range(4, SERVE_QUEUE_DEPTH))
+    _check_budgets(hs, [budgets[i] for i in kept], "admission engine")
+    if late.status != "deadline_exceeded" or late.tokens:
+        raise AssertionError(f"the expired request ended {late.status} "
+                             f"with {len(late.tokens)} tokens")
+    if any(h.tokens != paged["tokens"][i] for h, i in zip(hs, kept)):
+        raise AssertionError("admitted requests' tokens differ from "
+                             "phase 4")
+    st = eng.stats()
+    if st.inflight_per_tenant or st.tokens_inflight_per_tenant:
+        raise AssertionError(f"tenant counts left: {st}")
+    log({"serve_surface": "admission", "token_quota": quota,
+         "queue_depth": SERVE_QUEUE_DEPTH, "admitted": len(hs),
+         "expired": late.status, "quota_raised": True,
+         "queue_full_raised": True})
+    del eng
+
+    # (c) migration: engine A runs the mix a few ticks, exports every
+    # request in flight; their pages ship to engine B, which resumes them
+    src = _serve_engine(model)
+    dst = _serve_engine(model, num_pages=2 * 8 * (1024 // 16) + 1)
+    hs = [src.submit(p, b) for p, b in zip(prompts, budgets)]
+    for _ in range(6):
+        src.step()
+    st = src.stats()
+    state = {"active": st.active, "prefilling": st.prefilling,
+             "queued": st.queued}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = src.export_inflight()
+    export_all_ms = (time.perf_counter() - t0) * 1e3
+    if not snaps:
+        raise AssertionError("nothing in flight to export")
+    _reset_counts()
+    t0 = time.perf_counter()
+    hs2, pages, nbytes, export_ms, frame_ms, covered = _migrate(
+        torch, src, dst, snaps, 32)
+    dst.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(torch)
+    _check_resumed(snaps, hs2, "migration")
+    skipped = dst.stats().prefill_windows_skipped_total
+    if not pages or skipped < covered:
+        raise AssertionError(f"{pages} pages shipped covering {covered} "
+                             f"windows; B skipped {skipped}")
+    if counts["paged"] <= 0 or counts["layernorm"] <= 0:
+        raise AssertionError(f"migration launches {counts}")
+    final = {h.rid: h.tokens for h in hs if h.status == "ok"}
+    final.update({s.rid: h.tokens for s, h in zip(snaps, hs2)})
+    equal = sum(final.get(i) == paged["tokens"][i] for i in range(n))
+    if len(final) != n:
+        raise AssertionError(f"{n - len(final)} requests lost")
+    ttft = sorted(h.ttft_s for h in hs2)
+    log({"serve_surface": "migration", "state_at_export": state,
+         "exported": len(snaps), "pages_shipped": pages,
+         "frame_bytes": nbytes, "export_inflight_ms": export_all_ms,
+         "export_wire_ms": export_ms, "frame_parse_ms": frame_ms,
+         "import_to_first_token_p50_ms": ttft[len(ttft) // 2] * 1e3,
+         "windows_covered": covered, "windows_skipped": skipped,
+         "resume_wall_s": wall, "token_equal_to_phase4": equal,
+         "requests": n, "launches": counts, "card": smi})
+
+    # a drain that runs out of time exports; the snapshots finish on B
+    busy = _serve_engine(model)
+    for p, b in zip(prompts[:4], budgets[:4]):
+        busy.submit(p, b)
+    busy.step()
+    busy.step()
+    res = busy.drain(timeout_s=0.0)
+    if res or not res.exported or busy.busy:
+        raise AssertionError(f"drain(timeout_s=0) gave {res}")
+    hs3 = [dst.import_request(s) for s in res.exported]
+    dst.drain()
+    _check_resumed(res.exported, hs3, "drain export")
+    log({"serve_surface": "drain(timeout_s=0)",
+         "exported": len(res.exported), "resumed": "ok"})
+    del src, dst, busy
+
+
+def check_llama_migration(torch, np, args, smi, model):
+    """Phase 9(d): two mid-decode Llama-3-8B requests move between two
+    int8 engines over phase 9's model; their pages (int8 K/V and f32
+    scale planes) land bit-equal."""
+    c = model.config
+    prompts, budgets = _requests(np, args.seed, vocab=c.vocab_size)
+    pick = [i for i, p in enumerate(prompts) if p.size >= 64][:2]
+    src = _serve_engine(model, max_len=LLAMA_MAX_LEN)
+    dst = _serve_engine(model, max_len=LLAMA_MAX_LEN)
+    # budgets of 16 or more: a request's first tick leaves it at 9
+    # tokens, still decoding when it is exported
+    hs = [src.submit(prompts[i], max(budgets[i], 16)) for i in pick]
+    snaps = [None] * len(hs)
+    while None in snaps:
+        src.step()
+        for j, h in enumerate(hs):
+            if snaps[j] is None and len(h.tokens) >= 2:
+                snaps[j] = src.export_request(h)
+    _reset_counts()
+    hs2, pages, nbytes, export_ms, frame_ms, covered = _migrate(
+        torch, src, dst, snaps, 32)
+    dst.drain()
+    counts = _read_counts(torch)
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    _check_resumed(snaps, hs2, "llama migration")
+    skipped = dst.stats().prefill_windows_skipped_total
+    leaves = sorted(dst.scheduler._cache["kv"])
+    if leaves != ["k", "k_scale", "v", "v_scale"] or not pages \
+            or skipped < covered:
+        raise AssertionError(f"llama migration: leaves {leaves}, {pages} "
+                             f"pages covering {covered} windows, "
+                             f"{skipped} skipped")
+    if counts["rmsnorm"] <= 0 or counts["layernorm"] \
+            or pa.LAUNCHES["paged_decode_int8"] <= 0 \
+            or pa.LAUNCHES["paged_window_int8"] <= 0:
+        raise AssertionError(f"llama migration launches {counts}, "
+                             f"{dict(pa.LAUNCHES)}")
+    log({"serve_surface": "llama3-8b int8 migration",
+         "requests": len(snaps), "pages_shipped": pages,
+         "frame_bytes": nbytes, "export_wire_ms": export_ms,
+         "frame_parse_ms": frame_ms, "windows_covered": covered,
+         "windows_skipped": skipped, "launches": counts,
+         "paged_int8": {k: pa.LAUNCHES[k] for k in
+                        ("paged_decode_int8", "paged_window_int8")},
+         "card": smi})
+    del src, dst
+
+
+def check_serve_reference(torch, np):
+    """Phase 13(e): a 2-layer f32 GPT-2-shaped model (head dim 64, weight
+    matrices scaled 5x so that greedy tokens vary) and two adapters on
+    the card and on the CPU give equal tokens for a mixed adapter/None
+    batch, an export mid-decode moved through the wire, and both again
+    on ``paged=False``; the adapter requests equal ``generate`` on the
+    merged weights."""
+    from distributed_tensorflow_tpu_torch import GPT, Engine, gpt_tiny
+    cpu = GPT(gpt_tiny(), device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.dim() >= 2:
+                p.mul_(5.0)
+    gpu = GPT(gpt_tiny(), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(13)
+    L = cpu.config.num_layers
+    ads = {f"adapter{j}": {
+        name: {"a": 0.5 * torch.randn((L,) + a, generator=g),
+               "b": 0.5 * torch.randn((L,) + b, generator=g)}
+        for name, (a, b) in cpu.lora_shapes(4).items()} for j in range(2)}
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, n, dtype=np.int32)
+               for n in (5, 19, 40, 33)]
+    ids = ["adapter0", None, "adapter1", None]
+
+    def engine(m, paged):
+        eng = Engine(m, device=m.device, num_slots=2, max_len=128,
+                     prefill_chunk=16, tick_steps=4, paged=paged,
+                     adapter_capacity=2, adapter_rank=4)
+        for name, ad in ads.items():
+            eng.load_adapter(name, ad)
+        return eng
+
+    def batch(m, paged):
+        eng = engine(m, paged)
+        hs = [eng.submit(p, 12, adapter_id=a) for p, a in zip(prompts, ids)]
+        eng.drain()
+        return [h.tokens for h in hs]
+
+    def migrated(m, paged):
+        from distributed_tensorflow_tpu_torch.fleet import pagewire
+        src, dst = engine(m, paged), engine(m, paged)
+        hs = [src.submit(p, 16, adapter_id=a) for p, a in zip(prompts, ids)]
+        while min(len(h.tokens) for h in hs[:2]) < 5:
+            src.step()
+        out = []
+        for snap in src.export_inflight():
+            recs = [pagewire.PageRecord(i, c, 0, p)
+                    for i, c, p in src.export_wire_pages(snap)]
+            if recs:
+                recs = pagewire.parse_frame(pagewire.frame_chunk(0, recs))[1]
+                if dst.import_wire_pages(snap, recs) != len(recs):
+                    raise AssertionError("shipped pages not adopted")
+            out.append(dst.import_request(snap))
+        dst.drain()
+        return [h.tokens for h in out]
+
+    runs = {"adapter batch": lambda m: batch(m, True),
+            "migration + wire": lambda m: migrated(m, True),
+            "adapter batch, paged=False": lambda m: batch(m, False),
+            "migration, paged=False": lambda m: migrated(m, False)}
+    got = {}
+    for name, fn in runs.items():
+        got[name] = fn(gpu)
+        if got[name] != fn(cpu):
+            raise AssertionError(f"card and CPU disagree on {name}")
+    for i, a in enumerate(ids):
+        if a is None:
+            continue
+        merged = _merged_model(torch, gpu, ads[a])
+        want = merged.generate(torch.from_numpy(prompts[i][None]).cuda(),
+                               12)[0, prompts[i].size:].tolist()
+        if got["adapter batch"][i] != want:
+            raise AssertionError(f"request {i} under {a} differs from "
+                                 "generate on the merged weights")
+    log({"serve_reference": "ok", "equal_tokens": sorted(runs),
+         "merged_generate": "equal"})
 
 
 def check_decode_reference(torch, np):
@@ -2231,12 +2715,14 @@ def main(argv=None) -> int:
         check_decode(torch, np, args, smi, paged_run["model"]))
     decode_launches.update(check_contiguous_engine(torch, np, args, smi,
                                                    paged_run))
+    check_serve_surface(torch, np, args, smi, paged_run, dict(launches))
     if args.profile:
         profile_generate(torch, np, args, smi, paged_run["model"],
                          "profile_generate", GEN_BATCH, GEN_PROMPT, GEN_NEW)
     del paged_run
     check_reference(torch, np)
     check_decode_reference(torch, np)
+    check_serve_reference(torch, np)
     train_launches, model = check_training(torch, np, args, smi)
     launches.update((k, v) for k, v in train_launches.items()
                     if k != "layernorm")     # its record: serving shapes
@@ -2249,6 +2735,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log({"phase": "llama init", "seconds": time.perf_counter() - t0})
     launches.update(check_llama_engine(torch, np, args, smi, model))
+    check_llama_migration(torch, np, args, smi, model)
     decode_launches.update(check_llama_generate(torch, np, args, smi, model))
     if args.profile:
         profile_generate(torch, np, args, smi, model,

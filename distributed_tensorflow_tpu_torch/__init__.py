@@ -11,23 +11,33 @@ int8 KV cache, with a hand-written RMSNorm kernel and the int8 branch of
 the paged-attention kernel.  Slice 7 decodes single streams on the
 contiguous KV cache: ``GPT.generate``, ``GPT.beam_search``,
 ``GPT.prefill_cache`` and ``generate_speculative``, whose prompt prefill
-runs the flash forward kernel, and ``Engine(paged=False)``.  Kernels live
+runs the flash forward kernel, and ``Engine(paged=False)``.  Slice 9 is
+the engine's request surface: per-request LoRA adapters
+(``Engine.load_adapter``), admission with a queue bound, deadlines and
+tenant quotas (``fleet.TenantPolicy``), and live migration
+(``export_request``/``import_request``, with KV pages shipped between
+engines through ``fleet.pagewire``); it adds no kernel.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
+from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
-                             load_jax_params)
+                             load_jax_params, lora_from_jax, lora_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
 from .models.speculative import generate_speculative, speculative_accept
 from .ops.quant import QTensor, dequantize_tensor, quantize_tensor
 from .optim import adam, adamw
-from .serve.engine import Engine, EngineStats, RequestHandle
+from .serve.engine import (DrainResult, Engine, EngineStats, QueueFullError,
+                           RequestHandle, RequestSnapshot)
 from .train import TrainState, make_custom_train_step
 
-__all__ = ["Engine", "EngineStats", "GPT", "GPTConfig", "QTensor",
-           "RequestHandle", "TrainState", "adam", "adamw",
-           "dequantize_tensor", "generate_speculative", "gpt_params_from_jax",
+__all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
+           "QTensor", "QueueFullError", "QuotaExceededError",
+           "RequestHandle", "RequestSnapshot", "TenantPolicy", "TenantQuota",
+           "TrainState", "adam", "adamw", "dequantize_tensor",
+           "generate_speculative", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "llama2_7b",
            "llama3_8b", "llama_config", "llama_tiny", "load_jax_params",
-           "make_custom_train_step", "quantize_tensor", "speculative_accept"]
+           "lora_from_jax", "lora_to_jax", "make_custom_train_step",
+           "quantize_tensor", "speculative_accept"]

@@ -10,7 +10,9 @@ arrays (for example ``jax.tree.map(np.asarray, params)``); nothing here
 imports JAX.
 Weights stay float32, as in the JAX package.  ``gpt_params_to_jax`` goes
 the other way, and since gradients and Adam moments are params-shaped
-dicts under the same names, it carries them too.
+dicts under the same names, it carries them too.  ``lora_from_jax`` and
+``lora_to_jax`` carry a LoRA adapter (``{target: {"a", "b"}}`` with
+``[L, ...]`` leaves, the layout of both packages' ``init_lora``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 
 from .gpt import GPT, GPTConfig
 
-__all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params"]
+__all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
+           "lora_from_jax", "lora_to_jax"]
 
 # JAX tree keys that name configurations the port does not run yet
 _UNPORTED = ("moe",)
@@ -100,3 +103,29 @@ def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:
     model.load_state_dict(gpt_params_from_jax(tree, model.config),
                           strict=True)
     return model
+
+
+_LORA_TARGETS = ("query", "key", "value", "out")
+
+
+def lora_from_jax(tree: Mapping[str, Any], device="cpu"
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A port adapter (f32 tensors on ``device``) from a JAX adapter tree
+    whose leaves are numpy arrays."""
+    if set(tree) != set(_LORA_TARGETS):
+        raise ValueError(f"adapter targets {sorted(tree)}, expected "
+                         f"{sorted(_LORA_TARGETS)}")
+    return {name: {ab: torch.from_numpy(np.array(tree[name][ab],
+                                                 np.float32)).to(device)
+                   for ab in ("a", "b")}
+            for name in _LORA_TARGETS}
+
+
+def lora_to_jax(adapter: Mapping[str, Mapping[str, torch.Tensor]]
+                ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX adapter tree, numpy f32 leaves, of a port adapter; the
+    inverse of ``lora_from_jax``."""
+    return {name: {ab: adapter[name][ab].detach().to(
+                       "cpu", torch.float32).numpy()
+                   for ab in ("a", "b")}
+            for name in _LORA_TARGETS}

@@ -324,7 +324,7 @@ class GPT(nn.Module):
                      kv: Dict[str, torch.Tensor], i: int,
                      attention: Callable, rope_cs, *,
                      write_pos: Union[int, torch.Tensor, None] = None,
-                     paged=None) -> torch.Tensor:
+                     paged=None, lora=None) -> torch.Tensor:
         """One decoder layer of every KV-cache path.  In order: RoPE on q
         and k (when ``rope_cs``), the K/V write into layer ``i`` of ``kv``
         (int8 caches: quantized per token and kv head, values and scales
@@ -338,11 +338,20 @@ class GPT(nn.Module):
         and beam path); else a [b] tensor: row r's columns from
         ``write_pos[r]`` on (the slot path), where a column past
         ``max_len`` is dropped, never clamped onto a live entry.  (The
-        JAX package donates the cache buffer instead.)"""
+        JAX package donates the cache buffer instead.)
+
+        ``lora``: (adapter table, rows [b]) adds each row's adapter
+        deltas (``_lora_deltas``) to the q/k/v projections, before RoPE,
+        and to the out projection; None does no adapter work."""
         h = self._norm(blk.ln_1, x)
         a = blk.attention
+        deltas = (None if lora is None
+                  else self._lora_deltas(lora[0], lora[1], i, h.dtype))
         q, k, v = (project(p.kernel, p.bias, h)
                    for p in (a.query, a.key, a.value))
+        if deltas is not None:
+            q, k, v = (y + deltas[name](h) for name, y
+                       in (("query", q), ("key", k), ("value", v)))
         if rope_cs is not None:
             q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
 
@@ -366,8 +375,134 @@ class GPT(nn.Module):
         nh, hd, d = a.out.kernel.shape
         attn_out = affine(a.out.kernel.reshape(nh * hd, d), a.out.bias,
                           attn.reshape(*attn.shape[:2], nh * hd))
+        if deltas is not None:
+            attn_out = attn_out + deltas["out"](attn)
         x = x + attn_out
         return x + self._ffn(blk, x)
+
+    # -- LoRA adapters ----------------------------------------------------
+    # Per-request low-rank adapters for the serving engine: many fine-
+    # tuned variants served off one set of base weights.  An adapter adds
+    # rank-r deltas to the four attention projections: q/k/v get
+    # ``x @ a @ b`` added to the projection before RoPE (both linear, so
+    # this equals projecting with the merged kernel ``W + a @ b``,
+    # ``merge_lora``), the out projection ``attn @ a @ b``.  Adapters live
+    # in a stacked table (``[T, L, ...]`` leaves) indexed by a per-row
+    # table-row tensor, so loading and swapping adapters is a row copy.
+    # Row 0 is the all-zero adapter: an ``adapter_id=None`` request's
+    # delta is an exact zero, so its tokens equal an adapter-free
+    # engine's (``serve/adapters.py`` manages the table).
+
+    _LORA_TARGETS = ("query", "key", "value", "out")
+
+    def lora_shapes(self, rank: int) -> Dict[str, Any]:
+        """{target: (a_shape, b_shape)} for ONE layer of a rank-``rank``
+        adapter (an adapter's leaves prepend [num_layers], the table's
+        [capacity, num_layers]); k and v use the kv heads."""
+        c = self.config
+        h, kv, hd, d = c.num_heads, c.kv_heads, c.head_dim, c.hidden_size
+        return {"query": ((d, rank), (rank, h, hd)),
+                "key": ((d, rank), (rank, kv, hd)),
+                "value": ((d, rank), (rank, kv, hd)),
+                "out": ((h, hd, rank), (rank, d))}
+
+    def init_lora(self, generator: Optional[torch.Generator] = None,
+                  rank: int = 8, scale: float = 1.0):
+        """One adapter on the model's device: {target: {a, b}} with
+        ``[L, ...]`` f32 leaves.  Standard LoRA init: ``a`` truncated
+        normal (std 0.02, cut at 2 std) from ``generator`` times
+        ``scale``, ``b`` zeros, so a fresh adapter changes nothing until
+        its ``b`` is trained or loaded."""
+        if rank < 1:
+            raise ValueError(f"rank must be >= 1; got {rank}")
+        L = self.config.num_layers
+        adapter = {}
+        for name, (a_shape, b_shape) in self.lora_shapes(rank).items():
+            a = torch.empty((L,) + a_shape, device=self.device)
+            nn.init.trunc_normal_(a, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+            adapter[name] = {"a": a * scale,
+                             "b": torch.zeros((L,) + b_shape,
+                                              device=self.device)}
+        return adapter
+
+    def init_lora_table(self, capacity: int, rank: int):
+        """An all-zero stacked adapter table on the model's device:
+        {target: {a, b}} with ``[capacity, L, ...]`` f32 leaves.  Row 0 is
+        the reserved zero adapter: never write it."""
+        if capacity < 2:
+            raise ValueError(f"capacity must be >= 2 (row 0 is the "
+                             f"reserved zero adapter); got {capacity}")
+        L = self.config.num_layers
+        return {name: {"a": torch.zeros((capacity, L) + a_shape,
+                                        device=self.device),
+                       "b": torch.zeros((capacity, L) + b_shape,
+                                        device=self.device)}
+                for name, (a_shape, b_shape)
+                in self.lora_shapes(rank).items()}
+
+    @staticmethod
+    def lora_insert_row(table, row: int, adapter):
+        """Copy ``adapter`` into row ``row`` of ``table`` in place;
+        returns ``table``."""
+        for name, leaves in table.items():
+            for ab, buf in leaves.items():
+                buf[row].copy_(adapter[name][ab])
+        return table
+
+    @torch.no_grad()
+    def merge_lora(self, adapter) -> Dict[str, torch.Tensor]:
+        """This model's state dict (copies) with ``adapter``'s deltas
+        merged into the four attention projection kernels: the model that
+        state dict loads into, run adapter-free, is what per-request
+        adapter decoding must match."""
+        merged = {k: v.detach().clone() for k, v in self.state_dict().items()}
+        for name in self._LORA_TARGETS:
+            a = adapter[name]["a"].to(self.device, torch.float32)
+            b = adapter[name]["b"].to(self.device, torch.float32)
+            delta = (torch.einsum("lhkr,lrd->lhkd", a, b) if name == "out"
+                     else torch.einsum("ldr,lrhk->ldhk", a, b))
+            for i in range(self.config.num_layers):
+                merged[f"blocks.{i}.attention.{name}.kernel"] += delta[i]
+        return merged
+
+    def _lora_arg(self, adapters, adapter_rows):
+        """``_cache_layer``'s ``lora`` argument of a serving entry: the
+        table and the rows as int64 indices on the model's device."""
+        if adapters is None:
+            return None
+        if adapter_rows is None:
+            raise ValueError("adapters need adapter_rows")
+        return adapters, adapter_rows.to(self.device, torch.long)
+
+    def _lora_deltas(self, adapters, rows: torch.Tensor, i: int,
+                     dtype: torch.dtype) -> Dict[str, Callable]:
+        """Per-row rank-r deltas of layer ``i``: {target: fn(x) -> delta}.
+        ``adapters``: a stacked table; ``rows`` [b] int64: each batch row's
+        table row.  The products are batched over rows on ``[b, d, r]``/
+        ``[b, r, h * hd]`` gathers of a small table."""
+        def gathered(name):
+            return (adapters[name]["a"][rows, i].to(dtype),
+                    adapters[name]["b"][rows, i].to(dtype))
+
+        def qkv_delta(name):
+            a, b = gathered(name)              # [b, d, r], [b, r, h, hd]
+
+            def fn(x):                         # x [b, s, d]
+                y = torch.bmm(torch.bmm(x, a), b.flatten(2))
+                return y.view(*x.shape[:2], *b.shape[2:])
+            return fn
+
+        def out_delta():
+            a, b = gathered("out")             # [b, h, hd, r], [b, r, d]
+
+            def fn(attn):                      # attn [b, s, h, hd]
+                return torch.bmm(torch.bmm(attn.flatten(2),
+                                           a.flatten(1, 2)), b)
+            return fn
+
+        return {"query": qkv_delta("query"), "key": qkv_delta("key"),
+                "value": qkv_delta("value"), "out": out_delta()}
 
     # -- full-sequence forward and the LM loss -----------------------------
     def apply(self, input_ids: torch.Tensor, train: bool = False,
@@ -452,7 +587,8 @@ class GPT(nn.Module):
                                 page_tab: torch.Tensor,
                                 write_col: torch.Tensor,
                                 kv_valid: torch.Tensor,
-                                positions: torch.Tensor):
+                                positions: torch.Tensor, adapters=None,
+                                adapter_rows: Optional[torch.Tensor] = None):
         """One token per slot row against the page pool.
 
         token_ids/write_col/positions [b] int32; page_tab [b, P] int32;
@@ -464,8 +600,10 @@ class GPT(nn.Module):
         write head cannot run off its table row), attends ``kv_valid[r]``
         OR its own column, and embeds at ``positions[r]``.  Rows whose
         table maps the trash page 0 are retired: their writes land where
-        no validity mask looks.  Returns (logits [b, vocab] f32, kv); the
-        pool is updated in place."""
+        no validity mask looks.  ``adapters``/``adapter_rows`` [b]: row r
+        decodes under table row ``adapter_rows[r]``'s LoRA adapter (row 0
+        the zero adapter; None: no adapter work).  Returns (logits [b,
+        vocab] f32, kv); the pool is updated in place."""
         x = self._embed(token_ids, positions)[:, None, :]
         page_size = kv["k"].shape[2]
         P = page_tab.shape[1]
@@ -481,15 +619,18 @@ class GPT(nn.Module):
             return paged_lib.paged_decode_attention(q.contiguous(), kv, i,
                                                     page_tab, valid)
 
+        lora = self._lora_arg(adapters, adapter_rows)
         for i, blk in enumerate(self.blocks):
             x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
-                                  paged=paged)
+                                  paged=paged, lora=lora)
         return self._head(x), kv
 
     @torch.no_grad()
     def decode_window_paged(self, kv: Dict[str, torch.Tensor],
                             token_ids: torch.Tensor, page_row: torch.Tensor,
-                            pos: int, head: Union[str, int] = "all"):
+                            pos: int, head: Union[str, int] = "all",
+                            adapters=None,
+                            adapter_rows: Optional[torch.Tensor] = None):
         """A batch-1 window of ``s`` tokens at positions ``pos..pos+s-1``
         through one request's ``page_row`` [P] int32: K/V are written to
         their pool cells, then row j attends every column ``<= pos + j``
@@ -498,8 +639,10 @@ class GPT(nn.Module):
         ``head``: ``"all"`` -> [1, s, vocab] f32 logits, ``"none"`` ->
         None (intermediate prefill windows only feed the pool), or an int
         j -> [1, vocab] for window row j only (the scheduler's first-token
-        shape; the JAX package computes all rows and picks one).  Pad columns past the row's
-        view write to the trash page 0.  Returns (logits, kv); the pool
+        shape; the JAX package computes all rows and picks one).  Pad
+        columns past the row's view write to the trash page 0.
+        ``adapters``/``adapter_rows`` [1]: the request's LoRA adapter, as
+        in ``decode_step_slots_paged``.  Returns (logits, kv); the pool
         is updated in place."""
         b, s = token_ids.shape
         if b != 1:
@@ -523,9 +666,10 @@ class GPT(nn.Module):
             return paged_lib.paged_window_attention(q.contiguous(), kv, i,
                                                     page_row, pos)
 
+        lora = self._lora_arg(adapters, adapter_rows)
         for i, blk in enumerate(self.blocks):
             x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
-                                  paged=paged)
+                                  paged=paged, lora=lora)
         if head == "none":
             return None, kv
         if head == "all":
@@ -658,7 +802,8 @@ class GPT(nn.Module):
 
     @torch.no_grad()
     def decode_window(self, cache: Mapping[str, Any], token_ids: torch.Tensor,
-                      head: Union[str, int] = "all"):
+                      head: Union[str, int] = "all", adapters=None,
+                      adapter_rows: Optional[torch.Tensor] = None):
         """``s`` tokens per row against a cache holding ``pos`` columns:
         K/V written at columns ``pos..pos+s-1``, window row j attends
         every column ``<= pos + j``, read back through the cache (int8
@@ -670,7 +815,9 @@ class GPT(nn.Module):
         ``"none"`` -> None (a mid-prefill window only feeds the cache), or
         an int j -> [b, vocab] for window row j only (the contiguous
         engine's first token; the JAX package computes all rows and picks
-        one).  Returns (logits, the cache with ``pos`` advanced by s)."""
+        one).  ``adapters``/``adapter_rows`` [b]: per-row LoRA adapters,
+        as in ``decode_step_slots_paged``.  Returns (logits, the cache
+        with ``pos`` advanced by s)."""
         if head not in ("all", "last", "none") and not isinstance(head, int):
             raise ValueError(f"head must be all|last|none or a row index; "
                              f"got {head!r}")
@@ -690,9 +837,10 @@ class GPT(nn.Module):
             return dot_product_attention(q, k_cache, v_cache, mask=mask)
 
         kv = self._cache_kv(cache)
+        lora = self._lora_arg(adapters, adapter_rows)
         for i, blk in enumerate(self.blocks):
             x = self._cache_layer(blk, x, kv, i, window_attn, rope_cs,
-                                  write_pos=pos)
+                                  write_pos=pos, lora=lora)
         new_cache = dict(cache, pos=n)
         if head == "none":
             return None, new_cache
@@ -947,7 +1095,9 @@ class GPT(nn.Module):
     @torch.no_grad()
     def decode_step_slots(self, kv: Dict[str, torch.Tensor],
                           token_ids: torch.Tensor, write_col: torch.Tensor,
-                          kv_valid: torch.Tensor, positions: torch.Tensor):
+                          kv_valid: torch.Tensor, positions: torch.Tensor,
+                          adapters=None,
+                          adapter_rows: Optional[torch.Tensor] = None):
         """One token per slot row against a contiguous SLOT cache.
 
         ``kv``: the cache leaves without ``pos`` (``serve/slots.py``),
@@ -957,8 +1107,10 @@ class GPT(nn.Module):
         and embeds at ``positions[r]`` (the learned table's index clamped
         to its last row: a dead row's output is never read).  Per row
         this is ``decode_step`` at ``pos = write_col[r]``, and every
-        operation is row-independent.  Returns (logits [b, vocab] f32,
-        kv); the cache is written in place."""
+        operation is row-independent.  ``adapters``/``adapter_rows`` [b]:
+        per-slot LoRA adapters, as in ``decode_step_slots_paged``.
+        Returns (logits [b, vocab] f32, kv); the cache is written in
+        place."""
         c = self.config
         max_len = kv["k"].shape[2]
         x = self._embed(token_ids, torch.clamp(
@@ -971,7 +1123,8 @@ class GPT(nn.Module):
             k_cache, v_cache = self._dequant_layer_kv(kv, i)
             return dot_product_attention(q, k_cache, v_cache, mask=mask)
 
+        lora = self._lora_arg(adapters, adapter_rows)
         for i, blk in enumerate(self.blocks):
             x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
-                                  write_pos=write_col)
+                                  write_pos=write_col, lora=lora)
         return self._head(x), kv

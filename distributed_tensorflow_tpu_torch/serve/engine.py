@@ -1,7 +1,7 @@
 """Engine façade: submit() -> handle, streaming callbacks.
 
 Counterpart of ``distributed_tensorflow_tpu/serve/engine.py`` without
-its metrics registry, tenancy, adapters or migration; ``paged=False``
+its metrics registry, request tracing and fault plans; ``paged=False``
 serves from contiguous per-slot stripes instead of the page pool::
 
     from distributed_tensorflow_tpu_torch import GPT, Engine, gpt_small
@@ -13,20 +13,33 @@ serves from contiguous per-slot stripes instead of the page pool::
     eng.drain()                     # or pump eng.step() yourself
     h.tokens                        # the generated ids (incl. EOS)
 
+Per-request LoRA adapters, admission and live migration::
+
+    eng = Engine(model, adapter_capacity=4, adapter_rank=16,
+                 max_queue_depth=64, tenancy=TenantPolicy(quotas))
+    eng.load_adapter("tuned", adapter)            # GPT.init_lora layout
+    h = eng.submit(ids, 64, adapter_id="tuned", tenant="a", deadline_s=2.0)
+    snaps = eng.export_inflight()                 # or drain(timeout_s=...)
+    h2 = other.import_request(snaps[0])           # resumes where it stopped
+
 The engine is synchronous: the caller pumps ``step()``/``drain()``.  It
 runs on the card unless built with ``device="cpu"``, and raises when
 asked for a card that is not there.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional, Union
 
 import torch
 
 from ..models.gpt import resolve_device
-from .scheduler import EngineStats, Request, SlotScheduler
+from .adapters import AdapterTable
+from .scheduler import (EngineStats, QueueFullError, Request,
+                        RequestSnapshot, SlotScheduler)
 
-__all__ = ["Engine", "EngineStats", "RequestHandle"]
+__all__ = ["DrainResult", "Engine", "EngineStats", "QueueFullError",
+           "RequestHandle", "RequestSnapshot"]
 
 
 class RequestHandle:
@@ -50,9 +63,19 @@ class RequestHandle:
         return self._req.done.is_set()
 
     @property
+    def tenant(self) -> str:
+        return self._req.tenant
+
+    @property
+    def adapter_id(self) -> Optional[str]:
+        return self._req.adapter_id
+
+    @property
     def status(self) -> str:
-        """``pending`` while in flight; then ``ok`` | ``failed`` |
-        ``cancelled``."""
+        """``pending`` while in flight; then ``ok`` |
+        ``deadline_exceeded`` | ``failed`` | ``cancelled`` | ``migrated``
+        (exported as a ``RequestSnapshot``); a non-ok handle keeps the
+        tokens delivered before it ended."""
         return self._req.status
 
     @property
@@ -79,6 +102,26 @@ class RequestHandle:
         return self.tokens
 
 
+class DrainResult:
+    """Outcome of ``Engine.drain``: truthy iff every request finished in
+    place.  A drain that ran out of time exports the stragglers instead
+    of leaving them pending: ``exported`` holds their snapshots, for
+    ``import_request`` here or on another engine."""
+
+    __slots__ = ("completed", "exported")
+
+    def __init__(self, completed: bool, exported=()):
+        self.completed = bool(completed)
+        self.exported: List[RequestSnapshot] = list(exported)
+
+    def __bool__(self) -> bool:
+        return self.completed
+
+    def __repr__(self) -> str:
+        return (f"DrainResult(completed={self.completed}, "
+                f"exported={len(self.exported)})")
+
+
 class Engine:
     """Continuous-batching serving engine over a paged (default) or
     contiguous KV cache.
@@ -86,33 +129,79 @@ class Engine:
     ``model`` is a port ``GPT`` on ``device`` (default ``"cuda"``).
     Keyword arguments go to ``SlotScheduler`` (num_slots, max_len,
     prefill_chunk, tick_steps, temperature/top_k/top_p, eos_id/pad_id,
-    generator, paged, page_size/num_pages);
-    ``default_max_new_tokens`` is the ``submit()`` budget when none is
-    given.
+    generator, paged, page_size/num_pages, prefix_cache); also:
+
+      default_max_new_tokens: the ``submit()`` budget when none is given.
+      max_queue_depth: ``submit``/``import_request`` raise
+        ``QueueFullError`` when this many requests already wait for
+        prefill (None: no bound).
+      default_deadline_s: the ``submit()`` deadline when none is given
+        (None: none).
+      tenancy: a ``fleet.TenantPolicy``: its quotas are checked at
+        ``submit`` (``QuotaExceededError``) and its deficit fair queue
+        replaces the FIFO.
+      adapter_capacity / adapter_rank: > 0 builds an ``AdapterTable`` of
+        that many rank-``adapter_rank`` LoRA adapters:
+        ``load_adapter()``, then ``submit(adapter_id=...)``; requests
+        without one ride the zero row and decode as an adapter-free
+        engine does.  0 (default): no table and no adapter work.
     """
 
     def __init__(self, model, *, device: Union[str, torch.device] = "cuda",
-                 default_max_new_tokens: int = 64, **scheduler_kwargs):
+                 default_max_new_tokens: int = 64,
+                 max_queue_depth: Optional[int] = None,
+                 default_deadline_s: Optional[float] = None,
+                 tenancy=None, adapter_capacity: int = 0,
+                 adapter_rank: int = 8, **scheduler_kwargs):
         device = resolve_device(device)
         if model.device.type != device.type or (
                 device.index is not None and model.device != device):
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {device}")
+        if max_queue_depth is not None and max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1; got {max_queue_depth}")
         self.device = model.device
         self.default_max_new_tokens = default_max_new_tokens
-        self.scheduler = SlotScheduler(model, **scheduler_kwargs)
+        self.default_deadline_s = default_deadline_s
+        self.tenancy = tenancy
+        self.adapters = (AdapterTable(model, adapter_capacity, adapter_rank)
+                         if adapter_capacity else None)
+        self.scheduler = SlotScheduler(
+            model, queue=tenancy.make_queue() if tenancy is not None
+            else None, adapters=self.adapters,
+            max_queue_depth=max_queue_depth, tenancy=tenancy,
+            **scheduler_kwargs)
 
     def stats(self) -> EngineStats:
         return self.scheduler.stats()
 
+    def load_adapter(self, adapter_id: str, adapter) -> None:
+        """Register a LoRA adapter (``GPT.init_lora`` layout) for
+        ``submit(adapter_id=...)``: a host copy now, the device copy at
+        its first use; re-loading a resident id replaces it for every
+        later device call (the hot update)."""
+        if self.adapters is None:
+            raise ValueError("engine built without adapters "
+                             "(adapter_capacity=0)")
+        self.adapters.register(adapter_id, adapter)
+
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               on_token: Optional[Callable[[List[int]], None]] = None
-               ) -> RequestHandle:
+               on_token: Optional[Callable[[List[int]], None]] = None,
+               deadline_s: Optional[float] = None,
+               tenant: str = "default",
+               adapter_id: Optional[str] = None) -> RequestHandle:
         """Queue one prompt ([plen] ids, any length) -> handle;
-        ``on_token`` streams each delivered token batch."""
+        ``on_token`` streams each delivered token batch.  Raises
+        ``QueueFullError`` at ``max_queue_depth`` and the tenancy
+        policy's ``QuotaExceededError`` over a quota; ``adapter_id``
+        selects a loaded adapter (``KeyError`` for an unknown one)."""
         req = self.scheduler.submit(
             prompt, max_new_tokens or self.default_max_new_tokens,
-            on_token=on_token)
+            on_token=on_token,
+            deadline_s=(deadline_s if deadline_s is not None
+                        else self.default_deadline_s),
+            tenant=tenant, adapter_id=adapter_id)
         return RequestHandle(req, self)
 
     @property
@@ -123,14 +212,107 @@ class Engine:
         """One scheduler tick; False when fully idle."""
         return self.scheduler.step()
 
-    def drain(self) -> None:
-        """Run until every submitted request has finished."""
-        self.scheduler.drain()
+    def drain(self, timeout_s: Optional[float] = None) -> DrainResult:
+        """Run until every submitted request has finished -> a truthy
+        ``DrainResult``.  With ``timeout_s``, the requests still in
+        flight when it runs out are exported (their handles end
+        ``migrated``, the engine is left idle) and the falsy result
+        carries their snapshots."""
+        if timeout_s is None:
+            self.scheduler.drain()
+            return DrainResult(True)
+        deadline = time.perf_counter() + timeout_s
+        while self.scheduler.busy:
+            if time.perf_counter() >= deadline:
+                snaps = self.scheduler.export_all()
+                return DrainResult(not snaps, snaps)
+            self.scheduler.step()
+        return DrainResult(True)
 
     def cancel(self, handle: RequestHandle) -> bool:
         """Abort one request (status ``cancelled``); False if it already
         finished."""
         return self.scheduler.cancel(handle._req)
+
+    # ------------------------------------------------- live migration
+
+    def export_request(self, handle: Union[RequestHandle, int],
+                       timeout_s: Optional[float] = None
+                       ) -> RequestSnapshot:
+        """Export one in-flight request (a handle or its rid) as a
+        ``RequestSnapshot`` and retire it here ``migrated``; another
+        engine's ``import_request`` resumes it.  ``timeout_s`` bounds the
+        wait for the running tick (the export is then ``clean=False``).
+        Raises ``KeyError`` for an unknown rid, ``RuntimeError`` for a
+        request already terminal."""
+        if isinstance(handle, RequestHandle):
+            req = handle._req
+        else:
+            req = self.scheduler.find(int(handle))
+            if req is None:
+                raise KeyError(f"no in-flight request with rid {handle}")
+        return self.scheduler.export(req, timeout_s=timeout_s)
+
+    def export_inflight(self, timeout_s: Optional[float] = None
+                        ) -> List[RequestSnapshot]:
+        """Export every in-flight request (rid order), leaving the engine
+        idle."""
+        return self.scheduler.export_all(timeout_s=timeout_s)
+
+    def export_wire_pages(self, snap: RequestSnapshot,
+                          timeout_s: Optional[float] = None) -> list:
+        """The KV pages behind ``snap``'s shipped-pages manifest, read off
+        this engine's card: ``[(chunk_index, chain_hash, payload)]``, the
+        payload a CPU tensor per pool leaf, ready for
+        ``fleet.pagewire.frame_chunk``.  Call after ``export_request``,
+        whose handoff published the pages (a page evicted since simply
+        does not ship).  [] without a manifest, on a contiguous engine,
+        for an adapter this engine no longer holds, or with the pump
+        busy past ``timeout_s``."""
+        manifest = snap.shipped_pages
+        ns = self._namespace(snap.adapter_id)
+        if not manifest or ns is None:
+            return []
+        return self.scheduler.export_chain_pages(
+            snap.context[:int(manifest[-1][1])], timeout_s=timeout_s,
+            namespace=ns)
+
+    def import_wire_pages(self, snap: RequestSnapshot, records,
+                          timeout_s: Optional[float] = 5.0) -> int:
+        """Splice shipped pages (``PageRecord``s) for ``snap`` into this
+        engine's pool BEFORE ``import_request``, so that the resumed
+        prefill matches them and skips their windows.  Returns the chunks
+        adopted; 0 (re-prefill) for another page size, an alien layout or
+        chain, an adapter not loaded here (load it first: its pages are
+        matched under its weights' digest), a full pool or a pump busy
+        past ``timeout_s``."""
+        ns = self._namespace(snap.adapter_id)
+        if ns is None or not snap.page_size \
+                or snap.page_size != self.scheduler.page_size:
+            return 0
+        return self.scheduler.import_wire_pages(snap.context, records,
+                                                timeout_s=timeout_s,
+                                                namespace=ns)
+
+    def _namespace(self, adapter_id: Optional[str]) -> Optional[bytes]:
+        """The prefix namespace of a snapshot's adapter here (``b""``
+        without one); None when this engine does not hold that adapter,
+        so that no page of it can be matched."""
+        if adapter_id is None:
+            return b""
+        if self.adapters is None or not self.adapters.known(adapter_id):
+            return None
+        return self.adapters.namespace(adapter_id)
+
+    def import_request(self, snap: RequestSnapshot,
+                       on_token: Optional[Callable[[List[int]], None]]
+                       = None) -> RequestHandle:
+        """Resume an exported request here -> handle.  Admission as in
+        ``submit``, charged at the remaining budget; ``on_token`` streams
+        only tokens beyond the snapshot's ``stream_offset``; the handle's
+        ``tokens`` are the full sequence."""
+        return RequestHandle(
+            self.scheduler.import_snapshot(snap, on_token=on_token), self)
 
     def generate_batch(self, prompts,
                        max_new_tokens: Optional[int] = None

@@ -30,8 +30,17 @@ re-prefills its last page into a private copy (the COW split,
 The pool also keeps a bounded digest of its hot chains (chain hash ->
 cached tokens, ``fingerprint``), updated where the tree changes.
 
-Not ported yet: the export/page-wire lease handoff (``handoff``,
-``chain_pages``).
+Namespaces: K/V depend on the LoRA adapter a request decodes under (its
+k and v deltas), so the tree has one root per namespace (``b""`` for no
+adapter; the scheduler passes an adapter's content digest) and a chain
+never crosses namespaces.  A namespace's chain hashes start from its own
+root hash, so shipped pages are matched within their namespace too.
+(The JAX package keeps one tree for all adapters.)
+
+Migration: an exported request's lease is handed off (``handoff``): its
+final full pages are published into the tree before the lease is
+released, so a re-import here skips those windows, and the page wire
+reads them back by chain (``chain_pages``).
 """
 from __future__ import annotations
 
@@ -58,19 +67,26 @@ def _chain_hash(parent_chain: bytes, chunk: bytes) -> bytes:
     return hashlib.blake2b(parent_chain + chunk, digest_size=8).digest()
 
 
-def prompt_chain_keys(prompt, page_size: int
+def _root_chain(namespace: bytes) -> bytes:
+    """The chain hash a namespace's root starts from (``b""`` for the
+    default namespace, so its keys are the JAX package's)."""
+    return _chain_hash(b"", b"namespace:" + namespace) if namespace else b""
+
+
+def prompt_chain_keys(prompt, page_size: int, namespace: bytes = b""
                       ) -> Tuple[Tuple[bytes, int], ...]:
     """The request-side half of the prefix fingerprint: ``(chain hash,
     tokens covered)`` for every full ``page_size``-token chunk prefix
-    of ``prompt`` — exactly the keys ``PagePool.register`` publishes,
-    so ``fingerprint.get(key)`` answers "how many of this prompt's
-    leading tokens does that replica already hold"."""
+    of ``prompt`` under ``namespace`` — exactly the keys
+    ``PagePool.register`` publishes, so ``fingerprint.get(key)`` answers
+    "how many of this prompt's leading tokens does that replica already
+    hold"."""
     pg = int(page_size)
     if pg < 1:
         return ()
     prompt = np.asarray(prompt, np.int32).reshape(-1)
     out = []
-    chain = b""
+    chain = _root_chain(namespace)
     for j in range(prompt.size // pg):
         chain = _chain_hash(chain, prompt[j * pg:(j + 1) * pg].tobytes())
         out.append((chain, (j + 1) * pg))
@@ -134,17 +150,21 @@ def paged_kv_valid(cache, view_len: int) -> torch.Tensor:
 
 
 def decode_paged_step(model, cache, page_tab: torch.Tensor,
-                      tokens: torch.Tensor, live: torch.Tensor):
+                      tokens: torch.Tensor, live: torch.Tensor,
+                      adapters=None,
+                      adapter_rows: Optional[torch.Tensor] = None):
     """One decode step for every slot against the page pool -> (logits
     [S, vocab], new cache).  ``page_tab`` [S, pages_per_slot] int32 is
     this tick's page-table snapshot (retired rows map the trash page);
-    ``live`` [S] bool advances only live rows' column state.  The pool
-    is written in place."""
+    ``live`` [S] bool advances only live rows' column state;
+    ``adapters``/``adapter_rows`` [S]: per-slot LoRA adapters (None: no
+    adapter work).  The pool is written in place."""
     page_size = cache["kv"]["k"].shape[2]
     view_len = page_tab.shape[1] * page_size
     logits, kv = model.decode_step_slots_paged(
         cache["kv"], tokens, page_tab, cache["write_col"],
-        paged_kv_valid(cache, view_len), cache["positions"])
+        paged_kv_valid(cache, view_len), cache["positions"],
+        adapters=adapters, adapter_rows=adapter_rows)
     live = live.to(torch.int32)
     return logits, {
         "kv": kv,
@@ -186,16 +206,18 @@ class PageLease:
     at admission, released (idempotently) at retirement/cancel."""
 
     __slots__ = ("row", "n_pages", "skip", "shared", "private",
-                 "released")
+                 "released", "namespace")
 
     def __init__(self, row: np.ndarray, n_pages: int, skip: int,
-                 shared: List[_RadixNode], private: List[int]):
+                 shared: List[_RadixNode], private: List[int],
+                 namespace: bytes = b""):
         self.row = row                   # [pages_per_slot] int32
         self.n_pages = n_pages           # mapped entries (shared+private)
         self.skip = skip                 # prefix tokens mapped shared
         self.shared = shared             # radix nodes we hold a ref on
         self.private = private           # pool pages we own outright
         self.released = False
+        self.namespace = namespace       # the tree it matched and publishes
 
 
 class PagePool:
@@ -231,6 +253,8 @@ class PagePool:
         # page 0 is the reserved trash page — never allocated
         self._free: List[int] = list(range(1, num_pages))
         self._root = _RadixNode(0, None, b"", 0)
+        # namespace -> root (the default namespace's is ``_root``)
+        self._roots: Dict[bytes, _RadixNode] = {b"": self._root}
         self._stamp = 0
         # live-lease accounting for the pages_per_request gauge
         self._lease_count = 0
@@ -254,7 +278,15 @@ class PagePool:
         validation bound: one request may never need more."""
         return self.num_pages - 1
 
-    def begin(self, prompt: np.ndarray, total_cols: int) -> PageLease:
+    def _root_locked(self, namespace: bytes) -> _RadixNode:
+        root = self._roots.get(namespace)
+        if root is None:
+            root = self._roots[namespace] = _RadixNode(0, None, b"", 0)
+            root.chain = _root_chain(namespace)
+        return root
+
+    def begin(self, prompt: np.ndarray, total_cols: int,
+              namespace: bytes = b"") -> PageLease:
         """Start one request: match its prompt against the radix tree
         (full ``page_size`` chunks only, always leaving at least one
         token to prefill so the last window can produce logits), pin
@@ -262,7 +294,8 @@ class PagePool:
         return the lease with its page-table row.
 
         ``total_cols``: columns the request will ever write (prompt +
-        decode budget).  Raises ``PagePoolExhausted`` — with every
+        decode budget); ``namespace``: the tree to match in (and that
+        ``register`` publishes to).  Raises ``PagePoolExhausted`` — with every
         acquired ref rolled back — when not enough pages are free or
         evictable."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -276,7 +309,7 @@ class PagePool:
         with self._lock:
             self.prefix_lookups += 1
             shared: List[_RadixNode] = []
-            node = self._root
+            node = self._root_locked(namespace)
             chunks = plen // pg if self.prefix_cache else 0
             for j in range(chunks):
                 child = node.children.get(
@@ -315,7 +348,7 @@ class PagePool:
             for j, n in enumerate(shared):
                 row[j] = n.page
             row[len(shared):total] = private
-            lease = PageLease(row, total, skip, shared, private)
+            lease = PageLease(row, total, skip, shared, private, namespace)
             self._lease_count += 1
             self._lease_pages += total
             return lease
@@ -334,7 +367,7 @@ class PagePool:
         with self._lock:
             if lease.released:
                 return               # cancelled before admission landed
-            node = self._root
+            node = self._root_locked(lease.namespace)
             stamp = self._next_stamp()
             for j in range(prompt.size // pg):
                 key = prompt[j * pg:(j + 1) * pg].tobytes()
@@ -359,6 +392,49 @@ class PagePool:
                 # while followers match at the shared shallow depths
                 self._fp_touch_locked(child.chain, (j + 1) * pg, stamp)
 
+
+    def handoff(self, lease: PageLease, context: np.ndarray) -> int:
+        """Export-path lease handoff: publish the lease's FINAL full-chunk
+        pages for ``context`` (the request's context plus the generated
+        tokens whose K/V are written; the caller truncates it to the
+        columns the device has finished) into the radix tree, then
+        release the lease.  A re-import into this engine then matches the
+        chain and re-prefills only the unpublished tail.  Returns the
+        pages published (0 with the prefix cache off, where this is a
+        plain release)."""
+        published = 0
+        if self.prefix_cache and not lease.released:
+            before = len(lease.shared)
+            self.register(lease, context)
+            published = len(lease.shared) - before
+        self.release(lease)
+        return published
+
+    def chain_pages(self, context: np.ndarray,
+                    namespace: bytes = b"") -> list:
+        """The radix chain covering ``context``'s full chunks in
+        ``namespace``:
+        ``[(chunk_index, page, chain_hash)]`` down the tree, stopping at
+        the first unmatched chunk.  The page wire's sender-side lookup:
+        the caller reads the pages while holding the scheduler's pump
+        lock, which also serialises every eviction (they run inside
+        ``begin``), so the pages cannot be recycled under the read.
+        Empty with the prefix cache off."""
+        if not self.prefix_cache:
+            return []
+        context = np.asarray(context, np.int32).reshape(-1)
+        pg = self.page_size
+        out = []
+        with self._lock:
+            node = self._roots.get(namespace)
+            for j in range(context.size // pg if node else 0):
+                child = node.children.get(
+                    context[j * pg:(j + 1) * pg].tobytes())
+                if child is None:
+                    break
+                out.append((j, int(child.page), child.chain))
+                node = child
+        return out
 
     def release(self, lease: PageLease) -> None:
         """Return a lease's holdings: shared pins drop (the chain stays
@@ -399,7 +475,8 @@ class PagePool:
         descendant still chains through it; pinned nodes are
         untouchable)."""
         best: Optional[_RadixNode] = None
-        stack = list(self._root.children.values())
+        stack = [n for root in self._roots.values()
+                 for n in root.children.values()]
         while stack:
             node = stack.pop()
             if node.children:
@@ -410,6 +487,11 @@ class PagePool:
         if best is None:
             return False
         del best.parent.children[best.key]
+        if best.parent.parent is None and not best.parent.children \
+                and best.parent is not self._root:
+            # an emptied namespace root holds no page: drop it
+            self._roots = {ns: r for ns, r in self._roots.items()
+                           if r is not best.parent}
         self._free.append(best.page)
         self._fingerprint.pop(best.chain, None)
         self.evictions += 1

@@ -16,6 +16,22 @@ Request lifecycle::
     QUEUED --admission--> PREFILLING --last window--> ACTIVE --> FINISHED
                 (free slot)   (chunked)    (first token)  (EOS/budget)
 
+Admission: ``submit`` checks the queue depth (``QueueFullError``) and the
+tenancy policy's quotas, and enqueues, as one decision under ``_lock``;
+a tenancy policy's fair queue (``fleet/tenancy.py``) replaces the FIFO.
+A request past its deadline retires ``deadline_exceeded`` at the next
+tick, wherever it is.  With an adapter table (``serve/adapters.py``)
+each request pins its LoRA adapter's row at prefill begin, before its
+pages; a full table requeues it with nothing held.
+
+Migration: any in-flight request exports as a host-only
+``RequestSnapshot`` (``export``/``export_all``) and resumes on another
+engine (``import_snapshot``): prefill runs over its context, ``prompt +
+generated``, and decode continues where the source stopped.  On a paged
+engine the export hands the request's final full pages to the radix
+tree, and the page wire (``export_chain_pages``/``import_wire_pages``)
+carries them to another pool, whose re-prefill then skips them.
+
 All device work goes through three methods, the JAX package's three
 jitted programs of each layout run eagerly:
 
@@ -44,9 +60,9 @@ in short sections that never span device work or a callback.  A
 cross-thread ``cancel`` of an active row marks it stale and the pump
 freezes it at the next tick.
 
-Not ported yet: adapters/LoRA, tenancy, deadlines,
-critical-path and request tracing, fault plans, export/import and the
-page wire.
+Not ported yet: the metrics registry, request tracing and
+critical-path accounting (``trace_id``/``critpath`` stay None on
+snapshots), fault plans and the pump heartbeat.
 """
 from __future__ import annotations
 
@@ -54,7 +70,7 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,21 +78,42 @@ import torch
 from ..ops import decoding as dec
 from . import pages as pages_lib
 from . import slots as slots_lib
+from .adapters import AdapterTableFull
 
-__all__ = ["EngineStats", "Request", "SlotScheduler"]
+__all__ = ["EngineStats", "QueueFullError", "Request", "RequestSnapshot",
+           "SlotScheduler"]
+
+
+class QueueFullError(RuntimeError):
+    """``submit``/``import_snapshot`` rejected: the queue is at
+    ``max_queue_depth``.  Backpressure: retry after requests retire."""
 
 
 @dataclasses.dataclass
 class Request:
     """One in-flight generation request (host-side bookkeeping).
     ``status``: ``"pending"`` while in flight, then ``"ok"`` |
-    ``"failed"`` | ``"cancelled"``."""
+    ``"deadline_exceeded"`` | ``"failed"`` | ``"cancelled"`` |
+    ``"migrated"`` (exported as a ``RequestSnapshot``).  ``deadline`` is
+    an absolute ``perf_counter`` instant, checked once a tick.
+    ``tenant`` attributes the request for quotas and fair share;
+    ``adapter_id`` names its LoRA adapter, pinned at table row
+    ``adapter_row`` from prefill begin to retirement.
+
+    Migration: ``context`` is what prefill runs over, the prompt plus
+    the tokens generated on a source engine (the prompt for a fresh
+    submit); ``resumed`` counts those pre-seeded tokens; ``token_cost``
+    is what tenancy charged at admission (the remaining budget)."""
     rid: int
     prompt: np.ndarray                       # [plen] int32
     max_new_tokens: int
     on_token: Optional[Callable[[List[int]], None]] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     submit_time: float = 0.0
+    deadline: Optional[float] = None
+    tenant: str = "default"
+    adapter_id: Optional[str] = None
+    adapter_row: Optional[int] = None
     status: str = "pending"
     error: Optional[BaseException] = None
     first_token_time: Optional[float] = None
@@ -89,6 +126,19 @@ class Request:
     # at retirement
     _lease: Optional[pages_lib.PageLease] = dataclasses.field(
         default=None, repr=False)
+    context: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                      repr=False)
+    resumed: int = 0
+    token_cost: int = 0
+    # the page pool's prefix namespace (its adapter's weights digest,
+    # b"" without one), fixed when the adapter is pinned
+    prefix_ns: bytes = dataclasses.field(default=b"", repr=False)
+
+    @property
+    def remaining_budget(self) -> int:
+        """Tokens this engine still owes (``max_new_tokens`` for a fresh
+        submit, the unserved tail for an import)."""
+        return self.max_new_tokens - self.resumed
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -97,14 +147,65 @@ class Request:
         return self.first_token_time - self.submit_time
 
 
+@dataclasses.dataclass
+class RequestSnapshot:
+    """A portable host-side snapshot of one in-flight request: the unit
+    of live migration (the JAX package's ``RequestSnapshot``, field for
+    field).
+
+    It holds no device state: the destination rebuilds the KV cache by
+    prefilling ``prompt + generated``, then decodes on.  ``generated``
+    pre-seeds the new request's tokens, so the destination's callbacks
+    fire only beyond ``stream_offset`` (exactly-once delivery).
+    ``max_new_tokens`` stays the original total budget across hops;
+    ``deadline_remaining_s`` is relative, so it survives a host change;
+    ``sampling`` is the source's sampling config, and an engine with
+    another refuses the import.  ``clean`` is False for an export that
+    did not wait for the pump.  ``shipped_pages`` is the page wire's
+    manifest: ``(chain hash, tokens covered)`` of every full chunk the
+    export handed to the source's radix tree, with that pool's
+    ``page_size``; a hint only, correctness never depends on it.
+    ``trace_id`` and ``critpath`` exist for the reference's field set and
+    stay None here (the port has no request tracing yet)."""
+    rid: int
+    prompt: np.ndarray                       # [plen] int32, the original
+    generated: List[int]                     # tokens delivered so far
+    max_new_tokens: int                      # original total budget
+    stream_offset: int                       # == len(generated)
+    tenant: str = "default"
+    adapter_id: Optional[str] = None
+    deadline_remaining_s: Optional[float] = None
+    sampling: Optional[dict] = None          # source sampling config
+    clean: bool = True                       # pump-quiesced export
+    trace_id: Optional[str] = None
+    critpath: Optional[dict] = None
+    shipped_pages: Optional[Tuple[Tuple[bytes, int], ...]] = None
+    page_size: int = 0                       # source pool's page size
+
+    @property
+    def context(self) -> np.ndarray:
+        """``prompt + generated``: what the destination prefills."""
+        prompt = np.asarray(self.prompt, np.int32).reshape(-1)
+        if not self.generated:
+            return prompt
+        return np.concatenate([prompt,
+                               np.asarray(self.generated, np.int32)])
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
-    """Snapshot of one engine's load and page-pool counters (all 0 on a
-    contiguous engine)."""
+    """Snapshot of one engine's load, its per-tenant in-flight counts
+    (queued + prefilling + active requests, and the sum of their charged
+    token budgets) and its page-pool counters (all 0 on a contiguous
+    engine)."""
     queued: int
     prefilling: int
     active: int
     num_slots: int
+    inflight_per_tenant: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    tokens_inflight_per_tenant: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
     pages_total: int = 0
     pages_free: int = 0
     pages_per_request: float = 0.0
@@ -117,11 +218,17 @@ class EngineStats:
     page_size: int = 0
 
     @property
+    def inflight(self) -> int:
+        return self.queued + self.prefilling + self.active
+
+    @property
     def prefix_hit_rate(self) -> float:
         """Fraction of prefix lookups that mapped at least one page."""
         if not self.prefix_lookups_total:
             return 0.0
         return self.prefix_hits_total / self.prefix_lookups_total
+
+
 
 
 class SlotScheduler:
@@ -132,8 +239,16 @@ class SlotScheduler:
     ``drain()``.  ``paged`` (default True) picks the page pool; False the
     contiguous stripes.  Paged only: ``page_size`` defaults to
     ``auto_page_size(max_len, 16)``; ``num_pages`` to ``num_slots`` full
-    slots plus the trash page.  ``generator`` feeds the sampled path
-    (``temperature > 0``).
+    slots plus the trash page; ``prefix_cache=False`` turns off the radix
+    tree (and with it the export handoff and the page wire).
+    ``generator`` feeds the sampled path (``temperature > 0``).
+
+    Admission: ``queue`` replaces the FIFO (any object with append/
+    popleft/remove/__len__/__iter__/__contains__, optionally requeue and
+    release: ``fleet.tenancy.DeficitFairQueue``); ``max_queue_depth``
+    bounds the queue; ``tenancy`` (``TenantPolicy``) checks quotas.
+    ``adapters``: an ``AdapterTable`` for per-request LoRA adapters; None
+    keeps every forward adapter-free.
     """
 
     def __init__(self, model, *, num_slots: int = 8,
@@ -142,8 +257,11 @@ class SlotScheduler:
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  eos_id: Optional[int] = None, pad_id: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
+                 queue=None, adapters=None,
+                 max_queue_depth: Optional[int] = None, tenancy=None,
                  paged: bool = True, page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None,
+                 prefix_cache: bool = True):
         c = model.config
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1; got {num_slots}")
@@ -179,13 +297,21 @@ class SlotScheduler:
         self.eos_id = eos_id
         self.pad_id = dec.resolve_pad(eos_id, pad_id)
         self._pad = self.pad_id if self.pad_id is not None else 0
+        # the sampling config under the JAX package's keys, stamped on
+        # exported snapshots so that an engine with another refuses them
+        self._sampling = dict(temperature=self.temperature, top_k=top_k,
+                              top_p=top_p, eos_id=eos_id)
         self.generator = generator
+        self.adapters = adapters
+        self.max_queue_depth = max_queue_depth
+        self.tenancy = tenancy
         self.page_size = page_size
         self.num_pages = int(num_pages)
         self.pages: Optional[pages_lib.PagePool] = None
         self._page_tab: Optional[np.ndarray] = None
         if self.paged:
-            self.pages = pages_lib.PagePool(self.num_pages, page_size, pps)
+            self.pages = pages_lib.PagePool(self.num_pages, page_size, pps,
+                                            prefix_cache=prefix_cache)
             self._page_tab = np.zeros((num_slots, pps), np.int32)
         self._windows_skipped = 0
         self._next_rid = 0
@@ -193,15 +319,19 @@ class SlotScheduler:
         self._pump_lock = threading.Lock()
         self._stale_rows: set = set()
         self._orphans: List[list] = []
-        self._queue: collections.deque = collections.deque()
+        self._queue = queue if queue is not None else collections.deque()
         self._slots: List[Optional[Request]] = [None] * num_slots
-        # in-flight prefills: [req, windows [n, 1, W], next index,
+        # in-flight prefills: [req, windows [n, 1, W], windows done,
         # payload]; the payload is the page lease (paged) or the
         # request's batch-1 prefill cache (contiguous)
         self._prefills: List[list] = []
         # contiguous: spare batch-1 prefill caches, reused across requests
         # (a stale column is masked by the slot's validity window)
         self._pf_pool: List[dict] = []
+        # per-tenant in-flight requests and charged token budgets: what
+        # quotas check and stats() reports
+        self._tenant_inflight: Dict[str, int] = {}
+        self._tenant_tokens: Dict[str, int] = {}
 
         # -- device state -------------------------------------------------
         dev = self.device
@@ -216,6 +346,11 @@ class SlotScheduler:
                                     device=dev)          # empty = finished
         self._remaining = torch.zeros((num_slots,), dtype=torch.int32,
                                       device=dev)
+        # each slot's adapter table row (0, the zero adapter, when empty),
+        # set at admission
+        self._adapter_rows = (torch.zeros((num_slots,), dtype=torch.int32,
+                                          device=dev)
+                              if adapters is not None else None)
 
     # ------------------------------------------- the three device programs
 
@@ -226,7 +361,21 @@ class SlotScheduler:
     def _page_row(self, lease: pages_lib.PageLease) -> torch.Tensor:
         return torch.from_numpy(lease.row).to(self.device)
 
-    def _win_mid(self, window: np.ndarray, payload, pos: int):
+    def _adapter_args(self, req: Optional[Request] = None) -> dict:
+        """The adapter keyword arguments of one device call: none without
+        a table; else the table as it is now (a hot update rebinds it, so
+        it is read once a call) and the rows, one request's (a prefill
+        window) or every slot's (a tick)."""
+        if self.adapters is None:
+            return {}
+        if req is None:
+            rows = self._adapter_rows
+        else:
+            rows = torch.tensor([req.adapter_row], dtype=torch.int32,
+                                device=self.device)
+        return {"adapters": self.adapters.arrays, "adapter_rows": rows}
+
+    def _win_mid(self, window: np.ndarray, payload, pos: int, ad: dict):
         """Mid prefill window: paged, straight into the request's pages at
         ``pos``; contiguous, into its prefill cache (whose own ``pos``
         is that column).  Returns the payload to carry on."""
@@ -234,15 +383,15 @@ class SlotScheduler:
         if self.paged:
             self.model.decode_window_paged(
                 self._cache["kv"], ids, self._page_row(payload), pos,
-                head="none")
+                head="none", **ad)
             return payload
-        return self.model.decode_window(payload, ids, head="none")[1]
+        return self.model.decode_window(payload, ids, head="none", **ad)[1]
 
     def _last_admit(self, window: np.ndarray, payload, pos: int,
                     last_idx: int, slot: int, length: int,
-                    budget: int) -> torch.Tensor:
+                    budget: int, ad: dict) -> torch.Tensor:
         """Last prefill window + first-token sample + slot arming.  Paged:
-        no splice, the prompt's K/V already live in the request's pages
+        no splice, the context's K/V already live in the request's pages
         and admission points the slot's column state at them (the
         page-table row is host state, handed to the next tick).
         Contiguous: the prefill cache's row is spliced into the slot.
@@ -251,10 +400,10 @@ class SlotScheduler:
         if self.paged:
             logits, _ = self.model.decode_window_paged(
                 self._cache["kv"], ids, self._page_row(payload), pos,
-                head=last_idx)
+                head=last_idx, **ad)
         else:
             logits, payload = self.model.decode_window(payload, ids,
-                                                       head=last_idx)
+                                                       head=last_idx, **ad)
         tok = self._sample(logits)                       # [1]
         self._tokens[slot] = tok[0]
         done0 = torch.full_like(self._finished[slot], budget <= 1)
@@ -272,9 +421,10 @@ class SlotScheduler:
                                   slots_lib.strip_pos(payload), length)
         return tok
 
-    def _tick(self, page_tab: Optional[torch.Tensor]):
+    def _tick(self, page_tab: Optional[torch.Tensor], ad: dict):
         """``tick_steps`` decode steps (``page_tab``: the paged layout's
-        table snapshot, None when contiguous); returns (emitted [K, S],
+        table snapshot, None when contiguous; ``ad``: the adapter table
+        and rows, read once for the whole tick); returns (emitted [K, S],
         live [K, S]) on the device."""
         cache, tokens = self._cache, self._tokens
         finished, remaining = self._finished, self._remaining
@@ -283,10 +433,10 @@ class SlotScheduler:
             live = ~finished
             if self.paged:
                 logits, cache = pages_lib.decode_paged_step(
-                    self.model, cache, page_tab, tokens, live)
+                    self.model, cache, page_tab, tokens, live, **ad)
             else:
                 logits, cache = slots_lib.decode_slots_step(
-                    self.model, cache, tokens, live)
+                    self.model, cache, tokens, live, **ad)
             nxt = self._sample(logits)
             if self.eos_id is not None:
                 nxt, finished = dec.finish_step(nxt, finished, self.eos_id,
@@ -302,32 +452,89 @@ class SlotScheduler:
 
     # ------------------------------------------------------------- intake
 
+    def _check_fits(self, what: str, clen: int, budget: int) -> None:
+        padded = -(-clen // self.prefill_chunk) * self.prefill_chunk
+        if clen + budget > self.max_len or padded > self.max_len:
+            raise ValueError(
+                f"{what} ({clen}, chunk-padded {padded}) + budget "
+                f"({budget}) exceeds max_len {self.max_len}")
+
+    def _check_adapter(self, adapter_id: Optional[str]) -> None:
+        if adapter_id is None:
+            return
+        if self.adapters is None:
+            raise ValueError("adapter_id requires an engine built with an "
+                             "adapter table (adapter_capacity > 0)")
+        if not self.adapters.known(adapter_id):
+            raise KeyError(f"unknown adapter_id {adapter_id!r}; "
+                           "load_adapter() it first")
+
+    def _admit_locked(self, tenant: str, cost: int) -> None:
+        """Queue depth, then quota (the caller holds ``_lock``, so that
+        the checks and the enqueue after them are one decision)."""
+        if self.max_queue_depth is not None \
+                and len(self._queue) >= self.max_queue_depth:
+            raise QueueFullError(
+                f"queue at max_queue_depth={self.max_queue_depth}; "
+                "retry after in-flight requests retire")
+        if self.tenancy is not None:
+            self.tenancy.check_admission(
+                tenant, cost,
+                inflight=self._tenant_inflight.get(tenant, 0),
+                tokens_inflight=self._tenant_tokens.get(tenant, 0))
+
     def submit(self, prompt, max_new_tokens: int,
-               on_token: Optional[Callable[[List[int]], None]] = None
-               ) -> Request:
+               on_token: Optional[Callable[[List[int]], None]] = None,
+               deadline_s: Optional[float] = None,
+               tenant: str = "default",
+               adapter_id: Optional[str] = None) -> Request:
         """Queue one request.  ``prompt``: [plen] int token ids.  The
         prompt + ``max_new_tokens`` must fit ``max_len``, and so must the
-        chunk-padded prompt."""
+        chunk-padded prompt.  ``deadline_s``: wall-clock budget from now
+        (retired ``deadline_exceeded`` at the first tick past it);
+        ``tenant``: for quotas and fair share; ``adapter_id``: a
+        registered LoRA adapter (unknown ids fail here)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        plen = prompt.size
-        if plen < 1:
+        if prompt.size < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1; got {max_new_tokens}")
-        padded = -(-plen // self.prefill_chunk) * self.prefill_chunk
-        if plen + max_new_tokens > self.max_len or padded > self.max_len:
-            raise ValueError(
-                f"prompt ({plen}, chunk-padded {padded}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds max_len {self.max_len}")
+        if deadline_s is not None and deadline_s < 0:
+            raise ValueError(f"deadline_s must be >= 0; got {deadline_s}")
+        self._check_adapter(adapter_id)
+        self._check_fits("prompt", prompt.size, max_new_tokens)
+        now = time.perf_counter()
+        tenant = str(tenant)
         with self._lock:
+            self._admit_locked(tenant, int(max_new_tokens))
             req = Request(rid=self._next_rid, prompt=prompt,
                           max_new_tokens=int(max_new_tokens),
-                          on_token=on_token,
-                          submit_time=time.perf_counter())
+                          on_token=on_token, submit_time=now,
+                          deadline=(None if deadline_s is None
+                                    else now + deadline_s),
+                          tenant=tenant, adapter_id=adapter_id,
+                          context=prompt, token_cost=int(max_new_tokens))
             self._next_rid += 1
-            self._queue.append(req)
+            self._enqueue_locked(req)
         return req
+
+    def _enqueue_locked(self, req: Request) -> None:
+        """Enqueue and count the request against its tenant (the caller
+        holds ``_lock``); shared by ``submit`` and ``import_snapshot``."""
+        self._queue.append(req)
+        t = req.tenant
+        self._tenant_inflight[t] = self._tenant_inflight.get(t, 0) + 1
+        self._tenant_tokens[t] = self._tenant_tokens.get(t, 0) \
+            + req.token_cost
+
+    def _requeue(self, req: Request) -> None:
+        """Put a popped but unstartable request back at the FRONT (a fair
+        queue refunds its deficit charge); the caller holds ``_lock``."""
+        if hasattr(self._queue, "requeue"):
+            self._queue.requeue(req)
+        else:
+            self._queue.appendleft(req)
 
     # ---------------------------------------------------------- the tick
 
@@ -343,6 +550,8 @@ class SlotScheduler:
                         prefilling=len(self._prefills),
                         active=sum(r is not None for r in self._slots),
                         num_slots=self.num_slots,
+                        inflight_per_tenant=dict(self._tenant_inflight),
+                        tokens_inflight_per_tenant=dict(self._tenant_tokens),
                         prefill_windows_skipped_total=self._windows_skipped)
         if self.paged:
             p = self.pages.stats()
@@ -355,9 +564,9 @@ class SlotScheduler:
         return EngineStats(**base)
 
     def step(self) -> bool:
-        """One tick: start prefills for free slots, advance every
-        in-flight prefill by one window, then one decode run over the
-        slots.  Returns False when fully idle."""
+        """One tick: retire expired deadlines, start prefills for free
+        slots, advance every in-flight prefill by one window, then one
+        decode run over the slots.  Returns False when fully idle."""
         with self._pump_lock:
             return self._step_locked()
 
@@ -366,6 +575,7 @@ class SlotScheduler:
         outbox: List[tuple] = []     # tick-ordered deliveries/finishes
         self._harvest_orphans()
         self._freeze_stale_rows()
+        self._expire_deadlines()
         while True:
             with self._lock:
                 req = None
@@ -376,11 +586,12 @@ class SlotScheduler:
                 break
             try:
                 st = self._begin_prefill(req)
-            except pages_lib.PagePoolExhausted:
-                # every page is pinned by an in-flight request: requeue
-                # (a retirement frees pages, so this always drains)
+            except (AdapterTableFull, pages_lib.PagePoolExhausted):
+                # every adapter row or page is pinned by an in-flight
+                # request: requeue (a retirement frees pins and pages, so
+                # this always drains) and stop admitting this tick
                 with self._lock:
-                    self._queue.appendleft(req)
+                    self._requeue(req)
                 break
             with self._lock:
                 self._prefills.append(st)
@@ -435,36 +646,92 @@ class SlotScheduler:
         if stale:
             self._finished[torch.tensor(stale, device=self.device)] = True
 
+    def _expire_deadlines(self) -> None:
+        """Retire every request past its deadline, wherever it is: queued,
+        mid-prefill (its lease released at retirement, or its cache
+        pooled) or active (its row frozen, its page-table row on the trash
+        page).  Runs once a tick, on the pump."""
+        now = time.perf_counter()
+
+        def expired(req):
+            return req is not None and req.deadline is not None \
+                and now > req.deadline and not req.done.is_set()
+
+        aborts: List[Request] = []
+        rows: List[int] = []
+        with self._lock:
+            for req in [r for r in self._queue if expired(r)]:
+                self._queue.remove(req)
+                aborts.append(req)
+            still = []
+            for st in self._prefills:
+                if expired(st[0]):
+                    if not self.paged:
+                        self._pool_prefill_cache(st[3])
+                    aborts.append(st[0])
+                else:
+                    still.append(st)
+            self._prefills = still
+            for r, req in enumerate(self._slots):
+                if expired(req):
+                    self._slots[r] = None
+                    if self.paged:
+                        self._page_tab[r] = 0
+                    rows.append(r)
+                    aborts.append(req)
+        if rows:
+            self._finished[torch.tensor(rows, device=self.device)] = True
+        for req in aborts:
+            self._abort(req, "deadline_exceeded")
+
     # ---------------------------------------------------------- prefill
 
     def _begin_prefill(self, req: Request) -> list:
-        """Cut the prompt into right-padded windows and take its payload.
-        Paged: lease the request's pages (mapping any cached prefix chain
-        read-only, private pages for the rest of prompt + budget); only
+        """Pin the request's adapter, then cut its context into
+        right-padded windows and take its payload.  Paged: lease the
+        request's pages (mapping any cached prefix chain read-only,
+        private pages for the rest of context + remaining budget); only
         the unmatched tail is windowed.  Contiguous: a spare (or new)
-        batch-1 prefill cache at ``pos`` 0."""
+        batch-1 prefill cache at ``pos`` 0.  Any failure after the pin
+        releases the lease and the pin before it propagates."""
         w = self.prefill_chunk
-        plen = req.prompt.size
-        if not self.paged:
-            n_win = -(-plen // w)
+        ctx = req.context if req.context is not None else req.prompt
+        clen = ctx.size
+        if self.adapters is not None:
+            # before any storage: AdapterTableFull leaves nothing to undo
+            req.adapter_row = self.adapters.acquire(req.adapter_id)
+            req.prefix_ns = self.adapters.namespace(req.adapter_id)
+        try:
+            if not self.paged:
+                n_win = -(-clen // w)
+                padded = np.zeros((n_win * w,), np.int32)
+                padded[:clen] = ctx
+                with self._lock:
+                    kv = self._pf_pool.pop() if self._pf_pool else None
+                if kv is None:
+                    kv = slots_lib.strip_pos(self.model.init_cache(
+                        1, self.max_len))
+                return [req, padded.reshape(n_win, 1, w), 0,
+                        dict(kv, pos=0)]
+            lease = self.pages.begin(ctx, clen + req.remaining_budget - 1,
+                                     namespace=req.prefix_ns)
+            req._lease = lease
+            remaining = ctx[lease.skip:]
+            n_win = -(-remaining.size // w)
             padded = np.zeros((n_win * w,), np.int32)
-            padded[:plen] = req.prompt
+            padded[:remaining.size] = remaining
             with self._lock:
-                kv = self._pf_pool.pop() if self._pf_pool else None
-            if kv is None:
-                kv = slots_lib.strip_pos(self.model.init_cache(
-                    1, self.max_len))
-            return [req, padded.reshape(n_win, 1, w), 0, dict(kv, pos=0)]
-        lease = self.pages.begin(req.prompt, plen + req.max_new_tokens - 1)
-        req._lease = lease
-        remaining = req.prompt[lease.skip:]
-        n_win = -(-remaining.size // w)
-        padded = np.zeros((n_win * w,), np.int32)
-        padded[:remaining.size] = remaining
-        with self._lock:
-            # window dispatches avoided by the prefix hit
-            self._windows_skipped += -(-plen // w) - n_win
-        return [req, padded.reshape(n_win, 1, w), 0, lease]
+                # window dispatches avoided by the prefix hit
+                self._windows_skipped += -(-clen // w) - n_win
+            return [req, padded.reshape(n_win, 1, w), 0, lease]
+        except BaseException:
+            if req._lease is not None:
+                self.pages.release(req._lease)
+                req._lease = None
+            if req.adapter_row is not None and self.adapters is not None:
+                self.adapters.release(req.adapter_id)
+                req.adapter_row = None
+            raise
 
     def _advance_prefill(self, st: list, outbox: List[tuple]) -> None:
         """One window for one in-flight prefill; admits the request into
@@ -474,15 +741,17 @@ class SlotScheduler:
         with self._lock:
             if st not in self._prefills:
                 return       # cancelled cross-thread: harvest recycles it
+        ad = self._adapter_args(req)
         skip = payload.skip if self.paged else 0
         if i < len(windows) - 1:
             payload = self._win_mid(windows[i], payload,
-                                    skip + i * self.prefill_chunk)
+                                    skip + i * self.prefill_chunk, ad)
             with self._lock:
                 st[2], st[3] = i + 1, payload
             return
-        plen = req.prompt.size
-        last_idx = plen - skip - 1 - (len(windows) - 1) * self.prefill_chunk
+        ctx = req.context if req.context is not None else req.prompt
+        clen = ctx.size
+        last_idx = clen - skip - 1 - (len(windows) - 1) * self.prefill_chunk
         with self._lock:
             if st not in self._prefills or req.done.is_set():
                 return
@@ -491,16 +760,18 @@ class SlotScheduler:
             # reserve before arming so the free-slot count stays right
             self._slots[slot] = req
             self._stale_rows.discard(slot)
+        if self._adapter_rows is not None:
+            self._adapter_rows[slot] = req.adapter_row
         tok = self._last_admit(
             windows[-1], payload,
             skip + (len(windows) - 1) * self.prefill_chunk, last_idx, slot,
-            plen, req.max_new_tokens)
+            clen, req.remaining_budget, ad)
         first = int(tok[0])          # host fetch: the TTFT barrier
         req.first_token_time = time.perf_counter()
         if self.paged:
-            # the prompt's full pages are final now: publish them so the
+            # the context's full pages are final now: publish them so the
             # NEXT request with this prefix skips their windows
-            self.pages.register(payload, req.prompt)
+            self.pages.register(payload, ctx)
         with self._lock:
             if self.paged:
                 self._page_tab[slot] = payload.row
@@ -514,8 +785,8 @@ class SlotScheduler:
         if cancelled:
             self._finished[slot] = True
             return
-        if req.max_new_tokens <= 1 or (self.eos_id is not None
-                                       and first == self.eos_id):
+        if req.remaining_budget <= 1 or (self.eos_id is not None
+                                         and first == self.eos_id):
             self._drop_slot(slot, req)
             outbox.append(("deliver", req, [first], None))
             outbox.append(("finish", req))
@@ -541,7 +812,7 @@ class SlotScheduler:
             # tear a run mid-read
             tab = (torch.from_numpy(self._page_tab.copy()).to(self.device)
                    if self.paged else None)
-        em, live = self._tick(tab)
+        em, live = self._tick(tab, self._adapter_args())
         k, s = em.shape
         host = torch.cat([em.reshape(-1), live.reshape(-1).to(torch.int32),
                           self._finished.to(torch.int32)]).cpu().numpy()
@@ -608,12 +879,31 @@ class SlotScheduler:
         return True
 
     def _retire(self, req: Request) -> bool:
-        """Claim-once terminal bookkeeping; releases a paged request's
-        lease (shared prefix pages stay cached)."""
+        """Claim-once terminal bookkeeping: the tenant's counts come down,
+        a fair queue hears of it, and the adapter pin and the page lease
+        are released (shared prefix pages stay cached).  False when the
+        request was already retired."""
         with self._lock:
             if req._retired:
                 return False
             req._retired = True
+            t = req.tenant
+            n = self._tenant_inflight.get(t, 0) - 1
+            if n > 0:
+                self._tenant_inflight[t] = n
+            else:
+                self._tenant_inflight.pop(t, None)
+            k = self._tenant_tokens.get(t, 0) - req.token_cost
+            if k > 0:
+                self._tenant_tokens[t] = k
+            else:
+                self._tenant_tokens.pop(t, None)
+            release = getattr(self._queue, "release", None)
+            if release is not None:
+                release(req)
+        if req.adapter_row is not None and self.adapters is not None:
+            self.adapters.release(req.adapter_id)
+            req.adapter_row = None
         if req._lease is not None:
             self.pages.release(req._lease)
         return True
@@ -633,3 +923,245 @@ class SlotScheduler:
         req.error = error
         req.finish_time = time.perf_counter()
         req.done.set()
+
+    # -------------------------------------------- migration (snapshots)
+
+    def find(self, rid: int) -> Optional[Request]:
+        """The in-flight request with id ``rid`` (queued, prefilling or
+        active), or None."""
+        with self._lock:
+            for req in self._inflight_locked():
+                if req.rid == rid:
+                    return req
+        return None
+
+    def _inflight_locked(self) -> List[Request]:
+        return ([r for r in self._queue] + [st[0] for st in self._prefills]
+                + [r for r in self._slots if r is not None])
+
+    def _acquire_pump(self, timeout_s: Optional[float]) -> bool:
+        if timeout_s is None:
+            return self._pump_lock.acquire()
+        return self._pump_lock.acquire(timeout=timeout_s)
+
+    def export(self, req: Request,
+               timeout_s: Optional[float] = None) -> RequestSnapshot:
+        """Export one in-flight request as a ``RequestSnapshot`` and
+        retire it here with status ``migrated``.  Waits for the running
+        tick (so the snapshot and the callback stream agree); with
+        ``timeout_s`` it waits at most that long and then exports anyway,
+        stamped ``clean=False``.  Raises ``RuntimeError`` for a request
+        already terminal."""
+        clean = self._acquire_pump(timeout_s)
+        try:
+            return self._export(req, clean)
+        finally:
+            if clean:
+                self._pump_lock.release()
+
+    def export_all(self, timeout_s: Optional[float] = None
+                   ) -> List[RequestSnapshot]:
+        """Export every in-flight request (in rid order), leaving the
+        scheduler empty."""
+        clean = self._acquire_pump(timeout_s)
+        try:
+            with self._lock:
+                reqs = self._inflight_locked()
+            snaps = []
+            for req in sorted(reqs, key=lambda r: r.rid):
+                try:
+                    snaps.append(self._export(req, clean))
+                except RuntimeError:
+                    continue          # finished while we were exporting
+            return snaps
+        finally:
+            if clean:
+                self._pump_lock.release()
+
+    def _export(self, req: Request, clean: bool) -> RequestSnapshot:
+        """Capture and retire (the caller handled the pump lock)."""
+        if req.done.is_set():
+            raise RuntimeError(
+                f"request {req.rid} already terminal ({req.status!r}); "
+                "nothing to export")
+        ctx = req.context if req.context is not None else req.prompt
+        with self._lock:
+            windows_done = next((st[2] for st in self._prefills
+                                 if st[0] is req), None)
+            active = any(r is req for r in self._slots)
+        generated = list(req.tokens)
+        now = time.perf_counter()
+        snap = RequestSnapshot(
+            rid=req.rid, prompt=req.prompt.copy(), generated=generated,
+            max_new_tokens=req.max_new_tokens,
+            stream_offset=len(generated), tenant=req.tenant,
+            adapter_id=req.adapter_id,
+            deadline_remaining_s=(None if req.deadline is None
+                                  else max(0.0, req.deadline - now)),
+            sampling=dict(self._sampling), clean=clean)
+        # lease handoff: publish the request's FINAL full pages before the
+        # retirement below releases them.  Final: for an active row the
+        # context and all but the newest generated token (whose K/V is
+        # written when it is next fed); for a prefill its finished
+        # windows.  The manifest lists those chains for the page wire.
+        lease = req._lease
+        if self.paged and lease is not None and not lease.released:
+            fresh = generated[req.resumed:]
+            if active:
+                written = ctx.size + max(0, len(fresh) - 1)
+                full = (np.concatenate([ctx, np.asarray(fresh, np.int32)])
+                        if fresh else ctx)
+            else:
+                written = lease.skip + (windows_done or 0) \
+                    * self.prefill_chunk
+                full = ctx
+            published = full[:written]
+            self.pages.handoff(lease, published)
+            keys = pages_lib.prompt_chain_keys(published, self.page_size,
+                                               lease.namespace)
+            if keys and self.pages.prefix_cache:
+                snap.shipped_pages = keys
+                snap.page_size = self.page_size
+        if not self.cancel(req, status="migrated"):
+            raise RuntimeError(f"request {req.rid} finished during export")
+        return snap
+
+    def export_chain_pages(self, context: np.ndarray,
+                           timeout_s: Optional[float] = None,
+                           namespace: bytes = b"") -> list:
+        """The page wire's sender capture: the radix pages covering
+        ``context``'s full chunks in prefix ``namespace``, read off the device as ``[(chunk_index,
+        chain_hash, {leaf: CPU tensor [L, page_size, ...]})]`` (int8
+        scale planes are leaves like any other).  The gather is issued
+        under the pump lock, so no later tick's write or eviction can
+        reach the pages before it; the copy to the host waits outside the
+        lock.  Returns [] on a contiguous engine, with the prefix cache
+        off, with nothing cached, or when the pump stays busy past
+        ``timeout_s``: shipping fewer pages costs prefill windows, never
+        correctness."""
+        if not self.paged or not self.pages.prefix_cache:
+            return []
+        if not self._acquire_pump(timeout_s):
+            return []
+        try:
+            entries = self.pages.chain_pages(
+                np.asarray(context, np.int32).reshape(-1), namespace)
+            if not entries:
+                return []
+            idx = torch.tensor([page for _, page, _ in entries],
+                               dtype=torch.long, device=self.device)
+            view = {k: v.index_select(1, idx)
+                    for k, v in self._cache["kv"].items()}
+        finally:
+            self._pump_lock.release()
+        view = {k: v.cpu() for k, v in view.items()}
+        return [(chunk, chain, {k: v[:, j].contiguous()
+                                for k, v in view.items()})
+                for j, (chunk, _, chain) in enumerate(entries)]
+
+    def import_wire_pages(self, context: np.ndarray, records,
+                          timeout_s: Optional[float] = None,
+                          namespace: bytes = b"") -> int:
+        """The page wire's receiver splice: adopt shipped pages for
+        ``context``'s leading full chunks, in prefix ``namespace``, through the lease every request
+        uses: ``begin`` the shipped prefix (chunks already cached here
+        are matched, so a re-delivery is idempotent), copy each missing
+        chunk's payload into its leased page, and ``handoff`` to publish
+        the chain; the next ``import_snapshot`` then skips those windows.
+        ``records``: ``PageRecord``-like (``index``, ``chain``,
+        ``payload``).  Every record's leaves, shapes and dtypes are
+        checked against the pool before the first copy.  Returns the
+        chunks now cached for the context: 0 on a contiguous engine, with
+        the prefix cache off, for an alien layout or chain, an exhausted
+        pool, or a pump busy past ``timeout_s``."""
+        if not self.paged or not self.pages.prefix_cache or not records:
+            return 0
+        pg = self.page_size
+        ctx = np.asarray(context, np.int32).reshape(-1)
+        expected = pages_lib.prompt_chain_keys(ctx, pg, namespace)
+        if not self._acquire_pump(timeout_s):
+            return 0
+        lease = None
+        try:
+            kv = self._cache["kv"]
+            want = {k: ((v.shape[0],) + tuple(v.shape[2:]), v.dtype)
+                    for k, v in kv.items()}
+            take = []
+            for j, rec in enumerate(sorted(records, key=lambda r: r.index)):
+                if rec.index != j or j >= len(expected) \
+                        or rec.chain != expected[j][0]:
+                    break                # gap or foreign chain: stop
+                if set(rec.payload) != set(want):
+                    return 0             # alien pool layout
+                if any(tuple(rec.payload[k].shape) != want[k][0]
+                       or rec.payload[k].dtype != want[k][1] for k in want):
+                    return 0             # page size or dtype mismatch
+                take.append(rec)
+            if not take:
+                return 0
+            ship = ctx[:len(take) * pg]
+            try:
+                lease = self.pages.begin(ship, ship.size, namespace)
+            except pages_lib.PagePoolExhausted:
+                return 0                 # no room: re-prefill instead
+            # chunks below lease.skip are cached here already
+            for j in range(lease.skip // pg, len(take)):
+                page = int(lease.row[j])
+                for k, buf in kv.items():
+                    buf[:, page].copy_(take[j].payload[k])
+            self.pages.handoff(lease, ship)
+        except BaseException:
+            if lease is not None:
+                self.pages.release(lease)
+            raise
+        finally:
+            self._pump_lock.release()
+        return len(take)
+
+    def import_snapshot(self, snap: RequestSnapshot,
+                        on_token: Optional[Callable[[List[int]], None]]
+                        = None) -> Request:
+        """Admit an exported request and resume it where it stopped: the
+        new request prefills ``prompt + generated`` (a radix hit, or
+        shipped pages, skip windows), samples the next token from the
+        last window and decodes on.  Its tokens are pre-seeded with
+        ``generated``, so ``on_token`` fires only for new ones.  The same
+        admission as ``submit`` (queue depth, quotas), charged at the
+        remaining budget.  Raises ``ValueError`` for a snapshot this
+        engine cannot resume faithfully: another sampling config, a spent
+        budget, a context too long, an adapter without a table;
+        ``KeyError`` for an adapter this engine does not know."""
+        prompt = np.asarray(snap.prompt, np.int32).reshape(-1)
+        generated = [int(t) for t in snap.generated]
+        if snap.sampling is not None and snap.sampling != self._sampling:
+            raise ValueError(
+                f"sampling config mismatch: snapshot {snap.sampling} vs "
+                f"engine {self._sampling}: resuming here would change the "
+                "request's distribution")
+        remaining = int(snap.max_new_tokens) - len(generated)
+        if remaining < 1:
+            raise ValueError(
+                f"snapshot {snap.rid} has no remaining budget "
+                f"({len(generated)}/{snap.max_new_tokens} generated)")
+        ctx = (np.concatenate([prompt, np.asarray(generated, np.int32)])
+               if generated else prompt)
+        if ctx.size < 1:
+            raise ValueError("empty snapshot context")
+        self._check_adapter(snap.adapter_id)
+        self._check_fits("snapshot context", ctx.size, remaining)
+        now = time.perf_counter()
+        tenant = str(snap.tenant)
+        with self._lock:
+            self._admit_locked(tenant, remaining)
+            req = Request(rid=self._next_rid, prompt=prompt,
+                          max_new_tokens=int(snap.max_new_tokens),
+                          on_token=on_token, submit_time=now,
+                          deadline=(None if snap.deadline_remaining_s is None
+                                    else now + snap.deadline_remaining_s),
+                          tenant=tenant, adapter_id=snap.adapter_id,
+                          context=ctx, resumed=len(generated),
+                          token_cost=remaining)
+            req.tokens = list(generated)
+            self._next_rid += 1
+            self._enqueue_locked(req)
+        return req

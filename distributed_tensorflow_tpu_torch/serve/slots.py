@@ -22,7 +22,7 @@ written in place (the JAX package donates them instead).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -80,17 +80,20 @@ def insert_slot(cache: Dict[str, Any], slot_idx: int,
 
 
 def decode_slots_step(model, cache: Mapping[str, Any], tokens: torch.Tensor,
-                      live: torch.Tensor):
+                      live: torch.Tensor, adapters=None,
+                      adapter_rows: Optional[torch.Tensor] = None):
     """One decode step for every slot -> (logits [S, vocab], new cache).
 
     ``tokens`` [S]: each slot's input token.  Dead rows compute too, but
     only ``live`` rows advance ``write_col``/``positions``, so a dead
     row's write lands outside every validity window (or, at max_len, is
-    dropped) and the next ``insert_slot`` overwrites it.  The K/V leaves
-    are written in place; the column state is rebound."""
+    dropped) and the next ``insert_slot`` overwrites it.
+    ``adapters``/``adapter_rows`` [S]: per-slot LoRA adapters (None: no
+    adapter work).  The K/V leaves are written in place; the column
+    state is rebound."""
     logits, kv = model.decode_step_slots(
         cache["kv"], tokens, cache["write_col"], slot_kv_valid(cache),
-        cache["positions"])
+        cache["positions"], adapters=adapters, adapter_rows=adapter_rows)
     live = live.to(torch.int32)
     return logits, {
         "kv": kv,

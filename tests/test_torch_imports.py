@@ -32,8 +32,9 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
     assert len(modules) >= 16
-    assert {f"{port.__name__}.ops.quant", f"{port.__name__}.models.llama",
-            f"{port.__name__}.ops.kernels.fused"} <= set(modules)
+    assert {f"{port.__name__}.{m}" for m in (
+        "ops.quant", "models.llama", "ops.kernels.fused", "serve.adapters",
+        "fleet.tenancy", "fleet.pagewire", "summary.crc32c")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:

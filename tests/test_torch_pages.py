@@ -137,3 +137,31 @@ def test_cow_split_and_fingerprint():
     assert pool.fingerprint() == {k: t for k, t in keys}
     pool.release(a)
     pool.release(b)
+
+
+def test_pool_namespaces_keep_chains_apart():
+    """A chain registered in one namespace (an adapter's) is matched only
+    there; its chain keys differ from the default namespace's, whose keys
+    stay the JAX package's; an emptied namespace is dropped."""
+    pool = pages_lib.PagePool(num_pages=9, page_size=4, pages_per_slot=4)
+    prompt = np.arange(9, dtype=np.int32)
+    a = pool.begin(prompt, 10, namespace=b"adapter-a")
+    pool.register(a, prompt)
+    pool.release(a)
+    miss = pool.begin(prompt, 10)                           # default ns
+    assert miss.skip == 0
+    pool.release(miss)
+    hit = pool.begin(prompt, 10, namespace=b"adapter-a")
+    assert hit.skip == 8 and hit.namespace == b"adapter-a"
+    keys = pages_lib.prompt_chain_keys(prompt, 4, b"adapter-a")
+    assert [t for _, t in keys] == [4, 8]
+    assert keys[0][0] != pages_lib.prompt_chain_keys(prompt, 4)[0][0]
+    assert [c for _, _, c in pool.chain_pages(prompt, b"adapter-a")] \
+        == [k for k, _ in keys]
+    assert pool.chain_pages(prompt) == []
+    pool.release(hit)
+    # pool pressure evicts the namespace's chain and drops its root
+    for lo in (50, 70):
+        pool.begin(np.arange(lo, lo + 12, dtype=np.int32), 16)
+    assert pool.stats()["prefix_evictions_total"] == 2
+    assert set(pool._roots) == {b""}
