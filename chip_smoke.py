@@ -150,26 +150,71 @@ no result lines:
    import-to-first-token ms and how many requests end equal to phase 4.
    Then ``drain(timeout_s=0)`` on a busy engine returns a falsy result
    whose snapshots finish on B.
-15. with ``--profile DIR`` only: the engine phases, 3 training steps and
-   the GPT-2 and Llama ``generate`` of phases 11 and 14 again under
+15. with ``--profile DIR`` only: the engine phases, 3 training steps
+   (of phase 6's configuration and of phase 17's (a), (b) and session
+   step (e)) and the GPT-2 and Llama ``generate`` of phases 11 and 14
+   again under
    ``torch.profiler``; the device's busy share, its top kernels, µs per
    paged-attention launch, and (training, Llama engine, generate) device
    ms by part; then µs per paged launch in the Llama
    engine over 4 requests of the mix at the planned split counts and at
    one forced split (what split-K gives inside the engine).
 
+17. training session (after phase 8): GPT-2 small at phase 6's batch,
+   bf16, ``adamw(1e-4)``, clip 1.0, rows of the order-1
+   ``synthetic_lm_corpus`` through ``Dataset``.  (a) ``remat`` "full",
+   (b) "dots", (c) "full" with ``loss_seq_chunk=1024`` (the JAX bench
+   configuration with its chunk lever), (d) ``accum_steps=4`` on phase
+   6's batch and weights (its losses against phase 6's within
+   ``ACCUM_*_TOL``): each 2 warm-up and 4 timed steps, with exact launch
+   counts (remat: the flash forward twice a layer, LayerNorm 4 a layer
+   plus one; microbatches multiply them), finite and falling losses, 0
+   host syncs a step, and the peak memory of (a) and (c) below phase
+   6's.  (e) The full ``TrainSession``: ``with_ema(adamw)``,
+   ``policy="mixed_bfloat16"``, ``DynamicLossScale`` from 2**127, remat
+   "full", the chunked head, 2 microbatches, dropout 0.1; hooks
+   ``StopAtStepHook``, ``LoggingHook``, ``NaNHook``, ``StepCounterHook``,
+   ``SummaryHook`` (event file), ``CheckpointHook`` every 5 steps; to
+   step 10; every batch carries a loss mask of ones.  The first steps
+   overflow (see ``SESSION_SCALE``) and skip: on each the parameters stay
+   bit-equal, Adam launches 0 times, the count holds and the scale
+   halves; every applied step keeps the scale; exactly 1 host sync a
+   step; its rows equal those of an uninterrupted run of 15 steps with
+   the same hooks, which is the session's timed window: nothing of the
+   harness runs between its steps (no sync counter, no parameter copy,
+   no per-step synchronise), and its tokens/s count the applied steps'
+   tokens over the loop's wall time (saves in, and apart).
+   (f) A second session on the directory restores step 10
+   (``restore_latest_good``) and runs to 15: its parameters and EMA
+   shadow equal the uninterrupted run's bit for bit; then a byte flipped
+   in the newest checkpoint is quarantined and the restore falls back to
+   step 10.  (g) Card against CPU, ``gpt_tiny`` in f32, 3 steps each of
+   accumulation, remat (three policies), the chunked loss and loss
+   scaling (a planted overflow) at dropout 0 (the CUDA and CPU
+   generators draw different bits), within ``TRAIN_LOSS_TOL`` and
+   ``TRAIN_PARAM_TOL``; and remat against no remat on the card at dropout
+   0.1 (equal).  Prints step ms, tokens/s, mfu (phase 6's model flops:
+   the recomputation is not model work), peak memory, launches, syncs a
+   step, and for (e)/(f) checkpoint bytes, save ms, verify-and-restore ms
+   and the event file's records (the watched arms are not timed).
+
 The last lines are the kernels' JSON record (``launches`` from phases 4,
-6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran),
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
+``session_launches`` for those of phase 17's session, (e) and (f)), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
+import warnings
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense
@@ -211,6 +256,31 @@ TRAIN_PARAM_TOL = 1e-3
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 48, 256, 1e-4
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+
+# the training session (phase 17), GPT-2 small at phase 6's batch: arms
+# (a)-(d) take 2 warm-up and 4 timed steps; the chunked head takes 1024
+# tokens at a time (the JAX bench row's lever); (d) accumulates 4
+# microbatches, (e)/(f) 2; the session saves every 5 steps, (e) stops at
+# step 10 and (f) resumes to step 15, against an uninterrupted run of 15
+SESSION_WARMUP, SESSION_STEPS, SESSION_CHUNK = 2, 4, 1024
+SESSION_ACCUM, SESSION_E_ACCUM = 4, 2
+SESSION_EVERY, SESSION_STOP, SESSION_END = 5, 10, 15
+# the session's loss scale starts at 2**127: its batches carry a loss
+# mask of ones, so accumulation weights each microbatch's scaled
+# gradients by its 6,144 tokens, and those products overflow until the
+# scale has halved to about 2**120 (without a mask no gradient of GPT-2
+# small overflows at 2**127; only the scaled loss does, and the step
+# reports the loss itself)
+SESSION_SCALE = 2.0 ** 127
+# (d) against phase 6 on the same batch and weights, bf16: the first
+# loss (before any update) differs only by the GEMMs' tiling at 12 rows
+# against 48 (each bf16 output rounded once, averaged over 12,288
+# tokens); later steps also by Adam steps taken from those gradients.
+# The sound runs on the H100 read 0.0 for the first loss and at most
+# 8.6e-4 over the 6 steps (every run alike); the limits are about 3x
+# that, so an accumulation that keeps only the last microbatch's
+# gradients fails them (planted once on the card; PERF.md)
+ACCUM_FIRST_TOL, ACCUM_LOSS_TOL = 1e-4, 3e-3
 
 # the Llama-3-8B engine: 8 slots of 8192 tokens in pages of 16
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_PAGE = 8, 8192, 16
@@ -1399,20 +1469,24 @@ def _expect(name, counts, flash, norm, n_norm=None):
                              f"{other}, no paged kernel")
 
 
-def _syncs(torch, fn) -> int:
-    """Host syncs in one run of ``fn``: the operations that wait for the
+def _counted(torch, fn):
+    """(fn's result, its host syncs): the operations that wait for the
     card (a read of a device value, a copy from pageable host memory), as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
-    torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _syncs(torch, fn) -> int:
+    """Host syncs in one run of ``fn`` (see ``_counted``)."""
+    torch.cuda.synchronize()
+    return _counted(torch, fn)[1]
 
 
 def _new_tokens(out, plen, eos_id):
@@ -2406,7 +2480,9 @@ def check_training(torch, np, args, smi):
         if n != per_step[name] * steps:
             raise AssertionError(f"{name}: {n} launches, expected "
                                  f"{per_step[name]} x {steps}")
-    return launches, model
+    return launches, model, {
+        "losses": losses, "step_ms": step_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def check_train_reference(torch, np):
@@ -2464,6 +2540,492 @@ def check_train_then_serve(torch, np, model):
                                    for p in model.parameters()):
         raise AssertionError("serving built an autograd graph")
     log({"train_then_serve": "ok", "tokens": [len(h.tokens) for h in hs]})
+
+
+# -- phase 17: the training session ----------------------------------------
+
+_SESSION_DIR = Path(__file__).resolve().parent / "build" / "train_session"
+
+
+def _train_counts(torch):
+    """The training kernels' launches since ``_reset_counts``."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    torch.cuda.synchronize()
+    return {"flash_forward": fa.LAUNCHES["flash_forward"],
+            "flash_backward_dkv": fa.LAUNCHES["flash_backward_dkv"],
+            "flash_backward_dq": fa.LAUNCHES["flash_backward_dq"],
+            "layernorm": fused.LAUNCHES["layernorm"],
+            "fused_adam": fused.LAUNCHES["adam"]}
+
+
+def _per_step(config, n_params, remat, microbatches):
+    """Each training kernel's launches a step, written before the run:
+    per microbatch the flash forward once a layer (twice under remat: the
+    backward recomputes every block, and no remat policy saves a kernel
+    the dispatcher never sees), dK/dV and dQ once a layer, LayerNorm 2 a
+    layer plus ``ln_f`` (plus 2 a layer recomputed); Adam once a
+    parameter tensor a step it applies."""
+    L = config.num_layers
+    return {"flash_forward": L * (2 if remat else 1) * microbatches,
+            "flash_backward_dkv": L * microbatches,
+            "flash_backward_dq": L * microbatches,
+            "layernorm": (2 * L + 1 + (2 * L if remat else 0))
+            * microbatches,
+            "fused_adam": n_params}
+
+
+def _check_counts(name, counts, per_step, steps, applied=None):
+    applied = steps if applied is None else applied
+    for k, n in per_step.items():
+        want = n * (applied if k == "fused_adam" else steps)
+        if counts[k] != want:
+            raise AssertionError(f"{name}: {k} launched {counts[k]} times, "
+                                 f"expected {want} ({n} a step)")
+
+
+def _session_batches(torch, np, args, n):
+    """``n`` batches of 48 rows of 257 ids (on the card) from the order-1
+    synthetic corpus through ``Dataset``, as ``examples/train_gpt.py``
+    draws them."""
+    from distributed_tensorflow_tpu_torch.data import (Dataset,
+                                                       lm_sequences,
+                                                       synthetic_lm_corpus)
+    rows = lm_sequences(synthetic_lm_corpus(
+        50257, n * TRAIN_BATCH * (TRAIN_SEQ + 1) + TRAIN_SEQ + 1,
+        seed=args.seed, order=1), TRAIN_SEQ)
+    ds = Dataset([rows], TRAIN_BATCH, seed=args.seed)
+    return [{"input_ids": torch.from_numpy(b).to("cuda")}
+            for (b,) in list(ds)[:n]]
+
+
+def _gpt2(torch, args, **kw):
+    from distributed_tensorflow_tpu_torch import GPT, gpt_small
+    kw.setdefault("dropout_rate", 0.0)
+    return GPT(gpt_small(dtype=torch.bfloat16, **kw), device="cuda",
+               generator=torch.Generator("cuda").manual_seed(args.seed))
+
+
+def _session_arm(torch, np, args, smi, name, batches, accum=1, **config):
+    """One of arms (a)-(d): 2 warm-up and 4 timed steps of ``adamw`` with
+    clip 1.0 on ``batches`` (one per step)."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    model = _gpt2(torch, args, **config)
+    params = dict(model.named_parameters())
+    opt = adamw(TRAIN_LR)
+    state = TrainState.create(params, opt.init(params))
+    step = make_custom_train_step(model.lm_loss_fn(), opt, seed=args.seed,
+                                  grad_clip_norm=1.0, accum_steps=accum)
+    per_step = _per_step(model.config, len(params), model.config.remat,
+                         accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    metrics = []
+    state, m = step(state, batches[0])
+    metrics.append(m)
+    torch.cuda.synchronize()
+    (state, m), syncs = _counted(torch, lambda: step(state, batches[1]))
+    metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SESSION_STEPS):
+        state, m = step(state, batches[SESSION_WARMUP + i])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _train_counts(torch)
+    losses = [m["loss"].item() for m in metrics]
+    step_ms = wall / SESSION_STEPS * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _model_flops(model, tokens, TRAIN_SEQ)
+    c = model.config
+    run = {"train_session": name, "remat": c.remat,
+           "remat_policy": c.remat_policy if c.remat else None,
+           "loss_seq_chunk": c.loss_seq_chunk, "accum_steps": accum,
+           "steps": SESSION_STEPS, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": counts,
+           "launches_per_step": per_step, "syncs_per_step": syncs,
+           "card": smi}
+    log(run)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    _check_counts(name, counts, per_step, SESSION_WARMUP + SESSION_STEPS)
+    if syncs:
+        raise AssertionError(f"{name}: {syncs} host syncs in a step")
+    del model, params, opt, state, step, metrics
+    torch.cuda.empty_cache()
+    return run
+
+
+def _session_setup(torch, args):
+    """The session's model, state and step (arms (e), (f) and the
+    uninterrupted run): ``with_ema(adamw)``, mixed bf16, a dynamic loss
+    scale from ``SESSION_SCALE``, remat "full", the chunked head, 2
+    microbatches, dropout 0.1."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  with_ema)
+    from distributed_tensorflow_tpu_torch.train import precision
+    model = _gpt2(torch, args, dropout_rate=0.1, remat=True,
+                  loss_seq_chunk=SESSION_CHUNK)
+    params = dict(model.named_parameters())
+    opt = with_ema(adamw(TRAIN_LR))
+    state = precision.attach_loss_scale(
+        TrainState.create(params, opt.init(params)),
+        precision.DynamicLossScale.create(SESSION_SCALE, device="cuda"))
+    step = make_custom_train_step(model.lm_loss_fn(), opt, seed=args.seed,
+                                  grad_clip_norm=1.0,
+                                  accum_steps=SESSION_E_ACCUM,
+                                  policy="mixed_bfloat16", loss_scale=True)
+    return model, state, step
+
+
+def _session_run(torch, state, step, batches, last_step, hooks=(),
+                 checkpoint_dir=None, watch=True):
+    """A ``TrainSession`` to ``last_step`` with ``hooks``: (the final
+    state, a row per step, syncs per step, save seconds, the session's
+    construction seconds (its restore), the loop's seconds).
+
+    ``watch=True``: every step runs under the sync counter and a hook
+    reads its finite flag, scale and loss at once, and on a skipped step
+    compares the parameters with a copy taken before it; not timed.
+    ``watch=False``: the loop runs as a user's does, with nothing of the
+    harness between the steps; the rows' device values are read after
+    the loop, whose wall time (saves included) is the session's window."""
+    from distributed_tensorflow_tpu_torch import train
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    rows, syncs, saves = [], [], []
+
+    def counted(state, batch):
+        out, n = _counted(torch, lambda: step(state, batch))
+        syncs.append(n)
+        return out
+
+    def read(row):
+        return {**row, "finite": bool(row["finite"]),
+                "scale": float(row["scale"]), "loss": float(row["loss"])}
+
+    class Watch(train.Hook):
+        """Per step: Adam launches and the optimizer count (host values)
+        and, watched, the parameters before it; its finite flag, scale and
+        loss after."""
+
+        def before_step(self, session):
+            st = session.state
+            if watch:
+                self.before = [p.detach().clone()
+                               for p in st.params.values()]
+            self.count = st.opt_state.count
+            self.adam = fused.LAUNCHES["adam"]
+
+        def after_step(self, session, metrics):
+            st = session.state
+            row = {"step": session.step, "finite": metrics["grads_finite"],
+                   "scale": metrics["loss_scale"], "loss": metrics["loss"],
+                   "adam": fused.LAUNCHES["adam"] - self.adam,
+                   "count": st.opt_state.count}
+            if watch:
+                row = read(row)
+                if not row["finite"]:
+                    row["params_equal"] = all(
+                        torch.equal(a, b)
+                        for a, b in zip(self.before, st.params.values()))
+                    row["count_held"] = st.opt_state.count == self.count
+                self.before = None
+            rows.append(row)
+
+    class Timed(train.TrainSession):
+        def save(self):
+            t0 = time.perf_counter()
+            path = super().save()
+            saves.append(time.perf_counter() - t0)
+            return path
+
+    t0 = time.perf_counter()
+    sess = Timed(state, counted if watch else step,
+                 checkpoint_dir=checkpoint_dir,
+                 hooks=[train.StopAtStepHook(last_step=last_step),
+                        *hooks, Watch()])
+    built = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sess:
+        while not sess.should_stop():
+            sess.run_step(batches[sess.step])
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    if not watch:
+        rows = [read(r) for r in rows]
+    return sess.state, rows, syncs, saves, built, loop
+
+
+def _check_skips(name, rows, per_step_adam):
+    """On each skipped step the parameters stayed bit-equal, Adam
+    launched 0 times, the count held and the scale halved; every applied
+    step launched Adam once a tensor, reported a finite loss and kept the
+    scale (it grows only after 2000 finite steps)."""
+    prev = SESSION_SCALE
+    for r in rows:
+        if not r["finite"]:
+            if not (r["params_equal"] and r["count_held"]
+                    and r["adam"] == 0 and r["scale"] == prev / 2):
+                raise AssertionError(f"{name}: skipped step {r}, scale "
+                                     f"before {prev}")
+        else:
+            if r["scale"] != prev or r["adam"] != per_step_adam \
+                    or not math.isfinite(r["loss"]):
+                raise AssertionError(f"{name}: applied step {r}")
+        prev = r["scale"]
+
+
+def _event_records(log_dir):
+    from distributed_tensorflow_tpu_torch.data import read_tfrecord
+    return {p.name: len(list(read_tfrecord(str(p))))
+            for p in sorted(Path(log_dir).glob("events.out.tfevents.*"))}
+
+
+def check_train_session(torch, np, args, smi, phase6):
+    """Phase 17: arms (a)-(g) of the training session.  Returns the
+    training kernels' launches over the session's (e) and (f)."""
+    from distributed_tensorflow_tpu_torch import SummaryWriter, train
+    from distributed_tensorflow_tpu_torch.optim import ema_params
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    shutil.rmtree(_SESSION_DIR, ignore_errors=True)
+    batches = _session_batches(torch, np, args,
+                               max(SESSION_END,
+                                   SESSION_WARMUP + SESSION_STEPS))
+    arms = {
+        "a": _session_arm(torch, np, args, smi, "(a) remat full", batches,
+                          remat=True),
+        "b": _session_arm(torch, np, args, smi, "(b) remat dots", batches,
+                          remat=True, remat_policy="dots"),
+        "c": _session_arm(torch, np, args, smi,
+                          "(c) remat full + chunked loss", batches,
+                          remat=True, loss_seq_chunk=SESSION_CHUNK)}
+    phase6_batch = _train_batch(torch, np, args.seed, TRAIN_BATCH, TRAIN_SEQ,
+                                50257, "cuda")
+    arms["d"] = _session_arm(
+        torch, np, args, smi, "(d) accumulation x4 on phase 6's batch",
+        [phase6_batch] * (SESSION_WARMUP + SESSION_STEPS),
+        accum=SESSION_ACCUM)
+    errs = [abs(a - b) for a, b in zip(arms["d"]["losses"],
+                                       phase6["losses"])]
+    log({"train_session": "(d) against phase 6", "loss_err": errs,
+         "first_tol": ACCUM_FIRST_TOL, "tol": ACCUM_LOSS_TOL})
+    if not (errs[0] <= ACCUM_FIRST_TOL and max(errs) <= ACCUM_LOSS_TOL):
+        raise AssertionError(f"(d) losses {arms['d']['losses']} against "
+                             f"phase 6's {phase6['losses']}")
+    for k in ("a", "c"):
+        if not arms[k]["peak_memory_gb"] < phase6["peak_memory_gb"]:
+            raise AssertionError(f"({k}) peak {arms[k]['peak_memory_gb']} "
+                                 f"GB, phase 6 {phase6['peak_memory_gb']}")
+
+    # the uninterrupted run (the session's timed window), then (e) to
+    # SESSION_STOP and (f) on to the end (watched); every session batch
+    # carries a loss mask of ones
+    mask = torch.ones(TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [dict(b, loss_mask=mask) for b in batches[:SESSION_END]]
+    ckpt_dir, log_dir = _SESSION_DIR / "ckpt", _SESSION_DIR / "logs"
+    session_counts = collections.Counter()
+
+    def hooks(writer):
+        return [train.LoggingHook(every_steps=SESSION_EVERY),
+                train.NaNHook(every_steps=1),
+                train.StepCounterHook(every_steps=SESSION_EVERY,
+                                      writer=writer, batch_size=TRAIN_BATCH),
+                train.SummaryHook(writer, every_steps=1),
+                train.CheckpointHook(every_steps=SESSION_EVERY,
+                                     every_secs=None)]
+
+    model, state, step = _session_setup(torch, args)
+    per_step = _per_step(model.config, len(state.params), True,
+                         SESSION_E_ACCUM)
+    _reset_counts()
+    writer = SummaryWriter(str(log_dir / "whole"))
+    whole, rows_w, _, saves_w, _, loop_w = _session_run(
+        torch, state, step, batches, SESSION_END, hooks(writer),
+        str(_SESSION_DIR / "whole"), watch=False)
+    writer.close()
+    counts_w = _train_counts(torch)
+    applied_w = sum(r["finite"] for r in rows_w)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _model_flops(model, tokens, TRAIN_SEQ)
+    save_w = sum(saves_w)
+    log({"train_session": "(e)+(f) uninterrupted, one window",
+         "steps": f"1..{SESSION_END}", "applied_steps": applied_w,
+         "window_s": loop_w, "save_s": saves_w,
+         "step_ms_excl_saves": (loop_w - save_w) / SESSION_END * 1e3,
+         "tokens_per_s_window": applied_w * tokens / loop_w,
+         "tokens_per_s_excl_saves": applied_w * tokens / (loop_w - save_w),
+         "mfu_excl_saves": applied_w * flops / (loop_w - save_w)
+         / BF16_FLOPS_PER_S,
+         "rows": rows_w, "launches": counts_w, "card": smi})
+    if rows_w[0]["finite"] or applied_w < 3:
+        raise AssertionError(f"uninterrupted run: expected the first steps "
+                             f"to overflow and at least 3 to apply: "
+                             f"{rows_w}")
+    _check_counts("uninterrupted", counts_w, per_step, SESSION_END,
+                  applied_w)
+
+    for arm, last in (("(e) session", SESSION_STOP),
+                      ("(f) resumed session", SESSION_END)):
+        m_arm, s_arm, step_arm = _session_setup(torch, args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        arm_logs = log_dir / arm[1]
+        writer = SummaryWriter(str(arm_logs))
+        final, rows, syncs, saves, built, _ = _session_run(
+            torch, s_arm, step_arm, batches, last, hooks(writer),
+            str(ckpt_dir))
+        writer.close()
+        counts = _train_counts(torch)
+        session_counts.update(counts)
+        first = SESSION_STOP if arm.startswith("(f)") else 0
+        applied = sum(r["finite"] for r in rows)
+        newest = ckpt.latest_checkpoint(str(ckpt_dir))
+        log({"train_session": arm, "steps": f"{first + 1}..{last}",
+             "restore_s": built, "save_ms": [t * 1e3 for t in saves],
+             "checkpoint_bytes": (Path(newest) / "arrays.npz").stat().st_size,
+             "rows": rows, "syncs_per_step": syncs,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": counts, "launches_per_step": per_step,
+             "event_records": _event_records(arm_logs), "card": smi})
+        if set(syncs) != {1}:
+            raise AssertionError(f"{arm}: host syncs a step {syncs}")
+        if [r["step"] for r in rows] != list(range(first + 1, last + 1)):
+            raise AssertionError(f"{arm}: ran steps {rows}")
+        if [{k: r[k] for k in rows_w[0]} for r in rows] != \
+                rows_w[first:last]:
+            raise AssertionError(f"{arm}: steps {rows} differ from the "
+                                 f"uninterrupted run's {rows_w[first:last]}")
+        _check_counts(arm, counts, per_step, last - first, applied)
+        if first == 0:
+            _check_skips(arm, rows, per_step["fused_adam"])
+            del m_arm, s_arm, step_arm, final
+            torch.cuda.empty_cache()
+    # (f): bit-equal to the uninterrupted run
+    for k, p in whole.params.items():
+        if not torch.equal(final.params[k], p):
+            raise AssertionError(f"(f) resumed parameter {k} differs")
+    ema_w, ema_f = ema_params(whole.opt_state), ema_params(final.opt_state)
+    for k, p in ema_w.items():
+        if not torch.equal(ema_f[k], p):
+            raise AssertionError(f"(f) resumed EMA shadow {k} differs")
+    # an event file an arm: the version record, a summary a step, a step
+    # counter every SESSION_EVERY steps
+    for arm, steps in (("whole", SESSION_END), ("e", SESSION_STOP),
+                       ("f", SESSION_END - SESSION_STOP)):
+        records = list(_event_records(log_dir / arm).values())
+        if records != [1 + steps + steps // SESSION_EVERY]:
+            raise AssertionError(f"({arm}) event files hold {records} "
+                                 "records")
+    # a flipped byte in the newest checkpoint: quarantined, one step back
+    newest = Path(ckpt.latest_checkpoint(str(ckpt_dir)))
+    data = bytearray((newest / "arrays.npz").read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    (newest / "arrays.npz").write_bytes(bytes(data))
+    t0 = time.perf_counter()
+    restored, path = ckpt.restore_latest_good(whole, str(ckpt_dir))
+    fallback_s = time.perf_counter() - t0
+    quarantined = sorted(p.name for p in ckpt_dir.glob("corrupt-*"))
+    log({"train_session": "(f) flipped byte", "restored": Path(path).name,
+         "quarantined": quarantined, "verify_and_restore_s": fallback_s})
+    if Path(path).name != f"ckpt-{SESSION_STOP:010d}" or \
+            restored.step != SESSION_STOP or \
+            quarantined != [f"corrupt-{newest.name}"]:
+        raise AssertionError(f"fallback restored {path}, quarantined "
+                             f"{quarantined}")
+    del model, state, step, whole, final, restored, ema_w, ema_f
+    torch.cuda.empty_cache()
+    shutil.rmtree(_SESSION_DIR, ignore_errors=True)
+    check_train_session_reference(torch, np)
+    log({"phase": "train session", "seconds": time.perf_counter() - t_phase})
+    return session_counts
+
+
+def _tiny_run(torch, np, device, steps=3, accum=1, planted=None, **config):
+    """(losses, parameters) of ``steps`` f32 gpt_tiny steps on ``device``
+    from the CPU's seed-0 weights, with a mask whose row counts differ;
+    ``planted``: a step whose mask carries an infinite weight (under a
+    loss scale from 2**20: a skip)."""
+    from distributed_tensorflow_tpu_torch import (GPT, TrainState, adamw,
+                                                  gpt_tiny,
+                                                  make_custom_train_step)
+    from distributed_tensorflow_tpu_torch.train import precision
+    config.setdefault("dropout_rate", 0.0)
+    init = GPT(gpt_tiny(**config), device="cpu").state_dict()
+    model = GPT(gpt_tiny(**config), device=device)
+    model.load_state_dict(init)
+    params = dict(model.named_parameters())
+    opt = adamw(TRAIN_LR)
+    state = TrainState.create(params, opt.init(params))
+    if planted is not None:
+        state = precision.attach_loss_scale(
+            state, precision.DynamicLossScale.create(2.0 ** 20,
+                                                     device=device))
+    step = make_custom_train_step(model.lm_loss_fn(), opt, seed=1,
+                                  grad_clip_norm=1.0, accum_steps=accum,
+                                  loss_scale=planted is not None)
+    rng = np.random.default_rng(4)
+    losses = []
+    for i in range(steps):
+        ids = rng.integers(0, 512, (4, 33))
+        mask = (rng.random((4, 32)) < [[0.3], [0.6], [0.9], [1.0]]).astype(
+            np.float32)
+        if i == planted:
+            mask[0, 0] = np.inf
+        state, m = step(state, {"input_ids": torch.from_numpy(ids).to(device),
+                                "loss_mask": torch.from_numpy(mask).to(
+                                    device)})
+        losses.append(m["loss"].item())
+    return losses, {k: p.detach().cpu() for k, p in params.items()}
+
+
+def check_train_session_reference(torch, np):
+    """Phase 17(g): card against CPU on gpt_tiny f32, and remat against no
+    remat on the card with dropout."""
+    cases = {"accumulation x2": dict(accum=2),
+             "remat full": dict(remat=True),
+             "remat dots": dict(remat=True, remat_policy="dots"),
+             "remat dots_no_batch": dict(remat=True,
+                                         remat_policy="dots_no_batch"),
+             "chunked loss 48": dict(loss_seq_chunk=48),
+             "loss scale, planted overflow": dict(planted=1)}
+    out = {}
+    for name, kw in cases.items():
+        (card_l, card_p), (cpu_l, cpu_p) = (
+            _tiny_run(torch, np, d, **kw) for d in ("cuda", "cpu"))
+        loss_err = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        param_err = max((card_p[k] - cpu_p[k]).abs().max().item()
+                        for k in cpu_p)
+        out[name] = {"card_losses": card_l, "cpu_losses": cpu_l,
+                     "loss_err": loss_err, "param_err": param_err}
+        if not (loss_err <= TRAIN_LOSS_TOL and param_err <= TRAIN_PARAM_TOL):
+            raise AssertionError(f"(g) {name}: card and CPU disagree: "
+                                 f"{out[name]}")
+    plain = _tiny_run(torch, np, "cuda", dropout_rate=0.1)
+    for policy in ("full", "dots", "dots_no_batch"):
+        got = _tiny_run(torch, np, "cuda", dropout_rate=0.1, remat=True,
+                        remat_policy=policy)
+        equal = got[0] == plain[0] and all(
+            torch.equal(got[1][k], p) for k, p in plain[1].items())
+        out[f"card remat {policy} vs none, dropout 0.1"] = {"equal": equal}
+        if not equal:
+            raise AssertionError(f"(g) remat {policy} with dropout differs "
+                                 "from no remat on the card")
+    log({"train_session": "(g) card against CPU, gpt_tiny f32, 3 steps",
+         "loss_tol": TRAIN_LOSS_TOL, "param_tol": TRAIN_PARAM_TOL,
+         "cases": out})
 
 
 def profile_engine(torch, np, args, smi, model, *, max_len=1024,
@@ -2608,34 +3170,24 @@ _TRAIN_PARTS = (
 )
 
 
-def profile_training(torch, np, args, smi):
-    """``--profile DIR``: 3 training steps of the phase-6 configuration
-    under ``torch.profiler`` after 2 unprofiled ones; writes the kernel
-    table to DIR/profile_train.txt and prints the device's busy share and
-    the top kernels."""
-    import os
-
+def _profile_steps(torch, smi, name, state, step, batches, f):
+    """3 steps of ``step`` (batches in turn) under ``torch.profiler``,
+    after 2 warm-up steps and 3 timed unprofiled ones; writes the kernel
+    table to ``f`` and logs the device's busy share, kernels a step and
+    device ms by part."""
     from torch.profiler import ProfilerActivity, profile
-
-    from distributed_tensorflow_tpu_torch import GPT, gpt_small
-    model = GPT(gpt_small(dtype=torch.bfloat16, dropout_rate=0.0),
-                device="cuda",
-                generator=torch.Generator("cuda").manual_seed(args.seed))
-    state, step = _train_setup(torch, model, TRAIN_LR, args.seed)
-    batch = _train_batch(torch, np, args.seed, TRAIN_BATCH, TRAIN_SEQ,
-                         model.config.vocab_size, "cuda")
-    for _ in range(2):
-        state, _ = step(state, batch)
+    for i in range(2):
+        state, _ = step(state, batches[i % len(batches)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
-        state, _ = step(state, batch)
+    for i in range(3):
+        state, _ = step(state, batches[i % len(batches)])
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            state, _ = step(state, batch)
+        for i in range(3):
+            state, _ = step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
     rows = _kernel_rows(prof)
     busy_s = sum(r[1] for r in rows) / 1e6
@@ -2645,19 +3197,59 @@ def profile_training(torch, np, args, smi):
                      if any(m in key for m in marks)),
                     "elementwise, reductions, copies")
         parts[part] = parts.get(part, 0.0) + us / 1e3 / 3
-    os.makedirs(args.profile, exist_ok=True)
-    with open(os.path.join(args.profile, "profile_train.txt"), "w") as f:
-        f.write(f"{smi}\n3 steps, unprofiled wall_s {plain_wall}\n")
-        for key, us, n in rows:
-            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+    f.write(f"{name}: 3 steps, unprofiled wall_s {plain_wall}\n")
+    for key, us, n in rows:
+        f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
     log({"profile_train": {
-        "steps": 3, "unprofiled_wall_s": plain_wall, "device_busy_s": busy_s,
+        "config": name, "steps": 3, "unprofiled_wall_s": plain_wall,
+        "device_busy_s": busy_s,
         "busy_share_of_unprofiled_wall": busy_s / plain_wall,
         "kernels_per_step": sum(r[2] for r in rows) / 3,
         "device_ms_per_step_by_part": dict(sorted(
             parts.items(), key=lambda kv: -kv[1])),
         "top": [[k[:80], us / 1e3, n] for k, us, n in rows[:15]],
         "card": smi}})
+    return state
+
+
+def profile_training(torch, np, args, smi):
+    """``--profile DIR``: 3 training steps under ``torch.profiler`` (see
+    ``_profile_steps``) of the phase-6 configuration, of phase 17's
+    arms (a) and (b) (remat "full" and "dots") and of its session step
+    (e) once its loss scale has settled (its first 7 steps skip); writes
+    the kernel tables to DIR/profile_train.txt and prints each one's
+    busy share and device ms by part."""
+    import os
+
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    batch = _train_batch(torch, np, args.seed, TRAIN_BATCH, TRAIN_SEQ,
+                         50257, "cuda")
+    os.makedirs(args.profile, exist_ok=True)
+    with open(os.path.join(args.profile, "profile_train.txt"), "w") as f:
+        f.write(f"{smi}\n")
+        for name, config in (("phase 6", {}),
+                             ("(a) remat full", {"remat": True}),
+                             ("(b) remat dots", {"remat": True,
+                                                 "remat_policy": "dots"})):
+            model = _gpt2(torch, args, **config)
+            params = dict(model.named_parameters())
+            opt = adamw(TRAIN_LR)
+            step = make_custom_train_step(model.lm_loss_fn(), opt,
+                                          seed=args.seed, grad_clip_norm=1.0)
+            _profile_steps(torch, smi, name,
+                           TrainState.create(params, opt.init(params)),
+                           step, [batch], f)
+            del model, params, opt, step
+            torch.cuda.empty_cache()
+        batches = [dict(b, loss_mask=torch.ones(TRAIN_BATCH, TRAIN_SEQ,
+                                                device="cuda"))
+                   for b in _session_batches(torch, np, args, 3)]
+        model, state, step = _session_setup(torch, args)
+        for i in range(5):
+            state, _ = step(state, batches[i % 3])
+        _profile_steps(torch, smi, "(e) session step", state, step,
+                       batches, f)
 
 
 # kernel-name marks of the Llama engine's parts, first match wins
@@ -2723,13 +3315,14 @@ def main(argv=None) -> int:
     check_reference(torch, np)
     check_decode_reference(torch, np)
     check_serve_reference(torch, np)
-    train_launches, model = check_training(torch, np, args, smi)
+    train_launches, model, phase6 = check_training(torch, np, args, smi)
     launches.update((k, v) for k, v in train_launches.items()
                     if k != "layernorm")     # its record: serving shapes
     check_train_reference(torch, np)
     check_train_then_serve(torch, np, model)
     del model
     torch.cuda.empty_cache()
+    session_launches = check_train_session(torch, np, args, smi, phase6)
     t0 = time.perf_counter()
     model = _llama_model(torch, args)
     torch.cuda.synchronize()
@@ -2765,7 +3358,9 @@ def main(argv=None) -> int:
                     **({"graph_note": r["graph_note"]}
                        if "graph_note" in r else {}),
                     **({"decode_launches": decode_launches[k]}
-                       if k in decode_launches else {}))
+                       if k in decode_launches else {}),
+                    **({"session_launches": session_launches[k]}
+                       if k in session_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

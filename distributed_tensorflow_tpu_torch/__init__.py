@@ -16,28 +16,39 @@ the engine's request surface: per-request LoRA adapters
 (``Engine.load_adapter``), admission with a queue bound, deadlines and
 tenant quotas (``fleet.TenantPolicy``), and live migration
 (``export_request``/``import_request``, with KV pages shipped between
-engines through ``fleet.pagewire``); it adds no kernel.  Kernels live
+engines through ``fleet.pagewire``); it adds no kernel.  Slice 10 is
+the rest of GPT training: ``TrainSession`` with hooks, checkpoints in the
+JAX package's format and TensorBoard event files, accumulation, the
+precision policy and loss scaling, per-block remat and the chunked LM
+loss (``GPTConfig.remat``, ``loss_seq_chunk``), ``with_ema`` and the
+learning-rate schedules, and the synthetic LM ``Dataset``; it adds no
+kernel either.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
+from . import data, optim, summary, train
 from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
-                             load_jax_params, lora_from_jax, lora_to_jax)
+                             load_jax_params, lora_from_jax, lora_to_jax,
+                             train_state_from_jax, train_state_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
 from .models.speculative import generate_speculative, speculative_accept
 from .ops.quant import QTensor, dequantize_tensor, quantize_tensor
-from .optim import adam, adamw
+from .optim import adam, adamw, ema_params, with_ema
 from .serve.engine import (DrainResult, Engine, EngineStats, QueueFullError,
                            RequestHandle, RequestSnapshot)
-from .train import TrainState, make_custom_train_step
+from .summary import SummaryWriter
+from .train import TrainSession, TrainState, make_custom_train_step
 
 __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "QTensor", "QueueFullError", "QuotaExceededError",
-           "RequestHandle", "RequestSnapshot", "TenantPolicy", "TenantQuota",
-           "TrainState", "adam", "adamw", "dequantize_tensor",
+           "RequestHandle", "RequestSnapshot", "SummaryWriter",
+           "TenantPolicy", "TenantQuota", "TrainSession", "TrainState",
+           "adam", "adamw", "data", "dequantize_tensor", "ema_params",
            "generate_speculative", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "llama2_7b",
            "llama3_8b", "llama_config", "llama_tiny", "load_jax_params",
-           "lora_from_jax", "lora_to_jax", "make_custom_train_step",
-           "quantize_tensor", "speculative_accept"]
+           "lora_from_jax", "lora_to_jax", "make_custom_train_step", "optim",
+           "quantize_tensor", "speculative_accept", "summary", "train",
+           "train_state_from_jax", "train_state_to_jax", "with_ema"]

@@ -13,10 +13,19 @@ the other way, and since gradients and Adam moments are params-shaped
 dicts under the same names, it carries them too.  ``lora_from_jax`` and
 ``lora_to_jax`` carry a LoRA adapter (``{target: {"a", "b"}}`` with
 ``[L, ...]`` leaves, the layout of both packages' ``init_lora``).
+
+``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
+state: the port's ``TrainState`` (its params, ``OptState(count, {m, v})``,
+the ``with_ema`` shadow, ``LossScaled`` and the loss scale's fields) as the
+JAX package's tree of the same NamedTuple fields, with every params-shaped
+dict in the JAX layout and every host value an array of the JAX state's
+type (a count int32, the EMA decay float32, ...).  The checkpoint module
+writes and reads through them, so either package restores the other's
+checkpoints.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -24,7 +33,8 @@ import torch
 from .gpt import GPT, GPTConfig
 
 __all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
-           "lora_from_jax", "lora_to_jax"]
+           "lora_from_jax", "lora_to_jax", "train_state_from_jax",
+           "train_state_to_jax"]
 
 # JAX tree keys that name configurations the port does not run yet
 _UNPORTED = ("moe",)
@@ -38,13 +48,20 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
         if isinstance(val, dict):
             yield from _flatten(val, f"{prefix}{key}.")
         else:
-            yield f"{prefix}{key}", np.asarray(val, np.float32)
+            yield f"{prefix}{key}", np.asarray(val)
 
 
 def gpt_params_from_jax(tree: Dict[str, Any],
                         config: GPTConfig) -> Dict[str, torch.Tensor]:
     """The port's ``GPT`` state dict from a JAX GPT parameter tree whose
     leaves are numpy arrays."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in _unstacked(tree, config.num_layers).items()}
+
+
+def _unstacked(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """The port's names -> leaves (layer ``i`` of a stacked one for
+    ``blocks.<i>.<path>``) of a JAX GPT parameter tree."""
     for key in tree:
         if key not in ("embeddings", "decoder", "ln_f", "lm_head"):
             raise ValueError(f"parameter {key!r} belongs to a GPT "
@@ -54,14 +71,12 @@ def gpt_params_from_jax(tree: Dict[str, Any],
     if "lm_head" in tree:
         sd["lm_head"] = tree["lm_head"]
     for path, leaf in _flatten(tree["decoder"]):
-        if leaf.shape[0] != config.num_layers:
+        if leaf.shape[0] != num_layers:
             raise ValueError(f"decoder leaf {path} leads with "
-                             f"{leaf.shape[0]}, not {config.num_layers} "
-                             "layers")
-        for i in range(config.num_layers):
+                             f"{leaf.shape[0]}, not {num_layers} layers")
+        for i in range(num_layers):
             sd[f"blocks.{i}.{path}"] = leaf[i]
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+    return sd
 
 
 def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor],
@@ -70,32 +85,148 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor],
     (or any dict of tensors under the same names: gradients, moments).
     Layer ``i``'s ``blocks.<i>.<path>`` become row ``i`` of the stacked
     leaf ``decoder.<path>``.  The inverse of ``gpt_params_from_jax``."""
+    return _stacked(state_dict, config.num_layers, config.tied_head,
+                    lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                    np.stack)
+
+
+def _stacked(state_dict: Mapping[str, Any], num_layers: int, tied: bool,
+             leaf: Callable, stack: Callable) -> Dict[str, Any]:
+    """The JAX GPT tree of a dict under the port's names: ``leaf(x)`` of
+    each entry, and ``stack([...])`` of a decoder leaf's layers."""
     tree: Dict[str, Any] = {"embeddings": {}, "ln_f": {}, "decoder": {}}
-    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    layers: Dict[str, Dict[int, Any]] = {}
     for name, t in state_dict.items():
-        leaf = t.detach().to("cpu", torch.float32).numpy()
         head, _, rest = name.partition(".")
         if name in ("word", "position"):
-            tree["embeddings"][name] = leaf
-        elif name == "lm_head" and not config.tied_head:
-            tree["lm_head"] = leaf
+            tree["embeddings"][name] = leaf(t)
+        elif name == "lm_head" and not tied:
+            tree["lm_head"] = leaf(t)
         elif head == "ln_f" and rest in ("gamma", "beta"):
-            tree["ln_f"][rest] = leaf
+            tree["ln_f"][rest] = leaf(t)
         elif head == "blocks":
             i, _, path = rest.partition(".")
-            layers.setdefault(path, {})[int(i)] = leaf
+            layers.setdefault(path, {})[int(i)] = leaf(t)
         else:
             raise ValueError(f"{name!r} is not a GPT parameter of the port")
     for path, rows in layers.items():
-        if sorted(rows) != list(range(config.num_layers)):
+        if sorted(rows) != list(range(num_layers)):
             raise ValueError(f"decoder leaf {path} has layers {sorted(rows)}"
-                             f", not 0..{config.num_layers - 1}")
+                             f", not 0..{num_layers - 1}")
         node = tree["decoder"]
         *parents, last = path.split(".")
         for key in parents:
             node = node.setdefault(key, {})
-        node[last] = np.stack([rows[i] for i in range(config.num_layers)])
+        node[last] = stack([rows[i] for i in range(num_layers)])
     return tree
+
+
+# -- whole training states -----------------------------------------------
+
+def _layers(names) -> int:
+    """The layer count of a GPT parameter dict, from its names."""
+    return 1 + max((int(n.split(".")[1]) for n in names
+                    if n.startswith("blocks.")), default=-1)
+
+
+def _host_scalar(x) -> np.ndarray:
+    """A host value as the JAX state holds it after a step: bool, int32,
+    float32 (0-d arrays)."""
+    if isinstance(x, (bool, np.bool_)):
+        return np.asarray(x, np.bool_)
+    if isinstance(x, (int, np.integer)):
+        return np.asarray(x, np.int32)
+    return np.asarray(x, np.float32)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _to_jax(x, names, num_layers: int, leaf: Callable, stack: Callable):
+    if isinstance(x, dict):
+        if names and set(x) == names:        # params-shaped: JAX layout
+            return _stacked(x, num_layers, "lm_head" not in names, leaf,
+                            stack)
+        return {k: _to_jax(v, names, num_layers, leaf, stack)
+                for k, v in x.items()}
+    if _is_namedtuple(x):
+        return type(x)(*(_to_jax(v, names, num_layers, leaf, stack)
+                         for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_jax(v, names, num_layers, leaf, stack)
+                       for v in x)
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return leaf(x)
+    return leaf(torch.from_numpy(_host_scalar(x)))
+
+
+def train_state_to_jax(state: Any, leaf: Callable = None,
+                       stack: Callable = None) -> Any:
+    """The JAX package's tree of a port training state (or of any tree of
+    NamedTuples, dicts, tuples, tensors and host values): the same
+    NamedTuple types and fields, dicts under the params' names in the JAX
+    GPT layout (stacked decoder leaves), host values as the JAX state's
+    0-d arrays.  Leaves are numpy arrays (``leaf``/``stack`` replace the
+    tensor -> array and layer-stacking steps: the checkpoint module keeps
+    tensors, and builds a tree of shapes only)."""
+    names = set(state.params) if hasattr(state, "params") else set()
+    return _to_jax(state, names, _layers(names),
+                   leaf or (lambda t: t.detach().cpu().numpy()),
+                   stack or np.stack)
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """A CPU tensor of an array leaf (numpy, or anything ``np.asarray``
+    takes, a jax array among them); bfloat16 arrives through its bits."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _from_jax(src, dst, names, num_layers: int):
+    if isinstance(dst, dict):
+        if names and set(dst) == names:
+            src = _unstacked(src, num_layers)
+        return {k: _from_jax(src[k], v, names, num_layers)
+                for k, v in dst.items()}
+    if _is_namedtuple(dst):
+        return type(dst)(*(_from_jax(getattr(src, f), getattr(dst, f),
+                                     names, num_layers)
+                           for f in dst._fields))
+    if isinstance(dst, (list, tuple)):
+        return type(dst)(_from_jax(s, d, names, num_layers)
+                         for s, d in zip(src, dst))
+    if dst is None:
+        return None
+    if isinstance(dst, torch.Tensor):
+        t = _as_tensor(src)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"leaf of shape {tuple(t.shape)} for a tensor "
+                             f"of shape {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(t)
+        return dst
+    return type(dst)(np.asarray(src).item())
+
+
+def train_state_from_jax(tree: Any, state: Any) -> Any:
+    """Copy the JAX package's tree of a training state (numpy or jax
+    arrays; any NamedTuple types with the port's field names) INTO the
+    port's ``state``: every tensor is written in place (the model's
+    parameters, the optimizer's moments and the EMA shadow keep their
+    identity), and the returned state, of ``state``'s types, holds those
+    same tensors and the tree's host values (step, counts, the loss
+    scale's fields).  The inverse of ``train_state_to_jax``."""
+    names = set(state.params) if hasattr(state, "params") else set()
+    return _from_jax(tree, state, names, _layers(names))
 
 
 def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:

@@ -24,7 +24,14 @@ Three ways to hold the KV cache, all under ``torch.no_grad()``:
   one token per slot at per-row columns.
 
 Training drives ``apply`` (the full-sequence forward, causal flash
-attention) through ``lm_loss_fn`` (next-token cross-entropy).
+attention) through ``lm_loss_fn`` (next-token cross-entropy).  Both read
+every parameter from the dict the step passes (the model's own tensors,
+or casts of them under a precision policy), so the gradients land on
+whatever that dict holds.  ``GPTConfig.remat`` runs each block under
+``torch.utils.checkpoint`` (``_checkpointed``: selective for the "dots"
+policies, with the dropout generator's state replayed for the
+recomputation), and ``loss_seq_chunk`` computes the loss a chunk of
+tokens at a time (``_lm_stats``), each chunk recomputed in the backward.
 
 Parameters keep the JAX package's layouts (projection kernels ``[d, h,
 hd]`` and ``[h, hd, d]``) and stay float32; each product casts them to
@@ -101,6 +108,72 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+# what each remat policy saves (the aten products whose outputs the
+# recomputation reads back instead of recomputing; None: nothing)
+_REMAT_SAVES = {
+    "full": None,
+    "dots": ("mm", "addmm", "bmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _checkpointed(fn: Callable, generator: Optional[torch.Generator],
+                  saves, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped after the forward and recomputed in the
+    backward, except the outputs of the aten products named in ``saves``
+    (selective checkpointing).
+
+    The recomputation must draw the dropout masks the forward drew, and
+    ``torch.utils.checkpoint`` replays only the global RNG, never an
+    explicit generator's: so the generator's state is taken before the
+    forward and set again for the recomputation (and put back after it).
+    The port's kernels launch through ctypes, unseen by the dispatcher,
+    so every policy runs them again, as ``dots_saveable`` recomputes a
+    ``pallas_call`` in the JAX package."""
+    from torch.utils import checkpoint as ckpt
+    state = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if state is None or calls[0] == 1:
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(now)
+
+    kw = {}
+    if saves:
+        ops = tuple(getattr(torch.ops.aten, name).default for name in saves)
+
+        def policy_fn(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            policy_fn)
+    return ckpt.checkpoint(run, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
+def _chunk_stats(hidden: torch.Tensor, head: torch.Tensor,
+                 targets: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(nll sum, hit sum) of one chunk of tokens: ``hidden`` [t, d]
+    against the head [vocab, d], f32 logits and log-softmax; hits (argmax
+    equal to the target) outside autograd; both weighted by ``mask``."""
+    logits = (hidden @ head.T.to(hidden.dtype)).float()
+    nll = -torch.log_softmax(logits, dim=-1).gather(
+        -1, targets[:, None])[:, 0]
+    with torch.no_grad():
+        hits = (logits.argmax(-1) == targets).float()
+    if mask is not None:
+        nll, hits = nll * mask, hits * mask
+    return nll.sum(), hits.sum()
+
+
 @dataclasses.dataclass
 class GPTConfig:
     vocab_size: int = 50257
@@ -132,8 +205,24 @@ class GPTConfig:
     # KV-cache storage: None = the compute dtype; "int8" = int8 values
     # with one f32 scale per (token, kv head)
     kv_cache_dtype: Optional[str] = None
+    # training: recompute each decoder block in the backward
+    # (torch.utils.checkpoint); ``remat_policy`` says what the block SAVES:
+    # "full" (nothing), "dots" (every matrix product's output: aten mm,
+    # addmm and bmm), "dots_no_batch" (the weight products: mm and addmm)
+    remat: bool = False
+    remat_policy: str = "full"
+    # training: > 0 computes the LM loss this many tokens at a time, each
+    # chunk's head projection and log-softmax recomputed in the backward,
+    # so the [tokens, vocab] f32 logits never exist whole; 0 = off
+    loss_seq_chunk: int = 0
 
     def __post_init__(self):
+        if self.remat_policy not in _REMAT_SAVES:
+            raise ValueError(f"remat_policy must be 'full', 'dots', or "
+                             f"'dots_no_batch'; got {self.remat_policy!r}")
+        if self.loss_seq_chunk < 0:
+            raise ValueError(f"loss_seq_chunk must be >= 0; "
+                             f"got {self.loss_seq_chunk}")
         if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8'; "
                              f"got {self.kv_cache_dtype!r}")
@@ -282,22 +371,21 @@ class GPT(nn.Module):
 
     # -- blocks -----------------------------------------------------------
     def _norm(self, p: _Norm, x: torch.Tensor) -> torch.Tensor:
-        c = self.config
-        if c.norm == "rmsnorm":
-            return fused_lib.fused_rmsnorm(x.contiguous(), p.gamma,
-                                           c.layer_norm_eps)
-        return fused_lib.fused_layernorm(x.contiguous(), p.gamma, p.beta,
-                                         c.layer_norm_eps)
+        return self._norm_of(p.gamma, p.beta, x)
 
     def _ffn(self, blk: _Block, x: torch.Tensor) -> torch.Tensor:
         f = blk.ffn
-        h = self._norm(blk.ln_2, x)
+        return self._ffn_of(lambda n: (getattr(f, n).kernel,
+                                       getattr(f, n).bias),
+                            self._norm(blk.ln_2, x))
+
+    def _ffn_of(self, dense: Callable, h: torch.Tensor) -> torch.Tensor:
+        """The FFN on normed ``h``; ``dense(name) -> (kernel, bias)`` of
+        ``w_in``, ``w_out`` (and ``w_gate``)."""
         if self.config.ffn_activation == "swiglu":
-            return ffn_swiglu_core(f.w_gate.kernel, f.w_gate.bias,
-                                   f.w_in.kernel, f.w_in.bias,
-                                   f.w_out.kernel, f.w_out.bias, h)
-        return ffn_core(f.w_in.kernel, f.w_in.bias, f.w_out.kernel,
-                        f.w_out.bias, h)
+            return ffn_swiglu_core(*dense("w_gate"), *dense("w_in"),
+                                   *dense("w_out"), h)
+        return ffn_core(*dense("w_in"), *dense("w_out"), h)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """LM head (the word embedding, or ``lm_head`` when untied) ->
@@ -506,75 +594,169 @@ class GPT(nn.Module):
 
     # -- full-sequence forward and the LM loss -----------------------------
     def apply(self, input_ids: torch.Tensor, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              params: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
         """input_ids [b, s] -> hidden [b, s, d] in the compute dtype (after
         ``ln_f``).  Causal attention through the flash kernel, RoPE on q
         and k before it under ``position_embedding="rope"``.  With
         ``train`` and a nonzero ``dropout_rate``, dropout (embedding,
         attention context, both residual branches) draws from
-        ``generator``.  (This replaces ``nn.Module.apply(fn)``, which the
-        port never uses, with the JAX package's name.)"""
+        ``generator``.  ``params``: the tensors to read under the
+        parameters' names (``named_parameters``), for example casts of
+        them to a compute dtype; None reads the model's own.  Under
+        ``remat`` each block runs through ``_checkpointed``, with its
+        tensors passed in.  (This replaces ``nn.Module.apply(fn)``, which
+        the port never uses, with the JAX package's name.)"""
         c = self.config
+        P = dict(self.named_parameters()) if params is None else params
         ids = input_ids.to(self.device).long()
         s = ids.shape[1]
-        x = F.embedding(ids, self.word)
+        x = F.embedding(ids, P["word"])
         if self.position is not None:
-            x = x + self.position[:s][None]
+            x = x + P["position"][:s][None]
         x = dropout(x, c.dropout_rate, generator, train).to(c.dtype)
         attention_fn = flash_lib.make_flash_attention_fn(causal=True)
         rope_cs = self._rope(torch.arange(s, device=self.device))
         qk_transform = None if rope_cs is None else (
             lambda q, k: (apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)))
-        for blk in self.blocks:
-            a = blk.attention
-            params = {name: {"kernel": p.kernel, "bias": p.bias} for name, p
-                      in (("query", a.query), ("key", a.key),
-                          ("value", a.value), ("out", a.out))}
-            attn = attention_core(params, self._norm(blk.ln_1, x),
-                                  dropout_rate=c.dropout_rate,
-                                  generator=generator, train=train,
-                                  attention_fn=attention_fn,
-                                  qk_transform=qk_transform)
-            x = x + dropout(attn, c.dropout_rate, generator, train)
-            x = x + dropout(self._ffn(blk, x), c.dropout_rate, generator,
-                            train)
-        return self._norm(self.ln_f, x)
+        for i in range(c.num_layers):
+            pre = f"blocks.{i}."
+            names = [n for n in P if n.startswith(pre)]
+
+            def block(x, *tensors, rel=[n[len(pre):] for n in names]):
+                return self._train_block(dict(zip(rel, tensors)), x,
+                                         attention_fn, qk_transform,
+                                         generator, train)
+            tensors = [P[n] for n in names]
+            if c.remat:
+                x = _checkpointed(block, generator,
+                                  _REMAT_SAVES[c.remat_policy], x, *tensors)
+            else:
+                x = block(x, *tensors)
+        return self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
+
+    def _norm_of(self, gamma: torch.Tensor, beta: Optional[torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+        """The block norm with these scale and shift tensors, passed to
+        the kernel in f32 (under a precision policy they arrive cast)."""
+        if self.config.norm == "rmsnorm":
+            return fused_lib.fused_rmsnorm(x.contiguous(), gamma.float(),
+                                           self.config.layer_norm_eps)
+        return fused_lib.fused_layernorm(x.contiguous(), gamma.float(),
+                                         beta.float(),
+                                         self.config.layer_norm_eps)
+
+    def _train_block(self, bp: Mapping[str, torch.Tensor], x: torch.Tensor,
+                     attention_fn: Callable, qk_transform, generator, train
+                     ) -> torch.Tensor:
+        """One decoder block of the training forward over its tensors
+        ``bp`` (names relative to ``blocks.<i>.``)."""
+        c = self.config
+
+        def norm(name, x):
+            return self._norm_of(bp[f"{name}.gamma"], bp.get(f"{name}.beta"),
+                                 x)
+        attn = attention_core(
+            {n: {"kernel": bp[f"attention.{n}.kernel"],
+                 "bias": bp.get(f"attention.{n}.bias")}
+             for n in ("query", "key", "value", "out")},
+            norm("ln_1", x), dropout_rate=c.dropout_rate,
+            generator=generator, train=train, attention_fn=attention_fn,
+            qk_transform=qk_transform)
+        x = x + dropout(attn, c.dropout_rate, generator, train)
+        y = self._ffn_of(lambda n: (bp[f"ffn.{n}.kernel"],
+                                    bp.get(f"ffn.{n}.bias")),
+                         norm("ln_2", x))
+        return x + dropout(y, c.dropout_rate, generator, train)
+
+    def _lm_stats(self, head: torch.Tensor, hidden: torch.Tensor,
+                  targets: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(nll sum, hit sum) over every token, ``loss_seq_chunk`` tokens
+        at a time: each chunk's projection against the head and its
+        log-softmax run under ``_checkpointed``, so only one chunk's
+        ``[chunk, vocab]`` f32 logits live at a time, in the forward and
+        again in the backward; the head's gradient adds up over the
+        chunks.  A chunk above the token count is clamped to it; the last
+        chunk may be short (the JAX package pads it: the sums agree to
+        f32 round-off)."""
+        d = hidden.shape[-1]
+        h2, y2 = hidden.reshape(-1, d), targets.reshape(-1)
+        m2 = None if mask is None else mask.reshape(-1)
+        t = h2.shape[0]
+        chunk = min(self.config.loss_seq_chunk, t)
+        nll_sum = hit_sum = None
+        for lo in range(0, t, chunk):
+            part = slice(lo, lo + chunk)
+            nll, hits = _checkpointed(
+                _chunk_stats, None, None, h2[part], head, y2[part],
+                None if m2 is None else m2[part])
+            nll_sum = nll if nll_sum is None else nll_sum + nll
+            hit_sum = hits if hit_sum is None else hit_sum + hits
+        return nll_sum, hit_sum
 
     def lm_loss_fn(self) -> Callable:
         """``loss_fn(params, model_state, batch, generator, train) ->
         (loss, (metrics, model_state))``, the contract of
-        ``train.make_custom_train_step``.  ``params`` are this model's own
-        parameters by name (``dict(model.named_parameters())``): the loss
-        reads them through the model, and the step's gradients and updates
-        are taken on those tensors.  ``batch``: ``input_ids`` [b, s] and
-        optional ``loss_mask`` [b, s - 1]; the targets are the inputs
-        shifted by one.  Metrics: ``token_accuracy`` and, under a mask,
-        ``loss_weight`` (its sum)."""
+        ``train.make_custom_train_step``.  ``params``: a dict under the
+        model's parameter names holding the model's own tensors
+        (``dict(model.named_parameters())``) or differentiable casts of
+        them to a compute dtype, which the step's precision policy
+        passes; anything else (a clone, a rebound tensor) is refused, so
+        the gradients land on the parameters that generation and the
+        engines read.  ``batch``:
+        ``input_ids`` [b, s] and optional ``loss_mask`` [b, s - 1]; the
+        targets are the inputs shifted by one.  Metrics:
+        ``token_accuracy`` and, under a mask, ``loss_weight`` (its sum).
+        With ``loss_seq_chunk`` the loss runs through ``_lm_stats``."""
         own = dict(self.named_parameters())
+
+        def is_own(t: torch.Tensor, p: torch.Tensor) -> bool:
+            fn = t.grad_fn
+            return t is p or (
+                type(fn).__name__.startswith("ToCopyBackward")
+                and getattr(fn.next_functions[0][0], "variable", None) is p)
 
         def loss_fn(params: Mapping[str, torch.Tensor], model_state: Any,
                     batch: Mapping[str, torch.Tensor],
                     generator: Optional[torch.Generator], train: bool):
-            if params.keys() != own.keys() or any(
-                    params[k] is not p for k, p in own.items()):
+            if params.keys() != own.keys() or not all(
+                    is_own(params[k], p) for k, p in own.items()):
                 raise ValueError("lm_loss_fn takes the model's own "
-                                 "parameters, dict(model.named_parameters())")
+                                 "parameters (dict(model.named_parameters()"
+                                 ")) or casts of them")
+            c = self.config
             ids = batch["input_ids"].to(self.device).long()
-            hidden = self.apply(ids[:, :-1], train=train, generator=generator)
+            hidden = self.apply(ids[:, :-1], train=train, generator=generator,
+                                params=params)
+            head = params["word"] if c.tied_head else params["lm_head"]
             targets = ids[:, 1:]
             mask = batch.get("loss_mask")
             if mask is not None:
                 mask = mask.to(self.device).float()
-            logits = self.logits(hidden)
-            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
-                logits, targets, where=mask)
-            hits = (logits.argmax(-1) == targets).float()
             metrics = {}
-            if mask is None:
-                metrics["token_accuracy"] = hits.mean()
+            if c.loss_seq_chunk:
+                nll_sum, hit_sum = self._lm_stats(head, hidden, targets, mask)
+                if mask is None:
+                    loss = nll_sum / targets.numel()
+                    metrics["token_accuracy"] = hit_sum / targets.numel()
+                else:
+                    w = mask.sum()
+                    loss = nll_sum / torch.clamp(w, min=1e-9)
+                    metrics["token_accuracy"] = hit_sum / torch.clamp(
+                        w, min=1.0)
             else:
-                metrics["token_accuracy"] = ((hits * mask).sum()
-                                             / torch.clamp(mask.sum(), min=1.0))
+                logits = (hidden @ head.T.to(hidden.dtype)).float()
+                loss = loss_lib.softmax_cross_entropy_with_integer_labels(
+                    logits, targets, where=mask)
+                hits = (logits.argmax(-1) == targets).float()
+                if mask is None:
+                    metrics["token_accuracy"] = hits.mean()
+                else:
+                    metrics["token_accuracy"] = (
+                        (hits * mask).sum() / torch.clamp(mask.sum(),
+                                                          min=1.0))
+            if mask is not None:
                 metrics["loss_weight"] = mask.sum()
             return loss, (metrics, model_state)
 

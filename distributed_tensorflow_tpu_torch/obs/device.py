@@ -1,0 +1,49 @@
+"""Device-health reductions of a training step, in PyTorch.
+
+Counterpart of ``distributed_tensorflow_tpu/obs/device.py`` (``grad_health``
+and ``tree_bytes``).  ``grad_health`` computes the global gradient L2 norm
+and the count of non-finite gradient elements as 0-d device tensors; the
+step builder puts them in its metrics, and nothing reads them back to the
+host until a hook does.  The JAX package's ``live_arrays_bytes`` (a walk
+of ``jax.live_arrays()``) has no counterpart: ``torch.cuda
+.memory_allocated()`` reads the same total.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+
+__all__ = ["grad_health", "tree_bytes", "GRAD_NORM_KEY", "NONFINITE_KEY"]
+
+# the metric keys the step builder emits, as in the JAX package
+GRAD_NORM_KEY = "grad_norm"
+NONFINITE_KEY = "nonfinite_grads"
+
+
+def grad_health(grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``{grad_norm, nonfinite_grads}`` of a dict of gradients: the norm
+    in f32 whatever their type (bf16 squares overflow at ~2e19), the count
+    as f32."""
+    leaves = list(grads.values())
+    if not leaves:
+        zero = torch.zeros(())
+        return {GRAD_NORM_KEY: zero, NONFINITE_KEY: zero}
+    sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
+    bad = sum(torch.sum(~torch.isfinite(g)) for g in leaves)
+    return {GRAD_NORM_KEY: torch.sqrt(sq),
+            NONFINITE_KEY: bad.to(torch.float32)}
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of the tensors and arrays in a tree of dicts, lists, tuples
+    and NamedTuples (from shapes and types only; no device access)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    nbytes = getattr(tree, "nbytes", None)
+    return int(nbytes) if nbytes is not None and hasattr(tree, "shape") \
+        else 0

@@ -11,6 +11,10 @@ at import: the first launch of a kernel builds its library, and
 :func:`build` builds several at once, one ``nvcc`` process each, all
 started together.
 
+A ``csrc/<name>.cpp`` is host code (no CUDA): it compiles the same way
+with the system C++ compiler (``c++``, the host compiler ``nvcc`` itself
+calls), which is also there on a machine with no card.
+
 A failed build raises with the compiler's output; a build that succeeds
 keeps it beside the library (``<library>.log``), where
 :func:`ptxas_report` reads each kernel's registers and spills.  Every launch function
@@ -34,7 +38,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "CSRC", "bind", "build", "check", "load",
+__all__ = ["BUILD_DIR", "CSRC", "bind", "build", "check", "cxx", "load",
            "ptxas_report", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -54,6 +58,32 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
                        "the port's CUDA kernels build from source")
+
+
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+
+def cxx() -> str:
+    """The system C++ compiler that builds ``csrc/*.cpp``; raises when
+    there is none."""
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (put c++ on PATH): the port's "
+                           "host routines build from source")
+    return cxx
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``csrc/<name>.cpp`` for host code."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _command(name: str, out: Path) -> list:
+    src = _source(name)
+    if src.suffix == ".cpp":
+        return [cxx(), *HOST_FLAGS, "-o", str(out), str(src)]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -76,8 +106,10 @@ def _sources(path: Path) -> list:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(CSRC / f"{name}.cu"):
+    src = _source(name)
+    h = hashlib.sha256(" ".join(
+        HOST_FLAGS if src.suffix == ".cpp" else NVCC_FLAGS).encode())
+    for src in _sources(src):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -91,34 +123,36 @@ def _build_locked(names) -> float:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = _command(name, tmp)
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n"
+            failed.append(f"{_source(name).name} (exit {proc.returncode}):\n"
                           f"{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
             out.with_suffix(".log").write_bytes(log)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def build(*names: str) -> float:
     """Build the named sources (all of ``csrc/`` when none is named) that
     are not built yet, in parallel; returns the seconds it took."""
-    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    names = names or tuple(sorted(p.stem for pattern in ("*.cu", "*.cpp")
+                                  for p in CSRC.glob(pattern)))
     with _lock:
         return _build_locked(names)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

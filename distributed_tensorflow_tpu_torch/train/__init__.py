@@ -1,5 +1,19 @@
-"""Training of the port: ``TrainState`` and the step builder
-(``train/step.py``)."""
-from .step import TrainState, make_custom_train_step
+"""Training of the port: the step builder (``train/step.py``), precision
+policies and loss scales (``train/precision.py``), ``TrainState`` and
+``TrainSession`` (``train/session.py``), hooks (``train/hooks.py``) and
+checkpoints (``train/checkpoint.py``)."""
+from . import checkpoint, hooks, precision
+from .hooks import (CheckpointHook, EvalHook, Hook, LoggingHook, NaNHook,
+                    PreemptionHook, ProfilerHook, StepCounterHook,
+                    StopAtStepHook, SummaryHook, WatchdogHook)
+from .precision import (DynamicLossScale, LossScaled, NoLossScale, Policy,
+                        StaticLossScale, attach_loss_scale)
+from .session import TrainSession, TrainState
+from .step import make_custom_train_step
 
-__all__ = ["TrainState", "make_custom_train_step"]
+__all__ = ["checkpoint", "hooks", "precision", "CheckpointHook", "EvalHook",
+           "Hook", "LoggingHook", "NaNHook", "PreemptionHook",
+           "ProfilerHook", "StepCounterHook", "StopAtStepHook",
+           "SummaryHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
+           "NoLossScale", "Policy", "StaticLossScale", "attach_loss_scale",
+           "TrainSession", "TrainState", "make_custom_train_step"]

@@ -1,0 +1,189 @@
+"""``TrainState`` and ``TrainSession``, the training loop's driver, in
+PyTorch.
+
+Counterpart of ``distributed_tensorflow_tpu/train/session.py``:
+
+  * chief semantics: only the chief writes checkpoints.
+    ``is_chief=None`` means rank 0 of an initialised ``torch.distributed``
+    process group, else True (the port has no cluster module yet);
+  * auto-restore on entry through ``checkpoint.restore_latest_good``
+    (verified, corrupt checkpoints quarantined), IN PLACE into the
+    state's tensors: the model's parameters keep their identity;
+  * the ``while not sess.should_stop():`` loop with hooks, periodic and
+    final saves, optional background (``async_checkpoint``) writes.
+
+The step function is ``make_custom_train_step``'s; its metrics are device
+tensors, and a hook that does not fire never reads them.
+
+Not yet ported: ``sharded_checkpoint=True`` (per-process chunk writes,
+with the parallelism slice) and ``telemetry`` (``obs.Telemetry`` spans,
+with the obs slice); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import logging
+import os
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, \
+    Sequence, Tuple
+
+import torch
+
+from . import checkpoint as ckpt_lib
+from .hooks import Hook
+
+log = logging.getLogger(__name__)
+
+__all__ = ["TrainState", "TrainSession", "process_is_chief"]
+
+
+class TrainState(NamedTuple):
+    """The unit of checkpoint and restore.  ``step`` counts applied steps
+    (the ``global_step`` analogue, a host int); ``params`` maps names to
+    the model's parameters; ``model_state`` holds non-trainable state
+    (empty for GPT; ``precision.LossScaled`` under loss scaling)."""
+    step: int
+    params: Mapping[str, torch.Tensor]
+    opt_state: Any
+    model_state: Any = ()
+
+    @classmethod
+    def create(cls, params, opt_state, model_state=()):
+        return cls(step=0, params=params, opt_state=opt_state,
+                   model_state=model_state)
+
+
+StepFn = Callable[..., Tuple[TrainState, Dict[str, Any]]]
+
+
+def process_is_chief() -> bool:
+    """Rank 0 of an initialised ``torch.distributed`` group, else True."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
+
+
+class TrainSession:
+    """Monitored training loop driver::
+
+        with TrainSession(state, step_fn, checkpoint_dir=logdir,
+                          hooks=[StopAtStepHook(30000)]) as sess:
+            for batch in data:
+                if sess.should_stop():
+                    break
+                metrics = sess.run_step(batch)
+
+    ``step_fn(state, batch) -> (new_state, metrics)``, typically from
+    ``train.make_custom_train_step``."""
+
+    def __init__(self, state: TrainState, step_fn: StepFn,
+                 checkpoint_dir: Optional[str] = None,
+                 hooks: Sequence[Hook] = (),
+                 is_chief: Optional[bool] = None,
+                 max_to_keep: int = 5,
+                 restore: bool = True,
+                 async_checkpoint: bool = False,
+                 sharded_checkpoint: bool = False,
+                 telemetry=None):
+        if sharded_checkpoint:
+            raise NotImplementedError(
+                "sharded_checkpoint: per-process chunk checkpoints come "
+                "with the port's parallelism slice (torch.distributed)")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "telemetry: the port has no obs.Telemetry yet (the obs "
+                "slice); pass None")
+        self.state = state
+        self.step_fn = step_fn
+        self.checkpoint_dir = checkpoint_dir
+        self.hooks = list(hooks)
+        self.is_chief = process_is_chief() if is_chief is None \
+            else is_chief
+        self.max_to_keep = max_to_keep
+        self.last_saved_step = None
+        self._stop = False
+        self._async_ckpt = (ckpt_lib.AsyncCheckpointer() if async_checkpoint
+                            else None)
+        if restore and checkpoint_dir:
+            restored, latest = ckpt_lib.restore_latest_good(self.state,
+                                                            checkpoint_dir)
+            if restored is not None:
+                self.state = restored
+                self.last_saved_step = self.step    # disk has this step
+                log.info("restored checkpoint %s (step %d)", latest,
+                         self.step)
+                print(f"Restored checkpoint {os.path.basename(latest)} at "
+                      f"step {self.step}", flush=True)
+
+    # -- loop protocol ----------------------------------------------------
+    @property
+    def step(self) -> int:
+        return int(self.state.step)
+
+    def should_stop(self) -> bool:
+        return self._stop
+
+    def request_stop(self) -> None:
+        self._stop = True
+
+    def run_step(self, *args, **kwargs) -> Dict[str, Any]:
+        """One training step: hooks, the step function, cursor advance."""
+        for hook in self.hooks:
+            hook.before_step(self)
+        self.state, metrics = self.step_fn(self.state, *args, **kwargs)
+        for hook in self.hooks:
+            hook.after_step(self, metrics)
+        return metrics
+
+    # -- checkpointing ----------------------------------------------------
+    def save(self) -> Optional[str]:
+        """Chief-only checkpoint write; a no-op elsewhere and without a
+        checkpoint dir."""
+        if not self.checkpoint_dir or not self.is_chief:
+            return None
+        if self._async_ckpt is not None:
+            self._async_ckpt.save(self.checkpoint_dir, self.step, self.state,
+                                  max_to_keep=self.max_to_keep)
+            path = ckpt_lib.ckpt_path(self.checkpoint_dir, self.step)
+        else:
+            path = ckpt_lib.save(self.checkpoint_dir, self.step, self.state,
+                                 max_to_keep=self.max_to_keep)
+        self.last_saved_step = self.step
+        log.info("saved checkpoint %s", path)
+        return path
+
+    def drain_checkpoints(self) -> None:
+        """Block until every queued background write is on disk."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+
+    # -- context manager --------------------------------------------------
+    def __enter__(self) -> "TrainSession":
+        for hook in self.hooks:
+            hook.begin(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        # clean exit: end hooks, then a final checkpoint at this step if
+        # none is on disk yet; ``close`` and the writer's drain always run
+        try:
+            if exc_type is None:
+                for hook in self.hooks:
+                    hook.end(self)
+                if (self.checkpoint_dir and self.is_chief
+                        and self.last_saved_step != self.step):
+                    self.save()
+        finally:
+            for hook in self.hooks:
+                try:
+                    hook.close(self)
+                except Exception:  # pragma: no cover
+                    log.exception("hook %r close() raised", hook)
+            if self._async_ckpt is not None:
+                try:
+                    self._async_ckpt.close()
+                except Exception:
+                    if exc_type is None:
+                        raise       # a lost checkpoint must be loud
+                    log.exception("async checkpoint write failed during "
+                                  "exception unwind")

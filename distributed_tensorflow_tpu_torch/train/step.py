@@ -1,82 +1,219 @@
 """The training step, in PyTorch.
 
 Counterpart of ``distributed_tensorflow_tpu/train/step.py``
-``make_custom_train_step`` (and ``TrainState`` of ``train/session.py``)
-for one device and ``accum_steps=1``: loss and gradients, the global-norm
-clip, the optimizer update, the parameters updated in place, the step
-advanced.  The JAX step is one jit-compiled program over a donated state;
-here PyTorch runs eagerly and the parameters are the model's own tensors,
+``make_custom_train_step`` for one device: loss and gradients (over
+``accum_steps`` microbatches), the precision policy, loss scaling, the
+non-finite skip, device-health metrics, the global-norm clip, the
+optimizer update, the parameters updated in place, the step advanced.
+The JAX step is one jit-compiled program over a donated state; here
+PyTorch runs eagerly and the parameters are the model's own tensors,
 updated in place under ``torch.no_grad()``, which is what donation buys
 there.
 
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
-seeded from ``(seed, step)`` for every step: deterministic, resume-stable
-and unique per step, as the JAX step folds the step into its key.  The
-bits differ from ``jax.random``'s, so parity with the JAX package is
-tested at dropout rate 0.
+seeded from ``(seed, step)`` for every step, and from ``(seed, step, i)``
+for microbatch ``i`` when ``accum_steps > 1``: deterministic,
+resume-stable and unique, as the JAX step folds the step (and the
+microbatch) into its key.  The bits differ from ``jax.random``'s, so
+parity with the JAX package is tested at dropout rate 0.
+
+The reported loss under ``loss_scale`` is the loss itself, not the
+scaled loss unscaled as the JAX step reports it: where the scaled value
+overflows to inf while every gradient stays finite (the gradients never
+need that value), the JAX step applies a sound update and reports an
+infinite loss, which stops a run under ``NaNHook``; here it reports the
+loss.  Below overflow the two are equal (the scale is a power of two).
+
+Skipping a step (``loss_scale`` or ``skip_nonfinite``): the JAX step
+rolls a non-finite update back inside its program with ``jnp.where``.
+Here Adam writes the parameters and moments in place, so the step reads
+the finite flag on the host once, before the update, and on a skip
+launches no optimizer at all: parameters, moments, the EMA shadow, the
+optimizer's count and ``model_state`` keep their values and only
+``TrainState.step`` advances.  That read is the step's only host sync;
+the default path makes none.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..obs import device as obs_device
 from ..optim import optimizers as opt_lib
+from . import precision as prec_lib
+from .session import TrainState
 
 __all__ = ["TrainState", "make_custom_train_step"]
 
 
-class TrainState(NamedTuple):
-    """``step`` counts applied updates (the ``global_step`` analogue);
-    ``params`` maps names to the model's parameters; ``model_state``
-    holds non-trainable state (empty for GPT)."""
-    step: int
-    params: Mapping[str, torch.Tensor]
-    opt_state: Any
-    model_state: Any = ()
-
-    @classmethod
-    def create(cls, params, opt_state, model_state=()):
-        return cls(step=0, params=params, opt_state=opt_state,
-                   model_state=model_state)
+def _step_generator(seed: int, step: int, device: torch.device,
+                    microbatch: Optional[int] = None) -> torch.Generator:
+    """The dropout generator of step ``step`` (of its microbatch
+    ``microbatch`` under accumulation)."""
+    s = int(seed) * 1_000_003 + int(step)
+    if microbatch is not None:
+        s = s * 1_000_003 + int(microbatch) + 1
+    return torch.Generator(device).manual_seed(s % (2 ** 63))
 
 
-def _step_generator(seed: int, step: int,
-                    device: torch.device) -> torch.Generator:
-    """The dropout generator of step ``step``."""
-    return torch.Generator(device).manual_seed(
-        (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+def _microbatches(batch: Mapping[str, torch.Tensor], n: int):
+    """``batch`` split along its leading dim into ``n`` equal dicts."""
+    bad = sorted({v.shape[0] for v in batch.values() if v.shape[0] % n})
+    if bad:
+        raise ValueError(f"batch leading dim(s) {bad} not divisible by "
+                         f"accum_steps={n}")
+    split = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                            seed: int = 0,
-                           grad_clip_norm: Optional[float] = None
-                           ) -> Callable:
+                           grad_clip_norm: Optional[float] = None,
+                           accum_steps: int = 1,
+                           policy: Any = None,
+                           loss_scale: bool = False,
+                           device_health: bool = False,
+                           skip_nonfinite: bool = False) -> Callable:
     """Build ``step(state, batch) -> (new_state, metrics)``.
 
     ``loss_fn(params, model_state, batch, generator, train) -> (loss,
     (metrics, new_model_state))`` (``GPT.lm_loss_fn()``).  Metrics are
-    device tensors (nothing here reads them back to the host): ``loss``,
-    the loss function's own, and ``grad_norm`` (before clipping) when
-    ``grad_clip_norm`` is set.  The state's parameters are updated in
-    place; the returned state holds the same tensors."""
+    device tensors: ``loss``, the loss function's own, ``grad_norm``
+    (before clipping) when ``grad_clip_norm`` is set.  The state's
+    parameters are updated in place; the returned state holds the same
+    tensors.
+
+    ``accum_steps > 1``: the batch's leading dim splits into that many
+    microbatches, run one after another with f32 gradient accumulators
+    and ONE optimizer update.  Every microbatch's gradients, loss and
+    metrics are weighted by its ``metrics["loss_weight"]`` (1 without
+    that key) and divided by the weights' sum (at least 1e-9), which
+    recovers the full batch's masked mean; ``model_state`` threads
+    through the microbatches in order.
+
+    ``policy``: a ``precision.Policy`` or its string (``"mixed_bfloat16"``):
+    floating parameters and batch tensors are cast to the compute dtype
+    inside the differentiated function, so gradients land on the f32
+    parameters; loss and metrics leave in the output dtype.
+
+    ``loss_scale=True``: ``state.model_state`` must be wrapped by
+    ``precision.attach_loss_scale``; the loss is scaled, the gradients
+    unscaled, a non-finite step skipped (see the module docstring) with
+    its gradients zeroed first and its loss reported as 0, and the
+    adjusted scale threaded on (``metrics["loss_scale"]``,
+    ``metrics["grads_finite"]``).  ``skip_nonfinite=True`` skips a step
+    whose gradients hold a non-finite element; it cannot be combined
+    with ``loss_scale``, which skips already.
+
+    ``device_health=True``: ``grad_norm`` and ``nonfinite_grads`` of the
+    (unscaled) gradients (``obs.device.grad_health``), as device tensors;
+    the clip's ``grad_norm`` takes precedence."""
+    if skip_nonfinite and loss_scale:
+        raise ValueError("loss_scale=True already skips non-finite "
+                         "updates; drop skip_nonfinite")
+    pol = prec_lib.policy(policy) if policy is not None else None
+
+    def grad_of(params, model_state, batch, gen, ls):
+        names = list(params)
+        p, mb = params, batch
+        if pol is not None:
+            p = pol.cast_to_compute(params)
+            mb = pol.cast_to_compute(batch)
+        loss, (metrics, new_model_state) = loss_fn(p, model_state, mb, gen,
+                                                   True)
+        value = loss if ls is None else ls.scale(loss)
+        grads = torch.autograd.grad(value, [params[n] for n in names])
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                new_model_state, dict(zip(names, grads)))
+
+    def accumulate(state, params, model_state, batch, device, ls):
+        grads = loss_sum = metrics_sum = w_sum = None
+        has_weight = False
+        for i, mb in enumerate(_microbatches(batch, accum_steps)):
+            gen = _step_generator(seed, state.step, device, i)
+            loss, metrics, model_state, g = grad_of(params, model_state, mb,
+                                                    gen, ls)
+            has_weight = "loss_weight" in metrics
+            w = metrics.pop("loss_weight", None)
+            w = (torch.ones((), device=device) if w is None
+                 else w.to(torch.float32))
+            if grads is None:
+                grads = {k: v * w for k, v in g.items()}
+                loss_sum, w_sum = loss * w, w
+                metrics_sum = {k: v * w for k, v in metrics.items()}
+                continue
+            for k, v in g.items():
+                grads[k].add_(v * w)
+            loss_sum = loss_sum + loss * w
+            metrics_sum = {k: metrics_sum[k] + v * w
+                           for k, v in metrics.items()}
+            w_sum = w_sum + w
+        inv = 1.0 / torch.clamp(w_sum, min=1e-9)
+        for g in grads.values():
+            g.mul_(inv)
+        metrics = {k: v * inv for k, v in metrics_sum.items()}
+        if has_weight:
+            metrics["loss_weight"] = w_sum
+        return loss_sum * inv, metrics, model_state, grads
+
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         params = state.params
-        names = list(params)
-        device = params[names[0]].device
-        gen = _step_generator(seed, state.step, device)
-        loss, (metrics, new_model_state) = loss_fn(
-            params, state.model_state, batch, gen, True)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[n] for n in names])))
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in metrics.items()}}
+        device = next(iter(params.values())).device
+        if loss_scale:
+            if not isinstance(state.model_state, prec_lib.LossScaled):
+                raise TypeError(
+                    "loss_scale=True needs state.model_state wrapped by "
+                    "precision.attach_loss_scale(state, loss_scale)")
+            model_state_in = state.model_state.model_state
+            ls = state.model_state.loss_scale
+        else:
+            model_state_in, ls = state.model_state, None
+
+        if accum_steps == 1:
+            loss, metrics, new_model_state, grads = grad_of(
+                params, model_state_in, batch,
+                _step_generator(seed, state.step, device), ls)
+        else:
+            loss, metrics, new_model_state, grads = accumulate(
+                state, params, model_state_in, batch, device, ls)
+        apply = True
+        if ls is not None:
+            grads = ls.unscale(grads)
+            finite = prec_lib.all_finite(grads)
+            new_ls = ls.adjust(finite)
+            apply = bool(finite)            # the one host sync
+            if not apply:
+                grads = {k: torch.zeros_like(g) for k, g in grads.items()}
+        if pol is not None:
+            loss = pol.cast_to_output(loss)
+            metrics = pol.cast_to_output(metrics)
+        metrics = {"loss": loss, **metrics}
+        if device_health:
+            for k, v in obs_device.grad_health(grads).items():
+                metrics.setdefault(k, v)
+        if skip_nonfinite:
+            sn_finite = prec_lib.all_finite(grads)
+            apply = bool(sn_finite)         # the one host sync
+            metrics["grads_finite"] = sn_finite
         if grad_clip_norm is not None:
             grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip_norm)
             metrics["grad_norm"] = gnorm
-        updates, new_opt_state = optimizer.update(grads, state.opt_state,
-                                                  params)
-        opt_lib.apply_updates(params, updates)
+        if apply:
+            updates, new_opt_state = optimizer.update(grads, state.opt_state,
+                                                      params)
+            opt_lib.apply_updates(params, updates)
+            if optimizer.after_apply is not None:
+                new_opt_state = optimizer.after_apply(new_opt_state, params)
+        else:
+            new_opt_state, new_model_state = state.opt_state, model_state_in
+        if ls is not None:
+            if not apply:
+                metrics["loss"] = torch.zeros_like(metrics["loss"])
+            metrics["grads_finite"] = finite
+            metrics["loss_scale"] = new_ls.scale_value
+            new_model_state = prec_lib.LossScaled(new_model_state, new_ls)
         return TrainState(step=state.step + 1, params=params,
                           opt_state=new_opt_state,
                           model_state=new_model_state), metrics

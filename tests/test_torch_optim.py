@@ -13,6 +13,14 @@ gradient held against the JAX package.
 - LayerNorm's gradient (autograd through the plain version, what the
   kernel's backward recomputes) against ``jax.vjp`` of the JAX
   ``fused_layernorm``: 1e-4 absolute.
+- Every learning-rate schedule at counts 0..50 against the JAX
+  schedule: 1e-6 relative plus 1e-9 absolute (both compute in float32;
+  ``cos`` and ``pow`` may round differently by an ulp).
+- ``with_ema(adamw)`` over 3 steps (``update``, ``apply_updates``, then
+  its ``after_apply``, as the step builder calls them) and
+  ``ema_params`` (debiased or not) against the JAX optimizer: params,
+  moments and the shadow within 1e-5 absolute, the counts and the stored decay equal; the standalone
+  ``ema`` tracker likewise.
 """
 import numpy as np
 import pytest
@@ -22,9 +30,12 @@ import jax
 import jax.numpy as jnp
 
 from distributed_tensorflow_tpu.models.gpt import gpt_tiny as jgpt_tiny
+from distributed_tensorflow_tpu import optim as jema
 from distributed_tensorflow_tpu.optim import optimizers as jopt
+from distributed_tensorflow_tpu.optim import schedules as jsched
 from distributed_tensorflow_tpu.ops.pallas import fused as jfused
 from distributed_tensorflow_tpu_torch import optim as topt
+from distributed_tensorflow_tpu_torch.optim import schedules as tsched
 from distributed_tensorflow_tpu_torch.models.convert import (
     gpt_params_from_jax, gpt_params_to_jax)
 from distributed_tensorflow_tpu_torch.models.gpt import gpt_tiny
@@ -167,3 +178,77 @@ def test_layernorm_gradient_matches_jax_vjp(shape):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
                                    rtol=0)
+
+
+_SCHEDULES = {
+    "constant": lambda m: m.constant(3e-4),
+    "exponential": lambda m: m.exponential_decay(1e-3, 7, 0.8),
+    "exponential_staircase": lambda m: m.exponential_decay(1e-3, 7, 0.8,
+                                                           staircase=True),
+    "cosine": lambda m: m.cosine_decay(1e-3, 40, alpha=0.1),
+    "warmup_cosine": lambda m: m.warmup_cosine_decay(1e-3, 5, 40, 1e-5),
+    "warmup_linear": lambda m: m.warmup_linear_decay(1e-3, 10, 45),
+    "polynomial": lambda m: m.polynomial_decay(1e-3, 30, 1e-5, power=2.0),
+    "polynomial_cycle": lambda m: m.polynomial_decay(1e-3, 12, 1e-5,
+                                                     power=0.5, cycle=True),
+    "piecewise": lambda m: m.piecewise_constant([10, 25], [1e-3, 5e-4,
+                                                           1e-4]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SCHEDULES))
+def test_schedule_matches_jax(name):
+    got, want = _SCHEDULES[name](tsched), _SCHEDULES[name](jsched)
+    counts = np.arange(51)
+    g = np.array([got(int(c)) for c in counts])
+    w = np.array([float(want(jnp.asarray(c, jnp.int32))) for c in counts])
+    assert all(isinstance(got(int(c)), float) for c in counts[:3])
+    np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("debias", [True, False])
+def test_with_ema_matches_jax_over_three_steps(debias):
+    jparams, jgrads, params, grads, config = _trees(2)
+    jo = jema.with_ema(jopt.adamw(1e-2), decay=0.9, debias=debias)
+    to = topt.with_ema(topt.adamw(1e-2), decay=0.9, debias=debias)
+    jstate, tstate = jo.init(jparams), to.init(params)
+    jp = jax.tree.map(jnp.asarray, jparams)
+    for step in range(3):
+        jg = jax.tree.map(lambda x: jnp.asarray(x) * (step + 1), jgrads)
+        tg = {k: g * (step + 1) for k, g in grads.items()}
+        ju, jstate = jo.update(jg, jstate, jp)
+        jp = jopt.apply_updates(jp, ju)
+        tu, tstate = to.update(tg, tstate, params)
+        topt.apply_updates(params, tu)
+        tstate = to.after_apply(tstate, params)
+    tema, jema_state = tstate.inner["ema"], jstate.inner["ema"]
+    assert tstate.count == int(jstate.count) == 3
+    assert tema.count == int(jema_state.count) == 3
+    assert tstate.inner["opt"].count == int(jstate.inner["opt"].count) == 3
+    assert tema.decay == float(jema_state.decay)
+    assert tema.debias == bool(jema_state.debias) == debias
+    for got, want in ((params, jp), (tema.shadow, jema_state.shadow),
+                      (tstate.inner["opt"].inner["m"],
+                       jstate.inner["opt"].inner["m"]),
+                      (topt.ema_params(tstate), jema.ema_params(jstate))):
+        got = gpt_params_to_jax(got, config)
+        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                                jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(a, np.asarray(b), atol=TREE_TOL,
+                                       rtol=0, err_msg=str(path))
+    with pytest.raises(ValueError, match="with_ema"):
+        topt.ema_params(topt.adamw().init(params))
+
+
+def test_standalone_ema_tracker_matches_jax():
+    rng = np.random.default_rng(3)
+    seq = [rng.standard_normal((4, 5)).astype(np.float32) for _ in range(4)]
+    t, j = topt.ema(decay=0.75), jema.ema(decay=0.75)
+    ts, js = t.init({"w": torch.zeros(4, 5)}), j.init({"w": jnp.zeros((4,
+                                                                       5))})
+    for x in seq:
+        ts = t.update(ts, {"w": torch.from_numpy(x)})
+        js = j.update(js, {"w": jnp.asarray(x)})
+        np.testing.assert_allclose(t.value(ts)["w"].numpy(),
+                                   np.asarray(j.value(js)["w"]),
+                                   atol=1e-6, rtol=1e-6)

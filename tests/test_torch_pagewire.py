@@ -1,7 +1,7 @@
 """The port's page wire (``fleet/pagewire.py``, ``summary/crc32c.py``) and
 the engine's page shipping, held against the JAX package.
 
-* ``crc32c`` (numpy, for long inputs) equals the reference's byte loop.
+* ``crc32c`` (the C++ host routine) equals the reference's byte loop.
 * Frames round-trip; a flipped byte, a bad magic or a truncation is a
   ``WireFrameError`` (the receiver's NAK).
 * Frames written by the reference parse in the port and the reverse, for
