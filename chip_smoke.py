@@ -198,9 +198,33 @@ no result lines:
    step, and for (e)/(f) checkpoint bytes, save ms, verify-and-restore ms
    and the event file's records (the watched arms are not timed).
 
+18. xor (after the Llama phases): ``example.py``'s path.  (a) The Adam
+   kernel against its plain version at the XOR MLP's six leaf shapes
+   ([64, 128], [128], [128, 128], [128], [128, 32], [32]) at steps 1 and
+   3, called as ``optim.adam()`` calls it, with kernel and plain ms.
+   (b) ``make_train_step`` on the card against the CPU: one set of
+   weights from ``--seed``, dropout 0, 20 steps on the same batches, in
+   f32 with TF32 off (asserted; the entry point sets the precision):
+   losses within ``XOR_LOSS_RTOL``, parameters within ``XOR_PARAM_TOL``.
+   (c) One epoch of the entry point's step loop timed (step ms, steps/s,
+   samples/s) and profiled (the card's busy share, ``obs.device
+   .device_busy``); then ``python -m distributed_tensorflow_tpu_torch
+   .example`` run in-process at ``example.py``'s configuration for 50
+   epochs, or 20 when that epoch's time says 50 would not fit
+   ``XOR_BUDGET_S``: the last printed val accuracy above 0.95, Adam
+   launches exactly 6 a step and no other kernel, a checkpoint at the
+   last step and the graph record in the event file.  (d) The entry point
+   again with one epoch more on the same log dir: it restores at the
+   last step, runs 600 steps with 0 host syncs in each (counted as phase
+   11 counts them) and prints the epoch line.  (e) ``cluster.initialize``
+   on a one-process environment (NCCL), ``make_train_step(mesh=...)`` for
+   10 steps at dropout 0 from (b)'s weights: parameters equal to (b)'s
+   card run within ``XOR_DP_TOL``, one all-reduce a step (counted).
+
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
-``session_launches`` for those of phase 17's session, (e) and (f)), the
+``session_launches`` for those of phase 17's session, (e) and (f);
+``xor_launches`` for Adam on phase 18's entry point run, (c)), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -210,6 +234,7 @@ import collections
 import json
 import math
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -281,6 +306,23 @@ SESSION_SCALE = 2.0 ** 127
 # that, so an accumulation that keeps only the last microbatch's
 # gradients fails them (planted once on the card; PERF.md)
 ACCUM_FIRST_TOL, ACCUM_LOSS_TOL = 1e-4, 3e-3
+
+# example.py's XOR MLP (phase 18): its leaf shapes (Adam launches one
+# kernel each a step), its batch and epoch; the entry point runs
+# XOR_EPOCHS (the reference's default) when one measured epoch says that
+# (c) and (d) fit XOR_BUDGET_S, else XOR_EPOCHS_SHORT (12,000 steps; the
+# JAX package's convergence test passes 0.95 in about 9,600); the last
+# val accuracy must pass XOR_ACC (the reference's oracle,
+# tests/test_convergence.py)
+XOR_SHAPES = ((64, 128), (128,), (128, 128), (128,), (128, 32), (32,))
+XOR_BATCH, XOR_STEPS_PER_EPOCH = 50, 600
+XOR_EPOCHS, XOR_EPOCHS_SHORT, XOR_BUDGET_S, XOR_ACC = 50, 20, 120.0, 0.95
+# (b) card against CPU in f32 with TF32 off, 20 steps of adam(1e-3):
+# losses within 1e-6 relative (summation order in the GEMMs and the
+# mean), parameters within 1e-5 absolute; (e) the data-parallel step at
+# world size 1 against (b)'s card run after 10 steps
+XOR_REF_STEPS, XOR_DP_STEPS = 20, 10
+XOR_LOSS_RTOL, XOR_PARAM_TOL, XOR_DP_TOL = 1e-6, 1e-5, 1e-6
 
 # the Llama-3-8B engine: 8 slots of 8192 tokens in pages of 16
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_PAGE = 8, 8192, 16
@@ -1480,7 +1522,11 @@ def _counted(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # the first switch to "warn" in a process also warns that the mode is
+    # a prototype; that warning names no sync
+    return out, sum("synchroniz" in str(w.message)
+                    and "prototype feature" not in str(w.message)
+                    for w in caught)
 
 
 def _syncs(torch, fn) -> int:
@@ -3028,6 +3074,342 @@ def check_train_session_reference(torch, np):
          "cases": out})
 
 
+# -- phase 18: example.py's XOR MLP ------------------------------------------
+
+_XOR_DIR = Path(__file__).resolve().parent / "build" / "xor_example"
+
+
+def _xor_model(ops, rate):
+    return ops.serial(ops.Dense(128, activation="relu"), ops.Dropout(rate),
+                      ops.Dense(128, activation="relu"), ops.Dropout(rate),
+                      ops.Dense(32, activation="sigmoid"))
+
+
+def _xor_tree(np, seed):
+    """The XOR MLP's weights, in the JAX package's tree, from ``seed``:
+    glorot-uniform kernels, small uniform biases."""
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for name, (i, o) in (("dense", (64, 128)), ("dense_1", (128, 128)),
+                         ("dense_2", (128, 32))):
+        lim = math.sqrt(6.0 / (i + o))
+        tree[name] = {
+            "kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+            "bias": rng.uniform(-0.05, 0.05, (o,)).astype(np.float32)}
+    return tree
+
+
+def check_xor_adam(torch, args):
+    """Phase 18 (a): the Adam kernel against its plain version at the XOR
+    MLP's six leaf shapes, at steps 1 and 3, called as ``optim.adam()``
+    calls it; kernel and plain ms per shape.  Returns the largest error."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    kw = dict(lr=1e-3, tf14_eps=True, return_delta=True)
+    worst = 0.0
+    for shape in XOR_SHAPES:
+        p, g, m = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        v = torch.rand(shape, generator=gen, device="cuda")
+        errs = []
+        for step in (1, 3):
+            want = fused.adam_plain(p, g, m, v, step, **kw)
+            m2, v2 = m.clone(), v.clone()
+            got = fused.fused_adam_update(p, g, m2, v2, step,
+                                          out=(None, m2, v2), **kw)
+            torch.cuda.synchronize()
+            errs.append(max((a - b).abs().max().item()
+                            for a, b in zip(got, want)))
+        if not max(errs) <= ADAM_TOL:
+            raise AssertionError(f"Adam kernel at {shape} disagrees: {errs}")
+        worst = max(worst, *errs)
+        ms = time_ms(torch, lambda: fused.fused_adam_update(
+            p, g, m2, v2, 3, out=(None, m2, v2), **kw), args.iters)
+        plain = time_ms(torch, lambda: fused.adam_plain(
+            p, g, m2, v2, 3, out=(None, m2, v2), **kw), args.iters)
+        g_ms = graph_ms(torch, lambda: fused.fused_adam_update(
+            p, g, m2, v2, 3, out=(None, m2, v2), **kw), args.iters)
+        lib_p = p.clone()
+        lib_p.grad = g
+        lib = time_ms(torch, torch.optim.Adam([lib_p], lr=1e-3,
+                                              fused=True).step, args.iters)
+        n = p.numel()
+        b_ms, b_by = bound_ms(28.0 * n, 12.0 * n)
+        log({"xor": "(a) fused_adam", "shape": list(shape),
+             "max_abs_err": errs, "tol": ADAM_TOL, "kernel_ms": ms,
+             "graph_ms": g_ms, "plain_ms": plain,
+             "library_ms": lib, "library": "torch.optim.Adam(fused=True)"
+             ".step()", "bound_ms": b_ms, "bound_by": b_by})
+    return worst
+
+
+def check_xor_reference(torch, np, args):
+    """Phase 18 (b): ``make_train_step`` on the card against the CPU, one
+    set of weights (``_xor_tree``), dropout 0, ``XOR_REF_STEPS`` steps on
+    the same batches, in f32 with TF32 off.  Returns (the weights, the
+    batches, the card's parameters after ``XOR_DP_STEPS`` steps)."""
+    from distributed_tensorflow_tpu_torch import data, ops, optim, train
+    from distributed_tensorflow_tpu_torch.models.convert import \
+        stack_params_from_jax
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"TF32 is on ({precision}): the XOR path is "
+                             "held to the CPU in full f32")
+    tree = _xor_tree(np, args.seed)
+    (x, y), _ = data.xor_data(XOR_REF_STEPS * XOR_BATCH, 1, seed=args.seed)
+    batches = [(x[i:i + XOR_BATCH], y[i:i + XOR_BATCH])
+               for i in range(0, len(x), XOR_BATCH)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        opt = optim.adam()
+        params = stack_params_from_jax(tree, device=dev)
+        state = train.TrainState.create(params, opt.init(params), {})
+        step = train.make_train_step(
+            _xor_model(ops, 0.0), "mse", opt,
+            metric_fns={"accuracy": "bitwise_accuracy"}, seed=args.seed)
+        losses, early = [], None
+        for i, (bx, by) in enumerate(batches):
+            state, m = step(state, (torch.from_numpy(bx).to(dev),
+                                    torch.from_numpy(by).to(dev)))
+            losses.append(m["loss"])
+            if i + 1 == XOR_DP_STEPS:
+                early = {k: t.detach().clone()
+                         for k, t in state.params.items()}
+        runs[dev] = ([float(l) for l in losses], state.params, early)
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    param_err = max((card[1][k].detach().cpu() - cpu[1][k].detach())
+                    .abs().max().item() for k in cpu[1])
+    log({"xor": "(b) card vs CPU", "steps": XOR_REF_STEPS,
+         "matmul_precision": precision,
+         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+         "loss_rel_err": loss_err, "loss_tol": XOR_LOSS_RTOL,
+         "param_err": param_err, "param_tol": XOR_PARAM_TOL,
+         "losses_card": card[0][:3] + card[0][-2:]})
+    if not (loss_err <= XOR_LOSS_RTOL and param_err <= XOR_PARAM_TOL):
+        raise AssertionError(f"XOR card vs CPU: loss {loss_err}, params "
+                             f"{param_err}")
+    return tree, batches, card[2]
+
+
+def _xor_epoch_time(torch, np, args, smi):
+    """Phase 18 (c), first part: one epoch of ``example.py``'s step loop
+    (the MLP at dropout 0.3, ``adam()``, batches of 50 through ``Dataset``
+    and ``prefetch_to_device``), after a warm-up epoch: timed, then again
+    under the profiler for the card's busy share.  Returns the timed
+    epoch's seconds."""
+    from distributed_tensorflow_tpu_torch import data, ops, optim, train
+    from distributed_tensorflow_tpu_torch.obs import device as obs_device
+    model, opt = _xor_model(ops, 0.3), optim.adam()
+    state = train.init_train_state(
+        model, opt, torch.Generator("cuda").manual_seed(args.seed), (64,))
+    step = train.make_train_step(model, "mse", opt,
+                                 metric_fns={"accuracy": "bitwise_accuracy"},
+                                 seed=args.seed)
+    (xt, yt), _ = data.xor_data(30000, 1000, seed=args.seed)
+    ds = data.Dataset([xt, yt], XOR_BATCH, seed=args.seed)
+
+    def epoch():
+        nonlocal state
+        total = None
+        for batch in data.prefetch_to_device(iter(ds), device="cuda"):
+            state, m = step(state, batch)
+            total = m["loss"] if total is None else total + m["loss"]
+        return total
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, busy_s, kernels = obs_device.device_busy(epoch)
+    steps = len(ds)
+    log({"xor": "(c) one epoch of the step loop", "steps": steps,
+         "step_ms": wall / steps * 1e3, "steps_per_s": steps / wall,
+         "samples_per_s": steps * XOR_BATCH / wall, "wall_s": wall,
+         "device_busy_s": busy_s, "busy_share": busy_s / wall,
+         "device_ops_per_step": kernels / steps, "card": smi})
+    return wall
+
+
+def _run_example(torch, argv):
+    """(stdout, wall seconds) of one in-process run of the entry point."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_tpu_torch import example
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = example.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"entry point {argv} exited {rc}:\n"
+                             f"{out.getvalue()}")
+    return out.getvalue(), wall
+
+
+def _xor_counts(torch):
+    """The launches since ``_reset_counts``: Adam, every other kernel of
+    the port summed, and the all-reduces."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    torch.cuda.synchronize()
+    other = (sum(fa.LAUNCHES.values()) + sum(pa.LAUNCHES.values())
+             + sum(v for k, v in fused.LAUNCHES.items() if k != "adam"))
+    return {"fused_adam": fused.LAUNCHES["adam"], "other_kernels": other,
+            "all_reduce": data_parallel.LAUNCHES["all_reduce"]}
+
+
+def _val_accs(out):
+    """[(epoch, val accuracy)] of the entry point's epoch lines."""
+    return [(int(line.split()[1]), float(line.split("val acc:")[1]))
+            for line in out.splitlines() if line.startswith("Epoch:")]
+
+
+def _graph_records(log_dir):
+    """Graph records (Event field 4) in the event files of ``log_dir``."""
+    from distributed_tensorflow_tpu_torch.data import read_tfrecord
+    return sum(r[0] == 0x09 and r[9] == 0x22
+               for p in Path(log_dir).glob("events.out.tfevents.*")
+               for r in read_tfrecord(str(p)))
+
+
+def check_xor(torch, np, args, smi):
+    """Phase 18: ``example.py``'s path.  Returns the Adam launches of the
+    entry point's run, (c)."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import ops, optim, parallel, train
+    from distributed_tensorflow_tpu_torch.models.convert import \
+        stack_params_from_jax
+    from distributed_tensorflow_tpu_torch.parallel import (cluster,
+                                                           data_parallel)
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    shutil.rmtree(_XOR_DIR, ignore_errors=True)
+
+    worst = check_xor_adam(torch, args)
+    tree, batches, card_early = check_xor_reference(torch, np, args)
+
+    # (c) the entry point at example.py's configuration; E from one
+    # epoch's time: 50 epochs (the reference's default) when (c) and (d)
+    # fit XOR_BUDGET_S, else 20
+    epoch_s = _xor_epoch_time(torch, np, args, smi)
+    epochs = XOR_EPOCHS if epoch_s * (XOR_EPOCHS + 1) <= XOR_BUDGET_S \
+        else XOR_EPOCHS_SHORT
+    steps = epochs * XOR_STEPS_PER_EPOCH
+    argv = ["--device=cuda", f"--log_dir={_XOR_DIR}", f"--seed={args.seed}"]
+    _reset_counts()
+    data_parallel.LAUNCHES.clear()
+    out, wall = _run_example(torch, argv + [f"--epochs={epochs}"])
+    counts = _xor_counts(torch)
+    accs = _val_accs(out)
+    first_pass = next((e for e, a in accs if a > XOR_ACC), None)
+    log({"xor": "(c) entry point", "epochs": epochs, "steps": steps,
+         "wall_s": wall, "step_ms": wall / steps * 1e3,
+         "steps_per_s": steps / wall,
+         "samples_per_s": steps * XOR_BATCH / wall, "launches": counts,
+         "val_acc": accs, "first_print_over_0.95": first_pass,
+         "checkpoint_step": ckpt.latest_step(str(_XOR_DIR)),
+         "graph_records": _graph_records(_XOR_DIR), "card": smi,
+         "stdout_tail": out.splitlines()[-3:]})
+    if not accs or not accs[-1][1] > XOR_ACC:
+        raise AssertionError(f"XOR val accuracy {accs} not above {XOR_ACC}")
+    if counts["fused_adam"] != 6 * steps or counts["other_kernels"] \
+            or counts["all_reduce"]:
+        raise AssertionError(f"XOR launches {counts}; expected Adam "
+                             f"{6 * steps} (6 a step), nothing else")
+    if ckpt.latest_step(str(_XOR_DIR)) != steps \
+            or _graph_records(_XOR_DIR) != 1:
+        raise AssertionError("XOR: no checkpoint at the last step or no "
+                             "graph record in the event file")
+    xor_launches = counts["fused_adam"]
+
+    # (d) resume: one more epoch from the checkpoint, its host syncs
+    # counted in each step
+    syncs = []
+    make = train.make_train_step
+
+    def counted_builder(*a, **kw):
+        step = make(*a, **kw)
+
+        def counted(state, batch):
+            out_, n = _counted(torch, lambda: step(state, batch))
+            syncs.append(n)
+            return out_
+        return counted
+
+    _reset_counts()
+    train.make_train_step = counted_builder
+    try:
+        out, wall = _run_example(torch, argv + [f"--epochs={epochs + 1}"])
+    finally:
+        train.make_train_step = make
+    counts = _xor_counts(torch)
+    restored = (f"Restored checkpoint ckpt-{steps:010d} at step {steps}"
+                in out)
+    last = [line for line in out.splitlines() if line.startswith("Epoch:")]
+    log({"xor": "(d) resume", "restored_at": steps if restored else None,
+         "steps": len(syncs), "host_syncs": sum(syncs), "launches": counts,
+         "wall_s": wall, "epoch_line": last[-1:], "card": smi})
+    if not restored or len(syncs) != XOR_STEPS_PER_EPOCH \
+            or not last or not last[-1].startswith(f"Epoch: {epochs:4d}"):
+        raise AssertionError(f"XOR resume: restored {restored}, "
+                             f"{len(syncs)} steps, {last}")
+    if sum(syncs) or counts["fused_adam"] != 6 * XOR_STEPS_PER_EPOCH:
+        raise AssertionError(f"XOR resume: {sum(syncs)} host syncs in the "
+                             f"steps, launches {counts}")
+
+    # (e) the data-parallel path at world size 1 over NCCL
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    config = cluster.initialize(cluster.cluster_from_env(environ={
+        "COORDINATOR_ADDRESS": f"localhost:{port}", "NUM_PROCESSES": "1",
+        "PROCESS_ID": "0"}), timeout_s=120)
+    try:
+        backend = dist.get_backend()
+        mesh = parallel.data_parallel_mesh()
+        opt = optim.adam()
+        params = stack_params_from_jax(tree, device="cuda")
+        state = train.TrainState.create(params, opt.init(params), {})
+        step = train.make_train_step(
+            _xor_model(ops, 0.0), "mse", opt,
+            metric_fns={"accuracy": "bitwise_accuracy"}, seed=args.seed,
+            mesh=mesh)
+        _reset_counts()
+        data_parallel.LAUNCHES.clear()
+        for bx, by in batches[:XOR_DP_STEPS]:
+            state, _ = step(state, (torch.from_numpy(bx).to("cuda"),
+                                    torch.from_numpy(by).to("cuda")))
+        counts = _xor_counts(torch)
+        err = max((state.params[k].detach() - card_early[k]).abs().max()
+                  .item() for k in card_early)
+    finally:
+        dist.destroy_process_group()
+    log({"xor": "(e) data parallel, world size 1", "backend": backend,
+         "coordinator": config.coordinator_address, "mesh": repr(mesh),
+         "steps": XOR_DP_STEPS, "all_reduce_launches": counts["all_reduce"],
+         "adam_launches": counts["fused_adam"],
+         "param_err_vs_(b)": err, "tol": XOR_DP_TOL})
+    if backend != "nccl" or counts["all_reduce"] != XOR_DP_STEPS \
+            or not err <= XOR_DP_TOL:
+        raise AssertionError(f"XOR data parallel: {backend}, {counts}, "
+                             f"{err}")
+    shutil.rmtree(_XOR_DIR, ignore_errors=True)
+    log({"phase": "xor", "seconds": time.perf_counter() - t_phase,
+         "adam_max_abs_err": worst})
+    return xor_launches
+
+
 def profile_engine(torch, np, args, smi, model, *, max_len=1024,
                    name="profile", parts=None):
     """``--profile DIR``: the engine phase's requests once more under
@@ -3341,6 +3723,7 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     check_llama_reference(torch, np)
+    xor_launches = check_xor(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -3360,7 +3743,9 @@ def main(argv=None) -> int:
                     **({"decode_launches": decode_launches[k]}
                        if k in decode_launches else {}),
                     **({"session_launches": session_launches[k]}
-                       if k in session_launches else {}))
+                       if k in session_launches else {}),
+                    **({"xor_launches": xor_launches}
+                       if k == "fused_adam" else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,14 +22,22 @@ JAX package's format and TensorBoard event files, accumulation, the
 precision policy and loss scaling, per-block remat and the chunked LM
 loss (``GPTConfig.remat``, ``loss_seq_chunk``), ``with_ema`` and the
 learning-rate schedules, and the synthetic LM ``Dataset``; it adds no
-kernel either.  Kernels live
+kernel either.  Slice 11 is the source system's own path, ``example.py``
+(``python -m distributed_tensorflow_tpu_torch.example``): the XOR MLP of
+``ops.serial``/``Dense``/``Dropout`` with its activations,
+initializers, losses and metrics, ``data.xor_data`` and
+``prefetch_to_device``, ``make_train_step``/``make_eval_step``, the flags,
+the cluster bootstrap over ``torch.distributed`` and the data-parallel
+mesh with its gradient all-reduce; Adam runs its kernel on every leaf.
+Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
-from . import data, optim, summary, train
+from . import data, ops, optim, parallel, summary, train, utils
 from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
                              load_jax_params, lora_from_jax, lora_to_jax,
+                             stack_params_from_jax, stack_params_to_jax,
                              train_state_from_jax, train_state_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
@@ -39,7 +47,8 @@ from .optim import adam, adamw, ema_params, with_ema
 from .serve.engine import (DrainResult, Engine, EngineStats, QueueFullError,
                            RequestHandle, RequestSnapshot)
 from .summary import SummaryWriter
-from .train import TrainSession, TrainState, make_custom_train_step
+from .train import (TrainSession, TrainState, init_train_state,
+                    make_custom_train_step, make_eval_step, make_train_step)
 
 __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "QTensor", "QueueFullError", "QuotaExceededError",
@@ -47,8 +56,11 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "TenantPolicy", "TenantQuota", "TrainSession", "TrainState",
            "adam", "adamw", "data", "dequantize_tensor", "ema_params",
            "generate_speculative", "gpt_params_from_jax",
-           "gpt_params_to_jax", "gpt_small", "gpt_tiny", "llama2_7b",
-           "llama3_8b", "llama_config", "llama_tiny", "load_jax_params",
-           "lora_from_jax", "lora_to_jax", "make_custom_train_step", "optim",
-           "quantize_tensor", "speculative_accept", "summary", "train",
-           "train_state_from_jax", "train_state_to_jax", "with_ema"]
+           "gpt_params_to_jax", "gpt_small", "gpt_tiny", "init_train_state",
+           "llama2_7b", "llama3_8b", "llama_config", "llama_tiny",
+           "load_jax_params", "lora_from_jax", "lora_to_jax",
+           "make_custom_train_step", "make_eval_step", "make_train_step",
+           "ops", "optim", "parallel", "quantize_tensor",
+           "speculative_accept", "stack_params_from_jax",
+           "stack_params_to_jax", "summary", "train",
+           "train_state_from_jax", "train_state_to_jax", "utils", "with_ema"]

@@ -1,21 +1,33 @@
-"""Host-side input pipeline: shuffled minibatches over in-memory arrays.
+"""Input pipeline: shuffled minibatches over in-memory arrays, and their
+prefetch to the card.
 
-Counterpart of ``distributed_tensorflow_tpu/data/pipeline.py``
-``Dataset`` with its ``"numpy"`` backend: the documented ``(seed, epoch)``
-numpy shuffle stream, so the port and the JAX package see the same
-batches in the same order.  Each epoch reshuffles; ``process_count > 1``
-keeps this process's contiguous shard.  The native C++ loader backend
-(``"auto"``, ``"native"``) and ``prefetch_to_device`` are not ported:
-batches are numpy arrays, which the caller moves to the card
-(``torch.from_numpy(b).to(device)``).
+Counterpart of ``distributed_tensorflow_tpu/data/pipeline.py``:
+
+  * ``Dataset`` with its ``"numpy"`` backend: the documented ``(seed,
+    epoch)`` numpy shuffle stream, so the port and the JAX package see the
+    same batches in the same order.  Each epoch reshuffles;
+    ``process_count > 1`` keeps this process's contiguous shard.  The
+    native C++ loader backend (``"auto"``, ``"native"``) is not ported.
+  * ``prefetch_to_device``: a background thread stages upcoming batches
+    on the device while the current step computes.  On a card it copies
+    each batch from pinned host memory on a side stream and records an
+    event after the copy; the consumer's (compute) stream waits for that
+    event before the batch is handed over, and each tensor is marked as
+    used on that stream (``record_stream``), so the caching allocator
+    does not reuse its memory before the compute stream is done with
+    it.  The JAX package's fault plans and goodput accounting are not
+    ported.
 """
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+import queue
+import threading
+from typing import Iterable, Iterator, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
-__all__ = ["Dataset"]
+__all__ = ["Dataset", "prefetch_to_device"]
 
 
 class Dataset:
@@ -77,3 +89,93 @@ class Dataset:
     def epochs(self, num_epochs: int) -> Iterator[Tuple[np.ndarray, ...]]:
         for _ in range(num_epochs):
             yield from self
+
+
+def _tensors(item, fn):
+    """``fn`` of every array of a batch (an array, or a tuple, list or
+    dict of them), in the batch's structure."""
+    if isinstance(item, dict):
+        return {k: _tensors(v, fn) for k, v in item.items()}
+    if isinstance(item, (list, tuple)):
+        return type(item)(_tensors(v, fn) for v in item)
+    return fn(item)
+
+
+def prefetch_to_device(iterator: Iterable, size: int = 2,
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> Iterator:
+    """Stage the batches of ``iterator`` (numpy arrays or tensors, alone or
+    in tuples, lists or dicts) on ``device`` from a background thread;
+    yields them as tensors in the same structure.
+
+    At most ``size`` staged batches exist at a time: the producer takes a
+    ticket before it copies a batch and the consumer returns it when it
+    asks for the next one.  On a card the copy runs on a side stream from
+    pinned memory, and the batch is handed to the consumer's current
+    stream through an event (``wait_event``) and ``record_stream``; see
+    the module docstring.  The consumer may abandon the generator at any
+    point (``break``, ``.close()``, garbage collection): the producer is
+    woken and ends.  An error in the producer is raised on the consumer's
+    side."""
+    device = torch.device(device)
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}")
+    cuda = device.type == "cuda"
+    if cuda:
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        side = torch.cuda.Stream(device)
+    handoff: queue.Queue = queue.Queue()
+    tickets = threading.Semaphore(size)
+    stop = threading.Event()
+    done = object()
+    err: list = []
+
+    def stage(a):
+        t = torch.as_tensor(a)
+        if not cuda:
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    def producer():
+        try:
+            for item in iterator:
+                tickets.acquire()
+                # checked after acquire: an abandoning consumer releases
+                # a ticket once to unblock exactly this wait
+                if stop.is_set():
+                    return
+                if not cuda:
+                    handoff.put((_tensors(item, stage), None))
+                    continue
+                with torch.cuda.device(device), torch.cuda.stream(side):
+                    staged = _tensors(item, stage)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+                handoff.put((staged, ready))
+        except Exception as e:  # raised on the consumer's side
+            err.append(e)
+        finally:
+            handoff.put(done)
+
+    thread = threading.Thread(target=producer, daemon=True,
+                              name="dttpu-torch-prefetch")
+    thread.start()
+    try:
+        while True:
+            got = handoff.get()
+            if got is done:
+                if err:
+                    raise err[0]
+                return
+            staged, ready = got
+            if ready is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(ready)
+                _tensors(staged, lambda t: t.record_stream(compute))
+            yield staged
+            tickets.release()
+    finally:
+        stop.set()
+        tickets.release()
+        thread.join(timeout=5.0)

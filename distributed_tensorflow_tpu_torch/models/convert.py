@@ -1,4 +1,4 @@
-"""Carry GPT weights between the JAX package's parameter tree and the port.
+"""Carry weights between the JAX package's parameter trees and the port.
 
 The JAX tree (``distributed_tensorflow_tpu/models/gpt.py GPT.init``) is
 ``{"embeddings": {"word", "position"}, "decoder": {...}, "ln_f": {...}}``
@@ -14,11 +14,18 @@ dicts under the same names, it carries them too.  ``lora_from_jax`` and
 ``lora_to_jax`` carry a LoRA adapter (``{target: {"a", "b"}}`` with
 ``[L, ...]`` leaves, the layout of both packages' ``init_lora``).
 
+``stack_params_to_jax`` and ``stack_params_from_jax`` carry a layer
+``Stack``'s parameters (``example.py``'s MLP): the port keeps them in one
+flat dict under ``<layer>.<param>`` names (``"dense.kernel"``), each of
+which is one leaf of the JAX tree's nested ``{"dense": {"kernel",
+"bias"}, ...}``.
+
 ``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
 state: the port's ``TrainState`` (its params, ``OptState(count, {m, v})``,
 the ``with_ema`` shadow, ``LossScaled`` and the loss scale's fields) as the
 JAX package's tree of the same NamedTuple fields, with every params-shaped
-dict in the JAX layout and every host value an array of the JAX state's
+dict in the JAX layout (a GPT's, whose names include ``word``, or a
+``Stack``'s otherwise) and every host value an array of the JAX state's
 type (a count int32, the EMA decay float32, ...).  The checkpoint module
 writes and reads through them, so either package restores the other's
 checkpoints.
@@ -30,10 +37,12 @@ from typing import Any, Callable, Dict, Mapping
 import numpy as np
 import torch
 
+from ..ops.layers import _flat, _nest
 from .gpt import GPT, GPTConfig
 
 __all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
-           "lora_from_jax", "lora_to_jax", "train_state_from_jax",
+           "lora_from_jax", "lora_to_jax", "stack_params_from_jax",
+           "stack_params_to_jax", "train_state_from_jax",
            "train_state_to_jax"]
 
 # JAX tree keys that name configurations the port does not run yet
@@ -121,7 +130,31 @@ def _stacked(state_dict: Mapping[str, Any], num_layers: int, tied: bool,
     return tree
 
 
+def stack_params_from_jax(tree: Mapping[str, Any], device="cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """A ``Stack``'s flat parameter dict (f32 leaf tensors on ``device``
+    that require gradients) from the JAX package's nested tree of a
+    ``Stack`` (numpy leaves)."""
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            .requires_grad_(True) for k, v in _flat(dict(tree), "").items()}
+
+
+def stack_params_to_jax(params: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, Any]:
+    """The JAX package's nested tree, numpy f32 leaves, of a ``Stack``'s
+    flat parameter dict (or of its gradients or moments); the inverse of
+    ``stack_params_from_jax``."""
+    return _nest({k: t.detach().to("cpu", torch.float32).numpy()
+                  for k, t in params.items()})
+
+
 # -- whole training states -----------------------------------------------
+
+def _is_gpt(names) -> bool:
+    """A GPT's parameter names include its word embedding; a ``Stack``'s
+    are ``<layer>.<param>``."""
+    return "word" in names
+
 
 def _layers(names) -> int:
     """The layer count of a GPT parameter dict, from its names."""
@@ -146,6 +179,8 @@ def _is_namedtuple(x) -> bool:
 def _to_jax(x, names, num_layers: int, leaf: Callable, stack: Callable):
     if isinstance(x, dict):
         if names and set(x) == names:        # params-shaped: JAX layout
+            if not _is_gpt(names):
+                return _nest({k: leaf(v) for k, v in x.items()})
             return _stacked(x, num_layers, "lm_head" not in names, leaf,
                             stack)
         return {k: _to_jax(v, names, num_layers, leaf, stack)
@@ -194,7 +229,8 @@ def _as_tensor(x) -> torch.Tensor:
 def _from_jax(src, dst, names, num_layers: int):
     if isinstance(dst, dict):
         if names and set(dst) == names:
-            src = _unstacked(src, num_layers)
+            src = (_unstacked(src, num_layers) if _is_gpt(names)
+                   else _flat(dict(src), ""))
         return {k: _from_jax(src[k], v, names, num_layers)
                 for k, v in dst.items()}
     if _is_namedtuple(dst):

@@ -7,14 +7,21 @@ step builder puts them in its metrics, and nothing reads them back to the
 host until a hook does.  The JAX package's ``live_arrays_bytes`` (a walk
 of ``jax.live_arrays()``) has no counterpart: ``torch.cuda
 .memory_allocated()`` reads the same total.
+
+``device_busy`` runs a function under ``torch.profiler`` and sums the
+device time of the kernels and copies it ran: divided by the wall time
+of the same work run without the profiler, that is the card's busy share
+(the profiler's own host cost stretches the profiled run's wall time,
+not its device time).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["grad_health", "tree_bytes", "GRAD_NORM_KEY", "NONFINITE_KEY"]
+__all__ = ["device_busy", "grad_health", "tree_bytes", "GRAD_NORM_KEY",
+           "NONFINITE_KEY"]
 
 # the metric keys the step builder emits, as in the JAX package
 GRAD_NORM_KEY = "grad_norm"
@@ -47,3 +54,24 @@ def tree_bytes(tree: Any) -> int:
     nbytes = getattr(tree, "nbytes", None)
     return int(nbytes) if nbytes is not None and hasattr(tree, "shape") \
         else 0
+
+
+def device_busy(fn: Callable[[], Any]) -> Tuple[Any, float, int]:
+    """(fn's result, the seconds the card spent in kernels and copies
+    while it ran, how many it ran): one run of ``fn`` under
+    ``torch.profiler`` with CUDA activity, ended by a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us > 0:
+            busy_us += us
+            count += e.count
+    return out, busy_us / 1e6, count

@@ -60,7 +60,7 @@ def _nvcc() -> str:
                        "the port's CUDA kernels build from source")
 
 
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 
 def cxx() -> str:

@@ -12,19 +12,21 @@ Counterpart of ``distributed_tensorflow_tpu/optim/ema.py``: a shadow copy
 Both debias by default (divide by ``1 - d^t``), as the JAX package does.
 
 Design: the shadow is a dict of f32 tensors under the parameters' names,
-updated in place with two multi-tensor ops a step (no kernel of the JAX
-package runs here: its update is plain elementwise XLA).  ``count``,
-``decay`` and ``debias`` are host values, as the port's ``OptState.count``
-is; ``decay`` is kept rounded to float32, the type the JAX state holds it
-in, so the arithmetic and a checkpoint round trip agree with it.
-``with_ema`` folds the parameters in from its ``after_apply``, which the
-step builder calls once ``apply_updates`` has written them in place: the
-same values the JAX wrapper folds (``apply_updates(params, updates)``),
-with no second copy of the parameters.
+updated in place with multi-tensor ops (no kernel of the JAX package runs
+here: its update is plain elementwise XLA).  ``count``, ``decay`` and
+``debias`` are host values, as the port's ``OptState.count`` is;
+``decay`` is kept rounded to float32, the type the JAX state holds it in,
+so the arithmetic and a checkpoint round trip agree with it.
+``with_ema.update`` folds the post-update parameters ``p + u`` into the
+shadow, as the JAX wrapper does, with the caller's contract unchanged
+(``update``, then ``apply_updates``).  It folds ``p`` and ``u`` as two
+multi-tensor adds, ``s <- d*s + (1-d)*p + (1-d)*u``, so no copy of the
+parameters is built; that differs from folding the rounded ``p + u`` by
+round-off only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,14 +45,20 @@ class EMAState(NamedTuple):
     shadow: Dict[str, torch.Tensor]
 
 
-def _update_shadow(state: EMAState, params: Tree) -> EMAState:
-    """Fold ``params`` into the shadow, in place, in f32."""
+def _update_shadow(state: EMAState, params: Tree,
+                   updates: Optional[Tree] = None) -> EMAState:
+    """Fold ``params`` (plus ``updates``, when given) into the shadow, in
+    place, in f32."""
     d = np.float32(state.decay)
+    alpha = float(np.float32(1) - d)
     names = list(state.shadow)
     shadow = [state.shadow[k] for k in names]
     torch._foreach_mul_(shadow, float(d))
     torch._foreach_add_(shadow, [params[k].detach() for k in names],
-                        alpha=float(np.float32(1) - d))
+                        alpha=alpha)
+    if updates is not None:
+        torch._foreach_add_(shadow, [updates[k] for k in names],
+                            alpha=alpha)
     return state._replace(count=state.count + 1)
 
 
@@ -91,8 +99,8 @@ def with_ema(optimizer: Optimizer, decay: float = 0.999,
     """Wrap an Optimizer so that the post-update parameters feed a shadow
     average carried in ``opt_state.inner["ema"]`` (``opt_state.inner
     ["opt"]`` holds the wrapped optimizer's state).  ``update`` needs the
-    parameters; ``after_apply(state, params)`` folds the updated
-    parameters into the shadow.  The step builder calls both."""
+    parameters (before the update) and folds ``params + updates`` into
+    the shadow."""
     tracker = ema(decay, debias)
 
     def init(params: Tree) -> OptState:
@@ -104,17 +112,11 @@ def with_ema(optimizer: Optimizer, decay: float = 0.999,
             raise ValueError("with_ema needs params passed to update()")
         updates, new_inner = optimizer.update(grads, state.inner["opt"],
                                               params)
+        new_ema = _update_shadow(state.inner["ema"], params, updates)
         return updates, OptState(state.count + 1,
-                                 {**state.inner, "opt": new_inner})
+                                 {"opt": new_inner, "ema": new_ema})
 
-    def after_apply(state: OptState, params: Tree) -> OptState:
-        inner = state.inner["opt"]
-        if optimizer.after_apply is not None:
-            inner = optimizer.after_apply(inner, params)
-        return OptState(state.count, {
-            "opt": inner, "ema": tracker.update(state.inner["ema"], params)})
-
-    return Optimizer(init, update, after_apply)
+    return Optimizer(init, update)
 
 
 def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:

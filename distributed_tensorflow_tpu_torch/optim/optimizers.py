@@ -62,9 +62,6 @@ class OptState(NamedTuple):
 class Optimizer(NamedTuple):
     init: Callable[[Tree], OptState]
     update: Callable[..., Any]  # (grads, state, params) -> (updates, state)
-    # (state, params) -> state, once apply_updates has written the
-    # parameters (with_ema folds them into its shadow here)
-    after_apply: Optional[Callable[[OptState, Tree], OptState]] = None
 
 
 def _lr_at(lr: ScalarOrSchedule, count: int) -> float:

@@ -3,6 +3,7 @@
 its name here (its function of that name is ``crc32c.crc32c``)."""
 from . import crc32c
 from .crc32c import masked_crc32c
-from .event_writer import EventFileWriter, SummaryWriter
+from .event_writer import EventFileWriter, SummaryWriter, model_graph_nodes
 
-__all__ = ["crc32c", "masked_crc32c", "EventFileWriter", "SummaryWriter"]
+__all__ = ["crc32c", "masked_crc32c", "EventFileWriter", "SummaryWriter",
+           "model_graph_nodes"]

@@ -5,9 +5,9 @@ Counterpart of ``distributed_tensorflow_tpu/summary/event_writer.py``:
 package's for scalars, histograms, text, images (PNG) and audio (WAV):
 hand-encoded Event / Summary protobufs, framed TFRecord-style
 (``data/tfrecord.py``).  Float steps (the fractional-epoch x-axis) are
-written as their floor.  ``add_graph`` and ``model_graph_nodes`` read a
-JAX ``Sequential``/``Stack`` model's layer list, which the port has no
-counterpart of yet, so they are not ported.
+written as their floor.  ``add_graph`` writes a model's topology as a
+GraphDef (``model_graph_nodes`` of an ``ops.Stack``'s layer list, or
+explicit nodes), the reference's ``writer.add_graph(sess.graph)``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 
-__all__ = ["EventFileWriter", "SummaryWriter"]
+__all__ = ["EventFileWriter", "SummaryWriter", "model_graph_nodes"]
 
 
 def _varint(value: int) -> bytes:
@@ -189,6 +189,54 @@ def _audio_event(wall_time: float, step: int, tag: str, audio,
             _field_bytes(5, _field_bytes(1, value)))
 
 
+def _node_def(name: str, op: str, inputs=(), device: str = "") -> bytes:
+    """NodeDef{name=1, op=2, input=3 repeated, device=4} (the subset of
+    TF's graph.proto that TensorBoard's graph plugin renders)."""
+    out = (_field_bytes(1, name.encode("utf-8")) +
+           _field_bytes(2, op.encode("utf-8")))
+    for inp in inputs:
+        out += _field_bytes(3, inp.encode("utf-8"))
+    if device:
+        out += _field_bytes(4, device.encode("utf-8"))
+    return out
+
+
+def _graph_def(nodes) -> bytes:
+    """GraphDef{node=1 repeated, versions=4 VersionDef{producer=1}}.
+    ``nodes``: iterable of (name, op, inputs) or (name, op, inputs, device).
+    """
+    body = b"".join(_field_bytes(1, _node_def(*n)) for n in nodes)
+    return body + _field_bytes(4, _field_varint(1, 22))
+
+
+def _graph_event(wall_time: float, graph_def: bytes) -> bytes:
+    # Event.graph_def = field 4 (bytes)
+    return _field_double(1, wall_time) + _field_bytes(4, graph_def)
+
+
+def model_graph_nodes(model):
+    """TensorBoard graph nodes of anything with an ordered ``.layers`` list
+    (``ops.Stack``): a Placeholder input node feeding the layer chain,
+    each node's op the layer's class name, named as the ``Stack`` keys
+    its layers ("dense", "dense_1", ...)."""
+    layers = getattr(model, "layers", None)
+    if layers is None:
+        raise TypeError(
+            f"model_graph_nodes needs an object with .layers (Stack); got "
+            f"{type(model).__name__}")
+    nodes = [("input", "Placeholder", ())]
+    prev = "input"
+    seen: Dict[str, int] = {}
+    for layer in layers:
+        base = getattr(layer, "name", None) or type(layer).__name__.lower()
+        count = seen.get(base, 0)
+        seen[base] = count + 1
+        name = base if count == 0 else f"{base}_{count}"
+        nodes.append((name, type(layer).__name__, (prev,)))
+        prev = name
+    return nodes
+
+
 def _histogram_event(wall_time: float, step: int, tag: str, values) -> bytes:
     # Summary.Value: tag=1, simple_value=2, image=4, histo=5 (TF
     # summary.proto oneof) — histograms MUST land in field 5.
@@ -257,6 +305,17 @@ class EventFileWriter:
     def flush(self) -> None:
         self._file.flush()
 
+    def add_graph(self, model_or_nodes,
+                  wall_time: Optional[float] = None) -> None:
+        """Write a model's topology as a TensorBoard graph event: a
+        ``.layers`` model (``ops.Stack``) or an iterable of (name, op,
+        inputs[, device]) node tuples."""
+        nodes = (model_or_nodes if not hasattr(model_or_nodes, "layers")
+                 else model_graph_nodes(model_or_nodes))
+        self._write_record(_graph_event(
+            wall_time if wall_time is not None else time.time(),
+            _graph_def(list(nodes))))
+
     def close(self) -> None:
         if not self._file.closed:
             self._file.flush()
@@ -300,6 +359,9 @@ class SummaryWriter:
     def add_audio(self, tag: str, audio, sample_rate: int,
                   step: Union[int, float]) -> None:
         self._writer.add_audio(tag, audio, sample_rate, step)
+
+    def add_graph(self, model_or_nodes) -> None:
+        self._writer.add_graph(model_or_nodes)
 
     def flush(self) -> None:
         self._writer.flush()

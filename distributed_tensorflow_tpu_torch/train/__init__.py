@@ -1,4 +1,4 @@
-"""Training of the port: the step builder (``train/step.py``), precision
+"""Training of the port: the step builders (``train/step.py``), precision
 policies and loss scales (``train/precision.py``), ``TrainState`` and
 ``TrainSession`` (``train/session.py``), hooks (``train/hooks.py``) and
 checkpoints (``train/checkpoint.py``)."""
@@ -9,11 +9,13 @@ from .hooks import (CheckpointHook, EvalHook, Hook, LoggingHook, NaNHook,
 from .precision import (DynamicLossScale, LossScaled, NoLossScale, Policy,
                         StaticLossScale, attach_loss_scale)
 from .session import TrainSession, TrainState
-from .step import make_custom_train_step
+from .step import (init_train_state, make_custom_train_step,
+                   make_eval_step, make_train_step)
 
 __all__ = ["checkpoint", "hooks", "precision", "CheckpointHook", "EvalHook",
            "Hook", "LoggingHook", "NaNHook", "PreemptionHook",
            "ProfilerHook", "StepCounterHook", "StopAtStepHook",
            "SummaryHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
            "NoLossScale", "Policy", "StaticLossScale", "attach_loss_scale",
-           "TrainSession", "TrainState", "make_custom_train_step"]
+           "TrainSession", "TrainState", "init_train_state",
+           "make_custom_train_step", "make_eval_step", "make_train_step"]

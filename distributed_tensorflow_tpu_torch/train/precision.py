@@ -39,14 +39,17 @@ _ABBREV = {
 
 
 def _cast(tree, dtype):
-    """Floating tensors of a dict (or a lone tensor) -> ``dtype``, as a
-    differentiable cast; anything else untouched."""
+    """Floating tensors of a dict, a tuple or list (an ``(x, y)`` batch), or
+    a lone tensor -> ``dtype``, as a differentiable cast; anything else
+    untouched."""
     def leaf(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point():
             return x.to(dtype)
         return x
     if isinstance(tree, dict):
         return {k: leaf(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(leaf(v) for v in tree)
     return leaf(tree)
 
 

@@ -1,21 +1,36 @@
-"""The training step, in PyTorch.
+"""The training and eval steps, in PyTorch.
 
-Counterpart of ``distributed_tensorflow_tpu/train/step.py``
-``make_custom_train_step`` for one device: loss and gradients (over
-``accum_steps`` microbatches), the precision policy, loss scaling, the
-non-finite skip, device-health metrics, the global-norm clip, the
-optimizer update, the parameters updated in place, the step advanced.
-The JAX step is one jit-compiled program over a donated state; here
-PyTorch runs eagerly and the parameters are the model's own tensors,
-updated in place under ``torch.no_grad()``, which is what donation buys
-there.
+Counterpart of ``distributed_tensorflow_tpu/train/step.py``:
+``make_custom_train_step``, loss and gradients (over ``accum_steps``
+microbatches), the precision policy, loss scaling, the non-finite skip,
+device-health metrics, the global-norm clip, the optimizer update, the
+parameters updated in place, the step advanced; ``make_train_step`` and
+``make_eval_step``, its adapters for a layer ``Stack`` with a named loss
+and metrics over ``(x, y)`` batches (``example.py``'s builders); and
+``init_train_state``.  The JAX step is one jit-compiled program over a
+donated state; here PyTorch runs eagerly and the parameters are the
+model's own tensors, updated in place under ``torch.no_grad()``, which
+is what donation buys there.  Metrics stay on the device as tensors.
+
+Data parallelism (``mesh=`` from ``parallel.data_parallel_mesh`` over a
+``torch.distributed`` group): each rank computes the mean gradients of
+its shard of the global batch, and ONE all-reduce of a flat bucket
+averages the gradients, the loss and the metrics over the ranks
+(``parallel.data_parallel.all_reduce_mean``) before the loss-scale and
+skip logic, the clip and the update, so every rank applies the same
+update.  The average of the ranks' means is the global batch's mean when
+the shards are equal, which ``parallel.round_batch_to_mesh`` guarantees.
+The JAX step gets the same average from its partitioner (a global-mean
+loss over a batch sharded on the mesh's ``data`` axis).
 
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
-seeded from ``(seed, step)`` for every step, and from ``(seed, step, i)``
-for microbatch ``i`` when ``accum_steps > 1``: deterministic,
-resume-stable and unique, as the JAX step folds the step (and the
-microbatch) into its key.  The bits differ from ``jax.random``'s, so
-parity with the JAX package is tested at dropout rate 0.
+seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
+for microbatch ``i`` when ``accum_steps > 1``, and with the rank folded
+in under data parallelism: deterministic, resume-stable and unique, as
+the JAX step folds the step (and the microbatch, and in its
+``make_psum_train_step`` the replica) into its key.  The bits differ
+from ``jax.random``'s, so parity with the JAX package is tested at
+dropout rate 0.
 
 The reported loss under ``loss_scale`` is the loss itself, not the
 scaled loss unscaled as the JAX step reports it: where the scaled value
@@ -40,36 +55,126 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..obs import device as obs_device
+from ..ops import losses as loss_lib
+from ..ops import metrics as metric_lib
 from ..optim import optimizers as opt_lib
+from ..parallel import data_parallel as dp_lib
 from . import precision as prec_lib
 from .session import TrainState
 
-__all__ = ["TrainState", "make_custom_train_step"]
+__all__ = ["TrainState", "init_train_state", "make_custom_train_step",
+           "make_eval_step", "make_train_step"]
 
 
 def _step_generator(seed: int, step: int, device: torch.device,
-                    microbatch: Optional[int] = None) -> torch.Generator:
+                    microbatch: Optional[int] = None,
+                    replica: Optional[int] = None) -> torch.Generator:
     """The dropout generator of step ``step`` (of its microbatch
-    ``microbatch`` under accumulation)."""
+    ``microbatch`` under accumulation, on rank ``replica`` under data
+    parallelism)."""
     s = int(seed) * 1_000_003 + int(step)
     if microbatch is not None:
         s = s * 1_000_003 + int(microbatch) + 1
+    if replica is not None:
+        s = s * 1_000_003 + int(replica) + 1
     return torch.Generator(device).manual_seed(s % (2 ** 63))
 
 
-def _microbatches(batch: Mapping[str, torch.Tensor], n: int):
-    """``batch`` split along its leading dim into ``n`` equal dicts."""
-    bad = sorted({v.shape[0] for v in batch.values() if v.shape[0] % n})
+def _microbatches(batch, n: int):
+    """``batch`` (a dict, tuple or list of tensors) split along its leading
+    dim into ``n`` equal batches of the same structure."""
+    items = batch.items() if isinstance(batch, Mapping) \
+        else enumerate(batch)
+    bad = sorted({v.shape[0] for _, v in items if v.shape[0] % n})
     if bad:
         raise ValueError(f"batch leading dim(s) {bad} not divisible by "
                          f"accum_steps={n}")
-    split = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
-             for k, v in batch.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+    def part(v, i):
+        return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+    if isinstance(batch, Mapping):
+        return [{k: part(v, i) for k, v in batch.items()} for i in range(n)]
+    return [type(batch)(part(v, i) for v in batch) for i in range(n)]
+
+
+def init_train_state(model, optimizer: opt_lib.Optimizer,
+                     generator: torch.Generator, in_shape) -> TrainState:
+    """The ``TrainState`` of a layer ``Stack`` and an optimizer:
+    parameters drawn from ``generator`` on its device."""
+    params, model_state = model.init(generator, in_shape)
+    return TrainState.create(params, optimizer.init(params), model_state)
+
+
+def _metric_dict(metric_fns, preds, y) -> Dict[str, torch.Tensor]:
+    return {name: metric_lib.get(fn)(preds, y)
+            for name, fn in (metric_fns or {}).items()}
+
+
+def make_train_step(model, loss, optimizer: opt_lib.Optimizer,
+                    metric_fns: Optional[Dict[str, Any]] = None,
+                    seed: int = 0, mesh=None,
+                    grad_clip_norm: Optional[float] = None,
+                    accum_steps: int = 1, policy: Any = None,
+                    loss_scale: bool = False, device_health: bool = False,
+                    skip_nonfinite: bool = False) -> Callable:
+    """Build ``step(state, (x, y)) -> (new_state, metrics)`` for a layer
+    ``Stack`` (``model.apply``), a loss by name or function
+    (``ops.losses.get``) and metrics ``{name: metric}``
+    (``ops.metrics.get``), computed on the predictions of the step.
+
+    A thin adapter over ``make_custom_train_step`` (same options);
+    ``mesh``: a ``parallel.Mesh``, under which each rank passes its shard
+    of the global batch and the gradients, loss and metrics are averaged
+    over the ranks (see the module docstring)."""
+    loss_value_fn = loss_lib.get(loss)
+
+    def loss_fn(params, model_state, batch, generator, train):
+        x, y = batch
+        preds, new_model_state = model.apply(params, model_state, x,
+                                             train=train, rng=generator)
+        metrics = _metric_dict(metric_fns, preds.detach(), y)
+        return loss_value_fn(preds, y), (metrics, new_model_state)
+
+    return make_custom_train_step(loss_fn, optimizer, seed=seed, mesh=mesh,
+                                  grad_clip_norm=grad_clip_norm,
+                                  accum_steps=accum_steps, policy=policy,
+                                  loss_scale=loss_scale,
+                                  device_health=device_health,
+                                  skip_nonfinite=skip_nonfinite)
+
+
+def make_eval_step(model, loss, metric_fns: Optional[Dict[str, Any]] = None,
+                   mesh=None, policy: Any = None) -> Callable:
+    """Build ``eval_step(state, (x, y)) -> metrics``: the forward in eval
+    mode (dropout off), no gradients, ``loss`` and the metrics as device
+    tensors.  ``policy`` casts parameters and inputs to the compute dtype
+    and the predictions to the output dtype, as the train builders do.
+    ``mesh`` is accepted for the JAX signature and unused: every rank
+    evaluates the batch it is given."""
+    del mesh
+    loss_fn = loss_lib.get(loss)
+    pol = prec_lib.policy(policy) if policy is not None else None
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        x, y = batch
+        model_state = state.model_state
+        if isinstance(model_state, prec_lib.LossScaled):
+            model_state = model_state.model_state
+        params = state.params
+        if pol is not None:
+            params, x = pol.cast_to_compute(params), pol.cast_to_compute(x)
+        preds, _ = model.apply(params, model_state, x, train=False)
+        if pol is not None:
+            preds = pol.cast_to_output(preds)
+        return {"loss": loss_fn(preds, y), **_metric_dict(metric_fns, preds,
+                                                            y)}
+
+    return eval_step
 
 
 def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
-                           seed: int = 0,
+                           seed: int = 0, mesh=None,
                            grad_clip_norm: Optional[float] = None,
                            accum_steps: int = 1,
                            policy: Any = None,
@@ -109,11 +214,17 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
 
     ``device_health=True``: ``grad_norm`` and ``nonfinite_grads`` of the
     (unscaled) gradients (``obs.device.grad_health``), as device tensors;
-    the clip's ``grad_norm`` takes precedence."""
+    the clip's ``grad_norm`` takes precedence.
+
+    ``mesh``: a ``parallel.Mesh``; over a process group, the gradients,
+    loss and metrics are averaged over its ranks with one all-reduce and
+    the dropout generator is folded with the rank (module docstring)."""
     if skip_nonfinite and loss_scale:
         raise ValueError("loss_scale=True already skips non-finite "
                          "updates; drop skip_nonfinite")
     pol = prec_lib.policy(policy) if policy is not None else None
+    dp = mesh if mesh is not None and mesh.group is not None else None
+    replica = dp.rank if dp is not None else None
 
     def grad_of(params, model_state, batch, gen, ls):
         names = list(params)
@@ -132,7 +243,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         grads = loss_sum = metrics_sum = w_sum = None
         has_weight = False
         for i, mb in enumerate(_microbatches(batch, accum_steps)):
-            gen = _step_generator(seed, state.step, device, i)
+            gen = _step_generator(seed, state.step, device, i, replica)
             loss, metrics, model_state, g = grad_of(params, model_state, mb,
                                                     gen, ls)
             has_weight = "loss_weight" in metrics
@@ -174,10 +285,13 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         if accum_steps == 1:
             loss, metrics, new_model_state, grads = grad_of(
                 params, model_state_in, batch,
-                _step_generator(seed, state.step, device), ls)
+                _step_generator(seed, state.step, device, None, replica), ls)
         else:
             loss, metrics, new_model_state, grads = accumulate(
                 state, params, model_state_in, batch, device, ls)
+        if dp is not None:
+            grads, loss, metrics = dp_lib.all_reduce_mean(grads, loss,
+                                                          metrics, dp)
         apply = True
         if ls is not None:
             grads = ls.unscale(grads)
@@ -204,8 +318,6 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             updates, new_opt_state = optimizer.update(grads, state.opt_state,
                                                       params)
             opt_lib.apply_updates(params, updates)
-            if optimizer.after_apply is not None:
-                new_opt_state = optimizer.after_apply(new_opt_state, params)
         else:
             new_opt_state, new_model_state = state.opt_state, model_state_in
         if ls is not None:

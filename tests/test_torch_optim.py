@@ -16,8 +16,8 @@ gradient held against the JAX package.
 - Every learning-rate schedule at counts 0..50 against the JAX
   schedule: 1e-6 relative plus 1e-9 absolute (both compute in float32;
   ``cos`` and ``pow`` may round differently by an ulp).
-- ``with_ema(adamw)`` over 3 steps (``update``, ``apply_updates``, then
-  its ``after_apply``, as the step builder calls them) and
+- ``with_ema(adamw)`` over 3 steps (``update``, then ``apply_updates``,
+  as the step builder calls them) and
   ``ema_params`` (debiased or not) against the JAX optimizer: params,
   moments and the shadow within 1e-5 absolute, the counts and the stored decay equal; the standalone
   ``ema`` tracker likewise.
@@ -220,7 +220,6 @@ def test_with_ema_matches_jax_over_three_steps(debias):
         jp = jopt.apply_updates(jp, ju)
         tu, tstate = to.update(tg, tstate, params)
         topt.apply_updates(params, tu)
-        tstate = to.after_apply(tstate, params)
     tema, jema_state = tstate.inner["ema"], jstate.inner["ema"]
     assert tstate.count == int(jstate.count) == 3
     assert tema.count == int(jema_state.count) == 3
