@@ -221,11 +221,42 @@ no result lines:
    10 steps at dropout 0 from (b)'s weights: parameters equal to (b)'s
    card run within ``XOR_DP_TOL``, one all-reduce a step (counted).
 
+19. sequential (after phase 18): the high-level tier.  (a) The Adam
+   kernel against its plain version at the CIFAR CNN's 12 and the MNIST
+   MLP's 4 leaf shapes, with kernel, graph, plain and bound ms and
+   ``torch.optim.Adam(fused=True)``'s ms and graph ms (phase 18 (a)
+   logs the same at the XOR leaves).  (b) Precision, TF32 off in cuBLAS and
+   cuDNN: the CIFAR CNN's four convolutions alone at batch 256 against
+   f64 (CPU f32; card through cuDNN, deterministic cuDNN and PyTorch's
+   own convolutions; a TF32-on control that must read above the limit);
+   then from the card's weights, in the cuDNN modes and the control, the
+   CNN's first loss and gradients against the CPU's (given the card's
+   ReLU masks; the disagreements of the two forwards' masks counted) and
+   5 ``train_on_batch`` steps, and the MNIST MLP for 5 ``TrainSession``
+   steps (``CONV_TOL``, ``SEQ_*`` tolerances).  (c) ``python -m
+   distributed_tensorflow_tpu_torch.example2`` in-process at its defaults
+   (50 epochs): val accuracy at each epoch line, the first above 0.95,
+   Adam launches exactly 6 a step and nothing else; beside it one epoch
+   of the same ``fit`` timed, profiled (busy share) and its host syncs
+   counted.  (d) ``...outline_keras`` at its defaults (10 epochs of
+   batch 256 on the synthetic CIFAR-10, crop + flip): final val accuracy
+   above 0.35, examples/s, the augment's host ms a batch, Adam 12 a
+   step; one epoch probed as in (c).  (e) ``...outline_tensorflow`` at
+   its defaults: final val accuracy above 0.9, examples/s, Adam 4 a step.
+   (f) ``steps_per_execution=8`` against 1 over one CIFAR epoch (cuDNN
+   deterministic): parameters and History bit-equal, step ms of each.
+   (g) ``[Dense(128), LayerNorm(fused="auto"), Dense(10)]`` for 3 fit
+   steps: one LayerNorm launch a forward; the LayerNorm kernel against
+   its plain version at [1024, 128] and [1024, 129] f32, with
+   ``F.layer_norm``'s ms and graph ms.
+
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
 ``session_launches`` for those of phase 17's session, (e) and (f);
-``xor_launches`` for Adam on phase 18's entry point run, (c)), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+``xor_launches`` for Adam on phase 18's entry point run, (c);
+``seq_launches`` for Adam on phase 19's three entry point runs and
+LayerNorm in (g)), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -323,6 +354,39 @@ XOR_EPOCHS, XOR_EPOCHS_SHORT, XOR_BUDGET_S, XOR_ACC = 50, 20, 120.0, 0.95
 # world size 1 against (b)'s card run after 10 steps
 XOR_REF_STEPS, XOR_DP_STEPS = 20, 10
 XOR_LOSS_RTOL, XOR_PARAM_TOL, XOR_DP_TOL = 1e-6, 1e-5, 1e-6
+
+# the high-level tier (phase 19): the CIFAR CNN's 12 and the MNIST MLP's
+# 4 leaf shapes (Adam launches one kernel each a step); the entry points'
+# batches and epochs (outline_keras's 10 epochs, outline_tensorflow's 5);
+# the synthetic-data gates of the JAX package's bench (bench.py:626 CIFAR
+# 0.35, :825 MNIST 0.9) and the XOR oracle; (b) the CNN's convolutions
+# alone against f64 at the main path's batch within CONV_TOL (relative
+# to the largest value; the sound modes read at most 2.1e-6, the TF32
+# control 3.6e-5-7.7e-4); then card against CPU at batch 64 from the
+# card's weights: the first loss within SEQ_CNN_LOSS_RTOL (sound 8.7e-8,
+# control 5.7e-5) and the first gradients, with the CPU given the card's
+# ReLU masks, within SEQ_GRAD_TOL (relative to each leaf's largest;
+# sound <= 4.2e-6, control 2.5e-2); one pre-activation on the other side
+# of its kink (measured: 1 of 1.2M at conv2d_2) moves the gradients below
+# it by 4e-3 and sends the 5 adam() steps apart, so those are held to
+# limits that catch a card that does not train alike (a step that does
+# not update reads 1.0, an lr off by 2x 0.5) but not precision: losses
+# within SEQ_STEPS_LOSS_RTOL (sound 2.1e-3), each leaf's change over the
+# 5 steps within SEQ_UPDATE_TOL (relative L2; sound 9.3e-2); the MNIST
+# MLP (no kink flips: its losses and parameters read 2.1e-7 and 1.4e-7)
+# within SEQ_LOSS_RTOL and SEQ_PARAM_TOL absolute, well below lr 1e-3;
+# (f) K of steps_per_execution against 1
+CIFAR_SHAPES = ((3, 3, 3, 32), (32,), (3, 3, 32, 32), (32,),
+                (3, 3, 32, 64), (64,), (3, 3, 64, 64), (64,), (4096, 256),
+                (256,), (256, 10), (10,))
+MNIST_SHAPES = ((784, 128), (128,), (128, 10), (10,))
+CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 10, 1024, 5
+CIFAR_ACC, MNIST_ACC = 0.35, 0.9
+SEQ_REF_STEPS, SEQ_REF_BATCH = 5, 64
+CONV_TOL, SEQ_GRAD_TOL, SEQ_CNN_LOSS_RTOL = 1e-5, 3e-5, 1e-5
+SEQ_STEPS_LOSS_RTOL, SEQ_UPDATE_TOL = 1e-2, 0.3
+SEQ_LOSS_RTOL, SEQ_PARAM_TOL = 1e-5, 1e-5
+SPE_K = 8
 
 # the Llama-3-8B engine: 8 slots of 8192 tokens in pages of 16
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_PAGE = 8, 8192, 16
@@ -1461,13 +1525,15 @@ def check_reference(torch, np):
 
 
 def _reset_counts():
-    """Set every kernel launch count to 0."""
+    """Set every kernel launch count, and the all-reduce count, to 0."""
     from distributed_tensorflow_tpu_torch.ops.kernels import \
         flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     from distributed_tensorflow_tpu_torch.ops.kernels import \
         paged_attention as pa
-    for counter in (fa.LAUNCHES, fused.LAUNCHES, pa.LAUNCHES):
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    for counter in (fa.LAUNCHES, fused.LAUNCHES, pa.LAUNCHES,
+                    data_parallel.LAUNCHES):
         counter.clear()
 
 
@@ -3099,15 +3165,18 @@ def _xor_tree(np, seed):
     return tree
 
 
-def check_xor_adam(torch, args):
-    """Phase 18 (a): the Adam kernel against its plain version at the XOR
-    MLP's six leaf shapes, at steps 1 and 3, called as ``optim.adam()``
-    calls it; kernel and plain ms per shape.  Returns the largest error."""
+def _adam_leaves(torch, args, shapes, tag):
+    """The Adam kernel against its plain version at ``shapes``, at steps
+    1 and 3, called as ``optim.adam()`` calls it; per shape the kernel's
+    ms and graph ms, the plain ms, the bound (28 bytes an element) and
+    ``torch.optim.Adam(fused=True)`` on the same tensor, its ms and its
+    graph ms (``capturable=True``, so that its step count lives on the
+    card and a graph can hold it).  Returns the largest error."""
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     gen = torch.Generator("cuda").manual_seed(args.seed)
     kw = dict(lr=1e-3, tf14_eps=True, return_delta=True)
     worst = 0.0
-    for shape in XOR_SHAPES:
+    for shape in shapes:
         p, g, m = (torch.randn(shape, generator=gen, device="cuda")
                    for _ in range(3))
         v = torch.rand(shape, generator=gen, device="cuda")
@@ -3133,13 +3202,19 @@ def check_xor_adam(torch, args):
         lib_p.grad = g
         lib = time_ms(torch, torch.optim.Adam([lib_p], lr=1e-3,
                                               fused=True).step, args.iters)
+        cap_p = p.clone()
+        cap_p.grad = g
+        lib_graph, why = _graph_or_why(torch, torch.optim.Adam(
+            [cap_p], lr=1e-3, fused=True, capturable=True).step, args.iters)
         n = p.numel()
         b_ms, b_by = bound_ms(28.0 * n, 12.0 * n)
-        log({"xor": "(a) fused_adam", "shape": list(shape),
+        log({tag: "(a) fused_adam", "shape": list(shape),
              "max_abs_err": errs, "tol": ADAM_TOL, "kernel_ms": ms,
              "graph_ms": g_ms, "plain_ms": plain,
-             "library_ms": lib, "library": "torch.optim.Adam(fused=True)"
-             ".step()", "bound_ms": b_ms, "bound_by": b_by})
+             "library_ms": lib, "library_graph_ms": lib_graph,
+             **({"library_graph_note": why} if why else {}),
+             "library": "torch.optim.Adam(fused=True).step()",
+             "bound_ms": b_ms, "bound_by": b_by})
     return worst
 
 
@@ -3233,17 +3308,16 @@ def _xor_epoch_time(torch, np, args, smi):
     return wall
 
 
-def _run_example(torch, argv):
-    """(stdout, wall seconds) of one in-process run of the entry point."""
+def _run_entry(torch, main, argv):
+    """(stdout, wall seconds) of one in-process run of an entry point's
+    ``main``."""
     import contextlib
     import io
-
-    from distributed_tensorflow_tpu_torch import example
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = example.main(argv)
+        rc = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
@@ -3287,16 +3361,16 @@ def check_xor(torch, np, args, smi):
     entry point's run, (c)."""
     import torch.distributed as dist
 
-    from distributed_tensorflow_tpu_torch import ops, optim, parallel, train
+    from distributed_tensorflow_tpu_torch import (example, ops, optim,
+                                                  parallel, train)
     from distributed_tensorflow_tpu_torch.models.convert import \
         stack_params_from_jax
-    from distributed_tensorflow_tpu_torch.parallel import (cluster,
-                                                           data_parallel)
+    from distributed_tensorflow_tpu_torch.parallel import cluster
     from distributed_tensorflow_tpu_torch.train import checkpoint as ckpt
     t_phase = time.perf_counter()
     shutil.rmtree(_XOR_DIR, ignore_errors=True)
 
-    worst = check_xor_adam(torch, args)
+    worst = _adam_leaves(torch, args, XOR_SHAPES, "xor")
     tree, batches, card_early = check_xor_reference(torch, np, args)
 
     # (c) the entry point at example.py's configuration; E from one
@@ -3308,8 +3382,7 @@ def check_xor(torch, np, args, smi):
     steps = epochs * XOR_STEPS_PER_EPOCH
     argv = ["--device=cuda", f"--log_dir={_XOR_DIR}", f"--seed={args.seed}"]
     _reset_counts()
-    data_parallel.LAUNCHES.clear()
-    out, wall = _run_example(torch, argv + [f"--epochs={epochs}"])
+    out, wall = _run_entry(torch, example.main, argv + [f"--epochs={epochs}"])
     counts = _xor_counts(torch)
     accs = _val_accs(out)
     first_pass = next((e for e, a in accs if a > XOR_ACC), None)
@@ -3350,7 +3423,8 @@ def check_xor(torch, np, args, smi):
     _reset_counts()
     train.make_train_step = counted_builder
     try:
-        out, wall = _run_example(torch, argv + [f"--epochs={epochs + 1}"])
+        out, wall = _run_entry(torch, example.main,
+                               argv + [f"--epochs={epochs + 1}"])
     finally:
         train.make_train_step = make
     counts = _xor_counts(torch)
@@ -3386,7 +3460,6 @@ def check_xor(torch, np, args, smi):
             metric_fns={"accuracy": "bitwise_accuracy"}, seed=args.seed,
             mesh=mesh)
         _reset_counts()
-        data_parallel.LAUNCHES.clear()
         for bx, by in batches[:XOR_DP_STEPS]:
             state, _ = step(state, (torch.from_numpy(bx).to("cuda"),
                                     torch.from_numpy(by).to("cuda")))
@@ -3642,6 +3715,600 @@ _LLAMA_PARTS = (
     ("f32 -> bf16 weight casts and other copies", ("copy", "Copy")),
 )
 
+# -- phase 19: the high-level tier -------------------------------------
+
+_SEQ_DIR = Path(__file__).resolve().parent / "build" / "seq_entry"
+
+
+def _cnn_first_step(torch, m, x, y):
+    """(loss, gradients by parameter name) of ``m``'s CIFAR CNN on one
+    batch at its current weights: the train-mode forward at dropout 0,
+    the loss and its gradients."""
+    from distributed_tensorflow_tpu_torch.ops import losses
+    dev = m.device
+    params = m.state.params
+    preds, _ = m.stack.apply(params, m.state.model_state,
+                             torch.from_numpy(x).to(dev), train=True)
+    loss = losses.get("sparse_categorical_crossentropy")(
+        preds, torch.from_numpy(y).to(dev))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), {k: g.detach().cpu()
+                         for k, g in zip(params, grads)}
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| of two tensors (on the CPU)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# the card's precision modes of phase 19 (b): name -> (cudnn enabled,
+# cudnn deterministic, TF32 in cuDNN); the last is the control
+_CONV_MODES = {"cudnn": (True, False, False),
+               "cudnn_deterministic": (True, True, False),
+               "no_cudnn": (False, False, False),
+               "cudnn_tf32_control": (True, False, True)}
+
+
+def _conv_mode(torch, mode):
+    """Set the cuDNN flags of ``mode``; returns what to restore."""
+    b = torch.backends.cudnn
+    saved = (b.enabled, b.deterministic, b.allow_tf32)
+    b.enabled, b.deterministic, b.allow_tf32 = _CONV_MODES[mode]
+    return saved
+
+
+def _unset_conv_mode(torch, saved):
+    b = torch.backends.cudnn
+    b.enabled, b.deterministic, b.allow_tf32 = saved
+
+
+def check_conv_precision(torch, np, args):
+    """Phase 19 (b), first part: each of the CIFAR CNN's four convolutions
+    at the main path's batch (``CIFAR_BATCH``), on its real input and
+    upstream gradient (one f64 forward and backward on the CPU through
+    the layers' own code, from ``--seed``'s weights and data): the
+    product and its data and weight gradients in f32 on the CPU and on
+    the card in each of ``_CONV_MODES``, each against the f64 values:
+    max |got - want| / max |want|.  The sound modes must read at most
+    ``CONV_TOL``, the TF32 control more (else the check could not tell
+    the two apart).  Returns the worst sound reading by mode."""
+    from distributed_tensorflow_tpu_torch import data, models, ops
+    from distributed_tensorflow_tpu_torch.ops import layers as L
+    from distributed_tensorflow_tpu_torch.ops import losses
+    (x, y), _ = data.synthetic_image_classes((32, 32, 3), 10, CIFAR_BATCH,
+                                             1, seed=args.seed)
+    stack = models.cifar_cnn()
+    params, _ = stack.init(torch.Generator().manual_seed(args.seed),
+                           (32, 32, 3))
+    params = {k: v.detach().double().requires_grad_()
+              for k, v in params.items()}
+    h = torch.from_numpy(x).double()
+    taps = []
+    for key, layer in zip(stack.keys, stack.layers):
+        p = stack._layer_params(params, key)
+        if isinstance(layer, ops.Conv2D):
+            z = L._nhwc_conv(h, p["kernel"], layer.strides, layer.padding)
+            z.retain_grad()
+            taps.append((key, layer, h.detach(), p["kernel"].detach(), z))
+            h = layer._finish(p, z)
+        else:
+            h, _ = layer.apply(p, {}, h, train=False)
+    losses.get("sparse_categorical_crossentropy")(
+        h, torch.from_numpy(y)).backward()
+
+    def product(layer, xin, w, dz):
+        xin, w = xin.requires_grad_(), w.requires_grad_()
+        z = L._nhwc_conv(xin, w, layer.strides, layer.padding)
+        dx, dw = torch.autograd.grad(z, (xin, w), dz)
+        return z, dx, dw
+
+    readings = {}
+    for key, layer, xin, w, z in taps:
+        want = product(layer, xin.clone(), w.clone(), z.grad)
+        row = {"shape": list(xin.shape) + [int(w.shape[-1])]}
+        runs = {"cpu_f32": ("cpu", None)}
+        runs.update({m: ("cuda", m) for m in _CONV_MODES})
+        for name, (dev, mode) in runs.items():
+            saved = _conv_mode(torch, mode) if mode else None
+            try:
+                got = product(layer, xin.float().to(dev), w.float().to(dev),
+                              z.grad.float().to(dev))
+                torch.cuda.synchronize()
+            finally:
+                if saved:
+                    _unset_conv_mode(torch, saved)
+            row[name] = {n: _rel(g, wt) for n, g, wt in
+                         zip(("y", "dx", "dw"), got, want)}
+        readings[key] = row
+    worst = {m: max(max(r[m].values()) for r in readings.values())
+             for m in ("cpu_f32", *_CONV_MODES)}
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    log({"seq": "(b) convolutions against f64", "batch": CIFAR_BATCH,
+         "readings": readings, "worst": worst, "tol": CONV_TOL,
+         "cudnn_version": torch.backends.cudnn.version(),
+         "conv_fp32_precision": getattr(conv, "fp32_precision", None)})
+    sound = [m for m in worst if m != "cudnn_tf32_control"]
+    if max(worst[m] for m in sound) > CONV_TOL:
+        raise AssertionError(f"convolutions off against f64: {worst}")
+    if not worst["cudnn_tf32_control"] > CONV_TOL:
+        raise AssertionError(
+            f"the TF32 control reads {worst['cudnn_tf32_control']} <= "
+            f"{CONV_TOL}: the limit cannot tell TF32 from f32")
+    return worst
+
+
+def _update_err(np, got, want, start):
+    """Per leaf: ||(got - start) - (want - start)|| / ||want - start||,
+    the parameters' change over the run held against the reference's."""
+    out = []
+    for g, w, s in zip(got, want, start):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        out.append(float(np.linalg.norm(g - w) / np.linalg.norm(w - s)))
+    return out
+
+
+def _cnn_grads(torch, stack, params, x, y, masks=None):
+    """(loss, gradients by name, ReLU masks) of one batch of the CIFAR
+    CNN, forward by hand through the layers' own code: a layer with a
+    ReLU runs without it, and its pre-activation ``u`` is multiplied by a
+    mask, its own ``u > 0`` or, where ``masks`` are given, those (another
+    run's, so that both runs take the same side of every kink)."""
+    import copy
+    from distributed_tensorflow_tpu_torch.ops import losses
+    dev = next(iter(params.values())).device
+    h, out = torch.from_numpy(x).to(dev), []
+    for key, layer in zip(stack.keys, stack.layers):
+        p = stack._layer_params(params, key)
+        if getattr(layer, "_raw", {}).get("activation") == "relu":
+            bare = copy.copy(layer)
+            bare.activation = lambda t: t
+            u, _ = bare.apply(p, {}, h, train=True)
+            m = (u > 0) if masks is None else masks[len(out)].to(u.device)
+            out.append(m.cpu())
+            h = u * m.to(u.dtype)
+        else:
+            h, _ = layer.apply(p, {}, h, train=True)
+    loss = losses.get("sparse_categorical_crossentropy")(
+        h, torch.from_numpy(y).to(h.device))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), {k: g.detach().cpu()
+                         for k, g in zip(params, grads)}, out
+
+
+# the card's modes of (b)'s whole-model comparison: the main path's,
+# cuDNN restricted to its deterministic algorithms, and the TF32 control
+_SEQ_MODES = ("cudnn", "cudnn_deterministic", "cudnn_tf32_control")
+
+
+def check_seq_reference(torch, np, args):
+    """Phase 19 (b): card against CPU with TF32 off in cuBLAS.  First the
+    convolutions alone against f64 (``check_conv_precision``).  Then
+    ``Sequential(cifar_cnn at dropout 0)`` from the weights its
+    ``build`` draws on the card (the main path's), in each of
+    ``_SEQ_MODES``: the first batch's loss and gradients through the
+    model, the same by hand (``_cnn_grads``) on the card and on the CPU
+    with the card's ReLU masks (the mask disagreements of the two
+    devices' own forwards counted), then ``SEQ_REF_STEPS``
+    ``train_on_batch`` steps of ``adam()`` against the CPU's; and the
+    MNIST MLP (dropout 0) for as many ``TrainSession`` steps."""
+    from distributed_tensorflow_tpu_torch import optim, train
+    from distributed_tensorflow_tpu_torch import data, models, ops
+    check_conv_precision(torch, np, args)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (x, y), _ = data.synthetic_image_classes(
+            (32, 32, 3), 10, SEQ_REF_STEPS * SEQ_REF_BATCH, 1, seed=args.seed)
+        xb, yb = x[:SEQ_REF_BATCH], y[:SEQ_REF_BATCH]
+        weights = None
+
+        def make(dev):
+            layers = [ops.Dropout(0.0) if isinstance(l, ops.Dropout) else l
+                      for l in models.cifar_cnn().layers]
+            m = models.Sequential(layers, device=dev)
+            m.compile("sparse_categorical_crossentropy", "adam",
+                      ["accuracy"], seed=args.seed)
+            m.build((32, 32, 3), seed=args.seed)
+            if weights is not None:
+                m.set_weights(weights)
+            return m
+
+        def steps(m):
+            return [m.train_on_batch(x[i:i + SEQ_REF_BATCH],
+                                     y[i:i + SEQ_REF_BATCH])["loss"]
+                    for i in range(0, len(x), SEQ_REF_BATCH)]
+        weights = make("cuda").get_weights()
+        cpu = make("cpu")
+        l_cpu, g_cpu = _cnn_first_step(torch, cpu, xb, yb)
+        masks_cpu = _cnn_grads(torch, cpu.stack, cpu.state.params, xb,
+                               yb)[2]
+        cnn = {}
+        for name in _SEQ_MODES:
+            m = make("cuda")
+            mode = _conv_mode(torch, name)
+            try:
+                l_model, g_model = _cnn_first_step(torch, m, xb, yb)
+                _, g_hand, masks = _cnn_grads(torch, m.stack, m.state.params,
+                                              xb, yb)
+                losses = steps(m)
+            finally:
+                _unset_conv_mode(torch, mode)
+            w_card = m.get_weights()
+            del m
+            _, g_match, _ = _cnn_grads(torch, cpu.stack, cpu.state.params,
+                                       xb, yb, masks)
+            cnn[name] = {
+                "first_loss_rel": abs(l_model - l_cpu) / abs(l_cpu),
+                "relu_mask_flips": [int((a != b).sum())
+                                    for a, b in zip(masks, masks_cpu)],
+                "first_grad_rel_own_masks": {k: _rel(g_model[k], g_cpu[k])
+                                             for k in g_cpu},
+                "model_vs_hand_rel": max(_rel(g_model[k], g_hand[k])
+                                         for k in g_hand),
+                "first_grad_rel": {k: _rel(g_hand[k], g_match[k])
+                                   for k in g_match},
+                "run": (losses, w_card)}
+        losses_cpu = steps(cpu)
+        for r in cnn.values():
+            losses, w_card = r.pop("run")
+            r["loss_rel_by_step"] = [abs(a - b) / abs(b)
+                                     for a, b in zip(losses, losses_cpu)]
+            r["update_rel_by_leaf"] = _update_err(np, w_card,
+                                                  cpu.get_weights(), weights)
+        (xm, ym), _ = data.mnist(None, flatten=True, seed=args.seed)
+        mlp = {}
+        tree = None
+        for dev in ("cuda", "cpu"):
+            model = ops.serial(ops.Dense(128, activation="relu"),
+                               ops.Dropout(0.0), ops.Dense(10))
+            opt = optim.adam()
+            state = train.init_train_state(
+                model, opt, torch.Generator(dev).manual_seed(args.seed),
+                (784,))
+            if tree is None:
+                tree = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+            with torch.no_grad():
+                for k, v in state.params.items():
+                    v.copy_(tree[k])
+            step = train.make_train_step(
+                model, "sparse_categorical_crossentropy", opt,
+                metric_fns={"accuracy": "accuracy"}, seed=args.seed)
+            losses = []
+            with train.TrainSession(state, step, hooks=[
+                    train.StopAtStepHook(last_step=SEQ_REF_STEPS)]) as sess:
+                i = 0
+                while not sess.should_stop():
+                    b = slice(i * MNIST_BATCH, (i + 1) * MNIST_BATCH)
+                    losses.append(float(sess.run_step(
+                        (torch.from_numpy(xm[b]).to(dev),
+                         torch.from_numpy(ym[b]).to(dev)))["loss"]))
+                    i += 1
+                mlp[dev] = (losses, [sess.state.params[k].detach().cpu()
+                                     for k in sorted(tree)])
+        mlp_loss = max(abs(a - b) / abs(b) for a, b in zip(mlp["cuda"][0],
+                                                         mlp["cpu"][0]))
+        mlp_param = max(float((a - b).abs().max())
+                        for a, b in zip(mlp["cuda"][1], mlp["cpu"][1]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    worst = {name: {"first_loss_rel": r["first_loss_rel"],
+                    "relu_mask_flips": sum(r["relu_mask_flips"]),
+                    "model_vs_hand_rel": r["model_vs_hand_rel"],
+                    "first_grad_rel": max(r["first_grad_rel"].values()),
+                    "first_grad_rel_own_masks": max(
+                        r["first_grad_rel_own_masks"].values()),
+                    "loss_rel": max(r["loss_rel_by_step"]),
+                    "update_rel": max(r["update_rel_by_leaf"])}
+             for name, r in cnn.items()}
+    log({"seq": "(b) card vs CPU", "steps": SEQ_REF_STEPS,
+         "batch": SEQ_REF_BATCH, "allow_tf32_matmul": False,
+         "cifar_cnn": cnn, "cifar_cnn_worst": worst,
+         "tols": {"first_loss": SEQ_CNN_LOSS_RTOL, "grad": SEQ_GRAD_TOL,
+                  "loss": SEQ_STEPS_LOSS_RTOL, "update": SEQ_UPDATE_TOL},
+         "mnist_mlp_loss_rel_err": mlp_loss,
+         "mnist_mlp_param_err": mlp_param,
+         "mlp_loss_rtol": SEQ_LOSS_RTOL, "mlp_param_tol": SEQ_PARAM_TOL,
+         "cifar_losses_cpu": losses_cpu})
+
+    def sound(w):
+        return (w["first_loss_rel"] <= SEQ_CNN_LOSS_RTOL
+                and w["model_vs_hand_rel"] <= SEQ_GRAD_TOL
+                and w["first_grad_rel"] <= SEQ_GRAD_TOL
+                and w["loss_rel"] <= SEQ_STEPS_LOSS_RTOL
+                and w["update_rel"] <= SEQ_UPDATE_TOL)
+    bad = [n for n, w in worst.items()
+           if sound(w) == (n == "cudnn_tf32_control")]
+    if bad or not (mlp_loss <= SEQ_LOSS_RTOL and mlp_param <= SEQ_PARAM_TOL):
+        raise AssertionError(
+            f"high-level tier card vs CPU: modes off {bad} (the TF32 "
+            f"control must fail the limits): {worst}; MLP {mlp_loss}, "
+            f"{mlp_param}")
+
+
+def _epoch_probe(torch, name, make, x, y, batch, val, augment=None,
+                 smi=None):
+    """One epoch of ``fit`` on a fresh model from ``make()`` after a
+    warm-up epoch: timed, then again under the profiler (the card's busy
+    share), then again counting host syncs.  Logs and returns the
+    record."""
+    from distributed_tensorflow_tpu_torch.obs import device as obs_device
+    model = make()
+
+    def epoch():
+        return model.fit(x, y, epochs=1, batch_size=batch,
+                         validation_data=val, verbose=0, augment=augment)
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, busy_s, kernels = obs_device.device_busy(epoch)
+    syncs = _syncs(torch, epoch)
+    steps = len(x) // batch
+    rec = {"seq": f"{name} one epoch of fit", "steps": steps,
+           "step_ms": wall / steps * 1e3, "steps_per_s": steps / wall,
+           "examples_per_s": steps * batch / wall, "wall_s": wall,
+           "device_busy_s": busy_s, "busy_share": busy_s / wall,
+           "device_ops_per_step": kernels / steps,
+           "host_syncs_per_epoch": syncs,
+           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32, "card": smi}
+    log(rec)
+    return rec
+
+
+def _expect_adam(name, counts, adam):
+    """Fail unless ``counts`` (``_xor_counts``) shows ``adam`` Adam
+    launches and nothing else."""
+    if counts["fused_adam"] != adam or counts["other_kernels"] \
+            or counts["all_reduce"]:
+        raise AssertionError(f"{name} launches {counts}; expected Adam "
+                             f"{adam}, nothing else")
+
+
+def _epoch_vals(out, key):
+    """[(epoch, value of ``key``)] of ``fit``'s epoch lines."""
+    rows = []
+    for line in out.splitlines():
+        if line.startswith("Epoch ") and f"{key}=" in line:
+            epoch = int(line.split()[1].split("/")[0])
+            rows.append((epoch, float(line.split(f"{key}=")[1].split(",")[0])))
+    return rows
+
+
+def check_seq_example2(torch, np, args, smi):
+    """Phase 19 (c): ``python -m ...example2`` at its defaults.  Returns
+    its Adam launches."""
+    from distributed_tensorflow_tpu_torch import example2
+    from distributed_tensorflow_tpu_torch import data, models, ops
+    (xt, yt), (xv, yv) = data.xor_data(30000, 1000, seed=args.seed)
+
+    def make():
+        m = models.Sequential(models.xor_mlp().layers, device="cuda")
+        m.compile("mean_squared_error", "adam", ["bitwise_accuracy"],
+                  seed=args.seed)
+        return m
+    probe = _epoch_probe(torch, "(c) example2", make, xt, yt, XOR_BATCH,
+                         (xv, yv), smi=smi)
+    steps = 50 * XOR_STEPS_PER_EPOCH
+    _reset_counts()
+    out, wall = _run_entry(torch, example2.main, [
+        "--device=cuda", f"--log_dir={_SEQ_DIR}/xor2_{{}}",
+        f"--seed={args.seed}"])
+    counts = _xor_counts(torch)
+    accs = _epoch_vals(out, "val_bitwise_accuracy")
+    first = next((e for e, a in accs if a > XOR_ACC), None)
+    final = float(out.split("Final validation accuracy:")[1].split()[0])
+    log({"seq": "(c) example2 entry point", "epochs": len(accs),
+         "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
+         "steps_per_s": steps / wall, "samples_per_s":
+         steps * XOR_BATCH / wall, "launches": counts,
+         "val_acc": [a for _, a in accs], "first_epoch_over_0.95": first,
+         "final_val_acc": final, "busy_share_(probe)": probe["busy_share"],
+         "host_syncs_per_epoch_(probe)": probe["host_syncs_per_epoch"],
+         "card": smi})
+    if len(accs) != 50 or not final > XOR_ACC or first is None:
+        raise AssertionError(f"example2: val accuracy {accs}, final {final}")
+    _expect_adam("example2", counts, 6 * steps)
+    return counts["fused_adam"]
+
+
+def check_seq_keras(torch, np, args, smi):
+    """Phase 19 (d) and (f): ``...outline_keras`` at its defaults (CIFAR-10
+    CNN, synthetic data), then K = 8 against K = 1 over one epoch.
+    Returns the entry point's Adam launches."""
+    from distributed_tensorflow_tpu_torch import outline_keras
+    from distributed_tensorflow_tpu_torch import data, models, ops
+    t0 = time.perf_counter()
+    (xt, yt), (xv, yv) = data.cifar10(None, seed=args.seed)
+    data_s = time.perf_counter() - t0
+    augment = data.augment.compose(data.augment.random_crop(4),
+                                   data.augment.random_flip_lr())
+    rng = np.random.default_rng(args.seed)
+    batch = (xt[:CIFAR_BATCH], yt[:CIFAR_BATCH])
+    augment(rng, batch)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        augment(rng, batch)
+    augment_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    def make(spe=1):
+        m = models.Sequential(models.cifar_cnn().layers, device="cuda")
+        m.compile("sparse_categorical_crossentropy", "adam", ["accuracy"],
+                  seed=args.seed, steps_per_execution=spe)
+        return m
+    probe = _epoch_probe(torch, "(d) outline_keras", make, xt, yt,
+                         CIFAR_BATCH, (xv[:4096], yv[:4096]), augment, smi)
+    steps = CIFAR_EPOCHS * (len(xt) // CIFAR_BATCH)
+    _reset_counts()
+    out, wall = _run_entry(torch, outline_keras.main, [
+        "--device=cuda", f"--log_dir={_SEQ_DIR}/cifar_{{}}",
+        f"--seed={args.seed}", f"--epochs={CIFAR_EPOCHS}"])
+    counts = _xor_counts(torch)
+    accs = _epoch_vals(out, "val_accuracy")
+    final = float(out.split("Final validation accuracy:")[1].split()[0])
+    train_s = wall - data_s
+    log({"seq": "(d) outline_keras entry point", "epochs": CIFAR_EPOCHS,
+         "steps": steps, "wall_s": wall,
+         "step_ms_without_data": train_s / steps * 1e3,
+         "examples_per_s_without_data": steps * CIFAR_BATCH / train_s,
+         "augment_host_ms_per_batch": augment_ms, "data_s": data_s,
+         "launches": counts,
+         "val_acc": [a for _, a in accs], "final_val_acc": final,
+         "gate": CIFAR_ACC, "busy_share_(probe)": probe["busy_share"],
+         "host_syncs_per_epoch_(probe)": probe["host_syncs_per_epoch"],
+         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32, "card": smi})
+    if not final > CIFAR_ACC:
+        raise AssertionError(f"outline_keras: final val accuracy {final} "
+                             f"not above {CIFAR_ACC}")
+    _expect_adam("outline_keras", counts, 12 * steps)
+
+    # (f) K = 8 against K = 1: one epoch each from one seed, cuDNN
+    # deterministic so that equal calls give equal bits
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for spe in (1, SPE_K):
+            m = make(spe)
+            m.build((32, 32, 3), seed=args.seed)
+            m.fit(xt[:CIFAR_BATCH * 16], yt[:CIFAR_BATCH * 16], epochs=1,
+                  batch_size=CIFAR_BATCH, verbose=0, seed=args.seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = m.fit(xt, yt, epochs=1, batch_size=CIFAR_BATCH, verbose=0,
+                      seed=args.seed + 1, augment=augment)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[spe] = (h.history, m.get_weights(), wall)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    equal = all(np.array_equal(a, b) for a, b in zip(runs[1][1],
+                                                     runs[SPE_K][1]))
+    per_epoch = len(xt) // CIFAR_BATCH
+    log({"seq": "(f) steps_per_execution", "k": SPE_K,
+         "params_bit_equal": equal,
+         "history_equal": runs[1][0] == runs[SPE_K][0],
+         "step_ms_k1": runs[1][2] / per_epoch * 1e3,
+         "step_ms_k8": runs[SPE_K][2] / per_epoch * 1e3, "card": smi})
+    if not equal or runs[1][0] != runs[SPE_K][0]:
+        raise AssertionError("steps_per_execution=8 is not bit-equal to 1")
+    return counts["fused_adam"]
+
+
+def check_seq_mnist(torch, np, args, smi):
+    """Phase 19 (e): ``...outline_tensorflow`` at its defaults (MNIST MLP,
+    synthetic data, ``TrainSession`` with its hooks).  Returns its Adam
+    launches."""
+    from distributed_tensorflow_tpu_torch import outline_tensorflow
+    from distributed_tensorflow_tpu_torch import data
+    steps = MNIST_EPOCHS * (60000 // MNIST_BATCH)
+    t0 = time.perf_counter()
+    data.mnist(None, flatten=True, seed=args.seed)
+    data_s = time.perf_counter() - t0
+    _reset_counts()
+    out, wall = _run_entry(torch, outline_tensorflow.main, [
+        "--device=cuda", f"--log_dir={_SEQ_DIR}/mnist",
+        f"--seed={args.seed}"])
+    counts = _xor_counts(torch)
+    last = [l for l in out.splitlines() if l.startswith("Final step")]
+    acc = float(last[-1].split("val accuracy")[1]) if last else float("nan")
+    # LoggingHook's lines: "step N: ... (R steps/s)" over its windows
+    rates = [float(l.rsplit("(", 1)[1].split()[0])
+             for l in out.splitlines() if l.startswith("step ")
+             and "steps/s)" in l]
+    train_s = wall - data_s
+    log({"seq": "(e) outline_tensorflow entry point", "steps": steps,
+         "wall_s": wall, "data_s": data_s,
+         "step_ms_without_data": train_s / steps * 1e3,
+         "examples_per_s_without_data": steps * MNIST_BATCH / train_s,
+         "logging_hook_steps_per_s": rates, "launches": counts,
+         "final": last[-1:], "val_acc": acc, "gate": MNIST_ACC,
+         "card": smi})
+    if not last or not last[-1].startswith(f"Final step {steps}:") \
+            or not acc > MNIST_ACC:
+        raise AssertionError(f"outline_tensorflow: {last}")
+    _expect_adam("outline_tensorflow", counts, 4 * steps)
+    return counts["fused_adam"]
+
+
+def check_seq_layernorm(torch, np, args, smi):
+    """Phase 19 (g): ``[Dense(128), LayerNorm(fused="auto"), Dense(10)]``
+    for 3 fit steps on MNIST rows (one LayerNorm launch a forward), then
+    the kernel against ``layernorm_plain`` at [1024, 128] and at the odd
+    [1024, 129] (the looped path).  Returns the fit's LayerNorm
+    launches."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch import data, models, ops
+    (x, y), _ = data.synthetic_image_classes((784,), 10, 3 * MNIST_BATCH, 1,
+                                             seed=args.seed)
+    m = models.Sequential([ops.Dense(128, activation="relu"),
+                           ops.LayerNorm(fused="auto"), ops.Dense(10)],
+                          device="cuda")
+    m.compile("sparse_categorical_crossentropy", "adam", ["accuracy"],
+              seed=args.seed)
+    m.build((784,), seed=args.seed)
+    _reset_counts()
+    h = m.fit(x, y, epochs=1, batch_size=MNIST_BATCH, verbose=0)
+    counts = dict(_read_counts(torch), adam=fused.LAUNCHES["adam"])
+    log({"seq": "(g) LayerNorm in a Sequential", "steps": 3,
+         "launches": counts, "loss": h.history["loss"]})
+    if counts != {"flash_forward": 0, "layernorm": 3, "rmsnorm": 0,
+                  "paged": 0, "adam": 6 * 3}:
+        raise AssertionError(f"(g) launches {counts}: expected LayerNorm 3 "
+                             "(one a forward), Adam 18, nothing else")
+    norm = counts["layernorm"]
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    for d in (128, 129):
+        xx = torch.randn((MNIST_BATCH, d), generator=gen, device="cuda")
+        gamma = torch.rand(d, generator=gen, device="cuda") + 0.5
+        beta = torch.randn(d, generator=gen, device="cuda")
+        got = fused.fused_layernorm(xx, gamma, beta)
+        want = fused.layernorm_plain(xx, gamma, beta)
+        err = (got - want).abs().max().item()
+        rec = {"seq": "(g) layernorm kernel", "shape": [MNIST_BATCH, d],
+               "dtype": "float32", "max_abs_err": err, "tol": F32_TOL,
+               "kernel_ms": time_ms(torch, lambda: fused.fused_layernorm(
+                   xx, gamma, beta), args.iters),
+               "graph_ms": graph_ms(torch, lambda: fused.fused_layernorm(
+                   xx, gamma, beta), args.iters),
+               "plain_ms": time_ms(torch, lambda: fused.layernorm_plain(
+                   xx, gamma, beta), args.iters),
+               "library_ms": time_ms(torch, lambda: torch.nn.functional
+                                     .layer_norm(xx, (d,), gamma, beta,
+                                                 1e-6), args.iters),
+               "library_graph_ms": graph_ms(
+                   torch, lambda: torch.nn.functional.layer_norm(
+                       xx, (d,), gamma, beta, 1e-6), args.iters)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            (2 * MNIST_BATCH * d + 2 * d) * 4.0, 8.0 * MNIST_BATCH * d)
+        log(rec)
+        if not err <= F32_TOL:
+            raise AssertionError(f"LayerNorm kernel at d={d}: {err}")
+    return norm
+
+
+def check_sequential(torch, np, args, smi):
+    """Phase 19: the high-level tier.  Returns the Adam launches of the
+    three entry points and the LayerNorm launches of (g)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(_SEQ_DIR, ignore_errors=True)
+    worst = _adam_leaves(torch, args, CIFAR_SHAPES + MNIST_SHAPES, "seq")
+    check_seq_reference(torch, np, args)
+    adam = check_seq_example2(torch, np, args, smi)
+    adam += check_seq_keras(torch, np, args, smi)
+    adam += check_seq_mnist(torch, np, args, smi)
+    norm = check_seq_layernorm(torch, np, args, smi)
+    shutil.rmtree(_SEQ_DIR, ignore_errors=True)
+    log({"phase": "sequential", "seconds": time.perf_counter() - t_phase,
+         "adam_max_abs_err": worst, "adam_launches": adam,
+         "layernorm_launches": norm})
+    return {"fused_adam": adam, "layernorm": norm}
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -3724,6 +4391,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_llama_reference(torch, np)
     xor_launches = check_xor(torch, np, args, smi)
+    seq_launches = check_sequential(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -3745,7 +4413,9 @@ def main(argv=None) -> int:
                     **({"session_launches": session_launches[k]}
                        if k in session_launches else {}),
                     **({"xor_launches": xor_launches}
-                       if k == "fused_adam" else {}))
+                       if k == "fused_adam" else {}),
+                    **({"seq_launches": seq_launches[k]}
+                       if k in seq_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

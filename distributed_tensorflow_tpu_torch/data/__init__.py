@@ -1,14 +1,18 @@
 """Input data of the port: the XOR task (``data/xor.py``, exported as
-``xor_data``), synthetic LM corpora (``data/datasets.py``), the shuffled
-``Dataset`` and ``prefetch_to_device`` (``data/pipeline.py``) and record
-framing (``data/tfrecord.py``)."""
-from . import xor
-from .datasets import lm_sequences, synthetic_lm_corpus
+``xor_data``), the MNIST / CIFAR-10 loaders with their synthetic
+stand-ins and synthetic LM corpora (``data/datasets.py``), image
+augmentation (``data/augment.py``), the shuffled ``Dataset`` and
+``prefetch_to_device`` (``data/pipeline.py``) and record framing
+(``data/tfrecord.py``)."""
+from . import augment, xor
+from .datasets import (cifar10, lm_sequences, mnist, provenance,
+                       synthetic_image_classes, synthetic_lm_corpus)
 from .pipeline import Dataset, prefetch_to_device
 from .tfrecord import RecordWriter, read_tfrecord, write_framed, \
     write_tfrecord
 from .xor import get_data as xor_data
 
-__all__ = ["Dataset", "RecordWriter", "lm_sequences", "prefetch_to_device",
-           "read_tfrecord", "synthetic_lm_corpus", "write_framed",
+__all__ = ["Dataset", "RecordWriter", "augment", "cifar10", "lm_sequences",
+           "mnist", "prefetch_to_device", "provenance", "read_tfrecord",
+           "synthetic_image_classes", "synthetic_lm_corpus", "write_framed",
            "write_tfrecord", "xor", "xor_data"]

@@ -37,47 +37,55 @@ val_set_size = 1000
 epochs = 50
 print_rate = 5             # epochs between validation prints
 
-flags_lib.DEFINE_string(
-    "job_name", flags_lib.env_default("JOB_NAME", None),
-    "Legacy role name ('worker'; 'ps' is refused: there is no parameter "
-    "server)")
-flags_lib.DEFINE_integer(
-    "task_index",
-    flags_lib.env_default("PROCESS_ID",
-                          flags_lib.env_default("TASK_INDEX", 0, int), int),
-    "Process index within the job; index 0 is chief (does checkpoint and "
-    "summary writes)")
-flags_lib.DEFINE_string(
-    "coordinator", flags_lib.env_default("COORDINATOR_ADDRESS", None),
-    "host:port of process 0 for multi-process runs")
-flags_lib.DEFINE_integer(
-    "num_processes", flags_lib.env_default("NUM_PROCESSES", 0, int),
-    "Number of participating processes (0 = infer from env)")
-flags_lib.DEFINE_string(
-    "worker_hosts", flags_lib.env_default("WORKER_HOSTS", None),
-    "Legacy comma-separated worker list; first host becomes coordinator")
-flags_lib.DEFINE_string(
-    "data_dir", os.environ.get("DATA_DIR") or utils.get_data_path(
-        "xor", local_root=os.path.join("logs", "data"), local_repo="xor"),
-    "Directory containing/receiving training data")
-flags_lib.DEFINE_string(
-    "log_dir", os.environ.get("LOG_DIR") or utils.get_logs_path(
-        os.path.join("logs", "xor")),
-    "Directory for checkpoints and TensorBoard event files")
-flags_lib.DEFINE_string(
-    "device", "cuda", "'cuda' (the default; raises without a card) or 'cpu'")
-flags_lib.DEFINE_integer("epochs", epochs, "Training epochs")
-flags_lib.DEFINE_integer(
-    "accum_steps", 1,
-    "Gradient-accumulation microbatches per update (1 = off)")
-flags_lib.DEFINE_bool(
-    "async_checkpoint", False,
-    "Write checkpoints on a background thread (never stalls the step)")
-flags_lib.DEFINE_integer("batch_size", train_batch_size, "Global batch size")
-flags_lib.DEFINE_integer("seed", 0, "Seed of the data, weights and dropout")
+
+def _define_flags() -> None:
+    """The flags and their defaults, set again at each ``main`` (the
+    package's entry points share one ``FLAGS`` registry)."""
+    flags_lib.DEFINE_string(
+        "job_name", flags_lib.env_default("JOB_NAME", None),
+        "Legacy role name ('worker'; 'ps' is refused: there is no parameter "
+        "server)")
+    flags_lib.DEFINE_integer(
+        "task_index",
+        flags_lib.env_default(
+            "PROCESS_ID", flags_lib.env_default("TASK_INDEX", 0, int), int),
+        "Process index within the job; index 0 is chief (does checkpoint and "
+        "summary writes)")
+    flags_lib.DEFINE_string(
+        "coordinator", flags_lib.env_default("COORDINATOR_ADDRESS", None),
+        "host:port of process 0 for multi-process runs")
+    flags_lib.DEFINE_integer(
+        "num_processes", flags_lib.env_default("NUM_PROCESSES", 0, int),
+        "Number of participating processes (0 = infer from env)")
+    flags_lib.DEFINE_string(
+        "worker_hosts", flags_lib.env_default("WORKER_HOSTS", None),
+        "Legacy comma-separated worker list; first host becomes coordinator")
+    flags_lib.DEFINE_string(
+        "data_dir", os.environ.get("DATA_DIR") or utils.get_data_path(
+            "xor", local_root=os.path.join("logs", "data"), local_repo="xor"),
+        "Directory containing/receiving training data")
+    flags_lib.DEFINE_string(
+        "log_dir", os.environ.get("LOG_DIR") or utils.get_logs_path(
+            os.path.join("logs", "xor")),
+        "Directory for checkpoints and TensorBoard event files")
+    flags_lib.DEFINE_string(
+        "device", "cuda",
+        "'cuda' (the default; raises without a card) or 'cpu'")
+    flags_lib.DEFINE_integer("epochs", epochs, "Training epochs")
+    flags_lib.DEFINE_integer(
+        "accum_steps", 1,
+        "Gradient-accumulation microbatches per update (1 = off)")
+    flags_lib.DEFINE_bool(
+        "async_checkpoint", False,
+        "Write checkpoints on a background thread (never stalls the step)")
+    flags_lib.DEFINE_integer("batch_size", train_batch_size,
+                             "Global batch size")
+    flags_lib.DEFINE_integer("seed", 0,
+                             "Seed of the data, weights and dropout")
 
 
 def main(argv=None) -> int:
+    _define_flags()
     FLAGS.reset()
     FLAGS.parse(argv)
 
@@ -85,15 +93,9 @@ def main(argv=None) -> int:
 
     from distributed_tensorflow_tpu_torch import (data, ops, optim, parallel,
                                                   train)
+    from distributed_tensorflow_tpu_torch._launch import start
     from distributed_tensorflow_tpu_torch.parallel import cluster
     from distributed_tensorflow_tpu_torch.summary import SummaryWriter
-
-    cuda = FLAGS.device.startswith("cuda")
-    if cuda and not torch.cuda.is_available():
-        raise RuntimeError("--device=cuda needs a CUDA card; pass "
-                           "--device=cpu to run on the CPU")
-    if not cuda and FLAGS.device != "cpu":
-        raise ValueError(f"--device={FLAGS.device!r}: 'cuda' or 'cpu'")
 
     # Cluster bootstrap; CLI flags overlay the environment.
     env = dict(os.environ)
@@ -116,14 +118,7 @@ def main(argv=None) -> int:
         return 0
     if not config.distributed:
         print("Running single-machine training")
-    if cuda:
-        device = torch.device("cuda", config.process_id
-                              % torch.cuda.device_count())
-        torch.cuda.set_device(device)
-        torch.set_float32_matmul_precision("highest")   # TF32 off
-    else:
-        device = torch.device("cpu")
-    cluster.initialize(config, backend="nccl" if cuda else "gloo")
+    device = start(FLAGS.device, config)
 
     # All ranks on one 'data' axis; each feeds its share of the global
     # batch and the step averages the gradients over the ranks.

@@ -1,10 +1,14 @@
-"""Tensor ops of the port: the XOR tier of the layer library with its
-activations, initializers, losses and metrics, attention and FFN bodies,
-decoding helpers, and the hand-written kernels (``ops.kernels``)."""
+"""Tensor ops of the port: the layer library with its activations,
+initializers, losses and metrics, attention and FFN bodies, decoding
+helpers, and the hand-written kernels (``ops.kernels``)."""
 from . import activations, initializers, layers, losses, metrics
-from .layers import (Activation, Dense, Dropout, Flatten, Layer, Stack,
-                     layer_spec, serial)
+from .layers import (GRU, LSTM, Activation, AvgPool2D, BatchNorm, Conv1D,
+                     Conv2D, Dense, DepthwiseConv2D, Dropout, Embedding,
+                     Flatten, GlobalAvgPool, Layer, LayerNorm, MaxPool2D,
+                     SeparableConv2D, Stack, layer_spec, serial)
 
 __all__ = ["activations", "initializers", "layers", "losses", "metrics",
-           "Activation", "Dense", "Dropout", "Flatten", "Layer", "Stack",
-           "layer_spec", "serial"]
+           "Activation", "AvgPool2D", "BatchNorm", "Conv1D", "Conv2D",
+           "Dense", "DepthwiseConv2D", "Dropout", "Embedding", "Flatten",
+           "GRU", "GlobalAvgPool", "LSTM", "Layer", "LayerNorm", "MaxPool2D",
+           "SeparableConv2D", "Stack", "layer_spec", "serial"]

@@ -10,7 +10,8 @@ from .precision import (DynamicLossScale, LossScaled, NoLossScale, Policy,
                         StaticLossScale, attach_loss_scale)
 from .session import TrainSession, TrainState
 from .step import (init_train_state, make_custom_train_step,
-                   make_eval_step, make_train_step)
+                   make_eval_step, make_masked_eval_step,
+                   make_multi_train_step, make_train_step)
 
 __all__ = ["checkpoint", "hooks", "precision", "CheckpointHook", "EvalHook",
            "Hook", "LoggingHook", "NaNHook", "PreemptionHook",
@@ -18,4 +19,6 @@ __all__ = ["checkpoint", "hooks", "precision", "CheckpointHook", "EvalHook",
            "SummaryHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
            "NoLossScale", "Policy", "StaticLossScale", "attach_loss_scale",
            "TrainSession", "TrainState", "init_train_state",
-           "make_custom_train_step", "make_eval_step", "make_train_step"]
+           "make_custom_train_step", "make_eval_step",
+           "make_masked_eval_step", "make_multi_train_step",
+           "make_train_step"]

@@ -6,11 +6,15 @@ microbatches), the precision policy, loss scaling, the non-finite skip,
 device-health metrics, the global-norm clip, the optimizer update, the
 parameters updated in place, the step advanced; ``make_train_step`` and
 ``make_eval_step``, its adapters for a layer ``Stack`` with a named loss
-and metrics over ``(x, y)`` batches (``example.py``'s builders); and
-``init_train_state``.  The JAX step is one jit-compiled program over a
-donated state; here PyTorch runs eagerly and the parameters are the
-model's own tensors, updated in place under ``torch.no_grad()``, which
-is what donation buys there.  Metrics stay on the device as tensors.
+and metrics over ``(x, y)`` batches (``example.py``'s builders);
+``make_multi_train_step`` (K single steps over a ``[K, batch, ...]``
+group, metrics stacked to ``[K]``: the JAX package scans the single step
+inside one program, here the same step runs K times) and
+``make_masked_eval_step`` (per-example loss and metrics weighted by a
+validity mask); and ``init_train_state``.  The JAX step is one
+jit-compiled program over a donated state; here PyTorch runs eagerly and
+the parameters are the model's own tensors, updated in place under
+``torch.no_grad()``, which is what donation buys there.  Metrics stay on the device as tensors.
 
 Data parallelism (``mesh=`` from ``parallel.data_parallel_mesh`` over a
 ``torch.distributed`` group): each rank computes the mean gradients of
@@ -63,7 +67,8 @@ from . import precision as prec_lib
 from .session import TrainState
 
 __all__ = ["TrainState", "init_train_state", "make_custom_train_step",
-           "make_eval_step", "make_train_step"]
+           "make_eval_step", "make_masked_eval_step",
+           "make_multi_train_step", "make_train_step"]
 
 
 def _step_generator(seed: int, step: int, device: torch.device,
@@ -125,7 +130,15 @@ def make_train_step(model, loss, optimizer: opt_lib.Optimizer,
     A thin adapter over ``make_custom_train_step`` (same options);
     ``mesh``: a ``parallel.Mesh``, under which each rank passes its shard
     of the global batch and the gradients, loss and metrics are averaged
-    over the ranks (see the module docstring)."""
+    over the ranks (see the module docstring).  A model holding a
+    ``BatchNorm`` is refused on a mesh of more than one rank: each rank
+    would normalise by its shard's moments, where the JAX step uses the
+    global batch's."""
+    if mesh is not None and mesh.size > 1 and _has_batchnorm(model):
+        raise NotImplementedError(
+            "BatchNorm on a data-parallel mesh of more than one rank: its "
+            "batch moments would be each rank's shard's, not the global "
+            "batch's (cross-rank moments are not ported)")
     loss_value_fn = loss_lib.get(loss)
 
     def loss_fn(params, model_state, batch, generator, train):
@@ -143,6 +156,61 @@ def make_train_step(model, loss, optimizer: opt_lib.Optimizer,
                                   skip_nonfinite=skip_nonfinite)
 
 
+def _has_batchnorm(model) -> bool:
+    from ..ops.layers import BatchNorm
+    return any(isinstance(l, BatchNorm) or _has_batchnorm(l)
+               for l in getattr(model, "layers", ()))
+
+
+def make_multi_train_step(model, loss, optimizer: opt_lib.Optimizer,
+                          steps_per_call: int,
+                          metric_fns: Optional[Dict[str, Any]] = None,
+                          seed: int = 0, mesh=None,
+                          grad_clip_norm: Optional[float] = None,
+                          accum_steps: int = 1, policy: Any = None,
+                          loss_scale: bool = False) -> Callable:
+    """``step(state, (xs, ys)) -> (state, metrics)`` running
+    ``steps_per_call`` updates over a group whose leaves carry a leading
+    ``[K]`` dim; every metric comes back stacked to ``[K]`` (device
+    tensors).  The updates are the single step's, K times in order, so
+    the result equals K calls of ``make_train_step``'s step."""
+    inner = make_train_step(model, loss, optimizer, metric_fns=metric_fns,
+                            seed=seed, mesh=mesh,
+                            grad_clip_norm=grad_clip_norm,
+                            accum_steps=accum_steps, policy=policy,
+                            loss_scale=loss_scale)
+
+    def multi(state: TrainState, batch):
+        xs, ys = batch
+        if xs.shape[0] != steps_per_call or ys.shape[0] != steps_per_call:
+            raise ValueError(f"a group of {xs.shape[0]} batches for "
+                             f"steps_per_call={steps_per_call}")
+        rows = []
+        for k in range(steps_per_call):
+            state, m = inner(state, (xs[k], ys[k]))
+            rows.append(m)
+        return state, {name: torch.stack([m[name] for m in rows])
+                       for name in rows[0]}
+
+    return multi
+
+
+def _eval_forward(model, pol, state: TrainState, x):
+    """The eval-mode predictions, shared by the plain and masked eval
+    steps: the model state seen through a loss scale, the policy's casts
+    in and out."""
+    model_state = state.model_state
+    if isinstance(model_state, prec_lib.LossScaled):
+        model_state = model_state.model_state
+    params = state.params
+    if pol is not None:
+        params, x = pol.cast_to_compute(params), pol.cast_to_compute(x)
+    preds, _ = model.apply(params, model_state, x, train=False)
+    if pol is not None:
+        preds = pol.cast_to_output(preds)
+    return preds
+
+
 def make_eval_step(model, loss, metric_fns: Optional[Dict[str, Any]] = None,
                    mesh=None, policy: Any = None) -> Callable:
     """Build ``eval_step(state, (x, y)) -> metrics``: the forward in eval
@@ -158,19 +226,46 @@ def make_eval_step(model, loss, metric_fns: Optional[Dict[str, Any]] = None,
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         x, y = batch
-        model_state = state.model_state
-        if isinstance(model_state, prec_lib.LossScaled):
-            model_state = model_state.model_state
-        params = state.params
-        if pol is not None:
-            params, x = pol.cast_to_compute(params), pol.cast_to_compute(x)
-        preds, _ = model.apply(params, model_state, x, train=False)
-        if pol is not None:
-            preds = pol.cast_to_output(preds)
+        preds = _eval_forward(model, pol, state, x)
         return {"loss": loss_fn(preds, y), **_metric_dict(metric_fns, preds,
                                                             y)}
 
     return eval_step
+
+
+def per_example(fn, preds, y) -> torch.Tensor:
+    """``fn`` (a loss or metric of a batch) on each example's own
+    ``[1, ...]`` slice: a ``[batch]`` tensor (``torch.func.vmap``, as the
+    JAX package ``jax.vmap``s it)."""
+    return torch.func.vmap(lambda p, t: fn(p[None], t[None]))(preds, y)
+
+
+def make_masked_eval_step(model, loss,
+                          metric_fns: Optional[Dict[str, Any]] = None,
+                          policy: Any = None) -> Callable:
+    """``eval_step(state, (x, y, w)) -> metrics`` with a per-example
+    validity weight ``w`` ([batch] float, 1 real, 0 padding): each loss
+    and metric computed per example, then averaged with the weights
+    (``sum(per * w) / max(sum(w), 1)``), so padded rows drop out of the
+    means."""
+    pol = prec_lib.policy(policy) if policy is not None else None
+    fns = {"loss": loss_lib.get(loss),
+           **{name: metric_lib.get(fn)
+              for name, fn in (metric_fns or {}).items()}}
+
+    @torch.no_grad()
+    def masked_eval_step(state: TrainState, batch):
+        x, y, w = batch
+        preds = _eval_forward(model, pol, state, x)
+        out = {}
+        for name, fn in fns.items():
+            per = per_example(fn, preds, y)
+            wf = w.to(per.dtype)
+            out[name] = torch.sum(per * wf) / torch.clamp(torch.sum(wf),
+                                                          min=1.0)
+        return out
+
+    return masked_eval_step
 
 
 def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,

@@ -1,6 +1,7 @@
-"""One rank of the port's two-process data-parallel test
-(``tests/test_torch_parallel.py``): imports neither JAX nor the JAX
-package, so a spawned child starts quickly."""
+"""One rank of the port's two-process data-parallel tests
+(``tests/test_torch_parallel.py``: ``run_rank``;
+``tests/test_torch_sequential.py``: ``run_fit_rank``): imports neither
+JAX nor the JAX package, so a spawned child starts quickly."""
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -43,5 +44,42 @@ def run_rank(rank, world, port, params, xs, ys, out_path):
         np.savez(out_path, losses=np.array(losses),
                  all_reduces=data_parallel.LAUNCHES["all_reduce"],
                  **{k: v.detach().numpy() for k, v in state.params.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def run_fit_rank(rank, world, port, weights, x, y, xv, yv, out_path):
+    """``Sequential.fit(mesh=...)`` of the XOR MLP (dropout 0) as rank
+    ``rank`` of ``world`` (gloo, rendezvous on localhost:port) from the
+    given weights: 2 epochs of global batch 63 (rounded to the mesh),
+    validation each epoch; write the History, the evaluate means and the
+    weights to ``out_path`` (npz)."""
+    from distributed_tensorflow_tpu_torch import models, ops, parallel
+    from distributed_tensorflow_tpu_torch.parallel import (cluster,
+                                                           data_parallel)
+
+    torch.set_num_threads(1)
+    cluster.initialize(cluster.ClusterConfig(
+        coordinator_address=f"localhost:{port}", num_processes=world,
+        process_id=rank), backend="gloo", timeout_s=60)
+    try:
+        mesh = parallel.data_parallel_mesh()
+        model = models.Sequential(
+            [ops.Dense(128, activation="relu"), ops.Dropout(0.0),
+             ops.Dense(128, activation="relu"), ops.Dropout(0.0),
+             ops.Dense(32, activation="sigmoid")], name="xor",
+            device="cpu")
+        model.compile("mean_squared_error", "adam", ["bitwise_accuracy"],
+                      mesh=mesh)
+        model.build((64,))
+        model.set_weights(weights)
+        hist = model.fit(x, y, epochs=2, batch_size=63,
+                         validation_data=(xv, yv), verbose=0)
+        final = model.evaluate(xv, yv, verbose=0)
+        np.savez(out_path,
+                 all_reduces=data_parallel.LAUNCHES["all_reduce"],
+                 **{f"h_{k}": np.array(v) for k, v in hist.history.items()},
+                 **{f"e_{k}": np.array(v) for k, v in final.items()},
+                 **{f"w{i}": w for i, w in enumerate(model.get_weights())})
     finally:
         dist.destroy_process_group()
