@@ -249,19 +249,54 @@ no result lines:
    steps: one LayerNorm launch a forward; the LayerNorm kernel against
    its plain version at [1024, 128] and [1024, 129] f32, with
    ``F.layer_norm``'s ms and graph ms.
+20. obs and resilience, both main paths at GPT-2-small width.  (c) and
+   the engine half of (d) run after phase 16, on phase 4's model and mix;
+   (a), (b) and the session half of (d) after phase 17.  (a) A
+   ``Supervisor`` around a ``TrainSession`` (phase 6's widths and batch,
+   ``adamw``, clip 1.0, ``device_health`` and ``skip_nonfinite``) on the
+   synthetic corpus through ``Dataset`` and ``prefetch_to_device``,
+   saving every ``OBS_EVERY`` steps, with ``NonfiniteGuardHook(3)``,
+   ``TraceHook`` and ``MetricsExportHook`` under one
+   ``Telemetry(metrics_port=0)``, and a ``FaultPlan``: the first save
+   raises, the next good save but one is truncated, three NaN steps trip
+   the guard, the prefetch producer dies later.  Checks: the run reaches
+   its last step; one restart per transient fault (the plan's audit
+   trail lists each fault once); the corrupt checkpoint is quarantined
+   and the one before it restored; the parameters equal those of an
+   unfaulted session from that checkpoint over the same batches (run
+   twice: bit-equal when those two are, else within twice their
+   spread); the flash, LayerNorm and Adam kernels ran (counted).  (b)
+   ``/metrics`` scraped over loopback and parsed: steps and step-time
+   count equal the steps run, live bytes above 0, restarts as in (a);
+   the trace file holds step, data_load, dispatch and checkpoint spans;
+   the goodput buckets sum to the wall within 2%, with fault_recovery,
+   restart_backoff and checkpoint_restore above 0.  (c) Phase 4's engine
+   with a fresh registry, request traces and a critical-path ledger, and
+   a plan that fails request ``OBS_FAIL_RID`` at delivery and stalls one
+   tick: that request ends ``failed`` with the injected fault, the other
+   11 streams equal phase 4's, every finished request's trace has the
+   queued, prefill and decode stages and its critical path sums to its
+   e2e, ``ServeMetrics`` equals ``EngineStats`` and the handles, and the
+   paged and LayerNorm kernels ran (counted).  (d) In turns (off, on, on,
+   off) in this call: the engine with (c)'s instrumentation off and on
+   (tokens/s, TTFT p50; tokens unchanged), and ``OBS_PAIR_STEPS``
+   session steps with the telemetry hooks off and on (step ms; busy
+   share from a profiled run of ``OBS_BUSY_STEPS`` steps of each).
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
 ``session_launches`` for those of phase 17's session, (e) and (f);
 ``xor_launches`` for Adam on phase 18's entry point run, (c);
 ``seq_launches`` for Adam on phase 19's three entry point runs and
-LayerNorm in (g)), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+LayerNorm in (g); ``obs_launches`` for the kernels of phase 20's (a) and
+(c)), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import shutil
@@ -416,6 +451,23 @@ BLOCK_WINDOW_TOL = 5e-2
 # chain is evicted before its request is admitted
 SERVE_ADAPTERS, SERVE_CAPACITY, SERVE_RANK, LORA_B_STD = 3, 4, 16, 1.0
 SERVE_QUEUE_DEPTH, WIRE_FRAME_PAGES = 6, 4
+
+# the sight and the survival of both main paths (phase 20): (a) a
+# supervised GPT-2-small session at phase 6's batch to OBS_LAST, saving
+# every OBS_EVERY steps; its plan fails the first save, truncates the
+# checkpoint of the next good save but one (step 2 * OBS_EVERY), NaNs the
+# steps from OBS_NAN so that NonfiniteGuardHook(3) trips before the next
+# save, and kills the prefetch producer at batch OBS_KILL_BATCH: the
+# first two attempts consume OBS_EVERY + OBS_NAN + 3 = 18 batches and
+# their producers call the plan at most 2 + 1 ahead each, so the third
+# attempt always reaches it; backoff from OBS_BACKOFF_S.  (c) phase 4's
+# engine fails request OBS_FAIL_RID at its first delivery and stalls tick
+# OBS_STALL_TICK by OBS_STALL_S.  (d) OBS_PAIR_STEPS steps a session arm,
+# OBS_BUSY_STEPS under the profiler (its processing of 8 steps took ~60 s)
+OBS_LAST, OBS_EVERY, OBS_NAN, OBS_KILL_BATCH = 20, 5, 10, 25
+OBS_BACKOFF_S = 0.05
+OBS_FAIL_RID, OBS_STALL_TICK, OBS_STALL_S = 4, 3, 0.05
+OBS_PAIR_STEPS, OBS_BUSY_STEPS = 8, 2
 
 
 _T0 = time.perf_counter()
@@ -1930,6 +1982,7 @@ def check_serve_surface(torch, np, args, smi, paged, launches):
     from distributed_tensorflow_tpu_torch import (QueueFullError,
                                                   QuotaExceededError,
                                                   TenantPolicy, TenantQuota)
+    from distributed_tensorflow_tpu_torch.obs import Registry
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     from distributed_tensorflow_tpu_torch.ops.kernels import \
         paged_attention as pa
@@ -1951,7 +2004,7 @@ def check_serve_surface(torch, np, args, smi, paged, launches):
     (eng, hs, wall), _, _ = _driven(torch, lambda: run_engine(
         torch, model, prompts, budgets, late=3, adapters=ads,
         adapter_ids=ids, adapter_capacity=SERVE_CAPACITY,
-        adapter_rank=SERVE_RANK))
+        adapter_rank=SERVE_RANK, registry=Registry()))
     counts = _pool_counts(pa, fused)
     _check_budgets(hs, budgets, "adapter engine")
     _check_serve_launches(model, counts, launches, n,
@@ -1989,7 +2042,8 @@ def check_serve_surface(torch, np, args, smi, paged, launches):
          "share_equal_to_merged_generate": merged_equal / n_ad,
          "merged_generate_agree_prefix": [merged_agree[i]
                                           for i in sorted(merged_agree)],
-         "adapter_loads": eng.adapters.loads,
+         "adapter_loads": eng.metrics.registry.get(
+             "dttpu_adapter_loads_total").value,
          "windows_skipped": eng.stats().prefill_windows_skipped_total,
          "phase4_windows_skipped": paged["windows_skipped"],
          "launches": counts, "phase4_launches": launches,
@@ -3718,6 +3772,7 @@ _LLAMA_PARTS = (
 # -- phase 19: the high-level tier -------------------------------------
 
 _SEQ_DIR = Path(__file__).resolve().parent / "build" / "seq_entry"
+_OBS_DIR = Path(__file__).resolve().parent / "build" / "obs_session"
 
 
 def _cnn_first_step(torch, m, x, y):
@@ -4309,6 +4364,388 @@ def check_sequential(torch, np, args, smi):
     return {"fused_adam": adam, "layernorm": norm}
 
 
+def _obs_batches(np, args, n):
+    """``n`` host batches (48 rows of 257 ids, and a loss mask of ones: a
+    NaN-poisoned step poisons its float leaf) from the order-1 synthetic
+    corpus through ``Dataset``, as phase 17's session draws them."""
+    from distributed_tensorflow_tpu_torch.data import (Dataset,
+                                                       lm_sequences,
+                                                       synthetic_lm_corpus)
+    rows = lm_sequences(synthetic_lm_corpus(
+        50257, n * TRAIN_BATCH * (TRAIN_SEQ + 1) + TRAIN_SEQ + 1,
+        seed=args.seed, order=1), TRAIN_SEQ)
+    mask = np.ones((TRAIN_BATCH, TRAIN_SEQ), np.float32)
+    return [(b, mask) for (b,) in list(Dataset([rows], TRAIN_BATCH,
+                                               seed=args.seed))[:n]]
+
+
+def _clone_tree(torch, tree):
+    """A copy of a tree of dicts, (named) tuples and tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_tree(torch, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(torch, v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _obs_loop(torch, sess, batches, staged=False):
+    """Run ``sess`` over ``batches[sess.step:]`` (through
+    ``prefetch_to_device``, unless already on the card) until it stops."""
+    from distributed_tensorflow_tpu_torch.data import prefetch_to_device
+    it = (iter(batches[sess.step:]) if staged else
+          prefetch_to_device(iter(batches[sess.step:]), device="cuda"))
+    for ids, mask in it:
+        if sess.should_stop():
+            break
+        sess.run_step({"input_ids": ids, "loss_mask": mask})
+    return sess
+
+
+def check_obs_session(torch, np, args, smi):
+    """Phase 20 (a), (b) and the session half of (d).  Returns the
+    training kernels' launches over (a)'s supervised run."""
+    import urllib.request
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  train)
+    from distributed_tensorflow_tpu_torch.obs import (GoodputAccountant,
+                                                      Registry, Telemetry,
+                                                      goodput,
+                                                      parse_exposition)
+    from distributed_tensorflow_tpu_torch.obs.device import device_busy
+    from distributed_tensorflow_tpu_torch.resilience import (
+        FaultPlan, NonfiniteGuardHook, Supervisor, faults)
+    from distributed_tensorflow_tpu_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    shutil.rmtree(_OBS_DIR, ignore_errors=True)
+    model = _gpt2(torch, args)
+    params = dict(model.named_parameters())
+    init = {k: p.detach().clone() for k, p in params.items()}
+    opt = adamw(TRAIN_LR)
+    step = make_custom_train_step(model.lm_loss_fn(), opt, seed=args.seed,
+                                  grad_clip_norm=1.0, device_health=True,
+                                  skip_nonfinite=True)
+    batches = _obs_batches(np, args, OBS_LAST)
+    ckpt_dir = str(_OBS_DIR / "ckpt")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def fresh_state():
+        with torch.no_grad():              # every attempt starts anew
+            for k, p in params.items():
+                p.copy_(init[k])
+        return TrainState.create(params, opt.init(params))
+
+    # (a) + (b): the supervised session under one Telemetry
+    tele = Telemetry(trace_dir=str(_OBS_DIR / "trace"), metrics_port=0,
+                     registry=Registry())
+    reg = tele.registry
+    planned = [{"kind": "save_oserror", "at": 0},
+               {"kind": "corrupt_checkpoint", "at": 2},
+               *({"kind": "nan_grads", "at": OBS_NAN + i}
+                 for i in range(3)),
+               {"kind": "kill_prefetch", "at": OBS_KILL_BATCH}]
+    plan = FaultPlan(planned, seed=args.seed, registry=reg)
+    sup = Supervisor(max_restarts=5, backoff_base=OBS_BACKOFF_S,
+                     seed=args.seed, registry=reg)
+    acct = GoodputAccountant(registry=reg)
+    restored, run_steps = [], [0]
+
+    class Count(train.Hook):
+        def after_step(self, session, metrics):
+            run_steps[0] += 1
+
+    def build():
+        sess = train.TrainSession(
+            fresh_state(), step, checkpoint_dir=ckpt_dir, telemetry=tele,
+            hooks=[train.StopAtStepHook(last_step=OBS_LAST),
+                   train.CheckpointHook(every_steps=OBS_EVERY,
+                                        every_secs=None),
+                   NonfiniteGuardHook(3), train.TraceHook(tele),
+                   train.MetricsExportHook(tele, every_steps=OBS_EVERY,
+                                           tokens_per_step=tokens),
+                   Count()])
+        restored.append(sess.step)
+        return sess
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with goodput.activated(acct), faults.activated(plan):
+        sess = sup.run(build, lambda s: _obs_loop(torch, s, batches))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _train_counts(torch)
+    final = {k: p.detach().clone() for k, p in params.items()}
+    with urllib.request.urlopen(tele.metrics_url(), timeout=30) as r:
+        fams = parse_exposition(r.read().decode("utf-8"))
+    tele.close()
+    with open(tele.trace_path) as f:
+        spans = collections.Counter(
+            e["name"] for e in json.load(f)["traceEvents"]
+            if e["ph"] == "X")
+    quarantined = sorted(p.name for p in Path(ckpt_dir).glob("corrupt-*"))
+    kinds = [e["kind"] for e in plan.log]
+    transient = sum(k in ("save_oserror", "kill_prefetch") for k in kinds) \
+        + kinds.count("nan_grads") // 3
+    report = acct.report()
+
+    def sample(name, suffix=""):
+        return fams[name]["samples"][(name + suffix, ())]
+
+    log({"obs": "(a) supervised session", "steps": OBS_LAST,
+         "steps_run": run_steps[0], "wall_s": wall,
+         "restart_log": sup.restart_log, "restored_at": restored,
+         "quarantined": quarantined, "audit": plan.log,
+         "recovery_s": sample("dttpu_recovery_seconds", "_sum"),
+         "recoveries": sample("dttpu_recovery_seconds", "_count"),
+         "launches": counts, "card": smi})
+    if sess.step != OBS_LAST or restored[:3] != [0, 0, OBS_EVERY] or \
+            quarantined != [f"corrupt-ckpt-{2 * OBS_EVERY:010d}"]:
+        raise AssertionError(f"(a) ended at {sess.step}, restored at "
+                             f"{restored}, quarantined {quarantined}")
+    if sorted(kinds) != sorted(f["kind"] for f in planned) or \
+            any(f.fired != 1 for f in plan.faults):
+        raise AssertionError(f"(a) audit trail {plan.log}")
+    if transient != 3 or len(sup.restart_log) != transient or \
+            sup.restarts_total.value != transient:
+        raise AssertionError(f"(a) {sup.restart_log} for {transient} "
+                             "transient faults")
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq",
+                 "layernorm", "fused_adam"):
+        if counts[name] <= 0:
+            raise AssertionError(f"(a) {name} never launched")
+
+    # (a): against an unfaulted session from the restored checkpoint over
+    # the same batches, run twice: bit-equal where those two are
+    st = ckpt.restore(fresh_state(), ckpt.ckpt_path(ckpt_dir, OBS_EVERY))
+    p5, o5 = _clone_tree(torch, dict(params)), _clone_tree(torch,
+                                                           st.opt_state)
+    refs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(p5[k])
+        run = st._replace(opt_state=_clone_tree(torch, o5))
+        with train.TrainSession(run, step, hooks=[train.StopAtStepHook(
+                last_step=OBS_LAST)]) as ref:
+            _obs_loop(torch, ref, batches)
+        refs.append({k: p.detach().clone() for k, p in params.items()})
+    spread = max(float((refs[0][k] - refs[1][k]).abs().max())
+                 for k in params)
+    err = max(float((final[k] - refs[0][k]).abs().max()) for k in params)
+    tol = 2 * spread          # the card's own run-to-run spread, if any
+    log({"obs": "(a) against the unfaulted run", "from_step": OBS_EVERY,
+         "unfaulted_runs_max_abs_diff": spread, "max_abs_err": err,
+         "tol": tol, "card": smi})
+    if err > tol:
+        raise AssertionError(f"(a) parameters off the unfaulted run's by "
+                             f"{err} (tolerance {tol})")
+    del p5, o5, refs, st, final
+
+    # (b) the telemetry of (a)
+    buckets = report["buckets_s"]
+    log({"obs": "(b) telemetry", "steps_total": sample("dttpu_steps_total"),
+         "step_time_count": sample("dttpu_step_time_seconds", "_count"),
+         "live_arrays_bytes": sample("dttpu_live_arrays_bytes"),
+         "restarts_total": sample("dttpu_restarts_total"),
+         "faults_injected_total": sample("dttpu_faults_injected_total"),
+         "spans": spans, "goodput": report, "card": smi})
+    if sample("dttpu_steps_total") != run_steps[0] or \
+            sample("dttpu_step_time_seconds", "_count") != run_steps[0] or \
+            not sample("dttpu_live_arrays_bytes") > 0 or \
+            sample("dttpu_restarts_total") != transient:
+        raise AssertionError(f"(b) scraped series disagree with (a)")
+    if any(spans[s] <= 0 for s in ("step", "data_load", "dispatch",
+                                   "checkpoint")):
+        raise AssertionError(f"(b) trace spans {spans}")
+    if abs(sum(buckets.values()) - report["wall_s"]) > \
+            0.02 * report["wall_s"] or any(
+            buckets[b] <= 0 for b in ("fault_recovery", "restart_backoff",
+                                      "checkpoint_restore")):
+        raise AssertionError(f"(b) goodput {report}")
+
+    # (d) the session step with the telemetry hooks on and off, in turns
+    staged = [(torch.from_numpy(ids).cuda(), torch.from_numpy(m).cuda())
+              for ids, m in batches[:OBS_PAIR_STEPS]]
+
+    def arm(on, steps=OBS_PAIR_STEPS):
+        hooks = [train.StopAtStepHook(num_steps=steps)]
+        tele = None
+        if on:
+            tele = Telemetry(trace_dir=str(_OBS_DIR / "pair"),
+                             metrics_port=0, registry=Registry())
+            hooks += [train.TraceHook(tele),
+                      train.MetricsExportHook(tele, every_steps=OBS_EVERY,
+                                              tokens_per_step=tokens)]
+        state = TrainState(0, params, opt_state, ())
+
+        def go():
+            with train.TrainSession(state, step, hooks=hooks,
+                                    telemetry=tele) as s:
+                _obs_loop(torch, s, staged, staged=True)
+        return go, tele
+
+    opt_state = opt.init(params)
+    arm(False)[0]()                        # warm-up
+    pairs = {False: [], True: []}
+    for on in (False, True, True, False):
+        go, t = arm(on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        pairs[on].append((time.perf_counter() - t0) / OBS_PAIR_STEPS * 1e3)
+        if t is not None:
+            t.close()
+    busy = {}
+    for on in (False, True):
+        go, t = arm(on, OBS_BUSY_STEPS)
+        _, busy_s, _ = device_busy(go)
+        busy[on] = busy_s * 1e3 / OBS_BUSY_STEPS / np.mean(pairs[on])
+        if t is not None:
+            t.close()
+    log({"obs": "(d) session step, telemetry hooks off/on in turns",
+         "steps": OBS_PAIR_STEPS, "profiled_steps": OBS_BUSY_STEPS,
+         "step_ms_off": pairs[False],
+         "step_ms_on": pairs[True], "busy_share_off": busy[False],
+         "busy_share_on": busy[True], "card": smi})
+    del model, params, init, opt_state, step, sess, staged
+    torch.cuda.empty_cache()
+    shutil.rmtree(_OBS_DIR, ignore_errors=True)
+    log({"phase": "obs session", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def check_obs_engine(torch, np, args, smi, paged):
+    """Phase 20 (c) and the engine half of (d), on phase 4's model and mix
+    (``paged``: its model and tokens).  Returns the serving kernels'
+    launches over (c)'s run."""
+    from distributed_tensorflow_tpu_torch.obs import (CritpathLedger,
+                                                      Registry, Tracer,
+                                                      critpath, reqtrace,
+                                                      trace)
+    from distributed_tensorflow_tpu_torch.obs.critpath import PHASES
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    from distributed_tensorflow_tpu_torch.resilience import (FaultPlan,
+                                                             InjectedFault,
+                                                             faults)
+    t_phase = time.perf_counter()
+    model = paged["model"]
+    prompts, budgets = _requests(np, args.seed)
+    n = len(prompts)
+
+    def serve(on, plan=None):
+        """Phase 4's run on a fresh registry; ``on``: request traces and
+        a critical-path ledger active."""
+        reg = Registry()
+        if not on:
+            return run_engine(torch, model, prompts, budgets, late=3,
+                              registry=reg) + (None,)
+        reqtrace.reset()
+        ledger = CritpathLedger(registry=reg)
+        with trace.activated(Tracer(enabled=True)), \
+                critpath.activated(ledger), \
+                (faults.activated(plan) if plan is not None
+                 else contextlib.nullcontext()):
+            return run_engine(torch, model, prompts, budgets, late=3,
+                              registry=reg) + (ledger,)
+
+    # (c) the instrumented engine under a fault plan
+    plan = FaultPlan([{"kind": "fail_decode", "at": OBS_FAIL_RID},
+                      {"kind": "stall_tick", "at": OBS_STALL_TICK,
+                       "seconds": OBS_STALL_S}], seed=args.seed,
+                     registry=Registry())
+    _reset_counts()
+    torch.cuda.synchronize()
+    eng, hs, wall, ledger = serve(True, plan)
+    counts = _pool_counts(pa, fused)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    reg = eng.metrics.registry
+
+    def value(name):
+        return reg.get(name).value
+
+    failed = hs[OBS_FAIL_RID]
+    if failed.status != "failed" or not isinstance(failed.error,
+                                                   InjectedFault):
+        raise AssertionError(f"(c) request {OBS_FAIL_RID}: status "
+                             f"{failed.status}, error {failed.error!r}")
+    same = [i for i, h in enumerate(hs) if i != OBS_FAIL_RID
+            and h.status == "ok" and h.tokens == paged["tokens"][i]]
+    shares = []
+    for i, h in enumerate(hs):
+        tree = reqtrace.tree(h.trace_id)
+        root = tree["spans"][0]
+        stages = [c["name"] for c in root["children"]]
+        if i == OBS_FAIL_RID:
+            if tree["status"] != "failed":
+                raise AssertionError(f"(c) failed request's trace {tree}")
+            continue
+        cp = h.critpath
+        shares.append(sum(cp[p] for p in PHASES) / cp["e2e_s"])
+        if tree["status"] != "ok" or root["name"] != "request" or \
+                stages != ["queued", "prefill", "decode"]:
+            raise AssertionError(f"(c) request {i}: trace stages {stages}, "
+                                 f"status {tree['status']}")
+    metrics = {"tokens_total": value("dttpu_serve_tokens_total"),
+               "requests_total": value("dttpu_serve_requests_total"),
+               "failed_total": value("dttpu_serve_failed_total"),
+               "prefix_hits_total": value("dttpu_serve_prefix_hits_total"),
+               "prefix_evictions_total":
+                   value("dttpu_serve_prefix_evictions_total"),
+               "pages_free": value("dttpu_serve_pages_free"),
+               "queue_depth": value("dttpu_serve_queue_depth"),
+               "active_slots": value("dttpu_serve_active_slots"),
+               "ttft_count": reg.get("dttpu_serve_ttft_seconds").count}
+    want = {"tokens_total": sum(len(h.tokens) for h in hs),
+            "requests_total": n, "failed_total": 1,
+            "prefix_hits_total": st.prefix_hits_total,
+            "prefix_evictions_total": st.prefix_evictions_total,
+            "pages_free": st.pages_free, "queue_depth": st.queued,
+            "active_slots": st.active, "ttft_count": n}
+    log({"obs": "(c) instrumented engine", "requests": n,
+         "equal_to_phase4": len(same), "failed_rid": OBS_FAIL_RID,
+         "audit": plan.log, "critpath_share_sums": [min(shares),
+                                                    max(shares)],
+         "ledger_requests": ledger.report()["requests"],
+         "interference_ratio": ledger.report()["interference_ratio"],
+         "serve_metrics": metrics, "engine_stats": want,
+         "wall_s": wall, "launches": counts, "card": smi})
+    if len(same) != n - 1:
+        raise AssertionError(f"(c) {len(same)} of {n - 1} streams equal "
+                             "phase 4's")
+    if any(abs(s - 1.0) > 1e-6 for s in shares):
+        raise AssertionError(f"(c) critical-path shares sum to {shares}")
+    if metrics != want:
+        raise AssertionError(f"(c) ServeMetrics {metrics} against "
+                             f"EngineStats and the handles {want}")
+    if sorted(e["kind"] for e in plan.log) != ["fail_decode", "stall_tick"]:
+        raise AssertionError(f"(c) audit trail {plan.log}")
+    for name, k in counts.items():
+        if k <= 0:
+            raise AssertionError(f"(c) {name} never launched")
+    del eng, hs
+
+    # (d) the same engine with (c)'s instrumentation off and on, in turns
+    rows = {False: [], True: []}
+    for on in (False, True, True, False):
+        _, hs, wall, _ = serve(on)
+        ttft = sorted(h.ttft_s for h in hs)
+        rows[on].append({"tokens_per_s": sum(len(h.tokens) for h in hs)
+                         / wall, "ttft_p50_s": ttft[len(ttft) // 2]})
+        if any(h.tokens != t for h, t in zip(hs, paged["tokens"])):
+            raise AssertionError(f"(d) instrumentation {on} changed tokens")
+    log({"obs": "(d) engine, instrumentation off/on in turns",
+         "off": rows[False], "on": rows[True], "card": smi})
+    log({"phase": "obs engine", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -4357,6 +4794,8 @@ def main(argv=None) -> int:
     decode_launches.update(check_contiguous_engine(torch, np, args, smi,
                                                    paged_run))
     check_serve_surface(torch, np, args, smi, paged_run, dict(launches))
+    obs_launches = collections.Counter(
+        check_obs_engine(torch, np, args, smi, paged_run))
     if args.profile:
         profile_generate(torch, np, args, smi, paged_run["model"],
                          "profile_generate", GEN_BATCH, GEN_PROMPT, GEN_NEW)
@@ -4372,6 +4811,7 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     session_launches = check_train_session(torch, np, args, smi, phase6)
+    obs_launches.update(check_obs_session(torch, np, args, smi))
     t0 = time.perf_counter()
     model = _llama_model(torch, args)
     torch.cuda.synchronize()
@@ -4415,7 +4855,9 @@ def main(argv=None) -> int:
                     **({"xor_launches": xor_launches}
                        if k == "fused_adam" else {}),
                     **({"seq_launches": seq_launches[k]}
-                       if k in seq_launches else {}))
+                       if k in seq_launches else {}),
+                    **({"obs_launches": obs_launches[k]}
+                       if k in obs_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

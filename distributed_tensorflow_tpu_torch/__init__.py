@@ -29,11 +29,17 @@ initializers, losses and metrics, ``data.xor_data`` and
 ``prefetch_to_device``, ``make_train_step``/``make_eval_step``, the flags,
 the cluster bootstrap over ``torch.distributed`` and the data-parallel
 mesh with its gradient all-reduce; Adam runs its kernel on every leaf.
-Kernels live
+Slice 12 is the high-level tier (``models.Sequential``).  Slice 13 is the
+sight and the survival of both paths: ``obs`` (the metrics registry and
+its ``/metrics`` endpoint, host traces, ``Telemetry``, goodput, request
+traces and critical paths) and ``resilience`` (fault plans and the
+auto-resume ``Supervisor``), wired into ``TrainSession``, the prefetch,
+checkpoints and the serving engine; it adds no kernel.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
-from . import data, ops, optim, parallel, summary, train, utils
+from . import (data, fleet, models, obs, ops, optim, parallel, resilience,
+               serve, summary, train, utils)
 from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
 from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
                              load_jax_params, lora_from_jax, lora_to_jax,
@@ -55,6 +61,7 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "RequestHandle", "RequestSnapshot", "SummaryWriter",
            "TenantPolicy", "TenantQuota", "TrainSession", "TrainState",
            "adam", "adamw", "data", "dequantize_tensor", "ema_params",
+           "fleet", "models", "obs", "resilience", "serve",
            "generate_speculative", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "init_train_state",
            "llama2_7b", "llama3_8b", "llama_config", "llama_tiny",

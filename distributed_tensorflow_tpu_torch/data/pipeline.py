@@ -15,8 +15,10 @@ Counterpart of ``distributed_tensorflow_tpu/data/pipeline.py``:
     event before the batch is handed over, and each tensor is marked as
     used on that stream (``record_stream``), so the caching allocator
     does not reuse its memory before the compute stream is done with
-    it.  The JAX package's fault plans and goodput accounting are not
-    ported.
+    it.  As in the JAX package, the active fault plan sees each batch in
+    the producer (``on_batch``: ``poison_batch``, ``kill_prefetch``,
+    whose error the consumer re-raises), and the consumer's blocking
+    wait for the next batch is goodput's ``data_stall``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from typing import Iterable, Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..obs import goodput as goodput_lib
+from ..resilience import faults as faults_lib
 
 __all__ = ["Dataset", "prefetch_to_device"]
 
@@ -140,6 +145,11 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     def producer():
         try:
             for item in iterator:
+                plan = faults_lib.active()
+                if plan is not None:
+                    # may poison this batch or kill this producer (the
+                    # raise lands in err and the consumer re-raises it)
+                    item = plan.on_batch(item)
                 tickets.acquire()
                 # checked after acquire: an abandoning consumer releases
                 # a ticket once to unblock exactly this wait
@@ -163,7 +173,10 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     thread.start()
     try:
         while True:
-            got = handoff.get()
+            # the consumer's blocking wait IS the input starvation; closed
+            # before the yield, so the caller's step never lands here
+            with goodput_lib.account("data_stall"):
+                got = handoff.get()
             if got is done:
                 if err:
                     raise err[0]

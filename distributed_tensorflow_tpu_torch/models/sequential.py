@@ -24,7 +24,11 @@ The port's differences, each forced by eager PyTorch:
   process group): every rank draws the same shuffled (and augmented)
   global batch from the same seed and feeds its contiguous
   ``local_batch_size`` slice; the step averages the gradients, loss and
-  metrics over the ranks with one all-reduce.  ``evaluate`` and
+  metrics over the ranks with one all-reduce, and a ``BatchNorm`` takes
+  the global batch's moments.  Under ``fit(sample_weight=...)`` the loss
+  divides by the global batch's count of non-zero weights (one more
+  all-reduce, of that count), as the JAX fit over a sharded batch does.
+  ``evaluate`` and
   ``predict`` run the whole of their data on every rank (no collective;
   the means are the one-process means exactly, so the JAX package's
   padded, masked tail for multi-process evaluation is not needed here;
@@ -43,6 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.pipeline import Dataset, prefetch_to_device
 from ..ops import layers as layer_lib
@@ -434,6 +439,9 @@ class Sequential:
         loss_value_fn = c["loss"]
         metric_fns = c["metric_fns"]
         stack = self.stack
+        kw = c["step_kwargs"]
+        mesh = kw["mesh"]
+        dp = mesh if mesh is not None and mesh.group is not None else None
 
         def loss_fn(params, model_state, batch, generator, train):
             xb, yb, wb = batch
@@ -444,14 +452,19 @@ class Sequential:
             per = step_lib.per_example(loss_value_fn, preds, yb)
             w = wb.to(per.dtype)
             nonzero = torch.sum((w != 0).to(per.dtype))
-            loss = torch.sum(per * w) / torch.clamp(nonzero, min=1.0)
+            total = torch.sum(per * w)
+            if dp is not None:
+                # the global batch's count: the step averages the ranks'
+                # losses, so each carries size / count of its own sum
+                dist.all_reduce(nonzero, group=dp.group)
+                total = total * dp.size
+            loss = total / torch.clamp(nonzero, min=1.0)
             metrics = {name: metric_lib.get(fn)(preds.detach(), yb)
                        for name, fn in metric_fns.items()}
             return loss, (metrics, new_ms)
 
-        kw = c["step_kwargs"]
         c["sample_step"] = step_lib.make_custom_train_step(
-            loss_fn, c["optimizer"], seed=kw["seed"], mesh=kw["mesh"],
+            loss_fn, c["optimizer"], seed=kw["seed"], mesh=mesh,
             grad_clip_norm=kw["grad_clip_norm"], policy=kw["policy"])
         return c["sample_step"]
 

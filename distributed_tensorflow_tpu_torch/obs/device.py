@@ -4,9 +4,11 @@ Counterpart of ``distributed_tensorflow_tpu/obs/device.py`` (``grad_health``
 and ``tree_bytes``).  ``grad_health`` computes the global gradient L2 norm
 and the count of non-finite gradient elements as 0-d device tensors; the
 step builder puts them in its metrics, and nothing reads them back to the
-host until a hook does.  The JAX package's ``live_arrays_bytes`` (a walk
-of ``jax.live_arrays()``) has no counterpart: ``torch.cuda
-.memory_allocated()`` reads the same total.
+host until a hook does.  ``live_arrays_bytes`` is the device-memory-leak
+gauge ``MetricsExportHook`` exports: where the JAX package totals the
+buffers of ``jax.live_arrays()``, the port reads the same total from the
+caching allocator, ``torch.cuda.memory_allocated`` (the bytes of live
+tensors; the allocator's cached free blocks are not counted).
 
 ``device_busy`` runs a function under ``torch.profiler`` and sums the
 device time of the kernels and copies it ran: divided by the wall time
@@ -20,8 +22,8 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["device_busy", "grad_health", "tree_bytes", "GRAD_NORM_KEY",
-           "NONFINITE_KEY"]
+__all__ = ["device_busy", "grad_health", "tree_bytes", "live_arrays_bytes",
+           "GRAD_NORM_KEY", "NONFINITE_KEY"]
 
 # the metric keys the step builder emits, as in the JAX package
 GRAD_NORM_KEY = "grad_norm"
@@ -54,6 +56,17 @@ def tree_bytes(tree: Any) -> int:
     nbytes = getattr(tree, "nbytes", None)
     return int(nbytes) if nbytes is not None and hasattr(tree, "shape") \
         else 0
+
+
+def live_arrays_bytes(device=None) -> int:
+    """Bytes of the live tensors on ``device`` (default: the current
+    card): ``torch.cuda.memory_allocated``, the port's counterpart of
+    totalling ``jax.live_arrays()``.  A host-side read of the allocator's
+    counter (no device sync).  0 in a process that has not initialised
+    CUDA: a run on the CPU holds no device memory."""
+    if not torch.cuda.is_initialized():
+        return 0
+    return int(torch.cuda.memory_allocated(device))
 
 
 def device_busy(fn: Callable[[], Any]) -> Tuple[Any, float, int]:

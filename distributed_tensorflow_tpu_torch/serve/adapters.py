@@ -36,8 +36,10 @@ request under another, or under a hot-updated version of the same id;
 two engines holding the same weights agree on the namespace, so shipped
 pages still match across engines.
 
-``loads``/``evictions`` count row copies and evictions (plain attributes:
-the port has no metrics registry yet).
+Metrics (``registry=``, default the process registry): the JAX package's
+``dttpu_adapter_loads_total`` (row copies), ``dttpu_adapter_evictions_total``
+and the ``dttpu_adapter_resident`` gauge.  ``evictions`` counts this
+table's own evictions (the registry's counter sums every table's).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from ..obs import metrics as metrics_lib
 
 __all__ = ["AdapterTable", "AdapterTableFull"]
 
@@ -62,7 +66,8 @@ class AdapterTable:
     rows).  ``arrays`` is the table the serving entries read; a hot
     update rebinds it, so a caller reads it once per device call."""
 
-    def __init__(self, model, capacity: int, rank: int):
+    def __init__(self, model, capacity: int, rank: int,
+                 registry: Optional[metrics_lib.Registry] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1; got {capacity}")
         self.model = model
@@ -78,7 +83,16 @@ class AdapterTable:
         self._refs: Dict[str, int] = {}       # id -> in-flight pins
         self._used: Dict[str, int] = {}       # id -> LRU clock tick
         self._clock = 0
-        self.loads = 0
+        reg = registry if registry is not None else metrics_lib.REGISTRY
+        self._loads = reg.counter(
+            "dttpu_adapter_loads_total",
+            "LoRA adapters spliced into a device table row.")
+        self._evictions = reg.counter(
+            "dttpu_adapter_evictions_total",
+            "LoRA adapters evicted from the table (LRU, unpinned only).")
+        self._resident = reg.gauge(
+            "dttpu_adapter_resident",
+            "LoRA adapters currently resident in the device table.")
         self.evictions = 0
 
     # ------------------------------------------------------------ intake
@@ -105,7 +119,7 @@ class AdapterTable:
                 fresh = {name: {ab: buf.clone() for ab, buf in leaves.items()}
                          for name, leaves in self.arrays.items()}
                 self.arrays = self.model.lora_insert_row(fresh, row, host)
-                self.loads += 1
+                self._loads.inc()
 
     def _check_shapes(self, adapter) -> None:
         want = self.model.lora_shapes(self.rank)
@@ -160,7 +174,8 @@ class AdapterTable:
                 self.model.lora_insert_row(self.arrays, row,
                                            self._store[adapter_id])
                 self._rows[adapter_id] = row
-                self.loads += 1
+                self._loads.inc()
+                self._resident.set(len(self._rows))
             self._refs[adapter_id] = self._refs.get(adapter_id, 0) + 1
             return row
 
@@ -195,5 +210,7 @@ class AdapterTable:
         victim = min(victims, key=lambda aid: self._used.get(aid, 0))
         row = self._rows.pop(victim)
         self.evictions += 1
+        self._evictions.inc()
+        self._resident.set(len(self._rows))
         # no scrub: the caller overwrites the whole row next
         return row

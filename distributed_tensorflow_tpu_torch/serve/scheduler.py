@@ -60,9 +60,20 @@ in short sections that never span device work or a callback.  A
 cross-thread ``cancel`` of an active row marks it stale and the pump
 freezes it at the next tick.
 
-Not ported yet: the metrics registry, request tracing and
-critical-path accounting (``trace_id``/``critpath`` stay None on
-snapshots), fault plans and the pump heartbeat.
+Instrumentation, at the JAX scheduler's sites: a duck-typed ``metrics``
+sink (the engine's ``ServeMetrics``) hears of every submission,
+admission, delivery and retirement, and of the load after each tick;
+request tracing (``obs.reqtrace``: a ``trace_id`` carried across
+migration, the ``queued``/``prefill``/``decode`` stages, the
+``prefill_window``/``admitted``/``first_token`` marks, export and import,
+retirement, and a forensic dump at a deadline's expiry); the critical
+path (``obs.critpath``: per-request phases accrued at the same seams,
+finalized once at retirement, carried across migration); and the active
+fault plan, at the top of the pump (``on_engine_tick(chaos_tag)``:
+``stall_tick``, ``wedge_replica``) and at token delivery
+(``on_decode(rid)``: ``fail_decode``, which fails that request only).
+With no tracer, ledger or plan active each site is one attribute check.
+The pump heartbeat of ``EngineStats`` comes with the fleet slice.
 """
 from __future__ import annotations
 
@@ -75,7 +86,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import critpath as critpath_lib
+from ..obs import reqtrace
 from ..ops import decoding as dec
+from ..resilience import faults as faults_lib
 from . import pages as pages_lib
 from . import slots as slots_lib
 from .adapters import AdapterTableFull
@@ -103,7 +117,16 @@ class Request:
     Migration: ``context`` is what prefill runs over, the prompt plus
     the tokens generated on a source engine (the prompt for a fresh
     submit); ``resumed`` counts those pre-seeded tokens; ``token_cost``
-    is what tenancy charged at admission (the remaining budget)."""
+    is what tenancy charged at admission (the remaining budget).
+
+    Observability: ``trace_id`` is the request's trace lane (None with
+    tracing off); ``phases`` the live critical-path accrual (None with no
+    ledger active at intake: every accrual site then reduces to one
+    attribute check) and ``critpath`` the finished breakdown;
+    ``e2e_base`` carries wall time spent on earlier engines;
+    ``_cp_wait``/``_cp_t0`` are the open wait phase's stopwatch
+    (``queue_wait`` until the admission that starts prefill,
+    ``backpressure_requeue`` after an admission bounce)."""
     rid: int
     prompt: np.ndarray                       # [plen] int32
     max_new_tokens: int
@@ -133,6 +156,15 @@ class Request:
     # the page pool's prefix namespace (its adapter's weights digest,
     # b"" without one), fixed when the adapter is pinned
     prefix_ns: bytes = dataclasses.field(default=b"", repr=False)
+    trace_id: Optional[str] = None
+    phases: Optional[Dict[str, float]] = dataclasses.field(
+        default=None, repr=False)
+    critpath: Optional[Dict[str, float]] = dataclasses.field(
+        default=None, repr=False)
+    e2e_base: float = 0.0
+    _cp_wait: Optional[str] = dataclasses.field(default="queue_wait",
+                                                repr=False)
+    _cp_t0: float = dataclasses.field(default=0.0, repr=False)
 
     @property
     def remaining_budget(self) -> int:
@@ -165,8 +197,10 @@ class RequestSnapshot:
     manifest: ``(chain hash, tokens covered)`` of every full chunk the
     export handed to the source's radix tree, with that pool's
     ``page_size``; a hint only, correctness never depends on it.
-    ``trace_id`` and ``critpath`` exist for the reference's field set and
-    stay None here (the port has no request tracing yet)."""
+    ``trace_id`` continues the request's trace lane on the importer;
+    ``critpath`` carries the source's phase accrual, its elapsed wall
+    and the export instant (the importer books the gap to
+    ``migration``)."""
     rid: int
     prompt: np.ndarray                       # [plen] int32, the original
     generated: List[int]                     # tokens delivered so far
@@ -216,6 +250,9 @@ class EngineStats:
     cow_splits_total: int = 0
     prefill_windows_skipped_total: int = 0
     page_size: int = 0
+    # the pool's bounded hot-chain digest (chain hash -> cached tokens)
+    prefix_fingerprint: Dict[bytes, int] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def inflight(self) -> int:
@@ -229,6 +266,26 @@ class EngineStats:
         return self.prefix_hits_total / self.prefix_lookups_total
 
 
+class _NullMetrics:
+    """Duck-typed metrics sink; the engine supplies a real one."""
+
+    def submitted(self, req):
+        pass
+
+    def admitted(self, req):
+        pass
+
+    def emitted(self, req, n):
+        pass
+
+    def finished(self, req):
+        pass
+
+    def aborted(self, req, status):
+        pass
+
+    def depth(self, stats):
+        pass
 
 
 class SlotScheduler:
@@ -248,7 +305,10 @@ class SlotScheduler:
     release: ``fleet.tenancy.DeficitFairQueue``); ``max_queue_depth``
     bounds the queue; ``tenancy`` (``TenantPolicy``) checks quotas.
     ``adapters``: an ``AdapterTable`` for per-request LoRA adapters; None
-    keeps every forward adapter-free.
+    keeps every forward adapter-free.  ``metrics``: the sink of the
+    scheduler's events (``serve.engine.ServeMetrics``; None: nothing).
+    ``chaos_tag``: this engine's identity for the engine-targeted fault
+    kinds (0 for a standalone engine).
     """
 
     def __init__(self, model, *, num_slots: int = 8,
@@ -257,7 +317,7 @@ class SlotScheduler:
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  eos_id: Optional[int] = None, pad_id: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 queue=None, adapters=None,
+                 queue=None, adapters=None, metrics=None,
                  max_queue_depth: Optional[int] = None, tenancy=None,
                  paged: bool = True, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
@@ -303,6 +363,8 @@ class SlotScheduler:
                               top_p=top_p, eos_id=eos_id)
         self.generator = generator
         self.adapters = adapters
+        self.metrics = metrics if metrics is not None else _NullMetrics()
+        self.chaos_tag = 0
         self.max_queue_depth = max_queue_depth
         self.tenancy = tenancy
         self.page_size = page_size
@@ -487,13 +549,15 @@ class SlotScheduler:
                on_token: Optional[Callable[[List[int]], None]] = None,
                deadline_s: Optional[float] = None,
                tenant: str = "default",
-               adapter_id: Optional[str] = None) -> Request:
+               adapter_id: Optional[str] = None,
+               trace_id: Optional[str] = None) -> Request:
         """Queue one request.  ``prompt``: [plen] int token ids.  The
         prompt + ``max_new_tokens`` must fit ``max_len``, and so must the
         chunk-padded prompt.  ``deadline_s``: wall-clock budget from now
         (retired ``deadline_exceeded`` at the first tick past it);
         ``tenant``: for quotas and fair share; ``adapter_id``: a
-        registered LoRA adapter (unknown ids fail here)."""
+        registered LoRA adapter (unknown ids fail here); ``trace_id``:
+        the request's trace lane (opened here)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -506,6 +570,7 @@ class SlotScheduler:
         self._check_fits("prompt", prompt.size, max_new_tokens)
         now = time.perf_counter()
         tenant = str(tenant)
+        cp_phases = critpath_lib.new_phases()   # outside the state lock
         with self._lock:
             self._admit_locked(tenant, int(max_new_tokens))
             req = Request(rid=self._next_rid, prompt=prompt,
@@ -514,9 +579,18 @@ class SlotScheduler:
                           deadline=(None if deadline_s is None
                                     else now + deadline_s),
                           tenant=tenant, adapter_id=adapter_id,
-                          context=prompt, token_cost=int(max_new_tokens))
+                          context=prompt, token_cost=int(max_new_tokens),
+                          trace_id=trace_id)
+            req.phases = cp_phases
+            req._cp_t0 = now
             self._next_rid += 1
             self._enqueue_locked(req)
+        if req.trace_id:
+            reqtrace.submitted(req.trace_id, rid=req.rid,
+                               tenant=req.tenant, plen=int(prompt.size),
+                               max_new_tokens=int(max_new_tokens))
+        self.metrics.submitted(req)
+        self._report_depth()
         return req
 
     def _enqueue_locked(self, req: Request) -> None:
@@ -559,7 +633,7 @@ class SlotScheduler:
                         "prefix_lookups_total", "prefix_hits_total",
                         "prefix_tokens_reused_total",
                         "prefix_evictions_total", "cow_splits_total",
-                        "page_size"):
+                        "page_size", "prefix_fingerprint"):
                 base[key] = p[key]
         return EngineStats(**base)
 
@@ -568,6 +642,11 @@ class SlotScheduler:
         slots, advance every in-flight prefill by one window, then one
         decode run over the slots.  Returns False when fully idle."""
         with self._pump_lock:
+            plan = faults_lib.active()
+            if plan is not None:
+                # stall_tick sleeps and wedge_replica blocks here, inside
+                # the pump lock, as a pathological tick would
+                plan.on_engine_tick(self.chaos_tag)
             return self._step_locked()
 
     def _step_locked(self) -> bool:
@@ -589,25 +668,64 @@ class SlotScheduler:
             except (AdapterTableFull, pages_lib.PagePoolExhausted):
                 # every adapter row or page is pinned by an in-flight
                 # request: requeue (a retirement frees pins and pages, so
-                # this always drains) and stop admitting this tick
+                # this always drains) and stop admitting this tick; the
+                # wait goes on as backpressure, not queue order
+                if req.phases is not None:
+                    self._cp_close_wait(req, time.perf_counter(),
+                                        reopen="backpressure_requeue")
                 with self._lock:
                     self._requeue(req)
                 break
+            if req.phases is not None:
+                self._cp_close_wait(req, time.perf_counter())
+            if req.trace_id:
+                reqtrace.stage(req.trace_id, "prefill")
             with self._lock:
                 self._prefills.append(st)
         with self._lock:
             pending = list(self._prefills)
+        # critpath: with a ledger active, time each prefill window and the
+        # decode run; prefill_s totals this tick's window cost and
+        # win_by_req keys each request's own share (a request prefilled
+        # this tick was not decoding while the windows ran, so it is
+        # exempt from interference)
+        cp_on = critpath_lib.active() is not None
+        prefill_s = 0.0
+        win_by_req: Dict[int, float] = {}
         if pending:
             did = True
             for st in pending:
-                self._advance_prefill(st, outbox)
+                if cp_on:
+                    w0 = time.perf_counter()
+                    self._advance_prefill(st, outbox)
+                    dt = time.perf_counter() - w0
+                    prefill_s += dt
+                    win_by_req[id(st[0])] = \
+                        win_by_req.get(id(st[0]), 0.0) + dt
+                    if st[0].phases is not None:
+                        st[0].phases["prefill_compute"] += dt
+                else:
+                    self._advance_prefill(st, outbox)
         with self._lock:
             active = any(r is not None for r in self._slots)
         if active:
             did = True
-            self._decode_tick(outbox)
+            self._decode_tick(outbox, prefill_s if cp_on else None,
+                              win_by_req)
         self._flush(outbox)
+        if did:
+            self._report_depth()
         return did
+
+    def _cp_close_wait(self, req: Request, now: float,
+                       reopen: Optional[str] = None) -> None:
+        """Close the request's open wait phase at ``now``; ``reopen``
+        restarts the stopwatch under another phase (an admission
+        bounce).  Pump-only: the stopwatch has a single writer."""
+        if req._cp_wait is not None:
+            req.phases[req._cp_wait] += max(0.0, now - req._cp_t0)
+        req._cp_wait = reopen
+        req._cp_t0 = now
 
     def drain(self) -> None:
         """Pump until every queued/in-flight request has finished."""
@@ -683,6 +801,16 @@ class SlotScheduler:
             self._finished[torch.tensor(rows, device=self.device)] = True
         for req in aborts:
             self._abort(req, "deadline_exceeded")
+            if req.trace_id:
+                # the victim's span tree while the evidence is warm, with
+                # the phase budget its deadline was spent on
+                extra = ({"critpath": req.critpath}
+                         if req.critpath is not None else {})
+                reqtrace.forensic_dump(req.trace_id, "deadline_expired",
+                                       rid=req.rid, tenant=req.tenant,
+                                       **extra)
+        if aborts:
+            self._report_depth()
 
     # ---------------------------------------------------------- prefill
 
@@ -748,6 +876,8 @@ class SlotScheduler:
                                     skip + i * self.prefill_chunk, ad)
             with self._lock:
                 st[2], st[3] = i + 1, payload
+            if req.trace_id:
+                reqtrace.mark(req.trace_id, "prefill_window", window=int(i))
             return
         ctx = req.context if req.context is not None else req.prompt
         clen = ctx.size
@@ -785,6 +915,14 @@ class SlotScheduler:
         if cancelled:
             self._finished[slot] = True
             return
+        self.metrics.admitted(req)
+        if req.trace_id:
+            reqtrace.mark(req.trace_id, "prefill_window",
+                          window=len(windows) - 1)
+            reqtrace.mark(req.trace_id, "admitted", slot=int(slot))
+            reqtrace.mark(req.trace_id, "first_token",
+                          ttft_s=req.first_token_time - req.submit_time)
+            reqtrace.stage(req.trace_id, "decode")
         if req.remaining_budget <= 1 or (self.eos_id is not None
                                          and first == self.eos_id):
             self._drop_slot(slot, req)
@@ -805,17 +943,30 @@ class SlotScheduler:
                 if self.paged:
                     self._page_tab[r] = 0
 
-    def _decode_tick(self, outbox: List[tuple]) -> None:
+    def _decode_tick(self, outbox: List[tuple],
+                     prefill_s: Optional[float] = None,
+                     win_by_req: Optional[Dict[int, float]] = None
+                     ) -> None:
+        """One ``tick_steps`` decode run.  ``prefill_s`` (a critpath
+        ledger active) is this tick's total prefill-window wall time:
+        every slot already decoding when those windows ran is charged all
+        of it as ``prefill_interference``, while requests in
+        ``win_by_req`` (prefilled this tick) are exempt;
+        ``decode_compute`` is the run's wall to the host read, the same
+        for every live slot."""
         with self._lock:
             slots = list(self._slots)
             # page-table snapshot: host mutations between ticks never
             # tear a run mid-read
             tab = (torch.from_numpy(self._page_tab.copy()).to(self.device)
                    if self.paged else None)
+        t0 = time.perf_counter() if prefill_s is not None else 0.0
         em, live = self._tick(tab, self._adapter_args())
         k, s = em.shape
         host = torch.cat([em.reshape(-1), live.reshape(-1).to(torch.int32),
                           self._finished.to(torch.int32)]).cpu().numpy()
+        decode_s = (time.perf_counter() - t0      # the host read included
+                    if prefill_s is not None else 0.0)
         em = host[:k * s].reshape(k, s)
         mask = host[k * s:2 * k * s].reshape(k, s).astype(bool)
         fin = host[2 * k * s:].astype(bool)
@@ -825,6 +976,10 @@ class SlotScheduler:
             with self._lock:
                 if self._slots[r] is not req:
                     continue         # cancelled mid-run: drop tokens
+            if prefill_s is not None and req.phases is not None:
+                req.phases["decode_compute"] += decode_s
+                if id(req) not in (win_by_req or {}):
+                    req.phases["prefill_interference"] += prefill_s
             toks = em[:, r][mask[:, r]]
             if toks.size:
                 outbox.append(("deliver", req, [int(t) for t in toks], r))
@@ -844,9 +999,7 @@ class SlotScheduler:
             if kind == "deliver":
                 toks, row = ev[2], ev[3]
                 try:
-                    req.tokens.extend(toks)
-                    if req.on_token is not None:
-                        req.on_token(toks)
+                    self._deliver(req, toks)
                 except Exception as e:
                     poisoned.add(id(req))
                     if row is not None:
@@ -855,6 +1008,15 @@ class SlotScheduler:
                     self._abort(req, "failed", error=e)
             else:
                 self._finish(req)
+
+    def _deliver(self, req: Request, toks: List[int]) -> None:
+        plan = faults_lib.active()
+        if plan is not None:
+            plan.on_decode(req.rid)  # may fail THIS request only
+        req.tokens.extend(toks)
+        self.metrics.emitted(req, len(toks))
+        if req.on_token is not None:
+            req.on_token(toks)
 
     # ------------------------------------------------------ retirement
 
@@ -876,6 +1038,7 @@ class SlotScheduler:
                     self._slots[r] = None
                     self._stale_rows.add(r)
         self._abort(req, status)
+        self._report_depth()
         return True
 
     def _retire(self, req: Request) -> bool:
@@ -908,11 +1071,34 @@ class SlotScheduler:
             self.pages.release(req._lease)
         return True
 
+    def _finalize_critpath(self, req: Request) -> None:
+        """Close the request's phase accrual into its finished breakdown
+        and fold it into the active ledger (once: inside the claim-once
+        retirement, ``finish_time`` stamped).  A ``migrated`` request
+        carries its accrual on the snapshot instead."""
+        if req.phases is None or req.status == "migrated":
+            return
+        now = req.finish_time
+        if req._cp_wait is not None:
+            req.phases[req._cp_wait] += max(0.0, now - req._cp_t0)
+            req._cp_wait = None
+        e2e = req.e2e_base + max(0.0, now - req.submit_time)
+        req.critpath = critpath_lib.finalize(req.phases, e2e)
+        critpath_lib.observe(req.tenant, req.critpath,
+                             trace_id=req.trace_id)
+
     def _finish(self, req: Request) -> None:
         if not self._retire(req):
             return
         req.status = "ok"
         req.finish_time = time.perf_counter()
+        self._finalize_critpath(req)
+        if req.trace_id:
+            extra = ({"critpath": req.critpath}
+                     if req.critpath is not None else {})
+            reqtrace.retired(req.trace_id, "ok", tokens=len(req.tokens),
+                             **extra)
+        self.metrics.finished(req)
         req.done.set()
 
     def _abort(self, req: Request, status: str,
@@ -922,7 +1108,18 @@ class SlotScheduler:
         req.status = status
         req.error = error
         req.finish_time = time.perf_counter()
+        self._finalize_critpath(req)
+        if req.trace_id:
+            # "migrated" is a no-op there: exported() owns the hop
+            extra = ({"critpath": req.critpath}
+                     if req.critpath is not None else {})
+            reqtrace.retired(req.trace_id, status,
+                             tokens=len(req.tokens), **extra)
+        self.metrics.aborted(req, status)
         req.done.set()
+
+    def _report_depth(self) -> None:
+        self.metrics.depth(self.stats())
 
     # -------------------------------------------- migration (snapshots)
 
@@ -938,6 +1135,32 @@ class SlotScheduler:
     def _inflight_locked(self) -> List[Request]:
         return ([r for r in self._queue] + [st[0] for st in self._prefills]
                 + [r for r in self._slots if r is not None])
+
+    def inflight_trace_ids(self) -> List[str]:
+        """Trace ids of every in-flight request (queued, prefilling,
+        active)."""
+        with self._lock:
+            reqs = self._inflight_locked()
+        return [r.trace_id for r in reqs if r.trace_id]
+
+    def inflight_critpath(self) -> Dict[str, dict]:
+        """Live critical-path breakdowns keyed by trace_id: each
+        in-flight request's accrual so far, finalized against now with
+        its open wait phase included."""
+        with self._lock:
+            reqs = self._inflight_locked()
+        now = time.perf_counter()
+        out: Dict[str, dict] = {}
+        for req in reqs:
+            if req.phases is None or not req.trace_id:
+                continue
+            ph = dict(req.phases)
+            if req._cp_wait is not None:
+                ph[req._cp_wait] = ph.get(req._cp_wait, 0.0) \
+                    + max(0.0, now - req._cp_t0)
+            e2e = req.e2e_base + max(0.0, now - req.submit_time)
+            out[req.trace_id] = critpath_lib.finalize(ph, e2e)
+        return out
 
     def _acquire_pump(self, timeout_s: Optional[float]) -> bool:
         if timeout_s is None:
@@ -999,6 +1222,17 @@ class SlotScheduler:
             deadline_remaining_s=(None if req.deadline is None
                                   else max(0.0, req.deadline - now)),
             sampling=dict(self._sampling), clean=clean)
+        if req.phases is not None:
+            # critpath carry: a copy with the open wait phase closed now;
+            # the importer books the export-to-import gap to migration
+            ph = dict(req.phases)
+            if req._cp_wait is not None:
+                ph[req._cp_wait] = ph.get(req._cp_wait, 0.0) \
+                    + max(0.0, now - req._cp_t0)
+            snap.critpath = {
+                "phases": ph,
+                "elapsed_s": req.e2e_base + max(0.0, now - req.submit_time),
+                "exported_at": now}
         # lease handoff: publish the request's FINAL full pages before the
         # retirement below releases them.  Final: for an active row the
         # context and all but the newest generated token (whose K/V is
@@ -1024,6 +1258,12 @@ class SlotScheduler:
                 snap.page_size = self.page_size
         if not self.cancel(req, status="migrated"):
             raise RuntimeError(f"request {req.rid} finished during export")
+        if req.trace_id:
+            # the lane goes on at the importer: close this engine's stage
+            # and start the migration's flow arrow
+            snap.trace_id = req.trace_id
+            reqtrace.exported(req.trace_id, rid=req.rid,
+                              generated=len(generated), clean=bool(clean))
         return snap
 
     def export_chain_pages(self, context: np.ndarray,
@@ -1151,6 +1391,21 @@ class SlotScheduler:
         self._check_fits("snapshot context", ctx.size, remaining)
         now = time.perf_counter()
         tenant = str(snap.tenant)
+        # critpath resume (outside the state lock): a snapshot carrying
+        # accrual continues it whatever the local ledger state; the
+        # export-to-import gap is the migration phase (0 for a foreign
+        # clock's instant)
+        carry = snap.critpath
+        cp_base = 0.0
+        if carry is not None:
+            src = carry.get("phases") or {}
+            cp_phases = {p: float(src.get(p, 0.0))
+                         for p in critpath_lib.PHASES[:-1]}
+            gap = max(0.0, now - float(carry.get("exported_at", now)))
+            cp_phases["migration"] += gap
+            cp_base = float(carry.get("elapsed_s", 0.0)) + gap
+        else:
+            cp_phases = critpath_lib.new_phases()
         with self._lock:
             self._admit_locked(tenant, remaining)
             req = Request(rid=self._next_rid, prompt=prompt,
@@ -1160,8 +1415,18 @@ class SlotScheduler:
                                     else now + snap.deadline_remaining_s),
                           tenant=tenant, adapter_id=snap.adapter_id,
                           context=ctx, resumed=len(generated),
-                          token_cost=remaining)
+                          token_cost=remaining, trace_id=snap.trace_id)
             req.tokens = list(generated)
+            req.phases = cp_phases
+            req.e2e_base = cp_base
+            req._cp_t0 = now
             self._next_rid += 1
             self._enqueue_locked(req)
+        if req.trace_id:
+            # the lane is open already: finish the flow arrow and queue
+            # again on the same id
+            reqtrace.imported(req.trace_id, rid=req.rid,
+                              resumed=req.resumed)
+        self.metrics.submitted(req)
+        self._report_depth()
         return req

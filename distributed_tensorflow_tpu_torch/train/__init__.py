@@ -3,9 +3,10 @@ policies and loss scales (``train/precision.py``), ``TrainState`` and
 ``TrainSession`` (``train/session.py``), hooks (``train/hooks.py``) and
 checkpoints (``train/checkpoint.py``)."""
 from . import checkpoint, hooks, precision
-from .hooks import (CheckpointHook, EvalHook, Hook, LoggingHook, NaNHook,
-                    PreemptionHook, ProfilerHook, StepCounterHook,
-                    StopAtStepHook, SummaryHook, WatchdogHook)
+from .hooks import (CheckpointHook, EvalHook, Hook, LoggingHook,
+                    MetricsExportHook, NaNHook, PreemptionHook, ProfilerHook,
+                    StepCounterHook, StopAtStepHook, SummaryHook, TraceHook,
+                    WatchdogHook)
 from .precision import (DynamicLossScale, LossScaled, NoLossScale, Policy,
                         StaticLossScale, attach_loss_scale)
 from .session import TrainSession, TrainState
@@ -14,9 +15,9 @@ from .step import (init_train_state, make_custom_train_step,
                    make_multi_train_step, make_train_step)
 
 __all__ = ["checkpoint", "hooks", "precision", "CheckpointHook", "EvalHook",
-           "Hook", "LoggingHook", "NaNHook", "PreemptionHook",
-           "ProfilerHook", "StepCounterHook", "StopAtStepHook",
-           "SummaryHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
+           "Hook", "LoggingHook", "MetricsExportHook", "NaNHook",
+           "PreemptionHook", "ProfilerHook", "StepCounterHook",
+           "StopAtStepHook", "SummaryHook", "TraceHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
            "NoLossScale", "Policy", "StaticLossScale", "attach_loss_scale",
            "TrainSession", "TrainState", "init_train_state",
            "make_custom_train_step", "make_eval_step",

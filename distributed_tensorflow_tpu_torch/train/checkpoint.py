@@ -28,9 +28,13 @@ parameters, the optimizer's moments, the EMA shadow), through
 ``train_state_from_jax``, and returns the target's structure with the
 restored host values: it never rebinds a parameter.
 
-Left for later: the JAX package's fault plans, goodput accounting and
-metrics registry hooks (``resilience.faults``, ``obs.goodput``,
-``obs.metrics``), which the port does not have yet.
+The JAX package's instrumentation sites are here too: the active fault
+plan's ``on_save`` (``save_oserror``) at the entry of a write and
+``on_saved`` (``corrupt_checkpoint``) after its rename, on the writer's
+thread as in the JAX package; the goodput bucket ``checkpoint_restore``
+around the whole verified walk of ``restore_latest_good``; and each
+quarantine counted in ``dttpu_checkpoints_quarantined_total`` and marked
+as a ``checkpoint_quarantine`` trace instant.
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ import numpy as np
 import torch
 
 from ..models import convert
+from ..obs import goodput as goodput_lib
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..resilience import faults as faults_lib
 from ..summary.crc32c import masked_crc32c
 
 log = logging.getLogger(__name__)
@@ -166,6 +174,8 @@ def _leaf_crc(stored: np.ndarray) -> int:
 # -- save ----------------------------------------------------------------
 
 def _write(ckpt_dir: str, step: int, host, max_to_keep: int) -> str:
+    plan = faults_lib.active()
+    save_index = plan.on_save() if plan is not None else None
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(host)
     stored = [_stored(t) for _, t in flat]
@@ -189,6 +199,8 @@ def _write(ckpt_dir: str, step: int, host, max_to_keep: int) -> str:
     except Exception:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    if plan is not None:
+        plan.on_saved(final, save_index)
     write_index(ckpt_dir, os.path.basename(final))
     if max_to_keep and max_to_keep > 0:
         for old in all_checkpoints(ckpt_dir)[:-max_to_keep]:
@@ -402,6 +414,10 @@ def quarantine(path: str, reason: str) -> str:
             f.write(reason + "\n")
     except OSError:                     # the rename is what matters
         log.exception("could not write %s in %s", _REASON_FILE, dst)
+    obs_metrics.REGISTRY.counter(
+        "dttpu_checkpoints_quarantined_total",
+        "Checkpoint dirs quarantined by verified restore.").inc()
+    obs_trace.instant("checkpoint_quarantine", path=dst, reason=reason)
     log.warning("quarantined checkpoint %s -> %s (%s)", path, dst, reason)
     return dst
 
@@ -410,13 +426,16 @@ def restore_latest_good(target: Any, ckpt_dir: str
                         ) -> Tuple[Optional[Any], Optional[str]]:
     """Restore the newest checkpoint that verifies and restores; each
     one that fails is quarantined with its reason.  Returns ``(state,
-    path)``, or ``(None, None)`` when none survives."""
-    for path in reversed(all_checkpoints(ckpt_dir)):
-        ok, reason = verify(path, target=target)
-        if ok:
-            try:
-                return restore(target, path), path
-            except Exception as e:
-                reason = f"restore failed: {e!r}"
-        quarantine(path, reason)
-    return None, None
+    path)``, or ``(None, None)`` when none survives.  The whole walk
+    (checksums and quarantines included) is goodput's
+    ``checkpoint_restore``."""
+    with goodput_lib.account("checkpoint_restore"):
+        for path in reversed(all_checkpoints(ckpt_dir)):
+            ok, reason = verify(path, target=target)
+            if ok:
+                try:
+                    return restore(target, path), path
+                except Exception as e:
+                    reason = f"restore failed: {e!r}"
+            quarantine(path, reason)
+        return None, None

@@ -13,9 +13,9 @@ Hooks must not wait for the card unless they fire: metric values arrive
 as device tensors and are only read with ``float()`` inside a firing
 hook, so the training loop queues steps without host syncs.
 ``ProfilerHook`` runs ``torch.profiler`` (CPU and, with a card, CUDA
-activity) and writes a Chrome trace.  ``TraceHook`` and
-``MetricsExportHook`` need the JAX package's ``obs.trace`` and
-``obs.metrics``, which the port does not have yet.
+activity) and writes a Chrome trace.  ``TraceHook`` (host-timeline
+spans) and ``MetricsExportHook`` (the ``dttpu_*`` training series) feed
+an ``obs.Telemetry``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ log = logging.getLogger(__name__)
 
 __all__ = ["Hook", "StopAtStepHook", "CheckpointHook", "SummaryHook",
            "LoggingHook", "NaNHook", "ProfilerHook", "PreemptionHook",
-           "WatchdogHook", "EvalHook", "StepCounterHook"]
+           "WatchdogHook", "EvalHook", "StepCounterHook", "TraceHook",
+           "MetricsExportHook"]
 
 
 class Hook:
@@ -461,6 +462,169 @@ class WatchdogHook(Hook):
         if self._stop_evt is not None:
             self._stop_evt.set()
             self._thread.join(timeout=5)
+
+
+class TraceHook(Hook):
+    """Host-timeline spans for the training loop (``obs.trace``).
+
+    Per step this hook records a ``data_load`` span — the host gap from
+    the previous step's end to this step's start, where the batch fetch
+    and hook work live — and a ``step`` span over the whole
+    ``run_step``.  The ``dispatch`` span nested inside comes from
+    ``TrainSession(telemetry=...)`` itself, and ``checkpoint`` spans
+    from ``session.save()``.  The trace file is written at ``end`` AND
+    ``close``, so a crashed run still leaves its timeline on disk.
+
+    Step numbers in span args come from a host counter seeded once at
+    ``begin``, as in the JAX package (the port's ``session.step`` is a
+    host int too, so either would do).
+    """
+
+    def __init__(self, telemetry, save_every_steps: int = 0):
+        self.telemetry = telemetry
+        self.save_every_steps = save_every_steps
+        self._step = 0
+        self._gap_t0: Optional[float] = None
+        self._step_t0: Optional[float] = None
+
+    def begin(self, session) -> None:
+        from ..obs import trace as obs_trace
+        self.telemetry.start()
+        self._step = session.step
+        self.telemetry.tracer.instant("session_begin", step=self._step)
+        self._gap_t0 = obs_trace.now_us()
+
+    def before_step(self, session) -> None:
+        from ..obs import trace as obs_trace
+        now = obs_trace.now_us()
+        if self._gap_t0 is not None:
+            self.telemetry.tracer.add_span("data_load", self._gap_t0, now,
+                                           step=self._step + 1)
+        self._step_t0 = now
+
+    def after_step(self, session, metrics) -> None:
+        from ..obs import trace as obs_trace
+        now = obs_trace.now_us()
+        self._step += 1
+        if self._step_t0 is not None:
+            self.telemetry.tracer.add_span("step", self._step_t0, now,
+                                           step=self._step)
+        self._gap_t0 = now
+        if self.save_every_steps and \
+                self._step % self.save_every_steps == 0:
+            self.telemetry.save_trace()
+
+    def end(self, session) -> None:
+        self.telemetry.tracer.instant("session_end", step=self._step)
+        self.telemetry.save_trace()
+
+    def close(self, session) -> None:
+        self.telemetry.save_trace()
+
+
+class MetricsExportHook(Hook):
+    """Prometheus export for the training loop (``obs.metrics``; the
+    series and their names are the JAX package's, docs/OBSERVABILITY.md):
+
+    * ``dttpu_steps_total`` — counter, +1 per completed step;
+    * ``dttpu_step_time_seconds`` — histogram of host wall time per
+      ``run_step`` (the launches' issue time: the step returns before the
+      card finishes, so the window rates below carry the honest rate);
+    * ``dttpu_steps_per_second`` (+ ``dttpu_tokens_per_second`` /
+      ``dttpu_examples_per_second`` when sized) — window rates at hook
+      cadence;
+    * ``dttpu_retraces_total`` — counter of the tracer's ``retrace``
+      instants.  Registered for the same exposition as the JAX package;
+      the port has no jit, so nothing retraces and it stays 0;
+    * ``dttpu_live_arrays_bytes`` — gauge, ``obs.device
+      .live_arrays_bytes`` (the caching allocator's live bytes);
+    * ``dttpu_loss``, ``dttpu_grad_norm``, ``dttpu_nonfinite_grads`` —
+      gauges read from the step's metrics when present (the latter two
+      ride steps built with ``device_health=True``).
+
+    Per-step cost is two clock reads and two in-memory bumps; anything
+    that reads a device value (the pulled gauges' 0-d tensors) fires only
+    every ``every_steps``: hooks don't sync.
+    """
+
+    _PULLED = ("loss", "grad_norm", "nonfinite_grads")
+
+    def __init__(self, telemetry, every_steps: int = 10,
+                 tokens_per_step: Optional[int] = None,
+                 examples_per_step: Optional[int] = None):
+        self.telemetry = telemetry
+        self.every_steps = max(1, every_steps)
+        self.tokens_per_step = tokens_per_step
+        self.examples_per_step = examples_per_step
+        self._window = _RateWindow()
+        self._step = 0
+        self._t0: Optional[float] = None
+        self._retraces_seen = 0
+
+    def begin(self, session) -> None:
+        self.telemetry.start()
+        reg = self.telemetry.registry
+        self._steps = reg.counter(
+            "dttpu_steps_total", "Training steps completed.")
+        self._step_time = reg.histogram(
+            "dttpu_step_time_seconds",
+            "Host wall time per run_step (dispatch-only under async).")
+        self._rate = reg.gauge(
+            "dttpu_steps_per_second", "Steps/s over the last export window.")
+        self._retraces = reg.counter(
+            "dttpu_retraces_total",
+            "jit retraces observed by the telemetry tracer (0 in the "
+            "PyTorch port: it has no jit).")
+        self._live_bytes = reg.gauge(
+            "dttpu_live_arrays_bytes",
+            "Total bytes of live tensors on the card "
+            "(torch.cuda.memory_allocated).")
+        self._step = session.step
+        self._window.reset(self._step)
+
+    def before_step(self, session) -> None:
+        self._t0 = time.perf_counter()
+
+    def after_step(self, session, metrics) -> None:
+        if self._t0 is not None:
+            self._step_time.observe(time.perf_counter() - self._t0)
+        self._steps.inc()
+        self._step += 1
+        if self._step % self.every_steps:
+            return
+        self._export(metrics)
+
+    def _export(self, metrics: Optional[Dict]) -> None:
+        from ..obs import device as obs_device
+        reg = self.telemetry.registry
+        # an empty window (the end-of-session flush right after a periodic
+        # export) keeps the last rate instead of publishing a zero
+        if self._step > self._window._step0:
+            rate = self._window.rate(self._step)
+            self._rate.set(rate)
+            if self.tokens_per_step:
+                reg.gauge("dttpu_tokens_per_second",
+                          "Training throughput.").set(
+                              rate * self.tokens_per_step)
+            if self.examples_per_step:
+                reg.gauge("dttpu_examples_per_second",
+                          "Training throughput.").set(
+                              rate * self.examples_per_step)
+        seen = self.telemetry.tracer.instant_counts.get("retrace", 0)
+        if seen > self._retraces_seen:
+            self._retraces.inc(seen - self._retraces_seen)
+            self._retraces_seen = seen
+        self._live_bytes.set(obs_device.live_arrays_bytes())
+        if metrics:
+            for key in self._PULLED:
+                value = metrics.get(key)
+                if value is not None and _is_scalar(value):
+                    reg.gauge(f"dttpu_{key}",
+                              f"Last exported value of metrics[{key!r}]."
+                              ).set(float(value))
+
+    def end(self, session) -> None:
+        self._export(None)   # final window flush
 
 
 def _is_scalar(v) -> bool:

@@ -15,19 +15,30 @@ Counterpart of ``distributed_tensorflow_tpu/train/session.py``:
 The step function is ``make_custom_train_step``'s; its metrics are device
 tensors, and a hook that does not fire never reads them.
 
+Instrumentation, as in the JAX package: ``telemetry`` (an
+``obs.Telemetry``) wraps each step function call in a ``dispatch`` span
+and each save in a ``checkpoint`` span (and its duration in the
+``dttpu_checkpoint_save_seconds`` histogram); an active goodput
+accountant books each step call to ``step`` and each save to
+``checkpoint_save``; an active fault plan may poison a step's arguments
+(``nan_grads``, triggered by the pre-step count, a host int here).
+Without them each site costs one attribute check.
+
 Not yet ported: ``sharded_checkpoint=True`` (per-process chunk writes,
-with the parallelism slice) and ``telemetry`` (``obs.Telemetry`` spans,
-with the obs slice); both raise ``NotImplementedError``.
+with the parallelism slice) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, \
     Sequence, Tuple
 
 import torch
 
+from ..obs import goodput as goodput_lib
+from ..resilience import faults as faults_lib
 from . import checkpoint as ckpt_lib
 from .hooks import Hook
 
@@ -89,14 +100,12 @@ class TrainSession:
             raise NotImplementedError(
                 "sharded_checkpoint: per-process chunk checkpoints come "
                 "with the port's parallelism slice (torch.distributed)")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry: the port has no obs.Telemetry yet (the obs "
-                "slice); pass None")
         self.state = state
         self.step_fn = step_fn
         self.checkpoint_dir = checkpoint_dir
         self.hooks = list(hooks)
+        # the session never closes a telemetry object it was given
+        self.telemetry = telemetry
         self.is_chief = process_is_chief() if is_chief is None \
             else is_chief
         self.max_to_keep = max_to_keep
@@ -128,9 +137,19 @@ class TrainSession:
 
     def run_step(self, *args, **kwargs) -> Dict[str, Any]:
         """One training step: hooks, the step function, cursor advance."""
+        plan = faults_lib.active()
+        if plan is not None:
+            args = plan.on_step(self.step, args)
         for hook in self.hooks:
             hook.before_step(self)
-        self.state, metrics = self.step_fn(self.state, *args, **kwargs)
+        with goodput_lib.account("step"):
+            if self.telemetry is not None:
+                with self.telemetry.tracer.span("dispatch"):
+                    self.state, metrics = self.step_fn(self.state, *args,
+                                                       **kwargs)
+            else:
+                self.state, metrics = self.step_fn(self.state, *args,
+                                                   **kwargs)
         for hook in self.hooks:
             hook.after_step(self, metrics)
         return metrics
@@ -139,6 +158,17 @@ class TrainSession:
     def save(self) -> Optional[str]:
         """Chief-only checkpoint write; a no-op elsewhere and without a
         checkpoint dir."""
+        with goodput_lib.account("checkpoint_save"):
+            if self.telemetry is None:
+                return self._save_impl()
+            t0 = time.perf_counter()
+            with self.telemetry.tracer.span("checkpoint", step=self.step):
+                path = self._save_impl()
+            self.telemetry.checkpoint_seconds().observe(
+                time.perf_counter() - t0)
+            return path
+
+    def _save_impl(self) -> Optional[str]:
         if not self.checkpoint_dir or not self.is_chief:
             return None
         if self._async_ckpt is not None:
@@ -159,6 +189,8 @@ class TrainSession:
 
     # -- context manager --------------------------------------------------
     def __enter__(self) -> "TrainSession":
+        if self.telemetry is not None:
+            self.telemetry.start()      # idempotent; the hooks call it too
         for hook in self.hooks:
             hook.begin(self)
         return self

@@ -25,7 +25,11 @@ skip logic, the clip and the update, so every rank applies the same
 update.  The average of the ranks' means is the global batch's mean when
 the shards are equal, which ``parallel.round_batch_to_mesh`` guarantees.
 The JAX step gets the same average from its partitioner (a global-mean
-loss over a batch sharded on the mesh's ``data`` axis).
+loss over a batch sharded on the mesh's ``data`` axis).  A ``BatchNorm``
+takes the global batch's moments there: ``make_custom_train_step`` runs
+every loss function under ``ops.layers.cross_rank_moments``, so the
+norm's forward all-reduces its shard's sums and its backward the
+gradients of them.
 
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
@@ -54,11 +58,14 @@ the default path makes none.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..obs import device as obs_device
+from ..ops import layers
 from ..ops import losses as loss_lib
 from ..ops import metrics as metric_lib
 from ..optim import optimizers as opt_lib
@@ -130,15 +137,7 @@ def make_train_step(model, loss, optimizer: opt_lib.Optimizer,
     A thin adapter over ``make_custom_train_step`` (same options);
     ``mesh``: a ``parallel.Mesh``, under which each rank passes its shard
     of the global batch and the gradients, loss and metrics are averaged
-    over the ranks (see the module docstring).  A model holding a
-    ``BatchNorm`` is refused on a mesh of more than one rank: each rank
-    would normalise by its shard's moments, where the JAX step uses the
-    global batch's."""
-    if mesh is not None and mesh.size > 1 and _has_batchnorm(model):
-        raise NotImplementedError(
-            "BatchNorm on a data-parallel mesh of more than one rank: its "
-            "batch moments would be each rank's shard's, not the global "
-            "batch's (cross-rank moments are not ported)")
+    over the ranks (see the module docstring)."""
     loss_value_fn = loss_lib.get(loss)
 
     def loss_fn(params, model_state, batch, generator, train):
@@ -154,12 +153,6 @@ def make_train_step(model, loss, optimizer: opt_lib.Optimizer,
                                   loss_scale=loss_scale,
                                   device_health=device_health,
                                   skip_nonfinite=skip_nonfinite)
-
-
-def _has_batchnorm(model) -> bool:
-    from ..ops.layers import BatchNorm
-    return any(isinstance(l, BatchNorm) or _has_batchnorm(l)
-               for l in getattr(model, "layers", ()))
 
 
 def make_multi_train_step(model, loss, optimizer: opt_lib.Optimizer,
@@ -312,7 +305,8 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     the clip's ``grad_norm`` takes precedence.
 
     ``mesh``: a ``parallel.Mesh``; over a process group, the gradients,
-    loss and metrics are averaged over its ranks with one all-reduce and
+    loss and metrics are averaged over its ranks with one all-reduce, a
+    ``BatchNorm`` in ``loss_fn`` takes the global batch's moments, and
     the dropout generator is folded with the rank (module docstring)."""
     if skip_nonfinite and loss_scale:
         raise ValueError("loss_scale=True already skips non-finite "
@@ -320,6 +314,8 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     pol = prec_lib.policy(policy) if policy is not None else None
     dp = mesh if mesh is not None and mesh.group is not None else None
     replica = dp.rank if dp is not None else None
+    moments = (functools.partial(layers.cross_rank_moments, dp)
+               if dp is not None and dp.size > 1 else contextlib.nullcontext)
 
     def grad_of(params, model_state, batch, gen, ls):
         names = list(params)
@@ -327,8 +323,9 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         if pol is not None:
             p = pol.cast_to_compute(params)
             mb = pol.cast_to_compute(batch)
-        loss, (metrics, new_model_state) = loss_fn(p, model_state, mb, gen,
-                                                   True)
+        with moments():
+            loss, (metrics, new_model_state) = loss_fn(p, model_state, mb,
+                                                       gen, True)
         value = loss if ls is None else ls.scale(loss)
         grads = torch.autograd.grad(value, [params[n] for n in names])
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},

@@ -31,7 +31,7 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 57
+    assert len(modules) >= 76
     assert {f"{port.__name__}.{m}" for m in (
         "ops.quant", "models.llama", "ops.kernels.fused", "serve.adapters",
         "fleet.tenancy", "fleet.pagewire", "summary.crc32c",
@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax():
         "example", "example2", "outline_keras", "outline_tensorflow",
         "_launch", "models.sequential", "models.callbacks",
         "models.saving", "models.zoo", "optim.adafactor",
-        "data.augment")} <= set(modules)
+        "data.augment", "obs", "obs.metrics", "obs.trace", "obs.http",
+        "obs.goodput", "obs.reqtrace", "obs.critpath", "resilience",
+        "resilience.faults", "resilience.supervisor")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:
@@ -80,3 +82,28 @@ def test_entry_points_default_to_the_card():
         port.Engine(model, num_slots=1, max_len=32)
     eng = port.Engine(model, device="cpu", num_slots=1, max_len=32)
     assert eng.device.type == "cpu"
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Every import statement of ``chip_smoke.py``, at top level or
+    inside a phase, names neither JAX nor the JAX package; on a host
+    without a card the script fails before it prints a result."""
+    import ast
+    path = os.path.join(_REPO, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert "distributed_tensorflow_tpu_torch.obs" in names
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "distributed_tensorflow_tpu")]
+    assert not bad, bad
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, path], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

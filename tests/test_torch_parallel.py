@@ -21,6 +21,10 @@ held against the JAX package.
   within 1e-5 absolute (f32; the ranks' means averaged against one mean),
   and each rank issued one all-reduce a step.  ``init_process_group`` and
   each join are limited to 60 s, so a hang fails the test.
+- Two gloo ranks train a Dense (no bias) -> BatchNorm -> Dense model: the batch
+  moments are all-reduced, so parameters, running moments and losses
+  equal the JAX package's 2-device mesh within 1e-5, and a lone
+  ``BatchNorm`` on shards of 3 and 9 rows equals one process on 12.
 """
 import dataclasses
 import logging
@@ -214,3 +218,94 @@ def test_two_gloo_ranks_equal_the_jax_mesh_and_one_process(tmp_path):
                                 jax.tree_util.tree_leaves(want)):
             np.testing.assert_allclose(a, np.asarray(b), atol=TOL, rtol=0,
                                        err_msg=str(path))
+
+
+def _spawn_ranks(tmp_path, target, args_of, world=2):
+    """Run ``target(rank, world, port, *args_of(rank), out)`` on ``world``
+    spawned gloo ranks; each join limited to JOIN_S.  Returns the ranks'
+    npz outputs as dicts."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
+    procs = [ctx.Process(target=target,
+                         args=(r, world, port, *args_of(r), outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(JOIN_S)
+        assert not any(p.is_alive() for p in procs), "a rank hung"
+        assert [p.exitcode for p in procs] == [0] * world
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [dict(np.load(o)) for o in outs]
+
+
+def test_batchnorm_two_gloo_ranks_equal_the_jax_mesh(tmp_path):
+    """A model holding a ``BatchNorm`` trains on 2 gloo ranks as the JAX
+    package's ``make_train_step(mesh=...)`` does on a 2-device mesh: the
+    ranks' moments are the global batch's (the JAX jit over a sharded
+    batch), so parameters, running moments and losses agree within 1e-5.
+    The Dense before the norm has no bias: the norm removes the mean, so
+    such a bias's gradient is 0 up to round-off, and Adam turns round-off
+    of either sign into steps of up to lr.
+    A lone ``BatchNorm`` on shards of 3 and 9 rows equals one process on
+    the 12."""
+    import torch_dp_worker
+
+    world, steps, batch = 2, 4, 16
+
+    def build(lib):
+        return lib.serial(lib.Dense(16, use_bias=False), lib.BatchNorm(),
+                          lib.Dense(4, activation="sigmoid"))
+
+    jm = build(jops)
+    jo = jopt.adam(1e-2)
+    jstate = jtrain.init_train_state(jm, jo, jax.random.PRNGKey(0), (8,))
+    init = {k: v.detach().numpy().copy() for k, v in stack_params_from_jax(
+        jax.tree.map(np.asarray, jstate.params)).items()}
+    rng = np.random.default_rng(3)
+    xs = rng.normal(size=(steps, batch, 8)).astype(np.float32) * 2 + 1
+    ys = rng.uniform(size=(steps, batch, 4)).astype(np.float32)
+    ragged = rng.normal(size=(12, 5)).astype(np.float32) * 3 - 1
+
+    ranks = _spawn_ranks(tmp_path, torch_dp_worker.run_bn_rank,
+                         lambda r: (init, xs, ys, ragged))
+    for k in ("losses", "bn_mean", "bn_var", "ragged_mean", "ragged_var"):
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+
+    mesh = jmesh.data_parallel_mesh(jax.devices()[:world])
+    jstep = jtrain.make_train_step(jm, "mse", jo, mesh=mesh)
+    jlosses = []
+    for x, y in zip(xs, ys):
+        jstate, jmetrics = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        jlosses.append(float(jmetrics["loss"]))
+    np.testing.assert_allclose(ranks[0]["losses"], jlosses, atol=TOL,
+                               rtol=0)
+    jbn = jstate.model_state["batchnorm"]
+    for k in ("mean", "var"):
+        for r in ranks:
+            np.testing.assert_allclose(r[f"bn_{k}"], np.asarray(jbn[k]),
+                                       atol=TOL, rtol=0, err_msg=k)
+    got = stack_params_to_jax({k[2:]: torch.from_numpy(v)
+                               for k, v in ranks[0].items()
+                               if k.startswith("p_")})
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree_util.tree_leaves(jstate.params)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=TOL, rtol=0,
+                                   err_msg=str(path))
+
+    # unequal shards: the sums and counts make them exact
+    bn = tops.BatchNorm()
+    _, bn_state = bn.init(torch.Generator().manual_seed(0), (5,))
+    want_y, want = bn.apply({"gamma": torch.ones(5), "beta": torch.zeros(5)},
+                            bn_state, torch.from_numpy(ragged), train=True)
+    got_y = np.concatenate([ranks[0]["ragged_y"], ranks[1]["ragged_y"]])
+    np.testing.assert_allclose(got_y, want_y.numpy(), atol=TOL, rtol=0)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(ranks[0][f"ragged_{k}"], want[k].numpy(),
+                                   atol=TOL, rtol=0, err_msg=k)

@@ -35,8 +35,10 @@ only, through a few Adam steps).
   ``summary`` and ``lr_scale`` against the JAX package's.
 - ``make_multi_train_step`` (metrics stacked to ``[K]``) and
   ``make_masked_eval_step`` against the JAX builders.
-- A model with ``BatchNorm`` fits alike; on a mesh of 2 ranks it is
-  refused.
+- A model with ``BatchNorm`` fits alike; on a mesh of 2 ranks it
+  compiles (its moments are all-reduced; held against the JAX mesh in
+  ``tests/test_torch_parallel.py``), and two gloo ranks of its
+  ``fit(sample_weight=...)``, some weights 0, equal the JAX mesh's fit.
 - The entry points ``example2``, ``outline_keras`` and
   ``outline_tensorflow`` on ``--device=cpu``, their data loaders
   monkeypatched to a few hundred rows; with no card the default device
@@ -426,9 +428,10 @@ def test_batchnorm_model_fits_and_checkpoints_equal_jax(tmp_path):
     tm.save_weights(str(tmp_path / "w"))
     jm2.load_weights(str(tmp_path / "w"))
     _close(jm2.predict(xv), tm.predict(xv))
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        tmodels.Sequential(_bn(tops), device="cpu").compile(
-            mesh=tpar.Mesh(2, 0), **CLS_COMPILE)
+    # on a mesh of 2 it compiles now: the moments are all-reduced
+    # (2 gloo ranks against the JAX mesh: tests/test_torch_parallel.py)
+    tmodels.Sequential(_bn(tops), device="cpu").compile(
+        mesh=tpar.Mesh(2, 0), **CLS_COMPILE)
 
 
 def test_on_batch_methods_equal_jax(cls_data):
@@ -645,5 +648,61 @@ def test_two_gloo_ranks_fit_equals_the_jax_mesh(tmp_path):
             _close(r[f"e_{k}"], v, k)
         for i, w in enumerate(jm.get_weights()):
             _close(r[f"w{i}"], w, f"w{i}")
+    for k in ranks[0]:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+
+
+def test_two_gloo_ranks_weighted_batchnorm_fit_equals_the_jax_mesh(tmp_path):
+    """``fit(sample_weight=...)`` takes its own step builder: under a mesh
+    its ``BatchNorm`` still normalises by the global batch's moments, and
+    its loss divides by the global batch's count of non-zero weights
+    (the ranks' counts differ), as the JAX package's fit on a 2-device
+    mesh does."""
+    import torch_dp_worker
+
+    world = 2
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(64, 8)) * 2 + 1).astype(np.float32)
+    y = rng.uniform(size=(64, 4)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, size=64).astype(np.float32)
+    w[rng.random(64) < 0.3] = 0.0
+
+    def layers(lib):
+        return [lib.Dense(16, use_bias=False), lib.BatchNorm(),
+                lib.Dense(4, activation="sigmoid")]
+    jm = jmodels.Sequential(layers(jops), name="bn")
+    jm.compile("mean_squared_error", "adam",
+               mesh=jpar.data_parallel_mesh(jax.devices()[:world]))
+    jm.build((8,), seed=0)
+    weights = jm.get_weights()
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
+    procs = [ctx.Process(target=torch_dp_worker.run_weighted_bn_fit_rank,
+                         args=(r, world, port, weights, x, y, w, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(JOIN_S)
+        assert not any(p.is_alive() for p in procs), "a rank hung"
+        assert [p.exitcode for p in procs] == [0] * world
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks = [dict(np.load(o)) for o in outs]
+    jh = jm.fit(x, y, epochs=2, batch_size=16, sample_weight=w, verbose=0)
+    jbn = jm.state.model_state["batchnorm"]
+    for r in ranks:
+        for k, v in jh.history.items():
+            _close(r[f"h_{k}"], v, k)
+        for i, want in enumerate(jm.get_weights()):
+            _close(r[f"w{i}"], want, f"w{i}")
+        for k in ("mean", "var"):
+            _close(r[f"bn_{k}"], jbn[k], k)
     for k in ranks[0]:
         np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)

@@ -11,7 +11,8 @@ package's ``train/session.py`` and ``train/hooks.py``.
 - ``NaNHook(fail_fast=True)`` raises; ``PreemptionHook`` saves and stops
   on a signal sent to the process; ``WatchdogHook`` reports a stall;
   ``ProfilerHook`` writes a trace; ``is_chief=False`` writes nothing;
-  ``sharded_checkpoint`` and ``telemetry`` are not ported and raise.
+  ``sharded_checkpoint`` is not ported and raises; ``telemetry`` is
+  accepted (its spans and series: ``tests/test_torch_obs.py``).
 """
 import os
 import signal
@@ -213,5 +214,9 @@ def test_unported_options_raise():
     state = TrainState.create({}, None)
     with pytest.raises(NotImplementedError, match="parallelism"):
         TrainSession(state, _fake_step(1.0), sharded_checkpoint=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TrainSession(state, _fake_step(1.0), telemetry=object())
+    # telemetry is ported now: accepted and kept, never closed by the
+    # session (tests/test_torch_obs.py holds it against the JAX package)
+    from distributed_tensorflow_tpu_torch import obs as tobs
+    tele = tobs.Telemetry()
+    assert TrainSession(state, _fake_step(1.0),
+                        telemetry=tele).telemetry is tele
