@@ -34,7 +34,11 @@ sight and the survival of both paths: ``obs`` (the metrics registry and
 its ``/metrics`` endpoint, host traces, ``Telemetry``, goodput, request
 traces and critical paths) and ``resilience`` (fault plans and the
 auto-resume ``Supervisor``), wired into ``TrainSession``, the prefetch,
-checkpoints and the serving engine; it adds no kernel.  Kernels live
+checkpoints and the serving engine; it adds no kernel.  Slice 14 is the
+serving fleet: N engines behind ``fleet.Router`` (placement, retry, live
+migration over ``fleet.PageWire``, rolling operations), ``fleet.Watchdog``
+over the pump heartbeat, ``fleet.Autoscaler``, ``fleet.synthesize``
+traces and ``obs.FederatedMetrics``; it adds no kernel.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """

@@ -32,19 +32,22 @@ modules are copied, never imported), shared by training and serving:
         ...
     tele.close()     # writes trace-host0.json, stops the endpoint
 
-The JAX package's ``federate``, ``ledger`` and ``sentinel`` are not
-ported yet (they come with the fleet).  Disabled telemetry costs one
-attribute check per step.
+``obs.federate.FederatedMetrics`` merges the replicas' registries of a
+fleet into one ``/metrics``.  The JAX package's ``ledger`` and
+``sentinel`` are not ported yet.  Disabled telemetry costs one attribute
+check per step.
 """
 from __future__ import annotations
 
 import os
 from typing import Callable, Dict, Optional
 
-from . import critpath, device, goodput, http, metrics, reqtrace, trace
+from . import (critpath, device, federate, goodput, http, metrics,
+               reqtrace, trace)
 from .critpath import CritpathLedger
 from .device import (GRAD_NORM_KEY, NONFINITE_KEY, grad_health,
                      live_arrays_bytes, tree_bytes)
+from .federate import FederatedMetrics
 from .goodput import GoodputAccountant
 from .http import MetricsServer
 from .metrics import (Counter, Gauge, Histogram, Registry, REGISTRY,
@@ -53,10 +56,11 @@ from .trace import Tracer
 
 __all__ = ["Telemetry", "Tracer", "MetricsServer", "Registry", "REGISTRY",
            "Counter", "Gauge", "Histogram", "CritpathLedger",
-           "GoodputAccountant", "parse_exposition", "render_exposition",
+           "FederatedMetrics", "GoodputAccountant", "parse_exposition",
+           "render_exposition",
            "GRAD_NORM_KEY", "NONFINITE_KEY", "grad_health",
            "live_arrays_bytes", "tree_bytes", "critpath", "device",
-           "goodput", "http", "metrics", "reqtrace", "trace"]
+           "federate", "goodput", "http", "metrics", "reqtrace", "trace"]
 
 
 class Telemetry:

@@ -288,7 +288,7 @@ def forensic_dump(trace_id: str, reason: str,
     """Snapshot a victim's span tree into the forensics log (bounded)
     and onto the host timeline as a ``forensics`` instant.  Returns the
     tree, or None for an unknown id.  Caller: the scheduler at deadline
-    expiry (the fleet watchdog's quarantine, with the fleet slice)."""
+    expiry, and the fleet watchdog at a quarantine."""
     t = tree(trace_id)
     if t is None:
         return None

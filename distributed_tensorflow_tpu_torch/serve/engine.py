@@ -523,7 +523,7 @@ class Engine:
         for an adapter this engine no longer holds, or with the pump
         busy past ``timeout_s``."""
         manifest = snap.shipped_pages
-        ns = self._namespace(snap.adapter_id)
+        ns = self.prefix_namespace(snap.adapter_id)
         if not manifest or ns is None:
             return []
         return self.scheduler.export_chain_pages(
@@ -539,7 +539,7 @@ class Engine:
         chain, an adapter not loaded here (load it first: its pages are
         matched under its weights' digest), a full pool or a pump busy
         past ``timeout_s``."""
-        ns = self._namespace(snap.adapter_id)
+        ns = self.prefix_namespace(snap.adapter_id)
         if ns is None or not snap.page_size \
                 or snap.page_size != self.scheduler.page_size:
             return 0
@@ -547,10 +547,12 @@ class Engine:
                                                 timeout_s=timeout_s,
                                                 namespace=ns)
 
-    def _namespace(self, adapter_id: Optional[str]) -> Optional[bytes]:
-        """The prefix namespace of a snapshot's adapter here (``b""``
-        without one); None when this engine does not hold that adapter,
-        so that no page of it can be matched."""
+    def prefix_namespace(self, adapter_id: Optional[str]
+                         ) -> Optional[bytes]:
+        """The radix namespace a request under ``adapter_id`` is cached
+        in here (``b""`` without one; the page wire and the router's
+        affinity score key chains by it); None when this engine does not
+        hold that adapter, so that no page of it can be matched."""
         if adapter_id is None:
             return b""
         if self.adapters is None or not self.adapters.known(adapter_id):

@@ -73,7 +73,12 @@ fault plan, at the top of the pump (``on_engine_tick(chaos_tag)``:
 ``stall_tick``, ``wedge_replica``) and at token delivery
 (``on_decode(rid)``: ``fail_decode``, which fails that request only).
 With no tracer, ledger or plan active each site is one attribute check.
-The pump heartbeat of ``EngineStats`` comes with the fleet slice.
+
+Pump heartbeat: every tick is bracketed by ``ticks_started`` /
+``ticks_completed`` and ``perf_counter`` stamps in ``EngineStats``,
+written under ``_lock``, so ``fleet.Watchdog`` tells a wedged pump (a
+tick started and not completed) or a stalled one (the last tick too long)
+from an idle one without touching the pump thread.
 """
 from __future__ import annotations
 
@@ -253,6 +258,15 @@ class EngineStats:
     # the pool's bounded hot-chain digest (chain hash -> cached tokens)
     prefix_fingerprint: Dict[bytes, int] = dataclasses.field(
         default_factory=dict)
+    # pump heartbeat (fleet/watchdog.py): tick counters and perf_counter
+    # stamps bracketing the most recent tick; started > completed with a
+    # stale start stamp is a wedged pump, a completed tick longer than the
+    # watchdog's deadline a stalled one
+    ticks_started: int = 0
+    ticks_completed: int = 0
+    last_tick_start_s: float = 0.0           # perf_counter at tick entry
+    last_tick_end_s: float = 0.0             # perf_counter at tick exit
+    last_tick_duration_s: float = 0.0
 
     @property
     def inflight(self) -> int:
@@ -365,6 +379,12 @@ class SlotScheduler:
         self.adapters = adapters
         self.metrics = metrics if metrics is not None else _NullMetrics()
         self.chaos_tag = 0
+        # pump heartbeat, read by stats() under _lock
+        self._ticks_started = 0
+        self._ticks_completed = 0
+        self._tick_start_t = 0.0
+        self._tick_end_t = 0.0
+        self._last_tick_s = 0.0
         self.max_queue_depth = max_queue_depth
         self.tenancy = tenancy
         self.page_size = page_size
@@ -626,7 +646,12 @@ class SlotScheduler:
                         num_slots=self.num_slots,
                         inflight_per_tenant=dict(self._tenant_inflight),
                         tokens_inflight_per_tenant=dict(self._tenant_tokens),
-                        prefill_windows_skipped_total=self._windows_skipped)
+                        prefill_windows_skipped_total=self._windows_skipped,
+                        ticks_started=self._ticks_started,
+                        ticks_completed=self._ticks_completed,
+                        last_tick_start_s=self._tick_start_t,
+                        last_tick_end_s=self._tick_end_t,
+                        last_tick_duration_s=self._last_tick_s)
         if self.paged:
             p = self.pages.stats()
             for key in ("pages_total", "pages_free", "pages_per_request",
@@ -640,14 +665,36 @@ class SlotScheduler:
     def step(self) -> bool:
         """One tick: retire expired deadlines, start prefills for free
         slots, advance every in-flight prefill by one window, then one
-        decode run over the slots.  Returns False when fully idle."""
+        decode run over the slots.  Returns False when fully idle.
+
+        Each tick is bracketed by the pump heartbeat (``stats()``), the
+        signal ``fleet.Watchdog`` reads.  The end stamp is taken on the
+        host after ``_step_locked`` returns; the card has reached it too
+        when the tick read tokens back, because the tick's last read, the
+        decode run's copy of the emitted tokens to the host
+        (``_decode_tick``), waits for every kernel queued before it on
+        the stream.  A tick of mid-prefill windows only reads nothing, so
+        its windows finish on the card inside the next tick that does,
+        and their time is counted there."""
         with self._pump_lock:
+            start = time.perf_counter()
+            with self._lock:
+                self._ticks_started += 1
+                self._tick_start_t = start
             plan = faults_lib.active()
             if plan is not None:
                 # stall_tick sleeps and wedge_replica blocks here, inside
-                # the pump lock, as a pathological tick would
+                # the pump lock and the heartbeat, as a pathological tick
+                # would
                 plan.on_engine_tick(self.chaos_tag)
-            return self._step_locked()
+            try:
+                return self._step_locked()
+            finally:
+                end = time.perf_counter()
+                with self._lock:
+                    self._ticks_completed += 1
+                    self._tick_end_t = end
+                    self._last_tick_s = end - start
 
     def _step_locked(self) -> bool:
         did = False

@@ -31,7 +31,7 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 76
+    assert len(modules) >= 81
     assert {f"{port.__name__}.{m}" for m in (
         "ops.quant", "models.llama", "ops.kernels.fused", "serve.adapters",
         "fleet.tenancy", "fleet.pagewire", "summary.crc32c",
@@ -47,7 +47,9 @@ def test_every_port_module_imports_without_jax():
         "models.saving", "models.zoo", "optim.adafactor",
         "data.augment", "obs", "obs.metrics", "obs.trace", "obs.http",
         "obs.goodput", "obs.reqtrace", "obs.critpath", "resilience",
-        "resilience.faults", "resilience.supervisor")} <= set(modules)
+        "resilience.faults", "resilience.supervisor", "fleet.router",
+        "fleet.watchdog", "fleet.workload", "fleet.autoscaler",
+        "obs.federate")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:

@@ -13,6 +13,15 @@ the engine's page shipping, held against the JAX package.
   prefix cache adopts nothing.
 * Pages exported by the reference engine splice into the port engine and
   resume to the reference's tokens, and the reverse.
+* The sender, ``PageWire`` over ``InProcessLink``, equals the reference's
+  on the same records and fault plans: what the destination adopts, the
+  plan's audit trail and the ``dttpu_wire_*`` series (chunking, overlap,
+  drop, corrupt and stall retried, kill_host and exhausted retries a
+  ``WireError``, the degradations), and its seeded backoff delays.
+* The chaos matrix on a port fleet: ``drain_replica`` with the page wire
+  under each wire fault, pre- and mid-transfer, ends with the reference's
+  unmigrated tokens and an exact stream; kill_host degrades to
+  re-prefill.
 
 The tiny model's weight matrices are scaled 5x so that its greedy tokens
 vary (at init scale it repeats one token).
@@ -31,11 +40,15 @@ from distributed_tensorflow_tpu import serve as jserve
 from distributed_tensorflow_tpu.fleet import pagewire as jwire
 from distributed_tensorflow_tpu.models.gpt import gpt_tiny as jgpt_tiny
 from distributed_tensorflow_tpu.obs import metrics as metrics_lib
+from distributed_tensorflow_tpu.resilience import faults as jfaults
 from distributed_tensorflow_tpu.summary.crc32c import py_crc32c as jcrc
 from distributed_tensorflow_tpu_torch import (GPT, Engine, GPTConfig,
                                               RequestSnapshot,
                                               load_jax_params)
+from distributed_tensorflow_tpu_torch import fleet as tfleet
 from distributed_tensorflow_tpu_torch.fleet import pagewire as wire
+from distributed_tensorflow_tpu_torch.obs import metrics as tmetrics
+from distributed_tensorflow_tpu_torch.resilience import faults as tfaults
 from distributed_tensorflow_tpu_torch.summary import crc32c as tcrc
 
 torch.set_num_threads(1)
@@ -272,3 +285,244 @@ def test_port_pages_resume_in_the_reference():
     jeng.drain()
     assert h2.tokens == _want(p, 10)
     assert jeng.stats().prefill_windows_skipped_total > 0
+
+
+# ---------------------------------------------------------------------------
+# the sender: PageWire over InProcessLink, against the reference's
+
+
+class _Snap:
+    """A shipped-pages manifest carrier for the wire's unit cases."""
+
+    def __init__(self, shipped, page_size):
+        self.shipped_pages = tuple(shipped)
+        self.page_size = page_size
+
+
+class _FakeDest:
+    """A destination that adopts everything (or refuses)."""
+
+    def __init__(self, fail=False):
+        self.calls = []
+        self.fail = fail
+
+    def import_wire_pages(self, snap, records, timeout_s=None):
+        if self.fail:
+            raise RuntimeError("destination pool exhausted")
+        self.calls.append([(r.index, r.chain, r.tokens) for r in records])
+        return len(records)
+
+
+_WIRES = {"jax": (jwire, jfaults, metrics_lib),
+          "torch": (wire, tfaults, tmetrics)}
+
+
+def _sender(pkg, **kw):
+    mod, _, mlib = _WIRES[pkg]
+    reg = mlib.Registry()
+    kw.setdefault("chunk_pages", 1)
+    kw.setdefault("backoff_base_s", 1e-4)
+    kw.setdefault("backoff_max_s", 1e-3)
+    kw.setdefault("sleep", lambda s: None)
+    return mod.PageWire(registry=reg, **kw), reg
+
+
+def _wire_series(pkg, reg):
+    fams = _WIRES[pkg][2].parse_exposition(reg.expose())
+    return {k: v for name, fam in fams.items()
+            if name.startswith("dttpu_wire_") and "seconds" not in name
+            for k, v in fam["samples"].items()}
+
+
+def _records(chains):
+    return [(i, c, {}) for i, c in enumerate(chains)]
+
+
+def _ship_case(pkg, faults=(), records=("a", "b", "c"), dest=None,
+               shipped=None, **kw):
+    """One ``ship`` under ``faults``: (adopted or the error's class name,
+    the destination's calls, the plan's log, the wire series)."""
+    _, flib, mlib = _WIRES[pkg]
+    sender, reg = _sender(pkg, **kw)
+    dest = dest if dest is not None else _FakeDest()
+    chains = [c.encode() for c in records]
+    snap = _Snap(shipped if shipped is not None else
+                 [(c, 4 * (i + 1)) for i, c in enumerate(chains)], 4)
+    plan = flib.FaultPlan(list(faults), registry=mlib.Registry())
+    with flib.activated(plan):
+        try:
+            got = sender.ship(_records(chains), dest, snap)
+        except Exception as e:
+            got = type(e).__name__
+    calls = getattr(dest, "calls", None)
+    return got, calls, plan.log, _wire_series(pkg, reg), \
+        reg.get("dttpu_wire_transfer_seconds").count
+
+
+_SHIP_CASES = {
+    # id: (ship arguments, adopted, retried)
+    "chunks_of_2": (dict(chunk_pages=2), 3, False),
+    "overlap_2": (dict(overlap=2), 3, False),
+    "drop": (dict(faults=[{"kind": "drop_chunk", "at": 0}]), 3, True),
+    "corrupt": (dict(faults=[{"kind": "corrupt_chunk", "at": 1}]), 3, True),
+    "stall": (dict(faults=[{"kind": "stall_wire", "at": 0,
+                            "seconds": 0.05}], timeout_s=0.01), 3, True),
+    "kill_host": (dict(faults=[{"kind": "kill_host", "at": 1}]),
+                  "WireError", False),
+    "retries_exhausted": (dict(faults=[{"kind": "drop_chunk", "at": i}
+                                       for i in range(3)],
+                               records=("a",), max_retries=2),
+                          "WireError", True),
+    "nothing": (dict(records=()), 0, False),
+    "no_wire_surface": (dict(dest=object()), 0, False),
+    "refused": (dict(dest=_FakeDest(fail=True)), 0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SHIP_CASES))
+def test_ship_equals_the_reference(name):
+    import copy
+    case, adopted, retried = _SHIP_CASES[name]
+    ref = _ship_case("jax", **copy.deepcopy(case))
+    got = _ship_case("torch", **copy.deepcopy(case))
+    assert got == ref
+    out, calls, log, series, timed = got
+    assert out == adopted
+    assert [e["kind"] for e in log] == [f["kind"] for f in
+                                        case.get("faults", ())][:len(log)]
+    assert (series[("dttpu_wire_chunk_retries_total", ())] > 0) == retried
+    if adopted == 3:
+        assert calls == [[(0, b"a", 4), (1, b"b", 8), (2, b"c", 12)]]
+        assert timed == 1
+    failed = series[("dttpu_wire_failures_total", ())]
+    assert failed == (1 if adopted == "WireError" or name == "refused"
+                      else 0)
+    if name == "kill_host":
+        assert calls == []
+
+
+def test_ship_splices_the_contiguous_prefix_only():
+    for pkg in ("jax", "torch"):
+        sender, reg = _sender(pkg)
+        dest = _FakeDest()
+        snap = _Snap([(b"a", 4), (b"b", 8)], 4)
+        assert sender.ship([(1, b"b", {})], dest, snap) == 0
+        assert dest.calls == []
+        assert _wire_series(pkg, reg)[("dttpu_wire_failures_total", ())] \
+            == 0
+
+
+def test_backoff_delays_equal_the_reference():
+    a, _ = _sender("jax", seed=5, backoff_base_s=0.002, backoff_max_s=0.05)
+    b, _ = _sender("torch", seed=5, backoff_base_s=0.002,
+                   backoff_max_s=0.05)
+    got = [b._delay(i) for i in range(1, 9)]
+    assert got == [a._delay(i) for i in range(1, 9)]
+    assert all(x <= 0.05 * 1.5 for x in got) and got[1] > got[0] * 1.5
+    with pytest.raises(ValueError, match="chunk_pages"):
+        wire.PageWire(chunk_pages=0, registry=tmetrics.Registry())
+    with pytest.raises(ValueError, match="overlap"):
+        wire.PageWire(overlap=0, registry=tmetrics.Registry())
+
+
+def test_link_applies_the_plan_per_frame():
+    link = wire.InProcessLink(wire_id=3)
+    frames = [b"x" * 16, b"y" * 16, b"z" * 16]
+    plan = tfaults.FaultPlan(
+        [{"kind": "drop_chunk", "at": 0, "replica": 3},
+         {"kind": "corrupt_chunk", "at": 1, "replica": 3},
+         {"kind": "kill_host", "at": 5, "replica": 3}],
+        registry=tmetrics.Registry())
+    with tfaults.activated(plan):
+        out = link.deliver(frames)
+        assert out[0] is None and out[2] == frames[2]
+        assert out[1] != frames[1] and len(out[1]) == 16
+        assert link.deliver(frames[:2]) == frames[:2]
+        with pytest.raises(ConnectionError):
+            link.deliver(frames[:1])
+    assert link.deliver(frames) == frames          # no plan: clean
+
+
+def test_pagewire_ships_engine_pages_and_resume_skips_windows():
+    src, dst = _engine(), _engine()
+    page = src.scheduler.page_size
+    p, snap = _exported(src, seed=13)
+    records = src.export_wire_pages(snap)
+    sender, reg = _sender("torch", chunk_pages=2)
+    before = dst.stats()
+    assert sender.ship(records, dst, snap) == 2
+    assert sender.ship(records, dst, snap) == 2        # idempotent
+    h = dst.import_request(snap)
+    dst.drain()
+    after = dst.stats()
+    assert h.status == "ok" and h.tokens == _want(p, 10)
+    assert after.prefix_tokens_reused_total \
+        - before.prefix_tokens_reused_total >= 2 * page
+    series = _wire_series("torch", reg)
+    assert series[("dttpu_wire_transfers_total", ())] == 2
+    assert series[("dttpu_wire_pages_shipped_total", ())] == 4
+
+
+@pytest.fixture(scope="module")
+def wire_fleet():
+    """One two-engine port fleet with a page wire, shared by the chaos
+    matrix (each case migrates a fresh prompt)."""
+    reg = tmetrics.Registry()
+    engines = [_engine(registry=reg) for _ in range(2)]
+    sender = wire.PageWire(chunk_pages=1, timeout_s=0.05,
+                           backoff_base_s=1e-4, backoff_max_s=1e-3,
+                           registry=reg)
+    return engines, tfleet.Router(engines, registry=reg,
+                                  page_wire=sender), reg
+
+
+_WIRE_KINDS = ["none", "drop_chunk", "corrupt_chunk", "stall_wire",
+               "kill_host"]
+
+
+@pytest.mark.parametrize("at", [0, 1], ids=["pre_transfer",
+                                            "mid_transfer"])
+@pytest.mark.parametrize("kind", _WIRE_KINDS)
+def test_router_wire_migration_chaos_matrix(wire_fleet, kind, at):
+    """drain_replica with the page wire under each wire fault, armed at
+    the first frame and the second: the request ends with the
+    reference's unmigrated tokens and a stream without a gap or a
+    repeat; recoverable faults still ship (retry), kill_host degrades
+    to re-prefill."""
+    engines, router, reg = wire_fleet
+    page = engines[0].scheduler.page_size
+    p = _prompt(2 * page - 2, 200 + 10 * at + _WIRE_KINDS.index(kind))
+    c0 = {k: reg.get(k).value for k in (
+        "dttpu_router_wire_migrations_total",
+        "dttpu_router_wire_degraded_total",
+        "dttpu_wire_chunk_retries_total", "dttpu_migrations_total")}
+    faults = ([] if kind == "none" else
+              [{"kind": kind, "at": at, "replica": 0, "seconds": 0.2}])
+    plan = tfaults.FaultPlan(faults, registry=tmetrics.Registry())
+    stream = []
+    with tfaults.activated(plan):
+        h = router.submit(p, 8, on_token=stream.extend)
+        while len(h.tokens) < 5:
+            router.step()
+        victim = h.replica_id
+        survivor = engines[1 - victim].stats()
+        assert router.drain_replica(victim, timeout_s=60) is True
+        while not h.done:
+            router.step()
+    router.resume_replica(victim)
+    d = {k: reg.get(k).value - v for k, v in c0.items()}
+    assert [e["kind"] for e in plan.log] == [k["kind"] for k in faults]
+    assert h.status == "ok" and h.tokens == _want(p, 8)
+    assert stream == h.tokens
+    assert d["dttpu_migrations_total"] == 1
+    skipped = engines[1 - victim].stats().prefill_windows_skipped_total \
+        - survivor.prefill_windows_skipped_total
+    if kind == "kill_host":
+        assert d["dttpu_router_wire_degraded_total"] == 1
+        assert d["dttpu_router_wire_migrations_total"] == 0
+    else:
+        assert d["dttpu_router_wire_migrations_total"] == 1
+        assert d["dttpu_router_wire_degraded_total"] == 0
+        assert skipped >= 2 * page // 4
+        assert (d["dttpu_wire_chunk_retries_total"] > 0) \
+            == (kind != "none")
