@@ -328,6 +328,37 @@ no result lines:
    ``MetricsServer`` on loopback and scraped: each replica's series under
    its ``replica`` label, and the ``dttpu_slo_*`` series.
 
+22. zoo (after phase 19): the encoder zoo.  (a) The flash kernel on its
+   new routes against its plain version (forward out and lse, and the
+   backward through ``flash_attention``'s autograd route), timed beside
+   the plain version, ``F.scaled_dot_product_attention`` with the
+   boolean key mask (the backend it took is logged) and the bound:
+   BERT-base's bidirectional attention with key padding ([128, 128, 12,
+   64] bf16, lengths from ``--seed``, one row with no valid key),
+   ViT-B/16's 197 tokens ([64, 197, 12, 64] bf16), and the head dims
+   the wrapper zero-pads to 64: train_vit's [64, 17, 4, 16] f32 and
+   finetune_bert's [32, 32, 4, 32] bf16; LayerNorm at [16384, 768],
+   eps 1e-12, in bf16 within phase 3's tolerance and in f32 (the
+   embeddings' norm) within F32_TOL, beside ``F.layer_norm``.  (b)
+   BERT-base MLM, ``bench_bert``'s row as promoted (seq 128, 25 gathered
+   predictions, remat "dots", batch ladder 128/96/48/24 descending on
+   out-of-memory, bf16, dropout 0, ``adamw(1e-4)``, clip 1.0, 2 + 10
+   steps), and an arm without those levers at batch 96: step ms,
+   tokens/s, peak memory, finite losses, exact launches.  (c) A 2-layer
+   BERT in f32 with TF32 off, card against CPU with a ragged mask:
+   logits, then 3 steps' losses and parameters.  (d) ViT-B/16 at 224,
+   bf16, batch 64, 2 + 10 steps (images/s, exact launches), and the
+   ``train_vit`` entry point at its defaults (300 steps) in-process: its
+   eval accuracy above chance.  (e) ``finetune_bert`` at its defaults
+   and with ``--mlm_steps=4 --mlm_predictions_per_seq=8``, exact
+   launches.  (f) ResNet-50, ``bench_resnet50``'s row (224,
+   ``mixed_bfloat16``, ``momentum(0.1, beta=0.9)``, ladder
+   512/256/128/64, 2 + 10 steps: examples/s), and ``resnet_cifar`` card
+   against CPU in f32 (2 steps: losses, parameters, BatchNorm moments).
+   (g) ``Seq2SeqConfig()`` at full width in bf16 (batch 32, 128 + 128
+   tokens, 2 + 10 steps), and greedy ``generate`` of 32 tokens on a
+   2 + 2-layer f32 copy: the card's tokens equal the CPU's.
+
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
 ``session_launches`` for those of phase 17's session, (e) and (f);
@@ -335,8 +366,9 @@ The last lines are the kernels' JSON record (``launches`` from phases 4,
 ``seq_launches`` for Adam on phase 19's three entry point runs and
 LayerNorm in (g); ``obs_launches`` for the kernels of phase 20's (a) and
 (c); ``fleet_launches`` for the serving kernels of phase 21 (a)'s fleet
-run), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+run; ``zoo_launches`` for the training kernels of phase 22's (b), (d),
+(e) and (g)), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -355,6 +387,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense
+F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 
 DECODE_TOL = 2e-2     # bf16: the plain version rounds logits and weights
 WINDOW_TOL = 2e-2
@@ -1683,14 +1716,15 @@ def _read_counts(torch):
             "paged": sum(pa.LAUNCHES.values())}
 
 
-def _driven(torch, fn):
+def _driven(torch, fn, read=None):
     """(fn's result, host seconds, launch counts) of one run of ``fn``,
-    with every count set to 0 just before it and read just after."""
+    with every count set to 0 just before it and read just after
+    (``read(torch)``: ``_read_counts`` by default)."""
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
-    counts = _read_counts(torch)
+    counts = (read or _read_counts)(torch)
     return out, time.perf_counter() - t0, counts
 
 
@@ -5424,6 +5458,666 @@ def check_fleet(torch, np, args, smi, paged):
     return launches
 
 
+# the encoder zoo (phase 22).  (a) the flash kernel's new routes at the
+# zoo's shapes: BERT-base's bidirectional attention with key padding
+# (bench_bert's batch 128 x 128, 12 heads of 64, bf16; lengths drawn
+# from --seed, one row with no valid key), ViT-B/16's 197 tokens at batch
+# 64 (three full 64-row tiles and a ragged one, unmasked), and the
+# padded head dims of the two entry points (train_vit: f32, batch 64 of
+# 17 tokens, 4 heads of 16; finetune_bert: bf16, batch 32 of 32 tokens,
+# 4 heads of 32); LayerNorm at BERT-base's rows (128 x 128 = 16,384 of
+# 768, bf16, eps 1e-12).  (b) bench_bert's row as the JAX package's
+# bench promotes it (docs/PROMOTED.json: the gathered head at seq // 5 =
+# 25 predictions, remat "dots"), on its batch ladder, beside an arm
+# without those levers at batch 96; (d) ViT-B/16 at 224 beside it;
+# (f) bench_resnet50's row; (g) Seq2SeqConfig() at full width.  Each
+# arm takes ZOO_WARMUP + ZOO_STEPS steps on one batch
+ZOO_BERT_SEQ = 128
+ZOO_BERT_GATHER = ZOO_BERT_SEQ // 5
+ZOO_BERT_LADDER = (128, 96, 48, 24)
+ZOO_BERT_PLAIN_BATCH = 96
+ZOO_VIT_BATCH = 64
+ZOO_RESNET_LADDER = (512, 256, 128, 64)
+ZOO_S2S_BATCH, ZOO_S2S_LEN, ZOO_S2S_GEN = 32, 128, 32
+ZOO_WARMUP, ZOO_STEPS = 2, 10
+ZOO_LR = 1e-4
+# (c), (f) and (g)'s card-against-CPU references, f32 with TF32 off: the
+# logits within ZOO_LOGIT_TOL of their scale (summation order), losses
+# and parameters after the steps within phase 7's TRAIN_LOSS_TOL and
+# TRAIN_PARAM_TOL; the ResNet's BatchNorm moments within TRAIN_LOSS_TOL
+ZOO_LOGIT_TOL = 1e-4
+
+
+def _zoo_driven(torch, fn):
+    """``_driven`` reading the training kernels' launches."""
+    return _driven(torch, fn, _train_counts)
+
+
+def _zoo_expect(name, counts, want):
+    """Fail unless every kernel in ``want`` launched exactly that often."""
+    bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+           if counts.get(k, 0) != n}
+    if bad:
+        raise AssertionError(f"{name}: launches (got, expected) {bad}")
+
+
+def _sdpa_backend(torch, q, k, v, mask):
+    """The name of the backend SDPA dispatches these inputs to."""
+    choice = int(torch.ops.aten._fused_sdp_choice(q, k, v, mask, 0.0,
+                                                  False))
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(choice).name
+    except (ImportError, ValueError):
+        return str(choice)
+
+
+def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
+                    iters):
+    """One of (a)'s flash cases: the forward (out, lse) and the backward
+    through ``flash_attention``'s autograd route (the padding of head
+    dims 16 and 32 included) against the plain versions; times of the
+    forward and of the backward's two kernels beside their plain
+    versions, SDPA (the boolean key mask) and the bound: Q, O (and dO,
+    dQ, dK, dV) once each, K and V of the valid keys only, and the
+    operations of the (query, valid key) pairs."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+
+    def rnd():
+        return torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    valid = None
+    if lengths is not None:
+        valid = (torch.arange(s, device=dev)[None, :]
+                 < torch.as_tensor(lengths, device=dev)[:, None])
+    rel = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+    out, lse = fa.flash_forward(q, k, v, valid, False)
+    errs = {"flash_forward": [
+        _err_and_scale(torch, got, want) for got, want in
+        zip((out, lse), fa.flash_forward_plain(q, k, v, valid, False))]}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    y = fa.flash_attention(*leaves, kv_valid=valid)
+    got = (y, *torch.autograd.grad(y, leaves, do))
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    y0 = fa.flash_attention_plain(*plain, kv_valid=valid)
+    want = (y0, *torch.autograd.grad(y0, plain, do))
+    errs["flash_forward"].append(_err_and_scale(torch, got[0], want[0]))
+    errs["flash_backward_dq"] = [_err_and_scale(torch, got[1], want[1])]
+    errs["flash_backward_dkv"] = [_err_and_scale(torch, g, w) for g, w in
+                                  zip(got[2:], want[2:])]
+    torch.cuda.synchronize()
+    for name, es in errs.items():
+        err, tol = max(e for e, _ in es), rel * max(sc for _, sc in es)
+        log({"check": name, "case": label, "max_abs_err": err, "tol": tol})
+        if not err <= tol:
+            raise AssertionError(f"{name} disagrees ({label}): {err} > "
+                                 f"{tol}")
+    del leaves, plain, got, want, y, y0
+
+    # times: the forward as the path calls it (the padding and the slice
+    # included at head dims 16 and 32), the backward's two kernels on the
+    # padded operands _Flash holds
+    sc = 1.0 / hd ** 0.5
+    pq, pk, pv, pdo = fa._pad_head_dim(q, k, v, do)
+    vb = fa._checked(pq, pk, pv, valid)
+    pout, plse = fa._launch_forward(pq, pk, pv, vb, False, sc)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = None if valid is None else valid[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_out = sdpa()
+    dot = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    n_keys = b * s if lengths is None else int(sum(lengths))
+    tensor = b * s * h * hd * q.element_size()
+    kv_read = 2 * tensor * n_keys / (b * s)     # K and V of the valid keys
+    row = b * h * s * 4
+    vbytes = 0 if valid is None else b * s
+    pairs = h * hd * s * n_keys          # (query, valid key) pairs x hd
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    calls = {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, valid, False),
+            lambda: fa.flash_forward_plain(q, k, v, valid, False), sdpa,
+            (2 * tensor + kv_read + row + vbytes, 4 * pairs)),
+        "flash_backward": (
+            lambda: fa._backward(pq, pk, pv, vb, pdo, pout, plse, False, sc),
+            lambda: fa.flash_backward_plain(q, k, v, valid, do, out, lse,
+                                            False), sdpa_bwd,
+            (6 * tensor + kv_read + row + vbytes, 14 * pairs))}
+    backend = _sdpa_backend(torch, qt.detach(), kt.detach(), vt.detach(),
+                            mask)
+    for name, (kern, plain_fn, lib, (nbytes, flops)) in calls.items():
+        # an autograd backward is not captured (a failed capture can
+        # leave the context unusable): its graph time stays None
+        lib_graph, why = ((None, "autograd backward: not captured")
+                          if lib is sdpa_bwd
+                          else _graph_or_why(torch, lib, iters))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        log({"time": name, "case": label,
+             "shape": f"q[{b},{s},{h},{hd}] {str(dtype)[6:]} bidirectional"
+                      + ("" if valid is None else " kv_valid"),
+             "ms": time_ms(torch, kern, iters),
+             "graph_ms": graph_ms(torch, kern, iters),
+             "plain_ms": time_ms(torch, plain_fn, max(5, iters // 10)),
+             "library_ms": time_ms(torch, lib, iters),
+             "library_graph_ms": lib_graph, "library_graph_note": why,
+             "library": "F.scaled_dot_product_attention(attn_mask=bool "
+                        "[b,1,1,s])" + (" backward, dq dk dv together"
+                                        if name != "flash_forward" else ""),
+             "sdpa_backend": backend,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "keys_valid": n_keys, "keys": b * s})
+    torch.cuda.synchronize()
+
+
+def _zoo_layernorm(torch, fused, gen, iters):
+    """(a)'s LayerNorm at BERT-base's rows, eps 1e-12, on phase 3's
+    unit-scale inputs (gamma near 1, beta near 0, as a BERT norm starts),
+    in bf16 (the encoder's norms) and in f32 (the embeddings' norm, which
+    runs before the cast to bf16).  bf16: each element within phase 3's
+    LN_TOL at its own scale (LN_TOL x max(1, |plain|)): over 12.6M
+    unit-normal outputs some lie in [2, 4), where one bf16 rounding step
+    is 2^-6 = 0.0156 > LN_TOL; and every element of |plain| >= 0.5
+    within one bf16 ulp of it.  f32: within F32_TOL, as phase 19."""
+    import torch.nn.functional as F
+    rows, d = ZOO_BERT_LADDER[0] * ZOO_BERT_SEQ, 768
+    dev = torch.device("cuda")
+    x32 = torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.5
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(d, generator=gen, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = x32.to(dtype)
+        case = ("bert_base_rows_eps1e-12" if dtype == torch.bfloat16
+                else "bert_base_embedding_rows_eps1e-12_f32")
+        got = fused.fused_layernorm(x, gamma, beta, 1e-12).float()
+        want = fused.layernorm_plain(x, gamma, beta, 1e-12).float()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        if dtype == torch.bfloat16:
+            scaled = (diff / torch.clamp(want.abs(), min=1.0)).max().item()
+            big = want.abs() >= 0.5
+            ulps = _bf16_ulps(torch, got[big], want[big])
+            log({"check": "layernorm", "case": case, "max_abs_err": err,
+                 "max_err_at_scale": scaled, "tol": LN_TOL,
+                 "max_bf16_ulps_where_abs_ge_0.5": ulps,
+                 "elements_over_tol_abs": int((diff > LN_TOL).sum().item())})
+            if not (scaled <= LN_TOL and ulps <= 1.0):
+                raise AssertionError(f"layernorm disagrees at eps 1e-12: "
+                                     f"{err} ({scaled} at scale, {ulps} "
+                                     "ulps)")
+        else:
+            log({"check": "layernorm", "case": case, "max_abs_err": err,
+                 "tol": F32_TOL})
+            if not err <= F32_TOL:
+                raise AssertionError(f"f32 layernorm disagrees at eps "
+                                     f"1e-12: {err}")
+        g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
+
+        def kern():
+            return fused.fused_layernorm(x, gamma, beta, 1e-12)
+
+        def lib():
+            return F.layer_norm(x, (d,), g_lib, b_lib, 1e-12)
+        b_ms, b_by = bound_ms(2 * x.numel() * x.element_size() + 2 * d * 4,
+                              8.0 * x.numel())
+        log({"time": "layernorm", "case": case,
+             "shape": f"[{rows}, {d}] {str(dtype)[6:]}",
+             "ms": time_ms(torch, kern, iters),
+             "graph_ms": graph_ms(torch, kern, iters),
+             "plain_ms": time_ms(torch, lambda: fused.layernorm_plain(
+                 x, gamma, beta, 1e-12), max(5, iters // 10)),
+             "library_ms": time_ms(torch, lib, iters),
+             "library_graph_ms": graph_ms(torch, lib, iters),
+             "library": f"F.layer_norm ({str(dtype)[6:]} gamma, beta)",
+             "bound_ms": b_ms, "bound_by": b_by})
+        del got, want, diff
+
+
+def _zoo_steps(torch, np, step, state, batch):
+    """ZOO_WARMUP + ZOO_STEPS steps on one batch: (losses, timed seconds,
+    peak GB); fails on a non-finite loss."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(ZOO_WARMUP):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return losses, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _zoo_ladder(torch, name, ladder, run):
+    """(batch, ``run(batch)``) on the first rung of ``ladder`` that fits;
+    a rung that raises ``torch.cuda.OutOfMemoryError`` is logged and the
+    next one tried (bench.py's ``_run_batch_ladder``)."""
+    for batch in ladder:
+        try:
+            return batch, run(batch)
+        except torch.cuda.OutOfMemoryError as e:
+            log({"zoo": name, "rung": batch, "oom": str(e).splitlines()[0]
+                 [:160]})
+        torch.cuda.empty_cache()
+    raise AssertionError(f"{name}: every rung of {ladder} ran out of memory")
+
+
+def _bert_arm(torch, np, args, smi, name, batches, gather, remat):
+    """(b): BERT-base MLM at seq 128, bf16, dropout 0, adamw(1e-4), clip
+    1.0, bench_bert's batch (ids, labels, a 15% mask, every position
+    valid); the launches a step written before the run and checked."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    from distributed_tensorflow_tpu_torch.models import bert
+    config = bert.BertConfig(max_position=ZOO_BERT_SEQ, dtype=torch.bfloat16,
+                             dropout_rate=0.0, mlm_predictions_per_seq=gather,
+                             remat=remat, remat_policy="dots")
+    model = bert.Bert(config)
+    L = config.num_layers
+    # the flash forward once a layer (twice under remat: the backward
+    # recomputes each layer, and no policy saves a kernel the dispatcher
+    # never sees), dK/dV and dQ once; LayerNorm the embeddings', 2 a
+    # layer and the MLM head's (and 2 a layer recomputed); Adam once a
+    # leaf (5 + 16 a layer + 7)
+    per_step = {"flash_forward": L * (2 if remat else 1),
+                "flash_backward_dkv": L, "flash_backward_dq": L,
+                "layernorm": 2 * L + 2 + (2 * L if remat else 0),
+                "fused_adam": 5 + 16 * L + 7}
+
+    def run(b):
+        params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+        opt = adamw(ZOO_LR, mask=model.decay_mask)
+        state = TrainState.create(params, opt.init(params))
+        step = make_custom_train_step(model.mlm_loss_fn(), opt,
+                                      seed=args.seed, grad_clip_norm=1.0)
+        rng = np.random.default_rng(args.seed)
+        host = {"input_ids": rng.integers(0, config.vocab_size,
+                                          (b, ZOO_BERT_SEQ)),
+                "labels": rng.integers(0, config.vocab_size,
+                                       (b, ZOO_BERT_SEQ)),
+                "mlm_mask": (rng.random((b, ZOO_BERT_SEQ)) < 0.15
+                             ).astype(np.float32),
+                "attention_mask": np.ones((b, ZOO_BERT_SEQ), np.int32)}
+        data = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        try:
+            return _zoo_driven(torch, lambda: _zoo_steps(torch, np, step,
+                                                         state, data))
+        finally:
+            del params, state, step, data
+    batch, ((losses, wall, peak), _, counts) = _zoo_ladder(
+        torch, name, batches, run)
+    step_ms = wall / ZOO_STEPS * 1e3
+    log({"zoo": name, "batch": batch, "seq": ZOO_BERT_SEQ,
+         "mlm_predictions_per_seq": gather,
+         "remat_policy": "dots" if remat else None, "steps": ZOO_STEPS,
+         "step_ms": step_ms,
+         "tokens_per_s": batch * ZOO_BERT_SEQ / (step_ms / 1e3),
+         "peak_memory_gb": peak, "losses": losses, "launches": counts,
+         "launches_per_step": per_step, "card": smi})
+    _zoo_expect(name, counts, {k: n * (ZOO_WARMUP + ZOO_STEPS)
+                               for k, n in per_step.items()})
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _card_and_cpu(torch, init, run):
+    """``run(params, device)`` from copies of ``init`` on the card and
+    on the CPU."""
+    return [run({k: v.detach().clone().to(device).requires_grad_()
+                 for k, v in init.items()}, device)
+            for device in ("cuda", "cpu")]
+
+
+def _bert_reference(torch, np):
+    """(c): a 2-layer BERT (head dim 64) in f32 on the card and on the
+    CPU from the same weights with a ragged attention_mask: logits, then
+    3 adamw steps of the gathered head: losses and parameters."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    from distributed_tensorflow_tpu_torch.models import bert
+    model = bert.bert_tiny(dropout_rate=0.0, mlm_predictions_per_seq=12)
+    rng = np.random.default_rng(5)
+    b, s = 6, 48
+    lengths = rng.integers(1, s + 1, b)
+    lengths[0] = s
+    host = {"input_ids": rng.integers(0, 1000, (b, s)),
+            "labels": rng.integers(0, 1000, (b, s)),
+            "mlm_mask": (rng.random((b, s)) < 0.3).astype(np.float32),
+            "attention_mask": (np.arange(s)[None] < lengths[:, None])
+            .astype(np.int32)}
+
+    def run(params, device):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        with torch.no_grad():
+            seq = model.apply(params, batch["input_ids"],
+                              attention_mask=batch["attention_mask"])
+            logits = model.mlm_logits(params, seq).cpu()
+        opt = adamw(ZOO_LR, mask=model.decay_mask)
+        state = TrainState.create(params, opt.init(params))
+        step = make_custom_train_step(model.mlm_loss_fn(), opt,
+                                      grad_clip_norm=1.0)
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        return logits, losses, {k: p.detach().cpu()
+                                for k, p in state.params.items()}
+    (cl, closs, cp), (pl, ploss, pp) = _card_and_cpu(
+        torch, model.init(torch.Generator().manual_seed(0)), run)
+    err, scale = _err_and_scale(torch, cl, pl)
+    loss_err = max(abs(a - c) for a, c in zip(closs, ploss))
+    param_err = max((cp[k] - pp[k]).abs().max().item() for k in pp)
+    log({"zoo": "(c) bert card vs CPU", "logit_err": err,
+         "logit_tol": ZOO_LOGIT_TOL * scale, "card_losses": closs,
+         "cpu_losses": ploss, "loss_err": loss_err,
+         "loss_tol": TRAIN_LOSS_TOL, "param_err": param_err,
+         "param_tol": TRAIN_PARAM_TOL, "lengths": lengths.tolist()})
+    if not (err <= ZOO_LOGIT_TOL * scale and loss_err <= TRAIN_LOSS_TOL
+            and param_err <= TRAIN_PARAM_TOL):
+        raise AssertionError("BERT: card and CPU disagree")
+
+
+def _resnet_reference(torch, np):
+    """(f): resnet_cifar in f32 on the card and on the CPU over 2
+    momentum(0.01) steps: losses, parameters and the BatchNorm moments."""
+    from distributed_tensorflow_tpu_torch import optim, train
+    from distributed_tensorflow_tpu_torch.models import resnet
+    from distributed_tensorflow_tpu_torch.ops.layers import _flat, _nest
+
+    def flat_cpu(tree):
+        return {k: v.detach().cpu() for k, v in _flat(tree, "").items()}
+    model = resnet.resnet_cifar()
+    init, init_state = model.init(torch.Generator().manual_seed(0),
+                                  (32, 32, 3))
+    rng = np.random.default_rng(6)
+    data = [(rng.standard_normal((8, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 10, 8)) for _ in range(2)]
+
+    def run(params, device):
+        mstate = _nest({k: v.to(device)
+                        for k, v in _flat(init_state, "").items()})
+        opt = optim.momentum(0.01, beta=0.9)
+        state = train.TrainState.create(params, opt.init(params), mstate)
+        step = train.make_train_step(model, "sparse_categorical_crossentropy",
+                                     opt)
+        losses = []
+        for x, y in data:
+            state, m = step(state, (torch.from_numpy(x).to(device),
+                                    torch.from_numpy(y).to(device)))
+            losses.append(m["loss"].item())
+        return (losses, {k: p.detach().cpu()
+                         for k, p in state.params.items()},
+                flat_cpu(state.model_state))
+    (cl, cp, cs), (pl, pp, ps) = _card_and_cpu(torch, init, run)
+    loss_err = max(abs(a - b) for a, b in zip(cl, pl))
+    param_err = max((cp[k] - pp[k]).abs().max().item() for k in pp)
+    state_err = max((cs[k] - ps[k]).abs().max().item() for k in ps)
+    log({"zoo": "(f) resnet_cifar card vs CPU", "card_losses": cl,
+         "cpu_losses": pl, "loss_err": loss_err, "param_err": param_err,
+         "batchnorm_state_err": state_err, "loss_tol": TRAIN_LOSS_TOL,
+         "param_tol": TRAIN_PARAM_TOL, "state_tol": TRAIN_LOSS_TOL})
+    if not (loss_err <= TRAIN_LOSS_TOL and param_err <= TRAIN_PARAM_TOL
+            and state_err <= TRAIN_LOSS_TOL):
+        raise AssertionError("ResNet: card and CPU disagree")
+
+
+def _vit_base(torch, np, args, smi):
+    """(d): ViT-B/16 at 224, bf16, batch 64, adamw(1e-4), clip 1.0."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    from distributed_tensorflow_tpu_torch.models import vit
+    model = vit.vit_base(dtype=torch.bfloat16)
+    params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+    opt = adamw(ZOO_LR, mask=model.decay_mask)
+    state = TrainState.create(params, opt.init(params))
+    step = make_custom_train_step(model.loss_fn(), opt, seed=args.seed,
+                                  grad_clip_norm=1.0)
+    rng = np.random.default_rng(args.seed)
+    b = ZOO_VIT_BATCH
+    data = (torch.from_numpy(rng.random((b, 224, 224, 3), np.float32))
+            .cuda(), torch.from_numpy(rng.integers(0, 1000, b)).cuda())
+    (losses, wall, peak), _, counts = _zoo_driven(
+        torch, lambda: _zoo_steps(torch, np, step, state, data))
+    L = model.config.num_layers
+    per_step = {"flash_forward": L, "flash_backward_dkv": L,
+                "flash_backward_dq": L, "layernorm": 2 * L + 1,
+                "fused_adam": 4 + 16 * L + 4}
+    step_ms = wall / ZOO_STEPS * 1e3
+    log({"zoo": "(d) vit_b16", "batch": b, "tokens": 197,
+         "steps": ZOO_STEPS, "step_ms": step_ms,
+         "images_per_s": b / (step_ms / 1e3), "peak_memory_gb": peak,
+         "losses": losses, "launches": counts,
+         "launches_per_step": per_step, "card": smi})
+    _zoo_expect("(d) vit_b16", counts,
+                {k: n * (ZOO_WARMUP + ZOO_STEPS)
+                 for k, n in per_step.items()})
+    del params, state, step, data
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _eval_acc(out):
+    line = [x for x in out.splitlines() if x.startswith("eval accuracy:")]
+    if len(line) != 1:
+        raise AssertionError(f"no eval accuracy line in:\n{out}")
+    return float(line[0].split(":")[1])
+
+
+def _zoo_entry_points(torch, smi):
+    """(d) train_vit and (e) finetune_bert in-process on the card; their
+    launches checked exactly against the counts their steps imply."""
+    from distributed_tensorflow_tpu_torch.examples import (finetune_bert,
+                                                           train_vit)
+    counts = collections.Counter()
+
+    # train_vit: 4 layers, 4 + 16 x 4 + 4 = 72 leaves, 300 steps and one
+    # eval forward
+    (out, wall), _, c = _zoo_driven(
+        torch, lambda: _run_entry(torch, train_vit.main, ["--device=cuda"]))
+    acc = _eval_acc(out)
+    steps, L = 300, 4
+    log({"zoo": "(d) train_vit entry point", "wall_s": wall,
+         "step_ms": wall / steps * 1e3, "eval_accuracy": acc,
+         "printed": out.splitlines()[-3:], "launches": c, "card": smi})
+    _zoo_expect("train_vit", c, {
+        "flash_forward": L * (steps + 1), "flash_backward_dkv": L * steps,
+        "flash_backward_dq": L * steps,
+        "layernorm": (2 * L + 1) * (steps + 1),
+        "fused_adam": (8 + 16 * L) * steps})
+    if not acc > 1.0 / 4:
+        raise AssertionError(f"train_vit eval accuracy {acc} is not above "
+                             "chance (0.25)")
+    counts.update(c)
+
+    # finetune_bert: 2 layers, 5 + 16 x 2 + 7 BERT leaves and the
+    # classifier's 2; the classifier's loss runs no MLM head (5 LayerNorms
+    # a forward), the MLM steps do (6)
+    L, steps = 2, 150
+    for argv, mlm in ((["--device=cuda"], 0),
+                      (["--device=cuda", "--mlm_steps=4",
+                        "--mlm_predictions_per_seq=8"], 4)):
+        (out, wall), _, c = _zoo_driven(
+            torch, lambda: _run_entry(torch, finetune_bert.main, argv))
+        acc = _eval_acc(out)
+        log({"zoo": "(e) finetune_bert entry point", "argv": argv,
+             "wall_s": wall, "eval_accuracy": acc,
+             "printed": out.splitlines(), "launches": c, "card": smi})
+        _zoo_expect(f"finetune_bert {argv}", c, {
+            "flash_forward": L * (steps + mlm + 1),
+            "flash_backward_dkv": L * (steps + mlm),
+            "flash_backward_dq": L * (steps + mlm),
+            "layernorm": 5 * (steps + 1) + 6 * mlm,
+            "fused_adam": (5 + 16 * L + 7 + 2) * (steps + mlm)})
+        if mlm and not any(x.startswith("mlm step 4:")
+                           for x in out.splitlines()):
+            raise AssertionError(f"no 'mlm step 4:' line in:\n{out}")
+        counts.update(c)
+    return counts
+
+
+def _resnet50(torch, np, args, smi):
+    """(f): bench_resnet50's row: 224, mixed_bfloat16, momentum(0.1,
+    beta=0.9), on its batch ladder; the convolutions are cuDNN's and no
+    kernel of the port's runs (the momentum update has none)."""
+    from distributed_tensorflow_tpu_torch import optim, train
+    from distributed_tensorflow_tpu_torch.models import resnet
+    model = resnet.resnet50(num_classes=1000)
+
+    def run(b):
+        opt = optim.momentum(0.1, beta=0.9)
+        state = train.init_train_state(
+            model, opt, torch.Generator("cuda").manual_seed(args.seed),
+            (224, 224, 3))
+        step = train.make_train_step(model, "sparse_categorical_crossentropy",
+                                     opt, policy="mixed_bfloat16")
+        rng = np.random.default_rng(args.seed)
+        data = (torch.from_numpy(rng.random((b, 224, 224, 3), np.float32))
+                .cuda().to(torch.bfloat16),
+                torch.from_numpy(rng.integers(0, 1000, b)).cuda())
+        try:
+            return _zoo_driven(torch, lambda: _zoo_steps(torch, np, step,
+                                                         state, data))
+        finally:
+            del state, step, data
+    batch, ((losses, wall, peak), _, counts) = _zoo_ladder(
+        torch, "(f) resnet50", ZOO_RESNET_LADDER, run)
+    step_ms = wall / ZOO_STEPS * 1e3
+    log({"zoo": "(f) resnet50", "batch": batch, "image_size": 224,
+         "policy": "mixed_bfloat16", "steps": ZOO_STEPS, "step_ms": step_ms,
+         "examples_per_s": batch / (step_ms / 1e3), "peak_memory_gb": peak,
+         "losses": losses, "launches": counts, "card": smi})
+    torch.cuda.empty_cache()
+
+
+def _seq2seq(torch, np, args, smi):
+    """(g): Seq2SeqConfig() at full width, bf16, batch 32 of 128 source
+    and 128 target tokens, adamw(1e-4), clip 1.0; then greedy generate of
+    32 tokens on a 2 + 2-layer f32 copy, card against CPU."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step)
+    from distributed_tensorflow_tpu_torch.models import seq2seq
+    c = seq2seq.Seq2SeqConfig(dtype=torch.bfloat16, dropout_rate=0.0)
+    model = seq2seq.Seq2Seq(c)
+    params = model.init(torch.Generator("cuda").manual_seed(args.seed))
+    opt = adamw(ZOO_LR, mask=model.decay_mask)
+    state = TrainState.create(params, opt.init(params))
+    step = make_custom_train_step(model.seq2seq_loss_fn(), opt,
+                                  seed=args.seed, grad_clip_norm=1.0)
+    rng = np.random.default_rng(args.seed)
+    b, n = ZOO_S2S_BATCH, ZOO_S2S_LEN
+    data = {"src_ids": torch.from_numpy(rng.integers(2, c.vocab_size,
+                                                     (b, n))).cuda(),
+            "tgt_ids": torch.from_numpy(rng.integers(2, c.vocab_size,
+                                                     (b, n + 1))).cuda()}
+    (losses, wall, peak), _, counts = _zoo_driven(
+        torch, lambda: _zoo_steps(torch, np, step, state, data))
+    # dense attention (no flash); LayerNorm 2 an encoder layer, 3 a
+    # decoder layer and each stack's final; Adam once a leaf
+    per_step = {"flash_forward": 0,
+                "layernorm": 2 * c.num_encoder_layers
+                + 3 * c.num_decoder_layers + 2,
+                "fused_adam": 3 + 16 * c.num_encoder_layers
+                + 26 * c.num_decoder_layers + 4}
+    step_ms = wall / ZOO_STEPS * 1e3
+    log({"zoo": "(g) seq2seq", "batch": b, "src": n, "tgt": n,
+         "steps": ZOO_STEPS, "step_ms": step_ms,
+         "tokens_per_s": b * n / (step_ms / 1e3), "peak_memory_gb": peak,
+         "losses": losses, "launches": counts,
+         "launches_per_step": per_step, "card": smi})
+    _zoo_expect("(g) seq2seq", counts,
+                {k: v * (ZOO_WARMUP + ZOO_STEPS)
+                 for k, v in per_step.items()})
+    del params, state, step, data
+    torch.cuda.empty_cache()
+
+    small = seq2seq.Seq2Seq(seq2seq.Seq2SeqConfig(
+        num_encoder_layers=2, num_decoder_layers=2, dropout_rate=0.0))
+    init = small.init(torch.Generator().manual_seed(1))
+    with torch.no_grad():       # 5x: tokens that vary (not one repeated)
+        for v in init.values():
+            if v.dim() > 1:
+                v.mul_(5.0)
+    src = rng.integers(2, small.config.vocab_size, (2, 24))
+    valid = np.ones((2, 24), np.int32)
+    valid[1, 15:] = 0
+    toks = [small.generate({k: v.detach().to(device)
+                            for k, v in init.items()},
+                           torch.from_numpy(src).to(device), ZOO_S2S_GEN,
+                           src_valid=torch.from_numpy(valid).to(device)
+                           ).cpu() for device in ("cuda", "cpu")]
+    log({"zoo": "(g) seq2seq greedy generate card vs CPU",
+         "tokens_equal": bool(torch.equal(*toks)),
+         "distinct_tokens": int(torch.unique(toks[1]).numel())})
+    if not torch.equal(*toks):
+        raise AssertionError("seq2seq greedy tokens differ on the card")
+    return counts
+
+
+def check_zoo(torch, np, args, smi):
+    """Phase 22, the encoder zoo: returns the kernels' launches over its
+    main-path runs ((b), (d), (e), (g))."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    t_phase = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(args.seed + 22)
+    iters = max(20, args.iters // 4)
+    rng = np.random.default_rng(args.seed)
+    lengths = rng.integers(1, ZOO_BERT_SEQ + 1, ZOO_BERT_LADDER[0])
+    lengths[0] = 0                     # a row with no valid key
+    for label, shape in (
+            ("bert_base_kv_valid", (ZOO_BERT_LADDER[0], ZOO_BERT_SEQ, 12, 64,
+                                    torch.bfloat16, lengths.tolist())),
+            ("vit_b16_197", (ZOO_VIT_BATCH, 197, 12, 64, torch.bfloat16,
+                             None)),
+            ("train_vit_hd16_f32", (64, 17, 4, 16, torch.float32, None)),
+            ("finetune_bert_hd32", (32, 32, 4, 32, torch.bfloat16, None))):
+        _zoo_flash_case(torch, fa, gen, label, *shape, iters)
+    _zoo_layernorm(torch, fused, gen, iters)
+    log({"zoo": "(a) kernels", "seconds": time.perf_counter() - t_phase})
+
+    counts = collections.Counter()
+    counts.update(_bert_arm(torch, np, args, smi,
+                            "(b) bert_base mlm promoted", ZOO_BERT_LADDER,
+                            ZOO_BERT_GATHER, True))
+    counts.update(_bert_arm(torch, np, args, smi,
+                            "(b) bert_base mlm no levers",
+                            (ZOO_BERT_PLAIN_BATCH,), 0, False))
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _bert_reference(torch, np)
+        _resnet_reference(torch, np)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    counts.update(_vit_base(torch, np, args, smi))
+    counts.update(_zoo_entry_points(torch, smi))
+    _resnet50(torch, np, args, smi)
+    counts.update(_seq2seq(torch, np, args, smi))
+    log({"phase": "zoo", "seconds": time.perf_counter() - t_phase,
+         "launches": dict(counts)})
+    return counts
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -5462,7 +6156,6 @@ def main(argv=None) -> int:
     secs = _build.build()
     log({"phase": "build", "seconds": secs, "dir": str(_build.BUILD_DIR)})
     log_backward_resources(_build)
-
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))
     records.update(check_train_kernels(torch, args))
@@ -5511,6 +6204,7 @@ def main(argv=None) -> int:
     check_llama_reference(torch, np)
     xor_launches = check_xor(torch, np, args, smi)
     seq_launches = check_sequential(torch, np, args, smi)
+    zoo_launches = check_zoo(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -5538,7 +6232,9 @@ def main(argv=None) -> int:
                     **({"obs_launches": obs_launches[k]}
                        if k in obs_launches else {}),
                     **({"fleet_launches": fleet_launches[k]}
-                       if k in fleet_launches else {}))
+                       if k in fleet_launches else {}),
+                    **({"zoo_launches": zoo_launches[k]}
+                       if k in zoo_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

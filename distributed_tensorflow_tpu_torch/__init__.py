@@ -38,17 +38,26 @@ checkpoints and the serving engine; it adds no kernel.  Slice 14 is the
 serving fleet: N engines behind ``fleet.Router`` (placement, retry, live
 migration over ``fleet.PageWire``, rolling operations), ``fleet.Watchdog``
 over the pump heartbeat, ``fleet.Autoscaler``, ``fleet.synthesize``
-traces and ``obs.FederatedMetrics``; it adds no kernel.  Kernels live
+traces and ``obs.FederatedMetrics``; it adds no kernel.  Slice 15 is
+the encoder zoo: ``models.Bert`` (MLM, the gathered head, the pooler),
+``models.ViT``, ``models.ResNet`` and ``models.Seq2Seq``, with
+``ops.MultiHeadAttention`` and the entry points ``examples.finetune_bert``
+and ``examples.train_vit``; BERT and ViT run the flash kernel
+bidirectional with key padding, and at head dims 16 and 32 padded to 64
+in its wrapper.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
 from . import (data, fleet, models, obs, ops, optim, parallel, resilience,
                serve, summary, train, utils)
 from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
-from .models.convert import (gpt_params_from_jax, gpt_params_to_jax,
+from .models.convert import (bert_params_from_jax, bert_params_to_jax,
+                             gpt_params_from_jax, gpt_params_to_jax,
                              load_jax_params, lora_from_jax, lora_to_jax,
+                             seq2seq_params_from_jax, seq2seq_params_to_jax,
                              stack_params_from_jax, stack_params_to_jax,
-                             train_state_from_jax, train_state_to_jax)
+                             train_state_from_jax, train_state_to_jax,
+                             vit_params_from_jax, vit_params_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
 from .models.speculative import generate_speculative, speculative_accept
@@ -64,7 +73,8 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "QTensor", "QueueFullError", "QuotaExceededError",
            "RequestHandle", "RequestSnapshot", "SummaryWriter",
            "TenantPolicy", "TenantQuota", "TrainSession", "TrainState",
-           "adam", "adamw", "data", "dequantize_tensor", "ema_params",
+           "adam", "adamw", "bert_params_from_jax", "bert_params_to_jax",
+           "data", "dequantize_tensor", "ema_params",
            "fleet", "models", "obs", "resilience", "serve",
            "generate_speculative", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "init_train_state",
@@ -72,6 +82,8 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "load_jax_params", "lora_from_jax", "lora_to_jax",
            "make_custom_train_step", "make_eval_step", "make_train_step",
            "ops", "optim", "parallel", "quantize_tensor",
+           "seq2seq_params_from_jax", "seq2seq_params_to_jax",
            "speculative_accept", "stack_params_from_jax",
            "stack_params_to_jax", "summary", "train",
-           "train_state_from_jax", "train_state_to_jax", "utils", "with_ema"]
+           "train_state_from_jax", "train_state_to_jax", "utils",
+           "vit_params_from_jax", "vit_params_to_jax", "with_ema"]

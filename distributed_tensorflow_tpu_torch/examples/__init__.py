@@ -1,0 +1,18 @@
+"""Example entry points of the port, the root ``examples/`` scripts'
+counterparts: ``python -m distributed_tensorflow_tpu_torch.examples.
+finetune_bert`` and ``.train_vit``, with those scripts' flags, data and
+printed lines, on the card unless ``--device=cpu``."""
+import numpy as np
+
+
+def local_rows(tree, mesh):
+    """This rank's share of a global batch (numpy arrays with the batch
+    leading): the ``mesh.rank``-th of ``mesh.size`` equal slices, as the
+    JAX scripts' ``device_put`` onto ``P("data")`` hands each device
+    its own."""
+    def part(a):
+        n = a.shape[0] // mesh.size
+        return np.ascontiguousarray(a[mesh.rank * n:(mesh.rank + 1) * n])
+    if isinstance(tree, dict):
+        return {k: part(v) for k, v in tree.items()}
+    return type(tree)(part(v) for v in tree)

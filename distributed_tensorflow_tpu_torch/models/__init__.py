@@ -1,17 +1,27 @@
 """Models of the port: GPT and Llama (``gpt.py``, ``llama.py``),
-speculative decoding, weight conversion (``convert.py``), and the
-high-level tier: ``Sequential`` with its callbacks and saving, and the
-zoo (``xor_mlp``, ``mnist_mlp``, ``cifar_cnn``)."""
-from . import callbacks, saving, zoo
+speculative decoding, the encoder zoo (BERT, ViT, ResNet, seq2seq),
+weight conversion (``convert.py``), and the high-level tier:
+``Sequential`` with its callbacks and saving, and the zoo (``xor_mlp``,
+``mnist_mlp``, ``cifar_cnn``)."""
+from . import bert, callbacks, resnet, saving, seq2seq, vit, zoo
+from .bert import Bert, BertConfig, bert_base, bert_tiny
 from .callbacks import (Callback, CSVLogger, EarlyStopping, History,
                         LambdaCallback, LearningRateScheduler,
                         ModelCheckpoint, ReduceLROnPlateau, TensorBoard,
                         TerminateOnNaN)
+from .resnet import ResNet, resnet18, resnet50, resnet_cifar
 from .saving import load_model, save_model
+from .seq2seq import Seq2Seq, Seq2SeqConfig, seq2seq_tiny
 from .sequential import Sequential
+from .vit import ViT, ViTConfig, vit_base, vit_tiny
 from .zoo import cifar_cnn, mnist_mlp, xor_mlp
 
-__all__ = ["callbacks", "saving", "zoo", "load_model", "save_model",
+__all__ = ["bert", "callbacks", "resnet", "saving", "seq2seq", "vit", "zoo",
+           "load_model", "save_model",
+           "Bert", "BertConfig", "bert_base", "bert_tiny",
+           "ViT", "ViTConfig", "vit_base", "vit_tiny",
+           "ResNet", "resnet18", "resnet50", "resnet_cifar",
+           "Seq2Seq", "Seq2SeqConfig", "seq2seq_tiny",
            "Callback", "CSVLogger", "EarlyStopping", "History",
            "LambdaCallback", "LearningRateScheduler", "ModelCheckpoint",
            "ReduceLROnPlateau", "TerminateOnNaN", "TensorBoard",

@@ -1,0 +1,397 @@
+"""BERT encoder (MLM pre-training and classifier fine-tuning), in PyTorch.
+
+Counterpart of ``distributed_tensorflow_tpu/models/bert.py``: ``BertConfig``,
+``bert_base``, ``bert_tiny``, ``mlm_gather_flops_correction`` and ``Bert``
+(``init``, ``apply``, ``mlm_logits``, ``pooled``, ``mlm_loss_fn``), with the
+post-LN encoder layer, the tied MLM head and its gathered variant
+(``mlm_predictions_per_seq``).
+
+Functional, as in the JAX package: ``Bert.init(generator)`` returns the
+parameters, a flat dict of f32 leaf tensors that require gradients (on the
+generator's device), and every other method reads them from the dict it
+is given, so the train step's casts and gradients land on them and an
+entry point may add leaves of its own (``examples/finetune_bert.py``'s
+classifier).  The names are the JAX tree's paths with the encoder
+unstacked: ``encoder.<i>.<path>`` is layer i of the JAX leaf
+``encoder.<path>`` (the JAX package stacks the layers on a leading
+``[L]`` axis for its scan; here each layer keeps its own tensors, so a
+layer's backward writes only its own gradients).  ``models/convert.py``
+carries the tree both ways.
+
+Kernels: every LayerNorm (the embeddings', two a layer and the MLM
+head's) goes through ``ops.kernels.fused.fused_layernorm`` and every
+attention through ``ops.kernels.flash_attention``, non-causal, the
+``attention_mask`` turned into the kernel's ``kv_valid`` plane by
+``make_flash_attention_fn``.  On a CPU tensor those wrappers run their
+plain versions; on a CUDA tensor they launch the kernels.  The JAX
+package's gates (``use_flash="auto"``, ``fused_layernorm``) are not
+ported: ``BertConfig`` keeps both fields, which have no effect.  One
+consequence: a row whose keys are all padding attends to nothing and
+gives zeros, as the JAX flash kernel does (``use_flash=True``), where the
+JAX package's dense path gives the mean of V.
+
+Dropout draws from the step's ``torch.Generator`` (embeddings, the
+attention context, both residual branches), so its bits differ from
+``jax.random``'s.  ``remat`` runs each layer under the GPT's
+``_checkpointed`` (selective for the "dots" policies, the generator's
+state replayed).  ``seq_axis`` (ring attention, sequence parallelism)
+and ``partition_rules`` (tensor parallelism) wait for the parallelism
+slice and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import initializers as init_lib
+from ..ops import losses as loss_lib
+from ..ops.attention import (attention_core, dropout, ffn_core,
+                             padding_mask, resolve_activation)
+from ..ops.kernels import flash_attention as flash_lib
+from ..ops.kernels import fused as fused_lib
+from .gpt import _REMAT_SAVES, _checkpointed
+
+__all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
+           "mlm_gather_flops_correction"]
+
+_PARALLEL = ("not ported yet: sequence and tensor parallelism wait for the "
+             "parallelism slice (ROADMAP Queue 1 item 5)")
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 512
+    type_vocab_size: int = 2
+    dropout_rate: float = 0.1
+    layer_norm_eps: float = 1e-12
+    dtype: torch.dtype = torch.float32     # activation/compute dtype
+    # checkpoint each encoder layer; "full" saves nothing, "dots" every
+    # matrix product's output, "dots_no_batch" the weight products
+    remat: bool = False
+    remat_policy: str = "full"
+    # ring attention over a mesh axis: raises (ROADMAP Queue 1 item 5)
+    seq_axis: Optional[str] = None
+    # the JAX package's kernel gates; no effect here: on the card the
+    # flash and LayerNorm kernels are always the path
+    use_flash: Any = "auto"
+    fused_layernorm: Any = False
+    # > 0: gather at most N masked positions a sequence before the MLM
+    # head (the lower position first among the masked), so the head runs
+    # on those rows only; 0 projects every position
+    mlm_predictions_per_seq: int = 0
+    # FFN / MLM-transform activation (ops.attention.resolve_activation)
+    hidden_act: str = "gelu_approx"
+
+    def __post_init__(self):
+        if self.remat_policy not in _REMAT_SAVES:
+            raise ValueError(f"remat_policy must be 'full', 'dots', or "
+                             f"'dots_no_batch'; got {self.remat_policy!r}")
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible "
+                             f"by num_heads {self.num_heads}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def act_fn(self) -> Callable:
+        return resolve_activation(self.hidden_act)
+
+
+def bert_base(**kw) -> "Bert":
+    """BERT-base: vocab 30522, d 768, 12 layers of 12 heads, FFN 3072."""
+    return Bert(BertConfig(**kw))
+
+
+def bert_tiny(**kw) -> "Bert":
+    """The JAX package's ``bert_tiny`` sizes: 2 layers, d 128, 2 heads."""
+    for k, v in dict(hidden_size=128, num_layers=2, num_heads=2,
+                     intermediate_size=512, vocab_size=1000,
+                     max_position=128).items():
+        kw.setdefault(k, v)
+    return Bert(BertConfig(**kw))
+
+
+def layer_norm(params: Mapping[str, torch.Tensor], prefix: str,
+               x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The LayerNorm kernel (its plain version on a CPU tensor) with the
+    f32 ``<prefix>.gamma`` / ``<prefix>.beta`` of ``params``; output in
+    x's type.  Shared by ViT and seq2seq, as the JAX ``_layer_norm``."""
+    return fused_lib.fused_layernorm(x.contiguous(),
+                                     params[prefix + ".gamma"].float(),
+                                     params[prefix + ".beta"].float(), eps)
+
+
+def mlm_gather_flops_correction(config: BertConfig, seq: int) -> float:
+    """Training flops a token the gathered MLM head skips against
+    projecting every position: the transform d^2 and the vocab projection
+    d V, 6x each (forward 2x, backward 4x), on the non-gathered share; 0
+    when gathering is off."""
+    n = config.mlm_predictions_per_seq
+    if not n:
+        return 0.0
+    d, v = config.hidden_size, config.vocab_size
+    return (1.0 - n / seq) * 6.0 * (d * d + d * v)
+
+
+def gather_masked(mask: torch.Tensor, n: int):
+    """(weights [b, n], positions [b, n]) of the first ``n`` masked
+    positions of each row, as ``lax.top_k`` of the 0/1 mask picks them: a
+    stable descending sort keeps the lower position first among equal
+    values (``torch.topk`` promises no order for ties).  A row with fewer
+    masked positions pads with weight-0 positions; one with more drops
+    the rest."""
+    w, idx = torch.sort(mask.float(), dim=1, descending=True, stable=True)
+    return w[:, :n], idx[:, :n]
+
+
+def _dense(params, prefix, x):
+    """``x @ kernel + bias`` of ``<prefix>.kernel`` / ``.bias`` in x's
+    type."""
+    return (x @ params[prefix + ".kernel"].to(x.dtype)
+            + params[prefix + ".bias"].to(x.dtype))
+
+
+def attention_params(params: Mapping[str, torch.Tensor], prefix: str):
+    """The nested {query, key, value, out: {kernel, bias}} that
+    ``attention_core`` takes, from the flat names under ``prefix``."""
+    return {n: {"kernel": params[f"{prefix}.{n}.kernel"],
+                "bias": params[f"{prefix}.{n}.bias"]}
+            for n in ("query", "key", "value", "out")}
+
+
+def ffn(params: Mapping[str, torch.Tensor], prefix: str, x: torch.Tensor,
+        activation: Callable) -> torch.Tensor:
+    """``ffn_core`` over ``<prefix>.w_in`` / ``<prefix>.w_out``."""
+    return ffn_core(params[prefix + ".w_in.kernel"],
+                    params[prefix + ".w_in.bias"],
+                    params[prefix + ".w_out.kernel"],
+                    params[prefix + ".w_out.bias"], x, activation)
+
+
+def init_attention(draw, d: int, h: int, hd: int, prefix: str,
+                   zeros) -> Params:
+    """Truncated-normal projection kernels and zero biases of one
+    attention under ``prefix`` (BERT, ViT and seq2seq alike)."""
+    p = {}
+    for n in ("query", "key", "value"):
+        p[f"{prefix}.{n}.kernel"] = draw((d, h, hd))
+        p[f"{prefix}.{n}.bias"] = zeros((h, hd))
+    p[f"{prefix}.out.kernel"] = draw((h, hd, d))
+    p[f"{prefix}.out.bias"] = zeros((d,))
+    return p
+
+
+def init_ffn(draw, d: int, i: int, prefix: str, zeros) -> Params:
+    return {f"{prefix}.w_in.kernel": draw((d, i)),
+            f"{prefix}.w_in.bias": zeros((i,)),
+            f"{prefix}.w_out.kernel": draw((i, d)),
+            f"{prefix}.w_out.bias": zeros((d,))}
+
+
+def init_ln(d: int, prefix: str, device) -> Params:
+    return {prefix + ".gamma": torch.ones(d, device=device),
+            prefix + ".beta": torch.zeros(d, device=device)}
+
+
+def trainable(params: Params) -> Params:
+    """The floating leaves made leaf tensors that require gradients."""
+    for p in params.values():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    return params
+
+
+def stacked_decay_mask(params: Mapping[str, torch.Tensor],
+                       stacks: Mapping[str, int]) -> Dict[str, bool]:
+    """The JAX ``adamw`` default mask, ``ndim > 1`` on the JAX tree, of a
+    functional model's parameters: ``<stack>.<i>.<path>`` for a name in
+    ``stacks`` is layer i's slice of a JAX leaf with a leading layer
+    axis, so it has one axis more there."""
+    return {name: p.dim() + (name.partition(".")[0] in stacks) > 1
+            for name, p in params.items()}
+
+
+class Bert:
+    """Functional BERT: ``init(generator) -> params``, ``apply(params,
+    input_ids, ...)``, the heads and the MLM loss.  ``mesh`` is accepted
+    for the JAX signature; ring attention over it raises."""
+
+    def __init__(self, config: BertConfig, mesh=None):
+        if config.seq_axis is not None:
+            raise NotImplementedError(f"BertConfig.seq_axis: {_PARALLEL}")
+        self.config = config
+        self.mesh = mesh
+        # the layer lists kept unstacked, with their lengths
+        self.stacks = {"encoder": config.num_layers}
+
+    def decay_mask(self, params: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, bool]:
+        """``adamw``'s mask for these parameters (``adamw(lr,
+        mask=model.decay_mask)``): the JAX default, so a layer's biases
+        and norm scales decay, the embeddings' norm does not."""
+        return stacked_decay_mask(params, self.stacks)
+
+    # -- init -------------------------------------------------------------
+    def init(self, generator: Optional[torch.Generator] = None) -> Params:
+        """Truncated normal (std 0.02, cut at 2 std) embeddings, kernels
+        and head, drawn from ``generator`` on its device (the CPU when
+        None); zero biases, identity norms."""
+        c = self.config
+        dev = init_lib._device(generator)
+        trunc = init_lib.truncated_normal(0.02)
+
+        def draw(shape):
+            return trunc(generator, shape)
+
+        def zeros(shape):
+            return torch.zeros(shape, device=dev)
+        d, h, hd, i = c.hidden_size, c.num_heads, c.head_dim, \
+            c.intermediate_size
+        params = {"embeddings.word": draw((c.vocab_size, d)),
+                  "embeddings.position": draw((c.max_position, d)),
+                  "embeddings.type": draw((c.type_vocab_size, d)),
+                  **init_ln(d, "embeddings.ln", dev)}
+        for layer in range(c.num_layers):
+            pre = f"encoder.{layer}"
+            params.update(init_attention(draw, d, h, hd, pre + ".attention",
+                                         zeros))
+            params.update(init_ln(d, pre + ".attention.ln", dev))
+            params.update(init_ffn(draw, d, i, pre + ".ffn", zeros))
+            params.update(init_ln(d, pre + ".ffn.ln", dev))
+        params.update({"mlm.transform.kernel": draw((d, d)),
+                       "mlm.transform.bias": zeros((d,)),
+                       **init_ln(d, "mlm.ln", dev),
+                       "mlm.output_bias": zeros((c.vocab_size,)),
+                       "pooler.kernel": draw((d, d)),
+                       "pooler.bias": zeros((d,))})
+        return trainable(params)
+
+    # -- encoder ----------------------------------------------------------
+    def _encoder_layer(self, p: Mapping[str, torch.Tensor], x, mask,
+                       generator, train):
+        """One post-LN layer over its tensors ``p`` (names relative to
+        ``encoder.<i>.``)."""
+        c = self.config
+        attn = attention_core(
+            attention_params(p, "attention"), x, mask=mask,
+            dropout_rate=c.dropout_rate, generator=generator, train=train,
+            attention_fn=flash_lib.make_flash_attention_fn(causal=False))
+        x = layer_norm(p, "attention.ln",
+                       x + dropout(attn, c.dropout_rate, generator, train),
+                       c.layer_norm_eps)
+        y = ffn(p, "ffn", x, c.act_fn)
+        return layer_norm(p, "ffn.ln",
+                          x + dropout(y, c.dropout_rate, generator, train),
+                          c.layer_norm_eps)
+
+    def apply(self, params: Mapping[str, torch.Tensor],
+              input_ids: torch.Tensor, *,
+              token_type_ids: Optional[torch.Tensor] = None,
+              attention_mask: Optional[torch.Tensor] = None,
+              train: bool = False,
+              rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """input_ids [b, s] -> sequence output [b, s, hidden] in the
+        config's dtype.  ``attention_mask`` [b, s] (1 = real token) masks
+        the keys; ``rng``, a ``torch.Generator`` on the parameters'
+        device, is required with ``train``."""
+        c = self.config
+        if train and rng is None:
+            raise ValueError("Bert.apply(train=True) requires a generator "
+                             "(rng) for dropout; make_custom_train_step "
+                             "passes one")
+        dev = params["embeddings.word"].device
+        ids = input_ids.to(dev).long()
+        s = ids.shape[1]
+        x = F.embedding(ids, params["embeddings.word"])
+        x = x + params["embeddings.position"][:s][None]
+        if token_type_ids is not None:
+            x = x + F.embedding(token_type_ids.to(dev).long(),
+                                params["embeddings.type"])
+        else:
+            x = x + params["embeddings.type"][0][None, None]
+        x = layer_norm(params, "embeddings.ln", x, c.layer_norm_eps)
+        x = dropout(x, c.dropout_rate, rng, train).to(c.dtype)
+        mask = (None if attention_mask is None
+                else padding_mask(attention_mask.to(dev)))
+        for i in range(c.num_layers):
+            pre = f"encoder.{i}."
+            names = [n for n in params if n.startswith(pre)]
+
+            def layer(x, *tensors, rel=[n[len(pre):] for n in names]):
+                return self._encoder_layer(dict(zip(rel, tensors)), x, mask,
+                                           rng, train)
+            tensors = [params[n] for n in names]
+            if c.remat:
+                x = _checkpointed(layer, rng, _REMAT_SAVES[c.remat_policy],
+                                  x, *tensors)
+            else:
+                x = layer(x, *tensors)
+        return x
+
+    # -- heads ------------------------------------------------------------
+    def mlm_logits(self, params: Mapping[str, torch.Tensor],
+                   sequence_output: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding MLM head -> [..., vocab] f32 logits."""
+        c = self.config
+        h = c.act_fn(_dense(params, "mlm.transform", sequence_output))
+        h = layer_norm(params, "mlm.ln", h, c.layer_norm_eps)
+        logits = h @ params["embeddings.word"].T.to(h.dtype)
+        return logits.float() + params["mlm.output_bias"]
+
+    def pooled(self, params: Mapping[str, torch.Tensor],
+               sequence_output: torch.Tensor) -> torch.Tensor:
+        """[CLS] pooler -> [batch, hidden] (the classifier's input)."""
+        return torch.tanh(_dense(params, "pooler", sequence_output[:, 0]))
+
+    # -- losses -----------------------------------------------------------
+    def mlm_loss_fn(self) -> Callable:
+        """``loss_fn(params, model_state, batch, generator, train)``, the
+        contract of ``train.make_custom_train_step``.  ``batch``:
+        ``input_ids``, ``labels``, ``mlm_mask`` (1 at the positions the
+        loss reads) and optional ``attention_mask`` / ``token_type_ids``,
+        all [b, s].  Metrics: ``mlm_accuracy``, ``loss_weight`` (the
+        masked mean's weight, for gradient accumulation) and, when
+        gathering, ``mlm_overflow`` (masked positions the gather
+        dropped)."""
+        def loss_fn(params, model_state, batch, generator, train):
+            dev = params["embeddings.word"].device
+            seq = self.apply(params, batch["input_ids"],
+                             token_type_ids=batch.get("token_type_ids"),
+                             attention_mask=batch.get("attention_mask"),
+                             train=train, rng=generator)
+            mask = batch["mlm_mask"].to(dev).float()
+            labels = batch["labels"].to(dev).long()
+            n_pred = self.config.mlm_predictions_per_seq
+            extra = {}
+            if n_pred:
+                w, idx = gather_masked(mask, n_pred)
+                seq = torch.gather(seq, 1, idx[..., None].expand(
+                    -1, -1, seq.shape[-1]))
+                labels = torch.gather(labels, 1, idx)
+                extra["mlm_overflow"] = mask.sum() - w.sum()
+                mask = w
+            logits = self.mlm_logits(params, seq)
+            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
+                logits, labels, where=mask)
+            with torch.no_grad():
+                hits = (logits.argmax(-1) == labels).float() * mask
+                accuracy = hits.sum() / torch.clamp(mask.sum(), min=1.0)
+            return loss, ({"mlm_accuracy": accuracy,
+                           "loss_weight": mask.sum(), **extra}, model_state)
+        return loss_fn
+
+    # -- sharding ---------------------------------------------------------
+    def partition_rules(self, fsdp: bool = False):
+        raise NotImplementedError(f"Bert.partition_rules: {_PARALLEL}")

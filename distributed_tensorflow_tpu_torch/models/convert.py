@@ -20,6 +20,16 @@ flat dict under ``<layer>.<param>`` names (``"dense.kernel"``), each of
 which is one leaf of the JAX tree's nested ``{"dense": {"kernel",
 "bias"}, ...}``.
 
+``bert_params_*``, ``vit_params_*`` and ``seq2seq_params_*`` carry the
+functional encoders' flat parameter dicts (``models/bert.py``,
+``vit.py``, ``seq2seq.py``): the JAX tree's paths dot-joined, with each
+stacked stack (``encoder``, and the seq2seq ``decoder``) unstacked into
+``<stack>.<i>.<path>``.  Leaves the model does not own (a fine-tune
+head added beside them) carry over under their own paths.  A ``ResNet``,
+like any ``Layer`` tree, goes through ``stack_params_from_jax`` /
+``stack_params_to_jax`` (its parameters are the dot-joined paths of the
+JAX tree, and nothing in it is stacked).
+
 ``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
 state: the port's ``TrainState`` (its params, ``OptState(count, {m, v})``,
 the ``with_ema`` shadow, ``LossScaled`` and the loss scale's fields) as the
@@ -38,12 +48,17 @@ import numpy as np
 import torch
 
 from ..ops.layers import _flat, _nest
+from .bert import Bert
 from .gpt import GPT, GPTConfig
+from .seq2seq import Seq2Seq
+from .vit import ViT
 
-__all__ = ["gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
-           "lora_from_jax", "lora_to_jax", "stack_params_from_jax",
+__all__ = ["bert_params_from_jax", "bert_params_to_jax",
+           "gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
+           "lora_from_jax", "lora_to_jax", "seq2seq_params_from_jax",
+           "seq2seq_params_to_jax", "stack_params_from_jax",
            "stack_params_to_jax", "train_state_from_jax",
-           "train_state_to_jax"]
+           "train_state_to_jax", "vit_params_from_jax", "vit_params_to_jax"]
 
 # JAX tree keys that name configurations the port does not run yet
 _UNPORTED = ("moe",)
@@ -146,6 +161,89 @@ def stack_params_to_jax(params: Mapping[str, torch.Tensor]
     ``stack_params_from_jax``."""
     return _nest({k: t.detach().to("cpu", torch.float32).numpy()
                   for k, t in params.items()})
+
+
+# -- the functional encoders (BERT, ViT, seq2seq) ---------------------------
+
+def _layered_from_jax(tree: Mapping[str, Any], stacks: Mapping[str, int],
+                      device) -> Dict[str, torch.Tensor]:
+    """Flat f32 leaf tensors on ``device`` that require gradients, from a
+    JAX tree (numpy leaves) whose top-level keys in ``stacks`` hold
+    leaves stacked over that many layers."""
+    flat = {}
+    for path, leaf in _flat(dict(tree), "").items():
+        head, _, rest = path.partition(".")
+        leaf = np.asarray(leaf, np.float32)
+        if head not in stacks:
+            flat[path] = leaf
+            continue
+        if leaf.shape[0] != stacks[head]:
+            raise ValueError(f"{path} leads with {leaf.shape[0]}, not "
+                             f"{stacks[head]} layers")
+        for i in range(stacks[head]):
+            flat[f"{head}.{i}.{rest}"] = leaf[i]
+    return {k: torch.from_numpy(np.array(v)).to(device).requires_grad_(True)
+            for k, v in flat.items()}
+
+
+def _layered_to_jax(params: Mapping[str, torch.Tensor],
+                    stacks: Mapping[str, int]) -> Dict[str, Any]:
+    """The JAX tree (numpy f32 leaves) of a flat dict under the port's
+    names (parameters, gradients or moments): ``<stack>.<i>.<path>``
+    stacked back into ``<stack>.<path>``."""
+    flat, layers = {}, {}
+    for name, t in params.items():
+        leaf = t.detach().to("cpu", torch.float32).numpy()
+        head, _, rest = name.partition(".")
+        if head in stacks:
+            i, _, path = rest.partition(".")
+            layers.setdefault(f"{head}.{path}", {})[int(i)] = leaf
+        else:
+            flat[name] = leaf
+    for path, rows in layers.items():
+        n = stacks[path.partition(".")[0]]
+        if sorted(rows) != list(range(n)):
+            raise ValueError(f"{path} has layers {sorted(rows)}, not "
+                             f"0..{n - 1}")
+        flat[path] = np.stack([rows[i] for i in range(n)])
+    return _nest(flat)
+
+
+def bert_params_from_jax(tree: Mapping[str, Any], config,
+                         device="cpu") -> Dict[str, torch.Tensor]:
+    """A ``Bert``'s parameters from the JAX ``Bert.init`` tree."""
+    return _layered_from_jax(tree, Bert(config).stacks, device)
+
+
+def bert_params_to_jax(params: Mapping[str, torch.Tensor],
+                       config) -> Dict[str, Any]:
+    """The JAX ``Bert`` tree of the port's parameters (or gradients)."""
+    return _layered_to_jax(params, Bert(config).stacks)
+
+
+def vit_params_from_jax(tree: Mapping[str, Any], config,
+                        device="cpu") -> Dict[str, torch.Tensor]:
+    """A ``ViT``'s parameters from the JAX ``ViT.init`` tree."""
+    return _layered_from_jax(tree, ViT(config).stacks, device)
+
+
+def vit_params_to_jax(params: Mapping[str, torch.Tensor],
+                      config) -> Dict[str, Any]:
+    """The JAX ``ViT`` tree of the port's parameters (or gradients)."""
+    return _layered_to_jax(params, ViT(config).stacks)
+
+
+def seq2seq_params_from_jax(tree: Mapping[str, Any], config,
+                            device="cpu") -> Dict[str, torch.Tensor]:
+    """A ``Seq2Seq``'s parameters from the JAX ``Seq2Seq.init`` tree."""
+    return _layered_from_jax(tree, Seq2Seq(config).stacks, device)
+
+
+def seq2seq_params_to_jax(params: Mapping[str, torch.Tensor],
+                          config) -> Dict[str, Any]:
+    """The JAX ``Seq2Seq`` tree of the port's parameters (or
+    gradients)."""
+    return _layered_to_jax(params, Seq2Seq(config).stacks)
 
 
 # -- whole training states -----------------------------------------------

@@ -6,7 +6,10 @@ the port's paths run: ``NEG_INF``, ``causal_mask``, ``padding_mask``,
 ``attention_core`` (projections, an optional q/k transform such as RoPE,
 the swappable inner kernel, dropout on the context, out projection),
 the RoPE tables (``rope_tables``, ``apply_rope``, ``rotary_embedding``),
-``ffn_core`` (gelu) and ``ffn_swiglu_core`` (Llama).  Layouts are the JAX
+``ffn_core`` (gelu, or the activation given) and ``ffn_swiglu_core``
+(Llama), ``resolve_activation`` (a config's ``hidden_act`` name) and the
+``MultiHeadAttention`` layer.  ``attention_core`` also takes a memory
+sequence (``kv``) for cross-attention (seq2seq).  Layouts are the JAX
 package's: q/k/v ``[batch, seq, heads, head_dim]``, projection kernels
 ``[d, heads, head_dim]`` and ``[heads, head_dim, d]``; masks are additive
 (0 / ``NEG_INF``).
@@ -24,11 +27,34 @@ from typing import Callable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "affine", "apply_rope", "attention_core", "causal_mask",
-           "dropout", "dot_product_attention", "ffn_core", "ffn_swiglu_core",
-           "padding_mask", "project", "rope_tables", "rotary_embedding"]
+from . import initializers as init_lib
+from .layers import Layer
+
+__all__ = ["NEG_INF", "MultiHeadAttention", "affine", "apply_rope",
+           "attention_core", "causal_mask", "dropout",
+           "dot_product_attention", "ffn_core", "ffn_swiglu_core",
+           "padding_mask", "project", "resolve_activation", "rope_tables",
+           "rotary_embedding"]
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax well-defined in f32
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def resolve_activation(name: str) -> Callable:
+    """A config's ``hidden_act`` name -> the activation: ``"gelu_approx"``
+    (and HF's aliases ``"gelu_new"``, ``"gelu_pytorch_tanh"``) is the
+    tanh approximation, ``jax.nn.gelu``'s default; ``"gelu"`` the exact
+    erf form; ``"relu"``."""
+    table = {"gelu_approx": _gelu_tanh, "gelu_new": _gelu_tanh,
+             "gelu_pytorch_tanh": _gelu_tanh, "gelu": F.gelu,
+             "relu": F.relu}
+    if name not in table:
+        raise ValueError(f"unsupported hidden_act {name!r}; "
+                         f"one of {sorted(table)}")
+    return table[name]
 
 
 def causal_mask(seq_len: int, device=None) -> torch.Tensor:
@@ -106,6 +132,7 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
                    generator: Optional[torch.Generator] = None,
                    train: bool = False,
                    attention_fn=dot_product_attention,
+                   kv: Optional[torch.Tensor] = None,
                    qk_transform: Optional[Callable] = None) -> torch.Tensor:
     """The shared multi-head attention body.
 
@@ -114,6 +141,8 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
     ``attention_fn(q, k, v, mask=...)`` is the inner kernel: the dense
     ``dot_product_attention`` or the flash kernel
     (``ops.kernels.flash_attention.make_flash_attention_fn``).
+    ``kv``: a memory sequence [b, s_k, d] for cross-attention (keys and
+    values project from it, queries from ``x``).
     ``qk_transform(q, k) -> (q, k)`` runs after the projections (RoPE).
     Grouped
     kv heads are broadcast only for a kernel that does not take them
@@ -122,7 +151,8 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
         p = params[name]
         return project(p["kernel"], p.get("bias"), src)
 
-    q, k, v = proj("query", x), proj("key", x), proj("value", x)
+    memory = x if kv is None else kv.to(x.dtype)
+    q, k, v = proj("query", x), proj("key", memory), proj("value", memory)
     if qk_transform is not None:
         q, k = qk_transform(q, k)
     if (k.shape[2] != q.shape[2]
@@ -152,10 +182,11 @@ def affine(kernel: torch.Tensor, bias: Optional[torch.Tensor],
     return y
 
 
-def ffn_core(w_in, b_in, w_out, b_out, x: torch.Tensor) -> torch.Tensor:
-    """w_in -> gelu -> w_out.  ``jax.nn.gelu`` defaults to the tanh
-    approximation, so this is ``F.gelu(approximate="tanh")``."""
-    h = F.gelu(affine(w_in, b_in, x), approximate="tanh")
+def ffn_core(w_in, b_in, w_out, b_out, x: torch.Tensor,
+             activation: Callable = _gelu_tanh) -> torch.Tensor:
+    """w_in -> activation -> w_out.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, so the default is ``F.gelu(approximate="tanh")``."""
+    h = activation(affine(w_in, b_in, x))
     return affine(w_out, b_out, h)
 
 
@@ -211,3 +242,43 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
     """RoPE of x [b, s, h, hd] at ``positions`` [s] or [b, s] in one call."""
     cos, sin = rope_tables(positions, x.shape[-1], base)
     return apply_rope(x, cos, sin)
+
+
+class MultiHeadAttention(Layer):
+    """Self-attention over ``attention_core`` with the dense
+    ``dot_product_attention`` (the JAX layer has no kernel either):
+    projections ``[d, heads, head_dim]``, the out projection ``[heads,
+    head_dim, d_model]``, each kernel drawn from ``kernel_init`` on its
+    flattened ``[fan_in, fan_out]`` shape, biases zero."""
+
+    def __init__(self, num_heads: int, d_model: int,
+                 head_dim: Optional[int] = None, dropout_rate: float = 0.0,
+                 kernel_init="glorot_uniform", name: Optional[str] = None):
+        super().__init__(name or "attention")
+        self.num_heads = num_heads
+        self.d_model = d_model
+        self.head_dim = head_dim or d_model // num_heads
+        self.dropout_rate = dropout_rate
+        self.kernel_init = init_lib.get(kernel_init)
+
+    def init(self, generator, in_shape):
+        d, h, hd = in_shape[-1], self.num_heads, self.head_dim
+        dev = init_lib._device(generator)
+
+        def dense(fan_in, fan_out, shape, bias_shape):
+            kernel = self.kernel_init(generator, (fan_in, fan_out))
+            return {"kernel": kernel.reshape(shape),
+                    "bias": torch.zeros(bias_shape, device=dev)}
+        params = {name: dense(d, h * hd, (d, h, hd), (h, hd))
+                  for name in ("query", "key", "value")}
+        params["out"] = dense(h * hd, self.d_model, (h, hd, self.d_model),
+                              (self.d_model,))
+        return params, {}
+
+    def out_shape(self, in_shape):
+        return tuple(in_shape[:-1]) + (self.d_model,)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return attention_core(params, x, mask=mask,
+                              dropout_rate=self.dropout_rate, generator=rng,
+                              train=train), state

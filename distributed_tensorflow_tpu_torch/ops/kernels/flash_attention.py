@@ -18,7 +18,13 @@ kv head, 64-row k tile) that sums its query group inside, so GQA needs
 no second pass; both hold one operand (in registers at head dim 64) and
 stream the other through the same kind of ``cp.async`` ring, with the
 forward's swizzled tiles, ``ldmatrix`` and log2-unit softmax.  f32 runs
-every product on the CUDA cores in full f32.  Head dims 64 and 128.
+every product on the CUDA cores in full f32.  The kernels take head dims
+64 and 128; the wrapper takes 16 and 32 too (the zoo's small encoders:
+``finetune_bert``'s 32, ``train_vit``'s 16) by zero-padding q, k and v
+along the head dim to 64 (``_pad_head_dim``) with the scale of the real
+head dim: a zero column adds nothing to a logit and gives a zero column
+of the output and of dq, dk and dv, which are sliced off.  The launches
+and their counts are those of head dim 64.  Any other head dim raises.
 
 What bounds it on the H100: at the training shape (b 48, s 256, 12 heads
 of 64, causal) bytes, about five times the flops' time, so every kernel
@@ -191,6 +197,19 @@ def _check_heads(q, k):
             f"of the kv head count; got {q.shape[2]} vs {k.shape[2]}")
 
 
+# head dims the wrapper zero-pads to the kernels' 64 (module docstring)
+_PADDED_HEAD_DIMS = {16: 64, 32: 64}
+
+
+def _pad_head_dim(*tensors: Optional[torch.Tensor]):
+    """Each tensor zero-padded along its last dim to the kernels' head
+    dim (None stays None); unchanged at 64 and 128."""
+    return tuple(t if t is None or t.shape[-1] not in _PADDED_HEAD_DIMS
+                 else torch.nn.functional.pad(
+                     t, (0, _PADDED_HEAD_DIMS[t.shape[-1]] - t.shape[-1]))
+                 for t in tensors)
+
+
 def _checked(q, k, v, kv_valid, **extra):
     """Validate a launch's operands; returns the valid plane as a
     contiguous bool tensor (1 byte per key) or None."""
@@ -198,8 +217,8 @@ def _checked(q, k, v, kv_valid, **extra):
     b, sq, h, hd = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bf16 or f32; got {q.dtype}")
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
+    if hd not in (16, 32, 64, 128):
+        raise ValueError(f"head_dim {hd} unsupported (16, 32, 64 or 128)")
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd \
             or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -318,7 +337,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, kv_valid, causal, scale)
     valid = _checked(q, k, v, kv_valid)
-    return _launch_forward(q, k, v, valid, causal, _scale(q, scale))
+    hd, scale = q.shape[-1], _scale(q, scale)
+    out, lse = _launch_forward(*_pad_head_dim(q, k, v), valid, causal, scale)
+    return out[..., :hd].contiguous(), lse
 
 
 def flash_backward_dkv(q, k, v, kv_valid, do, lse, dvec, causal=False,
@@ -330,8 +351,10 @@ def flash_backward_dkv(q, k, v, kv_valid, do, lse, dvec, causal=False,
                                         causal, scale)
     valid = _checked(q, k, v, kv_valid, do=do, lse=lse, dvec=dvec)
     _check_row_terms(q, lse, dvec)
-    return _launch_dkv(q, k, v, valid, do, lse, dvec, causal,
-                       _scale(q, scale))
+    hd, scale = k.shape[-1], _scale(q, scale)
+    dk, dv = _launch_dkv(*_pad_head_dim(q, k, v), valid,
+                         *_pad_head_dim(do), lse, dvec, causal, scale)
+    return dk[..., :hd].contiguous(), dv[..., :hd].contiguous()
 
 
 def flash_backward_dq(q, k, v, kv_valid, do, lse, dvec, causal=False,
@@ -343,8 +366,10 @@ def flash_backward_dq(q, k, v, kv_valid, do, lse, dvec, causal=False,
                                        causal, scale)
     valid = _checked(q, k, v, kv_valid, do=do, lse=lse, dvec=dvec)
     _check_row_terms(q, lse, dvec)
-    return _launch_dq(q, k, v, valid, do, lse, dvec, causal,
-                      _scale(q, scale))
+    hd, scale = q.shape[-1], _scale(q, scale)
+    dq = _launch_dq(*_pad_head_dim(q, k, v), valid, *_pad_head_dim(do), lse,
+                    dvec, causal, scale)
+    return dq[..., :hd].contiguous()
 
 
 def row_dot(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -381,11 +406,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_k, hk, hd]`` with ``h % hk == 0``; ``kv_valid`` optional ``[b,
     s_k]`` (1 = real key).  Returns ``[b, s, h, hd]`` in q's type.  CPU
     tensors take ``flash_attention_plain`` (torch autograd); CUDA tensors
-    the three kernels."""
+    the three kernels, at head dim 16 or 32 on operands zero-padded to 64
+    (the padding and the slice are torch ops outside ``_Flash``, so
+    autograd carries the gradients through them)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid, causal, scale)
     valid = _checked(q, k, v, kv_valid)
-    return _Flash.apply(q, k, v, valid, bool(causal), _scale(q, scale))
+    hd, scale = q.shape[-1], _scale(q, scale)
+    out = _Flash.apply(*_pad_head_dim(q, k, v), valid, bool(causal), scale)
+    return out if out.shape[-1] == hd else out[..., :hd]
 
 
 def make_flash_attention_fn(causal: bool = False):

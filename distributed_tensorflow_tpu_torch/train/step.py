@@ -327,7 +327,12 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             loss, (metrics, new_model_state) = loss_fn(p, model_state, mb,
                                                        gen, True)
         value = loss if ls is None else ls.scale(loss)
-        grads = torch.autograd.grad(value, [params[n] for n in names])
+        leaves = [params[n] for n in names]
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        # a parameter the loss does not read (BERT's pooler under the MLM
+        # loss) gets a zero gradient, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 new_model_state, dict(zip(names, grads)))
 

@@ -81,6 +81,13 @@ CASES = {
     "ragged_seq": dict(kw=dict(s=50), causal=True, block=16),
     "gqa_group_2": dict(kw=dict(h=4, hk=2, masked=True), causal=True,
                         block=16),
+    # the encoders' route (BERT): bidirectional with key padding, rows
+    # with no valid key among them
+    "bidirectional_padding": dict(kw=dict(masked=True), causal=False,
+                                  block=16),
+    # train_vit's shape: 17 tokens (one ragged tile) of head dim 16
+    "bidirectional_ragged_s17_hd16": dict(kw=dict(s=17, d=16),
+                                          causal=False, block=16),
 }
 
 
@@ -136,6 +143,41 @@ def test_kernel_plain_versions_match_jax_kernels(name):
                                           jnp.float32, block)
     for g, w in ((dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(g.numpy(), w, atol=F32_GRAD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+def test_padded_head_dim_route_matches_jax(hd):
+    """Head dims 16 and 32: the card's route zero-pads q, k, v (and dO)
+    to 64, runs the kernels with the real head dim's scale and slices
+    the results back.  That arithmetic, on the plain versions, equals
+    the JAX kernel at the real head dim: out, lse and dq, dk, dv (the
+    backward as ``_Flash`` runs it), and the padded columns come out 0."""
+    q, k, v, do, valid = _inputs(7, s=40, d=hd, masked=True)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tvalid = torch.from_numpy(valid)
+    pq, pk, pv, pdo = tfa._pad_head_dim(tq, tk, tv, tdo)
+    assert pq.shape[-1] == 64 and tfa._pad_head_dim(None) == (None,)
+    for kept in (64, 128):         # the kernels' own head dims pass as is
+        x = torch.zeros(1, 2, 1, kept)
+        assert tfa._pad_head_dim(x)[0] is x
+    scale = 1.0 / np.sqrt(hd)
+    out, lse = tfa.flash_forward_plain(pq, pk, pv, tvalid, False, scale)
+    grads = tfa.flash_backward_plain(pq, pk, pv, tvalid, pdo, out, lse,
+                                     False, scale)
+    for t in (out, *grads):
+        assert torch.all(t[..., hd:] == 0)
+    want = _jax_out_and_grads(q, k, v, do, valid, False, jnp.float32, 16)
+    np.testing.assert_allclose(out[..., :hd].numpy(), want[0],
+                               atol=F32_FWD_TOL, rtol=0)
+    for g, w in zip(grads, want[1:]):
+        np.testing.assert_allclose(g[..., :hd].numpy(), w,
+                                   atol=F32_GRAD_TOL, rtol=0)
+    _, want_lse = tfa.flash_forward_plain(tq, tk, tv, tvalid, False)
+    np.testing.assert_array_equal(lse.numpy(), want_lse.numpy())
+    for bad in (8, 48, 96):
+        x = torch.zeros(1, 4, 2, bad)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa._checked(x, x, x, None)
 
 
 def test_bfloat16_matches_jax():

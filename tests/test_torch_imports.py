@@ -31,7 +31,7 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 81
+    assert len(modules) >= 88
     assert {f"{port.__name__}.{m}" for m in (
         "ops.quant", "models.llama", "ops.kernels.fused", "serve.adapters",
         "fleet.tenancy", "fleet.pagewire", "summary.crc32c",
@@ -49,7 +49,9 @@ def test_every_port_module_imports_without_jax():
         "obs.goodput", "obs.reqtrace", "obs.critpath", "resilience",
         "resilience.faults", "resilience.supervisor", "fleet.router",
         "fleet.watchdog", "fleet.workload", "fleet.autoscaler",
-        "obs.federate")} <= set(modules)
+        "obs.federate", "ops.attention", "models.bert", "models.vit",
+        "models.resnet", "models.seq2seq", "examples",
+        "examples.finetune_bert", "examples.train_vit")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:

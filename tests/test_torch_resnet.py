@@ -1,0 +1,183 @@
+"""The port's ResNet held against the JAX package's.
+
+Same weights and BatchNorm state (the JAX ``resnet_cifar`` tree carried
+across by ``stack_params_from_jax``), same numpy images:
+
+- the forward in train mode (logits and every block's new BatchNorm
+  moments) and in eval mode (the running moments normalise);
+- the parameter names: the JAX tree's paths dot-joined, one per leaf;
+- two ``momentum(0.01, beta=0.9)`` steps of ``make_train_step`` with
+  ``sparse_categorical_crossentropy`` (losses, parameters, BatchNorm
+  state), in f32 and under ``mixed_bfloat16``, where the master
+  parameters and the moments stay f32 on both sides;
+- the port's f32 gradients against the same arithmetic in f64;
+- ``resnet50``'s blocks: the stem's 7x7 conv at stride 2 and its -inf
+  padded 3x3 max pool, and the projection shortcuts, on a 32x32 image
+  in eval mode (a ``resnet50`` of 10 classes).
+
+Tolerances: f32 1e-4 absolute on logits, moments and losses (another
+summation order).  The parameters after the first momentum step within
+1e-4 (measured: 1.25e-5 at most, the JAX package's own f32 gradients of
+this net on the CPU being 1.3e-3 off the f64 ones, the port's 1.9e-6,
+held to 1e-5 below, times lr 0.01), and after the second within 1e-3
+(measured: 5.2e-4, on the stem's kernel): the second gradient is taken
+at parameters 1.25e-5 apart on a net whose loss still rises at lr 0.01
+(3.027 to 3.058), so the gap grows to 4% of that step's largest
+update (1.2e-2); the bench row's lr 0.1 sends this randomly
+initialised net from a loss of 3 to 16 in one step, which magnifies
+round-off past any fixed bound, so the steps run at lr 0.01.
+``mixed_bfloat16``: the losses within 2e-2 relative; the two frameworks round their bf16 convolutions
+at other places, and the parameters after the steps differ by up to
+7e-3 (a BatchNorm shift's bf16 gradient is a sum over the batch's
+positions that cancels), so each bf16 run is held to the port's f32 run
+of the same steps: the port's parameters may stray from it at most 1.5
+times as far as the JAX package's do.
+``resnet50``'s logits (up to |234| at init) within 1e-4 of their scale.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from distributed_tensorflow_tpu.models import resnet as jresnet
+from distributed_tensorflow_tpu.optim import optimizers as jopt
+from distributed_tensorflow_tpu.train import step as jstep_lib
+from distributed_tensorflow_tpu_torch import train as ttrain
+from distributed_tensorflow_tpu_torch.models import resnet as tresnet
+from distributed_tensorflow_tpu_torch.models.convert import (
+    stack_params_from_jax, stack_params_to_jax)
+from distributed_tensorflow_tpu_torch.optim import optimizers as topt
+
+torch.set_num_threads(1)
+
+TOL = 1e-4
+
+
+def _setup(factory=jresnet.resnet_cifar, tfactory=tresnet.resnet_cifar,
+           size=16, **kw):
+    jm, tm = factory(**kw), tfactory(**kw)
+    jparams, jstate = jm.init(jax.random.PRNGKey(0), (size, size, 3))
+    params = stack_params_from_jax(jax.tree.map(np.asarray, jparams))
+    state = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jstate)
+    return jm, tm, jparams, jstate, params, state
+
+
+def _images(seed, b=4, size=16):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, size, size, 3)).astype(np.float32),
+            rng.integers(0, 10, b).astype(np.int32))
+
+
+def _close_tree(got, want, atol=TOL):
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(np.asarray(a, np.float32),
+                                   np.asarray(b, np.float32), atol=atol,
+                                   rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+def _np(tree):
+    return jax.tree.map(lambda t: t.detach().float().numpy(), tree)
+
+
+def test_parameter_names_are_the_jax_paths():
+    _, tm, jparams, _, _, _ = _setup()
+    params, state = tm.init(torch.Generator(), (16, 16, 3))
+    flat = {jax.tree_util.keystr(p, simple=True, separator="."): a.shape
+            for p, a in jax.tree_util.tree_leaves_with_path(jparams)}
+    assert {k: tuple(v.shape) for k, v in params.items()} == flat
+    assert all(p.requires_grad and p.is_leaf for p in params.values())
+    assert set(state) == {"stem_bn", *[n for n, _ in tm.blocks]}
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_forward_and_batchnorm_state_match_jax(train):
+    jm, tm, jparams, jstate, params, state = _setup()
+    x, _ = _images(0)
+    want, want_state = jm.apply(jparams, jstate, jnp.asarray(x), train=train)
+    got, got_state = tm.apply(params, state, torch.from_numpy(x),
+                              train=train)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=TOL, rtol=0)
+    assert jax.tree.structure(_np(got_state)) == jax.tree.structure(
+        jax.tree.map(np.asarray, want_state))
+    _close_tree(_np(got_state), want_state)
+
+
+@pytest.mark.parametrize("policy", [None, "mixed_bfloat16"])
+def test_momentum_steps_match_jax(policy):
+    jm, tm, jparams, jstate, params, state = _setup()
+    jo, to = jopt.momentum(0.01, beta=0.9), topt.momentum(0.01, beta=0.9)
+    jstep = jstep_lib.make_train_step(jm, "sparse_categorical_crossentropy",
+                                      jo, policy=policy)
+    tstep = ttrain.make_train_step(tm, "sparse_categorical_crossentropy",
+                                   to, policy=policy)
+    js = jstep_lib.TrainState.create(jparams, jo.init(jparams), jstate)
+    ts = ttrain.TrainState.create(params, to.init(params), state)
+    f32 = (ttrain.make_train_step(tm, "sparse_categorical_crossentropy",
+                                  to) if policy else None)
+    fs = ttrain.TrainState.create(
+        {k: v.detach().clone().requires_grad_() for k, v in params.items()},
+        to.init(params), state)
+    jl, tl = [], []
+    for i in range(2):
+        x, y = _images(10 + i)
+        js, jmet = jstep(js, (jnp.asarray(x), jnp.asarray(y)))
+        ts, tmet = tstep(ts, (torch.from_numpy(x), torch.from_numpy(y)))
+        if f32 is not None:
+            fs, _ = f32(fs, (torch.from_numpy(x), torch.from_numpy(y)))
+        jl.append(float(jmet["loss"]))
+        tl.append(tmet["loss"].item())
+        if policy is None and i == 0:
+            _close_tree(stack_params_to_jax(ts.params), js.params)
+    assert all(p.dtype == torch.float32 for p in ts.params.values())
+    assert all(t.dtype == torch.float32
+               for t in jax.tree.leaves(ts.model_state))
+    if policy is None:
+        np.testing.assert_allclose(tl, jl, atol=TOL, rtol=0)
+        _close_tree(stack_params_to_jax(ts.params), js.params, atol=1e-3)
+        _close_tree(_np(ts.model_state), js.model_state)
+    else:
+        np.testing.assert_allclose(tl, jl, rtol=2e-2, atol=0)
+        ref = jax.tree.leaves(stack_params_to_jax(fs.params))
+
+        def stray(tree):
+            return max(np.abs(np.asarray(a, np.float32) - b).max()
+                       for a, b in zip(jax.tree.leaves(tree), ref))
+        port, jax_ = stray(stack_params_to_jax(ts.params)), stray(js.params)
+        assert 0 < port <= 1.5 * jax_, (port, jax_)
+
+
+def test_f32_gradients_match_f64():
+    _, tm, _, _, params, state = _setup()
+    x, y = _images(10)
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        p = {k: v.detach().to(dtype).requires_grad_() for k, v in
+             params.items()}
+        s = jax.tree.map(lambda t: t.to(dtype), state)
+        out, _ = tm.apply(p, s, torch.from_numpy(x).to(dtype), train=True)
+        loss = torch.nn.functional.cross_entropy(out, torch.from_numpy(y)
+                                                 .long())
+        grads.append(torch.autograd.grad(loss, list(p.values())))
+    for name, a, b in zip(params, *grads):
+        np.testing.assert_allclose(a.double().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+def test_resnet50_blocks_match_jax_in_eval():
+    jm, tm, jparams, jstate, params, state = _setup(
+        jresnet.resnet50, tresnet.resnet50, size=32, num_classes=10)
+    x, _ = _images(3, b=1, size=32)
+    want, _ = jm.apply(jparams, jstate, jnp.asarray(x), train=False)
+    got, _ = tm.apply(params, state, torch.from_numpy(x), train=False)
+    scale = max(1.0, float(np.abs(np.asarray(want)).max()))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=TOL * scale, rtol=0)
+
+
+def test_partition_rules_raise():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tresnet.ResNet.partition_rules()
