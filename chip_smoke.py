@@ -358,6 +358,39 @@ no result lines:
    (g) ``Seq2SeqConfig()`` at full width in bf16 (batch 32, 128 + 128
    tokens, 2 + 10 steps), and greedy ``generate`` of 32 tokens on a
    2 + 2-layer f32 copy: the card's tokens equal the CPU's.
+23. gpt family (after phase 22): the GPT stack's last configurations.
+   (a) The paged kernel at head dim 32 on all 16 branches (decode and
+   window; bf16 and f32 q; a pool in q's type and int8; MHA, the
+   serve_gpt demo's 4 heads, and GQA, llama_tiny's 4q/2kv) against its
+   plain version with phase 3's tolerances, at 8 slots over a view of 128
+   columns in pages of 16 (ragged rows, one on the trash page, one with
+   no valid column) and a window of 32 queries at pos 96: ms, graph ms,
+   the plain version's ms, gather + SDPA (int8: dequantized first) and
+   the bound.  (b) ``bench_gpt_moe``'s row (bench.py:2604): GPT-2 small
+   with 8 experts, top 2, capacity factor 1.25, bf16 over f32 weights,
+   remat "full", ``adamw(1e-4)``, clip 1.0, dropout 0, ladder 48/24/12 x
+   256, 2 + 10 steps: finite and falling losses, ``moe_aux`` above 0,
+   exact launches a step (flash forward 24, dK/dV 12, dQ 12, LayerNorm
+   49, Adam 208: a MoE block has 5 FFN leaves); step ms, tokens/s, peak
+   memory, mfu (the inactive experts' 6N discounted, bench.py:951-959)
+   and each layer's dropped fraction in one forward.  (c) The same model
+   (random weights, capacity factor 4.0 = E / k) behind ``Engine`` on
+   phase 4's mix: budgets, a prefix hit, paged and LayerNorm launches
+   equal to phase 4's, row independence; tokens/s and TTFT beside phase
+   4's.  (d) A 2-layer f32 MoE model (weights scaled 5x), TF32 off, card
+   against CPU: ``lm_loss_fn``'s loss and ``moe_aux`` (``TRAIN_LOSS_TOL``)
+   and every gradient (``FAM_GRAD_TOL``) at train=False, and greedy
+   ``Engine`` tokens equal.  (e) ``bench_llama``'s row (bench.py:975:
+   vocab 32,000, d 768, 12 layers, GQA 12q/4kv, ff 2048, seq 256, remat
+   "full"), ladder 48/24/12: exact launches a step (RMSNorm 49, flash
+   forward 24, dK/dV 12, dQ 12, Adam 111, LayerNorm 0); step ms,
+   tokens/s, mfu, peak memory; then ``llama_tiny`` (head dim 32) card
+   against CPU over 3 ``adamw`` steps (losses, parameters).  (f)
+   ``python -m distributed_tensorflow_tpu_torch.examples.serve_gpt
+   --engine --replicas=2 --shared_prefix`` in-process on the card: its
+   engine == lock-step, fleet == lock-step and speculative greedy-match
+   lines read 1.000, and the paged kernel (head dim 32), the flash
+   forward and LayerNorm launched.
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -367,8 +400,9 @@ The last lines are the kernels' JSON record (``launches`` from phases 4,
 LayerNorm in (g); ``obs_launches`` for the kernels of phase 20's (a) and
 (c); ``fleet_launches`` for the serving kernels of phase 21 (a)'s fleet
 run; ``zoo_launches`` for the training kernels of phase 22's (b), (d),
-(e) and (g)), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+(e) and (g); ``gpt_family_launches`` for every kernel over phase 23's
+(b), (c), (e) and (f)), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2688,11 +2722,13 @@ def _train_batch(torch, np, seed, batch, seq, vocab, device):
 def _model_flops(model, tokens, seq):
     """Training flops of one step: 6 N T for the matrix products (N: the
     parameters a token's products touch, the tied head included, the
-    position table not) plus causal attention, 3 x 2 h hd s^2 per
-    sequence and layer (QK^T and PV, half of the s x s pairs)."""
+    position table not, nor the word table beside an untied head, which
+    is a lookup) plus causal attention, 3 x 2 h hd s^2 per sequence and
+    layer (QK^T and PV, half of the s x s pairs)."""
     c = model.config
+    lookups = ("position",) if c.tied_head else ("position", "word")
     n = sum(p.numel() for name, p in model.named_parameters()
-            if name != "position")
+            if name not in lookups)
     attn = 6.0 * c.num_layers * c.num_heads * c.head_dim * seq * tokens
     return 6.0 * n * tokens + attn
 
@@ -6118,6 +6154,498 @@ def check_zoo(torch, np, args, smi):
     return counts
 
 
+# -- phase 23: the GPT family's last configurations --------------------------
+
+# (a) the paged kernel at head dim 32 (the serve_gpt demo's model and
+# llama_tiny): FAM_S slots in pages of FAM_PG over a view of FAM_P pages
+# (128 columns: llama_tiny's max_position), FAM_L layers; the window
+# FAM_WIN queries at FAM_WIN_POS.  (b) bench_gpt_moe's row (bench.py:
+# 2604, 855-884): GPT-2 small with FAM_EXPERTS experts, top FAM_TOP_K,
+# capacity factor 1.25, remat "full", the bench's ladder at FAM_SEQ;
+# (c) the same weights served at capacity factor FAM_SERVE_CAPACITY = E
+# / k, so that a prefill window of 32 never drops a token (JAX
+# models/gpt.py:370-375: a generous factor at eval); (d) a 2-layer f32
+# MoE model card against CPU, gradients within FAM_GRAD_TOL of each
+# leaf's scale (f32 summation order; TF32 off); (e) bench_llama's row
+# (bench.py:975-1010) on the same ladder
+FAM_L, FAM_S, FAM_PG, FAM_P, FAM_HD = 4, 8, 16, 8, 32
+FAM_WIN, FAM_WIN_POS = 32, 96
+FAM_EXPERTS, FAM_TOP_K, FAM_SERVE_CAPACITY = 8, 2, 4.0
+FAM_LADDER, FAM_SEQ = (48, 24, 12), 256
+FAM_GRAD_TOL = 1e-4
+_FAMILY_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq",
+                   "layernorm", "rmsnorm", "fused_adam",
+                   "paged_decode_attention", "paged_window_attention",
+                   "paged_decode_int8", "paged_window_int8")
+
+
+def _family_counts(torch):
+    """Phase 23's reader: every kernel's launches since ``_reset_counts``,
+    under the kernels line's names (the paged entries by branch)."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    torch.cuda.synchronize()
+    return {"flash_forward": fa.LAUNCHES["flash_forward"],
+            "flash_backward_dkv": fa.LAUNCHES["flash_backward_dkv"],
+            "flash_backward_dq": fa.LAUNCHES["flash_backward_dq"],
+            "layernorm": fused.LAUNCHES["layernorm"],
+            "rmsnorm": fused.LAUNCHES["rmsnorm"],
+            "fused_adam": fused.LAUNCHES["adam"],
+            "paged_decode_attention": pa.LAUNCHES["paged_decode"],
+            "paged_window_attention": pa.LAUNCHES["paged_window"],
+            "paged_decode_int8": pa.LAUNCHES["paged_decode_int8"],
+            "paged_window_int8": pa.LAUNCHES["paged_window_int8"]}
+
+
+def _family_want(**launches):
+    """Exact launches for ``_zoo_expect``: the kernels named, and 0 for
+    every other kernel ``_family_counts`` reads."""
+    want = dict.fromkeys(_FAMILY_KERNELS, 0)
+    want.update(launches)
+    return want
+
+
+def _family_pool(torch, gen, L, NP, pg, kvh, hd, dtype, int8):
+    """A page pool of ``L`` layers: unit-normal K/V in ``dtype``, or int8
+    values with per-(token, kv head) f32 scales as the serving write
+    leaves them (amax / 127 of values of about unit scale)."""
+    shape = (L, NP, pg, kvh, hd)
+    kv = {}
+    for name in ("k", "v"):
+        if int8:
+            kv[name] = torch.randint(-127, 128, shape, generator=gen,
+                                     device=gen.device, dtype=torch.int8)
+            kv[name + "_scale"] = 0.01 + 0.02 * torch.rand(
+                shape[:-1] + (1,), generator=gen, device=gen.device)
+        else:
+            kv[name] = torch.randn(shape, generator=gen,
+                                   device=gen.device).to(dtype)
+    return kv
+
+
+def _family_paged_case(torch, pa, args, label, q, kv, window, tab, valid,
+                       row, wmask, n_cols, n_pages, flops):
+    """One branch of (a): the kernel against its plain version on every
+    layer, with the branch's tolerance; then ms, graph ms, the plain
+    version's ms, gather + SDPA (int8: dequantized first) and the bound."""
+    import torch.nn.functional as F
+    L = kv["k"].shape[0]
+    int8 = "k_scale" in kv
+    bf16 = q.dtype == torch.bfloat16
+    layers = iter(range(10 ** 9))
+
+    def nxt():
+        return next(layers) % L
+
+    if window:
+        def kern(layer=None):
+            return pa.paged_window_attention(
+                q, kv, nxt() if layer is None else layer, row, FAM_WIN_POS)
+
+        def plain(layer=None):
+            return pa.paged_window_attention_plain(
+                q, kv, nxt() if layer is None else layer, row, FAM_WIN_POS)
+        lib_tab, mask = row[None, :], wmask
+    else:
+        def kern(layer=None):
+            return pa.paged_decode_attention(
+                q, kv, nxt() if layer is None else layer, tab, valid)
+
+        def plain(layer=None):
+            return pa.paged_decode_attention_plain(
+                q, kv, nxt() if layer is None else layer, tab, valid)
+        lib_tab, mask = tab, valid[:, None, None, :]
+
+    def lib():
+        k, v = pa.paged_layer_kv(kv, nxt(), lib_tab)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.to(q.dtype).transpose(1, 2),
+            v.to(q.dtype).transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    err, scale = 0.0, 1.0
+    for layer in range(L):
+        e, sc = _err_and_scale(torch, kern(layer), plain(layer))
+        err, scale = max(err, e), max(scale, sc)
+    if int8:
+        tol = (INT8_BF16_TOL if bf16 else INT8_F32_TOL) * scale
+    else:
+        tol = (WINDOW_TOL if window else DECODE_TOL) if bf16 else F32_TOL
+    iters = args.iters
+    ms = time_ms(torch, kern, iters)
+    plain_ms = time_ms(torch, plain, max(5, iters // 10))
+    lib_ms = time_ms(torch, lib, max(5, iters // 10))
+    g_ms = graph_ms(torch, kern, iters)
+    g_lib, why = _graph_or_why(torch, lib, max(5, iters // 10))
+    B, sq, h, hd = q.shape
+    kvh = kv["k"].shape[3]
+    cell = 2 * (hd * (1 if int8 else q.element_size()) + (4 if int8 else 0))
+    side = 2 * q.numel() * q.element_size() + lib_tab.numel() * 4 + (
+        0 if window else valid.numel())
+    nbytes = n_pages * kv["k"].shape[2] * kvh * cell + side
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S) * 1e3
+    rec = {"check": "paged_hd32", "case": label,
+           "shape": f"q[{B},{sq},{h},{hd}] {'bf16' if bf16 else 'f32'}, "
+                    f"{'int8' if int8 else 'q-type'} pool "
+                    f"[{L},{kv['k'].shape[1]},{kv['k'].shape[2]},{kvh},"
+                    f"{hd}]" + (f", pos {FAM_WIN_POS}" if window else ""),
+           "route": "tensor_cores" if pa.tensor_cores(bf16, int8, window)
+           else "cuda_cores", "valid_cols": n_cols,
+           "max_abs_err": err, "tol": tol, "kernel_ms": ms,
+           "graph_ms": g_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_graph_ms": g_lib,
+           "library": ("dequant + " if int8 else "")
+           + "gather + F.scaled_dot_product_attention",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if why:
+        rec["library_graph_note"] = why
+    log(rec)
+    if not err <= tol:
+        raise AssertionError(f"paged kernel at head dim 32 ({label}) "
+                             f"disagrees: {err} > {tol}")
+    return rec
+
+
+def _family_paged_hd32(torch, args):
+    """(a): the paged kernel at head dim 32 on all 16 of its branches:
+    decode and window, bf16 and f32 q, a pool in q's type and int8, MHA
+    (the serve_gpt demo: 4 heads) and GQA (llama_tiny: 4q/2kv).  Decode
+    rows are ragged, one wholly on the trash page, one with no valid
+    column."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        paged_attention as pa
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(args.seed + 23)
+    L, S, pg, P, hd = FAM_L, FAM_S, FAM_PG, FAM_P, FAM_HD
+    view, NP = P * pg, S * P + 1
+    perm = torch.randperm(NP - 1, generator=gen, device=dev) + 1
+    tab = perm[:S * P].reshape(S, P).to(torch.int32)
+    tab[3] = 0                                   # retired: the trash page
+    starts = torch.tensor([0, 0, 16, 0, 40, 90, 0, 3], device=dev)
+    ends = torch.tensor([37, 128, 100, 5, 127, 90, 64, 128], device=dev)
+    cols = torch.arange(view, device=dev)[None, :]
+    valid = ((cols >= starts[:, None]) & (cols < ends[:, None])).contiguous()
+    row = perm[-P:].to(torch.int32).contiguous()
+    pos, sq = FAM_WIN_POS, FAM_WIN
+    wmask = (cols <= pos + torch.arange(sq, device=dev)[:, None])[None, None]
+    n_valid = int(valid.sum())
+    d_pages = torch.unique(tab.long().repeat_interleave(pg, dim=1)[valid])
+    w_pages = len(set(row[:(pos + sq - 1) // pg + 1].tolist()))
+    w_cols = sum(min(pos + j + 1, view) for j in range(sq))
+    recs = []
+    for heads, h, kvh in (("mha", 4, 4), ("gqa", 4, 2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for int8 in (False, True):
+                kv = _family_pool(torch, gen, L, NP, pg, kvh, hd, dtype,
+                                  int8)
+                for window in (False, True):
+                    shape = (1, sq, h, hd) if window else (S, 1, h, hd)
+                    q = torch.randn(shape, generator=gen,
+                                    device=dev).to(dtype)
+                    label = "_".join((
+                        "window" if window else "decode", heads,
+                        "bf16" if dtype == torch.bfloat16 else "f32",
+                        "int8" if int8 else "pool"))
+                    n_cols = w_cols if window else n_valid
+                    recs.append(_family_paged_case(
+                        torch, pa, args, label, q, kv, window, tab, valid,
+                        row, wmask, n_cols,
+                        w_pages if window else d_pages.numel(),
+                        4.0 * n_cols * h * hd))
+                del kv
+    torch.cuda.synchronize()
+    return recs
+
+
+def _family_steps(torch, np, step, state, batch, keys):
+    """``_zoo_steps`` keeping each step's ``keys`` metrics beside the
+    losses: (losses, {key: [values]}, timed seconds, peak GB)."""
+    kept = []
+
+    def keep(state, batch):
+        state, m = step(state, batch)
+        kept.append({k: m[k] for k in keys})
+        return state, m
+    losses, wall, peak = _zoo_steps(torch, np, keep, state, batch)
+    return losses, {k: [float(m[k]) for m in kept] for k in keys}, wall, peak
+
+
+def _family_train_arm(torch, np, args, smi, name, config, per_step,
+                      keys=()):
+    """One training arm on ``FAM_LADDER`` (a fresh model from ``--seed``
+    on each rung): ``adamw(1e-4)``, clip 1.0, rows of FAM_SEQ + 1 ids;
+    exact launches; step ms, tokens/s, mfu, peak memory.  Returns (the
+    model, the counts, the run's numbers)."""
+    from distributed_tensorflow_tpu_torch import GPT
+    built = {}
+
+    def run(b):
+        built.pop("model", None)         # a rung that ran out of memory
+        model = built["model"] = GPT(
+            config, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(args.seed))
+        state, step = _train_setup(torch, model, TRAIN_LR, args.seed)
+        batch = _train_batch(torch, np, args.seed, b, FAM_SEQ,
+                             config.vocab_size, "cuda")
+        try:
+            return _driven(torch, lambda: _family_steps(
+                torch, np, step, state, batch, keys), _family_counts)
+        finally:
+            del state, step, batch
+    batch, ((losses, kept, wall, peak), _, counts) = _zoo_ladder(
+        torch, name, FAM_LADDER, run)
+    model = built["model"]
+    step_ms = wall / ZOO_STEPS * 1e3
+    tokens = batch * FAM_SEQ
+    flops = _model_flops(model, tokens, FAM_SEQ)
+    if config.moe_experts:
+        # 6N counts every expert, but a token runs through top_k of them
+        # (bench.py:951-959 discounts the rest)
+        n_exp = sum(p.numel() for n, p in model.named_parameters()
+                    if ".moe.experts." in n)
+        flops -= 6.0 * n_exp * (1 - config.moe_top_k / config.moe_experts) \
+            * tokens
+    out = {"batch": batch, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "model_tflop_per_step": flops / 1e12, "peak_memory_gb": peak,
+           "losses": losses, **kept}
+    log({"family": name, "seq": FAM_SEQ, "steps": ZOO_STEPS, **out,
+         "launches": counts, "launches_per_step": per_step, "card": smi})
+    _zoo_expect(name, counts, _family_want(
+        **{k: n * (ZOO_WARMUP + ZOO_STEPS) for k, n in per_step.items()}))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    return model, counts, out
+
+
+def _family_moe_train(torch, np, args, smi):
+    """(b): bench_gpt_moe's row; returns the counts."""
+    from distributed_tensorflow_tpu_torch import gpt_small
+    from distributed_tensorflow_tpu_torch.models import gpt as gpt_mod
+    config = gpt_small(dtype=torch.bfloat16, dropout_rate=0.0, remat=True,
+                       remat_policy="full", moe_experts=FAM_EXPERTS,
+                       moe_top_k=FAM_TOP_K, max_position=FAM_SEQ)
+    L = config.num_layers
+    # the flash forward twice a layer (the recomputation runs it again),
+    # dK/dV and dQ once; LayerNorm 2 a layer + ln_f, and 2 a layer again;
+    # Adam once a leaf: word, position, ln_f's two, and 17 a layer (a MoE
+    # block has 5 FFN leaves where a dense one has 4)
+    per_step = {"flash_forward": 2 * L, "flash_backward_dkv": L,
+                "flash_backward_dq": L, "layernorm": 4 * L + 1,
+                "fused_adam": 4 + 17 * L}
+    model, counts, out = _family_train_arm(
+        torch, np, args, smi, "(b) gpt2-small moe 8x top-2", config,
+        per_step, keys=("moe_aux",))
+    aux = out["moe_aux"]
+    if not all(a > 0 and math.isfinite(a) for a in aux):
+        raise AssertionError(f"(b) moe_aux not finite and positive: {aux}")
+    # the dropped fraction of each layer on the last batch's shape, read
+    # from the router's metrics in one forward at train=False
+    dropped = []
+    real = gpt_mod.apply_moe
+
+    def spy(*a, **kw):
+        y, m = real(*a, **kw)
+        dropped.append(float(m["dropped_fraction"]))
+        return y, m
+    ids = _train_batch(torch, np, args.seed, out["batch"], FAM_SEQ,
+                       config.vocab_size, "cuda")["input_ids"]
+    gpt_mod.apply_moe = spy
+    try:
+        with torch.no_grad():
+            model.apply(ids[:, :-1])
+    finally:
+        gpt_mod.apply_moe = real
+    log({"family": "(b) dropped fraction", "per_layer": dropped,
+         "mean": sum(dropped) / len(dropped), "moe_aux_last": aux[-1]})
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _family_moe_serve(torch, np, args, smi, phase4):
+    """(c): (b)'s model (random weights from ``--seed``, phase 4's
+    max_position) behind ``Engine`` at capacity factor
+    FAM_SERVE_CAPACITY on phase 4's mix: budgets, a prefix hit, the
+    paged and LayerNorm launches equal to phase 4's (the same requests
+    run the same windows and decode steps), row independence."""
+    from distributed_tensorflow_tpu_torch import GPT, gpt_small
+    config = gpt_small(dtype=torch.bfloat16, moe_experts=FAM_EXPERTS,
+                       moe_top_k=FAM_TOP_K,
+                       moe_capacity_factor=FAM_SERVE_CAPACITY)
+    model = GPT(config, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(args.seed))
+    prompts, budgets = _requests(np, args.seed)
+    (eng, hs, wall), _, counts = _driven(torch, lambda: run_engine(
+        torch, model, prompts, budgets, late=3), _family_counts)
+    st = eng.stats()
+    _check_budgets(hs, budgets, "(c) moe engine")
+    if not st.prefix_hit_rate > 0:
+        raise AssertionError("(c) moe engine: no prefix-cache hit")
+    ttft = sorted(h.ttft_s for h in hs)
+    n_tok = sum(len(h.tokens) for h in hs)
+    log({"family": "(c) gpt2-small moe engine", "requests": len(hs),
+         "capacity_factor": FAM_SERVE_CAPACITY, "new_tokens": n_tok,
+         "wall_s": wall, "tokens_per_s": n_tok / wall,
+         "ttft_p50_s": ttft[len(ttft) // 2],
+         "dense_tokens_per_s": phase4["tokens_per_s"],
+         "dense_ttft_p50_s": phase4["ttft_p50_s"],
+         "prefix_hit_rate": st.prefix_hit_rate,
+         "prefill_windows_skipped": st.prefill_windows_skipped_total,
+         "launches": counts, "card": smi})
+    _zoo_expect("(c) moe engine", counts, _family_want(**phase4["launches"]))
+    del eng
+    _row_independence(torch, model, prompts, budgets, hs)
+    return counts
+
+
+def _family_moe_reference(torch, np):
+    """(d): a 2-layer f32 MoE model (4 experts, head dim 64, its weight
+    matrices scaled 5x so that greedy tokens vary) on the card and on the
+    CPU from the same weights, TF32 off: ``lm_loss_fn``'s loss, moe_aux
+    and every gradient at train=False, and greedy tokens through
+    ``Engine``."""
+    from distributed_tensorflow_tpu_torch import GPT, Engine, gpt_tiny
+    config = gpt_tiny(moe_experts=4, dropout_rate=0.0)
+    cpu = GPT(config, device="cpu",
+              generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.dim() >= 2:
+                p.mul_(5.0)
+    gpu = GPT(config, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 512, (4, 65)).astype(np.int32))
+    runs = []
+    for model in (gpu, cpu):
+        params = dict(model.named_parameters())
+        loss, (m, _) = model.lm_loss_fn()(
+            params, None, {"input_ids": ids.to(model.device)}, None, False)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        runs.append((loss.item(), m["moe_aux"].item(),
+                     {k: g.cpu() for k, g in zip(params, grads)}))
+    (gl, ga, gg), (cl, ca, cg) = runs
+    grad_err = max((gg[k] - cg[k]).abs().max().item()
+                   / max(1.0, cg[k].abs().max().item()) for k in cg)
+    prompts = [rng.integers(0, 512, n, dtype=np.int32) for n in (5, 17, 40)]
+    toks = [Engine(model, device=model.device, num_slots=2, max_len=128,
+                   prefill_chunk=16, tick_steps=4).generate_batch(prompts, 12)
+            for model in (gpu, cpu)]
+    log({"family": "(d) moe card vs cpu", "loss": [gl, cl],
+         "moe_aux": [ga, ca], "grad_err": grad_err,
+         "grad_tol": FAM_GRAD_TOL, "tokens_equal": toks[0] == toks[1],
+         "distinct_tokens": len({t for r in toks[1] for t in r})})
+    if not (abs(gl - cl) <= TRAIN_LOSS_TOL and abs(ga - ca) <= TRAIN_LOSS_TOL
+            and grad_err <= FAM_GRAD_TOL and toks[0] == toks[1]):
+        raise AssertionError("(d) the MoE model on the card and the CPU "
+                             "disagree")
+
+
+def _family_llama_train(torch, np, args, smi):
+    """(e): bench_llama's row, then ``llama_tiny`` (head dim 32) card
+    against CPU over 3 steps; returns the row's counts."""
+    from distributed_tensorflow_tpu_torch import GPT, llama_config, \
+        llama_tiny
+    config = llama_config(vocab_size=32000, hidden_size=768, num_layers=12,
+                          num_heads=12, num_kv_heads=4,
+                          intermediate_size=2048, max_position=FAM_SEQ,
+                          dtype=torch.bfloat16, remat=True,
+                          remat_policy="full")
+    L = config.num_layers
+    # RMSNorm's forward kernel 2 a layer + ln_f and 2 a layer again (the
+    # recomputation; its backward is the plain version's, no launch); the
+    # flash forward twice a layer, dK/dV and dQ once; Adam once a leaf:
+    # word, lm_head, ln_f and 9 a layer
+    per_step = {"flash_forward": 2 * L, "flash_backward_dkv": L,
+                "flash_backward_dq": L, "rmsnorm": 4 * L + 1,
+                "fused_adam": 3 + 9 * L}
+    model, counts, _ = _family_train_arm(
+        torch, np, args, smi, "(e) llama recipe 12x768 gqa 12:4", config,
+        per_step)
+    del model
+    torch.cuda.empty_cache()
+    init = GPT(llama_tiny(), device="cpu",
+               generator=torch.Generator().manual_seed(3)).state_dict()
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = GPT(llama_tiny(), device=device)
+        model.load_state_dict(init)
+        state, step = _train_setup(torch, model, TRAIN_LR, 0)
+        batch = _train_batch(torch, np, 4, 4, 64, 512, device)
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+        runs.append((losses, {k: p.detach().cpu()
+                              for k, p in state.params.items()}))
+    (card_l, card_p), (cpu_l, cpu_p) = runs
+    loss_err = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    param_err = max((card_p[k] - cpu_p[k]).abs().max().item()
+                    for k in cpu_p)
+    log({"family": "(e) llama_tiny card vs cpu, 3 steps",
+         "card_losses": card_l, "cpu_losses": cpu_l, "loss_err": loss_err,
+         "loss_tol": TRAIN_LOSS_TOL, "param_err": param_err,
+         "param_tol": TRAIN_PARAM_TOL})
+    if not (loss_err <= TRAIN_LOSS_TOL and param_err <= TRAIN_PARAM_TOL):
+        raise AssertionError("(e) llama_tiny training on the card and the "
+                             "CPU disagree")
+    return counts
+
+
+def _family_serve_gpt(torch, smi):
+    """(f): the serve_gpt demo on the card, in-process, with its engine,
+    fleet and shared-prefix demos: its exactness lines read 1.000 and the
+    paged kernel (head dim 32: the demo's 4 heads of 32) launched."""
+    from distributed_tensorflow_tpu_torch.examples import serve_gpt
+    argv = ["--device=cuda", "--engine", "--replicas=2", "--shared_prefix"]
+    (out, wall), _, counts = _driven(
+        torch, lambda: _run_entry(torch, serve_gpt.main, argv),
+        _family_counts)
+    lines = out.splitlines()
+    log({"family": "(f) serve_gpt", "argv": argv, "wall_s": wall,
+         "printed": lines, "launches": counts, "card": smi})
+    for key in ("engine==lock-step greedy 1.000",
+                "fleet==lock-step greedy 1.000", "greedy match 1.000"):
+        if not any(key in line for line in lines):
+            raise AssertionError(f"(f) serve_gpt printed no '{key}'")
+    for name in ("paged_decode_attention", "paged_window_attention",
+                 "flash_forward", "layernorm"):
+        if counts[name] <= 0:
+            raise AssertionError(f"(f) serve_gpt: {name} never launched")
+    return counts
+
+
+def check_gpt_family(torch, np, args, smi, phase4):
+    """Phase 23, the GPT family's last configurations: returns the
+    kernels' launches over its main-path runs ((b), (c), (e), (f))."""
+    t_phase = time.perf_counter()
+    _family_paged_hd32(torch, args)
+    log({"family": "(a) paged hd32", "seconds": time.perf_counter() - t_phase})
+    counts = collections.Counter(_family_moe_train(torch, np, args, smi))
+    counts.update(_family_moe_serve(torch, np, args, smi, phase4))
+    torch.cuda.empty_cache()
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _family_moe_reference(torch, np)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    counts.update(_family_llama_train(torch, np, args, smi))
+    counts.update(_family_serve_gpt(torch, smi))
+    log({"phase": "gpt family", "seconds": time.perf_counter() - t_phase,
+         "launches": dict(counts)})
+    return counts
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -6160,6 +6688,9 @@ def main(argv=None) -> int:
     records.update(check_llama_kernels(torch, args))
     records.update(check_train_kernels(torch, args))
     launches, paged_run = check_engine(torch, np, args, smi)
+    phase4 = {"launches": dict(launches),
+              "tokens_per_s": paged_run["tokens_per_s"],
+              "ttft_p50_s": paged_run["ttft_p50_s"]}
     decode_launches = collections.Counter(
         check_decode(torch, np, args, smi, paged_run["model"]))
     decode_launches.update(check_contiguous_engine(torch, np, args, smi,
@@ -6205,6 +6736,7 @@ def main(argv=None) -> int:
     xor_launches = check_xor(torch, np, args, smi)
     seq_launches = check_sequential(torch, np, args, smi)
     zoo_launches = check_zoo(torch, np, args, smi)
+    family_launches = check_gpt_family(torch, np, args, smi, phase4)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -6234,7 +6766,9 @@ def main(argv=None) -> int:
                     **({"fleet_launches": fleet_launches[k]}
                        if k in fleet_launches else {}),
                     **({"zoo_launches": zoo_launches[k]}
-                       if k in zoo_launches else {}))
+                       if k in zoo_launches else {}),
+                    **({"gpt_family_launches": family_launches[k]}
+                       if k in family_launches else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

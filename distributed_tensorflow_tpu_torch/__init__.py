@@ -59,7 +59,8 @@ from .models.convert import (bert_params_from_jax, bert_params_to_jax,
                              train_state_from_jax, train_state_to_jax,
                              vit_params_from_jax, vit_params_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
-from .models.llama import llama2_7b, llama3_8b, llama_config, llama_tiny
+from .models.llama import (llama, llama2_7b, llama3_8b, llama_config,
+                           llama_tiny)
 from .models.speculative import generate_speculative, speculative_accept
 from .ops.quant import QTensor, dequantize_tensor, quantize_tensor
 from .optim import adam, adamw, ema_params, with_ema
@@ -78,7 +79,7 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "fleet", "models", "obs", "resilience", "serve",
            "generate_speculative", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "init_train_state",
-           "llama2_7b", "llama3_8b", "llama_config", "llama_tiny",
+           "llama", "llama2_7b", "llama3_8b", "llama_config", "llama_tiny",
            "load_jax_params", "lora_from_jax", "lora_to_jax",
            "make_custom_train_step", "make_eval_step", "make_train_step",
            "ops", "optim", "parallel", "quantize_tensor",

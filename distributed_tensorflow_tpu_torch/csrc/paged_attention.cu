@@ -9,7 +9,7 @@
 // paged_attention.py:92-118).
 //
 // Layouts (the JAX package's, unchanged):
-//   q         [B, sq, h, hd]            bf16 or f32, hd 64 or 128
+//   q         [B, sq, h, hd]            bf16 or f32, hd 32, 64 or 128
 //   k/v pool  [L, NP, pg, kvh, hd]      q's type, or int8 (the int8 branch)
 //   k/v scale [L, NP, pg, kvh, 1] f32   int8 branch only; NULL otherwise
 //   page_tab  [B, P] int32              row b's logical page j -> pool page
@@ -133,8 +133,10 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, int8_t) {
   i8x4_to_f32(u.w, f + 12);
 }
 
-// N consecutive elements of KT at p (N * sizeof(KT) in {2, 4, 8, 16}
-// bytes, aligned) -> N floats
+// N consecutive elements of KT at p (N * sizeof(KT) in {1, 2, 4, 8, 16}
+// bytes, aligned) -> N floats.  N is HD / 32, the dims a lane owns in
+// P V: 1 at head dim 32, where a bf16 lane reads one element and an int8
+// lane one byte.
 template <int N>
 __device__ __forceinline__ void load_dims(const float* p, float* f) {
 #pragma unroll
@@ -142,23 +144,29 @@ __device__ __forceinline__ void load_dims(const float* p, float* f) {
 }
 template <int N>
 __device__ __forceinline__ void load_dims(const bf16* p, float* f) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+  if constexpr (N == 1) {
+    f[0] = __bfloat162float(*p);
+  } else {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const uint32_t x = w[i];
-    f[2 * i] = __uint_as_float(x << 16);
-    f[2 * i + 1] = __uint_as_float(x & 0xffff0000u);
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t x = w[i];
+      f[2 * i] = __uint_as_float(x << 16);
+      f[2 * i + 1] = __uint_as_float(x & 0xffff0000u);
+    }
   }
 }
 template <int N>
 __device__ __forceinline__ void load_dims(const int8_t* p, float* f) {
   if constexpr (N == 4) {
     i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), f);
-  } else {
+  } else if constexpr (N == 2) {
     float t[4];
     i8x4_to_f32(*reinterpret_cast<const uint16_t*>(p), t);
     f[0] = t[0];
     f[1] = t[1];
+  } else {
+    f[0] = (float)*p;
   }
 }
 
@@ -400,9 +408,17 @@ struct CcShape {
   static size_t smem(int per) { return kFixed + kRing + 8 * (size_t)per; }
   // byte offset of 16-byte chunk c of row r: chunks are XOR-swizzled by
   // the row, so the 8 lanes of an LDS.128 phase reading one chunk of 8
-  // rows, or one row, fall in 8 distinct bank groups without padding
+  // rows, or one row, fall in 8 distinct bank groups without padding.
+  // The swizzle stays inside the row's kRow / 16 chunks: 8 or more (r &
+  // 7), 4 (a row of 64 bytes: (r >> 1) & 3), 2 (the 32-byte int8 row of
+  // head dim 32: (r >> 2) & 1, rows 4..7 take the other half of each
+  // bank pair)
+  static __device__ __forceinline__ int swz(int r) {
+    return kRow >= 128 ? (r & 7) : kRow == 64 ? ((r >> 1) & 3)
+                                               : ((r >> 2) & 1);
+  }
   static __device__ __forceinline__ int chunk(int r, int c) {
-    return r * kRow + 16 * (c ^ (kRow >= 128 ? (r & 7) : ((r >> 1) & 3)));
+    return r * kRow + 16 * (c ^ swz(r));
   }
 };
 
@@ -708,7 +724,11 @@ struct TcShape {
   static constexpr int kRawTile = 32 * kRawRow;
   static constexpr int kRawChunks = HD * (int)sizeof(KT) / 16;
   static constexpr int kStage = 2 * kRawTile + (kQuant ? 2 * 32 * 4 : 0);
-  static constexpr int kRing = kTcStages * kStage;
+  // the ring doubles as the merge's scratch (2 floats a query a split),
+  // which at head dim 32 is larger than the ring's three stages
+  static constexpr int kMerge = 2 * 4 * kTcQB * kMaxSplits;
+  static constexpr int kRing = kTcStages * kStage > kMerge
+                                   ? kTcStages * kStage : kMerge;
   static constexpr int kConv = kQuant ? 2 * kTile : 0;
   static size_t smem(int per) { return kRing + kConv + 8 * (size_t)per; }
 };
@@ -1128,6 +1148,7 @@ size_t paged_attention_smem_bytes(int is_bf16, int kv_int8, int hd, int tc,
                                   int window, int group, int per) {
   if (tc && !is_bf16) return 0;
   const int nq = cc_nq(window, group);
+  if (hd == 32) return smem_for<32>(is_bf16, kv_int8, tc, nq, per);
   if (hd == 64) return smem_for<64>(is_bf16, kv_int8, tc, nq, per);
   if (hd == 128) return smem_for<128>(is_bf16, kv_int8, tc, nq, per);
   return 0;
@@ -1159,6 +1180,9 @@ int paged_attention_forward(const void* q, const void* k_pool,
                Geo{sq, h, kvh, num_pages, page_size, pages_per_row, layer,
                    pos, n_cols, per, scale},
                stream};
+  if (hd == 32)
+    return is_bf16 ? dispatch_kv<bf16, 32>(kv_int8, window, tc, a)
+                   : dispatch_kv<float, 32>(kv_int8, window, tc, a);
   if (hd == 64)
     return is_bf16 ? dispatch_kv<bf16, 64>(kv_int8, window, tc, a)
                    : dispatch_kv<float, 64>(kv_int8, window, tc, a);

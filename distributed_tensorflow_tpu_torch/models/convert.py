@@ -3,7 +3,9 @@
 The JAX tree (``distributed_tensorflow_tpu/models/gpt.py GPT.init``) is
 ``{"embeddings": {"word", "position"}, "decoder": {...}, "ln_f": {...}}``
 with every ``decoder`` leaf stacked over layers (leading axis ``L``, the
-``vmap`` layout).  A Llama tree (``models/llama.py``) has no
+``vmap`` layout).  A MoE block's leaves (``decoder.moe.router.kernel``
+[L, D, E], ``decoder.moe.experts.w_in`` [L, E, D, F], ...) carry over
+as ``blocks.<i>.moe.*`` like any other.  A Llama tree (``models/llama.py``) has no
 ``position``, ``beta`` or ``bias`` leaves, a ``w_gate`` in every FFN and
 a top-level ``lm_head`` [vocab, d].  The caller hands it over as numpy
 arrays (for example ``jax.tree.map(np.asarray, params)``); nothing here
@@ -60,15 +62,8 @@ __all__ = ["bert_params_from_jax", "bert_params_to_jax",
            "stack_params_to_jax", "train_state_from_jax",
            "train_state_to_jax", "vit_params_from_jax", "vit_params_to_jax"]
 
-# JAX tree keys that name configurations the port does not run yet
-_UNPORTED = ("moe",)
-
-
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
     for key, val in tree.items():
-        if key in _UNPORTED:
-            raise ValueError(f"parameter {prefix}{key!r} belongs to a GPT "
-                             "configuration the port does not run yet")
         if isinstance(val, dict):
             yield from _flatten(val, f"{prefix}{key}.")
         else:

@@ -5,7 +5,10 @@ the port's paths run: pre-LN decoder blocks in two recipes, chosen by
 the config as in the JAX package.  GPT-2: learned positions, LayerNorm,
 the tanh-gelu FFN, biases and a head tied to the word embedding.  Llama
 (``models/llama.py``): RoPE, RMSNorm, the SwiGLU FFN, no biases, a
-separate ``lm_head`` and grouped-query attention.  Either may keep its
+separate ``lm_head`` and grouped-query attention.  With ``moe_experts``
+every block's FFN is a top-k mixture of experts (``ops/moe.py``), shared
+by the training and KV-cache paths; its router losses join the training
+loss.  Either recipe may keep its
 KV cache in int8 (``kv_cache_dtype="int8"``): each written key and value
 vector is quantized with its own f32 scale (``ops/quant.py``) into the
 cache's ``k_scale``/``v_scale`` planes.
@@ -70,6 +73,7 @@ from torch import nn
 from ..ops import decoding as dec
 from ..ops import losses as loss_lib
 from ..ops import quant
+from ..ops.moe import apply_moe, init_moe
 from ..ops.attention import (NEG_INF, affine, apply_rope, attention_core,
                              causal_mask, dot_product_attention, dropout,
                              ffn_core, ffn_swiglu_core, padding_mask, project,
@@ -215,6 +219,14 @@ class GPTConfig:
     # chunk's head projection and log-softmax recomputed in the backward,
     # so the [tokens, vocab] f32 logits never exist whole; 0 = off
     loss_seq_chunk: int = 0
+    # sparse (MoE) FFN: 0 = dense.  With experts > 0 every block's FFN is
+    # a grouped top-k MoE bank (ops/moe.py); the router aux losses, so
+    # weighted, are added to the loss by lm_loss_fn
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
+    moe_z_weight: float = 1e-3
 
     def __post_init__(self):
         if self.remat_policy not in _REMAT_SAVES:
@@ -232,6 +244,10 @@ class GPTConfig:
         if self.ffn_activation not in ("gelu", "swiglu"):
             raise ValueError(f"ffn_activation must be 'gelu' or 'swiglu'; "
                              f"got {self.ffn_activation!r}")
+        if self.ffn_activation == "swiglu" and self.moe_experts > 0:
+            raise ValueError("moe_experts with ffn_activation='swiglu' is "
+                             "unsupported: ops.moe's expert bank is the "
+                             "two-matrix gelu FFN")
         if self.position_embedding not in ("learned", "rope"):
             raise ValueError("position_embedding must be 'learned' or "
                              f"'rope'; got {self.position_embedding!r}")
@@ -312,13 +328,46 @@ class _FFN(nn.Module):
             self.w_gate = _Dense((d, i), (i,), c, device)
 
 
+class _Leaves(nn.Module):
+    """Parameters under the names of a dict of tensors."""
+
+    def __init__(self, leaves: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name, t in leaves.items():
+            setattr(self, name, nn.Parameter(t))
+
+
+class _MoE(nn.Module):
+    """``router.kernel`` [D, E] and ``experts.w_in`` [E, D, F], ``b_in``
+    [E, F], ``w_out`` [E, F, D], ``b_out`` [E, D] (``ops.moe.init_moe``,
+    glorot-uniform kernels from ``generator``)."""
+
+    def __init__(self, c: GPTConfig, device, generator):
+        super().__init__()
+        tree = init_moe(generator, c.hidden_size, c.intermediate_size,
+                        c.moe_experts)
+        self.router = _Leaves({k: v.to(device)
+                               for k, v in tree["router"].items()})
+        self.experts = _Leaves({k: v.to(device)
+                                for k, v in tree["experts"].items()})
+
+
+def _moe_tree(get: Callable) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The nested dict ``ops.moe.apply_moe`` reads, from ``get(name)`` of
+    each tensor's name under a block's ``moe.``."""
+    return {"router": {"kernel": get("router.kernel")},
+            "experts": {n: get(f"experts.{n}")
+                        for n in ("w_in", "b_in", "w_out", "b_out")}}
+
+
 class _Block(nn.Module):
     def __init__(self, c: GPTConfig, device):
         super().__init__()
         self.ln_1 = _Norm(c, device)
         self.attention = _Attention(c, device)
         self.ln_2 = _Norm(c, device)
-        self.ffn = _FFN(c, device)
+        if not c.moe_experts:
+            self.ffn = _FFN(c, device)
 
 
 class GPT(nn.Module):
@@ -328,7 +377,10 @@ class GPT(nn.Module):
     truncated normal (std 0.02, cut at 2 std) from ``generator`` (seed 0
     when None), biases zero, norms identity, all float32 and trainable.
     The Llama recipe has no ``position``, ``beta`` or ``bias`` parameters,
-    a ``w_gate`` in every FFN and, untied, a top-level ``lm_head``.
+    a ``w_gate`` in every FFN and, untied, a top-level ``lm_head``.  A
+    MoE block holds ``moe.router.kernel`` and ``moe.experts.w_in``,
+    ``b_in``, ``w_out``, ``b_out`` (glorot-uniform kernels, as
+    ``ops.moe.init_moe``) in place of ``ffn``.
     Raises for ``cuda`` when there is no card; tests pass
     ``device="cpu"``.  Parameter names (``named_parameters``) are the JAX
     tree's paths with the decoder unstacked: ``blocks.<i>.<path>`` is
@@ -364,6 +416,10 @@ class GPT(nn.Module):
                         or name.endswith(".kernel"):
                     nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                           generator=generator)
+        # a MoE bank is glorot-uniform, as ops.moe.init_moe draws it
+        if c.moe_experts:
+            for blk in self.blocks:
+                blk.moe = _MoE(c, device, generator)
 
     @property
     def device(self) -> torch.device:
@@ -373,19 +429,40 @@ class GPT(nn.Module):
     def _norm(self, p: _Norm, x: torch.Tensor) -> torch.Tensor:
         return self._norm_of(p.gamma, p.beta, x)
 
-    def _ffn(self, blk: _Block, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, blk: _Block, x: torch.Tensor):
+        """The pre-LN FFN of the KV-cache paths: (out, aux), as
+        ``_ffn_of``, with the MoE at ``train=False``."""
+        if self.config.moe_experts:
+            return self._ffn_of(None, _moe_tree(blk.moe.get_parameter),
+                                self._norm(blk.ln_2, x))
         f = blk.ffn
         return self._ffn_of(lambda n: (getattr(f, n).kernel,
-                                       getattr(f, n).bias),
+                                       getattr(f, n).bias), None,
                             self._norm(blk.ln_2, x))
 
-    def _ffn_of(self, dense: Callable, h: torch.Tensor) -> torch.Tensor:
-        """The FFN on normed ``h``; ``dense(name) -> (kernel, bias)`` of
-        ``w_in``, ``w_out`` (and ``w_gate``)."""
-        if self.config.ffn_activation == "swiglu":
+    def _ffn_of(self, dense: Optional[Callable], moe, h: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The FFN on normed ``h``, dense or MoE, shared by the training
+        and KV-cache paths so their arithmetic cannot differ.  Dense:
+        ``dense(name) -> (kernel, bias)`` of ``w_in``, ``w_out`` (and
+        ``w_gate``); MoE: ``moe`` the ``ops.moe`` tree, routed with ``h``'s
+        leading dim as the group (one row a group: a decode token is
+        never dropped, and a window routes its own tokens only).  Returns
+        (out, aux): aux the weighted router loss ``moe_aux_weight *
+        aux_loss + moe_z_weight * router_z_loss`` (f32), 0.0 when
+        dense."""
+        c = self.config
+        if moe is not None:
+            y, m = apply_moe(moe, h, k=c.moe_top_k,
+                             capacity_factor=c.moe_capacity_factor,
+                             train=train, generator=generator)
+            return y, (c.moe_aux_weight * m["aux_loss"]
+                       + c.moe_z_weight * m["router_z_loss"])
+        if c.ffn_activation == "swiglu":
             return ffn_swiglu_core(*dense("w_gate"), *dense("w_in"),
-                                   *dense("w_out"), h)
-        return ffn_core(*dense("w_in"), *dense("w_out"), h)
+                                   *dense("w_out"), h), 0.0
+        return ffn_core(*dense("w_in"), *dense("w_out"), h), 0.0
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """LM head (the word embedding, or ``lm_head`` when untied) ->
@@ -466,7 +543,8 @@ class GPT(nn.Module):
         if deltas is not None:
             attn_out = attn_out + deltas["out"](attn)
         x = x + attn_out
-        return x + self._ffn(blk, x)
+        ffn_out, _ = self._ffn(blk, x)         # aux unused at decode
+        return x + ffn_out
 
     # -- LoRA adapters ----------------------------------------------------
     # Per-request low-rank adapters for the serving engine: many fine-
@@ -595,19 +673,21 @@ class GPT(nn.Module):
     # -- full-sequence forward and the LM loss -----------------------------
     def apply(self, input_ids: torch.Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,
-              params: Optional[Mapping[str, torch.Tensor]] = None
-              ) -> torch.Tensor:
+              params: Optional[Mapping[str, torch.Tensor]] = None,
+              return_aux: bool = False):
         """input_ids [b, s] -> hidden [b, s, d] in the compute dtype (after
-        ``ln_f``).  Causal attention through the flash kernel, RoPE on q
-        and k before it under ``position_embedding="rope"``.  With
-        ``train`` and a nonzero ``dropout_rate``, dropout (embedding,
-        attention context, both residual branches) draws from
-        ``generator``.  ``params``: the tensors to read under the
-        parameters' names (``named_parameters``), for example casts of
-        them to a compute dtype; None reads the model's own.  Under
-        ``remat`` each block runs through ``_checkpointed``, with its
-        tensors passed in.  (This replaces ``nn.Module.apply(fn)``, which
-        the port never uses, with the JAX package's name.)"""
+        ``ln_f``); with ``return_aux`` also the router aux loss summed
+        over the layers (an f32 scalar, zero for a dense FFN).  Causal
+        attention through the flash kernel, RoPE on q and k before it
+        under ``position_embedding="rope"``.  With ``train`` and a nonzero
+        ``dropout_rate``, dropout (embedding, attention context, both
+        residual branches) draws from ``generator``, as does a MoE's
+        router jitter under ``train``.  ``params``: the tensors to read
+        under the parameters' names (``named_parameters``), for example
+        casts of them to a compute dtype; None reads the model's own.
+        Under ``remat`` each block runs through ``_checkpointed``, with
+        its tensors passed in.  (This replaces ``nn.Module.apply(fn)``,
+        which the port never uses, with the JAX package's name.)"""
         c = self.config
         P = dict(self.named_parameters()) if params is None else params
         ids = input_ids.to(self.device).long()
@@ -620,6 +700,7 @@ class GPT(nn.Module):
         rope_cs = self._rope(torch.arange(s, device=self.device))
         qk_transform = None if rope_cs is None else (
             lambda q, k: (apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)))
+        aux_total = None
         for i in range(c.num_layers):
             pre = f"blocks.{i}."
             names = [n for n in P if n.startswith(pre)]
@@ -630,11 +711,19 @@ class GPT(nn.Module):
                                          generator, train)
             tensors = [P[n] for n in names]
             if c.remat:
-                x = _checkpointed(block, generator,
-                                  _REMAT_SAVES[c.remat_policy], x, *tensors)
+                x, aux = _checkpointed(block, generator,
+                                       _REMAT_SAVES[c.remat_policy], x,
+                                       *tensors)
             else:
-                x = block(x, *tensors)
-        return self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
+                x, aux = block(x, *tensors)
+            if c.moe_experts:
+                aux_total = aux if aux_total is None else aux_total + aux
+        hidden = self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
+        if not return_aux:
+            return hidden
+        if aux_total is None:
+            aux_total = torch.zeros((), device=self.device)
+        return hidden, aux_total
 
     def _norm_of(self, gamma: torch.Tensor, beta: Optional[torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
@@ -648,10 +737,9 @@ class GPT(nn.Module):
                                          self.config.layer_norm_eps)
 
     def _train_block(self, bp: Mapping[str, torch.Tensor], x: torch.Tensor,
-                     attention_fn: Callable, qk_transform, generator, train
-                     ) -> torch.Tensor:
+                     attention_fn: Callable, qk_transform, generator, train):
         """One decoder block of the training forward over its tensors
-        ``bp`` (names relative to ``blocks.<i>.``)."""
+        ``bp`` (names relative to ``blocks.<i>.``): (x, the FFN's aux)."""
         c = self.config
 
         def norm(name, x):
@@ -665,10 +753,12 @@ class GPT(nn.Module):
             generator=generator, train=train, attention_fn=attention_fn,
             qk_transform=qk_transform)
         x = x + dropout(attn, c.dropout_rate, generator, train)
-        y = self._ffn_of(lambda n: (bp[f"ffn.{n}.kernel"],
-                                    bp.get(f"ffn.{n}.bias")),
-                         norm("ln_2", x))
-        return x + dropout(y, c.dropout_rate, generator, train)
+        moe = None if not c.moe_experts else _moe_tree(
+            lambda n: bp["moe." + n])
+        y, aux = self._ffn_of(lambda n: (bp[f"ffn.{n}.kernel"],
+                                         bp.get(f"ffn.{n}.bias")),
+                              moe, norm("ln_2", x), train, generator)
+        return x + dropout(y, c.dropout_rate, generator, train), aux
 
     def _lm_stats(self, head: torch.Tensor, hidden: torch.Tensor,
                   targets: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -707,8 +797,10 @@ class GPT(nn.Module):
         engines read.  ``batch``:
         ``input_ids`` [b, s] and optional ``loss_mask`` [b, s - 1]; the
         targets are the inputs shifted by one.  Metrics:
-        ``token_accuracy`` and, under a mask, ``loss_weight`` (its sum).
-        With ``loss_seq_chunk`` the loss runs through ``_lm_stats``."""
+        ``token_accuracy``, under a mask ``loss_weight`` (its sum), and
+        with experts ``moe_aux``: the layers' weighted router losses,
+        which the returned loss includes.  With ``loss_seq_chunk`` the
+        loss runs through ``_lm_stats``."""
         own = dict(self.named_parameters())
 
         def is_own(t: torch.Tensor, p: torch.Tensor) -> bool:
@@ -727,8 +819,9 @@ class GPT(nn.Module):
                                  ")) or casts of them")
             c = self.config
             ids = batch["input_ids"].to(self.device).long()
-            hidden = self.apply(ids[:, :-1], train=train, generator=generator,
-                                params=params)
+            hidden, aux = self.apply(ids[:, :-1], train=train,
+                                     generator=generator, params=params,
+                                     return_aux=True)
             head = params["word"] if c.tied_head else params["lm_head"]
             targets = ids[:, 1:]
             mask = batch.get("loss_mask")
@@ -758,6 +851,9 @@ class GPT(nn.Module):
                                                           min=1.0))
             if mask is not None:
                 metrics["loss_weight"] = mask.sum()
+            if c.moe_experts:
+                metrics["moe_aux"] = aux
+                loss = loss + aux
             return loss, (metrics, model_state)
 
         return loss_fn

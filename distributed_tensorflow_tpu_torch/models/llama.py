@@ -9,15 +9,22 @@ field can be overridden (``dtype``, ``kv_cache_dtype``, ...)::
 
     model = GPT(llama3_8b(dtype=torch.bfloat16, kv_cache_dtype="int8"))
 
+``llama(**kw)`` builds the model itself, as the JAX package's does:
+``llama(device="cuda", generator=None, **config_fields) -> GPT``.
+
 The weights are random (``GPT(config, generator=...)``) or a JAX tree
 carried across by ``models/convert.py``; the HF checkpoint loader of the
 JAX package is not ported.
 """
 from __future__ import annotations
 
-from .gpt import GPTConfig
+from typing import Optional, Union
 
-__all__ = ["llama2_7b", "llama3_8b", "llama_config", "llama_tiny"]
+import torch
+
+from .gpt import GPT, GPTConfig
+
+__all__ = ["llama", "llama2_7b", "llama3_8b", "llama_config", "llama_tiny"]
 
 
 def llama_config(**kw) -> GPTConfig:
@@ -32,10 +39,17 @@ def llama_config(**kw) -> GPTConfig:
     return GPTConfig(**kw)
 
 
+def llama(device: Union[str, torch.device] = "cuda",
+          generator: Optional[torch.Generator] = None, **kw) -> GPT:
+    """``GPT(llama_config(**kw))`` on ``device`` (the card unless the
+    caller asks for the CPU), weights from ``generator``."""
+    return GPT(llama_config(**kw), device=device, generator=generator)
+
+
 def llama_tiny(**kw) -> GPTConfig:
     """Test-sized Llama (GQA 4q/2kv, head_dim 32): the JAX package's
-    smoke config.  The CUDA paged kernels take head_dim 64 or 128, so on
-    the card use e.g. ``hidden_size=256``."""
+    smoke config; the paged kernel runs head dims 32, 64 and 128 on the
+    card."""
     for k, v in dict(vocab_size=512, hidden_size=128, num_layers=2,
                      num_heads=4, num_kv_heads=2, intermediate_size=256,
                      max_position=128).items():

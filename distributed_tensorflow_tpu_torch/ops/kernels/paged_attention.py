@@ -23,7 +23,9 @@ once a sub-tile), as does bf16 decode over a bf16 pool; f32 calls and
 decode over an int8 pool run on the CUDA cores.  The TPU kernel's exact
 finite-mask guards are kept.  The int8 branch folds the k scale into the logit and the v scale into
 the softmax weight (equal to dequantizing each element, up to rounding
-order).  Head dims 64 and 128.
+order).  Head dims 32, 64 and 128, each a native tile (head dim 32: one
+dim a lane in the CUDA cores' P V, two k-steps of 16 and four n-tiles of
+8 on the tensor cores; nothing is padded, so the pool keeps its bytes).
 
 What bounds it on the H100: bytes (the K/V columns it must read: hd*2
 bytes per column per leaf in bf16, hd + 4 in int8, about 0.52x at hd
@@ -318,7 +320,7 @@ def _refuse(q, kv, layer, page_tab, valid):
 
 def _refuse_shape(k_pool, hd, view_len, smem, tc):
     if smem == 0:
-        raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
+        raise ValueError(f"head_dim {hd} unsupported (32, 64 or 128)")
     raise ValueError(f"a view of {view_len} columns at head_dim {hd} "
                      f"({k_pool.dtype} pool, {'tensor' if tc else 'CUDA'} "
                      f"cores) needs {smem} bytes of shared memory per block; "

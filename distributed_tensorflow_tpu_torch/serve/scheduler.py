@@ -273,6 +273,10 @@ class EngineStats:
         return self.queued + self.prefilling + self.active
 
     @property
+    def free_slots(self) -> int:
+        return self.num_slots - self.active
+
+    @property
     def prefix_hit_rate(self) -> float:
         """Fraction of prefix lookups that mapped at least one page."""
         if not self.prefix_lookups_total:
@@ -638,6 +642,13 @@ class SlotScheduler:
             return bool(self._queue) or bool(self._prefills) \
                 or any(r is not None for r in self._slots)
 
+    @property
+    def queued(self) -> int:
+        """Requests accepted but not yet prefilling (the engine's
+        ``max_queue_depth`` admission-control signal)."""
+        with self._lock:
+            return len(self._queue)
+
     def stats(self) -> EngineStats:
         with self._lock:
             base = dict(queued=len(self._queue),
@@ -661,6 +672,14 @@ class SlotScheduler:
                         "page_size", "prefix_fingerprint"):
                 base[key] = p[key]
         return EngineStats(**base)
+
+    def tenant_inflight(self, tenant: str) -> int:
+        with self._lock:
+            return self._tenant_inflight.get(tenant, 0)
+
+    def tenant_tokens_inflight(self, tenant: str) -> int:
+        with self._lock:
+            return self._tenant_tokens.get(tenant, 0)
 
     def step(self) -> bool:
         """One tick: retire expired deadlines, start prefills for free

@@ -31,7 +31,7 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 88
+    assert len(modules) >= 90
     assert {f"{port.__name__}.{m}" for m in (
         "ops.quant", "models.llama", "ops.kernels.fused", "serve.adapters",
         "fleet.tenancy", "fleet.pagewire", "summary.crc32c",
@@ -51,7 +51,8 @@ def test_every_port_module_imports_without_jax():
         "fleet.watchdog", "fleet.workload", "fleet.autoscaler",
         "obs.federate", "ops.attention", "models.bert", "models.vit",
         "models.resnet", "models.seq2seq", "examples",
-        "examples.finetune_bert", "examples.train_vit")} <= set(modules)
+        "examples.finetune_bert", "examples.train_vit", "ops.moe",
+        "examples.serve_gpt")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         class Refuse:
@@ -81,6 +82,8 @@ def test_entry_points_default_to_the_card():
     config = port.gpt_tiny()
     with pytest.raises(RuntimeError, match="CUDA"):
         port.GPT(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.llama(vocab_size=64)
     model = port.GPT(config, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Engine(model, num_slots=1, max_len=32)

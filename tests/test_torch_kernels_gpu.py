@@ -52,7 +52,8 @@ def _pool(gen, dtype, device, L=2, NP=40, pg=16, kvh=2, hd=64):
 @pytest.mark.parametrize("dtype,tol,group,hd", [
     (torch.float32, 1e-4, 1, 64), (torch.float32, 1e-4, 2, 64),
     (torch.bfloat16, 2e-2, 1, 64), (torch.bfloat16, 2e-2, 2, 64),
-    (torch.bfloat16, 2e-2, 2, 128)])
+    (torch.bfloat16, 2e-2, 2, 128), (torch.float32, 1e-4, 1, 32),
+    (torch.bfloat16, 2e-2, 2, 32)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, tol, group, hd):
     gen = torch.Generator().manual_seed(0)
     kv = _pool(gen, dtype, cuda, hd=hd)
@@ -636,7 +637,7 @@ def _int8_pool(gen, device, L=2, NP=40, pg=16, kvh=2, hd=64):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_paged_int8_decode_kernel_matches_plain(cuda, dtype, tol, hd):
     gen = torch.Generator().manual_seed(10)
     S, P, pg, kvh, group = 5, 8, 16, 2, 4
@@ -663,7 +664,7 @@ def test_paged_int8_decode_kernel_matches_plain(cuda, dtype, tol, hd):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("pos", [0, 40, 97])
 def test_paged_int8_window_kernel_matches_plain(cuda, dtype, tol, hd, pos):
     gen = torch.Generator().manual_seed(11)
@@ -707,8 +708,8 @@ def test_paged_kernel_refuses_a_mixed_pool(cuda):
 
 @pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
 def test_llama_engine_on_card_matches_cpu(cuda, kv_cache_dtype):
-    """An f32 Llama with head_dim 64 (the kernels take 64 or 128) on the
-    card and on the CPU from the same weights: rmsnorm and the paged
+    """An f32 Llama with head_dim 64 (``llama_tiny``'s own 32 runs in
+    tests/test_torch_gpt_family_gpu.py) on the card and on the CPU from the same weights: rmsnorm and the paged
     kernels launch, layernorm does not; the greedy tokens agree
     (int8: up to a rounding step flipped by f32 summation order, so the
     comparison there is on the first token of each request)."""
@@ -755,7 +756,7 @@ def _paged_err(got, want, kind, q_dtype):
 
 
 _SPLIT_CASES = [(kind, hd, group, pg)
-                for kind in ("f32", "bf16", "int8") for hd in (64, 128)
+                for kind in ("f32", "bf16", "int8") for hd in (32, 64, 128)
                 for group in (1, 2, 4) for pg in (1, 8, 16)
                 if not (kind == "f32" and hd == 128)]   # over shared memory
 
@@ -799,7 +800,7 @@ def test_paged_decode_split_boundaries(cuda, kind, hd, group, pg):
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("pos", [0, 31, 500])
 @pytest.mark.parametrize("sq", [1, 16, 32])

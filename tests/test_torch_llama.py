@@ -135,8 +135,10 @@ def test_convert_round_trips_a_llama_tree():
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
+    # a top-level key the port does not run is refused (a MoE decoder
+    # converts since the MoE FFN was ported)
     with pytest.raises(ValueError, match="not run yet"):
-        gpt_params_from_jax(dict(tree, decoder={"moe": {}}), model.config)
+        gpt_params_from_jax(dict(tree, pipeline={}), model.config)
 
 
 def test_apply_matches_jax():
