@@ -44,20 +44,29 @@ the encoder zoo: ``models.Bert`` (MLM, the gathered head, the pooler),
 ``ops.MultiHeadAttention`` and the entry points ``examples.finetune_bert``
 and ``examples.train_vit``; BERT and ViT run the flash kernel
 bidirectional with key padding, and at head dims 16 and 32 padded to 64
-in its wrapper.  Kernels live
+in its wrapper.  Slice 17 is text and Hugging Face interop: the
+tokenizers (``data.ByteTokenizer``, ``BPETokenizer`` with its host C++
+encoder, ``GPT2BPETokenizer`` without ``regex``), the native batch
+loader behind ``data.Dataset(backend="native")``, ``tfrecord_batches``,
+the HF converters for GPT-2, BERT, ViT and Llama with ``load_hf_dir``
+(no ``transformers``), and ``examples.finetune_gpt2_hf``; it adds no
+kernel.  Kernels live
 in ``ops/kernels``, their sources in ``csrc/``.  Entry points run on the
 card unless given ``device="cpu"``.
 """
 from . import (data, fleet, models, obs, ops, optim, parallel, resilience,
                serve, summary, train, utils)
 from .fleet import QuotaExceededError, TenantPolicy, TenantQuota
-from .models.convert import (bert_params_from_jax, bert_params_to_jax,
+from .models.convert import (bert_from_hf, bert_params_from_jax,
+                             bert_params_to_jax, gpt2_from_hf,
                              gpt_params_from_jax, gpt_params_to_jax,
-                             load_jax_params, lora_from_jax, lora_to_jax,
+                             llama_from_hf, load_hf_dir, load_jax_params,
+                             lora_from_jax, lora_to_jax,
                              seq2seq_params_from_jax, seq2seq_params_to_jax,
                              stack_params_from_jax, stack_params_to_jax,
                              train_state_from_jax, train_state_to_jax,
-                             vit_params_from_jax, vit_params_to_jax)
+                             vit_from_hf, vit_params_from_jax,
+                             vit_params_to_jax)
 from .models.gpt import GPT, GPTConfig, gpt_small, gpt_tiny
 from .models.llama import (llama, llama2_7b, llama3_8b, llama_config,
                            llama_tiny)
@@ -74,17 +83,19 @@ __all__ = ["DrainResult", "Engine", "EngineStats", "GPT", "GPTConfig",
            "QTensor", "QueueFullError", "QuotaExceededError",
            "RequestHandle", "RequestSnapshot", "SummaryWriter",
            "TenantPolicy", "TenantQuota", "TrainSession", "TrainState",
-           "adam", "adamw", "bert_params_from_jax", "bert_params_to_jax",
+           "adam", "adamw", "bert_from_hf", "bert_params_from_jax",
+           "bert_params_to_jax",
            "data", "dequantize_tensor", "ema_params",
            "fleet", "models", "obs", "resilience", "serve",
-           "generate_speculative", "gpt_params_from_jax",
+           "generate_speculative", "gpt2_from_hf", "gpt_params_from_jax",
            "gpt_params_to_jax", "gpt_small", "gpt_tiny", "init_train_state",
-           "llama", "llama2_7b", "llama3_8b", "llama_config", "llama_tiny",
-           "load_jax_params", "lora_from_jax", "lora_to_jax",
+           "llama", "llama2_7b", "llama3_8b", "llama_config",
+           "llama_from_hf", "llama_tiny", "load_hf_dir", "load_jax_params", "lora_from_jax", "lora_to_jax",
            "make_custom_train_step", "make_eval_step", "make_train_step",
            "ops", "optim", "parallel", "quantize_tensor",
            "seq2seq_params_from_jax", "seq2seq_params_to_jax",
            "speculative_accept", "stack_params_from_jax",
            "stack_params_to_jax", "summary", "train",
            "train_state_from_jax", "train_state_to_jax", "utils",
-           "vit_params_from_jax", "vit_params_to_jax", "with_ema"]
+           "vit_from_hf", "vit_params_from_jax", "vit_params_to_jax",
+           "with_ema"]

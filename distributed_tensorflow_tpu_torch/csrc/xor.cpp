@@ -4,9 +4,9 @@
 // A copy of dt_xor_generate in the JAX package's native/dttpu_native.cpp
 // (the port loads none of that package's code), so that the two give the
 // same bytes for the same (n, bits, seed): splitmix64 seeds a
-// xoshiro256** stream per block of 4096 rows, keyed by the block's index,
-// not by the thread that fills it, so the output does not depend on the
-// machine's core count.
+// xoshiro256** stream (xoshiro.h) per block of 4096 rows, keyed by the
+// block's index, not by the thread that fills it, so the output does not
+// depend on the machine's core count.
 //
 // Host code only (no CUDA): ops/kernels/_build.py compiles it with the
 // system C++ compiler into build/kernels/ and binds it with ctypes.
@@ -17,29 +17,11 @@
 #include <thread>
 #include <vector>
 
+#include "xoshiro.h"
+
 namespace {
 
-uint64_t splitmix64(uint64_t& s) {
-  uint64_t z = (s += 0x9E3779B97F4A7C15ull);
-  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
-  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
-  return z ^ (z >> 31);
-}
-
-struct Xoshiro {
-  uint64_t s[4];
-  explicit Xoshiro(uint64_t seed) {
-    for (auto& w : s) w = splitmix64(seed);
-  }
-  static uint64_t rotl(uint64_t x, int k) { return (x << k) | (x >> (64 - k)); }
-  uint64_t next() {
-    uint64_t result = rotl(s[1] * 5, 7) * 9;
-    uint64_t t = s[1] << 17;
-    s[2] ^= s[0]; s[3] ^= s[1]; s[1] ^= s[2]; s[0] ^= s[3]; s[2] ^= t;
-    s[3] = rotl(s[3], 45);
-    return result;
-  }
-};
+using dt::Xoshiro;
 
 const int64_t kXorBlock = 4096;
 

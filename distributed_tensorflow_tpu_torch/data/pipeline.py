@@ -3,11 +3,18 @@ prefetch to the card.
 
 Counterpart of ``distributed_tensorflow_tpu/data/pipeline.py``:
 
-  * ``Dataset`` with its ``"numpy"`` backend: the documented ``(seed,
-    epoch)`` numpy shuffle stream, so the port and the JAX package see the
-    same batches in the same order.  Each epoch reshuffles;
-    ``process_count > 1`` keeps this process's contiguous shard.  The
-    native C++ loader backend (``"auto"``, ``"native"``) is not ported.
+  * ``Dataset``: with its ``"numpy"`` backend (the default), the
+    documented ``(seed, epoch)`` numpy shuffle stream, so the port and the
+    JAX package see the same batches in the same order.  ``"native"``
+    runs one ``utils.native.NativeLoader`` (threaded gather in host C++,
+    ``csrc/loader.cpp``) an epoch, seeded ``seed * 1_000_003 + epoch``:
+    the JAX package's native batches, batch for batch.  ``"auto"`` takes
+    the native route where the shape fits it (one or two arrays, full
+    batches, ``n >= batch_size``) and the numpy route elsewhere, as the
+    JAX package does; where the shape fits but the loader cannot be
+    built, the port raises instead of taking the numpy route (its shuffle
+    stream differs).  Each epoch reshuffles; ``process_count > 1`` keeps
+    this process's contiguous shard.
   * ``prefetch_to_device``: a background thread stages upcoming batches
     on the device while the current step computes.  On a card it copies
     each batch from pinned host memory on a side stream and records an
@@ -45,9 +52,8 @@ class Dataset:
                  seed: int = 0, process_index: int = 0,
                  process_count: int = 1, backend: str = "numpy",
                  transform=None):
-        if backend != "numpy":
-            raise ValueError(f"backend {backend!r}: the port has only the "
-                             "'numpy' backend")
+        if backend not in ("auto", "native", "numpy"):
+            raise ValueError(f"unknown backend {backend!r}")
         n = arrays[0].shape[0]
         for a in arrays:
             if a.shape[0] != n:
@@ -64,7 +70,26 @@ class Dataset:
         self.drop_remainder = drop_remainder
         self.seed = seed
         self.epoch = 0
+        self.backend = backend
+        if backend == "native" and not self._native_fits():
+            raise ValueError(
+                "backend='native' takes one or two arrays in full batches "
+                f"(drop_remainder=True, n >= batch_size); got "
+                f"{len(self.arrays)} arrays, n={n}, batch_size="
+                f"{self.batch_size}, drop_remainder={drop_remainder}")
+        if backend != "numpy" and self._native_fits():
+            from ..utils import native
+            if not native.native_available():
+                raise RuntimeError(
+                    f"backend={backend!r}: the native loader "
+                    "(csrc/loader.cpp) cannot be built here; "
+                    "backend='numpy' is the portable route")
         self.transform = transform
+
+    def _native_fits(self) -> bool:
+        """Whether the native loader takes this dataset's shape."""
+        return (len(self.arrays) in (1, 2) and self.drop_remainder
+                and self.n >= self.batch_size)
 
     @property
     def batches_per_epoch(self) -> int:
@@ -76,6 +101,9 @@ class Dataset:
         return self.batches_per_epoch
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
+        if self.backend != "numpy" and self._native_fits():
+            yield from self._iter_native()
+            return
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(
                 self.n)
@@ -90,6 +118,26 @@ class Dataset:
             batch = tuple(a[idx] for a in self.arrays)
             yield batch if self.transform is None \
                 else self.transform(t_rng, batch)
+
+    def _iter_native(self) -> Iterator[Tuple[np.ndarray, ...]]:
+        """One epoch through a fresh ``NativeLoader`` seeded with the
+        epoch folded in, so each epoch reshuffles and an epoch left early
+        leaves nothing behind."""
+        from ..utils import native
+        x = self.arrays[0]
+        y = self.arrays[1] if len(self.arrays) == 2 else None
+        seed = (self.seed * 1_000_003 + self.epoch) & 0xFFFFFFFFFFFFFFFF
+        t_rng = np.random.default_rng((self.seed, self.epoch, 1))
+        self.epoch += 1
+        loader = native.NativeLoader(x, y, self.batch_size, seed=seed,
+                                     shuffle=self.shuffle)
+        try:
+            for _ in range(loader.batches_per_epoch):
+                batch = loader.next()
+                yield batch if self.transform is None \
+                    else self.transform(t_rng, batch)
+        finally:
+            loader.close()
 
     def epochs(self, num_epochs: int) -> Iterator[Tuple[np.ndarray, ...]]:
         for _ in range(num_epochs):

@@ -1,7 +1,8 @@
 """Example entry points of the port, the root ``examples/`` scripts'
 counterparts: ``python -m distributed_tensorflow_tpu_torch.examples.
-finetune_bert`` and ``.train_vit``, with those scripts' flags, data and
-printed lines, on the card unless ``--device=cpu``."""
+finetune_bert``, ``.train_vit``, ``.serve_gpt`` and ``.finetune_gpt2_hf``,
+with those scripts' flags, data and printed lines, on the card unless
+``--device=cpu``."""
 import numpy as np
 
 

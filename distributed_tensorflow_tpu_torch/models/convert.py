@@ -32,6 +32,24 @@ like any ``Layer`` tree, goes through ``stack_params_from_jax`` /
 ``stack_params_to_jax`` (its parameters are the dot-joined paths of the
 JAX tree, and nothing in it is stacked).
 
+The Hugging Face half (``gpt2_``, ``bert_``, ``vit_`` and ``llama_`` +
+``config_from_hf``, ``params_from_hf`` and ``from_hf``) is the JAX
+package's, mapped once: each ``*_params_from_hf`` builds the JAX
+package's numpy tree from an HF state dict (the same keys, layouts and
+refusals), and the ``*_params_from_jax`` above place it, so each model
+keeps one layout mapping.  The HF layout facts: GPT-2's ``Conv1D``
+weights are [in, out] (no transpose) and ``attn.c_attn`` fuses q|k|v on
+the output dim; BERT, ViT and Llama are ``nn.Linear`` [out, in]
+(transposed); Llama's o_proj is reshaped head-major; ``lm_head.weight``
+is GPT-2's word embedding (tied) and Llama's own head only when untied;
+a ViT patch projection [out, in, kh, kw] becomes HWIO for NHWC images.
+``*_from_hf(hf_model, device=..., dtype=...)`` reads only
+``hf_model.config`` and ``hf_model.state_dict()`` (duck typing: nothing
+here imports ``transformers``), or takes the ``(config, state_dict)``
+pair that ``load_hf_dir(path)`` reads from a local checkpoint directory
+(``config.json`` and ``model.safetensors`` or ``pytorch_model.bin``)
+without it.
+
 ``train_state_to_jax`` and ``train_state_from_jax`` carry a whole training
 state: the port's ``TrainState`` (its params, ``OptState(count, {m, v})``,
 the ``with_ema`` shadow, ``LossScaled`` and the loss scale's fields) as the
@@ -44,23 +62,32 @@ checkpoints.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+import json
+import os
+import types
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.layers import _flat, _nest
-from .bert import Bert
+from .bert import Bert, BertConfig
 from .gpt import GPT, GPTConfig
 from .seq2seq import Seq2Seq
-from .vit import ViT
+from .vit import ViT, ViTConfig
 
-__all__ = ["bert_params_from_jax", "bert_params_to_jax",
-           "gpt_params_from_jax", "gpt_params_to_jax", "load_jax_params",
-           "lora_from_jax", "lora_to_jax", "seq2seq_params_from_jax",
-           "seq2seq_params_to_jax", "stack_params_from_jax",
-           "stack_params_to_jax", "train_state_from_jax",
-           "train_state_to_jax", "vit_params_from_jax", "vit_params_to_jax"]
+__all__ = ["bert_config_from_hf", "bert_from_hf", "bert_params_from_hf",
+           "bert_params_from_jax", "bert_params_to_jax",
+           "gpt2_config_from_hf", "gpt2_from_hf", "gpt2_params_from_hf",
+           "gpt_params_from_jax", "gpt_params_to_jax", "llama_config_from_hf",
+           "llama_from_hf", "llama_params_from_hf", "load_hf_dir",
+           "load_jax_params", "lora_from_jax", "lora_to_jax",
+           "seq2seq_params_from_jax", "seq2seq_params_to_jax",
+           "stack_params_from_jax", "stack_params_to_jax",
+           "train_state_from_jax", "train_state_to_jax",
+           "vit_config_from_hf", "vit_from_hf", "vit_params_from_hf",
+           "vit_params_from_jax", "vit_params_to_jax"]
+
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
     for key, val in tree.items():
@@ -389,3 +416,483 @@ def lora_to_jax(adapter: Mapping[str, Mapping[str, torch.Tensor]]
                        "cpu", torch.float32).numpy()
                    for ab in ("a", "b")}
             for name in _LORA_TARGETS}
+
+
+# -- Hugging Face checkpoints ---------------------------------------------
+
+def _np(t) -> np.ndarray:
+    """A state-dict entry (a tensor of any float type, bf16 included, or
+    an array) as f32 numpy on the host; a view when it already is one,
+    which the ``*_params_from_jax`` placers copy."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(t, np.float32)
+
+
+def _ln_of(sd, prefix):
+    """HF LayerNorm {weight, bias} -> the JAX tree's {gamma, beta}."""
+    return {"gamma": _np(sd[f"{prefix}.weight"]),
+            "beta": _np(sd[f"{prefix}.bias"])}
+
+
+def _stack_layers(layers):
+    """Per-layer trees -> one tree with a leading layer axis."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([t[k] for t in layers]) for k in first}
+    return np.stack(layers)
+
+
+def _hf_parts(hf_model) -> Tuple[Any, Mapping[str, Any]]:
+    """(config, state dict) of an HF model (its ``config`` and
+    ``state_dict()``) or of ``load_hf_dir``'s pair."""
+    if isinstance(hf_model, tuple):
+        return hf_model
+    return hf_model.config, hf_model.state_dict()
+
+
+def gpt2_config_from_hf(hf_config, dtype: torch.dtype = torch.float32
+                        ) -> GPTConfig:
+    """A ``transformers.GPT2Config`` (or anything with its attribute
+    names) as a ``GPTConfig`` computing in ``dtype``."""
+    act = getattr(hf_config, "activation_function", "gelu_new")
+    if act != "gelu_new":
+        raise ValueError(
+            f"GPT-2 activation {act!r} unsupported: this zoo's FFN is "
+            "tanh-approximate GELU (gelu_new), the GPT-2 default")
+    if not getattr(hf_config, "scale_attn_weights", True):
+        raise ValueError("scale_attn_weights=False is unsupported")
+    if getattr(hf_config, "scale_attn_by_inverse_layer_idx", False):
+        raise ValueError("scale_attn_by_inverse_layer_idx is unsupported: "
+                         "this attention never divides logits by the "
+                         "layer index")
+    if getattr(hf_config, "reorder_and_upcast_attn", False):
+        raise ValueError("reorder_and_upcast_attn is unsupported")
+    return GPTConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.n_embd,
+        num_layers=hf_config.n_layer,
+        num_heads=hf_config.n_head,
+        intermediate_size=(hf_config.n_inner or 4 * hf_config.n_embd),
+        max_position=hf_config.n_positions,
+        dropout_rate=float(hf_config.resid_pdrop),
+        layer_norm_eps=float(hf_config.layer_norm_epsilon),
+        position_embedding="learned",
+        dtype=dtype,
+    )
+
+
+def gpt2_params_from_hf(state_dict: Mapping[str, Any],
+                        config: GPTConfig) -> Dict[str, Any]:
+    """The JAX package's GPT tree (numpy f32, decoder stacked) of a GPT-2
+    state dict (GPT2Model or GPT2LMHeadModel)."""
+    sd = {k.removeprefix("transformer."): v for k, v in state_dict.items()}
+    d, h, hd = config.hidden_size, config.num_heads, config.head_dim
+
+    def layer(i):
+        qw, kw, vw = np.split(_np(sd[f"h.{i}.attn.c_attn.weight"]), 3,
+                              axis=1)                 # [d, 3d], in-out
+        qb, kb, vb = np.split(_np(sd[f"h.{i}.attn.c_attn.bias"]), 3)
+
+        def qkv(w, b):
+            return {"kernel": w.reshape(d, h, hd), "bias": b.reshape(h, hd)}
+
+        def conv1d(prefix):
+            return {"kernel": _np(sd[f"{prefix}.weight"]),
+                    "bias": _np(sd[f"{prefix}.bias"])}
+        return {
+            "ln_1": _ln_of(sd, f"h.{i}.ln_1"),
+            "attention": {
+                "query": qkv(qw, qb), "key": qkv(kw, kb),
+                "value": qkv(vw, vb),
+                "out": {"kernel": _np(sd[f"h.{i}.attn.c_proj.weight"]
+                                      ).reshape(h, hd, d),
+                        "bias": _np(sd[f"h.{i}.attn.c_proj.bias"])},
+            },
+            "ln_2": _ln_of(sd, f"h.{i}.ln_2"),
+            "ffn": {"w_in": conv1d(f"h.{i}.mlp.c_fc"),
+                    "w_out": conv1d(f"h.{i}.mlp.c_proj")},
+        }
+
+    return {
+        "embeddings": {"word": _np(sd["wte.weight"]),
+                       "position": _np(sd["wpe.weight"])},
+        "decoder": _stack_layers([layer(i)
+                                  for i in range(config.num_layers)]),
+        "ln_f": _ln_of(sd, "ln_f"),
+    }
+
+
+def _gpt_from_tree(config: GPTConfig, tree, device):
+    """A ``GPT`` on ``device`` holding the JAX tree's weights, and its
+    own parameters (the dict ``lm_loss_fn`` and the train step take)."""
+    model = GPT(config, device=device)
+    load_jax_params(model, tree)
+    return model, dict(model.named_parameters())
+
+
+def gpt2_from_hf(hf_model, device="cuda", dtype: torch.dtype = torch.float32
+                 ) -> Tuple[GPT, Dict[str, torch.Tensor]]:
+    """(GPT, params) from a GPT-2 model (``config`` and ``state_dict()``;
+    a ``transformers`` GPT2Model / GPT2LMHeadModel, or a checkpoint
+    ``load_hf_dir`` read): every path the port's GPT offers (training,
+    ``generate``, the engines) with the checkpoint's logits."""
+    hf_config, sd = _hf_parts(hf_model)
+    config = gpt2_config_from_hf(hf_config, dtype)
+    return _gpt_from_tree(config, gpt2_params_from_hf(sd, config), device)
+
+
+def bert_config_from_hf(hf_config, dtype: torch.dtype = torch.float32
+                        ) -> BertConfig:
+    """A ``transformers.BertConfig`` as a ``BertConfig``; HF BERT's exact
+    (erf) GELU is ``hidden_act="gelu"``."""
+    act = getattr(hf_config, "hidden_act", "gelu")
+    if act not in ("gelu", "relu"):
+        raise ValueError(f"BERT hidden_act {act!r} unsupported")
+    pos = getattr(hf_config, "position_embedding_type", "absolute")
+    if pos != "absolute":
+        raise ValueError(
+            f"position_embedding_type {pos!r} unsupported: this Bert "
+            "implements absolute positions only — a relative-position "
+            "checkpoint would convert silently wrong")
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        dropout_rate=float(hf_config.hidden_dropout_prob),
+        layer_norm_eps=float(hf_config.layer_norm_eps),
+        hidden_act=act,
+        dtype=dtype,
+    )
+
+
+def _linear_t(sd, prefix):
+    """``nn.Linear`` [out, in] -> (kernel [in, out], bias)."""
+    return _np(sd[f"{prefix}.weight"]).T, _np(sd[f"{prefix}.bias"])
+
+
+def _encoder_layer(sd, base, attn, ln_attn, ln_ffn, d, h, hd):
+    """One BERT-style layer (``nn.Linear`` projections) of the JAX tree;
+    ``attn`` is the q/k/v modules' prefix under ``base``."""
+    def qkv(name):
+        w, b = _linear_t(sd, f"{base}.{attn}.{name}")
+        return {"kernel": w.reshape(d, h, hd), "bias": b.reshape(h, hd)}
+
+    def dense(prefix):
+        w, b = _linear_t(sd, f"{base}.{prefix}")
+        return {"kernel": w, "bias": b}
+    ow, ob = _linear_t(sd, f"{base}.attention.output.dense")
+    return {
+        "attention": {"query": qkv("query"), "key": qkv("key"),
+                      "value": qkv("value"),
+                      "out": {"kernel": ow.reshape(h, hd, d), "bias": ob},
+                      "ln": _ln_of(sd, f"{base}.{ln_attn}")},
+        "ffn": {"w_in": dense("intermediate.dense"),
+                "w_out": dense("output.dense"),
+                "ln": _ln_of(sd, f"{base}.{ln_ffn}")},
+    }
+
+
+def bert_params_from_hf(state_dict: Mapping[str, Any],
+                        config: BertConfig) -> Dict[str, Any]:
+    """The JAX package's BERT tree of a BertModel / BertForMaskedLM state
+    dict: the pooler and the MLM head (transform, LayerNorm, output bias;
+    the decoder is the tied word embedding) when present, absent
+    otherwise."""
+    sd = {k.removeprefix("bert."): v for k, v in state_dict.items()}
+    d, h, hd = config.hidden_size, config.num_heads, config.head_dim
+    params: Dict[str, Any] = {
+        "embeddings": {
+            "word": _np(sd["embeddings.word_embeddings.weight"]),
+            "position": _np(sd["embeddings.position_embeddings.weight"]),
+            "type": _np(sd["embeddings.token_type_embeddings.weight"]),
+            "ln": _ln_of(sd, "embeddings.LayerNorm"),
+        },
+        "encoder": _stack_layers([
+            _encoder_layer(sd, f"encoder.layer.{i}", "attention.self",
+                           "attention.output.LayerNorm", "output.LayerNorm",
+                           d, h, hd)
+            for i in range(config.num_layers)]),
+    }
+    if "pooler.dense.weight" in sd:
+        pw, pb = _linear_t(sd, "pooler.dense")
+        params["pooler"] = {"kernel": pw, "bias": pb}
+    if "cls.predictions.transform.dense.weight" in state_dict:
+        tw, tb = _linear_t(state_dict, "cls.predictions.transform.dense")
+        params["mlm"] = {
+            "transform": {"kernel": tw, "bias": tb},
+            "ln": _ln_of(state_dict, "cls.predictions.transform.LayerNorm"),
+            "output_bias": _np(state_dict["cls.predictions.bias"]),
+        }
+    return params
+
+
+def bert_from_hf(hf_model, device="cuda", dtype: torch.dtype = torch.float32
+                 ) -> Tuple[Bert, Dict[str, torch.Tensor]]:
+    """(Bert, params on ``device``) from a BertModel / BertForMaskedLM:
+    sequence output, pooler and MLM logits as the checkpoint's."""
+    hf_config, sd = _hf_parts(hf_model)
+    config = bert_config_from_hf(hf_config, dtype)
+    return Bert(config), bert_params_from_jax(
+        bert_params_from_hf(sd, config), config, device)
+
+
+def vit_config_from_hf(hf_config, num_classes: int,
+                       dtype: torch.dtype = torch.float32) -> ViTConfig:
+    """A ``transformers.ViTConfig`` as a ``ViTConfig`` with
+    ``num_classes`` outputs."""
+    act = getattr(hf_config, "hidden_act", "gelu")
+    if act not in ("gelu", "gelu_approx"):
+        raise ValueError(f"ViT hidden_act {act!r} unsupported")
+    if not getattr(hf_config, "qkv_bias", True):
+        raise ValueError("qkv_bias=False is unsupported: this zoo's "
+                         "attention projections always carry biases")
+    return ViTConfig(
+        image_size=hf_config.image_size,
+        patch_size=hf_config.patch_size,
+        channels=hf_config.num_channels,
+        num_classes=num_classes,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        dropout_rate=float(hf_config.hidden_dropout_prob),
+        layer_norm_eps=float(hf_config.layer_norm_eps),
+        hidden_act=act,
+        dtype=dtype,
+    )
+
+
+def vit_params_from_hf(state_dict: Mapping[str, Any],
+                       config: ViTConfig) -> Dict[str, Any]:
+    """The JAX package's ViT tree of a ViTModel /
+    ViTForImageClassification state dict: the patch projection in HWIO
+    for NHWC images, pre-LN layers (``layernorm_before``/``after``), and
+    the ``classifier`` as the head when present, else a zero head (then
+    ``apply(return_features=True)`` is what matches)."""
+    sd = {k.removeprefix("vit."): v for k, v in state_dict.items()}
+    d, h, hd = config.hidden_size, config.num_heads, config.head_dim
+    proj = _np(sd["embeddings.patch_embeddings.projection.weight"])
+    params: Dict[str, Any] = {
+        "patch_embed": {
+            # torch conv [out, in, kh, kw] -> HWIO [kh, kw, in, out]
+            "kernel": np.ascontiguousarray(proj.transpose(2, 3, 1, 0)),
+            "bias": _np(sd["embeddings.patch_embeddings.projection.bias"]),
+        },
+        "cls_token": _np(sd["embeddings.cls_token"]),
+        "pos_embed": _np(sd["embeddings.position_embeddings"]),
+        "encoder": _stack_layers([
+            _encoder_layer(sd, f"encoder.layer.{i}", "attention.attention",
+                           "layernorm_before", "layernorm_after", d, h, hd)
+            for i in range(config.num_layers)]),
+        "final_ln": _ln_of(sd, "layernorm"),
+    }
+    if "classifier.weight" in state_dict:
+        cw, cb = _linear_t(state_dict, "classifier")
+        params["head"] = {"kernel": cw, "bias": cb}
+    else:
+        params["head"] = {
+            "kernel": np.zeros((d, config.num_classes), np.float32),
+            "bias": np.zeros((config.num_classes,), np.float32)}
+    return params
+
+
+def vit_from_hf(hf_model, device="cuda", dtype: torch.dtype = torch.float32
+                ) -> Tuple[ViT, Dict[str, torch.Tensor]]:
+    """(ViT, params on ``device``) from a ViTModel /
+    ViTForImageClassification.  Features (and, with a classifier,
+    logits) are the checkpoint's; images are NHWC here, NCHW in torch."""
+    hf_config, sd = _hf_parts(hf_model)
+    n_classes = getattr(hf_config, "num_labels", 0)
+    if "classifier.weight" not in sd:
+        n_classes = max(int(n_classes or 0), 1)
+    config = vit_config_from_hf(hf_config, n_classes, dtype)
+    return ViT(config), vit_params_from_jax(
+        vit_params_from_hf(sd, config), config, device)
+
+
+def llama_config_from_hf(hf_config, dtype: torch.dtype = torch.float32
+                         ) -> GPTConfig:
+    """A ``transformers.LlamaConfig`` as the Llama recipe of
+    ``GPTConfig`` (``models/llama.py``)."""
+    from .llama import llama_config
+    act = getattr(hf_config, "hidden_act", "silu")
+    if act not in ("silu", "swish"):
+        raise ValueError(f"Llama hidden_act {act!r} unsupported: the "
+                         "swiglu FFN gate is silu")
+    if getattr(hf_config, "attention_bias", False) or \
+            getattr(hf_config, "mlp_bias", False):
+        raise ValueError("attention_bias/mlp_bias checkpoints are "
+                         "unsupported: the Llama recipe is bias-free")
+    scaling = getattr(hf_config, "rope_scaling", None)
+    if scaling:
+        raise ValueError(f"rope_scaling {scaling!r} unsupported: plain "
+                         "rotate-half RoPE only")
+    head_dim = getattr(hf_config, "head_dim", None)
+    derived = hf_config.hidden_size // hf_config.num_attention_heads
+    if head_dim is not None and head_dim != derived:
+        raise ValueError(
+            f"explicit head_dim {head_dim} != hidden_size//num_heads "
+            f"{derived} unsupported: GPTConfig derives head_dim")
+    return llama_config(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        num_kv_heads=getattr(hf_config, "num_key_value_heads", None),
+        intermediate_size=hf_config.intermediate_size,
+        max_position=hf_config.max_position_embeddings,
+        layer_norm_eps=hf_config.rms_norm_eps,
+        rope_base=getattr(hf_config, "rope_theta", 10000.0),
+        tied_head=bool(getattr(hf_config, "tie_word_embeddings", False)),
+        dtype=dtype,
+    )
+
+
+def llama_params_from_hf(state_dict: Mapping[str, Any],
+                         config: GPTConfig) -> Dict[str, Any]:
+    """The JAX package's Llama tree of a LlamaModel / LlamaForCausalLM
+    state dict: ``nn.Linear`` kernels transposed to [in, ...out], q/k/v
+    head-major, o_proj [h, hd, d], and ``lm_head`` [vocab, d] only when
+    the head is untied (HF checkpoints already use rotate-half RoPE)."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    d, h = config.hidden_size, config.num_heads
+    hd, kv = config.head_dim, config.kv_heads
+
+    def rms(prefix):
+        return {"gamma": _np(sd[f"{prefix}.weight"])}
+
+    def lin_t(prefix, shape):
+        return {"kernel": np.ascontiguousarray(
+            _np(sd[f"{prefix}.weight"]).T.reshape(shape))}
+
+    def layer(i):
+        p = f"layers.{i}"
+        return {
+            "ln_1": rms(f"{p}.input_layernorm"),
+            "attention": {
+                "query": lin_t(f"{p}.self_attn.q_proj", (d, h, hd)),
+                "key": lin_t(f"{p}.self_attn.k_proj", (d, kv, hd)),
+                "value": lin_t(f"{p}.self_attn.v_proj", (d, kv, hd)),
+                "out": lin_t(f"{p}.self_attn.o_proj", (h, hd, d)),
+            },
+            "ln_2": rms(f"{p}.post_attention_layernorm"),
+            "ffn": {"w_in": lin_t(f"{p}.mlp.up_proj", (d, -1)),
+                    "w_gate": lin_t(f"{p}.mlp.gate_proj", (d, -1)),
+                    "w_out": lin_t(f"{p}.mlp.down_proj", (-1, d))},
+        }
+
+    params = {
+        "embeddings": {"word": _np(sd["embed_tokens.weight"])},
+        "decoder": _stack_layers([layer(i)
+                                  for i in range(config.num_layers)]),
+        "ln_f": rms("norm"),
+    }
+    if not config.tied_head:
+        head = state_dict.get("lm_head.weight")
+        if head is None:
+            raise ValueError(
+                "state_dict has no lm_head.weight (a bare LlamaModel?) — "
+                "convert from LlamaForCausalLM, or set tied_head=True")
+        params["lm_head"] = _np(head)
+    return params
+
+
+def llama_from_hf(hf_model, device="cuda", dtype: torch.dtype = torch.float32
+                  ) -> Tuple[GPT, Dict[str, torch.Tensor]]:
+    """(GPT, params) from a LlamaModel / LlamaForCausalLM: the port's
+    whole decoder surface (GQA cache, ``generate``, the engines,
+    training) with the checkpoint's logits."""
+    hf_config, sd = _hf_parts(hf_model)
+    config = llama_config_from_hf(hf_config, dtype)
+    return _gpt_from_tree(config, llama_params_from_hf(sd, config), device)
+
+
+# -- local checkpoint directories ------------------------------------------
+
+# HF's defaults for the config keys the converters read, by model type
+_HF_DEFAULTS = {
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                 n_head=12, n_inner=None, activation_function="gelu_new",
+                 resid_pdrop=0.1, layer_norm_epsilon=1e-5,
+                 scale_attn_weights=True,
+                 scale_attn_by_inverse_layer_idx=False,
+                 reorder_and_upcast_attn=False, tie_word_embeddings=True),
+    "bert": dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 hidden_act="gelu", hidden_dropout_prob=0.1,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12, position_embedding_type="absolute",
+                 tie_word_embeddings=True),
+    "vit": dict(hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072,
+                hidden_act="gelu", hidden_dropout_prob=0.0,
+                layer_norm_eps=1e-12, image_size=224, patch_size=16,
+                num_channels=3, qkv_bias=True, tie_word_embeddings=True),
+    "llama": dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=None, hidden_act="silu",
+                  max_position_embeddings=2048, rms_norm_eps=1e-6,
+                  tie_word_embeddings=False, rope_theta=10000.0,
+                  rope_scaling=None, attention_bias=False, mlp_bias=False,
+                  head_dim=None),
+}
+
+# safetensors dtype names -> (numpy dtype of the raw bytes, torch dtype)
+_ST_DTYPES = {"F32": (np.float32, torch.float32),
+              "F16": (np.float16, torch.float16),
+              "BF16": (np.int16, torch.bfloat16)}
+
+
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file's tensors: an 8-byte little-endian header
+    length, a JSON header of {name: {dtype, shape, data_offsets}}, then
+    the raw little-endian bytes."""
+    with open(path, "rb") as f:
+        (n,) = np.frombuffer(f.read(8), "<u8")
+        header = json.loads(f.read(int(n)))
+        data = np.frombuffer(f.read(), np.uint8)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}; "
+                             f"read: {sorted(_ST_DTYPES)}")
+        raw, dtype = _ST_DTYPES[info["dtype"]]
+        lo, hi = info["data_offsets"]
+        arr = data[lo:hi].view(np.dtype(raw).newbyteorder("<"))
+        t = torch.from_numpy(arr.astype(raw).reshape(info["shape"]))
+        out[name] = t.view(dtype)
+    return out
+
+
+def load_hf_dir(path: str) -> Tuple[types.SimpleNamespace,
+                                    Dict[str, torch.Tensor]]:
+    """``(config, state_dict)`` of a local Hugging Face checkpoint
+    directory, without ``transformers``: ``config.json`` as a namespace
+    under HF's attribute names (HF's defaults filled in for the keys the
+    converters read, by ``model_type``; ``num_labels`` from
+    ``id2label``), and the weights of ``model.safetensors`` (f32, f16,
+    bf16) or else ``pytorch_model.bin`` (``torch.load(weights_only=
+    True)``) as CPU tensors in their stored dtype.  The ``*_from_hf``
+    converters take the pair as they take an HF model."""
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        raw = json.load(f)
+    fields = dict(_HF_DEFAULTS.get(raw.get("model_type"), {}))
+    fields.update(raw)
+    if "id2label" in raw:
+        fields["num_labels"] = len(raw["id2label"])
+    fields.setdefault("num_labels", 2)
+    config = types.SimpleNamespace(**fields)
+    st = os.path.join(path, "model.safetensors")
+    if os.path.exists(st):
+        sd = _read_safetensors(st)
+    else:
+        sd = torch.load(os.path.join(path, "pytorch_model.bin"),
+                        map_location="cpu", weights_only=True)
+    return config, sd

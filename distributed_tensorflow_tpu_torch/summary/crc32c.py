@@ -9,7 +9,8 @@ the slice-by-8 host routine of ``csrc/crc32c.cpp``, built on first use
 by ``ops/kernels/_build.py`` with the system C++ compiler (a GPT-2-small
 training state is 2 GB, checksummed on every save and verified restore);
 with no compiler it raises, as the CUDA kernels do without ``nvcc``.
-``masked_crc32c`` is the TFRecord / checkpoint-manifest form.
+``masked_crc32c`` is the TFRecord / checkpoint-manifest form, and
+``py_masked_crc32c`` the same form over ``py_crc32c``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import ctypes
 
 import numpy as np
 
-__all__ = ["crc32c", "masked_crc32c", "py_crc32c"]
+__all__ = ["crc32c", "masked_crc32c", "py_crc32c", "py_masked_crc32c"]
 
 _POLY = 0x82F63B78
 _TABLE = []
@@ -64,8 +65,17 @@ def crc32c(data, crc: int = 0) -> int:
     return int(_native()(buf.ctypes.data, buf.size, crc))
 
 
-def masked_crc32c(data) -> int:
+def _mask(crc: int) -> int:
     """The TFRecord masked form: rotate right by 15 and add a constant."""
-    crc = crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def masked_crc32c(data) -> int:
+    """The masked CRC32-C of ``data`` (the host routine)."""
+    return _mask(crc32c(data))
+
+
+def py_masked_crc32c(data: bytes) -> int:
+    """The masked CRC32-C of ``data`` through ``py_crc32c``."""
+    return _mask(py_crc32c(data))
 

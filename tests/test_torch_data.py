@@ -60,7 +60,9 @@ def test_dataset_shards_transform_and_refusals():
     want = list(jpipe.Dataset([x], 4, seed=9, transform=jitter))
     for (a,), (b,) in zip(got, want):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="numpy"):
-        Dataset([x], 4, backend="native")
+    with pytest.raises(ValueError, match="unknown backend"):
+        Dataset([x], 4, backend="torch")
+    with pytest.raises(ValueError, match="backend='native'"):
+        Dataset([x], 4, backend="native", drop_remainder=False)
     with pytest.raises(ValueError, match="leading dim"):
         Dataset([x, x[:3]], 4)

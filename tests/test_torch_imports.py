@@ -4,7 +4,10 @@ unless told otherwise.
 Grep cannot prove the first: the port's own name begins with the JAX
 package's.  So every port module is imported in a fresh interpreter whose
 meta-path finder refuses the top-level names ``jax`` and
-``distributed_tensorflow_tpu``.
+``distributed_tensorflow_tpu``, and also ``transformers``, ``regex`` and
+``safetensors``, which the card's machine may lack: the tokenizers and
+the HF converters need none of them (``examples.finetune_gpt2_hf``
+imports ``transformers`` inside ``main``, for its demo model only).
 """
 import os
 import pkgutil
@@ -20,6 +23,8 @@ import distributed_tensorflow_tpu_torch as port
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REFUSED = ("jax", "distributed_tensorflow_tpu", "transformers", "regex",
+            "safetensors")
 
 
 def _port_modules():
@@ -52,19 +57,20 @@ def test_every_port_module_imports_without_jax():
         "obs.federate", "ops.attention", "models.bert", "models.vit",
         "models.resnet", "models.seq2seq", "examples",
         "examples.finetune_bert", "examples.train_vit", "ops.moe",
-        "examples.serve_gpt")} <= set(modules)
+        "examples.serve_gpt", "data.text", "utils.native",
+        "examples.finetune_gpt2_hf")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
+        REFUSED = {_REFUSED!r}
         class Refuse:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "distributed_tensorflow_tpu"):
+                if name.split(".")[0] in REFUSED:
                     raise ImportError("refused: " + name)
                 return None
         sys.meta_path.insert(0, Refuse())
         for name in {modules!r}:
             importlib.import_module(name)
-        bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "distributed_tensorflow_tpu"))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
         assert not bad, bad
         print("ok", len({modules!r}))
     """)
