@@ -424,6 +424,33 @@ no result lines:
    ``GPT2BPETokenizer`` on 1 MB (ids/s, round trip), and
    ``Dataset(backend="native")`` against ``"numpy"`` over an epoch of
    phase 19's MNIST arrays (every row once; batches/s).
+25. sp (after phase 24): sequence parallelism.  (a) Ring-flash's
+   kernel routes at full width on a virtual ring of ``SP_RING`` = 4
+   ranks (``parallel/ring_flash.py``'s ``forward_step`` and
+   ``backward_step`` driven in lockstep for every rank in one process,
+   ``virtual_ring_flash``): GPT-2 small's ``bench_gpt_long`` blocks
+   (q [6, 2048, 12, 64] bf16 causal, blocks of 512), Llama-3-8B's
+   attention (q [4, 2048, 32, 128], 8 kv heads, causal) and BERT-base's
+   (q [16, 512, 12, 64], bidirectional, every row's last shard of keys
+   all padding).  Output, lse and the three gradients against the plain
+   whole-sequence flash within phase 3's bf16 tolerance, no NaN, exact
+   launches by route (a causal ring of 4: 6 full and 4 diag blocks of
+   each of forward, dQ and dK/dV; bidirectional: 16 full); each block
+   route (forward full and diag, the given-lse backward full and diag)
+   timed beside its plain version, SDPA at the block shape and the
+   bound.  (b) GPT-2 small with ``seq_axis="seq"`` on ``make_mesh({"seq":
+   1})`` at 6 x 2048 (``max_position`` 2048), ``SP_WARMUP`` +
+   ``SP_STEPS`` ``adamw(1e-4)`` steps with clip 1.0, against the same
+   weights without ``seq_axis``: the first loss within ``SP_FIRST_TOL``,
+   every loss within ``SP_LOSS_TOL``, the first gradient norm within
+   ``SP_GRAD_TOL``, the parameters' gap within ``SP_PARAM_TOL`` of their
+   movement, exact launches of flash, LayerNorm, Adam and the
+   ring's routes; step ms and tokens/s of both.  (c) The same for the
+   Llama recipe at Llama-3-8B's widths cut to ``SP_LLAMA_LAYERS``
+   layers (4 x 2048) and BERT-base MLM (16 x 512, ragged key padding).
+   Last on the card: SDPA's autograd backwards of phase 22's
+   whole-backward rows and of (a)'s backward routes, replayed from a
+   CUDA graph (their library graph ms).
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -435,14 +462,17 @@ LayerNorm in (g); ``obs_launches`` for the kernels of phase 20's (a) and
 run; ``zoo_launches`` for the training kernels of phase 22's (b), (d),
 (e) and (g); ``gpt_family_launches`` for every kernel over phase 23's
 (b), (c), (e) and (f); ``hf_launches`` for those of phase 24's (a) and
-(c)), the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+(c); ``sp_launches`` for the training kernels of phase 25's (b) and
+(c) seq_axis arms, and on the flash records ``sp_routes``, (a)'s route
+times), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import math
 import shutil
@@ -532,6 +562,11 @@ ACCUM_FIRST_TOL, ACCUM_LOSS_TOL = 1e-4, 3e-3
 # 806 s run on an H100 (PERF.md), at ~2.1 s an epoch, so the short
 # run is the one taken there
 XOR_SHAPES = ((64, 128), (128,), (128, 128), (128,), (128, 32), (32,))
+# the busy-share probes of phases 18 (c) and 19 (c), (d) profile the first
+# 1 / PROBE_PROFILED_PART of an epoch's steps (the whole epoch until PR
+# 18): the profiler's recording and key_averages cost tens of seconds a
+# 600-step epoch, and the steps of an epoch are alike
+PROBE_PROFILED_PART = 4
 XOR_BATCH, XOR_STEPS_PER_EPOCH = 50, 600
 XOR_EPOCHS, XOR_EPOCHS_SHORT, XOR_BUDGET_S, XOR_ACC = 50, 10, 60.0, 0.95
 # (b) card against CPU in f32 with TF32 off, 20 steps of adam(1e-3):
@@ -737,6 +772,68 @@ def _graph_or_why(torch, fn, iters):
     except RuntimeError as e:
         torch.cuda.synchronize()
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+# SDPA's autograd backwards, timed from a CUDA graph at the end of the run
+# (a capture that failed could leave the context unusable, so nothing
+# runs on the card after them): (label, forward, inputs, dO)
+_LIB_BACKWARDS = []
+
+
+def _autograd_graph_ms(torch, fwd, inputs, dout, iters):
+    """Device time of one ``torch.autograd.grad`` through ``fwd()``'s
+    graph, replayed from a CUDA graph of ``iters`` calls: the forward runs
+    on the capture stream, so autograd runs the backward there too, as
+    ``torch.cuda.make_graphed_callables`` captures it."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        out = fwd()
+
+        def call():
+            return torch.autograd.grad(out, inputs, dout, retain_graph=True)
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(iters):
+            call()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / iters
+
+
+def time_library_backwards(torch, args, smi):
+    """The library graph ms of every backward registered in
+    ``_LIB_BACKWARDS`` (the zoo's whole-backward rows of phase 22, the
+    ring's block routes of phase 25): {label: ms or None}.  The last card
+    work of the run; after a failed capture the rest are skipped."""
+    out = {}
+    iters = max(20, args.iters // 4)
+    for label, fwd, inputs, dout in _LIB_BACKWARDS:
+        try:
+            out[label] = _autograd_graph_ms(torch, fwd, inputs, dout, iters)
+            note = None
+        except RuntimeError as e:
+            out[label] = None
+            note = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        log({"time": "library backward graph", "case": label,
+             "library_graph_ms": out[label], "note": note,
+             "library": "autograd backward of F.scaled_dot_product_attention"
+                        " (dq, dk, dv) replayed from a CUDA graph",
+             "card": smi})
+        if note is not None:
+            break
+    _LIB_BACKWARDS.clear()
+    return out
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -1044,11 +1141,20 @@ def check_llama_kernels(torch, args):
             c_lib = graph_ms(torch, rotating(
                 lambda xi: F.rms_norm(xi, (d,), g_lib, 1e-5), xs),
                 args.iters)
+            # the same rotation through back-to-back calls, the host's
+            # issue time included (the cold row's ms and library ms)
+            c_call = time_ms(torch, rotating(
+                lambda xi: fused.fused_rmsnorm(xi, gamma, 1e-5), xs),
+                args.iters)
+            c_lib_call = time_ms(torch, rotating(
+                lambda xi: F.rms_norm(xi, (d,), g_lib, 1e-5), xs),
+                args.iters)
             # what the card takes to move the same bytes with no
             # arithmetic: a copy of x, over the same rotation
             c_copy = graph_ms(torch, rotating(torch.clone, xs), args.iters)
             cold = {"cold_pairs": len(xs),
                     "cold_mb": 2 * len(xs) * x.numel() * size / 1e6,
+                    "ms_cold": c_call, "library_ms_cold": c_lib_call,
                     "graph_ms_cold": c_ms, "library_graph_ms_cold": c_lib,
                     "copy_graph_ms_cold": c_copy,
                     "graph_ms_cold_vs_library": c_ms / c_lib,
@@ -1518,8 +1624,9 @@ def check_train_kernels(torch, args):
         "flash_backward_dkv": (6 * tensor + 2 * row, 8 * pairs),
         # q, k, v, do, o read, dq written; lse read, D written
         "flash_backward_dq": (6 * tensor + 2 * row, 6 * pairs),
-        # q, k, v, do, o read, dq, dk, dv written; lse read
-        "flash_backward": (8 * tensor + row, 14 * pairs)}
+        # q, k, v, do, o read, dq, dk, dv written; lse read; the function
+        # needs S once and dV, dP, dQ, dK: 5 products of 2 flops a pair
+        "flash_backward": (8 * tensor + row, 10 * pairs)}
     calls = {
         "flash_forward": (
             lambda: fa.flash_forward(q, k, v, None, True),
@@ -1765,9 +1872,11 @@ def _reset_counts():
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     from distributed_tensorflow_tpu_torch.ops.kernels import \
         paged_attention as pa
-    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    from distributed_tensorflow_tpu_torch.parallel import (data_parallel,
+                                                           ring, ring_flash)
     for counter in (fa.LAUNCHES, fused.LAUNCHES, pa.LAUNCHES,
-                    data_parallel.LAUNCHES):
+                    data_parallel.LAUNCHES, ring.LAUNCHES,
+                    ring_flash.LAUNCHES):
         counter.clear()
 
 
@@ -3525,10 +3634,11 @@ def _xor_epoch_time(torch, np, args, smi):
     (xt, yt), _ = data.xor_data(30000, 1000, seed=args.seed)
     ds = data.Dataset([xt, yt], XOR_BATCH, seed=args.seed)
 
-    def epoch():
+    def epoch(n=None):
         nonlocal state
         total = None
-        for batch in data.prefetch_to_device(iter(ds), device="cuda"):
+        for batch in itertools.islice(
+                data.prefetch_to_device(iter(ds), device="cuda"), n):
             state, m = step(state, batch)
             total = m["loss"] if total is None else total + m["loss"]
         return total
@@ -3539,13 +3649,19 @@ def _xor_epoch_time(torch, np, args, smi):
     epoch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _, busy_s, kernels = obs_device.device_busy(epoch)
     steps = len(ds)
+    part = steps // PROBE_PROFILED_PART
+    t0 = time.perf_counter()
+    epoch(part)
+    torch.cuda.synchronize()
+    part_wall = time.perf_counter() - t0
+    _, busy_s, kernels = obs_device.device_busy(lambda: epoch(part))
     log({"xor": "(c) one epoch of the step loop", "steps": steps,
          "step_ms": wall / steps * 1e3, "steps_per_s": steps / wall,
          "samples_per_s": steps * XOR_BATCH / wall, "wall_s": wall,
-         "device_busy_s": busy_s, "busy_share": busy_s / wall,
-         "device_ops_per_step": kernels / steps, "card": smi})
+         "profiled_steps": part, "device_busy_s": busy_s,
+         "busy_share": busy_s / part_wall,
+         "device_ops_per_step": kernels / part, "card": smi})
     return wall
 
 
@@ -4271,14 +4387,17 @@ def check_seq_reference(torch, np, args):
 def _epoch_probe(torch, name, make, x, y, batch, val, augment=None,
                  smi=None):
     """One epoch of ``fit`` on a fresh model from ``make()`` after a
-    warm-up epoch: timed, then again under the profiler (the card's busy
-    share), then again counting host syncs.  Logs and returns the
-    record."""
+    warm-up epoch: timed, then counting host syncs; and the first
+    1 / PROBE_PROFILED_PART of its steps (with the validation pass) timed
+    and then run under the profiler (the card's busy share of that
+    part).  Logs and returns the record."""
     from distributed_tensorflow_tpu_torch.obs import device as obs_device
     model = make()
+    steps = len(x) // batch
+    part = steps // PROBE_PROFILED_PART
 
-    def epoch():
-        return model.fit(x, y, epochs=1, batch_size=batch,
+    def epoch(n=len(x)):
+        return model.fit(x[:n], y[:n], epochs=1, batch_size=batch,
                          validation_data=val, verbose=0, augment=augment)
 
     epoch()
@@ -4287,14 +4406,18 @@ def _epoch_probe(torch, name, make, x, y, batch, val, augment=None,
     epoch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _, busy_s, kernels = obs_device.device_busy(epoch)
+    t0 = time.perf_counter()
+    epoch(part * batch)
+    torch.cuda.synchronize()
+    part_wall = time.perf_counter() - t0
+    _, busy_s, kernels = obs_device.device_busy(lambda: epoch(part * batch))
     syncs = _syncs(torch, epoch)
-    steps = len(x) // batch
     rec = {"seq": f"{name} one epoch of fit", "steps": steps,
            "step_ms": wall / steps * 1e3, "steps_per_s": steps / wall,
            "examples_per_s": steps * batch / wall, "wall_s": wall,
-           "device_busy_s": busy_s, "busy_share": busy_s / wall,
-           "device_ops_per_step": kernels / steps,
+           "profiled_steps": part, "device_busy_s": busy_s,
+           "busy_share": busy_s / part_wall,
+           "device_ops_per_step": kernels / part,
            "host_syncs_per_epoch": syncs,
            "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32, "card": smi}
@@ -5646,6 +5769,8 @@ def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
     def sdpa_bwd():
         return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                    retain_graph=True)
+    _LIB_BACKWARDS.append((f"whole backward {label}", sdpa, (qt, kt, vt),
+                           dot))
     n_keys = b * s if lengths is None else int(sum(lengths))
     tensor = b * s * h * hd * q.element_size()
     kv_read = 2 * tensor * n_keys / (b * s)     # K and V of the valid keys
@@ -5662,13 +5787,14 @@ def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
             lambda: fa._backward(pq, pk, pv, vb, pdo, pout, plse, False, sc),
             lambda: fa.flash_backward_plain(q, k, v, valid, do, out, lse,
                                             False), sdpa_bwd,
-            (6 * tensor + kv_read + row + vbytes, 14 * pairs))}
+            # S once and dV, dP, dQ, dK: 5 products of 2 flops a pair
+            (6 * tensor + kv_read + row + vbytes, 10 * pairs))}
     backend = _sdpa_backend(torch, qt.detach(), kt.detach(), vt.detach(),
                             mask)
     for name, (kern, plain_fn, lib, (nbytes, flops)) in calls.items():
-        # an autograd backward is not captured (a failed capture can
-        # leave the context unusable): its graph time stays None
-        lib_graph, why = ((None, "autograd backward: not captured")
+        # an autograd backward is captured at the end of the run (a
+        # failed capture can leave the context unusable)
+        lib_graph, why = ((None, "timed at the end of the run")
                           if lib is sdpa_bwd
                           else _graph_or_why(torch, lib, iters))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -7235,6 +7361,452 @@ def check_hf(torch, np, args, smi):
     return counts
 
 
+# -- phase 25: sequence parallelism -----------------------------------------
+
+# (a) ring-flash's kernel routes at full width on a virtual ring of
+# SP_RING ranks: ``parallel/ring_flash.py``'s step functions driven in
+# lockstep for every rank in one process (NCCL cannot put two ranks on one
+# card), on the blocks of bench_gpt_long (bench.py:2616: GPT-2 small at
+# seq 2048, batch 48 x 256 / 2048 = 6), of Llama-3-8B's attention (32 q /
+# 8 kv heads of 128) at 4 x 2048, and of BERT-base at 16 x 512 with every
+# row's last shard of keys all padding.  (b) GPT-2 small with seq_axis on
+# a mesh of one at 6 x 2048, against the same weights without it; (c) the
+# same for the Llama recipe at Llama-3-8B's widths cut to SP_LLAMA_LAYERS
+# layers (4 x 2048) and for BERT-base MLM (16 x 512).  Each arm takes
+# SP_WARMUP + SP_STEPS adamw(1e-4) steps with clip 1.0 on one batch.
+# The first loss of the two arms comes from the same forward (a ring of
+# one merges its single block exactly) and agrees to f32 round-off
+# (SP_FIRST_TOL, of a loss of ~10); later ones follow gradients whose D
+# = rowsum(dO * O) the ring computes in torch and the plain path inside
+# the dQ kernel (another summation order in f32 before the bf16
+# products), so they agree as phase 17's accumulated bf16 steps do
+# (SP_LOSS_TOL).  The first step's gradient norm (the same weights and
+# batch in both arms) agrees to SP_GRAD_TOL, relative: a gradient that
+# is wrong in scale or misses a part moves it.  Adam moves an element by
+# about lr a step whatever its gradient's size, so an absolute bound on
+# the parameters could not fail; they are held by their movement
+# instead: |p_sp - p_dense| / |p_dense - p_start| over all the tensors
+# (2-norms) within SP_PARAM_TOL, where an arm with no gradient or a
+# wrong one gives about 1 or more (the gap: elements whose gradient is
+# ~0 step by up to 2 lr differently a step).  Measured on an H100 80GB
+# HBM3 at 700 W: gradient norms within 3.0e-4, gaps 0.010-0.013 of the
+# movement; the tolerances are about 10x and 4x those
+SP_RING = 4
+SP_CASES = (("gpt2_long", 6, 2048, 12, 12, 64, True),
+            ("llama3_8b", 4, 2048, 32, 8, 128, True),
+            ("bert_base", 16, 512, 12, 12, 64, False))
+SP_WARMUP, SP_STEPS = 1, 3
+SP_LLAMA_LAYERS = 2
+SP_FIRST_TOL, SP_LOSS_TOL, SP_GRAD_TOL, SP_PARAM_TOL = 1e-5, 3e-3, 3e-3, 0.05
+_SP_ROUTES = ("forward_full", "forward_diag", "dq_full", "dq_diag",
+              "dkv_full", "dkv_diag")
+
+
+def virtual_ring_flash(torch, q, k, v, valid, do, ring, causal):
+    """Ring-flash attention, forward and backward, over ``ring`` virtual
+    ranks in one process: each rank's shard of the global ``q``, ``k``,
+    ``v``, ``valid`` and ``do`` (dim 1), the steps of
+    ``ring_flash.forward_step`` / ``backward_step`` run for every rank in
+    lockstep, rank ``my`` at step i holding the block of rank ``(my - i)
+    mod ring`` as the rotation would bring it; each block's dK/dV
+    accumulate in f32 where the P2P ring would rotate them home.  Returns
+    the global (out, lse, dq, dk, dv)."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel import ring_flash as rf
+
+    def parts(x):
+        return [None] * ring if x is None else [
+            c.contiguous() for c in x.chunk(ring, dim=1)]
+    qs, ks, vs, vals, dos = (parts(x) for x in (q, k, v, valid, do))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    b, s, h, d = qs[0].shape
+    outs = [torch.zeros(b, s, h, d, dtype=torch.float32, device=q.device)
+            for _ in range(ring)]
+    lses = [torch.full((b, h, s), -math.inf, device=q.device)
+            for _ in range(ring)]
+    for i in range(ring):
+        for my in range(ring):
+            src = (my - i) % ring
+            outs[my], lses[my] = rf.forward_step(
+                qs[my], ks[src], vs[src], vals[src], outs[my], lses[my],
+                src, my, causal, scale)
+    outs = [o.to(q.dtype) for o in outs]
+    dvecs = [fa.row_dot(dos[my], outs[my]) for my in range(ring)]
+    dq = [torch.zeros(x.shape, device=q.device) for x in qs]
+    dk = [torch.zeros(x.shape, device=q.device) for x in ks]
+    dv = [torch.zeros(x.shape, device=q.device) for x in vs]
+    for i in range(ring):
+        for my in range(ring):
+            src = (my - i) % ring
+            got = rf.backward_step(qs[my], ks[src], vs[src], vals[src],
+                                   dos[my], lses[my], dvecs[my], src, my,
+                                   causal, scale)
+            if got is not None:
+                dq[my] += got[0].float()
+                dk[src] += got[1].float()
+                dv[src] += got[2].float()
+    return (torch.cat(outs, 1), torch.cat(lses, 2),
+            torch.cat(dq, 1).to(q.dtype), torch.cat(dk, 1).to(k.dtype),
+            torch.cat(dv, 1).to(v.dtype))
+
+
+def _sp_valid(torch, b, s, ring, dev, gen):
+    """BERT's key plane: every row's last shard all padding, and ragged
+    padding inside the shard before it."""
+    n = s // ring
+    lengths = (s - 2 * n) + torch.randint(1, n + 1, (b,), generator=gen,
+                                          device=dev)
+    return torch.arange(s, device=dev)[None, :] < lengths[:, None]
+
+
+def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal):
+    """(a) at one shape: the virtual ring against the plain whole-sequence
+    flash (forward, lse, dQ, dK, dV; phase 3's bf16 tolerance), exact
+    launches by route, no NaN; then each block route timed beside its
+    plain version, SDPA at the block shape and the bound.  Returns the
+    routes' records."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel import ring_flash as rf
+    dev = torch.device("cuda")
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+
+    def rnd(heads):
+        return torch.randn(b, s, heads, hd, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    q, k, v, do = rnd(h), rnd(hk), rnd(hk), rnd(h)
+    valid = None if causal else _sp_valid(torch, b, s, SP_RING, dev, gen)
+    fa.LAUNCHES.clear()
+    rf.LAUNCHES.clear()
+    got = virtual_ring_flash(torch, q, k, v, valid, do, SP_RING, causal)
+    torch.cuda.synchronize()
+    launches = dict(rf.LAUNCHES)
+    kernel_launches = {n: fa.LAUNCHES[n] for n in (
+        "flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+    n_full = SP_RING * (SP_RING - 1) // 2 if causal else SP_RING ** 2
+    n_diag = SP_RING if causal else 0
+    want_launches = {f"{p}_{r}": n for p in ("forward", "dq", "dkv")
+                     for r, n in (("full", n_full), ("diag", n_diag)) if n}
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, valid, causal)
+    want = (want_out, want_lse, *fa.flash_backward_plain(
+        q, k, v, valid, do, want_out, want_lse, causal))
+    errs = {}
+    for part, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        e, sc = _err_and_scale(torch, g, w)
+        errs[part] = {"max_abs_err": e, "tol": FLASH_BF16_TOL * sc}
+    nan = any(bool(torch.isnan(x).any()) for x in got)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (got[0], *got[2:]))
+    log({"check": "ring_flash virtual ring", "case": name,
+         "shape": f"q[{b},{s},{h},{hd}] kv heads {hk} bf16 "
+                  f"{'causal' if causal else 'bidirectional kv_valid'}",
+         "ring": SP_RING, "errors": errs, "launches": launches,
+         "expected_launches": want_launches,
+         "kernel_launches": kernel_launches, "nan": nan,
+         "finite": finite, "card": smi})
+    bad = [p for p, r in errs.items() if not r["max_abs_err"] <= r["tol"]]
+    if bad or nan or not finite:
+        raise AssertionError(f"ring-flash {name} disagrees with the plain "
+                             f"flash ({bad}) or is not finite")
+    if launches != want_launches or set(kernel_launches.values()) != {
+            n_full + n_diag}:
+        raise AssertionError(f"ring-flash {name}: launches {launches}, "
+                             f"kernels {kernel_launches}; expected "
+                             f"{want_launches}")
+    del want, got
+
+    # the block routes at the block shape: rank 1 holding rank 0's block
+    # (full) and rank 0 its own (diag), from that rank's global lse and D
+    n = s // SP_RING
+    q0, k0, v0, do0 = (x[:, :n].contiguous() for x in (q, k, v, do))
+    val0 = None if valid is None else valid[:, :n].contiguous()
+    out0, lse0 = fa.flash_forward(q0, k0, v0, val0, causal)
+    d0 = fa.row_dot(do0, out0)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q0, k0, v0, do0))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    mask = None if val0 is None else val0[:, None, None, :]
+    iters = max(20, args.iters // 4)
+    elt = q.element_size()
+    tq, tk = b * n * h * hd * elt, b * n * hk * hd * elt
+    rows = b * h * n * 4
+    vbytes = 0 if val0 is None else b * n
+    pairs = b * h * n * n * hd
+    records = {}
+    for route in (("full", "diag") if causal else ("full",)):
+        diag = route == "diag"
+        share = 0.5 if diag else 1.0
+
+        def sdpa(diag=diag):
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, is_causal=diag,
+                enable_gqa=hk != h)
+        lib_out = sdpa()
+
+        def sdpa_bwd(lib_out=lib_out):
+            return torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                       retain_graph=True)
+        _LIB_BACKWARDS.append((f"ring {route} backward {name}", sdpa,
+                               (qg, kg, vg), dot))
+        calls = {
+            "forward": (lambda diag=diag: fa.flash_forward(
+                q0, k0, v0, val0, diag),
+                lambda diag=diag: fa.flash_forward_plain(
+                    q0, k0, v0, val0, diag), sdpa,
+                2 * tq + 2 * tk + rows + vbytes, 4 * pairs * share),
+            "backward": (lambda diag=diag: (
+                fa.flash_backward_dq(q0, k0, v0, val0, do0, lse0, d0, diag),
+                fa.flash_backward_dkv(q0, k0, v0, val0, do0, lse0, d0,
+                                      diag)),
+                lambda diag=diag: (
+                fa.flash_backward_dq_plain(q0, k0, v0, val0, do0, lse0, d0,
+                                           diag),
+                fa.flash_backward_dkv_plain(q0, k0, v0, val0, do0, lse0,
+                                            d0, diag)), sdpa_bwd,
+                # Q, dO read and dQ written, K, V read and dK, dV
+                # written, lse and D read (D is given: no O); S once and
+                # dV, dP, dQ, dK: 5 products of 2 flops a pair
+                3 * tq + 4 * tk + 2 * rows + vbytes, 10 * pairs * share)}
+        for part, (kern, plain_fn, lib, nbytes, flops) in calls.items():
+            b_ms, b_by = bound_ms(nbytes, flops)
+            lib_graph, why = ((None, "timed at the end of the run")
+                              if lib is sdpa_bwd
+                              else _graph_or_why(torch, lib, iters))
+            rec = {"ms": time_ms(torch, kern, iters),
+                   "graph_ms": graph_ms(torch, kern, iters),
+                   "plain_ms": time_ms(torch, plain_fn,
+                                       max(5, iters // 10)),
+                   "library_ms": time_ms(torch, lib, iters),
+                   "library_graph_ms": lib_graph, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            records[f"{part}_{route}"] = rec
+            log({"time": f"ring_flash {part} {route}", "case": name,
+                 "shape": f"block q[{b},{n},{h},{hd}] kv heads {hk} bf16"
+                          + (" kv_valid" if val0 is not None else ""),
+                 **rec, "library_graph_note": why,
+                 "library": "F.scaled_dot_product_attention(is_causal="
+                            f"{diag}" + (", bool key mask" if mask is not
+                                         None else "")
+                            + (", enable_gqa" if hk != h else "") + ")"
+                            + (" backward (autograd, dq dk dv)"
+                               if part == "backward" else ""),
+                 "card": smi})
+    del q, k, v, do
+    torch.cuda.synchronize()
+    return records
+
+
+def _sp_counts(torch):
+    """Phase 25's reader: the training kernels' and the ring's routes'
+    launches since ``_reset_counts``."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.parallel import ring_flash as rf
+    counts = _train_counts(torch)
+    counts["rmsnorm"] = fused.LAUNCHES["rmsnorm"]
+    counts.update({f"ring_{r}": rf.LAUNCHES[r] for r in _SP_ROUTES})
+    return counts
+
+
+def _sp_steps(torch, np, step, state, batch):
+    """SP_WARMUP + SP_STEPS steps on one batch: (losses, the first step's
+    gradient norm, timed seconds, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(SP_WARMUP + SP_STEPS):
+        if i == SP_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        if i == 0:
+            grad_norm = m["grad_norm"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return (losses, float(grad_norm), wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _sp_pair(torch, np, smi, name, tokens, build, per_step, routes):
+    """(b)/(c): one model trained with ``seq_axis`` on a mesh of one and
+    without it, from the same weights on the same batch.  ``build(sp)`` ->
+    (params, state, step, batch) for each arm.  Checks exact launches (the SP
+    arm's ring routes ``routes`` a step, the other none), the first loss
+    within SP_FIRST_TOL, every loss within SP_LOSS_TOL, the first step's
+    gradient norm within SP_GRAD_TOL and the parameters' gap within
+    SP_PARAM_TOL of their movement (see SP_PARAM_TOL); logs step ms,
+    tokens/s and peak memory of both.  Returns the SP arm's counts."""
+    arms, kept, start = {}, None, None
+    n_steps = SP_WARMUP + SP_STEPS
+    for arm in ("sp", "dense"):
+        params, state, step, batch = build(arm == "sp")
+        if start is None:
+            start = {k: p.detach().clone() for k, p in params.items()}
+        else:
+            start_err = max((start[k] - p.detach()).abs().max().item()
+                            for k, p in params.items())
+        (losses, grad_norm, wall, peak), _, counts = _driven(
+            torch, lambda: _sp_steps(torch, np, step, state, batch),
+            _sp_counts)
+        want = {k: n * n_steps for k, n in per_step.items()}
+        want.update({f"ring_{r}": (routes.get(r, 0) * n_steps
+                                   if arm == "sp" else 0)
+                     for r in _SP_ROUTES})
+        step_ms = wall / SP_STEPS * 1e3
+        arms[arm] = {"losses": losses, "grad_norm": grad_norm,
+                     "step_ms": step_ms,
+                     "tokens_per_s": tokens / (step_ms / 1e3),
+                     "peak_memory_gb": peak, "launches": counts}
+        log({"sp": name, "arm": arm, "tokens_a_step": tokens,
+             "steps": SP_STEPS, **arms[arm], "card": smi})
+        _zoo_expect(f"{name} {arm}", counts, want)
+        del state, step, batch
+        if kept is None:
+            kept = params
+        else:
+            sq = {"gap": 0.0, "move": 0.0}
+            for k, p in params.items():
+                p = p.detach()
+                sq["gap"] += float(((kept[k].detach() - p).double() ** 2)
+                                   .sum())
+                sq["move"] += float(((p - start[k]).double() ** 2).sum())
+            param_max_err = max((kept[k].detach() - p.detach()).abs().max()
+                                .item() for k, p in params.items())
+        del params
+        torch.cuda.empty_cache()
+    del kept, start
+    torch.cuda.empty_cache()
+    sp, dense = arms["sp"]["losses"], arms["dense"]["losses"]
+    first_err = abs(sp[0] - dense[0])
+    loss_err = max(abs(a - b) for a, b in zip(sp, dense))
+    grad_err = (abs(arms["sp"]["grad_norm"] - arms["dense"]["grad_norm"])
+                / arms["dense"]["grad_norm"])
+    param_err = math.sqrt(sq["gap"] / sq["move"])
+    log({"sp": name, "check": "seq_axis vs none", "start_err": start_err,
+         "first_loss_err": first_err, "first_tol": SP_FIRST_TOL,
+         "loss_err": loss_err, "loss_tol": SP_LOSS_TOL,
+         "grad_norm_rel_err": grad_err, "grad_tol": SP_GRAD_TOL,
+         "param_gap_over_move": param_err, "param_tol": SP_PARAM_TOL,
+         "param_move": math.sqrt(sq["move"]),
+         "param_max_abs_err": param_max_err,
+         "step_ms_sp_over_dense": arms["sp"]["step_ms"]
+         / arms["dense"]["step_ms"]})
+    if not (start_err == 0 and first_err <= SP_FIRST_TOL
+            and loss_err <= SP_LOSS_TOL and grad_err <= SP_GRAD_TOL
+            and param_err <= SP_PARAM_TOL):
+        raise AssertionError(f"{name}: seq_axis training disagrees with "
+                             f"the model without it")
+    return arms["sp"]["launches"]
+
+
+def _sp_gpt(torch, np, args, smi, name, config, b, s, per_step):
+    """(b)/(c) for a GPT config: ``_sp_pair`` over ``GPT(config)`` with
+    and without ``seq_axis`` (the same weights from ``--seed``), batch b x
+    s; its ring routes: one diag block a layer (a ring of one)."""
+    import dataclasses
+
+    from distributed_tensorflow_tpu_torch import GPT, parallel
+    mesh = parallel.make_mesh({"seq": 1})
+
+    def build(sp):
+        model = GPT(dataclasses.replace(config,
+                                        seq_axis="seq" if sp else None),
+                    device="cuda", mesh=mesh if sp else None,
+                    generator=torch.Generator("cuda").manual_seed(args.seed))
+        state, step = _train_setup(torch, model, TRAIN_LR, args.seed)
+        return (dict(model.named_parameters()), state, step,
+                _train_batch(torch, np, args.seed, b, s, config.vocab_size,
+                             "cuda"))
+    L = config.num_layers
+    return _sp_pair(torch, np, smi, name, b * s, build, per_step,
+                    {"forward_diag": L, "dq_diag": L, "dkv_diag": L})
+
+
+def _sp_bert(torch, np, args, smi, b, s):
+    """(c) BERT-base MLM, bf16, dropout 0, at b x s with ragged key
+    padding and a 15% MLM mask: ``_sp_pair`` with and without
+    ``seq_axis`` (a ring of one: one full block a layer with the key
+    plane)."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  parallel)
+    from distributed_tensorflow_tpu_torch.models.bert import Bert, BertConfig
+    mesh = parallel.make_mesh({"seq": 1})
+    dev = torch.device("cuda")
+    init = Bert(BertConfig()).init(torch.Generator("cuda").manual_seed(
+        args.seed))
+    rng = np.random.default_rng(args.seed)
+    lengths = rng.integers(s // 2, s + 1, b)
+    batch = {"input_ids": rng.integers(0, 30522, (b, s)),
+             "labels": rng.integers(0, 30522, (b, s)),
+             "mlm_mask": (rng.random((b, s)) < 0.15)
+             & (np.arange(s)[None] < lengths[:, None]),
+             "attention_mask": np.arange(s)[None] < lengths[:, None]}
+    batch = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+             for k, v in batch.items()}
+
+    def build(sp):
+        model = Bert(BertConfig(dtype=torch.bfloat16, dropout_rate=0.0,
+                                seq_axis="seq" if sp else None),
+                     mesh=mesh if sp else None)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in init.items()}
+        opt = adamw(TRAIN_LR, mask=model.decay_mask)
+        state = TrainState.create(params, opt.init(params))
+        step = make_custom_train_step(model.mlm_loss_fn(), opt,
+                                      seed=args.seed, grad_clip_norm=1.0)
+        return params, state, step, batch
+    L = 12
+    # flash a layer (forward, dK/dV, dQ); LayerNorm: the embeddings', 2 a
+    # layer, the MLM head's; Adam once a leaf (phase 22's 204)
+    per_step = {"flash_forward": L, "flash_backward_dkv": L,
+                "flash_backward_dq": L, "layernorm": 2 * L + 2,
+                "rmsnorm": 0, "fused_adam": 204}
+    return _sp_pair(torch, np, smi, f"(c) bert-base mlm {b}x{s}", b * s,
+                    build, per_step, {"forward_full": L, "dq_full": L,
+                                      "dkv_full": L})
+
+
+def check_sp(torch, np, args, smi):
+    """Phase 25, sequence parallelism: returns ({case: the ring routes'
+    time records}, the kernels' launches over (b) and (c)'s seq_axis
+    arms)."""
+    from distributed_tensorflow_tpu_torch import gpt_small, llama3_8b
+    t_phase = time.perf_counter()
+    routes = {case[0]: _sp_ring_case(torch, args, smi, *case)
+              for case in SP_CASES}
+    torch.cuda.empty_cache()
+    L = 12
+    counts = collections.Counter(_sp_gpt(
+        torch, np, args, smi, "(b) gpt2 small 6x2048",
+        gpt_small(dtype=torch.bfloat16, dropout_rate=0.0,
+                  max_position=2048), 6, 2048,
+        # flash a layer, LayerNorm 2 a layer and ln_f, Adam once a leaf
+        {"flash_forward": L, "flash_backward_dkv": L,
+         "flash_backward_dq": L, "layernorm": 2 * L + 1, "rmsnorm": 0,
+         "fused_adam": 4 + 16 * L}))
+    L = SP_LLAMA_LAYERS
+    counts.update(_sp_gpt(
+        torch, np, args, smi, f"(c) llama3-8b widths x{L} layers 4x2048",
+        llama3_8b(dtype=torch.bfloat16, num_layers=L, max_position=2048),
+        4, 2048,
+        # RMSNorm 2 a layer and ln_f; Adam: word, lm_head, ln_f and 9 a
+        # layer
+        {"flash_forward": L, "flash_backward_dkv": L,
+         "flash_backward_dq": L, "layernorm": 0, "rmsnorm": 2 * L + 1,
+         "fused_adam": 3 + 9 * L}))
+    counts.update(_sp_bert(torch, np, args, smi, 16, 512))
+    counts = {k: v for k, v in counts.items() if not k.startswith("ring_")}
+    log({"phase": "sp", "seconds": time.perf_counter() - t_phase,
+         "launches": counts})
+    return routes, counts
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -7327,12 +7899,26 @@ def main(argv=None) -> int:
     zoo_launches = check_zoo(torch, np, args, smi)
     family_launches = check_gpt_family(torch, np, args, smi, phase4)
     hf_launches = check_hf(torch, np, args, smi)
+    sp_routes, sp_launches = check_sp(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
             gpt_small(dtype=torch.bfloat16), device="cuda",
             generator=torch.Generator("cuda").manual_seed(args.seed)))
         profile_training(torch, np, args, smi)
+    # the last work on the card (see _LIB_BACKWARDS)
+    lib_backwards = time_library_backwards(torch, args, smi)
+    for case, recs in sp_routes.items():
+        for route, rec in recs.items():
+            if route.startswith("backward"):
+                rec["library_graph_ms"] = lib_backwards.get(
+                    f"ring {route.split('_')[1]} backward {case}")
+    for kernel, part in (("flash_forward", "forward"),
+                         ("flash_backward_dq", "backward"),
+                         ("flash_backward_dkv", "backward")):
+        records[kernel]["sp_routes"] = {
+            f"{case} {route}": rec for case, recs in sp_routes.items()
+            for route, rec in recs.items() if route.startswith(part)}
 
     kernels = [dict(name=k, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[k],
@@ -7360,7 +7946,11 @@ def main(argv=None) -> int:
                     **({"gpt_family_launches": family_launches[k]}
                        if k in family_launches else {}),
                     **({"hf_launches": hf_launches[k]}
-                       if k in hf_launches else {}))
+                       if k in hf_launches else {}),
+                    **({"sp_launches": sp_launches[k]}
+                       if k in sp_launches else {}),
+                    **({"sp_routes": r["sp_routes"]}
+                       if "sp_routes" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

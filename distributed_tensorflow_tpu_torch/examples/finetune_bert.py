@@ -106,7 +106,7 @@ def main(argv=None) -> int:
     if tp > 1:
         raise NotImplementedError(
             f"a tensor axis of {tp} over {n} ranks: tensor parallelism "
-            "waits for the parallelism slice (ROADMAP Queue 1 item 5)")
+            "waits for its slice (ROADMAP Queue 1 item 7)")
     print(f"devices: {n} ({device.type}), "
           f"mesh={{'data': {n // tp}, 'tensor': {tp}}}", file=sys.stderr)
 

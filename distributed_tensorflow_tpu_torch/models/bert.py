@@ -34,9 +34,17 @@ Dropout draws from the step's ``torch.Generator`` (embeddings, the
 attention context, both residual branches), so its bits differ from
 ``jax.random``'s.  ``remat`` runs each layer under the GPT's
 ``_checkpointed`` (selective for the "dots" policies, the generator's
-state replayed).  ``seq_axis`` (ring attention, sequence parallelism)
-and ``partition_rules`` (tensor parallelism) wait for the parallelism
-slice and raise.
+state replayed).  ``partition_rules`` (tensor parallelism) waits for
+the tensor-parallel port and raises.
+
+Sequence parallelism (``seq_axis`` with ``Bert(config, mesh=...)``):
+every rank of the axis passes the global batch and computes its shard
+of the sequence through every layer, attention as bidirectional
+ring-flash (``parallel/ring_flash.py``) with the key-padding plane
+rotating with K/V; ``apply`` gathers the global output, so the pooler's
+``[CLS]`` is the global position 0.  ``mlm_loss_fn`` never gathers: its
+sums (nll, hits) are summed over the axis and divided by the global mask
+weight, so the loss equals the dense one on every rank of the axis.
 """
 from __future__ import annotations
 
@@ -47,18 +55,19 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import initializers as init_lib
-from ..ops import losses as loss_lib
 from ..ops.attention import (attention_core, dropout, ffn_core,
                              padding_mask, resolve_activation)
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
+from ..parallel import ring as ring_lib
+from ..parallel import ring_flash as ring_flash_lib
 from .gpt import _REMAT_SAVES, _checkpointed
 
 __all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
            "mlm_gather_flops_correction"]
 
-_PARALLEL = ("not ported yet: sequence and tensor parallelism wait for the "
-             "parallelism slice (ROADMAP Queue 1 item 5)")
+_PARALLEL = ("not ported yet: tensor parallelism waits for its slice "
+             "(ROADMAP Queue 1 item 7)")
 
 Params = Dict[str, torch.Tensor]
 
@@ -79,7 +88,8 @@ class BertConfig:
     # matrix product's output, "dots_no_batch" the weight products
     remat: bool = False
     remat_policy: str = "full"
-    # ring attention over a mesh axis: raises (ROADMAP Queue 1 item 5)
+    # sequence parallelism: ring-flash attention over this mesh axis
+    # (Bert(config, mesh=...)); None: off
     seq_axis: Optional[str] = None
     # the JAX package's kernel gates; no effect here: on the card the
     # flash and LayerNorm kernels are always the path
@@ -225,12 +235,15 @@ def stacked_decay_mask(params: Mapping[str, torch.Tensor],
 
 class Bert:
     """Functional BERT: ``init(generator) -> params``, ``apply(params,
-    input_ids, ...)``, the heads and the MLM loss.  ``mesh`` is accepted
-    for the JAX signature; ring attention over it raises."""
+    input_ids, ...)``, the heads and the MLM loss.  ``mesh``: a
+    ``parallel.Mesh`` naming ``config.seq_axis``, needed with it only."""
 
     def __init__(self, config: BertConfig, mesh=None):
-        if config.seq_axis is not None:
-            raise NotImplementedError(f"BertConfig.seq_axis: {_PARALLEL}")
+        if config.seq_axis is not None and (
+                mesh is None or config.seq_axis not in mesh.shape):
+            raise ValueError(f"seq_axis={config.seq_axis!r} needs "
+                             f"Bert(config, mesh=...) with that axis; got "
+                             f"{mesh}")
         self.config = config
         self.mesh = mesh
         # the layer lists kept unstacked, with their lengths
@@ -280,14 +293,14 @@ class Bert:
 
     # -- encoder ----------------------------------------------------------
     def _encoder_layer(self, p: Mapping[str, torch.Tensor], x, mask,
-                       generator, train):
+                       generator, train, attention_fn):
         """One post-LN layer over its tensors ``p`` (names relative to
         ``encoder.<i>.``)."""
         c = self.config
         attn = attention_core(
             attention_params(p, "attention"), x, mask=mask,
             dropout_rate=c.dropout_rate, generator=generator, train=train,
-            attention_fn=flash_lib.make_flash_attention_fn(causal=False))
+            attention_fn=attention_fn)
         x = layer_norm(p, "attention.ln",
                        x + dropout(attn, c.dropout_rate, generator, train),
                        c.layer_norm_eps)
@@ -305,7 +318,19 @@ class Bert:
         """input_ids [b, s] -> sequence output [b, s, hidden] in the
         config's dtype.  ``attention_mask`` [b, s] (1 = real token) masks
         the keys; ``rng``, a ``torch.Generator`` on the parameters'
-        device, is required with ``train``."""
+        device, is required with ``train``.  Under ``seq_axis`` each rank
+        of the axis computes its shard and the global output is gathered
+        (``s`` must divide by the axis size)."""
+        out, _ = self._encode(params, input_ids, token_type_ids,
+                              attention_mask, train, rng)
+        if self.config.seq_axis is not None:
+            out = ring_lib.gather_seq(out, self.mesh, self.config.seq_axis)
+        return out
+
+    def _encode(self, params, input_ids, token_type_ids, attention_mask,
+                train, rng):
+        """(this rank's sequence output, its slice of the positions): the
+        whole sequence without ``seq_axis``."""
         c = self.config
         if train and rng is None:
             raise ValueError("Bert.apply(train=True) requires a generator "
@@ -313,32 +338,42 @@ class Bert:
                              "passes one")
         dev = params["embeddings.word"].device
         ids = input_ids.to(dev).long()
-        s = ids.shape[1]
+        part = ring_lib.seq_part(ids.shape[1], self.mesh, c.seq_axis)
+        ids = ids[:, part]
         x = F.embedding(ids, params["embeddings.word"])
-        x = x + params["embeddings.position"][:s][None]
+        x = x + params["embeddings.position"][part][None]
         if token_type_ids is not None:
-            x = x + F.embedding(token_type_ids.to(dev).long(),
+            x = x + F.embedding(token_type_ids.to(dev).long()[:, part],
                                 params["embeddings.type"])
         else:
             x = x + params["embeddings.type"][0][None, None]
         x = layer_norm(params, "embeddings.ln", x, c.layer_norm_eps)
         x = dropout(x, c.dropout_rate, rng, train).to(c.dtype)
-        mask = (None if attention_mask is None
-                else padding_mask(attention_mask.to(dev)))
+        valid = (None if attention_mask is None
+                 else attention_mask.to(dev)[:, part])
+        mask = None if valid is None else padding_mask(valid)
+        if c.seq_axis is None:
+            attention_fn = flash_lib.make_flash_attention_fn(causal=False)
+        else:
+            group = self.mesh.axis_group(c.seq_axis)
+
+            def attention_fn(q, k, v, mask=None):
+                return ring_flash_lib.ring_flash_attention(
+                    q, k, v, group, kv_valid=valid)
         for i in range(c.num_layers):
             pre = f"encoder.{i}."
             names = [n for n in params if n.startswith(pre)]
 
             def layer(x, *tensors, rel=[n[len(pre):] for n in names]):
                 return self._encoder_layer(dict(zip(rel, tensors)), x, mask,
-                                           rng, train)
+                                           rng, train, attention_fn)
             tensors = [params[n] for n in names]
             if c.remat:
                 x = _checkpointed(layer, rng, _REMAT_SAVES[c.remat_policy],
                                   x, *tensors)
             else:
                 x = layer(x, *tensors)
-        return x
+        return x, part
 
     # -- heads ------------------------------------------------------------
     def mlm_logits(self, params: Mapping[str, torch.Tensor],
@@ -364,32 +399,53 @@ class Bert:
         all [b, s].  Metrics: ``mlm_accuracy``, ``loss_weight`` (the
         masked mean's weight, for gradient accumulation) and, when
         gathering, ``mlm_overflow`` (masked positions the gather
-        dropped)."""
+        dropped).  Under ``seq_axis`` each rank scores the masked
+        positions of its shard (the gather picks the global first ``n``
+        and each rank keeps those in its shard), the sums are summed
+        over the axis (module docstring), and ``loss_weight`` is this
+        rank's share of the weight (``parallel.ring.weight_share``)."""
         def loss_fn(params, model_state, batch, generator, train):
             dev = params["embeddings.word"].device
-            seq = self.apply(params, batch["input_ids"],
-                             token_type_ids=batch.get("token_type_ids"),
-                             attention_mask=batch.get("attention_mask"),
-                             train=train, rng=generator)
+            seq, part = self._encode(params, batch["input_ids"],
+                                     batch.get("token_type_ids"),
+                                     batch.get("attention_mask"), train,
+                                     generator)
             mask = batch["mlm_mask"].to(dev).float()
             labels = batch["labels"].to(dev).long()
             n_pred = self.config.mlm_predictions_per_seq
             extra = {}
             if n_pred:
                 w, idx = gather_masked(mask, n_pred)
+                extra["mlm_overflow"] = mask.sum() - w.sum()
+                labels = torch.gather(labels, 1, idx)
+                mask = w
+                # the gathered positions this rank holds (all of them
+                # without seq_axis) weigh in, the others are 0
+                mine = (idx >= part.start) & (idx < part.stop)
+                idx = torch.clamp(idx - part.start, 0, seq.shape[1] - 1)
                 seq = torch.gather(seq, 1, idx[..., None].expand(
                     -1, -1, seq.shape[-1]))
-                labels = torch.gather(labels, 1, idx)
-                extra["mlm_overflow"] = mask.sum() - w.sum()
-                mask = w
+                w = w * mine
+            else:
+                labels, w = labels[:, part], mask[:, part]
+            # the masked mean's sums over this rank's positions, summed
+            # over seq_axis, over the global weight
             logits = self.mlm_logits(params, seq)
-            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
-                logits, labels, where=mask)
+            nll = -torch.log_softmax(logits, -1).gather(
+                -1, labels[..., None])[..., 0]
             with torch.no_grad():
-                hits = (logits.argmax(-1) == labels).float() * mask
-                accuracy = hits.sum() / torch.clamp(mask.sum(), min=1.0)
-            return loss, ({"mlm_accuracy": accuracy,
-                           "loss_weight": mask.sum(), **extra}, model_state)
+                hits = (logits.argmax(-1) == labels).float()
+            sums = torch.stack([(nll * w).sum(), (hits * w).sum()])
+            if self.config.seq_axis is not None:
+                sums = ring_lib.sum_seq(sums, self.mesh,
+                                        self.config.seq_axis)
+            weight = mask.sum()
+            return sums[0] / torch.clamp(weight, min=1e-9), (
+                {"mlm_accuracy": sums[1].detach() / torch.clamp(weight,
+                                                                min=1.0),
+                 "loss_weight": ring_lib.weight_share(
+                     weight, self.mesh, self.config.seq_axis),
+                 **extra}, model_state)
         return loss_fn
 
     # -- sharding ---------------------------------------------------------

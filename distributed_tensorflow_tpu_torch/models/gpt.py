@@ -71,7 +71,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import decoding as dec
-from ..ops import losses as loss_lib
 from ..ops import quant
 from ..ops.moe import apply_moe, init_moe
 from ..ops.attention import (NEG_INF, affine, apply_rope, attention_core,
@@ -81,6 +80,8 @@ from ..ops.attention import (NEG_INF, affine, apply_rope, attention_core,
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
+from ..parallel import ring as ring_lib
+from ..parallel import ring_flash as ring_flash_lib
 
 __all__ = ["GPT", "GPTConfig", "gpt_small", "gpt_tiny", "resolve_device"]
 
@@ -227,6 +228,10 @@ class GPTConfig:
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 1e-2
     moe_z_weight: float = 1e-3
+    # training: the mesh axis of sequence (context) parallelism; apply and
+    # lm_loss_fn run this rank's shard of the sequence through ring-flash
+    # attention over that axis (GPT(config, mesh=...)).  None: off
+    seq_axis: Optional[str] = None
 
     def __post_init__(self):
         if self.remat_policy not in _REMAT_SAVES:
@@ -258,6 +263,13 @@ class GPTConfig:
             raise ValueError(f"num_kv_heads must be a positive divisor of "
                              f"num_heads {self.num_heads}; got "
                              f"{self.num_kv_heads}")
+        if self.seq_axis is not None and self.moe_experts > 0:
+            # a MoE group is a whole row (ops/moe.py): routing a shard
+            # alone would change which tokens overflow the capacity
+            raise NotImplementedError(
+                "moe_experts with seq_axis is not ported: the MoE routes "
+                "each sequence as one group, and a sequence shard alone "
+                "would drop other tokens")
 
     @property
     def head_dim(self) -> int:
@@ -373,7 +385,8 @@ class _Block(nn.Module):
 class GPT(nn.Module):
     """Decoder stack for paged serving and causal-LM training.
 
-    ``GPT(config, device="cuda", generator=None)``: weights are random,
+    ``GPT(config, device="cuda", generator=None, mesh=None)``: weights
+    are random,
     truncated normal (std 0.02, cut at 2 std) from ``generator`` (seed 0
     when None), biases zero, norms identity, all float32 and trainable.
     The Llama recipe has no ``position``, ``beta`` or ``bias`` parameters,
@@ -385,14 +398,23 @@ class GPT(nn.Module):
     ``device="cpu"``.  Parameter names (``named_parameters``) are the JAX
     tree's paths with the decoder unstacked: ``blocks.<i>.<path>`` is
     layer i of the JAX leaf ``decoder.<path>`` (``models/convert.py``).
+    ``mesh`` (a ``parallel.Mesh`` naming ``config.seq_axis``) is needed
+    with ``seq_axis`` only: every rank of the axis builds the same
+    weights and ``apply`` / ``lm_loss_fn`` compute its shard of the
+    sequence.
     """
 
     def __init__(self, config: GPTConfig, *,
                  device: Union[str, torch.device] = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         device = resolve_device(device)
         c = self.config = config
+        if c.seq_axis is not None and (mesh is None
+                                       or c.seq_axis not in mesh.shape):
+            raise ValueError(f"seq_axis={c.seq_axis!r} needs GPT(config, "
+                             f"mesh=...) with that axis; got {mesh}")
+        self.mesh = mesh
         self.word = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size,
                                              device=device))
         if c.position_embedding == "learned":
@@ -687,17 +709,60 @@ class GPT(nn.Module):
         casts of them to a compute dtype; None reads the model's own.
         Under ``remat`` each block runs through ``_checkpointed``, with
         its tensors passed in.  (This replaces ``nn.Module.apply(fn)``,
-        which the port never uses, with the JAX package's name.)"""
+        which the port never uses, with the JAX package's name.)
+
+        Under ``seq_axis`` every rank of the axis passes the global ids;
+        each computes its shard of ``s / R`` tokens through every block
+        (positions from its offset, ring-flash attention over the axis)
+        and the global hidden is gathered at the end, as the JAX
+        package's partial-manual ring returns it.  ``s`` must divide by
+        the axis size."""
+        ids = input_ids.to(self.device).long()
+        off, n = self._seq_shard(ids.shape[1])
+        hidden, aux = self._hidden(ids[:, off:off + n], off, train,
+                                   generator, params)
+        if self.config.seq_axis is not None:
+            hidden = ring_lib.gather_seq(hidden, self.mesh,
+                                         self.config.seq_axis)
+        return (hidden, aux) if return_aux else hidden
+
+    def _seq_shard(self, s: int):
+        """(offset, length) of this rank's shard of ``s`` positions: the
+        whole sequence without ``seq_axis``."""
+        part = ring_lib.seq_part(s, self.mesh, self.config.seq_axis)
+        return part.start, part.stop - part.start
+
+    def _attention_fn(self) -> Callable:
+        """Causal attention over the block's q, k, v: the flash kernel, or
+        under ``seq_axis`` ring-flash over the axis' ring (GQA native in
+        both)."""
+        c = self.config
+        if c.seq_axis is None:
+            return flash_lib.make_flash_attention_fn(causal=True)
+        group = self.mesh.axis_group(c.seq_axis)
+
+        def fn(q, k, v, mask=None):
+            return ring_flash_lib.ring_flash_attention(q, k, v, group,
+                                                       causal=True)
+        fn.supports_gqa = True
+        return fn
+
+    def _hidden(self, ids: torch.Tensor, offset: int, train: bool,
+                generator: Optional[torch.Generator],
+                params: Optional[Mapping[str, torch.Tensor]]):
+        """(hidden [b, n, d] after ``ln_f``, aux) of the ids at positions
+        ``offset .. offset + n`` (the rank's shard under ``seq_axis``, else
+        the whole sequence); aux a zero f32 scalar for a dense FFN."""
         c = self.config
         P = dict(self.named_parameters()) if params is None else params
-        ids = input_ids.to(self.device).long()
-        s = ids.shape[1]
+        length = ids.shape[1]
         x = F.embedding(ids, P["word"])
         if self.position is not None:
-            x = x + P["position"][:s][None]
+            x = x + P["position"][offset:offset + length][None]
         x = dropout(x, c.dropout_rate, generator, train).to(c.dtype)
-        attention_fn = flash_lib.make_flash_attention_fn(causal=True)
-        rope_cs = self._rope(torch.arange(s, device=self.device))
+        attention_fn = self._attention_fn()
+        rope_cs = self._rope(torch.arange(offset, offset + length,
+                                          device=self.device))
         qk_transform = None if rope_cs is None else (
             lambda q, k: (apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)))
         aux_total = None
@@ -719,8 +784,6 @@ class GPT(nn.Module):
             if c.moe_experts:
                 aux_total = aux if aux_total is None else aux_total + aux
         hidden = self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
-        if not return_aux:
-            return hidden
         if aux_total is None:
             aux_total = torch.zeros((), device=self.device)
         return hidden, aux_total
@@ -799,8 +862,19 @@ class GPT(nn.Module):
         targets are the inputs shifted by one.  Metrics:
         ``token_accuracy``, under a mask ``loss_weight`` (its sum), and
         with experts ``moe_aux``: the layers' weighted router losses,
-        which the returned loss includes.  With ``loss_seq_chunk`` the
-        loss runs through ``_lm_stats``."""
+        which the returned loss includes.  One path of sums serves every
+        config: the nll and hit sums of the tokens (through ``_lm_stats``,
+        a chunk of logits at a time, with ``loss_seq_chunk``) over the
+        token count or the mask's sum.
+
+        Under ``seq_axis`` each rank takes the global batch, slices the
+        inputs ``ids[:, :-1]``, the targets ``ids[:, 1:]`` and the mask at
+        its shard's offset, and never gathers the hidden: its sums are
+        summed over the axis (``parallel.ring.sum_seq``), so the loss and
+        metrics equal the dense ones on every rank of the axis;
+        ``loss_weight`` is this rank's share of the mask's sum
+        (``parallel.ring.weight_share``), so the step's all-reduce sums
+        the global weight.  ``s - 1`` must divide by the axis size."""
         own = dict(self.named_parameters())
 
         def is_own(t: torch.Tensor, p: torch.Tensor) -> bool:
@@ -819,38 +893,38 @@ class GPT(nn.Module):
                                  ")) or casts of them")
             c = self.config
             ids = batch["input_ids"].to(self.device).long()
-            hidden, aux = self.apply(ids[:, :-1], train=train,
-                                     generator=generator, params=params,
-                                     return_aux=True)
+            off, n = self._seq_shard(ids.shape[1] - 1)
+            hidden, aux = self._hidden(ids[:, off:off + n], off, train,
+                                       generator, params)
             head = params["word"] if c.tied_head else params["lm_head"]
             targets = ids[:, 1:]
             mask = batch.get("loss_mask")
             if mask is not None:
                 mask = mask.to(self.device).float()
-            metrics = {}
+            # sums over this rank's tokens (all of them without
+            # seq_axis), summed over the axis, over the global count
+            local_t = targets[:, off:off + n]
+            local_m = None if mask is None else mask[:, off:off + n]
             if c.loss_seq_chunk:
-                nll_sum, hit_sum = self._lm_stats(head, hidden, targets, mask)
-                if mask is None:
-                    loss = nll_sum / targets.numel()
-                    metrics["token_accuracy"] = hit_sum / targets.numel()
-                else:
-                    w = mask.sum()
-                    loss = nll_sum / torch.clamp(w, min=1e-9)
-                    metrics["token_accuracy"] = hit_sum / torch.clamp(
-                        w, min=1.0)
+                nll, hits = self._lm_stats(head, hidden, local_t, local_m)
             else:
-                logits = (hidden @ head.T.to(hidden.dtype)).float()
-                loss = loss_lib.softmax_cross_entropy_with_integer_labels(
-                    logits, targets, where=mask)
-                hits = (logits.argmax(-1) == targets).float()
-                if mask is None:
-                    metrics["token_accuracy"] = hits.mean()
-                else:
-                    metrics["token_accuracy"] = (
-                        (hits * mask).sum() / torch.clamp(mask.sum(),
-                                                          min=1.0))
-            if mask is not None:
-                metrics["loss_weight"] = mask.sum()
+                nll, hits = _chunk_stats(
+                    hidden.reshape(-1, hidden.shape[-1]), head,
+                    local_t.reshape(-1),
+                    None if local_m is None else local_m.reshape(-1))
+            if c.seq_axis is not None:
+                nll, hits = ring_lib.sum_seq(torch.stack([nll, hits]),
+                                             self.mesh, c.seq_axis)
+            hits = hits.detach()
+            if mask is None:
+                loss = nll / targets.numel()
+                metrics = {"token_accuracy": hits / targets.numel()}
+            else:
+                loss = nll / torch.clamp(mask.sum(), min=1e-9)
+                metrics = {"token_accuracy": hits / torch.clamp(
+                    mask.sum(), min=1.0),
+                    "loss_weight": ring_lib.weight_share(
+                        mask.sum(), self.mesh, c.seq_axis)}
             if c.moe_experts:
                 metrics["moe_aux"] = aux
                 loss = loss + aux

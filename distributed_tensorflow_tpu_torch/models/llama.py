@@ -10,7 +10,8 @@ field can be overridden (``dtype``, ``kv_cache_dtype``, ...)::
     model = GPT(llama3_8b(dtype=torch.bfloat16, kv_cache_dtype="int8"))
 
 ``llama(**kw)`` builds the model itself, as the JAX package's does:
-``llama(device="cuda", generator=None, **config_fields) -> GPT``.
+``llama(device="cuda", generator=None, mesh=None, **config_fields) ->
+GPT``.
 
 The weights are random (``GPT(config, generator=...)``) or a JAX tree
 carried across by ``models/convert.py``; the HF checkpoint loader of the
@@ -40,10 +41,13 @@ def llama_config(**kw) -> GPTConfig:
 
 
 def llama(device: Union[str, torch.device] = "cuda",
-          generator: Optional[torch.Generator] = None, **kw) -> GPT:
+          generator: Optional[torch.Generator] = None, mesh=None,
+          **kw) -> GPT:
     """``GPT(llama_config(**kw))`` on ``device`` (the card unless the
-    caller asks for the CPU), weights from ``generator``."""
-    return GPT(llama_config(**kw), device=device, generator=generator)
+    caller asks for the CPU), weights from ``generator``; ``mesh`` for a
+    ``seq_axis`` config, as the JAX package's ``llama(mesh=...)``."""
+    return GPT(llama_config(**kw), device=device, generator=generator,
+               mesh=mesh)
 
 
 def llama_tiny(**kw) -> GPTConfig:

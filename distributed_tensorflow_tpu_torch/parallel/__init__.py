@@ -1,13 +1,21 @@
 """Parallelism of the port: the cluster bootstrap over ``torch.distributed``
-(``parallel/cluster.py``), the data-parallel mesh (``parallel/mesh.py``)
-and the gradient all-reduce (``parallel/data_parallel.py``)."""
-from . import cluster, data_parallel, mesh
+(``parallel/cluster.py``), the named mesh (``parallel/mesh.py``), the
+gradient all-reduce (``parallel/data_parallel.py``) and sequence
+parallelism: ring attention (``parallel/ring.py``) and ring-flash
+attention over the flash kernels (``parallel/ring_flash.py``)."""
+from . import cluster, data_parallel, mesh, ring, ring_flash
 from .cluster import ClusterConfig, cluster_from_env, initialize, is_chief
 from .data_parallel import all_reduce_mean
-from .mesh import (Mesh, data_parallel_mesh, data_shards, local_batch_size,
+from .mesh import (AXIS_ORDER, Mesh, MeshConfig, data_parallel_mesh,
+                   data_shards, local_batch_size, make_mesh, plan_mesh,
                    round_batch_to_mesh)
+from .ring import ring_attention, ring_attention_sharded
+from .ring_flash import ring_flash_attention, ring_flash_attention_sharded
 
-__all__ = ["cluster", "data_parallel", "mesh", "ClusterConfig",
-           "cluster_from_env", "initialize", "is_chief", "all_reduce_mean",
-           "Mesh", "data_parallel_mesh",
-           "data_shards", "local_batch_size", "round_batch_to_mesh"]
+__all__ = ["cluster", "data_parallel", "mesh", "ring", "ring_flash",
+           "ClusterConfig", "cluster_from_env", "initialize", "is_chief",
+           "all_reduce_mean", "AXIS_ORDER", "Mesh", "MeshConfig",
+           "data_parallel_mesh", "data_shards", "local_batch_size",
+           "make_mesh", "plan_mesh", "round_batch_to_mesh",
+           "ring_attention", "ring_attention_sharded",
+           "ring_flash_attention", "ring_flash_attention_sharded"]

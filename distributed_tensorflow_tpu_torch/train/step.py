@@ -22,14 +22,27 @@ its shard of the global batch, and ONE all-reduce of a flat bucket
 averages the gradients, the loss and the metrics over the ranks
 (``parallel.data_parallel.all_reduce_mean``) before the loss-scale and
 skip logic, the clip and the update, so every rank applies the same
-update.  The average of the ranks' means is the global batch's mean when
-the shards are equal, which ``parallel.round_batch_to_mesh`` guarantees.
-The JAX step gets the same average from its partitioner (a global-mean
-loss over a batch sharded on the mesh's ``data`` axis).  A ``BatchNorm``
-takes the global batch's moments there: ``make_custom_train_step`` runs
-every loss function under ``ops.layers.cross_rank_moments``, so the
-norm's forward all-reduces its shard's sums and its backward the
-gradients of them.
+update.  A loss function that reports ``metrics["loss_weight"]`` (the
+models' masked means) is averaged with those weights, which makes the
+result the global batch's masked mean however the ranks' mask counts
+differ; a plain mean needs equal shards, which
+``parallel.round_batch_to_mesh`` guarantees.  The JAX step gets the same
+average from its partitioner (a global-mean loss over a batch sharded on
+the mesh's ``data`` axis).  A ``BatchNorm`` takes the global batch's
+moments there: ``make_custom_train_step`` runs every loss function under
+``ops.layers.cross_rank_moments``, so the norm's forward all-reduces its
+shard's sums and its backward the gradients of them.
+
+Sequence parallelism (a mesh from ``parallel.make_mesh`` with ``data`` x
+``seq`` axes, ``fsdp`` counted as ``data``): every rank of a seq line
+passes the same batch (its ``Mesh.data_index`` picks the rows) and the
+model's loss function computes on its sequence shard, reducing its sums
+over the line (``GPT.lm_loss_fn``, ``Bert.mlm_loss_fn`` with
+``seq_axis``), or on the gathered output of ``apply``, so each rank
+holds the line's loss.  The ops that cross the line scale the gradients
+so that the same single all-reduce's mean is the global batch's
+(``parallel/ring.py`` says how).  Tensor, pipeline and expert axes of
+more than one rank raise.
 
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
@@ -305,13 +318,21 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     the clip's ``grad_norm`` takes precedence.
 
     ``mesh``: a ``parallel.Mesh``; over a process group, the gradients,
-    loss and metrics are averaged over its ranks with one all-reduce, a
+    loss and metrics are averaged over its ranks with one all-reduce
+    (weighted by ``metrics["loss_weight"]`` where the loss reports it), a
     ``BatchNorm`` in ``loss_fn`` takes the global batch's moments, and
     the dropout generator is folded with the rank (module docstring)."""
     if skip_nonfinite and loss_scale:
         raise ValueError("loss_scale=True already skips non-finite "
                          "updates; drop skip_nonfinite")
     pol = prec_lib.policy(policy) if policy is not None else None
+    if mesh is not None:
+        other = {a: n for a, n in mesh.shape.items()
+                 if n > 1 and a not in ("data", "fsdp", "seq")}
+        if other:
+            raise NotImplementedError(
+                f"make_custom_train_step over mesh axes {other}: tensor, "
+                f"pipeline and expert parallelism are not ported yet")
     dp = mesh if mesh is not None and mesh.group is not None else None
     replica = dp.rank if dp is not None else None
     moments = (functools.partial(layers.cross_rank_moments, dp)
@@ -387,8 +408,10 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             loss, metrics, new_model_state, grads = accumulate(
                 state, params, model_state_in, batch, device, ls)
         if dp is not None:
+            weight = metrics.pop("loss_weight", None)
             grads, loss, metrics = dp_lib.all_reduce_mean(grads, loss,
-                                                          metrics, dp)
+                                                          metrics, dp,
+                                                          weight)
         apply = True
         if ls is not None:
             grads = ls.unscale(grads)

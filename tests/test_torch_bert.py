@@ -265,7 +265,9 @@ def test_default_decay_mask_takes_no_encoder_name_as_stacked():
 
 
 def test_parallel_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """``seq_axis`` runs now, and needs a mesh naming the axis; tensor
+    parallelism still raises."""
+    with pytest.raises(ValueError, match="mesh"):
         tbert.bert_tiny(seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tbert.bert_tiny().partition_rules()

@@ -58,7 +58,8 @@ def test_every_port_module_imports_without_jax():
         "models.resnet", "models.seq2seq", "examples",
         "examples.finetune_bert", "examples.train_vit", "ops.moe",
         "examples.serve_gpt", "data.text", "utils.native",
-        "examples.finetune_gpt2_hf")} <= set(modules)
+        "examples.finetune_gpt2_hf", "parallel.ring",
+        "parallel.ring_flash")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         REFUSED = {_REFUSED!r}

@@ -179,5 +179,5 @@ def test_resnet50_blocks_match_jax_in_eval():
 
 
 def test_partition_rules_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tresnet.ResNet.partition_rules()

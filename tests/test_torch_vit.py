@@ -141,5 +141,5 @@ def test_params_to_jax_inverts_params_from_jax():
     init = model.init(torch.Generator())
     assert {k: v.shape for k, v in init.items()} == \
         {k: v.shape for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         model.partition_rules()
