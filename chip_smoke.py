@@ -451,6 +451,34 @@ no result lines:
    Last on the card: SDPA's autograd backwards of phase 22's
    whole-backward rows and of (a)'s backward routes, replayed from a
    CUDA graph (their library graph ms).
+26. zero (after phase 25): ZeRO over the ``fsdp`` axis.  (a) GPT-2 small
+   at phase 6's batch (48 x 256, bf16, dropout 0) under
+   ``with_ema(adamw(1e-4), 0.99)``, clip 1.0, ``mixed_bfloat16``: the
+   state placed by ``GPT.partition_rules(fsdp=True)`` and
+   ``shard_train_state`` on ``make_mesh({"data": 1, "fsdp": 1})``
+   against the plain state from the same weights, ``ZERO_WARMUP`` +
+   ``ZERO_STEPS`` steps an arm, the arms in turns (ZeRO, plain, plain,
+   ZeRO): losses, parameters, moments and the EMA shadow equal to the bit, exact launches a step (Adam 196, flash
+   forward, dK/dV and dQ 12 each, LayerNorm 25), no collective; step ms
+   and each arm's own peak memory.  Then ``TrainSession(
+   sharded_checkpoint=True)``: ``ZERO_SESSION`` steps and a save (s,
+   bytes), a fresh session from other weights restores (s) a bit-equal
+   state, and one more step equals the uninterrupted run's.  (b) A
+   virtual ``fsdp`` line of ``ZERO_VIRTUAL`` ranks at the same width:
+   the Adam kernel on every virtual rank's blocks (784 launches) equals
+   the whole-leaf launches to the bit (deltas and moments); the blocks
+   joined along each rule's dim give back every leaf; the sharded writer
+   called as pids 0-3 writes one checkpoint that ``restore_sharded``
+   reads back bit-equal onto the fsdp-2 and fsdp-1 layouts, that
+   ``verify_sharded`` passes, and fails once a shard file is gone; the
+   Adam kernel timed at the word embedding's block [50257, 192] beside
+   its plain version, ``AdamW(fused=True)`` and the bound.  (c) ``python
+   -m distributed_tensorflow_tpu_torch.examples.train_gpt`` at its
+   defaults (200 steps; ``--log_dir`` under ``build/``) in a subprocess:
+   exit 0, live and EMA eval losses below uniform (ln 256), the
+   ``generated:`` line, a complete sharded checkpoint; again with
+   ``--steps=220``: restored at step 200, ends at 220; ``--family=
+   llama`` exits 0.
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -464,14 +492,16 @@ run; ``zoo_launches`` for the training kernels of phase 22's (b), (d),
 (b), (c), (e) and (f); ``hf_launches`` for those of phase 24's (a) and
 (c); ``sp_launches`` for the training kernels of phase 25's (b) and
 (c) seq_axis arms, and on the flash records ``sp_routes``, (a)'s route
-times), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+times; ``zero_launches`` for the training kernels of phase 26 (a)'s ZeRO
+arm, and on the Adam record ``zero_shard``, (b)'s block times), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -7807,6 +7837,442 @@ def check_sp(torch, np, args, smi):
     return routes, counts
 
 
+# -- phase 26: ZeRO over fsdp -------------------------------------------------
+# (a) two warm-up and five timed steps an arm (with one, the ZeRO arms'
+# timed steps ran 3-8% slower than the plain arms' in three runs, on the
+# same kernels and launches); the session saves after 2 steps; (b) a
+# virtual fsdp line of 4; (c) the entry point's second run resumes its
+# 200 steps to 220.  Checkpoints and logs under ZERO_DIR, removed at the
+# phase's end.
+ZERO_WARMUP, ZERO_STEPS, ZERO_SESSION = 2, 5, 2
+ZERO_VIRTUAL, ZERO_RESUME = 4, 220
+ZERO_DIR = Path("build") / "zero"
+
+
+def _zero_arm(torch, args, sharded, seed):
+    """(model, state, step) of (a): GPT-2 small bf16 from ``seed``'s
+    weights, ``with_ema(adamw(1e-4), 0.99)``, clip 1.0, mixed bf16, on
+    a mesh of one; ``sharded`` places the state by the fsdp rules."""
+    from distributed_tensorflow_tpu_torch import (GPT, gpt_small, optim,
+                                                  parallel, train)
+    model = GPT(gpt_small(dtype=torch.bfloat16, dropout_rate=0.0),
+                device="cuda",
+                generator=torch.Generator("cuda").manual_seed(seed))
+    opt = optim.with_ema(optim.adamw(TRAIN_LR), 0.99)
+    params = dict(model.named_parameters())
+    state = train.TrainState.create(params, opt.init(params))
+    mesh = parallel.make_mesh({"data": 1, "fsdp": 1})
+    if sharded:
+        state = train.shard_train_state(state, mesh,
+                                        model.partition_rules(fsdp=True))
+    step = train.make_custom_train_step(
+        model.lm_loss_fn(), opt, seed=args.seed, mesh=mesh,
+        grad_clip_norm=1.0, policy="mixed_bfloat16")
+    return model, state, step
+
+
+def _zero_counts(torch):
+    """The training kernels' launches and the collectives issued since
+    ``_reset_counts``."""
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    counts = _train_counts(torch)
+    counts["collectives"] = sum(data_parallel.LAUNCHES.values())
+    return counts
+
+
+def _leaves(torch, state):
+    """(path, value) of every leaf of a state (tensors cloned)."""
+    from distributed_tensorflow_tpu_torch.train import checkpoint
+    return [(p, v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for p, v in checkpoint._flatten(state)]
+
+
+def _same(torch, got, want, what):
+    """Fail unless two ``_leaves`` lists are equal to the bit."""
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{what}: the states' leaves differ")
+    for (path, a), (_, b) in zip(got, want):
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
+        if not same:
+            raise AssertionError(f"{what}: {path} differs")
+
+
+def _zero_pair(torch, np, args, smi, batch):
+    """(a)'s arms in turns (ZeRO, plain, plain, ZeRO, so that neither
+    kind always runs first): every arm's losses and final state equal to
+    the bit, exact launches, no collective.  Returns (the first ZeRO
+    arm's launch counts, a plain arm's (model, state))."""
+    steps = ZERO_WARMUP + ZERO_STEPS
+    rows, first, plain = [], None, None
+    for arm in ("zero", "plain", "plain", "zero"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, state, step = _zero_arm(torch, args, arm == "zero", args.seed)
+
+        def run():
+            losses, t0 = [], None
+            st = state
+            for i in range(steps):
+                if i == ZERO_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                st, m = step(st, batch)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            return st, [float(x) for x in losses], time.perf_counter() - t0
+        (state, losses, wall), _, counts = _driven(torch, run, _zero_counts)
+        row = {"arm": arm, "losses": losses,
+               "step_ms": wall / ZERO_STEPS * 1e3,
+               "peak_memory_gb": (torch.cuda.max_memory_allocated() - base)
+               / 1e9, "launches": counts}
+        rows.append(row)
+        log({"zero": "(a) gpt2 small 48x256", "turn": len(rows),
+             "steps": steps, **row, "card": smi})
+        per_step = _per_step(model.config, len(state.params), False, 1)
+        _check_counts(f"zero (a) {arm}", counts, per_step, steps)
+        if counts["collectives"]:
+            raise AssertionError(f"zero (a) {arm}: {counts['collectives']} "
+                                 f"collectives on a mesh of one")
+        leaves = _leaves(torch, state)
+        if first is None:
+            first = (losses, leaves)
+        elif losses != first[0]:
+            raise AssertionError(f"zero (a) {arm}: losses {losses} != "
+                                 f"{first[0]}")
+        else:
+            _same(torch, leaves, first[1], f"zero (a) {arm}")
+        del leaves
+        if arm == "plain":
+            plain = (model, state)
+        del model, state, step
+    del first
+
+    def mean(kind, key):
+        vals = [r[key] for r in rows if r["arm"] == kind]
+        return sum(vals) / len(vals)
+    log({"zero": "(a) zero vs plain", "bit_equal": True,
+         "step_ms_zero": mean("zero", "step_ms"),
+         "step_ms_plain": mean("plain", "step_ms"),
+         "step_ms_zero_over_plain": mean("zero", "step_ms")
+         / mean("plain", "step_ms"),
+         "peak_memory_gb_zero": mean("zero", "peak_memory_gb"),
+         "peak_memory_gb_plain": mean("plain", "peak_memory_gb")})
+    return rows[0]["launches"], plain
+
+
+def _zero_session(torch, np, args, smi, batch):
+    """(a)'s session: saves after ZERO_SESSION steps; a fresh session from
+    other weights restores a bit-equal state and its next step equals the
+    uninterrupted run's."""
+    from distributed_tensorflow_tpu_torch import train
+    d = ZERO_DIR / "session"
+    shutil.rmtree(d, ignore_errors=True)
+    model, state, step = _zero_arm(torch, args, True, args.seed)
+    with train.TrainSession(state, step, checkpoint_dir=str(d),
+                            sharded_checkpoint=True) as sess:
+        for _ in range(ZERO_SESSION):
+            sess.run_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = sess.save()
+        save_s = time.perf_counter() - t0
+        state = sess.state
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    saved = _leaves(torch, state)
+    state, m = step(state, batch)
+    want_loss = float(m["loss"])
+    want = _leaves(torch, state)
+    del model, state, step
+    torch.cuda.empty_cache()
+    model, state, step = _zero_arm(torch, args, True, args.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = train.TrainSession(state, step, checkpoint_dir=str(d),
+                              sharded_checkpoint=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if sess.step != ZERO_SESSION:
+        raise AssertionError(f"zero session resumed at {sess.step}")
+    _same(torch, _leaves(torch, sess.state), saved, "zero session restore")
+    loss = float(sess.run_step(batch)["loss"])
+    if loss != want_loss:
+        raise AssertionError(f"zero session: resumed step loss {loss} != "
+                             f"{want_loss}")
+    _same(torch, _leaves(torch, sess.state), want, "zero session step")
+    log({"zero": "(a) session", "save_s": save_s, "checkpoint_bytes": nbytes,
+         "restore_s": restore_s, "resumed_at": ZERO_SESSION,
+         "next_step_bit_equal": True, "card": smi})
+    del model, state, step, sess, saved, want
+    torch.cuda.empty_cache()
+
+
+def _zero_adam_shard(torch, args, smi):
+    """The Adam kernel at the word embedding's block on a line of 4
+    ([50257, 192]: dim 1 cut), as ``adamw`` calls it: against its plain
+    version, its ms and graph ms, the plain ms, ``AdamW(fused=True)``'s,
+    the bound (28 bytes an element)."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    shape = (50257, 768 // ZERO_VIRTUAL)
+    kw = dict(lr=TRAIN_LR, weight_decay=0.01, tf14_eps=True,
+              return_delta=True)
+    p, g, m = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    v = torch.rand(shape, generator=gen, device="cuda")
+    want = fused.adam_plain(p, g, m, v, 3, **kw)
+    m2, v2 = m.clone(), v.clone()
+    got = fused.fused_adam_update(p, g, m2, v2, 3, out=(None, m2, v2), **kw)
+    torch.cuda.synchronize()
+    err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    if not err <= ADAM_TOL:
+        raise AssertionError(f"Adam kernel at {shape} disagrees: {err}")
+
+    def call():
+        fused.fused_adam_update(p, g, m2, v2, 3, out=(None, m2, v2), **kw)
+    lib_p = p.clone()
+    lib_p.grad = g
+    cap_p = p.clone()
+    cap_p.grad = g
+    lib_graph, why = _graph_or_why(torch, torch.optim.AdamW(
+        [cap_p], lr=TRAIN_LR, eps=1e-8, weight_decay=0.01, fused=True,
+        capturable=True).step, args.iters)
+    b_ms, b_by = bound_ms(28.0 * p.numel(), 12.0 * p.numel())
+    rec = {"shape": list(shape), "max_abs_err": err,
+           "ms": time_ms(torch, call, args.iters),
+           "graph_ms": graph_ms(torch, call, args.iters),
+           "plain_ms": time_ms(torch, lambda: fused.adam_plain(
+               p, g, m2, v2, 3, out=(None, m2, v2), **kw), args.iters),
+           "library_ms": time_ms(torch, torch.optim.AdamW(
+               [lib_p], lr=TRAIN_LR, eps=1e-8, weight_decay=0.01,
+               fused=True).step, args.iters),
+           "library_graph_ms": lib_graph, "bound_ms": b_ms,
+           "bound_by": b_by}
+    log({"zero": "(b) fused_adam at a block", **rec,
+         **({"library_graph_note": why} if why else {}),
+         "library": "torch.optim.AdamW(fused=True).step()", "card": smi})
+    return rec
+
+
+def _zero_virtual(torch, np, args, smi, model, state):
+    """(b) on (a)'s plain arm after its steps: the Adam kernel a virtual
+    rank's blocks against the whole leaves; the blocks' join; the sharded
+    checkpoint of 4 virtual pids restored onto the fsdp-2 and fsdp-1
+    layouts.  Returns the Adam launches over the virtual ranks."""
+    from distributed_tensorflow_tpu_torch import optim, parallel, train
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.train import \
+        sharded_checkpoint as sc
+    rules = model.partition_rules(fsdp=True)
+    params = dict(model.named_parameters())
+    opt = optim.adamw(TRAIN_LR)
+    inner = state.opt_state.inner["opt"]
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    grads = {k: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for k, p in params.items()}
+
+    def moments():
+        return optim.OptState(inner.count, {
+            n: {k: t.clone() for k, t in inner.inner[n].items()}
+            for n in ("m", "v")})
+    whole_state = moments()
+    whole, whole_state = opt.update(grads, whole_state, params)
+
+    def rank(r, n=ZERO_VIRTUAL):
+        return parallel.Mesh(n, r, None, axes={"fsdp": n}, lines={})
+
+    placed, ups = [], []
+    fused.LAUNCHES.clear()
+    for r in range(ZERO_VIRTUAL):
+        st = train.shard_train_state(
+            train.TrainState.create(params, moments()), rank(r), rules)
+        g = {k: t if st.params.layout[k] is None
+             else st.params.layout[k].take(t) for k, t in grads.items()}
+        up, st_opt = opt.update(g, st.opt_state, st.params)
+        placed.append((st.params, st_opt))
+        ups.append(up)
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES["adam"]
+    if launches != ZERO_VIRTUAL * len(params):
+        raise AssertionError(f"zero (b): {launches} Adam launches, expected "
+                             f"{ZERO_VIRTUAL} x {len(params)}")
+    layout = placed[0][0].layout
+
+    def joined(parts, k):
+        s = layout[k]
+        return parts[0] if s is None else torch.cat(parts, s.dim)
+    for k in params:
+        if not torch.equal(joined([pl[0][k] for pl in placed], k),
+                           params[k]):
+            raise AssertionError(f"zero (b): the blocks of {k} do not join")
+        for what, got, want in (
+                ("delta", [u[k] for u in ups], whole[k]),
+                ("m", [pl[1].inner["m"][k] for pl in placed],
+                 whole_state.inner["m"][k]),
+                ("v", [pl[1].inner["v"][k] for pl in placed],
+                 whole_state.inner["v"][k])):
+            if not torch.equal(joined(got, k), want):
+                raise AssertionError(f"zero (b): Adam's {what} of {k} on "
+                                     f"the blocks != the whole leaf's")
+    cut = sorted({(k.split(".")[-2] if k.startswith("blocks") else k,
+                   s.dim) for k, s in layout.items() if s is not None})
+    log({"zero": "(b) virtual fsdp line", "ranks": ZERO_VIRTUAL,
+         "adam_launches": launches, "cut_leaves": sum(
+             s is not None for s in layout.values()), "cut_dims": cut,
+         "bit_equal": True})
+    del placed, ups, whole, whole_state, grads
+    torch.cuda.empty_cache()
+
+    d = ZERO_DIR / "virtual"
+    shutil.rmtree(d, ignore_errors=True)
+    want = _leaves(torch, state)
+    t0 = time.perf_counter()
+    for r in range(ZERO_VIRTUAL):
+        path = sc.save_sharded(str(d), state.step, train.shard_train_state(
+            state, rank(r), rules), process_index=r,
+            process_count=ZERO_VIRTUAL)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    restore_s = {}
+    for n in (2, 1):
+        t0 = time.perf_counter()
+        parts = []
+        for r in range(n):
+            zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+            opt_ema = optim.with_ema(optim.adamw(TRAIN_LR), 0.99)
+            target = train.TrainState.create(zeros, opt_ema.init(zeros))
+            if n > 1:
+                target = train.shard_train_state(target, rank(r, n), rules)
+            parts.append(sc.restore_sharded(target, path))
+        torch.cuda.synchronize()
+        restore_s[f"fsdp{n}"] = time.perf_counter() - t0
+        got = (_leaves(torch, parts[0]) if n == 1 else
+               _joined_leaves(torch, parts))
+        _same(torch, got, want, f"zero (b) restore onto fsdp {n}")
+        del parts, got
+        torch.cuda.empty_cache()
+    ok, why = sc.verify_sharded(path)
+    if not ok:
+        raise AssertionError(f"zero (b): verify_sharded failed: {why}")
+    (Path(path) / f"shards-{ZERO_VIRTUAL - 1:05d}.npz").unlink()
+    gone, why_gone = sc.verify_sharded(path)
+    if gone:
+        raise AssertionError("zero (b): verify_sharded passed without a "
+                             "shard file")
+    log({"zero": "(b) sharded checkpoint of 4 pids", "save_s": save_s,
+         "checkpoint_bytes": nbytes, "restore_s": restore_s,
+         "bit_equal": True, "verify_without_a_shard": why_gone,
+         "card": smi})
+    return launches
+
+
+def _joined_leaves(torch, states):
+    """``_leaves`` of the whole state that the ZeRO ``states`` of one
+    line's ranks hold: each cut block joined along its dim."""
+    from distributed_tensorflow_tpu_torch.parallel import sharding
+    from distributed_tensorflow_tpu_torch.train import checkpoint
+
+    def join(trees):
+        t0 = trees[0]
+        if isinstance(t0, sharding.ShardedDict):
+            return {k: (t0[k] if s is None else torch.cat(
+                [t[k] for t in trees], s.dim)) for k, s in t0.layout.items()}
+        if isinstance(t0, dict):
+            return {k: join([t[k] for t in trees]) for k in t0}
+        if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+            return type(t0)(*(join(list(x)) for x in zip(*trees)))
+        return t0
+    return [(p, v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for p, v in checkpoint._flatten(join(states))]
+
+
+def _zero_entry(torch, smi):
+    """(c): the entry point at its defaults, resumed to ZERO_RESUME, and
+    the Llama family."""
+    import re
+
+    from distributed_tensorflow_tpu_torch.train import \
+        sharded_checkpoint as sc
+    root = Path(__file__).resolve().parent
+
+    def start(log_dir, *argv):
+        return time.perf_counter(), argv, subprocess.Popen(
+            [sys.executable, "-m",
+             "distributed_tensorflow_tpu_torch.examples.train_gpt",
+             f"--log_dir={log_dir}", *argv], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait(run):
+        t0, argv, p = run
+        try:
+            out, err = p.communicate(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if p.returncode != 0:
+            raise AssertionError(f"train_gpt {argv}: rc {p.returncode}\n"
+                                 f"{err[-3000:]}")
+        return out, time.perf_counter() - t0
+
+    d = ZERO_DIR / "entry"
+    shutil.rmtree(d, ignore_errors=True)
+    # the Llama family runs beside the defaults' first run (its own log
+    # dir): two processes of a 2-layer model share the card
+    llama = start(ZERO_DIR / "entry_llama", "--family=llama")
+    out, secs = wait(start(d))
+    ev = re.search(r"eval loss: live=([\d.]+) ema=([\d.]+) "
+                   r"\(uniform=([\d.]+)\)", out)
+    if ev is None or "generated:" not in out:
+        raise AssertionError(f"train_gpt printed no eval or generated line:"
+                             f"\n{out[-2000:]}")
+    live, ema, uniform = (float(x) for x in ev.groups())
+    if not (live < uniform and ema < uniform):
+        raise AssertionError(f"train_gpt: eval live {live} ema {ema} not "
+                             f"below uniform {uniform}")
+    last = sc.all_sharded_checkpoints(str(d))[-1]
+    if not last.endswith("ckpt-0000000200") or not sc.verify_sharded(
+            last)[0]:
+        raise AssertionError(f"train_gpt: checkpoint {last}")
+    out3, secs3 = wait(llama)
+    out2, secs2 = wait(start(d, f"--steps={ZERO_RESUME}"))
+    resumed = "Restored checkpoint ckpt-0000000200 at step 200" in out2
+    ends = sc.all_sharded_checkpoints(str(d))[-1].endswith(
+        f"ckpt-{ZERO_RESUME:010d}")
+    if not (resumed and ends):
+        raise AssertionError(f"train_gpt --steps={ZERO_RESUME}: resumed "
+                             f"{resumed}, ends at {ZERO_RESUME} {ends}")
+    log({"zero": "(c) train_gpt", "seconds": secs, "eval_live": live,
+         "eval_ema": ema, "uniform": uniform,
+         "generated": [l for l in out.splitlines()
+                       if l.startswith("generated:")][0],
+         "resume_seconds": secs2, "llama_seconds": secs3,
+         "llama_eval": [l for l in out3.splitlines()
+                        if l.startswith("eval loss:")], "card": smi})
+
+
+def check_zero(torch, np, args, smi):
+    """Phase 26, ZeRO over fsdp: returns ((a)'s ZeRO arm's launch
+    counts, (b)'s Adam record at a block)."""
+    t_phase = time.perf_counter()
+    batch = _train_batch(torch, np, args.seed, TRAIN_BATCH, TRAIN_SEQ,
+                         50257, "cuda")
+    counts, (model, state) = _zero_pair(torch, np, args, smi, batch)
+    _zero_session(torch, np, args, smi, batch)
+    virtual_adam = _zero_virtual(torch, np, args, smi, model, state)
+    del model, state
+    torch.cuda.empty_cache()
+    shard = _zero_adam_shard(torch, args, smi)
+    _zero_entry(torch, smi)
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    counts.pop("collectives")
+    log({"phase": "zero", "seconds": time.perf_counter() - t_phase,
+         "launches": counts, "virtual_adam_launches": virtual_adam})
+    return counts, shard
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -7900,6 +8366,7 @@ def main(argv=None) -> int:
     family_launches = check_gpt_family(torch, np, args, smi, phase4)
     hf_launches = check_hf(torch, np, args, smi)
     sp_routes, sp_launches = check_sp(torch, np, args, smi)
+    zero_launches, zero_shard = check_zero(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -7950,7 +8417,11 @@ def main(argv=None) -> int:
                     **({"sp_launches": sp_launches[k]}
                        if k in sp_launches else {}),
                     **({"sp_routes": r["sp_routes"]}
-                       if "sp_routes" in r else {}))
+                       if "sp_routes" in r else {}),
+                    **({"zero_launches": zero_launches[k]}
+                       if k in zero_launches else {}),
+                    **({"zero_shard": zero_shard}
+                       if k == "fused_adam" else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -62,6 +62,7 @@ checkpoints.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import types
@@ -351,8 +352,13 @@ def _from_jax(src, dst, names, num_layers: int):
         if names and set(dst) == names:
             src = (_unstacked(src, num_layers) if _is_gpt(names)
                    else _flat(dict(src), ""))
-        return {k: _from_jax(src[k], v, names, num_layers)
-                for k, v in dst.items()}
+        out = {k: _from_jax(src[k], v, names, num_layers)
+               for k, v in dst.items()}
+        if type(dst) is dict:
+            return out
+        kept = copy.copy(dst)       # a dict subclass keeps its attributes
+        kept.update(out)            # (a ZeRO layout's ``ShardedDict``)
+        return kept
     if _is_namedtuple(dst):
         return type(dst)(*(_from_jax(getattr(src, f), getattr(dst, f),
                                      names, num_layers)

@@ -81,6 +81,7 @@ from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
 from ..parallel import ring as ring_lib
+from ..parallel import sharding as sharding_lib
 from ..parallel import ring_flash as ring_flash_lib
 
 __all__ = ["GPT", "GPTConfig", "gpt_small", "gpt_tiny", "resolve_device"]
@@ -232,8 +233,15 @@ class GPTConfig:
     # lm_loss_fn run this rank's shard of the sequence through ring-flash
     # attention over that axis (GPT(config, mesh=...)).  None: off
     seq_axis: Optional[str] = None
+    # the JAX package's split of the decoder over a "pipe" mesh axis: not
+    # ported (ROADMAP Queue 1 item 7.3); 0 or 1 is off
+    pipeline_stages: int = 0
 
     def __post_init__(self):
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(
+                f"pipeline_stages={self.pipeline_stages}: the pipeline is "
+                f"not ported (ROADMAP Queue 1 item 7.3)")
         if self.remat_policy not in _REMAT_SAVES:
             raise ValueError(f"remat_policy must be 'full', 'dots', or "
                              f"'dots_no_batch'; got {self.remat_policy!r}")
@@ -1480,3 +1488,45 @@ class GPT(nn.Module):
             x = self._cache_layer(blk, x, kv, i, attention, rope_cs,
                                   write_pos=write_col, lora=lora)
         return self._head(x), kv
+
+    # -- sharding ---------------------------------------------------------
+    def partition_rules(self, fsdp: bool = False,
+                        shard_kv: Optional[bool] = None
+                        ) -> sharding_lib.PartitionRules:
+        """The JAX package's Megatron table (``GPT.partition_rules``) over
+        the port's per-layer names: a decoder leaf's spec loses the JAX
+        tree's leading layer dim (``decoder/attention/query/kernel``
+        ``P(None, f, "tensor", None)`` is ``(f, "tensor", None)`` on
+        ``blocks.<i>.attention.query.kernel`` [d, h, hd]).  ``fsdp=True``
+        cuts the remaining large dim of each matrix over ``fsdp`` (the
+        word embedding's dim 1, the attention output's last, ``w_out``'s
+        dim 1); keys and values shard over ``tensor`` only under plain
+        MHA unless ``shard_kv`` says otherwise.  A MoE config raises, as
+        ``ops.moe_partition_rules`` does (ROADMAP Queue 1 item 7.2)."""
+        c = self.config
+        if c.moe_experts:
+            raise NotImplementedError(
+                "partition_rules of a MoE config: the expert rules come "
+                "with tensor parallelism (ROADMAP Queue 1 item 7.2)")
+        f = "fsdp" if fsdp else None
+        kv_on_tensor = (shard_kv if shard_kv is not None
+                        else c.kv_heads == c.num_heads)
+        kv_spec = (f, "tensor", None) if kv_on_tensor else (f, None, None)
+        kv_bias = ("tensor", None) if kv_on_tensor else (None, None)
+        blk = r"^blocks\.\d+\."
+        return sharding_lib.PartitionRules([
+            (r"^word$", ("tensor", f)),
+            (r"^lm_head$", ("tensor", f)),      # untied head: same split
+            (r"^position$", (None, None)),
+            (blk + r"attention\.query\.kernel$", (f, "tensor", None)),
+            (blk + r"attention\.query\.bias$", ("tensor", None)),
+            (blk + r"attention\.(key|value)\.kernel$", kv_spec),
+            (blk + r"attention\.(key|value)\.bias$", kv_bias),
+            (blk + r"attention\.out\.kernel$", ("tensor", None, f)),
+            (blk + r"ffn\.w_(in|gate)\.kernel$", (f, "tensor")),
+            (blk + r"ffn\.w_(in|gate)\.bias$", ("tensor",)),
+            (blk + r"ffn\.w_out\.kernel$", ("tensor", f)),
+            (blk + r"ffn\.w_out\.bias$", (None,)),
+            (blk + r"attention\.out\.bias$", (None,)),
+            (blk + r"ln_[12]\.(gamma|beta)$", (None,)),
+        ])

@@ -99,7 +99,7 @@ def adafactor(learning_rate: Optional[ScalarOrSchedule] = None,
             ups[k] = -step_size * u
         return ups, OptState(count, inner)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 # registered by name here, so that the module dependency stays one-way

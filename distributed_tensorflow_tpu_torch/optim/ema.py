@@ -31,6 +31,8 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import data_parallel as dp_lib
+from ..parallel.sharding import ShardedDict
 from .optimizers import Optimizer, OptState
 
 __all__ = ["EMAState", "ema", "with_ema", "ema_params"]
@@ -116,14 +118,21 @@ def with_ema(optimizer: Optimizer, decay: float = 0.999,
         return updates, OptState(state.count + 1,
                                  {"opt": new_inner, "ema": new_ema})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, optimizer.elementwise)
 
 
 def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
-    """The averaged parameters of a ``with_ema`` optimizer's state."""
+    """The averaged parameters of a ``with_ema`` optimizer's state.  A
+    shadow cut by ``train.shard_train_state`` is gathered over its
+    ``fsdp`` line into whole tensors (one all-gather; every rank of the
+    line must call), for eval and ``generate``."""
     try:
         state = opt_state.inner["ema"]
     except (TypeError, KeyError):
         raise ValueError("opt_state does not carry an EMA (build the "
                          "optimizer with optim.with_ema)") from None
-    return _value(state)
+    value = _value(state)
+    shadow = state.shadow
+    if isinstance(shadow, ShardedDict) and shadow.cut:
+        return dp_lib.gather_shards(value, shadow.layout, shadow.mesh)
+    return value

@@ -74,6 +74,10 @@ class OptState(NamedTuple):
 class Optimizer(NamedTuple):
     init: Callable[[Tree], OptState]
     update: Callable[..., Any]  # (grads, state, params) -> (updates, state)
+    # every element's update depends on that element's gradient, state
+    # and parameter alone, so it runs on a ZeRO shard as on the whole
+    # leaf; lamb and adafactor reduce over each tensor and do not
+    elementwise: bool = True
 
 
 def _lr_at(lr: ScalarOrSchedule, count: int) -> float:
@@ -98,9 +102,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float):
-    """(tree scaled by ``min(1, max_norm / max(norm, 1e-12))``, norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """(tree scaled by ``min(1, max_norm / max(norm, 1e-12))``, norm).
+    ``norm``: the global norm when the caller has it (a ZeRO step's
+    blocks sum their squares over the ``fsdp`` line); else
+    ``global_norm(tree)``."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return ({k: (g.float() * scale).to(g.dtype) for k, g in tree.items()},
             norm)
@@ -270,7 +278,7 @@ def lamb(learning_rate: ScalarOrSchedule = 1e-3, b1: float = 0.9,
                 ups[k] = -lr * rk
         return ups, OptState(count, state.inner)
 
-    return Optimizer(_moments_init, update)
+    return Optimizer(_moments_init, update, elementwise=False)
 
 
 def rmsprop(learning_rate: ScalarOrSchedule = 0.001, decay: float = 0.9,
@@ -431,7 +439,7 @@ def with_lr_scale(optimizer: Optimizer) -> Optimizer:
         return updates, OptState(state.count + 1,
                                  {"scale": scale, "inner": new_inner})
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, optimizer.elementwise)
 
 
 def get_lr_scale(opt_state: OptState) -> float:

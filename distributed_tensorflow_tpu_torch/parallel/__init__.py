@@ -1,9 +1,11 @@
 """Parallelism of the port: the cluster bootstrap over ``torch.distributed``
 (``parallel/cluster.py``), the named mesh (``parallel/mesh.py``), the
-gradient all-reduce (``parallel/data_parallel.py``) and sequence
-parallelism: ring attention (``parallel/ring.py``) and ring-flash
-attention over the flash kernels (``parallel/ring_flash.py``)."""
-from . import cluster, data_parallel, mesh, ring, ring_flash
+gradient all-reduce and the ZeRO collectives
+(``parallel/data_parallel.py``), the partition rules and the ZeRO layout
+(``parallel/sharding.py``) and sequence parallelism: ring attention
+(``parallel/ring.py``) and ring-flash attention over the flash kernels
+(``parallel/ring_flash.py``)."""
+from . import cluster, data_parallel, mesh, ring, ring_flash, sharding
 from .cluster import ClusterConfig, cluster_from_env, initialize, is_chief
 from .data_parallel import all_reduce_mean
 from .mesh import (AXIS_ORDER, Mesh, MeshConfig, data_parallel_mesh,
@@ -11,8 +13,11 @@ from .mesh import (AXIS_ORDER, Mesh, MeshConfig, data_parallel_mesh,
                    round_batch_to_mesh)
 from .ring import ring_attention, ring_attention_sharded
 from .ring_flash import ring_flash_attention, ring_flash_attention_sharded
+from .sharding import PartitionRules, prune_spec, shard_pytree, tree_paths
 
 __all__ = ["cluster", "data_parallel", "mesh", "ring", "ring_flash",
+           "sharding", "PartitionRules", "prune_spec", "shard_pytree",
+           "tree_paths",
            "ClusterConfig", "cluster_from_env", "initialize", "is_chief",
            "all_reduce_mean", "AXIS_ORDER", "Mesh", "MeshConfig",
            "data_parallel_mesh", "data_shards", "local_batch_size",

@@ -34,19 +34,51 @@ plain (or weighted) mean over all the mesh's ranks is then the global
 batch's, for a loss on the shards' sums and a loss on a gathered output
 alike.
 
-``LAUNCHES["all_reduce"]`` counts the all-reduces issued.
+ZeRO over the ``fsdp`` axis (a state placed by ``train.
+shard_train_state``; the layout is ``parallel/sharding.py``'s): each rank
+holds its block of the cut leaves, and the step issues, over this rank's
+``fsdp`` line, ONE ``all_gather_into_tensor`` of a flat bucket of its
+parameter blocks (``gather_shards``, which writes the whole leaves back
+along each leaf's own dim) and ONE ``reduce_scatter_tensor`` of a flat
+gradient bucket laid out rank-major (``reduce_scatter_mean``: segment r
+holds every cut gradient's block r, ``narrow(dim, start, length)``, and
+the whole of the uncut gradients, the loss, the metrics and the weight,
+so the scatter leaves each rank the line's sums of its own blocks and of
+all the rest); then, with a ``data`` axis of more than one rank, ONE
+all-reduce of that segment over this rank's ``data`` line, and the
+division by the summed weight or the rank count, as above.  The global
+gradient norm and the count of non-finite elements sum the blocks'
+squares and counts over the ``fsdp`` line (``line_sum``, one all-reduce
+of two numbers) and count each uncut leaf once.
+
+``LAUNCHES`` counts the collectives issued by kind: ``all_reduce``,
+``all_gather``, ``reduce_scatter`` and ``stats_all_reduce``.
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["LAUNCHES", "all_reduce_mean"]
+__all__ = ["LAUNCHES", "all_reduce_mean", "gather_shards", "line_sum",
+           "reduce_scatter_mean"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _flat(parts: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1).float() for t in parts])
+
+
+def _unflat(flat: torch.Tensor, like: List[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    out, lo = [], 0
+    for t in like:
+        out.append(flat[lo:lo + t.numel()].view(t.shape).to(t.dtype))
+        lo += t.numel()
+    return out
 
 
 def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
@@ -63,7 +95,7 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
     keys = list(metrics)
     parts = ([grads[n] for n in names] + [loss]
              + [metrics[k] for k in keys])
-    flat = torch.cat([t.reshape(-1).float() for t in parts])
+    flat = _flat(parts)
     if weight is not None:
         w = weight.reshape(1).float()
         flat = torch.cat([flat * w, w])
@@ -73,12 +105,103 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
         total = flat.new_full((1,), float(mesh.size))
     else:
         total, flat = torch.clamp(flat[-1:], min=1e-9), flat[:-1]
-    flat = flat / total
-    out, lo = [], 0
-    for t in parts:
-        out.append(flat[lo:lo + t.numel()].view(t.shape).to(t.dtype))
-        lo += t.numel()
+    out = _unflat(flat / total, parts)
     metrics = dict(zip(keys, out[len(names) + 1:]))
     if weight is not None:
         metrics["loss_weight"] = total.reshape(())
     return dict(zip(names, out[:len(names)])), out[len(names)], metrics
+
+
+@torch.no_grad()
+def gather_shards(shards: Mapping[str, torch.Tensor], layout, mesh,
+                  out: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """{name: the whole leaf} of ``shards`` ({name: this rank's block},
+    cut as ``layout`` says): the cut ones joined along their dims from ONE
+    ``all_gather_into_tensor`` over the ``fsdp`` line, written in place
+    into ``out[name]`` when given (the model's parameters) or into new
+    tensors; an uncut entry is itself.  Every rank of the line must
+    call."""
+    cut = [n for n in shards if layout[n] is not None]
+    res = dict(shards)
+    if not cut:
+        return res
+    dtypes = {shards[n].dtype for n in cut}
+    if len(dtypes) != 1:
+        raise TypeError(f"gather_shards over blocks of types {dtypes}")
+    flat = torch.cat([shards[n].reshape(-1) for n in cut])
+    parts = mesh.axis_size("fsdp")
+    buf = flat.new_empty(parts * flat.numel())
+    dist.all_gather_into_tensor(buf, flat, group=mesh.axis_group("fsdp"))
+    LAUNCHES["all_gather"] += 1
+    buf = buf.view(parts, -1)
+    lo = 0
+    for n in cut:
+        t, s = shards[n], layout[n]
+        dst = (out[n] if out is not None
+               else t.new_empty(s.full_shape(t.shape)))
+        for r in range(parts):
+            dst.narrow(s.dim, r * s.length, s.length).copy_(
+                buf[r, lo:lo + t.numel()].view(t.shape))
+        lo += t.numel()
+        res[n] = dst
+    return res
+
+
+def reduce_scatter_mean(grads: Mapping[str, torch.Tensor],
+                        loss: torch.Tensor,
+                        metrics: Mapping[str, torch.Tensor], layout, mesh,
+                        weight: Optional[torch.Tensor] = None
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                   Dict[str, torch.Tensor]]:
+    """(grads, loss, metrics), each the global batch's mean over every
+    rank of ``mesh``, a cut gradient as this rank's block of it (the
+    module docstring says how: one reduce-scatter over the ``fsdp`` line,
+    one all-reduce over the ``data`` line when it has more than one
+    rank).  ``weight`` as in ``all_reduce_mean``."""
+    names = list(grads)
+    cut = [n for n in names if layout[n] is not None]
+    whole = [n for n in names if layout[n] is None]
+    keys = list(metrics)
+    rest = [grads[n] for n in whole] + [loss] + [metrics[k] for k in keys]
+    tail = _flat(rest)
+    w = None if weight is None else weight.reshape(1).float()
+    def blocks(r):
+        return [grads[n].narrow(layout[n].dim, r * layout[n].length,
+                                layout[n].length) for n in cut]
+    segments = []
+    for r in range(mesh.axis_size("fsdp")):
+        seg = torch.cat([_flat(blocks(r)), tail])
+        segments.append(seg if w is None else torch.cat([seg * w, w]))
+    bucket = torch.cat(segments)
+    flat = bucket.new_empty(segments[0].numel())
+    dist.reduce_scatter_tensor(flat, bucket, group=mesh.axis_group("fsdp"))
+    LAUNCHES["reduce_scatter"] += 1
+    data = mesh.axis_group("data")
+    if data is not None:
+        dist.all_reduce(flat, group=data)
+        LAUNCHES["all_reduce"] += 1
+    if w is None:
+        total = flat.new_full((1,), float(mesh.size))
+    else:
+        total, flat = torch.clamp(flat[-1:], min=1e-9), flat[:-1]
+    out = _unflat(flat / total, blocks(0) + rest)
+    grads_out = dict(zip(cut, out[:len(cut)]))
+    grads_out.update(zip(whole, out[len(cut):len(names)]))
+    metrics_out = dict(zip(keys, out[len(names) + 1:]))
+    if w is not None:
+        metrics_out["loss_weight"] = total.reshape(())
+    return ({n: grads_out[n] for n in names}, out[len(names)],
+            metrics_out)
+
+
+def line_sum(t: torch.Tensor, mesh, axis: str = "fsdp") -> torch.Tensor:
+    """``t`` summed over this rank's ``axis`` line: one all-reduce of a
+    copy (``t`` itself on a line of one rank)."""
+    group = mesh.axis_group(axis)
+    if group is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    LAUNCHES["stats_all_reduce"] += 1
+    return t

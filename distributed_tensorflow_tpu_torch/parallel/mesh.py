@@ -15,8 +15,9 @@ same order, as ``torch.distributed.new_group`` requires.  A collective
 "over an axis" runs on this rank's line (``axis_group``).  A mesh of one
 process without a process group has every axis of size 1 and no group.
 
-``named_sharding``, ``replicated`` and ``shard_pytree`` wait for the
-ZeRO and tensor-parallel ports.
+``shard_pytree`` and the partition rules are ``parallel/sharding.py``'s;
+``named_sharding`` and ``replicated`` (JAX sharding objects) wait for
+the tensor-parallel port.
 """
 from __future__ import annotations
 

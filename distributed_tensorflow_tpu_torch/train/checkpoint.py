@@ -54,6 +54,7 @@ from ..models import convert
 from ..obs import goodput as goodput_lib
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..parallel.sharding import ShardedDict
 from ..resilience import faults as faults_lib
 from ..summary.crc32c import masked_crc32c
 
@@ -62,7 +63,7 @@ log = logging.getLogger(__name__)
 __all__ = ["save", "restore", "restore_latest_good", "verify",
            "quarantine", "latest_checkpoint", "latest_step",
            "all_checkpoints", "write_index", "AsyncCheckpointer",
-           "ckpt_path"]
+           "AsyncWriterBase", "ckpt_path"]
 
 _CKPT_RE = re.compile(r"^ckpt-(\d+)$")
 _QUARANTINE_PREFIX = "corrupt-"
@@ -131,11 +132,31 @@ class _Spec:
     dtype: torch.dtype
 
 
+def _refuse_cut(tree) -> None:
+    """Raise for a state holding blocks of a cut ZeRO layout: one rank's
+    file would hold only its blocks."""
+    if _holds_cut(tree):
+        raise ValueError("a ZeRO state cut over its fsdp line is written "
+                         "by every rank: use sharded_checkpoint "
+                         "(TrainSession(sharded_checkpoint=True))")
+
+
+def _holds_cut(tree) -> bool:
+    if isinstance(tree, ShardedDict):
+        return tree.cut
+    if isinstance(tree, dict):
+        return any(_holds_cut(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_cut(v) for v in tree)
+    return False
+
+
 def _host_tree(tree) -> Any:
     """The JAX tree of ``tree`` with CPU tensor leaves that are copies
     (the device to host copy happens here, and a CPU tensor is cloned:
     the next step updates the parameters in place; the layers of a
     stacked leaf stack on the device first)."""
+    _refuse_cut(tree)
     jtree = convert.train_state_to_jax(tree, leaf=lambda t: t.detach(),
                                        stack=torch.stack)
     return _unflatten(jtree, (t.to("cpu", copy=True)
@@ -272,19 +293,24 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(_CKPT_RE.match(os.path.basename(path)).group(1))
 
 
-class AsyncCheckpointer:
-    """Background checkpoint writes: the device to host copy happens on
-    the caller's thread (the next step updates the parameters in place),
-    then the npz, the checksums, the rename and the pruning run on one
-    worker thread, in submission order.  ``wait()`` blocks until all is
-    on disk and raises the first failure (logging the others); call it
-    before reading checkpoints back or exiting."""
+class AsyncWriterBase:
+    """One worker thread writing in submission order, with loud failures:
+    shared by ``AsyncCheckpointer`` and ``sharded_checkpoint.
+    AsyncShardedCheckpointer``.  ``wait()`` blocks until all that is
+    pending is on disk and raises the first failure (logging the others);
+    call it before reading checkpoints back or exiting."""
 
-    def __init__(self):
+    def __init__(self, thread_name_prefix: str = "ckpt-writer"):
         import concurrent.futures
         self._executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="ckpt-writer")
+            max_workers=1, thread_name_prefix=thread_name_prefix)
         self._pending: List[Any] = []
+
+    def _submit(self, fn, *args):
+        self._raise_failed()
+        fut = self._executor.submit(fn, *args)
+        self._pending.append(fut)
+        return fut
 
     def _raise_failed(self) -> None:
         still = []
@@ -294,17 +320,6 @@ class AsyncCheckpointer:
             else:
                 still.append(f)
         self._pending = still
-
-    def save(self, ckpt_dir: str, step: int, tree: Any,
-             max_to_keep: int = 5):
-        """Snapshot to the host now, write in the background; returns a
-        future resolving to the checkpoint's directory."""
-        self._raise_failed()
-        host = _host_tree(tree)
-        fut = self._executor.submit(_write, ckpt_dir, step, host,
-                                    max_to_keep)
-        self._pending.append(fut)
-        return fut
 
     def wait(self) -> None:
         pending, self._pending = self._pending, []
@@ -323,6 +338,21 @@ class AsyncCheckpointer:
     def close(self) -> None:
         self.wait()
         self._executor.shutdown(wait=True)
+
+
+class AsyncCheckpointer(AsyncWriterBase):
+    """Background checkpoint writes: the device to host copy happens on
+    the caller's thread (the next step updates the parameters in place),
+    then the npz, the checksums, the rename and the pruning run on the
+    worker thread."""
+
+    def save(self, ckpt_dir: str, step: int, tree: Any,
+             max_to_keep: int = 5):
+        """Snapshot to the host now, write in the background; returns a
+        future resolving to the checkpoint's directory."""
+        self._raise_failed()
+        return self._submit(_write, ckpt_dir, step, _host_tree(tree),
+                            max_to_keep)
 
 
 # -- restore -------------------------------------------------------------
@@ -350,6 +380,7 @@ def _check_target(metas, flat) -> Optional[str]:
 def restore(target: Any, ckpt_path: str) -> Any:
     """Load a checkpoint dir into ``target`` in place (see the module
     docstring); returns the restored state."""
+    _refuse_cut(target)
     metas = _read_manifest(ckpt_path)["leaves"]
     spec = _spec_tree(target)
     flat = _flatten(spec)
@@ -429,6 +460,7 @@ def restore_latest_good(target: Any, ckpt_dir: str
     path)``, or ``(None, None)`` when none survives.  The whole walk
     (checksums and quarantines included) is goodput's
     ``checkpoint_restore``."""
+    _refuse_cut(target)
     with goodput_lib.account("checkpoint_restore"):
         for path in reversed(all_checkpoints(ckpt_dir)):
             ok, reason = verify(path, target=target)

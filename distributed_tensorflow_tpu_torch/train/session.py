@@ -24,8 +24,14 @@ accountant books each step call to ``step`` and each save to
 (``nan_grads``, triggered by the pre-step count, a host int here).
 Without them each site costs one attribute check.
 
-Not yet ported: ``sharded_checkpoint=True`` (per-process chunk writes,
-with the parallelism slice) raises ``NotImplementedError``.
+``sharded_checkpoint=True`` (``train/sharded_checkpoint.py``): every
+rank writes the chunks it owns of the state (a ZeRO state's blocks, or
+a plain state's leaves on the chief) and the chief the manifest; a sync
+save ends in a ``torch.distributed`` barrier on the mesh's group (the
+state's ZeRO mesh, else the world), so that it returns once the
+checkpoint is complete everywhere; a background (``async_checkpoint``)
+save has none.  Restore walks newest to oldest through
+``restore_latest_good_sharded`` and writes each rank's blocks in place.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import torch
 from ..obs import goodput as goodput_lib
 from ..resilience import faults as faults_lib
 from . import checkpoint as ckpt_lib
+from . import sharded_checkpoint as sharded_lib
 from .hooks import Hook
 
 log = logging.getLogger(__name__)
@@ -96,10 +103,6 @@ class TrainSession:
                  async_checkpoint: bool = False,
                  sharded_checkpoint: bool = False,
                  telemetry=None):
-        if sharded_checkpoint:
-            raise NotImplementedError(
-                "sharded_checkpoint: per-process chunk checkpoints come "
-                "with the port's parallelism slice (torch.distributed)")
         self.state = state
         self.step_fn = step_fn
         self.checkpoint_dir = checkpoint_dir
@@ -111,11 +114,16 @@ class TrainSession:
         self.max_to_keep = max_to_keep
         self.last_saved_step = None
         self._stop = False
-        self._async_ckpt = (ckpt_lib.AsyncCheckpointer() if async_checkpoint
-                            else None)
+        self.sharded = sharded_checkpoint
+        self._async_ckpt = None
+        if async_checkpoint:
+            self._async_ckpt = (sharded_lib.AsyncShardedCheckpointer()
+                                if sharded_checkpoint
+                                else ckpt_lib.AsyncCheckpointer())
         if restore and checkpoint_dir:
-            restored, latest = ckpt_lib.restore_latest_good(self.state,
-                                                            checkpoint_dir)
+            walk = (sharded_lib.restore_latest_good_sharded
+                    if sharded_checkpoint else ckpt_lib.restore_latest_good)
+            restored, latest = walk(self.state, checkpoint_dir)
             if restored is not None:
                 self.state = restored
                 self.last_saved_step = self.step    # disk has this step
@@ -156,7 +164,8 @@ class TrainSession:
 
     # -- checkpointing ----------------------------------------------------
     def save(self) -> Optional[str]:
-        """Chief-only checkpoint write; a no-op elsewhere and without a
+        """Chief-only checkpoint write (every rank's under
+        ``sharded_checkpoint``); a no-op elsewhere and without a
         checkpoint dir."""
         with goodput_lib.account("checkpoint_save"):
             if self.telemetry is None:
@@ -169,6 +178,8 @@ class TrainSession:
             return path
 
     def _save_impl(self) -> Optional[str]:
+        if self.sharded and self.checkpoint_dir:
+            return self._save_sharded()
         if not self.checkpoint_dir or not self.is_chief:
             return None
         if self._async_ckpt is not None:
@@ -181,6 +192,34 @@ class TrainSession:
         self.last_saved_step = self.step
         log.info("saved checkpoint %s", path)
         return path
+
+    def _save_sharded(self) -> str:
+        """Every rank writes its chunks; the sync path ends in a barrier
+        on the mesh's group (none in the background: it would race the
+        training loop's collectives)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.save(self.checkpoint_dir, self.step, self.state,
+                                  max_to_keep=self.max_to_keep)
+            path = ckpt_lib.ckpt_path(self.checkpoint_dir, self.step)
+            log.info("queued sharded checkpoint %s", path)
+        else:
+            path = sharded_lib.save_sharded(
+                self.checkpoint_dir, self.step, self.state,
+                max_to_keep=self.max_to_keep, sync_fn=self._barrier())
+            log.info("saved sharded checkpoint %s", path)
+        self.last_saved_step = self.step
+        return path
+
+    def _barrier(self):
+        """A barrier on the group of the state's ZeRO mesh (the world's
+        without one), or None for a single process."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() == 1:
+            return None
+        mesh = getattr(self.state.params, "mesh", None)
+        group = mesh.group if mesh is not None else None
+        return lambda: dist.barrier(group=group)
 
     def drain_checkpoints(self) -> None:
         """Block until every queued background write is on disk."""
@@ -202,7 +241,7 @@ class TrainSession:
             if exc_type is None:
                 for hook in self.hooks:
                     hook.end(self)
-                if (self.checkpoint_dir and self.is_chief
+                if (self.checkpoint_dir and (self.is_chief or self.sharded)
                         and self.last_saved_step != self.step):
                     self.save()
         finally:

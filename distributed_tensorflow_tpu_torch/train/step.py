@@ -44,6 +44,31 @@ so that the same single all-reduce's mean is the global batch's
 (``parallel/ring.py`` says how).  Tensor, pipeline and expert axes of
 more than one rank raise.
 
+ZeRO over ``fsdp`` (``shard_train_state``, the JAX package's
+placement): each rank keeps its block of every leaf the partition rules
+cut over the ``fsdp`` axis (``parallel/sharding.py``), the parameters
+and every params-shaped piece of optimizer state alike (Adam's moments,
+momentum's ``mu``, the ``with_ema`` shadow); the rest replicates.  The
+step over such a state (``make_custom_train_step(mesh=)``) gathers the
+blocks into the model's full tensors (one all-gather over the ``fsdp``
+line), runs loss and gradients on them as above, reduce-scatters the
+gradients to the blocks and averages them over the ``data`` line
+(``parallel.data_parallel.reduce_scatter_mean``), then clips and updates
+the blocks alone: the Adam kernel runs on each block, and the EMA folds
+each block of the shadow.  The global norm, the non-finite count and so
+the skip are global over the line (a block's squares summed over it, an
+uncut leaf counted once), so a non-finite element in one rank's block
+skips the step on every rank.  ``fsdp`` stays a batch axis.  The full
+tensors are kept between steps (the blocks are the truth; eval and
+``generate`` read the model after ``gather_params``): what the layout
+saves is the moments, the EMA shadow and the master blocks, at 1/R each
+on a line of R ranks.  ZeRO-3's per-layer gather, which frees the full
+parameters between layers, is later work.  On a line of one rank the
+blocks ARE the model's tensors and no collective runs: the step is the
+plain one.  An optimizer that reduces over each tensor (``lamb``,
+``adafactor``: ``Optimizer.elementwise`` False) raises over a cut
+layout.
+
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
 for microbatch ``i`` when ``accum_steps > 1``, and with the rank folded
@@ -82,13 +107,16 @@ from ..ops import layers
 from ..ops import losses as loss_lib
 from ..ops import metrics as metric_lib
 from ..optim import optimizers as opt_lib
+from ..optim.ema import EMAState
 from ..parallel import data_parallel as dp_lib
+from ..parallel import sharding as sharding_lib
 from . import precision as prec_lib
 from .session import TrainState
 
-__all__ = ["TrainState", "init_train_state", "make_custom_train_step",
-           "make_eval_step", "make_masked_eval_step",
-           "make_multi_train_step", "make_train_step"]
+__all__ = ["TrainState", "gather_params", "init_train_state",
+           "make_custom_train_step", "make_eval_step",
+           "make_masked_eval_step", "make_multi_train_step",
+           "make_train_step", "shard_train_state"]
 
 
 def _step_generator(seed: int, step: int, device: torch.device,
@@ -128,6 +156,64 @@ def init_train_state(model, optimizer: opt_lib.Optimizer,
     parameters drawn from ``generator`` on its device."""
     params, model_state = model.init(generator, in_shape)
     return TrainState.create(params, optimizer.init(params), model_state)
+
+
+def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
+    """Place a ``TrainState`` for ZeRO training over ``mesh``'s ``fsdp``
+    axis, as the JAX package's ``shard_train_state`` does: the parameters
+    become this rank's blocks under ``rules`` (a ``ShardedDict`` whose
+    ``full`` holds the model's own tensors), and every params-shaped
+    subtree of the optimizer state shards with them leaf by leaf where
+    the shapes agree (Adam's ``m``/``v``, momentum's ``mu``, the
+    ``with_ema`` shadow); adafactor's factored moments, the counts, the
+    EMA's scalars, ``sgd``'s empty state and ``model_state`` replicate.
+    A cut block is a contiguous tensor of its own; an uncut one is the
+    tensor itself (on a line of one rank, every one).  Only ``data`` and
+    ``fsdp`` may be larger than 1 (``parallel/sharding.py``)."""
+    sharding_lib.check_zero_mesh(mesh)
+    params = state.params
+    if isinstance(params, sharding_lib.ShardedDict):
+        raise ValueError("the state is sharded already")
+    layout = {n: sharding_lib.zero_shard(tuple(p.shape), rules.spec_for(n),
+                                         mesh)
+              for n, p in params.items()}
+    names = set(params)
+
+    def place(sub):
+        if isinstance(sub, dict) and names and set(sub) == names:
+            sub_layout = {n: layout[n] if tuple(sub[n].shape)
+                          == tuple(params[n].shape) else None for n in sub}
+            return sharding_lib.ShardedDict(
+                {n: t if sub_layout[n] is None else sub_layout[n].take(t)
+                 for n, t in sub.items()},
+                sub_layout, mesh)
+        if isinstance(sub, dict):
+            return {k: place(v) for k, v in sub.items()}
+        if isinstance(sub, opt_lib.OptState):
+            return opt_lib.OptState(sub.count, place(sub.inner))
+        if isinstance(sub, EMAState):
+            return sub._replace(shadow=place(sub.shadow))
+        return sub
+
+    shards = sharding_lib.ShardedDict(
+        {n: p if layout[n] is None else layout[n].take(p)
+         for n, p in params.items()}, layout,
+        mesh, full=params)
+    return state._replace(params=shards, opt_state=place(state.opt_state))
+
+
+def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The model's full parameters of a training state: under a cut ZeRO
+    layout every rank gathers its blocks into the model's own tensors
+    (one all-gather over the ``fsdp`` line; every rank must call), which
+    eval and ``generate`` then read; otherwise ``state.params``."""
+    params = state.params
+    if not isinstance(params, sharding_lib.ShardedDict):
+        return params
+    if params.cut:
+        dp_lib.gather_shards(params, params.layout, params.mesh,
+                             out=params.full)
+    return dict(params.full)
 
 
 def _metric_dict(metric_fns, preds, y) -> Dict[str, torch.Tensor]:
@@ -274,6 +360,21 @@ def make_masked_eval_step(model, loss,
     return masked_eval_step
 
 
+def _global_stats(grads: Mapping[str, torch.Tensor], layout, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(norm, non-finite count) of a ZeRO step's gradients over the whole
+    model: the cut blocks' squares and counts summed over the ``fsdp``
+    line (one all-reduce of both), each uncut leaf counted once."""
+    def sums(names):
+        return (sum(torch.sum(torch.square(grads[n].float())) for n in names),
+                sum(torch.sum(~torch.isfinite(grads[n])).float()
+                    for n in names))
+    line = dp_lib.line_sum(torch.stack(
+        sums([n for n in grads if layout[n] is not None])), mesh)
+    sq, bad = sums([n for n in grads if layout[n] is None])
+    return torch.sqrt(line[0] + sq), line[1] + bad
+
+
 def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                            seed: int = 0, mesh=None,
                            grad_clip_norm: Optional[float] = None,
@@ -387,8 +488,48 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             metrics["loss_weight"] = w_sum
         return loss_sum * inv, metrics, model_state, grads
 
+    def zero_of(state: TrainState):
+        """The state's ``ShardedDict`` of parameters, checked against the
+        step's mesh, or None for a plain state."""
+        zero = state.params
+        if not isinstance(zero, sharding_lib.ShardedDict):
+            return None
+        if zero.cut:
+            if mesh is None or mesh.shape != zero.mesh.shape \
+                    or mesh.rank != zero.mesh.rank:
+                raise ValueError(
+                    f"a ZeRO state cut over {zero.mesh} needs "
+                    f"make_custom_train_step(mesh=) of that mesh; got "
+                    f"{mesh}")
+            if not optimizer.elementwise:
+                raise NotImplementedError(
+                    "an optimizer that reduces over each tensor (lamb, "
+                    "adafactor) over a cut ZeRO layout: its blocks would "
+                    "see their own norms, not the tensor's")
+        return zero
+
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        params = state.params
+        zero = zero_of(state)
+        params = state.params if zero is None else gather_params(state)
+        cut = zero is not None and zero.cut
+        seen = {}
+
+        def stats(g):
+            """``_global_stats`` of ``g``, once per gradient dict."""
+            if id(g) not in seen:
+                seen[id(g)] = _global_stats(g, zero.layout, dp)
+            return seen[id(g)]
+
+        def all_finite(g):
+            return stats(g)[1] == 0 if cut else prec_lib.all_finite(g)
+
+        def grad_health(g):
+            if not cut:
+                return obs_device.grad_health(g)
+            norm, bad = stats(g)
+            return {obs_device.GRAD_NORM_KEY: norm,
+                    obs_device.NONFINITE_KEY: bad}
+
         device = next(iter(params.values())).device
         if loss_scale:
             if not isinstance(state.model_state, prec_lib.LossScaled):
@@ -407,7 +548,11 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         else:
             loss, metrics, new_model_state, grads = accumulate(
                 state, params, model_state_in, batch, device, ls)
-        if dp is not None:
+        if cut:
+            weight = metrics.pop("loss_weight", None)
+            grads, loss, metrics = dp_lib.reduce_scatter_mean(
+                grads, loss, metrics, zero.layout, dp, weight)
+        elif dp is not None:
             weight = metrics.pop("loss_weight", None)
             grads, loss, metrics = dp_lib.all_reduce_mean(grads, loss,
                                                           metrics, dp,
@@ -415,7 +560,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         apply = True
         if ls is not None:
             grads = ls.unscale(grads)
-            finite = prec_lib.all_finite(grads)
+            finite = all_finite(grads)
             new_ls = ls.adjust(finite)
             apply = bool(finite)            # the one host sync
             if not apply:
@@ -425,19 +570,23 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             metrics = pol.cast_to_output(metrics)
         metrics = {"loss": loss, **metrics}
         if device_health:
-            for k, v in obs_device.grad_health(grads).items():
+            for k, v in grad_health(grads).items():
                 metrics.setdefault(k, v)
         if skip_nonfinite:
-            sn_finite = prec_lib.all_finite(grads)
+            sn_finite = all_finite(grads)
             apply = bool(sn_finite)         # the one host sync
             metrics["grads_finite"] = sn_finite
         if grad_clip_norm is not None:
-            grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip_norm)
+            grads, gnorm = opt_lib.clip_by_global_norm(
+                grads, grad_clip_norm, norm=stats(grads)[0] if cut else None)
             metrics["grad_norm"] = gnorm
+        # the update runs on the blocks (the parameters themselves when
+        # the state is plain or the line has one rank)
+        own = params if zero is None else zero
         if apply:
             updates, new_opt_state = optimizer.update(grads, state.opt_state,
-                                                      params)
-            opt_lib.apply_updates(params, updates)
+                                                      own)
+            opt_lib.apply_updates(own, updates)
         else:
             new_opt_state, new_model_state = state.opt_state, model_state_in
         if ls is not None:
@@ -446,7 +595,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
             metrics["grads_finite"] = finite
             metrics["loss_scale"] = new_ls.scale_value
             new_model_state = prec_lib.LossScaled(new_model_state, new_ls)
-        return TrainState(step=state.step + 1, params=params,
+        return TrainState(step=state.step + 1, params=own,
                           opt_state=new_opt_state,
                           model_state=new_model_state), metrics
 

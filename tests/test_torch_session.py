@@ -11,7 +11,8 @@ package's ``train/session.py`` and ``train/hooks.py``.
 - ``NaNHook(fail_fast=True)`` raises; ``PreemptionHook`` saves and stops
   on a signal sent to the process; ``WatchdogHook`` reports a stall;
   ``ProfilerHook`` writes a trace; ``is_chief=False`` writes nothing;
-  ``sharded_checkpoint`` is not ported and raises; ``telemetry`` is
+  ``sharded_checkpoint`` saves and resumes (its cases:
+  ``tests/test_torch_sharded_checkpoint.py``); ``telemetry`` is
   accepted (its spans and series: ``tests/test_torch_obs.py``).
 """
 import os
@@ -210,10 +211,30 @@ def test_non_chief_writes_nothing(tmp_path):
     assert not os.path.exists(d)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    # sharded_checkpoint is ported now (it raised until the ZeRO slice):
+    # every rank's chunks and the manifest, a final save at the last step
+    # and a restore into a fresh state that resumes there (the JAX
+    # package's cases: tests/test_torch_sharded_checkpoint.py)
+    from distributed_tensorflow_tpu_torch.train import sharded_checkpoint
+    d = str(tmp_path / "sharded")
+    model, state, step = _port()
+    ids = torch.from_numpy(_batches()[0])
+    with TrainSession(state, step, checkpoint_dir=d,
+                      sharded_checkpoint=True) as sess:
+        sess.run_step({"input_ids": ids})
+        sess.run_step({"input_ids": ids})
+    want = {k: p.detach().clone() for k, p in model.named_parameters()}
+    path, = sharded_checkpoint.all_sharded_checkpoints(d)
+    assert sorted(os.listdir(path)) == ["chunks-00000.json",
+                                        "manifest.json", "shards-00000.npz"]
+    model2, state2, step2 = _port()
+    with TrainSession(state2, step2, checkpoint_dir=d,
+                      sharded_checkpoint=True) as sess:
+        assert sess.step == 2
+        for k, p in model2.named_parameters():
+            assert torch.equal(p.detach(), want[k]), k
     state = TrainState.create({}, None)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        TrainSession(state, _fake_step(1.0), sharded_checkpoint=True)
     # telemetry is ported now: accepted and kept, never closed by the
     # session (tests/test_torch_obs.py holds it against the JAX package)
     from distributed_tensorflow_tpu_torch import obs as tobs
