@@ -235,12 +235,13 @@ no result lines:
    5 ``train_on_batch`` steps, and the MNIST MLP for 5 ``TrainSession``
    steps (``CONV_TOL``, ``SEQ_*`` tolerances).  (c) ``python -m
    distributed_tensorflow_tpu_torch.example2`` in-process at its defaults
-   but ``EX2_EPOCHS`` (10 of 50 epochs): val accuracy at each epoch line,
+   but ``EX2_EPOCHS`` (8 of 50 epochs): val accuracy at each epoch line,
    the first above 0.95,
    Adam launches exactly 6 a step and nothing else; beside it one epoch
    of the same ``fit`` timed, profiled (busy share) and its host syncs
-   counted.  (d) ``...outline_keras`` at its defaults (10 epochs of
-   batch 256 on the synthetic CIFAR-10, crop + flip): final val accuracy
+   counted.  (d) ``...outline_keras`` at its defaults but
+   ``CIFAR_EPOCHS`` (4 epochs of batch 256 on the synthetic CIFAR-10,
+   crop + flip): final val accuracy
    above 0.35, examples/s, the augment's host ms a batch, Adam 12 a
    step; one epoch probed as in (c).  (e) ``...outline_tensorflow`` at
    its defaults: final val accuracy above 0.9, examples/s, Adam 4 a step.
@@ -348,8 +349,8 @@ no result lines:
    BERT in f32 with TF32 off, card against CPU with a ragged mask:
    logits, then 3 steps' losses and parameters.  (d) ViT-B/16 at 224,
    bf16, batch 64, 2 + 10 steps (images/s, exact launches), and the
-   ``train_vit`` entry point at its defaults (300 steps) in-process: its
-   eval accuracy above chance.  (e) ``finetune_bert`` at its defaults
+   ``train_vit`` entry point at ``ZOO_VIT_STEPS`` (150) of its default
+   300 steps in-process: its eval accuracy above chance.  (e) ``finetune_bert`` at its defaults
    and with ``--mlm_steps=4 --mlm_predictions_per_seq=8``, exact
    launches.  (f) ResNet-50, ``bench_resnet50``'s row (224,
    ``mixed_bfloat16``, ``momentum(0.1, beta=0.9)``, ladder
@@ -479,6 +480,34 @@ no result lines:
    ``generated:`` line, a complete sharded checkpoint; again with
    ``--steps=220``: restored at step 200, ends at 220; ``--family=
    llama`` exits 0.
+27. tp (after phase 26): tensor parallelism.  First the flash kernels at
+   the shapes a rank of (b) runs (BERT-base's 6 of 12 heads at 128 x 128
+   with the key plane, bidirectional; the Llama recipe's 16 q / 4 kv
+   heads of 128 at 4 x 512, causal), forward and whole backward against
+   their plain versions, timed beside them, SDPA and the bound.  (a) A
+   line of one (``make_mesh({"tensor": 1})``) at full width against the
+   plain model from the same weights: BERT-base MLM at phase 22's batch
+   (128 x 128, bf16, ragged key padding) and the Llama recipe at
+   Llama-3-8B's widths cut to ``TP_LLAMA_LAYERS`` layers (4 x 512, GQA
+   32:8), ``TP_WARMUP`` + ``TP_STEPS`` ``adamw(1e-4)`` steps with clip
+   1.0 an arm, the arms in turns (line, plain, plain, line): losses, the
+   gradient norm and every parameter equal to the bit, exact launches a
+   step, no collective; step ms, tokens/s and peak memory of each.  (b) Two ranks of this script (``--tp-rank``)
+   on the one card over gloo with CUDA tensors, ``{"tensor": 2}``:
+   BERT-base, the Llama recipe with ``shard_kv=True`` and with
+   replicated kv, from the same weights and batches as (a): losses
+   within ``TP_LOSS_TOL`` of (a)'s plain arm, the first gradient norm
+   within ``TP_GRAD_TOL``, the parameters' gap within ``TP_PARAM_TOL``
+   of their movement, both ranks' losses equal, the tensor line's
+   collectives exact a step (``tp_collectives``), exact kernel launches,
+   each rank's peak memory below (a)'s.  (c) A f32 copy of the Llama
+   recipe decoded on the two ranks (``decode_block``, ``decode_step``,
+   greedy ``generate``) against the plain model: the same tokens, logits
+   within ``TP_DECODE_TOL``, exact launches and collectives.  (d)
+   ``python -m distributed_tensorflow_tpu_torch.examples.finetune_bert``
+   on two ranks of the card (tp=2, ``DTTPU_DIST_BACKEND=gloo``) beside
+   (b): exit 0, ``mesh={'data': 1, 'tensor': 2}``, eval accuracy above
+   chance, both ranks' lines equal.
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -493,8 +522,11 @@ run; ``zoo_launches`` for the training kernels of phase 22's (b), (d),
 (c); ``sp_launches`` for the training kernels of phase 25's (b) and
 (c) seq_axis arms, and on the flash records ``sp_routes``, (a)'s route
 times; ``zero_launches`` for the training kernels of phase 26 (a)'s ZeRO
-arm, and on the Adam record ``zero_shard``, (b)'s block times), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+arm, and on the Adam record ``zero_shard``, (b)'s block times;
+``tp_launches`` for the training kernels of phase 27's (a) line-of-one
+arms and (b)'s two ranks, and on the flash records ``tp_shapes``, the
+times at the ranks' shapes), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -631,13 +663,17 @@ CIFAR_SHAPES = ((3, 3, 3, 32), (32,), (3, 3, 32, 32), (32,),
                 (3, 3, 32, 64), (64,), (3, 3, 64, 64), (64,), (4096, 256),
                 (256,), (256, 10), (10,))
 MNIST_SHAPES = ((784, 128), (128,), (128, 10), (10,))
-CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 10, 1024, 5
+# (d) outline_keras runs CIFAR_EPOCHS of its epochs (10 until phase 27 came
+# and needed the room: the 4th epoch's val accuracy read 0.9812 against
+# the gate's 0.35 on an H100 80GB HBM3)
+CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 4, 1024, 5
 CIFAR_ACC, MNIST_ACC = 0.35, 0.9
 SEQ_REF_STEPS, SEQ_REF_BATCH = 5, 64
 # (c) example2's entry point runs EX2_EPOCHS of its 50 (the first epoch
 # past 0.95 was the 6th in every card run, and the 10th read 0.976; 50
-# took 98 s, 20 took 46-63 s)
-EX2_EPOCHS = 10
+# took 98 s, 20 took 46-63 s; 10 until phase 27 needed the room: the 8th
+# read 0.9685 on an H100 80GB HBM3)
+EX2_EPOCHS = 8
 CONV_TOL, SEQ_GRAD_TOL, SEQ_CNN_LOSS_RTOL = 1e-5, 3e-5, 1e-5
 SEQ_STEPS_LOSS_RTOL, SEQ_UPDATE_TOL = 1e-2, 0.3
 SEQ_LOSS_RTOL, SEQ_PARAM_TOL = 1e-5, 1e-5
@@ -5705,6 +5741,9 @@ ZOO_VIT_BATCH = 64
 ZOO_RESNET_LADDER = (512, 256, 128, 64)
 ZOO_S2S_BATCH, ZOO_S2S_LEN, ZOO_S2S_GEN = 32, 128, 32
 ZOO_WARMUP, ZOO_STEPS = 2, 10
+# (d) train_vit runs ZOO_VIT_STEPS of its default 300 (cut to make room for
+# phase 27; at 300 its last printed loss read 0.0101)
+ZOO_VIT_STEPS = 150
 ZOO_LR = 1e-4
 # (c), (f) and (g)'s card-against-CPU references, f32 with TF32 off: the
 # logits within ZOO_LOGIT_TOL of their scale (summation order), losses
@@ -5726,10 +5765,11 @@ def _zoo_expect(name, counts, want):
         raise AssertionError(f"{name}: launches (got, expected) {bad}")
 
 
-def _sdpa_backend(torch, q, k, v, mask):
+def _sdpa_backend(torch, q, k, v, mask, causal=False):
     """The name of the backend SDPA dispatches these inputs to."""
+    kw = {} if q.shape[1] == k.shape[1] else {"enable_gqa": True}
     choice = int(torch.ops.aten._fused_sdp_choice(q, k, v, mask, 0.0,
-                                                  False))
+                                                  causal, **kw))
     try:
         from torch.nn.attention import SDPBackend
         return SDPBackend(choice).name
@@ -5738,34 +5778,38 @@ def _sdpa_backend(torch, q, k, v, mask):
 
 
 def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
-                    iters):
+                    iters, hk=None, causal=False):
     """One of (a)'s flash cases: the forward (out, lse) and the backward
     through ``flash_attention``'s autograd route (the padding of head
     dims 16 and 32 included) against the plain versions; times of the
     forward and of the backward's two kernels beside their plain
     versions, SDPA (the boolean key mask) and the bound: Q, O (and dO,
     dQ, dK, dV) once each, K and V of the valid keys only, and the
-    operations of the (query, valid key) pairs."""
+    operations of the (query, valid key) pairs.  ``hk`` kv heads (GQA;
+    None: h) and ``causal`` for phase 27's shard shapes.  Returns the
+    time records by name."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
+    hk = h if hk is None else hk
 
-    def rnd():
-        return torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
-    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    def rnd(heads=h):
+        return torch.randn(b, s, heads, hd, generator=gen,
+                           device=dev).to(dtype)
+    q, k, v, do = rnd(), rnd(hk), rnd(hk), rnd()
     valid = None
     if lengths is not None:
         valid = (torch.arange(s, device=dev)[None, :]
                  < torch.as_tensor(lengths, device=dev)[:, None])
     rel = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
-    out, lse = fa.flash_forward(q, k, v, valid, False)
+    out, lse = fa.flash_forward(q, k, v, valid, causal)
     errs = {"flash_forward": [
         _err_and_scale(torch, got, want) for got, want in
-        zip((out, lse), fa.flash_forward_plain(q, k, v, valid, False))]}
+        zip((out, lse), fa.flash_forward_plain(q, k, v, valid, causal))]}
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    y = fa.flash_attention(*leaves, kv_valid=valid)
+    y = fa.flash_attention(*leaves, kv_valid=valid, causal=causal)
     got = (y, *torch.autograd.grad(y, leaves, do))
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    y0 = fa.flash_attention_plain(*plain, kv_valid=valid)
+    y0 = fa.flash_attention_plain(*plain, kv_valid=valid, causal=causal)
     want = (y0, *torch.autograd.grad(y0, plain, do))
     errs["flash_forward"].append(_err_and_scale(torch, got[0], want[0]))
     errs["flash_backward_dq"] = [_err_and_scale(torch, got[1], want[1])]
@@ -5786,13 +5830,15 @@ def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
     sc = 1.0 / hd ** 0.5
     pq, pk, pv, pdo = fa._pad_head_dim(q, k, v, do)
     vb = fa._checked(pq, pk, pv, valid)
-    pout, plse = fa._launch_forward(pq, pk, pv, vb, False, sc)
+    pout, plse = fa._launch_forward(pq, pk, pv, vb, causal, sc)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     mask = None if valid is None else valid[:, None, None, :]
+    gqa = {} if hk == h else {"enable_gqa": True}
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal, **gqa)
     lib_out = sdpa()
     dot = do.transpose(1, 2)
 
@@ -5803,24 +5849,32 @@ def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
                            dot))
     n_keys = b * s if lengths is None else int(sum(lengths))
     tensor = b * s * h * hd * q.element_size()
-    kv_read = 2 * tensor * n_keys / (b * s)     # K and V of the valid keys
+    # K and V (and dK, dV) of the valid keys
+    kv_read = 2 * tensor * hk / h * n_keys / (b * s)
     row = b * h * s * 4
     vbytes = 0 if valid is None else b * s
-    pairs = h * hd * s * n_keys          # (query, valid key) pairs x hd
+    # (query, valid key) pairs x hd: under causal each query's keys up to
+    # its own
+    pairs = (h * hd * b * s * (s + 1) // 2 if causal
+             else h * hd * s * n_keys)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     calls = {
         "flash_forward": (
-            lambda: fa.flash_forward(q, k, v, valid, False),
-            lambda: fa.flash_forward_plain(q, k, v, valid, False), sdpa,
+            lambda: fa.flash_forward(q, k, v, valid, causal),
+            lambda: fa.flash_forward_plain(q, k, v, valid, causal), sdpa,
             (2 * tensor + kv_read + row + vbytes, 4 * pairs)),
         "flash_backward": (
-            lambda: fa._backward(pq, pk, pv, vb, pdo, pout, plse, False, sc),
+            lambda: fa._backward(pq, pk, pv, vb, pdo, pout, plse, causal,
+                                 sc),
             lambda: fa.flash_backward_plain(q, k, v, valid, do, out, lse,
-                                            False), sdpa_bwd,
-            # S once and dV, dP, dQ, dK: 5 products of 2 flops a pair
-            (6 * tensor + kv_read + row + vbytes, 10 * pairs))}
+                                            causal), sdpa_bwd,
+            # S once and dV, dP, dQ, dK: 5 products of 2 flops a pair;
+            # Q, O, dO, dQ and every key's dK, dV written
+            (4 * tensor + 2 * tensor * hk / h + kv_read + row + vbytes,
+             10 * pairs))}
     backend = _sdpa_backend(torch, qt.detach(), kt.detach(), vt.detach(),
-                            mask)
+                            mask, causal)
+    recs = {}
     for name, (kern, plain_fn, lib, (nbytes, flops)) in calls.items():
         # an autograd backward is captured at the end of the run (a
         # failed capture can leave the context unusable)
@@ -5829,22 +5883,30 @@ def _zoo_flash_case(torch, fa, gen, label, b, s, h, hd, dtype, lengths,
                           else _graph_or_why(torch, lib, iters))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
-        log({"time": name, "case": label,
-             "shape": f"q[{b},{s},{h},{hd}] {str(dtype)[6:]} bidirectional"
-                      + ("" if valid is None else " kv_valid"),
-             "ms": time_ms(torch, kern, iters),
-             "graph_ms": graph_ms(torch, kern, iters),
-             "plain_ms": time_ms(torch, plain_fn, max(5, iters // 10)),
-             "library_ms": time_ms(torch, lib, iters),
-             "library_graph_ms": lib_graph, "library_graph_note": why,
-             "library": "F.scaled_dot_product_attention(attn_mask=bool "
-                        "[b,1,1,s])" + (" backward, dq dk dv together"
-                                        if name != "flash_forward" else ""),
-             "sdpa_backend": backend,
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "keys_valid": n_keys, "keys": b * s})
+        recs[name] = rec = {
+            "time": name, "case": label,
+            "shape": f"q[{b},{s},{h}" + ("" if hk == h else f" q / {hk} kv")
+                     + f",{hd}] {str(dtype)[6:]} "
+                     + ("causal" if causal else "bidirectional")
+                     + ("" if valid is None else " kv_valid"),
+            "ms": time_ms(torch, kern, iters),
+            "graph_ms": graph_ms(torch, kern, iters),
+            "plain_ms": time_ms(torch, plain_fn, max(5, iters // 10)),
+            "library_ms": time_ms(torch, lib, iters),
+            "library_graph_ms": lib_graph, "library_graph_note": why,
+            "library": "F.scaled_dot_product_attention("
+                       + ("is_causal=True" if causal
+                          else "attn_mask=bool [b,1,1,s]")
+                       + (", enable_gqa=True" if gqa else "") + ")"
+                       + (" backward, dq dk dv together"
+                          if name != "flash_forward" else ""),
+            "sdpa_backend": backend,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "keys_valid": n_keys, "keys": b * s}
+        log(rec)
     torch.cuda.synchronize()
+    return recs
 
 
 def _zoo_layernorm(torch, fused, gen, iters):
@@ -6154,12 +6216,13 @@ def _zoo_entry_points(torch, smi):
                                                            train_vit)
     counts = collections.Counter()
 
-    # train_vit: 4 layers, 4 + 16 x 4 + 4 = 72 leaves, 300 steps and one
-    # eval forward
+    # train_vit: 4 layers, 4 + 16 x 4 + 4 = 72 leaves, ZOO_VIT_STEPS steps
+    # and one eval forward
+    steps, L = ZOO_VIT_STEPS, 4
     (out, wall), _, c = _zoo_driven(
-        torch, lambda: _run_entry(torch, train_vit.main, ["--device=cuda"]))
+        torch, lambda: _run_entry(torch, train_vit.main, [
+            "--device=cuda", f"--steps={steps}"]))
     acc = _eval_acc(out)
-    steps, L = 300, 4
     log({"zoo": "(d) train_vit entry point", "wall_s": wall,
          "step_ms": wall / steps * 1e3, "eval_accuracy": acc,
          "printed": out.splitlines()[-3:], "launches": c, "card": smi})
@@ -6857,10 +6920,11 @@ HF_VIT_BATCH = 16
 HF_LLAMA_BATCH, HF_LLAMA_SEQ = 4, 256
 HF_FWD_ITERS = 10
 # (d): the Python merge loop takes about a minute a MB, so it and the
-# host encoder meet on HF_PY_BYTES; the encoder alone and GPT-2's
-# tokenizer on HF_TEXT_BYTES; the loaders on phase 19's MNIST arrays in
-# batches that divide its 60,000 rows
-HF_TEXT_BYTES, HF_PY_BYTES = 1 << 20, 1 << 18
+# host encoder meet on HF_PY_BYTES (256 KiB until phase 27 needed the
+# room: the loop took 11.0 s there); the encoder alone
+# and GPT-2's tokenizer on HF_TEXT_BYTES; the loaders on phase 19's MNIST
+# arrays in batches that divide its 60,000 rows
+HF_TEXT_BYTES, HF_PY_BYTES = 1 << 20, 1 << 16
 HF_LOADER_BATCH = 1000
 _HF_DIR = Path(__file__).resolve().parent / "build" / "hf_ckpt"
 _HF_WORDS = (
@@ -7639,14 +7703,16 @@ def _sp_counts(torch):
     return counts
 
 
-def _sp_steps(torch, np, step, state, batch):
-    """SP_WARMUP + SP_STEPS steps on one batch: (losses, the first step's
-    gradient norm, timed seconds, peak GB)."""
+def _sp_steps(torch, np, step, state, batch, warmup=SP_WARMUP,
+              steps=SP_STEPS):
+    """``warmup`` + ``steps`` steps on one batch (SP_WARMUP + SP_STEPS
+    unless given): (losses, the first step's gradient norm, timed seconds
+    of the last ``steps``, peak GB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    for i in range(SP_WARMUP + SP_STEPS):
-        if i == SP_WARMUP:
+    for i in range(warmup + steps):
+        if i == warmup:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -8273,6 +8339,521 @@ def check_zero(torch, np, args, smi):
     return counts, shard
 
 
+# -- phase 27: tensor parallelism ---------------------------------------------
+# (a) A line of one (``make_mesh({"tensor": 1})``) at full width against the
+# plain model from the same weights on the same batch: BERT-base MLM at
+# phase 22's batch (TP_BERT_BATCH x TP_BERT_SEQ, bf16, ragged key padding,
+# a 15% MLM mask) and the Llama recipe at Llama-3-8B's widths cut to
+# TP_LLAMA_LAYERS layers (TP_LLAMA_BATCH x TP_LLAMA_SEQ, GQA 32:8).  Each
+# arm takes TP_WARMUP + TP_STEPS adamw(1e-4) steps with clip 1.0.  A line of
+# one runs the plain code path, so losses, the gradient norm and every
+# parameter must be equal to the bit, with the plain launches and no
+# collective; the arms run in turns (line, plain, plain, line).  (b) Two
+# ranks on the one card, each a process of this script (``--tp-rank``) over
+# gloo with CUDA tensors (NCCL refuses two ranks on one device), on
+# ``{"tensor": 2}``: the same models from the same
+# weights and batches, BERT-base (flash on 6 of the 12 heads, with the key
+# plane), the Llama recipe with ``shard_kv=True`` (16 q / 4 kv heads a
+# rank) and with replicated kv projections (16 q heads reading 4 of the 8
+# kv heads).  Their losses, first gradient norm and parameters are held to
+# (a)'s plain arm as phase 25 holds its rings: a rank's row-parallel sums
+# round each rank's bf16 partial product before adding them, where one
+# GEMM rounds once, so the losses agree to TP_LOSS_TOL, the first step's
+# gradient norm to TP_GRAD_TOL (relative), and the parameters' gap to
+# TP_PARAM_TOL of their movement (2-norms over every TP_SAMPLE-th row a
+# rank holds; Adam moves an element by about lr a step whatever its
+# gradient, so an absolute bound could not fail).  The tensor line's
+# collectives are exact a step (``tp_collectives``, a formula in L), the
+# kernels' launches too, and each rank's peak memory is below (a)'s.
+# (c) Contiguous decoding of a f32 copy of the Llama recipe (TF32 off) on
+# the same two ranks: ``decode_block`` of a TP_DECODE_PROMPT prompt,
+# ``decode_step`` and greedy ``generate`` of TP_DECODE_NEW tokens against
+# the plain model: the same tokens, logits within TP_DECODE_TOL.  (d)
+# ``python -m distributed_tensorflow_tpu_torch.examples.finetune_bert`` on
+# two ranks of the card (``DTTPU_DIST_BACKEND=gloo``), beside (b): exit 0,
+# its mesh printed as ``{'data': 1, 'tensor': 2}``, eval accuracy above
+# chance.  Before all of it the flash kernels are timed at the ranks'
+# shapes beside their plain versions, SDPA and the bound.  Files under
+# TP_DIR, removed at the phase's end.  Measured on an H100 80GB HBM3 at
+# 700 W (the phase's first run): loss errors 5.5e-4-9.5e-4 (losses of
+# 10.4 and 12.4 at the start), first gradient norms within 4.5e-5, gaps
+# 0.024-0.032 of the movement, decoded logits within 1.2e-5; the
+# tolerances are about 10x, 10x, 3x and 8x those.
+TP_WARMUP, TP_STEPS = 2, 3
+TP_BERT_BATCH, TP_BERT_SEQ = 128, 128
+TP_LLAMA_LAYERS, TP_LLAMA_BATCH, TP_LLAMA_SEQ = 2, 4, 512
+TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-2, 5e-4, 0.1
+TP_DECODE_PROMPT, TP_DECODE_NEW, TP_DECODE_TOL = (2, 64), 16, 1e-4
+TP_SAMPLE = {"bert": 4, "llama": 64}
+# (b)'s arms: (name, model, shard_kv)
+TP_ARMS = (("bert", "bert", None), ("llama shard_kv", "llama", True),
+           ("llama", "llama", None))
+TP_RANK_TIMEOUT_S = 600
+TP_DIR = Path("build") / "tp"
+
+
+def tp_collectives(kind, L):
+    """The collectives of one training step on a tensor line of more than
+    one rank: forward, the embedding's sum, the attention output's and the
+    FFN's sums a layer and the cross entropy's two all-reduces; backward,
+    the column-parallel inputs' gradient sums (2 a layer, the head's 1);
+    the vocabulary-parallel argmax's gather; BERT's MLM transform adds its
+    gather and its gradient sum; one stats all-reduce for the clip's
+    norm over the line; no data-line all-reduce on a data line of one."""
+    bert = kind == "bert"
+    return {"tp_all_reduce": 4 * L + (5 if bert else 4),
+            "tp_all_gather": 2 if bert else 1, "stats_all_reduce": 1,
+            "all_reduce": 0}
+
+
+def _tp_counts(torch):
+    """The training kernels' launches (RMSNorm too) and the collectives
+    since ``_reset_counts``."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    counts = _train_counts(torch)
+    counts["rmsnorm"] = fused.LAUNCHES["rmsnorm"]
+    counts.update(data_parallel.LAUNCHES)
+    return counts
+
+
+def _tp_llama_config(torch, dtype=None):
+    from distributed_tensorflow_tpu_torch import llama3_8b
+    return llama3_8b(dtype=dtype or torch.bfloat16,
+                     num_layers=TP_LLAMA_LAYERS, max_position=TP_LLAMA_SEQ)
+
+
+def _tp_per_step(kind):
+    """Each training kernel's launches a step (every rank's the same)."""
+    if kind == "bert":
+        L = 12
+        # LayerNorm: the embeddings', 2 a layer, the MLM head's; Adam once
+        # a leaf (phase 22's 204)
+        return {"flash_forward": L, "flash_backward_dkv": L,
+                "flash_backward_dq": L, "layernorm": 2 * L + 2,
+                "rmsnorm": 0, "fused_adam": 204}
+    L = TP_LLAMA_LAYERS
+    # RMSNorm 2 a layer and ln_f; Adam: word, lm_head, ln_f, 9 a layer
+    return {"flash_forward": L, "flash_backward_dkv": L,
+            "flash_backward_dq": L, "layernorm": 0, "rmsnorm": 2 * L + 1,
+            "fused_adam": 3 + 9 * L}
+
+
+def _tp_build(torch, np, seed, kind, mesh, shard_kv=None):
+    """(params, state, step, batch) of one arm of (a) or (b): ``kind``
+    "bert" or "llama" from ``seed``'s weights, on ``mesh`` (None: the
+    plain model), ``adamw(1e-4)`` with clip 1.0; under a mesh the state
+    placed by ``shard_train_state``."""
+    from distributed_tensorflow_tpu_torch import (GPT, TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  train)
+    from distributed_tensorflow_tpu_torch.models.bert import Bert, BertConfig
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if kind == "bert":
+        model = Bert(BertConfig(dtype=torch.bfloat16, dropout_rate=0.0),
+                     mesh=mesh)
+        params = model.init(gen)
+        loss_fn, opt = model.mlm_loss_fn(), adamw(TRAIN_LR,
+                                                  mask=model.decay_mask)
+        rng = np.random.default_rng(seed)
+        b, s = TP_BERT_BATCH, TP_BERT_SEQ
+        lengths = rng.integers(s // 2, s + 1, b)
+        valid = np.arange(s)[None] < lengths[:, None]
+        batch = {"input_ids": rng.integers(0, 30522, (b, s)),
+                 "labels": rng.integers(0, 30522, (b, s)),
+                 "mlm_mask": (rng.random((b, s)) < 0.15) & valid,
+                 "attention_mask": valid}
+        batch = {k: torch.from_numpy(v.astype(np.int32)).to("cuda")
+                 for k, v in batch.items()}
+    else:
+        config = _tp_llama_config(torch)
+        model = GPT(config, device="cuda", generator=gen, mesh=mesh,
+                    shard_kv=shard_kv)
+        params = dict(model.named_parameters())
+        loss_fn, opt = model.lm_loss_fn(), adamw(TRAIN_LR)
+        batch = _train_batch(torch, np, seed, TP_LLAMA_BATCH, TP_LLAMA_SEQ,
+                             config.vocab_size, "cuda")
+    state = TrainState.create(params, opt.init(params))
+    if mesh is not None:
+        state = train.shard_train_state(state, mesh, model.partition_rules())
+    step = make_custom_train_step(loss_fn, opt, seed=seed, mesh=mesh,
+                                  grad_clip_norm=1.0)
+    return params, state, step, batch
+
+
+def _tp_arm(torch, np, seed, kind, mesh, shard_kv=None, keep_start=False):
+    """One arm's run: (record, its parameters after the steps, with
+    ``keep_start`` a copy of them before the steps on the card).  The
+    record's peak memory is the arm's own: the most allocated while it
+    steps, less what was allocated before it began and the copy."""
+    base = torch.cuda.memory_allocated()
+    params, state, step, batch = _tp_build(torch, np, seed, kind, mesh,
+                                           shard_kv)
+    start = ({k: p.detach().clone() for k, p in params.items()}
+             if keep_start else None)
+    if start is not None:
+        base += sum(t.numel() * t.element_size() for t in start.values())
+    n_steps = TP_WARMUP + TP_STEPS
+    (losses, grad_norm, wall, peak), _, counts = _driven(
+        torch, lambda: _sp_steps(torch, np, step, state, batch, TP_WARMUP,
+                                 TP_STEPS), _tp_counts)
+    tokens = batch["input_ids"].numel() if kind == "bert" else (
+        TP_LLAMA_BATCH * TP_LLAMA_SEQ)
+    step_ms = wall / TP_STEPS * 1e3
+    want = {k: n * n_steps for k, n in _tp_per_step(kind).items()}
+    rec = {"losses": losses, "grad_norm": grad_norm, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "peak_memory_gb": peak - base / 1e9, "launches": counts,
+           "launches_expected": want}
+    del state, step, batch
+    return rec, params, start
+
+
+def _tp_line_of_one(torch, np, args, smi, kind):
+    """(a) for ``kind``: the line of one and the plain model in turns
+    (line, plain, plain, line, so that neither kind always runs first),
+    every arm bit-equal to the first, exact launches, no collective.
+    Returns (the first line arm's launches, the first plain arm's record,
+    (its parameters at the start, after the steps), kept on the card as
+    (b)'s reference)."""
+    from distributed_tensorflow_tpu_torch import parallel
+    name = {"bert": f"bert-base mlm {TP_BERT_BATCH}x{TP_BERT_SEQ}",
+            "llama": f"llama3-8b widths x{TP_LLAMA_LAYERS} layers "
+                     f"{TP_LLAMA_BATCH}x{TP_LLAMA_SEQ}"}[kind]
+    recs, kept, ref = [], None, None
+    for arm in ("tensor 1", "plain", "plain", "tensor 1"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = parallel.make_mesh({"tensor": 1}) if arm == "tensor 1" \
+            else None
+        first_plain = arm == "plain" and ref is None
+        rec, params, start = _tp_arm(torch, np, args.seed, kind, mesh,
+                                     keep_start=first_plain)
+        recs.append((arm, rec))
+        log({"tp": f"(a) {name}", "arm": arm, "turn": len(recs),
+             "steps": TP_STEPS, **rec, "card": smi})
+        extra = {k: v for k, v in rec["launches"].items()
+                 if k not in rec["launches_expected"] and v}
+        _zoo_expect(f"tp (a) {name} {arm}", rec["launches"],
+                    rec["launches_expected"])
+        if extra:
+            raise AssertionError(f"tp (a) {name} {arm}: collectives on a "
+                                 f"line of one: {extra}")
+        if kept is None:
+            kept = (rec, {k: p.detach() for k, p in params.items()})
+        elif not (rec["losses"] == kept[0]["losses"]
+                  and rec["grad_norm"] == kept[0]["grad_norm"]
+                  and all(torch.equal(kept[1][k], p.detach())
+                          for k, p in params.items())):
+            raise AssertionError(f"tp (a) {name} {arm} (turn {len(recs)}):"
+                                 f" not the first arm to the bit")
+        if first_plain:
+            ref = (rec, (start, {k: p.detach() for k, p in params.items()}))
+        del params, start
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def mean(kind_, key):
+        vals = [r[key] for a, r in recs if a == kind_]
+        return sum(vals) / len(vals)
+    log({"tp": f"(a) {name}", "check": "tensor 1 vs plain",
+         "bit_equal": True,
+         "step_ms_tensor1": mean("tensor 1", "step_ms"),
+         "step_ms_plain": mean("plain", "step_ms"),
+         "step_ms_tensor1_over_plain": mean("tensor 1", "step_ms")
+         / mean("plain", "step_ms")})
+    return recs[0][1]["launches"], ref[0], ref[1]
+
+
+def _tp_sample(t, n):
+    """Every n-th row (dim 0) of a tensor, on the host."""
+    return t.detach()[::n].to("cpu", copy=True)
+
+
+def _tp_decode_plain(torch, np, args):
+    """(c)'s reference: the f32 Llama copy's decode on one process."""
+    from distributed_tensorflow_tpu_torch import GPT
+    model = GPT(_tp_llama_config(torch, torch.float32), device="cuda",
+                generator=torch.Generator("cuda").manual_seed(args.seed))
+    out = _tp_decode(torch, np, args, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_decode(torch, np, args, model):
+    """``decode_block`` of the prompt, one ``decode_step`` of its argmax,
+    and greedy ``generate``: (block logits, step logits, tokens) on the
+    host."""
+    b, s = TP_DECODE_PROMPT
+    ids = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
+        0, model.config.vocab_size, (b, s))).to("cuda")
+    with torch.no_grad():
+        cache = model.init_cache(b, s + TP_DECODE_NEW)
+        block, cache = model.decode_block(cache, ids)
+        step, cache = model.decode_step(cache, block.argmax(-1))
+        tokens = model.generate(ids, TP_DECODE_NEW,
+                                max_len=s + TP_DECODE_NEW)
+    torch.cuda.synchronize()
+    return block.cpu(), step.cpu(), tokens.cpu()
+
+
+def tp_rank_main(args) -> int:
+    """One rank of (b) and (c), a process of this script: the arms of
+    TP_ARMS on ``{"tensor": 2}`` over gloo, then (c)'s decode; results
+    to ``TP_DIR`` (``rank<r>.json``, ``rank<r>_<arm>.pt``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import GPT, parallel
+    from distributed_tensorflow_tpu_torch.parallel import sharding
+    r = args.tp_rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{args.tp_port}",
+        world_size=2, rank=r,
+        timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh({"tensor": 2})
+        out = {}
+        for name, kind, shard_kv in TP_ARMS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec, params, _ = _tp_arm(torch, np, args.seed, kind, mesh,
+                                     shard_kv)
+            samples = {}
+            for k, p in params.items():
+                s = sharding.marked_shard(p)
+                samples[k] = ((-1, 0, p.shape[0]) if s is None
+                              else (s.dim, s.start, s.length),
+                              _tp_sample(p, TP_SAMPLE[kind]))
+            torch.save(samples, TP_DIR / f"rank{r}_{name}.pt")
+            out[name] = rec
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT(_tp_llama_config(torch, torch.float32), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(args.seed),
+                    mesh=mesh)
+        _reset_counts()
+        decoded = _tp_decode(torch, np, args, model)
+        out["decode"] = {"launches": _tp_counts(torch)}
+        torch.save(decoded, TP_DIR / f"rank{r}_decode.pt")
+        (TP_DIR / f"rank{r}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_flash_rows(torch, args, smi):
+    """The flash kernels timed at the ranks' shapes: BERT-base's 6 of 12
+    heads with the key plane, the Llama recipe's 16 q / 4 kv causal."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    import numpy as np
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    lengths = np.random.default_rng(args.seed).integers(
+        TP_BERT_SEQ // 2, TP_BERT_SEQ + 1, TP_BERT_BATCH)
+    rows = {"bert_base tp2": _zoo_flash_case(
+        torch, fa, gen, "bert_base tp2", TP_BERT_BATCH, TP_BERT_SEQ, 6, 64,
+        torch.bfloat16, lengths, args.iters)}
+    rows["llama3_8b tp2"] = _zoo_flash_case(
+        torch, fa, gen, "llama3_8b tp2", TP_LLAMA_BATCH, TP_LLAMA_SEQ, 16,
+        128, torch.bfloat16, None, args.iters, hk=4, causal=True)
+    for case, recs in rows.items():
+        for rec in recs.values():
+            rec["card"] = smi
+    return rows
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _tp_start_ranks(args, port, env_extra=None, module=None):
+    """Two processes: this script's ``--tp-rank`` (``module`` None) or
+    ``python -m module`` with the cluster's environment."""
+    import os
+    root = Path(__file__).resolve().parent
+    procs = []
+    for r in range(2):
+        if module is None:
+            cmd = [sys.executable, str(Path(__file__).resolve()),
+                   f"--tp-rank={r}", f"--tp-port={port}",
+                   f"--seed={args.seed}"]
+            env = None
+        else:
+            cmd = [sys.executable, "-m", module]
+            env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+                       NUM_PROCESSES="2", PROCESS_ID=str(r),
+                       **(env_extra or {}))
+        procs.append(subprocess.Popen(cmd, cwd=root, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _tp_wait(procs, what):
+    """Every process's (stdout, stderr); fails on a non-zero exit or a
+    hang, and stops every process it started."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=TP_RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"{what}: rc {p.returncode}\n"
+                                     f"{err[-3000:]}")
+            outs.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _tp_gap(torch, kind, ranks, ref):
+    """(b)'s parameter check of one arm: the 2-norm of every sampled
+    element's gap to (a)'s plain final parameters over that of their
+    movement from the start, and the largest element gap."""
+    start, final = ref
+    n = TP_SAMPLE[kind]
+    gap = move = 0.0
+    worst = 0.0
+    for samples in ranks:
+        for k, ((dim, lo, length), got) in samples.items():
+            want, was = final[k], start[k]
+            if dim >= 0:
+                want = want.narrow(dim, lo, length)
+                was = was.narrow(dim, lo, length)
+            want, was = want[::n], was[::n]
+            d = got.to(want.device).double() - want.double()
+            gap += float((d ** 2).sum())
+            move += float(((want.double() - was.double()) ** 2).sum())
+            worst = max(worst, float(d.abs().max()))
+    return math.sqrt(gap / move), worst
+
+
+def check_tp(torch, np, args, smi):
+    """Phase 27, tensor parallelism: returns (the kernels' launches over
+    (a)'s line-of-one arms and (b)'s ranks, the flash timing rows)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    rows = _tp_flash_rows(torch, args, smi)
+    torch.cuda.empty_cache()
+    launches = collections.Counter()
+    refs = {}
+    for kind in ("bert", "llama"):
+        counts, plain, ref = _tp_line_of_one(torch, np, args, smi, kind)
+        launches.update({k: v for k, v in counts.items()
+                         if k in _tp_per_step(kind)})
+        refs[kind] = (plain, ref)
+    want_decode = _tp_decode_plain(torch, np, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = _tp_start_ranks(args, _free_port())
+    entry = _tp_start_ranks(
+        args, _free_port(), {"DTTPU_DIST_BACKEND": "gloo"},
+        "distributed_tensorflow_tpu_torch.examples.finetune_bert")
+    try:
+        _tp_wait(ranks, "tp (b) ranks")
+        ranks_s = time.perf_counter() - t0
+        results = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        for name, kind, _ in TP_ARMS:
+            plain, ref = refs[kind]
+            per_rank = [res[name] for res in results]
+            L = 12 if kind == "bert" else TP_LLAMA_LAYERS
+            n_steps = TP_WARMUP + TP_STEPS
+            want = {k: n * n_steps for k, n in tp_collectives(kind, L)
+                    .items()}
+            want.update(per_rank[0]["launches_expected"])
+            for r, rec in enumerate(per_rank):
+                _zoo_expect(f"tp (b) {name} rank {r}", rec["launches"],
+                            want)
+                launches.update({k: v for k, v in rec["launches"].items()
+                                 if k in _tp_per_step(kind)})
+            samples = [torch.load(TP_DIR / f"rank{r}_{name}.pt")
+                       for r in range(2)]
+            param_err, param_max = _tp_gap(torch, kind, samples, ref)
+            losses = per_rank[0]["losses"]
+            loss_err = max(abs(x - y) for x, y in zip(losses,
+                                                      plain["losses"]))
+            grad_err = (abs(per_rank[0]["grad_norm"] - plain["grad_norm"])
+                        / plain["grad_norm"])
+            peaks = [rec["peak_memory_gb"] for rec in per_rank]
+            check = {"tp": f"(b) {name}", "ranks": 2,
+                     "losses": [rec["losses"] for rec in per_rank],
+                     "plain_losses": plain["losses"],
+                     "loss_err": loss_err, "loss_tol": TP_LOSS_TOL,
+                     "grad_norm_rel_err": grad_err, "grad_tol": TP_GRAD_TOL,
+                     "param_gap_over_move": param_err,
+                     "param_tol": TP_PARAM_TOL, "param_max_abs_err":
+                     param_max, "peak_memory_gb": peaks,
+                     "plain_peak_memory_gb": plain["peak_memory_gb"],
+                     "step_ms": [rec["step_ms"] for rec in per_rank],
+                     "collectives_a_step": {
+                         k: per_rank[0]["launches"].get(k, 0) // n_steps
+                         for k in tp_collectives(kind, L)},
+                     "launches": per_rank[0]["launches"], "card": smi}
+            log(check)
+            if not (per_rank[0]["losses"] == per_rank[1]["losses"]
+                    and loss_err <= TP_LOSS_TOL and grad_err <= TP_GRAD_TOL
+                    and param_err <= TP_PARAM_TOL
+                    and max(peaks) < plain["peak_memory_gb"]):
+                raise AssertionError(f"tp (b) {name}: two ranks disagree "
+                                     f"with the plain model: {check}")
+        got = torch.load(TP_DIR / "rank0_decode.pt")
+        errs = [float((g - w).abs().max()) for g, w in
+                zip(got[:2], want_decode[:2])]
+        same = torch.equal(got[2], want_decode[2])
+        dec = results[0]["decode"]["launches"]
+        L = TP_LLAMA_LAYERS
+        # a forward: the embedding's sum and 2 sums a layer, one gather of
+        # the logits; decode_block, decode_step, then generate's prefill
+        # and TP_DECODE_NEW - 1 steps
+        forwards = 2 + TP_DECODE_NEW
+        want = {"tp_all_reduce": forwards * (1 + 2 * L),
+                "tp_all_gather": forwards,
+                "flash_forward": 2 * L, "rmsnorm": forwards * (2 * L + 1)}
+        log({"tp": "(c) decode llama f32", "prompt": list(TP_DECODE_PROMPT),
+             "new": TP_DECODE_NEW, "logit_max_abs_err": errs,
+             "logit_tol": TP_DECODE_TOL, "tokens_equal": same,
+             "launches": dec, "card": smi})
+        _zoo_expect("tp (c) decode", dec, want)
+        if not (same and max(errs) <= TP_DECODE_TOL):
+            raise AssertionError("tp (c): decoding on two ranks disagrees "
+                                 "with the plain model")
+        outs = _tp_wait(entry, "tp (d) finetune_bert")
+        entry_s = time.perf_counter() - t0
+    finally:
+        for p in ranks + entry:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    accs = [_eval_acc(out) for out, _ in outs]
+    meshes = ["mesh={'data': 1, 'tensor': 2}" in err for _, err in outs]
+    log({"tp": "(d) finetune_bert on two ranks", "eval_accuracy": accs,
+         "mesh_printed": meshes, "printed": outs[0][0].splitlines()[-2:],
+         "seconds_with_b": entry_s, "ranks_seconds": ranks_s, "card": smi})
+    if not all(meshes) or not all(a > 0.5 for a in accs) \
+            or outs[0][0] != outs[1][0]:
+        raise AssertionError(f"tp (d): finetune_bert {accs}, {meshes}")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    log({"phase": "tp", "seconds": time.perf_counter() - t_phase,
+         "launches": dict(launches)})
+    return dict(launches), rows
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -8291,12 +8872,18 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the engine and training phases; "
                     "tables to DIR")
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)    # phase 27's ranks
+    ap.add_argument("--tp-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.ops.kernels import _build
@@ -8367,6 +8954,7 @@ def main(argv=None) -> int:
     hf_launches = check_hf(torch, np, args, smi)
     sp_routes, sp_launches = check_sp(torch, np, args, smi)
     zero_launches, zero_shard = check_zero(torch, np, args, smi)
+    tp_launches, tp_rows = check_tp(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -8380,12 +8968,19 @@ def main(argv=None) -> int:
             if route.startswith("backward"):
                 rec["library_graph_ms"] = lib_backwards.get(
                     f"ring {route.split('_')[1]} backward {case}")
+    for case, recs in tp_rows.items():
+        recs["flash_backward"]["library_graph_ms"] = lib_backwards.get(
+            f"whole backward {case}")
     for kernel, part in (("flash_forward", "forward"),
                          ("flash_backward_dq", "backward"),
                          ("flash_backward_dkv", "backward")):
         records[kernel]["sp_routes"] = {
             f"{case} {route}": rec for case, recs in sp_routes.items()
             for route, rec in recs.items() if route.startswith(part)}
+        records[kernel]["tp_shapes"] = {
+            case: recs["flash_forward" if part == "forward"
+                       else "flash_backward"]
+            for case, recs in tp_rows.items()}
 
     kernels = [dict(name=k, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[k],
@@ -8421,7 +9016,10 @@ def main(argv=None) -> int:
                     **({"zero_launches": zero_launches[k]}
                        if k in zero_launches else {}),
                     **({"zero_shard": zero_shard}
-                       if k == "fused_adam" else {}))
+                       if k == "fused_adam" else {}),
+                    tp_launches=tp_launches.get(k, 0),
+                    **({"tp_shapes": r["tp_shapes"]}
+                       if "tp_shapes" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

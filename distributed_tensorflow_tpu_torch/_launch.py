@@ -7,9 +7,13 @@ card; ``--device=cpu`` is the explicit opt-in.  On a card, rank ``r``
 takes card ``r % device_count`` and f32 runs in full f32 precision in
 every library (TF32 off for cuBLAS's matmuls and cuDNN's convolutions
 alike), the precision the configurations state.  The group runs over
-NCCL on cards and gloo on the CPU (``parallel.cluster.initialize``).
+NCCL on cards and gloo on the CPU (``parallel.cluster.initialize``);
+``DTTPU_DIST_BACKEND=gloo`` picks gloo on cards too, for ranks that share
+one card (NCCL refuses two ranks on one device).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -35,5 +39,7 @@ def start(device_flag: str, config: cluster.ClusterConfig) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
     else:
         device = torch.device("cpu")
-    cluster.initialize(config, backend="nccl" if cuda else "gloo")
+    backend = os.environ.get("DTTPU_DIST_BACKEND") or (
+        "nccl" if cuda else "gloo")
+    cluster.initialize(config, backend=backend)
     return device

@@ -20,9 +20,13 @@ the JAX script, so both draw the same batches.
 Every attention runs the flash kernel at head dim 32 (zero-padded to 64
 in its wrapper) and every LayerNorm the LayerNorm kernel; Adam runs its
 kernel on every leaf.  ``--fused_layernorm`` is the JAX script's kernel
-gate and has no effect.  The data-parallel mesh is every rank of the
-process group; the JAX script's ``tensor`` axis, 2 on an even device
-count above 1, waits for the parallelism slice and raises.
+gate and has no effect.  The mesh is the JAX script's: ``{"data": n //
+tp, "tensor": tp}`` over the process group's n ranks, with ``tp = 2`` on
+an even n above 1, where the model is tensor-parallel (each rank of a
+``tensor`` line holds its blocks, placed by ``train.shard_train_state``
+as the JAX script places its state) and the step averages over the
+``data`` line.  Ranks that share one card run over gloo
+(``DTTPU_DIST_BACKEND=gloo``; NCCL refuses them).
 
 ``--device`` is ``cuda`` by default and raises when there is no card;
 ``--device=cpu`` runs on the CPU.
@@ -100,15 +104,11 @@ def main(argv=None) -> int:
     from distributed_tensorflow_tpu_torch.parallel import cluster
 
     device = start(FLAGS.device, cluster.cluster_from_env())
-    mesh = parallel.data_parallel_mesh()
-    n = mesh.size
+    n = cluster.process_count()
     tp = 2 if n % 2 == 0 and n > 1 else 1
-    if tp > 1:
-        raise NotImplementedError(
-            f"a tensor axis of {tp} over {n} ranks: tensor parallelism "
-            "waits for its slice (ROADMAP Queue 1 item 7)")
-    print(f"devices: {n} ({device.type}), "
-          f"mesh={{'data': {n // tp}, 'tensor': {tp}}}", file=sys.stderr)
+    mesh = parallel.make_mesh({"data": n // tp, "tensor": tp})
+    print(f"devices: {n} ({device.type}), mesh={dict(mesh.shape)}",
+          file=sys.stderr)
 
     config = BertConfig(vocab_size=64, hidden_size=128, num_layers=2,
                         num_heads=4, intermediate_size=256,
@@ -117,7 +117,7 @@ def main(argv=None) -> int:
                         mlm_predictions_per_seq=FLAGS.mlm_predictions_per_seq,
                         fused_layernorm=FLAGS.fused_layernorm,
                         remat=FLAGS.remat, remat_policy=FLAGS.remat_policy)
-    model = Bert(config)
+    model = Bert(config, mesh=mesh)
     params = model.init(torch.Generator(device).manual_seed(FLAGS.seed))
     # fine-tune head: fresh [hidden, classes] on top of the pooler
     params["classifier.kernel"] = torch.zeros(
@@ -140,6 +140,8 @@ def main(argv=None) -> int:
 
     optimizer = optim.adamw(5e-4, mask=model.decay_mask)
     state = train.TrainState.create(params, optimizer.init(params))
+    if tp > 1:
+        state = train.shard_train_state(state, mesh, model.partition_rules())
     step = train.make_custom_train_step(loss_fn, optimizer, seed=FLAGS.seed,
                                         mesh=mesh, grad_clip_norm=1.0)
 

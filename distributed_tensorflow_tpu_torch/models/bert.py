@@ -34,8 +34,21 @@ Dropout draws from the step's ``torch.Generator`` (embeddings, the
 attention context, both residual branches), so its bits differ from
 ``jax.random``'s.  ``remat`` runs each layer under the GPT's
 ``_checkpointed`` (selective for the "dots" policies, the generator's
-state replayed).  ``partition_rules`` (tensor parallelism) waits for
-the tensor-parallel port and raises.
+state replayed).
+
+Tensor parallelism (``Bert(config, mesh=...)`` with a ``tensor`` axis of
+T > 1 ranks; ``partition_rules`` is the JAX package's table):
+``init`` draws the whole model, as at T = 1, and returns this rank's
+blocks (marked, ``parallel.sharding.mark_block``).  The word embedding is
+looked up vocabulary-parallel; every layer is Megatron's (a rank's
+heads, the row-parallel attention output, the column-parallel ``w_in``
+into the row-parallel ``w_out``: ``ops/attention.py``); the MLM
+transform and the pooler are column-parallel (``[d, d/T]`` kernels, this
+rank's slice of the replicated bias), gathered whole over the line
+before the transform's LayerNorm and the classifier; the MLM logits stay
+cut over the vocabulary (with ``mlm.output_bias``'s block) into the
+vocabulary-parallel cross entropy and argmax.  ``mlm_logits`` gathers
+them whole.  ``seq_axis`` beside it raises (ROADMAP Queue 1 item 7.2b).
 
 Sequence parallelism (``seq_axis`` with ``Bert(config, mesh=...)``):
 every rank of the axis passes the global batch and computes its shard
@@ -61,13 +74,16 @@ from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..parallel import ring as ring_lib
 from ..parallel import ring_flash as ring_flash_lib
+from ..parallel import sharding as sharding_lib
+from ..parallel import tensor_parallel as tp_lib
 from .gpt import _REMAT_SAVES, _checkpointed
 
 __all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
            "mlm_gather_flops_correction"]
 
-_PARALLEL = ("not ported yet: tensor parallelism waits for its slice "
-             "(ROADMAP Queue 1 item 7)")
+# the refusal of the encoders whose tensor parallelism is not ported
+_PARALLEL = ("not ported yet: tensor parallelism of this model is ROADMAP "
+             "Queue 1 item 7.2b")
 
 Params = Dict[str, torch.Tensor]
 
@@ -182,12 +198,12 @@ def attention_params(params: Mapping[str, torch.Tensor], prefix: str):
 
 
 def ffn(params: Mapping[str, torch.Tensor], prefix: str, x: torch.Tensor,
-        activation: Callable) -> torch.Tensor:
+        activation: Callable, mesh=None) -> torch.Tensor:
     """``ffn_core`` over ``<prefix>.w_in`` / ``<prefix>.w_out``."""
     return ffn_core(params[prefix + ".w_in.kernel"],
                     params[prefix + ".w_in.bias"],
                     params[prefix + ".w_out.kernel"],
-                    params[prefix + ".w_out.bias"], x, activation)
+                    params[prefix + ".w_out.bias"], x, activation, mesh)
 
 
 def init_attention(draw, d: int, h: int, hd: int, prefix: str,
@@ -236,7 +252,8 @@ def stacked_decay_mask(params: Mapping[str, torch.Tensor],
 class Bert:
     """Functional BERT: ``init(generator) -> params``, ``apply(params,
     input_ids, ...)``, the heads and the MLM loss.  ``mesh``: a
-    ``parallel.Mesh`` naming ``config.seq_axis``, needed with it only."""
+    ``parallel.Mesh`` naming ``config.seq_axis``, or with a ``tensor``
+    axis for tensor parallelism (module docstring)."""
 
     def __init__(self, config: BertConfig, mesh=None):
         if config.seq_axis is not None and (
@@ -246,6 +263,14 @@ class Bert:
                              f"{mesh}")
         self.config = config
         self.mesh = mesh
+        # the tensor line, None at T = 1
+        self.line = tp_lib.active(mesh)
+        if self.line is not None:
+            sharding_lib.check_mesh(mesh)
+            if config.seq_axis is not None:
+                raise NotImplementedError(
+                    "seq_axis under a tensor axis: not ported (ROADMAP "
+                    "Queue 1 item 7.2b)")
         # the layer lists kept unstacked, with their lengths
         self.stacks = {"encoder": config.num_layers}
 
@@ -260,7 +285,8 @@ class Bert:
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
         """Truncated normal (std 0.02, cut at 2 std) embeddings, kernels
         and head, drawn from ``generator`` on its device (the CPU when
-        None); zero biases, identity norms."""
+        None); zero biases, identity norms.  Under tensor parallelism the
+        whole model is drawn and this rank's blocks returned."""
         c = self.config
         dev = init_lib._device(generator)
         trunc = init_lib.truncated_normal(0.02)
@@ -289,7 +315,11 @@ class Bert:
                        "mlm.output_bias": zeros((c.vocab_size,)),
                        "pooler.kernel": draw((d, d)),
                        "pooler.bias": zeros((d,))})
-        return trainable(params)
+        params = trainable(params)
+        if self.line is None:
+            return params
+        return sharding_lib.cut_blocks(params, self.partition_rules(),
+                                       self.line)
 
     # -- encoder ----------------------------------------------------------
     def _encoder_layer(self, p: Mapping[str, torch.Tensor], x, mask,
@@ -300,11 +330,11 @@ class Bert:
         attn = attention_core(
             attention_params(p, "attention"), x, mask=mask,
             dropout_rate=c.dropout_rate, generator=generator, train=train,
-            attention_fn=attention_fn)
+            attention_fn=attention_fn, mesh=self.line)
         x = layer_norm(p, "attention.ln",
                        x + dropout(attn, c.dropout_rate, generator, train),
                        c.layer_norm_eps)
-        y = ffn(p, "ffn", x, c.act_fn)
+        y = ffn(p, "ffn", x, c.act_fn, self.line)
         return layer_norm(p, "ffn.ln",
                           x + dropout(y, c.dropout_rate, generator, train),
                           c.layer_norm_eps)
@@ -340,7 +370,8 @@ class Bert:
         ids = input_ids.to(dev).long()
         part = ring_lib.seq_part(ids.shape[1], self.mesh, c.seq_axis)
         ids = ids[:, part]
-        x = F.embedding(ids, params["embeddings.word"])
+        x = tp_lib.vocab_parallel_embed(ids, params["embeddings.word"],
+                                        self.line)
         x = x + params["embeddings.position"][part][None]
         if token_type_ids is not None:
             x = x + F.embedding(token_type_ids.to(dev).long()[:, part],
@@ -376,19 +407,45 @@ class Bert:
         return x, part
 
     # -- heads ------------------------------------------------------------
-    def mlm_logits(self, params: Mapping[str, torch.Tensor],
-                   sequence_output: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding MLM head -> [..., vocab] f32 logits."""
+    def _column(self, params: Mapping[str, torch.Tensor], prefix: str,
+                x: torch.Tensor, activation: Callable) -> torch.Tensor:
+        """``activation(x @ kernel + bias)``; under tensor parallelism
+        column-parallel: this rank's ``[d, d/T]`` kernel with its slice of
+        the replicated bias (whose gradient the line sums with x's), the
+        outputs gathered whole over the line."""
+        if self.line is None:
+            return activation(_dense(params, prefix, x))
+        kernel = params[prefix + ".kernel"]
+        n = kernel.shape[1]
+        x, bias = tp_lib.copy_to_line(x, self.line, params[prefix + ".bias"])
+        at = tp_lib.index(self.line) * n
+        y = activation(x @ kernel.to(x.dtype)
+                       + bias[at:at + n].to(x.dtype))
+        return tp_lib.gather_from_line(y, self.line)
+
+    def _mlm_local_logits(self, params: Mapping[str, torch.Tensor],
+                          sequence_output: torch.Tensor) -> torch.Tensor:
+        """The MLM head's f32 logits of this rank's vocabulary rows (all
+        of them at T = 1)."""
         c = self.config
-        h = c.act_fn(_dense(params, "mlm.transform", sequence_output))
+        h = self._column(params, "mlm.transform", sequence_output, c.act_fn)
         h = layer_norm(params, "mlm.ln", h, c.layer_norm_eps)
+        h = tp_lib.copy_to_line(h, self.line)
         logits = h @ params["embeddings.word"].T.to(h.dtype)
         return logits.float() + params["mlm.output_bias"]
+
+    def mlm_logits(self, params: Mapping[str, torch.Tensor],
+                   sequence_output: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding MLM head -> [..., vocab] f32 logits (gathered
+        whole over a tensor line)."""
+        return tp_lib.gather_from_line(
+            self._mlm_local_logits(params, sequence_output), self.line)
 
     def pooled(self, params: Mapping[str, torch.Tensor],
                sequence_output: torch.Tensor) -> torch.Tensor:
         """[CLS] pooler -> [batch, hidden] (the classifier's input)."""
-        return torch.tanh(_dense(params, "pooler", sequence_output[:, 0]))
+        return self._column(params, "pooler", sequence_output[:, 0],
+                            torch.tanh)
 
     # -- losses -----------------------------------------------------------
     def mlm_loss_fn(self) -> Callable:
@@ -429,12 +486,14 @@ class Bert:
             else:
                 labels, w = labels[:, part], mask[:, part]
             # the masked mean's sums over this rank's positions, summed
-            # over seq_axis, over the global weight
-            logits = self.mlm_logits(params, seq)
-            nll = -torch.log_softmax(logits, -1).gather(
-                -1, labels[..., None])[..., 0]
-            with torch.no_grad():
-                hits = (logits.argmax(-1) == labels).float()
+            # over seq_axis, over the global weight; the logits stay cut
+            # over a tensor line
+            logits = self._mlm_local_logits(params, seq)
+            nll = tp_lib.vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                self.line).reshape(labels.shape)
+            hits = (tp_lib.vocab_parallel_argmax(logits.detach(), self.line)
+                    == labels).float()
             sums = torch.stack([(nll * w).sum(), (hits * w).sum()])
             if self.config.seq_axis is not None:
                 sums = ring_lib.sum_seq(sums, self.mesh,
@@ -449,5 +508,29 @@ class Bert:
         return loss_fn
 
     # -- sharding ---------------------------------------------------------
-    def partition_rules(self, fsdp: bool = False):
-        raise NotImplementedError(f"Bert.partition_rules: {_PARALLEL}")
+    def partition_rules(self, fsdp: bool = False
+                        ) -> sharding_lib.PartitionRules:
+        """The JAX package's Megatron table (``Bert.partition_rules``)
+        over the port's per-layer names (a layer leaf's spec without the
+        JAX tree's leading layer dim): heads and the FFN's hidden dim on
+        ``tensor``, the word embedding's vocabulary too; the MLM
+        transform and the pooler column-parallel, ``mlm.output_bias``
+        with the vocabulary; ``fsdp=True`` cuts each matrix's other large
+        dim over ``fsdp``.  No match replicates."""
+        f = "fsdp" if fsdp else None
+        layer = r"^encoder\.\d+\."
+        return sharding_lib.PartitionRules([
+            (r"^embeddings\.word$", ("tensor", f)),
+            (r"^embeddings\.(position|type)$", (None, None)),
+            (layer + r"attention\.(query|key|value)\.kernel$",
+             (f, "tensor", None)),
+            (layer + r"attention\.(query|key|value)\.bias$",
+             ("tensor", None)),
+            (layer + r"attention\.out\.kernel$", ("tensor", None, f)),
+            (layer + r"ffn\.w_in\.kernel$", (f, "tensor")),
+            (layer + r"ffn\.w_in\.bias$", ("tensor",)),
+            (layer + r"ffn\.w_out\.kernel$", ("tensor", f)),
+            (r"^mlm\.transform\.kernel$", (f, "tensor")),
+            (r"^pooler\.kernel$", (f, "tensor")),
+            (r"^mlm\.output_bias$", ("tensor",)),
+        ])

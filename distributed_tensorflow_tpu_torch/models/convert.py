@@ -66,14 +66,16 @@ import copy
 import json
 import os
 import types
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.layers import _flat, _nest
+from ..parallel import tensor_parallel
+from ..parallel.sharding import cut_blocks, shard_pytree
 from .bert import Bert, BertConfig
-from .gpt import GPT, GPTConfig
+from .gpt import GPT, GPTConfig, gpt_partition_rules
 from .seq2seq import Seq2Seq
 from .vit import ViT, ViTConfig
 
@@ -98,12 +100,20 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", np.asarray(val)
 
 
-def gpt_params_from_jax(tree: Dict[str, Any],
-                        config: GPTConfig) -> Dict[str, torch.Tensor]:
+def gpt_params_from_jax(tree: Dict[str, Any], config: GPTConfig,
+                        mesh=None, shard_kv: Optional[bool] = None
+                        ) -> Dict[str, torch.Tensor]:
     """The port's ``GPT`` state dict from a JAX GPT parameter tree whose
-    leaves are numpy arrays."""
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in _unstacked(tree, config.num_layers).items()}
+    leaves are numpy arrays.  ``mesh``: this rank's blocks of every leaf
+    under ``gpt_partition_rules(config, shard_kv=shard_kv)`` (``parallel.
+    shard_pytree``), the state dict of ``GPT(config, mesh=mesh,
+    shard_kv=shard_kv)``."""
+    sd = {k: torch.from_numpy(np.array(v, np.float32))
+          for k, v in _unstacked(tree, config.num_layers).items()}
+    if mesh is None:
+        return sd
+    return shard_pytree(sd, mesh, gpt_partition_rules(config,
+                                                      shard_kv=shard_kv))
 
 
 def _unstacked(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
@@ -233,9 +243,15 @@ def _layered_to_jax(params: Mapping[str, torch.Tensor],
 
 
 def bert_params_from_jax(tree: Mapping[str, Any], config,
-                         device="cpu") -> Dict[str, torch.Tensor]:
-    """A ``Bert``'s parameters from the JAX ``Bert.init`` tree."""
-    return _layered_from_jax(tree, Bert(config).stacks, device)
+                         device="cpu", mesh=None
+                         ) -> Dict[str, torch.Tensor]:
+    """A ``Bert``'s parameters from the JAX ``Bert.init`` tree; ``mesh``
+    with a ``tensor`` axis: this rank's blocks (marked), the parameters
+    of ``Bert(config, mesh=mesh)``."""
+    params = _layered_from_jax(tree, Bert(config).stacks, device)
+    if tensor_parallel.size(mesh) == 1:
+        return params
+    return cut_blocks(params, Bert(config, mesh).partition_rules(), mesh)
 
 
 def bert_params_to_jax(params: Mapping[str, torch.Tensor],
@@ -392,9 +408,13 @@ def train_state_from_jax(tree: Any, state: Any) -> Any:
 
 
 def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:
-    """Copy a JAX GPT parameter tree (numpy leaves) into ``model``."""
-    model.load_state_dict(gpt_params_from_jax(tree, model.config),
-                          strict=True)
+    """Copy a JAX GPT parameter tree (numpy leaves) into ``model`` (its
+    blocks of it under tensor parallelism)."""
+    mesh = tensor_parallel.active(model.mesh)
+    model.load_state_dict(gpt_params_from_jax(
+        tree, model.config, mesh=mesh,
+        shard_kv=model._kv_on_tensor() if mesh is not None else None),
+        strict=True)
     return model
 
 

@@ -56,6 +56,24 @@ torch (``ops/attention.py``), as the JAX package computes them outside
 any Pallas kernel; they read only the cache's first ``pos + s`` columns,
 which the JAX package masks instead.
 
+Tensor parallelism (``GPT(config, mesh=...)`` with a ``tensor`` axis of
+T > 1 ranks): the constructor draws the whole model from the generator,
+as at T = 1, then keeps this rank's blocks under ``partition_rules``
+(marked, ``parallel.sharding.mark_block``), so the model is the same one
+at every T and no rank holds a whole cut leaf.  ``apply``,
+``lm_loss_fn`` and the contiguous cache's paths compute on the blocks
+with the collectives of ``parallel/tensor_parallel.py``: the vocabulary-
+parallel embedding, Megatron's attention (a rank's query heads, its kv
+heads, the row-parallel output) and FFN (``ops/attention.py``), and a
+head whose logits stay cut over the vocabulary into the vocabulary-
+parallel cross entropy and argmax; ``logits()`` gathers them whole.
+Keys and values shard with the queries under plain MHA or ``shard_kv``;
+otherwise they replicate and each rank's query heads read their group's
+kv heads (``tensor_parallel.kv_heads``).  The cache holds the rank's kv
+heads.  The paged paths, LoRA adapters, the int8 cache, MoE and
+``seq_axis`` raise under T > 1 (ROADMAP Queue 1 item 7.2b; the paged
+engine takes no mesh in the JAX package either).
+
 Numerics: TF32 stays off.  This module never sets
 ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.backends.cudnn.allow_tf32``, so a float32 model computes in full
@@ -64,6 +82,7 @@ float32 on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
@@ -73,9 +92,10 @@ from torch import nn
 from ..ops import decoding as dec
 from ..ops import quant
 from ..ops.moe import apply_moe, init_moe
-from ..ops.attention import (NEG_INF, affine, apply_rope, attention_core,
-                             causal_mask, dot_product_attention, dropout,
-                             ffn_core, ffn_swiglu_core, padding_mask, project,
+from ..ops.attention import (NEG_INF, _row_parallel, apply_rope,
+                             attention_core, causal_mask,
+                             dot_product_attention, dropout, ffn_core,
+                             ffn_swiglu_core, padding_mask, project,
                              rope_tables)
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
@@ -83,8 +103,10 @@ from ..ops.kernels import paged_attention as paged_lib
 from ..parallel import ring as ring_lib
 from ..parallel import sharding as sharding_lib
 from ..parallel import ring_flash as ring_flash_lib
+from ..parallel import tensor_parallel as tp_lib
 
-__all__ = ["GPT", "GPTConfig", "gpt_small", "gpt_tiny", "resolve_device"]
+__all__ = ["GPT", "GPTConfig", "gpt_partition_rules", "gpt_small",
+           "gpt_tiny", "resolve_device"]
 
 
 def _row_write(layer: torch.Tensor, cols: torch.Tensor,
@@ -166,15 +188,19 @@ def _checkpointed(fn: Callable, generator: Optional[torch.Generator],
 
 
 def _chunk_stats(hidden: torch.Tensor, head: torch.Tensor,
-                 targets: torch.Tensor, mask: Optional[torch.Tensor]):
+                 targets: torch.Tensor, mask: Optional[torch.Tensor],
+                 mesh=None):
     """(nll sum, hit sum) of one chunk of tokens: ``hidden`` [t, d]
     against the head [vocab, d], f32 logits and log-softmax; hits (argmax
-    equal to the target) outside autograd; both weighted by ``mask``."""
+    equal to the target) outside autograd; both weighted by ``mask``.
+    ``mesh`` with a ``tensor`` axis: ``head`` is this rank's rows of the
+    vocabulary and the logits stay cut (the vocabulary-parallel cross
+    entropy and argmax)."""
+    hidden = tp_lib.copy_to_line(hidden, tp_lib.active(mesh))
     logits = (hidden @ head.T.to(hidden.dtype)).float()
-    nll = -torch.log_softmax(logits, dim=-1).gather(
-        -1, targets[:, None])[:, 0]
-    with torch.no_grad():
-        hits = (logits.argmax(-1) == targets).float()
+    nll = tp_lib.vocab_parallel_cross_entropy(logits, targets, mesh)
+    hits = (tp_lib.vocab_parallel_argmax(logits.detach(), mesh)
+            == targets).float()
     if mask is not None:
         nll, hits = nll * mask, hits * mask
     return nll.sum(), hits.sum()
@@ -406,15 +432,19 @@ class GPT(nn.Module):
     ``device="cpu"``.  Parameter names (``named_parameters``) are the JAX
     tree's paths with the decoder unstacked: ``blocks.<i>.<path>`` is
     layer i of the JAX leaf ``decoder.<path>`` (``models/convert.py``).
-    ``mesh`` (a ``parallel.Mesh`` naming ``config.seq_axis``) is needed
-    with ``seq_axis`` only: every rank of the axis builds the same
-    weights and ``apply`` / ``lm_loss_fn`` compute its shard of the
-    sequence.
+    ``mesh`` (a ``parallel.Mesh``): naming ``config.seq_axis``, every
+    rank of the axis builds the same weights and ``apply`` /
+    ``lm_loss_fn`` compute its shard of the sequence; with a ``tensor``
+    axis of more than one rank, the model keeps this rank's blocks and
+    computes tensor-parallel (module docstring).  ``shard_kv``: the kv
+    projections shard over ``tensor`` (True) or replicate (False); None
+    shards them under plain MHA only, as ``partition_rules``.
     """
 
     def __init__(self, config: GPTConfig, *,
                  device: Union[str, torch.device] = "cuda",
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 shard_kv: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         c = self.config = config
@@ -423,6 +453,22 @@ class GPT(nn.Module):
             raise ValueError(f"seq_axis={c.seq_axis!r} needs GPT(config, "
                              f"mesh=...) with that axis; got {mesh}")
         self.mesh = mesh
+        self.shard_kv = shard_kv
+        # the tensor line (None at T = 1) and, with replicated kv
+        # projections, the kv heads this rank's queries read
+        self._line = tp_lib.active(mesh)
+        self._kv_heads = None
+        if self._line is not None:
+            sharding_lib.check_mesh(mesh)
+            for what, on in (("seq_axis", c.seq_axis is not None),
+                             ("moe_experts", c.moe_experts > 0),
+                             ("kv_cache_dtype='int8'",
+                              c.kv_cache_dtype == "int8")):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} under a tensor axis of "
+                        f"{tp_lib.size(mesh)}: not ported (ROADMAP Queue 1 "
+                        f"item 7.2b)")
         self.word = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size,
                                              device=device))
         if c.position_embedding == "learned":
@@ -450,6 +496,35 @@ class GPT(nn.Module):
         if c.moe_experts:
             for blk in self.blocks:
                 blk.moe = _MoE(c, device, generator)
+        if self._line is not None:
+            self._keep_blocks()
+
+    def _keep_blocks(self) -> None:
+        """Replace every parameter the rules cut over ``tensor`` by this
+        rank's block of it (a new parameter, marked with its ``Shard``)."""
+        blocks = sharding_lib.cut_blocks(dict(self.named_parameters()),
+                                         self.partition_rules(), self._line)
+        for name, t in blocks.items():
+            shard = sharding_lib.marked_shard(t)
+            if shard is None:
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            setattr(module, leaf, sharding_lib.mark_block(
+                nn.Parameter(t.detach()), shard))
+        c = self.config
+        if not self._kv_on_tensor():
+            self._kv_heads = tp_lib.kv_heads(c.num_heads, c.kv_heads,
+                                             self._line)
+
+    def _kv_on_tensor(self, shard_kv: Optional[bool] = None) -> bool:
+        """Whether the kv projections shard over ``tensor``: ``shard_kv``,
+        else the constructor's, else plain MHA."""
+        c = self.config
+        for choice in (shard_kv, self.shard_kv):
+            if choice is not None:
+                return bool(choice)
+        return c.kv_heads == c.num_heads
 
     @property
     def device(self) -> torch.device:
@@ -491,18 +566,28 @@ class GPT(nn.Module):
                        + c.moe_z_weight * m["router_z_loss"])
         if c.ffn_activation == "swiglu":
             return ffn_swiglu_core(*dense("w_gate"), *dense("w_in"),
-                                   *dense("w_out"), h), 0.0
-        return ffn_core(*dense("w_in"), *dense("w_out"), h), 0.0
+                                   *dense("w_out"), h, mesh=self._line), 0.0
+        return ffn_core(*dense("w_in"), *dense("w_out"), h,
+                        mesh=self._line), 0.0
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """LM head (the word embedding, or ``lm_head`` when untied) ->
-        [..., vocab] f32 logits."""
+        [..., vocab] f32 logits; under tensor parallelism each rank's
+        vocabulary rows, gathered whole over the line."""
         head = self.word if self.lm_head is None else self.lm_head
-        return (hidden @ head.T.to(hidden.dtype)).float()
+        if self._line is None:
+            return (hidden @ head.T.to(hidden.dtype)).float()
+        hidden = tp_lib.copy_to_line(hidden, self._line)
+        return tp_lib.gather_from_line(
+            (hidden @ head.T.to(hidden.dtype)).float(), self._line)
 
     def _embed(self, token_ids: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-        x = self.word[token_ids.long()]
+        if self._line is None:
+            x = self.word[token_ids.long()]
+        else:
+            x = tp_lib.vocab_parallel_embed(token_ids.long(), self.word,
+                                            self._line)
         if self.position is not None:
             x = x + self.position[positions.long()]
         return x.to(self.config.dtype)
@@ -542,8 +627,9 @@ class GPT(nn.Module):
         a = blk.attention
         deltas = (None if lora is None
                   else self._lora_deltas(lora[0], lora[1], i, h.dtype))
-        q, k, v = (project(p.kernel, p.bias, h)
-                   for p in (a.query, a.key, a.value))
+        q = project(a.query.kernel, a.query.bias, h)
+        k, v = (project(*self._kv_weights(p.kernel, p.bias), h)
+                for p in (a.key, a.value))
         if deltas is not None:
             q, k, v = (y + deltas[name](h) for name, y
                        in (("query", q), ("key", k), ("value", v)))
@@ -568,13 +654,25 @@ class GPT(nn.Module):
                 write(name, val)
         attn = attention(q, k, v, kv, i)
         nh, hd, d = a.out.kernel.shape
-        attn_out = affine(a.out.kernel.reshape(nh * hd, d), a.out.bias,
-                          attn.reshape(*attn.shape[:2], nh * hd))
+        attn_out = _row_parallel(a.out.kernel.reshape(nh * hd, d),
+                                 a.out.bias,
+                                 attn.reshape(*attn.shape[:2], nh * hd),
+                                 self._line)
         if deltas is not None:
             attn_out = attn_out + deltas["out"](attn)
         x = x + attn_out
         ffn_out, _ = self._ffn(blk, x)         # aux unused at decode
         return x + ffn_out
+
+    def _kv_weights(self, kernel: torch.Tensor,
+                    bias: Optional[torch.Tensor]):
+        """(kernel, bias) of a key or value projection as this rank
+        computes it: its block, or the replicated projection's kv heads
+        that this rank's queries read."""
+        if self._kv_heads is None:
+            return kernel, bias
+        return (kernel[:, self._kv_heads],
+                None if bias is None else bias[self._kv_heads])
 
     # -- LoRA adapters ----------------------------------------------------
     # Per-request low-rank adapters for the serving engine: many fine-
@@ -667,6 +765,7 @@ class GPT(nn.Module):
         table and the rows as int64 indices on the model's device."""
         if adapters is None:
             return None
+        self._refuse_tp("LoRA adapters")
         if adapter_rows is None:
             raise ValueError("adapters need adapter_rows")
         return adapters, adapter_rows.to(self.device, torch.long)
@@ -764,7 +863,7 @@ class GPT(nn.Module):
         c = self.config
         P = dict(self.named_parameters()) if params is None else params
         length = ids.shape[1]
-        x = F.embedding(ids, P["word"])
+        x = tp_lib.vocab_parallel_embed(ids, P["word"], self._line)
         if self.position is not None:
             x = x + P["position"][offset:offset + length][None]
         x = dropout(x, c.dropout_rate, generator, train).to(c.dtype)
@@ -822,7 +921,8 @@ class GPT(nn.Module):
              for n in ("query", "key", "value", "out")},
             norm("ln_1", x), dropout_rate=c.dropout_rate,
             generator=generator, train=train, attention_fn=attention_fn,
-            qk_transform=qk_transform)
+            qk_transform=qk_transform, mesh=self._line,
+            kv_heads=self._kv_heads)
         x = x + dropout(attn, c.dropout_rate, generator, train)
         moe = None if not c.moe_experts else _moe_tree(
             lambda n: bp["moe." + n])
@@ -847,10 +947,11 @@ class GPT(nn.Module):
         t = h2.shape[0]
         chunk = min(self.config.loss_seq_chunk, t)
         nll_sum = hit_sum = None
+        stats = functools.partial(_chunk_stats, mesh=self._line)
         for lo in range(0, t, chunk):
             part = slice(lo, lo + chunk)
             nll, hits = _checkpointed(
-                _chunk_stats, None, None, h2[part], head, y2[part],
+                stats, None, None, h2[part], head, y2[part],
                 None if m2 is None else m2[part])
             nll_sum = nll if nll_sum is None else nll_sum + nll
             hit_sum = hits if hit_sum is None else hit_sum + hits
@@ -919,7 +1020,8 @@ class GPT(nn.Module):
                 nll, hits = _chunk_stats(
                     hidden.reshape(-1, hidden.shape[-1]), head,
                     local_t.reshape(-1),
-                    None if local_m is None else local_m.reshape(-1))
+                    None if local_m is None else local_m.reshape(-1),
+                    self._line)
             if c.seq_axis is not None:
                 nll, hits = ring_lib.sum_seq(torch.stack([nll, hits]),
                                              self.mesh, c.seq_axis)
@@ -964,6 +1066,7 @@ class GPT(nn.Module):
         decodes under table row ``adapter_rows[r]``'s LoRA adapter (row 0
         the zero adapter; None: no adapter work).  Returns (logits [b,
         vocab] f32, kv); the pool is updated in place."""
+        self._refuse_tp("the paged KV cache")
         x = self._embed(token_ids, positions)[:, None, :]
         page_size = kv["k"].shape[2]
         P = page_tab.shape[1]
@@ -1004,6 +1107,7 @@ class GPT(nn.Module):
         ``adapters``/``adapter_rows`` [1]: the request's LoRA adapter, as
         in ``decode_step_slots_paged``.  Returns (logits, kv); the pool
         is updated in place."""
+        self._refuse_tp("the paged KV cache")
         b, s = token_ids.shape
         if b != 1:
             raise ValueError(f"decode_window_paged is batch-1 (one page "
@@ -1049,7 +1153,11 @@ class GPT(nn.Module):
         c = self.config
         max_len = max_len or c.max_position
         dev = self.device
-        shape = (c.num_layers, batch_size, max_len, c.kv_heads, c.head_dim)
+        # the kv heads this rank computes (all of them at T = 1)
+        kvh = (self.blocks[0].attention.key.kernel.shape[1]
+               if self._kv_heads is None
+               else self._kv_heads.stop - self._kv_heads.start)
+        shape = (c.num_layers, batch_size, max_len, kvh, c.head_dim)
         if c.kv_cache_dtype == "int8":
             sshape = shape[:-1] + (1,)
             return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -1181,6 +1289,7 @@ class GPT(nn.Module):
         if head not in ("all", "last", "none") and not isinstance(head, int):
             raise ValueError(f"head must be all|last|none or a row index; "
                              f"got {head!r}")
+        lora = self._lora_arg(adapters, adapter_rows)
         pos = int(cache["pos"])
         ids = token_ids.to(self.device)
         s = ids.shape[1]
@@ -1197,7 +1306,6 @@ class GPT(nn.Module):
             return dot_product_attention(q, k_cache, v_cache, mask=mask)
 
         kv = self._cache_kv(cache)
-        lora = self._lora_arg(adapters, adapter_rows)
         for i, blk in enumerate(self.blocks):
             x = self._cache_layer(blk, x, kv, i, window_attn, rope_cs,
                                   write_pos=pos, lora=lora)
@@ -1489,44 +1597,59 @@ class GPT(nn.Module):
                                   write_pos=write_col, lora=lora)
         return self._head(x), kv
 
+    def _refuse_tp(self, what: str) -> None:
+        if self._line is not None:
+            raise NotImplementedError(
+                f"{what} under a tensor axis of {tp_lib.size(self._line)}: "
+                f"not ported (ROADMAP Queue 1 item 7.2b)")
+
     # -- sharding ---------------------------------------------------------
     def partition_rules(self, fsdp: bool = False,
                         shard_kv: Optional[bool] = None
                         ) -> sharding_lib.PartitionRules:
-        """The JAX package's Megatron table (``GPT.partition_rules``) over
-        the port's per-layer names: a decoder leaf's spec loses the JAX
-        tree's leading layer dim (``decoder/attention/query/kernel``
-        ``P(None, f, "tensor", None)`` is ``(f, "tensor", None)`` on
-        ``blocks.<i>.attention.query.kernel`` [d, h, hd]).  ``fsdp=True``
-        cuts the remaining large dim of each matrix over ``fsdp`` (the
-        word embedding's dim 1, the attention output's last, ``w_out``'s
-        dim 1); keys and values shard over ``tensor`` only under plain
-        MHA unless ``shard_kv`` says otherwise.  A MoE config raises, as
-        ``ops.moe_partition_rules`` does (ROADMAP Queue 1 item 7.2)."""
-        c = self.config
-        if c.moe_experts:
-            raise NotImplementedError(
-                "partition_rules of a MoE config: the expert rules come "
-                "with tensor parallelism (ROADMAP Queue 1 item 7.2)")
-        f = "fsdp" if fsdp else None
-        kv_on_tensor = (shard_kv if shard_kv is not None
-                        else c.kv_heads == c.num_heads)
-        kv_spec = (f, "tensor", None) if kv_on_tensor else (f, None, None)
-        kv_bias = ("tensor", None) if kv_on_tensor else (None, None)
-        blk = r"^blocks\.\d+\."
-        return sharding_lib.PartitionRules([
-            (r"^word$", ("tensor", f)),
-            (r"^lm_head$", ("tensor", f)),      # untied head: same split
-            (r"^position$", (None, None)),
-            (blk + r"attention\.query\.kernel$", (f, "tensor", None)),
-            (blk + r"attention\.query\.bias$", ("tensor", None)),
-            (blk + r"attention\.(key|value)\.kernel$", kv_spec),
-            (blk + r"attention\.(key|value)\.bias$", kv_bias),
-            (blk + r"attention\.out\.kernel$", ("tensor", None, f)),
-            (blk + r"ffn\.w_(in|gate)\.kernel$", (f, "tensor")),
-            (blk + r"ffn\.w_(in|gate)\.bias$", ("tensor",)),
-            (blk + r"ffn\.w_out\.kernel$", ("tensor", f)),
-            (blk + r"ffn\.w_out\.bias$", (None,)),
-            (blk + r"attention\.out\.bias$", (None,)),
-            (blk + r"ln_[12]\.(gamma|beta)$", (None,)),
-        ])
+        """``gpt_partition_rules`` of this model's config; ``shard_kv``
+        defaults to the constructor's."""
+        return gpt_partition_rules(self.config, fsdp,
+                                   self._kv_on_tensor(shard_kv))
+
+
+def gpt_partition_rules(config: GPTConfig, fsdp: bool = False,
+                        shard_kv: Optional[bool] = None
+                        ) -> sharding_lib.PartitionRules:
+    """The JAX package's Megatron table (``GPT.partition_rules``) over the
+    port's per-layer names: a decoder leaf's spec loses the JAX tree's
+    leading layer dim (``decoder/attention/query/kernel`` ``P(None, f,
+    "tensor", None)`` is ``(f, "tensor", None)`` on
+    ``blocks.<i>.attention.query.kernel`` [d, h, hd]).  ``fsdp=True`` cuts
+    the remaining large dim of each matrix over ``fsdp`` (the word
+    embedding's dim 1, the attention output's last, ``w_out``'s dim 1);
+    keys and values shard over ``tensor`` only under plain MHA unless
+    ``shard_kv`` says otherwise.  A MoE config raises (ROADMAP Queue 1
+    item 7.2b: the expert axis)."""
+    c = config
+    if c.moe_experts:
+        raise NotImplementedError(
+            "partition_rules of a MoE config: the expert rules are not "
+            "ported (ROADMAP Queue 1 item 7.2b)")
+    f = "fsdp" if fsdp else None
+    kv_on_tensor = (shard_kv if shard_kv is not None
+                    else c.kv_heads == c.num_heads)
+    kv_spec = (f, "tensor", None) if kv_on_tensor else (f, None, None)
+    kv_bias = ("tensor", None) if kv_on_tensor else (None, None)
+    blk = r"^blocks\.\d+\."
+    return sharding_lib.PartitionRules([
+        (r"^word$", ("tensor", f)),
+        (r"^lm_head$", ("tensor", f)),      # untied head: same split
+        (r"^position$", (None, None)),
+        (blk + r"attention\.query\.kernel$", (f, "tensor", None)),
+        (blk + r"attention\.query\.bias$", ("tensor", None)),
+        (blk + r"attention\.(key|value)\.kernel$", kv_spec),
+        (blk + r"attention\.(key|value)\.bias$", kv_bias),
+        (blk + r"attention\.out\.kernel$", ("tensor", None, f)),
+        (blk + r"ffn\.w_(in|gate)\.kernel$", (f, "tensor")),
+        (blk + r"ffn\.w_(in|gate)\.bias$", ("tensor",)),
+        (blk + r"ffn\.w_out\.kernel$", ("tensor", f)),
+        (blk + r"ffn\.w_out\.bias$", (None,)),
+        (blk + r"attention\.out\.bias$", (None,)),
+        (blk + r"ln_[12]\.(gamma|beta)$", (None,)),
+    ])

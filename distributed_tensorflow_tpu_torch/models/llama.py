@@ -42,12 +42,14 @@ def llama_config(**kw) -> GPTConfig:
 
 def llama(device: Union[str, torch.device] = "cuda",
           generator: Optional[torch.Generator] = None, mesh=None,
-          **kw) -> GPT:
+          shard_kv: Optional[bool] = None, **kw) -> GPT:
     """``GPT(llama_config(**kw))`` on ``device`` (the card unless the
     caller asks for the CPU), weights from ``generator``; ``mesh`` for a
-    ``seq_axis`` config, as the JAX package's ``llama(mesh=...)``."""
+    ``seq_axis`` config, as the JAX package's ``llama(mesh=...)``, or
+    with a ``tensor`` axis for tensor parallelism, where ``shard_kv``
+    shards the kv heads too (by default they replicate under GQA)."""
     return GPT(llama_config(**kw), device=device, generator=generator,
-               mesh=mesh)
+               mesh=mesh, shard_kv=shard_kv)
 
 
 def llama_tiny(**kw) -> GPTConfig:

@@ -17,6 +17,16 @@ package's: q/k/v ``[batch, seq, heads, head_dim]``, projection kernels
 Logits and softmax are computed in float32 whatever the input type, and
 the weights are cast back to q's type before the PV product, as in the
 JAX package.
+
+Tensor parallelism (``mesh=`` with a ``tensor`` axis of T > 1 ranks; the
+parameters are this rank's blocks, ``parallel/tensor_parallel.py``):
+``attention_core`` is Megatron's attention, column-parallel q/k/v (a
+rank's ``h/T`` heads, ``[d, h/T, hd]`` kernels) into the inner kernel on
+the local heads, then the row-parallel output (``[h/T, hd, d]``) summed
+over the line, its bias added once after the sum; ``ffn_core`` and
+``ffn_swiglu_core`` are the column-parallel ``w_in`` (and ``w_gate``)
+into the row-parallel ``w_out``.  On a line of one they are the plain
+bodies.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Callable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tensor_parallel as tp_lib
 from . import initializers as init_lib
 from .layers import Layer
 
@@ -133,7 +144,9 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
                    train: bool = False,
                    attention_fn=dot_product_attention,
                    kv: Optional[torch.Tensor] = None,
-                   qk_transform: Optional[Callable] = None) -> torch.Tensor:
+                   qk_transform: Optional[Callable] = None,
+                   mesh=None, kv_heads: Optional[slice] = None
+                   ) -> torch.Tensor:
     """The shared multi-head attention body.
 
     ``params``: {query, key, value: {kernel [d, h, hd], bias [h, hd]},
@@ -146,13 +159,38 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
     ``qk_transform(q, k) -> (q, k)`` runs after the projections (RoPE).
     Grouped
     kv heads are broadcast only for a kernel that does not take them
-    (``supports_gqa``).  Dropout, in train mode, drops the context."""
-    def proj(name, src):
-        p = params[name]
+    (``supports_gqa``).  Dropout, in train mode, drops the context.
+
+    ``mesh`` with a ``tensor`` axis of T > 1 (module docstring): ``params``
+    hold this rank's blocks.  ``kv_heads``: None when the key and value
+    kernels are this rank's blocks too; else they replicate and this
+    rank's queries read those kv heads (``tensor_parallel.kv_heads``),
+    whose gradients the line sums.  The context's dropout mask is drawn
+    at the whole heads' shape (``tensor_parallel.dropout_block``)."""
+    line = tp_lib.active(mesh)
+    kvp = {n: dict(params[n]) for n in ("key", "value")}
+    if line is not None:
+        if kv is not None:
+            raise NotImplementedError("cross-attention under tensor "
+                                      "parallelism (ROADMAP Queue 1 item "
+                                      "7.2b: seq2seq)")
+        reps = [] if kv_heads is None else [
+            (n, w) for n in ("key", "value") for w in ("kernel", "bias")
+            if kvp[n].get(w) is not None]
+        if reps:
+            x, *ws = tp_lib.copy_to_line(x, line,
+                                         *[kvp[n][w] for n, w in reps])
+            for (n, w), t in zip(reps, ws):
+                kvp[n][w] = t[:, kv_heads] if w == "kernel" else t[kv_heads]
+        else:
+            x = tp_lib.copy_to_line(x, line)
+
+    def proj(p, src):
         return project(p["kernel"], p.get("bias"), src)
 
     memory = x if kv is None else kv.to(x.dtype)
-    q, k, v = proj("query", x), proj("key", memory), proj("value", memory)
+    q = proj(params["query"], x)
+    k, v = proj(kvp["key"], memory), proj(kvp["value"], memory)
     if qk_transform is not None:
         q, k = qk_transform(q, k)
     if (k.shape[2] != q.shape[2]
@@ -165,11 +203,27 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     ctx = attention_fn(q, k, v, mask=mask)
-    ctx = dropout(ctx, dropout_rate, generator, train)
+    if line is not None and train and dropout_rate > 0.0:
+        nh = ctx.shape[2]
+        ctx = tp_lib.dropout_block(ctx, dropout_rate, generator, 2,
+                                   tp_lib.index(line) * nh,
+                                   nh * tp_lib.size(line))
+    else:
+        ctx = dropout(ctx, dropout_rate, generator, train)
     out = params["out"]
     nh, hd, d = out["kernel"].shape
-    return affine(out["kernel"].reshape(nh * hd, d), out.get("bias"),
-                  ctx.reshape(*ctx.shape[:-2], nh * hd))
+    return _row_parallel(out["kernel"].reshape(nh * hd, d), out.get("bias"),
+                         ctx.reshape(*ctx.shape[:-2], nh * hd), line)
+
+
+def _row_parallel(kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                  x: torch.Tensor, line) -> torch.Tensor:
+    """``affine``, or over a tensor line the partial products summed and
+    the (replicated) bias added once after the sum."""
+    if line is None:
+        return affine(kernel, bias, x)
+    y = tp_lib.reduce_from_line(x @ kernel.to(x.dtype), line)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def affine(kernel: torch.Tensor, bias: Optional[torch.Tensor],
@@ -183,20 +237,28 @@ def affine(kernel: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 def ffn_core(w_in, b_in, w_out, b_out, x: torch.Tensor,
-             activation: Callable = _gelu_tanh) -> torch.Tensor:
+             activation: Callable = _gelu_tanh, mesh=None) -> torch.Tensor:
     """w_in -> activation -> w_out.  ``jax.nn.gelu`` defaults to the tanh
-    approximation, so the default is ``F.gelu(approximate="tanh")``."""
+    approximation, so the default is ``F.gelu(approximate="tanh")``.
+    ``mesh`` with a ``tensor`` axis: the column-parallel ``w_in`` block
+    into the row-parallel ``w_out`` block (module docstring)."""
+    line = tp_lib.active(mesh)
+    if line is not None:
+        x = tp_lib.copy_to_line(x, line)
     h = activation(affine(w_in, b_in, x))
-    return affine(w_out, b_out, h)
+    return _row_parallel(w_out, b_out, h, line)
 
 
 def ffn_swiglu_core(w_gate, b_gate, w_in, b_in, w_out, b_out,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Gated FFN (Llama): ``w_out(silu(w_gate(x)) * w_in(x))``; ``w_in``
     is HF's up_proj, ``w_gate`` gate_proj, ``w_out`` down_proj.  Biases
-    may be None."""
+    may be None.  ``mesh`` as in ``ffn_core``."""
+    line = tp_lib.active(mesh)
+    if line is not None:
+        x = tp_lib.copy_to_line(x, line)
     h = F.silu(affine(w_gate, b_gate, x)) * affine(w_in, b_in, x)
-    return affine(w_out, b_out, h)
+    return _row_parallel(w_out, b_out, h, line)
 
 
 @functools.lru_cache(maxsize=None)

@@ -123,9 +123,10 @@ def with_ema(optimizer: Optimizer, decay: float = 0.999,
 
 def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
     """The averaged parameters of a ``with_ema`` optimizer's state.  A
-    shadow cut by ``train.shard_train_state`` is gathered over its
-    ``fsdp`` line into whole tensors (one all-gather; every rank of the
-    line must call), for eval and ``generate``."""
+    shadow cut by ``train.shard_train_state`` over ``fsdp`` is gathered
+    over its line into whole tensors (one all-gather; every rank of the
+    line must call), for eval and ``generate``; one cut over ``tensor``
+    stays the blocks, which a tensor-parallel model reads."""
     try:
         state = opt_state.inner["ema"]
     except (TypeError, KeyError):
@@ -133,6 +134,6 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
                          "optimizer with optim.with_ema)") from None
     value = _value(state)
     shadow = state.shadow
-    if isinstance(shadow, ShardedDict) and shadow.cut:
+    if isinstance(shadow, ShardedDict) and shadow.line == "fsdp":
         return dp_lib.gather_shards(value, shadow.layout, shadow.mesh)
     return value

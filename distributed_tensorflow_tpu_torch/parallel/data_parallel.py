@@ -13,7 +13,13 @@ global batch's mean.
 In the port the JAX package's two spellings, ``make_train_step(mesh=
 ...)`` and ``make_psum_train_step``, are one path, the first:
 ``train/step.py`` calls ``all_reduce_mean`` when its mesh has a process
-group.
+group, and ``make_psum_train_step`` is a name for it.
+
+The ranks that average are the replicas: on a mesh with a ``tensor`` axis
+of more than one rank, the ranks of this rank's ``data`` line (those that
+share its ``tensor`` coordinate and so hold the same blocks), never the
+whole mesh, whose sum would add blocks of different ranks; a data line
+of one issues no all-reduce (``replicas``).
 
 Weighted losses: a loss function that reports ``metrics["loss_weight"]``
 (a masked mean's normaliser, such as the token or mask count) is a
@@ -52,7 +58,9 @@ squares and counts over the ``fsdp`` line (``line_sum``, one all-reduce
 of two numbers) and count each uncut leaf once.
 
 ``LAUNCHES`` counts the collectives issued by kind: ``all_reduce``,
-``all_gather``, ``reduce_scatter`` and ``stats_all_reduce``.
+``all_gather``, ``reduce_scatter`` and ``stats_all_reduce``, and those of
+``parallel/tensor_parallel.py`` as ``tp_all_reduce`` and
+``tp_all_gather``.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["LAUNCHES", "all_reduce_mean", "gather_shards", "line_sum",
-           "reduce_scatter_mean"]
+           "make_psum_train_step", "reduce_scatter_mean", "replicas"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -81,16 +89,33 @@ def _unflat(flat: torch.Tensor, like: List[torch.Tensor]
     return out
 
 
+def replicas(mesh) -> Tuple[object, int]:
+    """(the process group the gradients average over, its rank count):
+    the whole mesh's group, or under a ``tensor`` axis of more than one
+    rank this rank's ``data`` line (None for a line of one)."""
+    if mesh.axis_size("tensor") > 1:
+        return mesh.axis_group("data"), mesh.axis_size("data")
+    return mesh.group, mesh.size
+
+
 def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
                     metrics: Mapping[str, torch.Tensor], mesh,
                     weight: Optional[torch.Tensor] = None
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                Dict[str, torch.Tensor]]:
-    """(grads, loss, metrics), each the global batch's mean over the ranks
-    of ``mesh.group``, with one all-reduce of a flat f32 bucket; every
-    tensor comes back in its own shape and dtype.  ``weight``: this
-    rank's loss weight (module docstring), None for a plain mean; with
-    it, ``metrics["loss_weight"]`` comes back as the global weight."""
+    """(grads, loss, metrics), each the global batch's mean over the
+    replicas of ``mesh`` (``replicas``), with one all-reduce of a flat f32
+    bucket; every tensor comes back in its own shape and dtype.
+    ``weight``: this rank's loss weight (module docstring), None for a
+    plain mean; with it, ``metrics["loss_weight"]`` comes back as the
+    global weight.  A tensor-parallel mesh's data line of one issues
+    nothing and changes nothing."""
+    group, n = replicas(mesh)
+    if group is None:
+        metrics = dict(metrics)
+        if weight is not None:
+            metrics["loss_weight"] = weight
+        return dict(grads), loss, metrics
     names = list(grads)
     keys = list(metrics)
     parts = ([grads[n] for n in names] + [loss]
@@ -99,10 +124,10 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
     if weight is not None:
         w = weight.reshape(1).float()
         flat = torch.cat([flat * w, w])
-    dist.all_reduce(flat, group=mesh.group)
+    dist.all_reduce(flat, group=group)
     LAUNCHES["all_reduce"] += 1
     if weight is None:
-        total = flat.new_full((1,), float(mesh.size))
+        total = flat.new_full((1,), float(n))
     else:
         total, flat = torch.clamp(flat[-1:], min=1e-9), flat[:-1]
     out = _unflat(flat / total, parts)
@@ -110,6 +135,23 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
     if weight is not None:
         metrics["loss_weight"] = total.reshape(())
     return dict(zip(names, out[:len(names)])), out[len(names)], metrics
+
+
+def make_psum_train_step(model, loss, optimizer, mesh, axis: str = "data",
+                         metric_fns=None, seed: int = 0,
+                         per_replica_rng: bool = True):
+    """The JAX package's explicit data-parallel step: in the port a name
+    for ``train.make_train_step(model, loss, optimizer, metric_fns=,
+    seed=, mesh=)``, whose one all-reduce is the ``lax.pmean`` of that
+    spelling.  ``axis`` must be ``"data"`` and ``per_replica_rng`` True
+    (every rank folds its replica into the dropout generator)."""
+    if axis != "data" or not per_replica_rng:
+        raise ValueError("make_psum_train_step averages over the 'data' "
+                         "axis with a dropout generator per replica; got "
+                         f"axis={axis!r}, per_replica_rng={per_replica_rng}")
+    from ..train.step import make_train_step
+    return make_train_step(model, loss, optimizer, metric_fns=metric_fns,
+                           seed=seed, mesh=mesh)
 
 
 @torch.no_grad()

@@ -15,9 +15,11 @@ same order, as ``torch.distributed.new_group`` requires.  A collective
 "over an axis" runs on this rank's line (``axis_group``).  A mesh of one
 process without a process group has every axis of size 1 and no group.
 
-``shard_pytree`` and the partition rules are ``parallel/sharding.py``'s;
-``named_sharding`` and ``replicated`` (JAX sharding objects) wait for
-the tensor-parallel port.
+``shard_pytree`` and the partition rules are ``parallel/sharding.py``'s.
+``named_sharding``, ``replicated`` and ``logical_to_mesh`` return a
+``Placement``: a spec holder (the mesh and the spec pruned to it) that
+cuts a tensor into this rank's block, not a JAX sharding object (there
+is no partitioner here to hand one to).
 """
 from __future__ import annotations
 
@@ -25,11 +27,15 @@ import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
-__all__ = ["AXIS_ORDER", "Mesh", "MeshConfig", "make_mesh", "plan_mesh",
-           "data_parallel_mesh", "data_shards", "round_batch_to_mesh",
-           "local_batch_size"]
+from . import sharding as sharding_lib
+
+__all__ = ["AXIS_ORDER", "Mesh", "MeshConfig", "Placement", "make_mesh",
+           "plan_mesh", "data_parallel_mesh", "data_shards",
+           "logical_to_mesh", "named_sharding", "replicated",
+           "round_batch_to_mesh", "local_batch_size"]
 
 # Fixed major-to-minor order, the JAX package's: pipe outermost, then the
 # data-like axes, tensor innermost.
@@ -162,6 +168,50 @@ def data_parallel_mesh() -> Mesh:
     if not dist.is_initialized():
         return Mesh()
     return Mesh(dist.get_world_size(), dist.get_rank(), dist.group.WORLD)
+
+
+class Placement:
+    """A spec holder: ``mesh`` and ``spec`` pruned to its axes, the port's
+    stand-in for a ``NamedSharding`` (no partitioner places anything).
+    ``block(t)`` is this rank's block of a whole tensor ``t`` (``t``
+    itself when the spec keeps it whole), cut as ``parallel.sharding.
+    block_of`` says."""
+
+    def __init__(self, mesh: Mesh, spec=()):
+        self.mesh = mesh
+        self.spec = sharding_lib.prune_spec(tuple(spec), mesh)
+
+    def block_of(self, shape):
+        """(start, length) of this rank's block along each dim."""
+        return sharding_lib.block_of(tuple(shape), self.spec, self.mesh)
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        return sharding_lib._cut(t, self.block_of(t.shape))
+
+    def __eq__(self, other):
+        return (isinstance(other, Placement) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __repr__(self):
+        return f"Placement({self.mesh}, spec={self.spec})"
+
+
+def named_sharding(mesh: Mesh, *spec) -> Placement:
+    """Shorthand: ``named_sharding(mesh, "tensor", None)``."""
+    return Placement(mesh, spec)
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """Every rank holds the whole tensor."""
+    return Placement(mesh, ())
+
+
+def logical_to_mesh(specs, mesh: Mesh):
+    """A tree of specs (dicts of tuples) -> the same tree of
+    ``Placement`` on ``mesh``."""
+    if isinstance(specs, Mapping):
+        return {k: logical_to_mesh(v, mesh) for k, v in specs.items()}
+    return Placement(mesh, specs)
 
 
 def data_shards(mesh: Mesh, axes: Sequence[str] = ("data", "fsdp")) -> int:

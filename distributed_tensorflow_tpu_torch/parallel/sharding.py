@@ -16,21 +16,24 @@ on the devices.  Here every rank holds its own block of each leaf:
 the device at this rank's place in the mesh.  A dim that its axes do not
 divide raises ``ValueError``, as the JAX package's ``device_put`` does.
 
-Only ``data`` and ``fsdp`` may be larger than 1 here.  A ``tensor`` or
-``expert`` axis of more than one rank raises ``NotImplementedError``
-(ROADMAP Queue 1 item 7.2: tensor parallelism needs the column- and
-row-parallel collectives inside each model), as does a ``pipe`` axis
-(item 7.3, the pipeline) and a ``seq`` axis beside a cut (item 7.5).
-``named_sharding``, ``replicated`` and ``logical_to_mesh`` return JAX
-sharding objects, which have no torch counterpart: they come with item
-7.2.
+The axes a leaf may be cut over are ``data``, ``fsdp`` and ``tensor``.
+An ``expert`` axis of more than one rank raises ``NotImplementedError``
+(ROADMAP Queue 1 item 7.2b: the MoE's expert axis), as do a ``pipe``
+axis (item 7.3, the pipeline), a ``seq`` axis beside ``fsdp`` (item 7.5)
+and ``tensor`` beside ``fsdp`` or ``seq`` (item 7.2b).  ``parallel/
+mesh.py`` holds ``named_sharding``, ``replicated`` and ``logical_to_mesh``.
 
-The ZeRO layout (``train.shard_train_state``): a leaf cut along one dim
-over the ``fsdp`` line (``Shard``: the dim, this rank's start and length,
-the dim's full size, the line) or kept whole (None).  A ``ShardedDict``
-is a params-shaped dict of this rank's blocks with that layout beside it
-(``layout``, ``mesh``, and for the parameters themselves ``full``: the
-model's own tensors, which the train step gathers the blocks into).
+The layouts of ``train.shard_train_state``: a leaf cut along one dim over
+one line (``Shard``: the dim, this rank's start and length, the dim's
+full size, the line: ``fsdp`` for ZeRO, ``tensor`` for tensor
+parallelism) or kept whole (None).  A ``ShardedDict`` is a params-shaped
+dict of this rank's blocks with that layout beside it (``layout``,
+``mesh``, and for the parameters themselves ``full``: under ZeRO the
+model's own whole tensors, which the train step gathers the blocks
+into; under tensor parallelism the blocks themselves, which the model
+computes on).  A tensor-parallel model keeps its blocks as its
+parameters, each marked with its ``Shard`` (``mark_block``), so the
+placement knows a block from a whole leaf.
 """
 from __future__ import annotations
 
@@ -41,17 +44,19 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, \
 import torch
 
 __all__ = ["PartitionRules", "Shard", "ShardedDict", "block_of",
-           "check_zero_mesh", "prune_spec", "shard_pytree",
-           "tree_paths", "zero_shard"]
+           "check_mesh", "cut_blocks", "mark_block", "marked_shard",
+           "prune_spec", "shard_pytree", "tree_paths", "zero_shard"]
 
 Spec = Tuple[Any, ...]
 Rules = Sequence[Tuple[str, Spec]]
 
 # the ROADMAP item that ports each axis the port cannot cut over yet
-_UNPORTED = {"tensor": "7.2 (tensor parallelism)",
-             "expert": "7.2 (tensor parallelism)",
+_UNPORTED = {"expert": "7.2b (the MoE's expert axis)",
              "pipe": "7.3 (the pipeline)",
              "seq": "7.5 (ZeRO beside a seq axis)"}
+# axes that may not be larger than 1 beside a tensor axis of more than 1
+_BESIDE_TENSOR = {"fsdp": "7.2b (tensor beside fsdp: two cut dims)",
+                  "seq": "7.2b (tensor beside seq)"}
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -117,20 +122,28 @@ class PartitionRules:
 
 
 def _refuse(mesh, axes, what: str) -> None:
-    """Raise for an axis of ``axes`` larger than 1 on ``mesh`` that the
-    port cannot cut over yet."""
+    """Raise for a ``tensor`` axis (named in ``axes``) beside ``fsdp`` or
+    ``seq``, and for an axis of ``axes`` larger than 1 on ``mesh`` that
+    the port cannot cut over yet."""
+    if "tensor" in axes and mesh.axis_size("tensor") > 1:
+        for a, item in _BESIDE_TENSOR.items():
+            if mesh.axis_size(a) > 1:
+                raise NotImplementedError(
+                    f"{what}: a 'tensor' axis of {mesh.axis_size('tensor')}"
+                    f" ranks beside a {a!r} axis of {mesh.axis_size(a)}: "
+                    f"not ported (ROADMAP Queue 1 item {item})")
     for a in axes:
         if a in _UNPORTED and mesh.axis_size(a) > 1:
             raise NotImplementedError(
                 f"{what} with a {a!r} axis of {mesh.axis_size(a)} ranks: "
-                f"only 'data' and 'fsdp' are ported (ROADMAP Queue 1 item "
-                f"{_UNPORTED[a]})")
+                f"not ported (ROADMAP Queue 1 item {_UNPORTED[a]})")
 
 
-def check_zero_mesh(mesh) -> None:
-    """Raise unless every axis of ``mesh`` larger than 1 is ``data`` or
-    ``fsdp``, the axes a ZeRO layout runs over."""
-    _refuse(mesh, mesh.shape, "a ZeRO layout")
+def check_mesh(mesh) -> None:
+    """Raise unless every axis of ``mesh`` larger than 1 is ``data``,
+    ``fsdp`` or ``tensor``, and ``tensor`` is not beside ``fsdp``: the
+    layouts ``train.shard_train_state`` places."""
+    _refuse(mesh, mesh.shape, "a sharded layout")
 
 
 def block_of(shape: Sequence[int], spec: Spec, mesh
@@ -209,30 +222,66 @@ class Shard(NamedTuple):
 
 
 def zero_shard(shape: Sequence[int], spec: Spec, mesh) -> Optional[Shard]:
-    """The ZeRO layout of a leaf: None when ``spec`` keeps it whole on
-    ``mesh``, else its ``Shard``.  Raises ``NotImplementedError`` for a
-    cut the ZeRO step cannot gather (over ``data``, or along two dims)."""
+    """The layout of a leaf: None when ``spec`` keeps it whole on ``mesh``,
+    else its ``Shard`` over the one axis that cuts it (``fsdp``: a ZeRO
+    block; ``tensor``: a tensor-parallel block).  Raises
+    ``NotImplementedError`` for a cut the step cannot run (over ``data``,
+    along two dims, or over two axes)."""
     block = block_of(shape, spec, mesh)
     cut = [d for d, ((_, n), size) in enumerate(zip(block, shape))
            if n != size]
     if not cut:
         return None
     spec = prune_spec(spec, mesh)
-    if len(cut) > 1 or _names(spec[cut[0]]) != ("fsdp",):
+    names = [a for a in _names(spec[cut[0]]) if mesh.axis_size(a) > 1]
+    if len(cut) > 1 or names not in (["fsdp"], ["tensor"]):
+        how = ("along two dims" if len(cut) > 1
+               else "over " + ", ".join(names))
         raise NotImplementedError(
-            f"spec {spec} cuts a leaf of shape {tuple(shape)} "
-            f"{'along two dims' if len(cut) > 1 else 'over data'}: the "
-            f"ZeRO step gathers along one dim over the 'fsdp' line only")
+            f"spec {spec} cuts a leaf of shape {tuple(shape)} {how}: a "
+            f"step cuts along one dim over the 'fsdp' or the 'tensor' line "
+            f"only (ROADMAP Queue 1 item 7.2b)")
     d = cut[0]
     start, length = block[d]
-    return Shard(d, start, length, int(shape[d]))
+    return Shard(d, start, length, int(shape[d]), names[0])
+
+
+def mark_block(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """Mark ``t`` as this rank's block ``shard`` of a whole leaf (a
+    tensor-parallel model's parameter); returns ``t``."""
+    t.block_shard = shard
+    return t
+
+
+def marked_shard(t: torch.Tensor) -> Optional[Shard]:
+    """The ``Shard`` ``mark_block`` gave ``t``, or None for a whole leaf."""
+    return getattr(t, "block_shard", None)
+
+
+def cut_blocks(params: Mapping[str, torch.Tensor], rules: "PartitionRules",
+               mesh) -> Dict[str, torch.Tensor]:
+    """{name: this rank's block} of whole ``params`` over ``mesh``'s
+    ``tensor`` axis: each cut leaf a contiguous copy marked with its
+    ``Shard`` (``requires_grad`` as its leaf), each uncut one the leaf
+    itself.  A dim T does not divide raises ``ValueError``."""
+    check_mesh(mesh)
+    out = {}
+    for name, p in params.items():
+        s = zero_shard(tuple(p.shape), rules.spec_for(name), mesh)
+        if s is None:
+            out[name] = p
+            continue
+        block = s.take(p).requires_grad_(p.requires_grad)
+        out[name] = mark_block(block, s)
+    return out
 
 
 class ShardedDict(dict):
     """A params-shaped dict of this rank's blocks (see the module
     docstring): ``layout`` {name: ``Shard`` or None}, ``mesh``, and
-    ``full`` (the parameters' own tensors) for the parameters, None for
-    a shard of optimizer state."""
+    ``full`` for the parameters (under ZeRO the whole tensors, under
+    tensor parallelism the blocks themselves), None for a shard of
+    optimizer state."""
 
     def __init__(self, items, layout: Mapping[str, Optional[Shard]],
                  mesh, full: Optional[Mapping[str, torch.Tensor]] = None):
@@ -243,6 +292,12 @@ class ShardedDict(dict):
 
     @property
     def cut(self) -> bool:
-        """Whether any leaf is cut (never on a line of one rank)."""
+        """Whether any leaf is cut (never on lines of one rank)."""
         return any(s is not None for s in self.layout.values())
 
+    @property
+    def line(self) -> Optional[str]:
+        """The axis the cut leaves are cut over (``fsdp`` or ``tensor``;
+        never both), None when nothing is cut."""
+        lines = {s.line for s in self.layout.values() if s is not None}
+        return lines.pop() if lines else None

@@ -41,8 +41,8 @@ over the line (``GPT.lm_loss_fn``, ``Bert.mlm_loss_fn`` with
 ``seq_axis``), or on the gathered output of ``apply``, so each rank
 holds the line's loss.  The ops that cross the line scale the gradients
 so that the same single all-reduce's mean is the global batch's
-(``parallel/ring.py`` says how).  Tensor, pipeline and expert axes of
-more than one rank raise.
+(``parallel/ring.py`` says how).  Pipeline and expert axes of more than
+one rank raise.
 
 ZeRO over ``fsdp`` (``shard_train_state``, the JAX package's
 placement): each rank keeps its block of every leaf the partition rules
@@ -69,14 +69,33 @@ plain one.  An optimizer that reduces over each tensor (``lamb``,
 ``adafactor``: ``Optimizer.elementwise`` False) raises over a cut
 layout.
 
+Tensor parallelism (a mesh with ``data`` x ``tensor`` axes and a state
+placed by ``shard_train_state`` from a model built on that mesh, whose
+parameters are its blocks): the model issues the line's collectives
+itself (``parallel/tensor_parallel.py``), every rank of a ``tensor``
+line passes the same rows of the batch (``Mesh.data_index``) and holds
+the whole loss.  The step averages the gradients over the ``data`` line
+only (``parallel.data_parallel.replicas``: the ranks that hold the same
+blocks; none on a line of one), weighted by a ``loss_weight`` summed over
+that line; the global norm and the non-finite count sum each block's
+squares and counts over the ``tensor`` line (one all-reduce of two
+numbers) and count each replicated leaf once; Adam runs on the blocks.
+A ``tensor`` axis beside ``fsdp`` or ``seq`` raises (ROADMAP Queue 1 item
+7.2b).  On a line of one the model and the step are the plain ones.
+
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
-for microbatch ``i`` when ``accum_steps > 1``, and with the rank folded
-in under data parallelism: deterministic, resume-stable and unique, as
-the JAX step folds the step (and the microbatch, and in its
-``make_psum_train_step`` the replica) into its key.  The bits differ
-from ``jax.random``'s, so parity with the JAX package is tested at
-dropout rate 0.
+for microbatch ``i`` when ``accum_steps > 1``, and with the replica
+folded in over a mesh (the rank's index over every axis but ``tensor``:
+its ``data`` and ``seq`` coordinates): deterministic, resume-stable and
+unique, as the JAX step folds the step (and the microbatch, and in its
+``make_psum_train_step`` the replica) into its key.  Every rank of a
+``tensor`` line draws the same bits, so the replicated residual stream
+stays equal across the line; a head-sharded activation (the attention
+context) draws its mask at the whole heads' shape and keeps its own
+heads' part, so under tensor parallelism every mask is the one the same
+replica draws at T = 1.  The bits differ from ``jax.random``'s, so parity
+with the JAX package is tested at dropout rate 0.
 
 The reported loss under ``loss_scale`` is the loss itself, not the
 scaled loss unscaled as the JAX step reports it: where the scaled value
@@ -159,34 +178,54 @@ def init_train_state(model, optimizer: opt_lib.Optimizer,
 
 
 def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
-    """Place a ``TrainState`` for ZeRO training over ``mesh``'s ``fsdp``
-    axis, as the JAX package's ``shard_train_state`` does: the parameters
-    become this rank's blocks under ``rules`` (a ``ShardedDict`` whose
-    ``full`` holds the model's own tensors), and every params-shaped
-    subtree of the optimizer state shards with them leaf by leaf where
-    the shapes agree (Adam's ``m``/``v``, momentum's ``mu``, the
+    """Place a ``TrainState`` over ``mesh`` by ``rules``, as the JAX
+    package's ``shard_train_state`` does.  The parameters become a
+    ``ShardedDict`` of this rank's blocks: a whole leaf is cut (a copy),
+    a leaf that is a block already (a tensor-parallel model's parameter,
+    ``parallel.sharding.mark_block``) stays itself.  Every params-shaped
+    subtree of the optimizer state is laid out with them leaf by leaf
+    where the shapes agree (Adam's ``m``/``v``, momentum's ``mu``, the
     ``with_ema`` shadow); adafactor's factored moments, the counts, the
     EMA's scalars, ``sgd``'s empty state and ``model_state`` replicate.
-    A cut block is a contiguous tensor of its own; an uncut one is the
-    tensor itself (on a line of one rank, every one).  Only ``data`` and
-    ``fsdp`` may be larger than 1 (``parallel/sharding.py``)."""
-    sharding_lib.check_zero_mesh(mesh)
+    A ZeRO cut (over ``fsdp``) keeps the model's whole tensors as
+    ``full``, which the step gathers the blocks into; a tensor-parallel
+    cut's ``full`` is the blocks (a cut whole leaf's block requires
+    gradients, as its leaf did).  On lines of one rank nothing is cut.
+    Only ``data``, ``fsdp`` and ``tensor`` may be larger than 1, and not
+    ``tensor`` beside ``fsdp`` (``parallel/sharding.py``)."""
+    sharding_lib.check_mesh(mesh)
     params = state.params
     if isinstance(params, sharding_lib.ShardedDict):
         raise ValueError("the state is sharded already")
-    layout = {n: sharding_lib.zero_shard(tuple(p.shape), rules.spec_for(n),
-                                         mesh)
-              for n, p in params.items()}
+    marked = {n: sharding_lib.marked_shard(p) for n, p in params.items()}
+    layout = {n: marked[n] or sharding_lib.zero_shard(
+        tuple(p.shape), rules.spec_for(n), mesh) for n, p in params.items()}
+    for n, s in marked.items():
+        want = None if s is None else sharding_lib.zero_shard(
+            s.full_shape(params[n].shape), rules.spec_for(n), mesh)
+        if want != s:
+            raise ValueError(f"{n} is a block {s}, but the rules cut it as "
+                             f"{want}: build the model and the rules with "
+                             f"the same mesh and shard_kv")
+    # the leaves this placement cuts (a marked block is cut already)
+    cuts = {n: layout[n] if marked[n] is None else None for n in params}
     names = set(params)
+
+    def take(n, t):
+        if cuts[n] is None:
+            return t
+        block = cuts[n].take(t)
+        if cuts[n].line == "tensor":
+            block.requires_grad_(t.requires_grad)
+        return block
 
     def place(sub):
         if isinstance(sub, dict) and names and set(sub) == names:
-            sub_layout = {n: layout[n] if tuple(sub[n].shape)
-                          == tuple(params[n].shape) else None for n in sub}
+            same = {n: tuple(sub[n].shape) == tuple(params[n].shape)
+                    for n in sub}
             return sharding_lib.ShardedDict(
-                {n: t if sub_layout[n] is None else sub_layout[n].take(t)
-                 for n, t in sub.items()},
-                sub_layout, mesh)
+                {n: take(n, t) if same[n] else t for n, t in sub.items()},
+                {n: layout[n] if same[n] else None for n in sub}, mesh)
         if isinstance(sub, dict):
             return {k: place(v) for k, v in sub.items()}
         if isinstance(sub, opt_lib.OptState):
@@ -195,22 +234,25 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
             return sub._replace(shadow=place(sub.shadow))
         return sub
 
-    shards = sharding_lib.ShardedDict(
-        {n: p if layout[n] is None else layout[n].take(p)
-         for n, p in params.items()}, layout,
-        mesh, full=params)
+    blocks = {n: take(n, p) for n, p in params.items()}
+    tensor = any(s is not None and s.line == "tensor"
+                 for s in layout.values())
+    shards = sharding_lib.ShardedDict(blocks, layout, mesh,
+                                      full=dict(blocks) if tensor
+                                      else params)
     return state._replace(params=shards, opt_state=place(state.opt_state))
 
 
 def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
-    """The model's full parameters of a training state: under a cut ZeRO
-    layout every rank gathers its blocks into the model's own tensors
-    (one all-gather over the ``fsdp`` line; every rank must call), which
-    eval and ``generate`` then read; otherwise ``state.params``."""
+    """The parameters the model computes on, of a training state: under a
+    ZeRO layout every rank gathers its blocks into the model's own whole
+    tensors (one all-gather over the ``fsdp`` line; every rank must
+    call), which eval and ``generate`` then read; under a tensor-parallel
+    layout the blocks themselves; otherwise ``state.params``."""
     params = state.params
     if not isinstance(params, sharding_lib.ShardedDict):
         return params
-    if params.cut:
+    if params.line == "fsdp":
         dp_lib.gather_shards(params, params.layout, params.mesh,
                              out=params.full)
     return dict(params.full)
@@ -362,15 +404,16 @@ def make_masked_eval_step(model, loss,
 
 def _global_stats(grads: Mapping[str, torch.Tensor], layout, mesh
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(norm, non-finite count) of a ZeRO step's gradients over the whole
-    model: the cut blocks' squares and counts summed over the ``fsdp``
+    """(norm, non-finite count) of a sharded step's gradients over the
+    whole model: the cut blocks' squares and counts summed over their
     line (one all-reduce of both), each uncut leaf counted once."""
     def sums(names):
         return (sum(torch.sum(torch.square(grads[n].float())) for n in names),
                 sum(torch.sum(~torch.isfinite(grads[n])).float()
                     for n in names))
-    line = dp_lib.line_sum(torch.stack(
-        sums([n for n in grads if layout[n] is not None])), mesh)
+    cut = [n for n in grads if layout[n] is not None]
+    line = dp_lib.line_sum(torch.stack(sums(cut)), mesh,
+                           layout[cut[0]].line)
     sq, bad = sums([n for n in grads if layout[n] is None])
     return torch.sqrt(line[0] + sq), line[1] + bad
 
@@ -419,23 +462,31 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     the clip's ``grad_norm`` takes precedence.
 
     ``mesh``: a ``parallel.Mesh``; over a process group, the gradients,
-    loss and metrics are averaged over its ranks with one all-reduce
+    loss and metrics are averaged over its replicas with one all-reduce
     (weighted by ``metrics["loss_weight"]`` where the loss reports it), a
     ``BatchNorm`` in ``loss_fn`` takes the global batch's moments, and
-    the dropout generator is folded with the rank (module docstring)."""
+    the dropout generator is folded with the replica (module docstring).
+    A ``tensor`` axis of more than one rank needs a state placed by
+    ``shard_train_state``."""
     if skip_nonfinite and loss_scale:
         raise ValueError("loss_scale=True already skips non-finite "
                          "updates; drop skip_nonfinite")
     pol = prec_lib.policy(policy) if policy is not None else None
     if mesh is not None:
         other = {a: n for a, n in mesh.shape.items()
-                 if n > 1 and a not in ("data", "fsdp", "seq")}
+                 if n > 1 and a not in ("data", "fsdp", "seq", "tensor")}
         if other:
             raise NotImplementedError(
-                f"make_custom_train_step over mesh axes {other}: tensor, "
-                f"pipeline and expert parallelism are not ported yet")
+                f"make_custom_train_step over mesh axes {other}: pipeline "
+                f"and expert parallelism are not ported yet (ROADMAP Queue "
+                f"1 items 7.3, 7.2b)")
+        if mesh.axis_size("tensor") > 1:
+            sharding_lib.check_mesh(mesh)
     dp = mesh if mesh is not None and mesh.group is not None else None
-    replica = dp.rank if dp is not None else None
+    # the replica: this rank's index over every axis but tensor (the
+    # innermost), so a tensor line draws one dropout stream
+    replica = (dp.rank // dp.axis_size("tensor") if dp is not None
+               else None)
     moments = (functools.partial(layers.cross_rank_moments, dp)
                if dp is not None and dp.size > 1 else contextlib.nullcontext)
 
@@ -493,6 +544,12 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         step's mesh, or None for a plain state."""
         zero = state.params
         if not isinstance(zero, sharding_lib.ShardedDict):
+            if mesh is not None and mesh.axis_size("tensor") > 1:
+                raise ValueError(
+                    "a step over a tensor axis of "
+                    f"{mesh.axis_size('tensor')} ranks needs the state "
+                    "placed by train.shard_train_state(state, mesh, "
+                    "model.partition_rules())")
             return None
         if zero.cut:
             if mesh is None or mesh.shape != zero.mesh.shape \
@@ -512,6 +569,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         zero = zero_of(state)
         params = state.params if zero is None else gather_params(state)
         cut = zero is not None and zero.cut
+        zero_cut = cut and zero.line == "fsdp"
         seen = {}
 
         def stats(g):
@@ -548,7 +606,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         else:
             loss, metrics, new_model_state, grads = accumulate(
                 state, params, model_state_in, batch, device, ls)
-        if cut:
+        if zero_cut:
             weight = metrics.pop("loss_weight", None)
             grads, loss, metrics = dp_lib.reduce_scatter_mean(
                 grads, loss, metrics, zero.layout, dp, weight)
@@ -581,7 +639,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                 grads, grad_clip_norm, norm=stats(grads)[0] if cut else None)
             metrics["grad_norm"] = gnorm
         # the update runs on the blocks (the parameters themselves when
-        # the state is plain or the line has one rank)
+        # the state is plain, tensor-parallel or on a line of one rank)
         own = params if zero is None else zero
         if apply:
             updates, new_opt_state = optimizer.update(grads, state.opt_state,

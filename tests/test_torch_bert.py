@@ -37,7 +37,7 @@ from distributed_tensorflow_tpu.optim import optimizers as jopt
 from distributed_tensorflow_tpu.train.session import TrainState as JState
 from distributed_tensorflow_tpu.train.step import \
     make_custom_train_step as jmake_step
-from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+from distributed_tensorflow_tpu_torch import (TrainState, adamw, parallel,
                                               make_custom_train_step)
 from distributed_tensorflow_tpu_torch.models import bert as tbert
 from distributed_tensorflow_tpu_torch.models.convert import (
@@ -266,8 +266,15 @@ def test_default_decay_mask_takes_no_encoder_name_as_stacked():
 
 def test_parallel_options_raise():
     """``seq_axis`` runs now, and needs a mesh naming the axis; tensor
-    parallelism still raises."""
+    parallelism runs on the JAX package's table, and beside ``seq_axis``
+    it still raises."""
     with pytest.raises(ValueError, match="mesh"):
         tbert.bert_tiny(seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tbert.bert_tiny().partition_rules()
+    rules = tbert.bert_tiny().partition_rules()
+    jrules = jbert.bert_tiny().partition_rules()
+    assert rules.spec_for("encoder.1.ffn.w_in.kernel") == tuple(
+        jrules.spec_for("encoder/ffn/w_in/kernel"))[1:] == (None, "tensor")
+    mesh = parallel.Mesh(4, 0, None, axes={"seq": 2, "tensor": 2},
+                         lines={})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2b"):
+        tbert.Bert(tbert.BertConfig(seq_axis="seq"), mesh)

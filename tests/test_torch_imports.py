@@ -60,7 +60,8 @@ def test_every_port_module_imports_without_jax():
         "examples.serve_gpt", "data.text", "utils.native",
         "examples.finetune_gpt2_hf", "parallel.ring",
         "parallel.ring_flash", "parallel.sharding",
-        "train.sharded_checkpoint", "examples.train_gpt")} <= set(modules)
+        "train.sharded_checkpoint", "examples.train_gpt",
+        "parallel.tensor_parallel")} <= set(modules)
     code = textwrap.dedent(f"""
         import importlib, sys
         REFUSED = {_REFUSED!r}

@@ -318,12 +318,19 @@ def test_config_checks():
     model.mesh = four
     with pytest.raises(ValueError, match="not divisible"):
         model.apply(torch.zeros(1, 6, dtype=torch.long))
-    # the step takes data, fsdp and seq; the other axes are not ported
+    # the step takes data, fsdp, seq and tensor; tensor beside seq and
+    # the expert axis are not ported
     from distributed_tensorflow_tpu_torch import adamw, make_custom_train_step
     with pytest.raises(NotImplementedError, match="tensor"):
         make_custom_train_step(model.lm_loss_fn(), adamw(1e-3),
+                               mesh=parallel.Mesh(4, 0, None,
+                                                  axes={"seq": 2,
+                                                        "tensor": 2},
+                                                  lines={}))
+    with pytest.raises(NotImplementedError, match="expert"):
+        make_custom_train_step(model.lm_loss_fn(), adamw(1e-3),
                                mesh=parallel.Mesh(2, 0, None,
-                                                  axes={"tensor": 2},
+                                                  axes={"expert": 2},
                                                   lines={}))
 
 

@@ -141,18 +141,23 @@ def test_unported_axes_and_configs_raise():
     params = dict(model.named_parameters())
     opt = optim.adamw(1e-3)
     state = TrainState.create(params, opt.init(params))
-    for axes, item in (({"fsdp": 2, "tensor": 2}, "7.2"),
-                       ({"fsdp": 2, "expert": 2}, "7.2"),
+    for axes, item in (({"fsdp": 2, "tensor": 2}, "7.2b"),
+                       ({"fsdp": 2, "expert": 2}, "7.2b"),
                        ({"pipe": 2, "fsdp": 2}, "7.3"),
                        ({"fsdp": 2, "seq": 2}, "7.5")):
         with pytest.raises(NotImplementedError, match=item):
             train.shard_train_state(state, _virtual(axes, 0),
                                     model.partition_rules(fsdp=True))
-    with pytest.raises(NotImplementedError, match="7.2"):
-        sharding.block_of((8, 8), ("tensor", None),
-                          _virtual({"data": 2, "tensor": 2}, 0))
+    # a tensor axis cuts now (rank 1 sits at tensor 1); beside fsdp, or
+    # over both axes at once, it still raises
+    assert sharding.block_of((8, 8), ("tensor", None),
+                             _virtual({"data": 2, "tensor": 2}, 1)) == [
+        (4, 4), (0, 8)]
+    with pytest.raises(NotImplementedError, match="7.2b"):
+        sharding.block_of((8, 8), ("tensor", "fsdp"),
+                          _virtual({"fsdp": 2, "tensor": 2}, 0))
     moe = GPT(gpt_tiny_cfg(moe_experts=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="7.2"):
+    with pytest.raises(NotImplementedError, match="7.2b"):
         moe.partition_rules(fsdp=True)
     with pytest.raises(NotImplementedError, match="7.3"):
         GPTConfig(pipeline_stages=2)

@@ -25,6 +25,13 @@ def spawn_ranks(out_dir, target, args, world=4):
     """Run ``target(rank, world, port, *args, out)`` on ``world`` spawned
     gloo ranks, each join limited to JOIN_S seconds (a hang fails).
     Returns the ranks' npz outputs as dicts."""
+    return start_ranks(out_dir, target, args, world)()
+
+
+def start_ranks(out_dir, target, args, world=4):
+    """``spawn_ranks`` without waiting: the ranks start now, and the
+    returned function joins them and returns their outputs, so the caller
+    can work meanwhile."""
     ctx = torch.multiprocessing.get_context("spawn")
     port = _free_port()
     outs = [str(out_dir / f"rank{r}.npz") for r in range(world)]
@@ -33,17 +40,20 @@ def spawn_ranks(out_dir, target, args, world=4):
              for r in range(world)]
     for p in procs:
         p.start()
-    try:
-        for p in procs:
-            p.join(JOIN_S)
-        assert not any(p.is_alive() for p in procs), "a rank hung"
-        assert [p.exitcode for p in procs] == [0] * world
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    return [dict(np.load(o)) for o in outs]
+
+    def join():
+        try:
+            for p in procs:
+                p.join(JOIN_S)
+            assert not any(p.is_alive() for p in procs), "a rank hung"
+            assert [p.exitcode for p in procs] == [0] * world
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        return [dict(np.load(o)) for o in outs]
+    return join
 
 
 def _start(rank, world, port):
