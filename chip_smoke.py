@@ -492,7 +492,7 @@ no result lines:
    32:8), ``TP_WARMUP`` + ``TP_STEPS`` ``adamw(1e-4)`` steps with clip
    1.0 an arm, the arms in turns (line, plain, plain, line): losses, the
    gradient norm and every parameter equal to the bit, exact launches a
-   step, no collective; step ms, tokens/s and peak memory of each.  (b) Two ranks of this script (``--tp-rank``)
+   step, no collective; step ms, tokens/s and peak memory of each.  (b) Two ranks of this script (``--ranks-for=tp``)
    on the one card over gloo with CUDA tensors, ``{"tensor": 2}``:
    BERT-base, the Llama recipe with ``shard_kv=True`` and with
    replicated kv, from the same weights and batches as (a): losses
@@ -508,6 +508,28 @@ no result lines:
    on two ranks of the card (tp=2, ``DTTPU_DIST_BACKEND=gloo``) beside
    (b): exit 0, ``mesh={'data': 1, 'tensor': 2}``, eval accuracy above
    chance, both ranks' lines equal.
+28. pp (after phase 27): pipeline parallelism.  First the flash kernels
+   at a microbatch's shape (6 x 256, 12 heads of 64, causal), forward and
+   whole backward against their plain versions, timed beside them, SDPA
+   and the bound.  (a) GPT-2 small at phase 6's batch (48 x 256, bf16,
+   dropout 0, ``adamw(1e-4)``, clip 1.0): the plain step in this process,
+   then two ranks of this script (``--ranks-for=pp``) on the one card over
+   gloo with CUDA tensors, ``{"pipe": 2}`` (6 layers a stage, 8
+   microbatches), GPipe (``make_custom_train_step``) and 1F1B
+   (``make_1f1b_train_step``), ``PP_WARMUP`` + ``PP_STEPS`` steps an arm
+   from the same weights: losses within ``PP_LOSS_TOL`` of the plain arm,
+   the first gradient norm within ``PP_GRAD_TOL``, the parameters' gap
+   within ``PP_PARAM_TOL`` of their movement, GPipe against 1F1B within
+   ``PP_SCHED_TOL``, both ranks' losses equal, each rank's kernel launches,
+   exchanges, staged host copies and broadcasts exact a step
+   (``pp_per_step``, ``pp_collectives``), 1F1B's peak memory below
+   GPipe's on both ranks; step ms and each rank's peak memory printed.
+   (b) ``python -m distributed_tensorflow_tpu_torch.examples.train_gpt
+   --pipeline_stages=2`` on two ranks of the card beside (a), with
+   ``--pp_schedule=gpipe``, ``=1f1b`` and ``--family=llama``: exit 0,
+   ``mesh={'pipe': 2, 'data': 1}``, live and EMA eval loss below ln 256,
+   the ``generated:`` line, a complete sharded checkpoint; the GPipe run
+   again with more steps resumes from it.
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -525,8 +547,10 @@ times; ``zero_launches`` for the training kernels of phase 26 (a)'s ZeRO
 arm, and on the Adam record ``zero_shard``, (b)'s block times;
 ``tp_launches`` for the training kernels of phase 27's (a) line-of-one
 arms and (b)'s two ranks, and on the flash records ``tp_shapes``, the
-times at the ranks' shapes), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+times at the ranks' shapes; ``pp_launches`` for the training kernels of
+phase 28 (a)'s two ranks under both schedules, and on the flash records
+``pp_shapes``, the times at a microbatch's shape), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1939,10 +1963,11 @@ def _reset_counts():
     from distributed_tensorflow_tpu_torch.ops.kernels import \
         paged_attention as pa
     from distributed_tensorflow_tpu_torch.parallel import (data_parallel,
-                                                           ring, ring_flash)
+                                                           pipeline, ring,
+                                                           ring_flash)
     for counter in (fa.LAUNCHES, fused.LAUNCHES, pa.LAUNCHES,
                     data_parallel.LAUNCHES, ring.LAUNCHES,
-                    ring_flash.LAUNCHES):
+                    ring_flash.LAUNCHES, pipeline.LAUNCHES):
         counter.clear()
 
 
@@ -8349,7 +8374,7 @@ def check_zero(torch, np, args, smi):
 # one runs the plain code path, so losses, the gradient norm and every
 # parameter must be equal to the bit, with the plain launches and no
 # collective; the arms run in turns (line, plain, plain, line).  (b) Two
-# ranks on the one card, each a process of this script (``--tp-rank``) over
+# ranks on the one card, each a process of this script (``--ranks-for=tp``) over
 # gloo with CUDA tensors (NCCL refuses two ranks on one device), on
 # ``{"tensor": 2}``: the same models from the same
 # weights and batches, BERT-base (flash on 6 of the 12 heads, with the key
@@ -8611,10 +8636,10 @@ def tp_rank_main(args) -> int:
 
     from distributed_tensorflow_tpu_torch import GPT, parallel
     from distributed_tensorflow_tpu_torch.parallel import sharding
-    r = args.tp_rank
+    r = args.rank
     torch.cuda.set_device(0)
     dist.init_process_group(
-        "gloo", init_method=f"tcp://localhost:{args.tp_port}",
+        "gloo", init_method=f"tcp://localhost:{args.rank_port}",
         world_size=2, rank=r,
         timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT_S))
     try:
@@ -8676,20 +8701,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _tp_start_ranks(args, port, env_extra=None, module=None):
-    """Two processes: this script's ``--tp-rank`` (``module`` None) or
-    ``python -m module`` with the cluster's environment."""
+def _start_ranks(args, port, phase="tp", env_extra=None, module=None,
+                 argv=()):
+    """Two processes: this script's ranks of ``phase`` (``--ranks-for``;
+    ``module`` None) or ``python -m module argv`` with the cluster's
+    environment."""
     import os
     root = Path(__file__).resolve().parent
     procs = []
     for r in range(2):
         if module is None:
             cmd = [sys.executable, str(Path(__file__).resolve()),
-                   f"--tp-rank={r}", f"--tp-port={port}",
-                   f"--seed={args.seed}"]
+                   f"--ranks-for={phase}", f"--rank={r}",
+                   f"--rank-port={port}", f"--seed={args.seed}"]
             env = None
         else:
-            cmd = [sys.executable, "-m", module]
+            cmd = [sys.executable, "-m", module, *argv]
             env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
                        NUM_PROCESSES="2", PROCESS_ID=str(r),
                        **(env_extra or {}))
@@ -8760,10 +8787,10 @@ def check_tp(torch, np, args, smi):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = _tp_start_ranks(args, _free_port())
-    entry = _tp_start_ranks(
-        args, _free_port(), {"DTTPU_DIST_BACKEND": "gloo"},
-        "distributed_tensorflow_tpu_torch.examples.finetune_bert")
+    ranks = _start_ranks(args, _free_port())
+    entry = _start_ranks(
+        args, _free_port(), env_extra={"DTTPU_DIST_BACKEND": "gloo"},
+        module="distributed_tensorflow_tpu_torch.examples.finetune_bert")
     try:
         _tp_wait(ranks, "tp (b) ranks")
         ranks_s = time.perf_counter() - t0
@@ -8854,6 +8881,383 @@ def check_tp(torch, np, args, smi):
     return dict(launches), rows
 
 
+# -- phase 28: pipeline parallelism -------------------------------------------
+# (a) GPT-2 small at full width (bf16 compute over f32 weights, dropout 0,
+# phase 6's batch of TRAIN_BATCH x TRAIN_SEQ, adamw(1e-4), clip 1.0) split
+# into PP_STAGES stages of 6 layers over PP_MICRO microbatches of 6 rows.
+# First the plain step in this process from ``--seed``'s weights on the
+# batch; then two ranks on the one card, each a process of this script
+# (``--ranks-for=pp``) over gloo with CUDA tensors, on ``{"pipe": 2}``: the
+# same weights and batch through ``make_custom_train_step`` (GPipe: the
+# pipelined ``lm_loss_fn``) and ``make_1f1b_train_step`` (1F1B), PP_WARMUP
+# + PP_STEPS steps an arm.  Microbatching changes the GEMMs' row counts
+# (and so cuBLAS's algorithms and roundings), not the arithmetic, so the
+# losses agree with the plain arm to PP_LOSS_TOL, the first gradient norm
+# to PP_GRAD_TOL (relative) and the parameters' gap to PP_PARAM_TOL of
+# their movement (2-norms over every PP_SAMPLE-th row of the leaves a rank
+# holds; phase 27's measure); GPipe and 1F1B run the same stage kernels on
+# the same microbatches (the recompute replays them), so they agree to
+# PP_SCHED_TOL (the head's GEMM over one microbatch or the whole batch
+# differs).  Both ranks report the same loss; each rank's kernel launches
+# are exact a step (``pp_per_step``), so are its exchanges, staged host
+# copies and broadcasts (``pp_collectives``, worked out from the schedule);
+# 1F1B's peak memory is below GPipe's on both ranks.  (b) ``python -m
+# distributed_tensorflow_tpu_torch.examples.train_gpt --pipeline_stages=2``
+# on two ranks of the card (``DTTPU_DIST_BACKEND=gloo``) with
+# ``--pp_schedule=gpipe`` and ``=1f1b`` and ``--family=llama``, beside (a),
+# at PP_ENTRY_STEPS[0] steps (cut from 200: the eval still beats the
+# uniform loss), then the GPipe run again to PP_ENTRY_STEPS[1]: exit 0,
+# ``mesh={'pipe': 2, 'data': 1}``, live and EMA eval losses below ln 256,
+# the ``generated:`` line, a complete sharded checkpoint of both
+# processes, and the rerun restored from it.  Before all of it the flash
+# kernels are timed at a microbatch's shape beside their plain versions,
+# SDPA and the bound.  Files under PP_DIR, removed at the phase's end.
+PP_STAGES, PP_MICRO, PP_LAYERS = 2, 8, 12
+PP_WARMUP, PP_STEPS = 1, 3
+PP_LOSS_TOL, PP_GRAD_TOL, PP_PARAM_TOL, PP_SCHED_TOL = 1e-2, 5e-3, 0.1, 0.05
+PP_SAMPLE = 8
+PP_ENTRY_STEPS = (20, 24)
+PP_RANK_TIMEOUT_S = 600
+PP_DIR = Path("build") / "pp"
+
+
+def _pp_ticks(schedule, M, S, s):
+    """(ticks with an exchange, tensors sent and received) of stage ``s``
+    in one pass of ``schedule``, from the schedule alone: GPipe forwards
+    microbatch m at tick m + s and backwards it in the reverse pass at
+    tick (M - 1 - m) + (S - 1 - s); 1F1B forwards it at tick m + s and
+    backwards it at tick m + 2(S - 1) - s; an output leaves at the tick
+    after its compute, an input arrives at its compute's tick."""
+    first, last = s == 0, s == S - 1
+
+    def run(lo, on):
+        return set(range(lo, lo + M)) if on else set()
+    if schedule == "gpipe":
+        fwd = run(s, not first) | run(s + 1, not last)
+        back = run(S - 1 - s, not last) | run(S - s, not first)
+        return len(fwd) + len(back), 2 * M * (2 - first - last)
+    ticks = (run(s, not first) | run(s + 1, not last)
+             | run(2 * S - 2 - s, not last) | run(2 * S - 1 - s, not first))
+    return len(ticks), 2 * M * (2 - first - last)
+
+
+def pp_collectives(schedule, M, S, s):
+    """Rank ``s``'s collectives a step: its ``batch_isend_irecv`` calls
+    (``p2p``) and staged host copies (``p2p_host``, gloo with CUDA
+    tensors) from ``_pp_ticks``; three broadcasts over the line (the
+    activation dtype; GPipe: the output and ``dx``; 1F1B: the loss with
+    the head's gradients, and ``dx``); one stats all-reduce for the clip's
+    norm over the line; no data-line all-reduce on a data line of one."""
+    p2p, host = _pp_ticks(schedule, M, S, s)
+    return {"p2p": p2p, "p2p_host": host, "broadcast": 3,
+            "stats_all_reduce": 1, "all_reduce": 0}
+
+
+def pp_per_step(schedule, s, S=PP_STAGES, M=PP_MICRO, L=PP_LAYERS):
+    """Each training kernel's launches a step on rank ``s`` (GPT-2: 16
+    leaves a layer).  A stage forwards each microbatch once (GPipe; 1F1B's
+    last stage, in its backward sub-tick) or twice (1F1B's other stages:
+    forward and recompute); LayerNorm 2 a layer a forward, plus ``ln_f``
+    once on the whole batch (GPipe, every rank) or once a microbatch
+    (1F1B's last stage); Adam on the stage's leaves and the embeddings'
+    and ``ln_f``'s."""
+    per = L // S
+    forwards = M if schedule == "gpipe" or s == S - 1 else 2 * M
+    ln_f = 1 if schedule == "gpipe" else (M if s == S - 1 else 0)
+    return {"flash_forward": per * forwards, "flash_backward_dkv": per * M,
+            "flash_backward_dq": per * M,
+            "layernorm": 2 * per * forwards + ln_f,
+            "fused_adam": 16 * per + 4}
+
+
+def _pp_counts(torch):
+    from distributed_tensorflow_tpu_torch.parallel import pipeline
+    counts = _tp_counts(torch)
+    counts.update(pipeline.LAUNCHES)
+    return counts
+
+
+def _pp_model(torch, np, seed, mesh):
+    """(model, params, batch) of (a): GPT-2 small from ``seed``'s weights,
+    pipelined over ``mesh`` (None: the plain model)."""
+    from distributed_tensorflow_tpu_torch import GPT, gpt_small
+    kw = {} if mesh is None else dict(pipeline_stages=PP_STAGES,
+                                      pipeline_microbatches=PP_MICRO)
+    config = gpt_small(dtype=torch.bfloat16, dropout_rate=0.0, **kw)
+    model = GPT(config, device="cuda", mesh=mesh,
+                generator=torch.Generator("cuda").manual_seed(seed))
+    batch = _train_batch(torch, np, seed, TRAIN_BATCH, TRAIN_SEQ,
+                         config.vocab_size, "cuda")
+    return model, dict(model.named_parameters()), batch
+
+
+def _pp_arm(torch, np, seed, schedule, mesh, keep_start=False):
+    """One arm of (a): (record, its parameters after the steps, with
+    ``keep_start`` every PP_SAMPLE-th row of them before the steps).  The
+    record's peak memory is the arm's own (less what was allocated before
+    it began and the sample)."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  train)
+    base = torch.cuda.memory_allocated()
+    model, params, batch = _pp_model(torch, np, seed, mesh)
+    start = ({k: _tp_sample(p, PP_SAMPLE) for k, p in params.items()}
+             if keep_start else None)
+    opt = adamw(TRAIN_LR)
+    state = TrainState.create(params, opt.init(params))
+    if mesh is None:
+        step = make_custom_train_step(model.lm_loss_fn(), opt, seed=seed,
+                                      grad_clip_norm=1.0)
+    else:
+        state = train.shard_train_state(state, mesh,
+                                        model.partition_rules())
+        step = (train.make_1f1b_train_step(model, opt, seed=seed,
+                                           grad_clip_norm=1.0)
+                if schedule == "1f1b" else
+                make_custom_train_step(model.lm_loss_fn(), opt, seed=seed,
+                                       mesh=mesh, grad_clip_norm=1.0))
+    (losses, grad_norm, wall, peak), _, counts = _driven(
+        torch, lambda: _sp_steps(torch, np, step, state, batch, PP_WARMUP,
+                                 PP_STEPS), _pp_counts)
+    step_ms = wall / PP_STEPS * 1e3
+    rec = {"losses": losses, "grad_norm": grad_norm, "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_memory_gb": peak - base / 1e9, "launches": counts}
+    del state, step, batch, model
+    return rec, params, start
+
+
+def pp_rank_main(args) -> int:
+    """One rank of (a), a process of this script: GPipe, then 1F1B on
+    ``{"pipe": 2}`` over gloo; results to PP_DIR (``rank<r>.json``,
+    ``rank<r>_<arm>.pt``: every PP_SAMPLE-th row of each leaf it holds)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import parallel
+    r = args.rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{args.rank_port}",
+        world_size=2, rank=r,
+        timeout=datetime.timedelta(seconds=PP_RANK_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh({"pipe": PP_STAGES})
+        out = {}
+        for schedule in ("gpipe", "1f1b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec, params, _ = _pp_arm(torch, np, args.seed, schedule, mesh)
+            torch.save({k: _tp_sample(p, PP_SAMPLE)
+                        for k, p in params.items()},
+                       PP_DIR / f"rank{r}_{schedule}.pt")
+            out[schedule] = rec
+            del params
+        (PP_DIR / f"rank{r}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _pp_gap(torch, ranks, final, start):
+    """The 2-norm of the sampled elements' gap to ``final`` over that of
+    ``final``'s movement from ``start`` (both whole-model samples, the
+    ranks' leaves joined), and the largest element gap."""
+    gap = move = worst = 0.0
+    for samples in ranks:
+        for k, got in samples.items():
+            want, was = final[k], start[k]
+            d = got.to(want.device).double() - want.double()
+            gap += float((d ** 2).sum())
+            move += float(((want.double() - was.double()) ** 2).sum())
+            worst = max(worst, float(d.abs().max()))
+    return math.sqrt(gap / move), worst
+
+
+def _pp_entry_check(name, outs, log_dir, resumed=None):
+    """(b)'s checks of one two-rank run of ``train_gpt``: the mesh line,
+    eval losses below ln 256 (live and EMA), ``generated:``, a complete
+    sharded checkpoint of both processes, and with ``resumed`` the restore
+    line.  Returns (live, ema) eval losses of rank 0."""
+    from distributed_tensorflow_tpu_torch.train import sharded_checkpoint
+    evals = []
+    for out, err in outs:
+        line = [x for x in out.splitlines() if x.startswith("eval loss:")]
+        if len(line) != 1 or "generated:" not in out \
+                or "mesh={'pipe': 2, 'data': 1}" not in err:
+            raise AssertionError(f"pp (b) {name}: missing lines\n{out}\n"
+                                 f"{err[-2000:]}")
+        live = float(line[0].split("live=")[1].split()[0])
+        ema = float(line[0].split("ema=")[1].split()[0])
+        evals.append((live, ema))
+        if resumed is not None and (f"Restored checkpoint ckpt-"
+                                    f"{resumed:010d}") not in out:
+            raise AssertionError(f"pp (b) {name}: not restored from step "
+                                 f"{resumed}\n{out}")
+    uniform = math.log(256)
+    path = sharded_checkpoint.all_sharded_checkpoints(str(log_dir))
+    ok = bool(path) and sharded_checkpoint.verify_sharded(path[-1]) == (
+        True, "") and json.loads((Path(path[-1]) / "manifest.json")
+                                 .read_text())["process_count"] == 2
+    if not ok or not all(x < uniform and y < uniform for x, y in evals) \
+            or evals[0] != evals[1]:
+        raise AssertionError(f"pp (b) {name}: evals {evals}, checkpoint "
+                             f"{path}")
+    return evals[0], Path(path[-1]).name
+
+
+def check_pp(torch, np, args, smi):
+    """Phase 28, pipeline parallelism: returns (the kernels' launches over
+    (a)'s ranks, the flash timing rows at a microbatch's shape)."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    t_phase = time.perf_counter()
+    shutil.rmtree(PP_DIR, ignore_errors=True)
+    PP_DIR.mkdir(parents=True)
+    mb = TRAIN_BATCH // PP_MICRO
+    label = f"gpt2 pp microbatch {mb}x{TRAIN_SEQ}"
+    rows = {label: _zoo_flash_case(
+        torch, fa, torch.Generator("cuda").manual_seed(args.seed), label,
+        mb, TRAIN_SEQ, 12, 64, torch.bfloat16, None, args.iters,
+        causal=True)}
+    for recs in rows.values():
+        for rec in recs.values():
+            rec["card"] = smi
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, params, start = _pp_arm(torch, np, args.seed, "plain", None,
+                                   keep_start=True)
+    final = {k: _tp_sample(p, PP_SAMPLE) for k, p in params.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zoo_expect("pp plain arm", plain["launches"],
+                {"flash_forward": 12 * (PP_WARMUP + PP_STEPS)})
+    log({"pp": "(a) plain gpt2-small", "steps": PP_STEPS,
+         **{k: plain[k] for k in ("losses", "grad_norm", "step_ms",
+                                  "tokens_per_s", "peak_memory_gb")},
+         "card": smi})
+
+    t0 = time.perf_counter()
+    ranks = _start_ranks(args, _free_port(), phase="pp")
+    env = {"DTTPU_DIST_BACKEND": "gloo"}
+    module = "distributed_tensorflow_tpu_torch.examples.train_gpt"
+    first, second = PP_ENTRY_STEPS
+    entries = {}
+    for name, extra in (("gpipe", ["--pp_schedule=gpipe"]),
+                        ("1f1b", ["--pp_schedule=1f1b"]),
+                        ("llama", ["--family=llama"])):
+        log_dir = PP_DIR / f"entry_{name}"
+        argv = [f"--log_dir={log_dir}", f"--steps={first}",
+                "--pipeline_stages=2", *extra]
+        entries[name] = (log_dir, argv, _start_ranks(
+            args, _free_port(), env_extra=env, module=module, argv=argv))
+    launches = collections.Counter()
+    try:
+        _tp_wait(ranks, "pp (a) ranks")
+        ranks_s = time.perf_counter() - t0
+        results = [json.loads((PP_DIR / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        n_steps = PP_WARMUP + PP_STEPS
+        peaks = {}
+        for schedule in ("gpipe", "1f1b"):
+            per_rank = [res[schedule] for res in results]
+            for r, rec in enumerate(per_rank):
+                want = {k: n * n_steps for k, n in
+                        pp_per_step(schedule, r).items()}
+                want.update({k: n * n_steps for k, n in pp_collectives(
+                    schedule, PP_MICRO, PP_STAGES, r).items()})
+                _zoo_expect(f"pp (a) {schedule} rank {r}", rec["launches"],
+                            want)
+                launches.update({k: v for k, v in rec["launches"].items()
+                                 if k in pp_per_step(schedule, r)})
+            samples = [torch.load(PP_DIR / f"rank{r}_{schedule}.pt")
+                       for r in range(2)]
+            param_err, param_max = _pp_gap(torch, samples, final, start)
+            losses = per_rank[0]["losses"]
+            loss_err = max(abs(x - y) for x, y in zip(losses,
+                                                      plain["losses"]))
+            grad_err = (abs(per_rank[0]["grad_norm"] - plain["grad_norm"])
+                        / plain["grad_norm"])
+            peaks[schedule] = [rec["peak_memory_gb"] for rec in per_rank]
+            check = {"pp": f"(a) {schedule}", "ranks": PP_STAGES,
+                     "microbatches": PP_MICRO,
+                     "losses": [rec["losses"] for rec in per_rank],
+                     "plain_losses": plain["losses"],
+                     "loss_err": loss_err, "loss_tol": PP_LOSS_TOL,
+                     "grad_norm_rel_err": grad_err, "grad_tol": PP_GRAD_TOL,
+                     "param_gap_over_move": param_err,
+                     "param_tol": PP_PARAM_TOL,
+                     "param_max_abs_err": param_max,
+                     "peak_memory_gb": peaks[schedule],
+                     "plain_peak_memory_gb": plain["peak_memory_gb"],
+                     "step_ms": [rec["step_ms"] for rec in per_rank],
+                     "plain_step_ms": plain["step_ms"],
+                     "collectives_a_step": [
+                         {k: rec["launches"].get(k, 0) // n_steps
+                          for k in pp_collectives(schedule, PP_MICRO,
+                                                  PP_STAGES, r)}
+                         for r, rec in enumerate(per_rank)],
+                     "launches": [rec["launches"] for rec in per_rank],
+                     "card": smi}
+            log(check)
+            if not (per_rank[0]["losses"] == per_rank[1]["losses"]
+                    and loss_err <= PP_LOSS_TOL and grad_err <= PP_GRAD_TOL
+                    and param_err <= PP_PARAM_TOL):
+                raise AssertionError(f"pp (a) {schedule}: two stages "
+                                     f"disagree with the plain step: {check}")
+        g, f = (results[0]["gpipe"], results[0]["1f1b"])
+        sched_loss = max(abs(x - y) for x, y in zip(g["losses"],
+                                                    f["losses"]))
+        gs = [torch.load(PP_DIR / f"rank{r}_gpipe.pt") for r in range(2)]
+        fs = [torch.load(PP_DIR / f"rank{r}_1f1b.pt") for r in range(2)]
+        joined = {k: v for part in gs for k, v in part.items()}
+        sched_gap, _ = _pp_gap(torch, fs, joined, start)
+        ratio = [b / a for a, b in zip(peaks["gpipe"], peaks["1f1b"])]
+        log({"pp": "(a) gpipe vs 1f1b", "loss_max_abs_diff": sched_loss,
+             "param_gap_over_move": sched_gap, "tol": PP_SCHED_TOL,
+             "peak_1f1b_over_gpipe": ratio,
+             "grad_norm": [g["grad_norm"], f["grad_norm"]],
+             "stashed_inputs_at_most": min(PP_MICRO, 2 * PP_STAGES - 1),
+             "card": smi})
+        if not (sched_loss <= PP_SCHED_TOL and sched_gap <= PP_SCHED_TOL
+                and all(x < 1.0 for x in ratio)):
+            raise AssertionError(f"pp (a): 1F1B against GPipe: loss "
+                                 f"{sched_loss}, gap {sched_gap}, peak "
+                                 f"ratio {ratio}")
+        ran = {}
+        for name, (log_dir, argv, procs) in entries.items():
+            outs = _tp_wait(procs, f"pp (b) train_gpt {name}")
+            ran[name] = _pp_entry_check(name, outs, log_dir)
+        log_dir, argv, _ = entries["gpipe"]
+        again = [a if not a.startswith("--steps=") else f"--steps={second}"
+                 for a in argv]
+        outs = _tp_wait(_start_ranks(args, _free_port(), env_extra=env,
+                                     module=module, argv=again),
+                        "pp (b) train_gpt resume")
+        ran["gpipe resumed"] = _pp_entry_check("resume", outs, log_dir,
+                                               resumed=first)
+        entry_s = time.perf_counter() - t0
+    finally:
+        for procs in [ranks] + [e[2] for e in entries.values()]:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    log({"pp": "(b) train_gpt --pipeline_stages=2 on two ranks",
+         "runs": {k: {"eval_live_ema": v[0], "checkpoint": v[1]}
+                  for k, v in ran.items()},
+         "uniform": math.log(256), "steps": list(PP_ENTRY_STEPS),
+         "ranks_seconds": ranks_s, "seconds_with_a": entry_s, "card": smi})
+    shutil.rmtree(PP_DIR, ignore_errors=True)
+    log({"phase": "pp", "seconds": time.perf_counter() - t_phase,
+         "launches": dict(launches)})
+    return dict(launches), rows
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -8872,9 +9276,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the engine and training phases; "
                     "tables to DIR")
-    ap.add_argument("--tp-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)    # phase 27's ranks
-    ap.add_argument("--tp-port", type=int, default=None,
+    # a rank of phase 27 or 28 (``--ranks-for=tp|pp``), started by the
+    # phase itself
+    ap.add_argument("--ranks-for", choices=("tp", "pp"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank-port", type=int, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -8882,8 +9290,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if args.tp_rank is not None:
-        return tp_rank_main(args)
+    if args.ranks_for is not None:
+        return {"tp": tp_rank_main, "pp": pp_rank_main}[args.ranks_for](args)
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.ops.kernels import _build
@@ -8955,6 +9363,7 @@ def main(argv=None) -> int:
     sp_routes, sp_launches = check_sp(torch, np, args, smi)
     zero_launches, zero_shard = check_zero(torch, np, args, smi)
     tp_launches, tp_rows = check_tp(torch, np, args, smi)
+    pp_launches, pp_rows = check_pp(torch, np, args, smi)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -8968,7 +9377,7 @@ def main(argv=None) -> int:
             if route.startswith("backward"):
                 rec["library_graph_ms"] = lib_backwards.get(
                     f"ring {route.split('_')[1]} backward {case}")
-    for case, recs in tp_rows.items():
+    for case, recs in list(tp_rows.items()) + list(pp_rows.items()):
         recs["flash_backward"]["library_graph_ms"] = lib_backwards.get(
             f"whole backward {case}")
     for kernel, part in (("flash_forward", "forward"),
@@ -8977,10 +9386,12 @@ def main(argv=None) -> int:
         records[kernel]["sp_routes"] = {
             f"{case} {route}": rec for case, recs in sp_routes.items()
             for route, rec in recs.items() if route.startswith(part)}
-        records[kernel]["tp_shapes"] = {
-            case: recs["flash_forward" if part == "forward"
-                       else "flash_backward"]
-            for case, recs in tp_rows.items()}
+        for key, shape_rows in (("tp_shapes", tp_rows),
+                                ("pp_shapes", pp_rows)):
+            records[kernel][key] = {
+                case: recs["flash_forward" if part == "forward"
+                           else "flash_backward"]
+                for case, recs in shape_rows.items()}
 
     kernels = [dict(name=k, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[k],
@@ -9019,7 +9430,10 @@ def main(argv=None) -> int:
                        if k == "fused_adam" else {}),
                     tp_launches=tp_launches.get(k, 0),
                     **({"tp_shapes": r["tp_shapes"]}
-                       if "tp_shapes" in r else {}))
+                       if "tp_shapes" in r else {}),
+                    pp_launches=pp_launches.get(k, 0),
+                    **({"pp_shapes": r["pp_shapes"]}
+                       if "pp_shapes" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,7 @@
         [--device=cuda] [--steps=200] [--batch_size=32] [--seq_len=64]
         [--log_dir=/tmp/dttpu_gpt] [--seed=0] [--num_layers=2]
         [--family=gpt2|llama] [--remat] [--remat_policy=full]
-        [--loss_seq_chunk=0]
+        [--loss_seq_chunk=0] [--pipeline_stages=0] [--pp_schedule=gpipe]
 
 Causal-LM training on the order-1 synthetic corpus (``--seed``), with
 
@@ -25,9 +25,22 @@ Causal-LM training on the order-1 synthetic corpus (``--seed``), with
 It exits 1 with a warning when the live eval loss does not beat the
 uniform baseline.  Every attention runs the flash kernel, every norm the
 LayerNorm (``gpt2``) or RMSNorm (``llama``) kernel and Adam its kernel on
-every block.  ``--pipeline_stages`` above 1 raises (the pipeline is
-ROADMAP Queue 1 item 7.3); ``--pp_schedule`` is accepted for the JAX
-script's command lines.  ``--device`` is ``cuda`` by default and raises
+every block.
+
+``--pipeline_stages`` P above 1 takes the JAX script's pipeline path: a
+``{"pipe": P, "data": n / P}`` mesh (no ``fsdp``; P must divide the
+rank count and ``--num_layers``), ``GPTConfig(pipeline_stages=P)`` built
+on it (each rank holds its stage's layers, placed by
+``shard_train_state``), ``--pp_schedule`` ``gpipe`` (the normal step
+through the pipelined ``lm_loss_fn``) or ``1f1b``
+(``train.make_1f1b_train_step``), no precision policy (the config's
+bf16 is the compute dtype, as the JAX script sets it), and the global
+batch rounded up to a multiple of the data shards times the
+microbatches (each data rank's batch splits into P microbatches).  Eval
+and ``generate`` run on a whole model loaded from the gathered stages
+(``train.gather_params``, ``optim.ema_params``).
+
+``--device`` is ``cuda`` by default and raises
 without a card; ``--device=cpu`` runs on the CPU.  Several processes
 form a group from ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
 ``PROCESS_ID`` (``parallel.cluster_from_env``).
@@ -54,10 +67,12 @@ def _define_flags() -> None:
     flags_lib.DEFINE_integer("num_layers", 2, "decoder blocks")
     flags_lib.DEFINE_integer("pipeline_stages", 0,
                              "split the decoder over a 'pipe' mesh axis "
-                             "(0 = off; not ported: above 1 raises)")
+                             "(0 = off; must divide --num_layers AND the "
+                             "rank count; replaces the fsdp axis)")
     flags_lib.DEFINE_string("pp_schedule", "gpipe",
-                            "pipeline schedule: gpipe | 1f1b (accepted; "
-                            "the pipeline is not ported)")
+                            "pipeline schedule: gpipe (the step's "
+                            "backward through the pipeline) | 1f1b "
+                            "(hand-scheduled, O(stages) stashed inputs)")
     flags_lib.DEFINE_string("family", "gpt2",
                             "decoder recipe: gpt2 (layernorm/gelu/learned "
                             "positions) | llama (rmsnorm/swiglu/rope/GQA)")
@@ -94,10 +109,6 @@ def main(argv=None) -> int:
     _define_flags()
     FLAGS.reset()
     FLAGS.parse(argv)
-    if FLAGS.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"--pipeline_stages={FLAGS.pipeline_stages}: the pipeline is "
-            f"not ported (ROADMAP Queue 1 item 7.3)")
 
     import numpy as np
     import torch
@@ -110,30 +121,59 @@ def main(argv=None) -> int:
 
     device = start(FLAGS.device, cluster.cluster_from_env())
     n = parallel.data_parallel_mesh().size
-    fsdp = 2 if n % 2 == 0 and n > 1 else 1
-    mesh = parallel.make_mesh({"data": n // fsdp, "fsdp": fsdp})
+    pp = FLAGS.pipeline_stages
+    if pp > 1:
+        if n % pp:
+            raise SystemExit(f"--pipeline_stages={pp} does not divide the "
+                             f"device count {n}")
+        if FLAGS.num_layers % pp:
+            raise SystemExit(f"--pipeline_stages={pp} does not divide "
+                             f"--num_layers={FLAGS.num_layers}")
+        if FLAGS.pp_schedule not in ("gpipe", "1f1b"):
+            raise SystemExit(f"--pp_schedule={FLAGS.pp_schedule!r}: "
+                             f"gpipe|1f1b")
+        fsdp = 1
+        mesh = parallel.make_mesh({"pipe": pp, "data": n // pp})
+    else:
+        fsdp = 2 if n % 2 == 0 and n > 1 else 1
+        mesh = parallel.make_mesh({"data": n // fsdp, "fsdp": fsdp})
     print(f"devices: {n} ({device.type}), mesh={mesh.shape}",
           file=sys.stderr)
 
-    config = config_of(FLAGS.family, vocab_size=VOCAB,
-                       num_layers=FLAGS.num_layers, num_heads=4,
-                       hidden_size=128, max_position=FLAGS.seq_len,
-                       dtype=torch.bfloat16, remat=FLAGS.remat,
-                       remat_policy=FLAGS.remat_policy,
-                       loss_seq_chunk=FLAGS.loss_seq_chunk)
-    model = GPT(config, device=device,
+    dims = dict(vocab_size=VOCAB, num_layers=FLAGS.num_layers, num_heads=4,
+                hidden_size=128, max_position=FLAGS.seq_len,
+                dtype=torch.bfloat16, remat=FLAGS.remat,
+                remat_policy=FLAGS.remat_policy,
+                loss_seq_chunk=FLAGS.loss_seq_chunk)
+    config = config_of(FLAGS.family, **dims)
+    model = GPT(config_of(FLAGS.family, pipeline_stages=pp if pp > 1
+                          else 0, **dims),
+                device=device, mesh=mesh if pp > 1 else None,
                 generator=torch.Generator(device).manual_seed(FLAGS.seed))
     optimizer = optim.with_ema(optim.adamw(3e-3), decay=0.99)
     params = dict(model.named_parameters())
     state = train.TrainState.create(params, optimizer.init(params))
     state = train.shard_train_state(state, mesh,
                                     model.partition_rules(fsdp=fsdp > 1))
-    step = train.make_custom_train_step(
-        model.lm_loss_fn(), optimizer, seed=FLAGS.seed, mesh=mesh,
-        grad_clip_norm=1.0, policy="mixed_bfloat16")
+    if pp > 1 and FLAGS.pp_schedule == "1f1b":
+        step = train.make_1f1b_train_step(model, optimizer, seed=FLAGS.seed,
+                                          grad_clip_norm=1.0)
+    else:
+        # under pp no policy: the config's bf16 already casts the compute
+        step = train.make_custom_train_step(
+            model.lm_loss_fn(), optimizer, seed=FLAGS.seed, mesh=mesh,
+            grad_clip_norm=1.0,
+            policy=None if pp > 1 else "mixed_bfloat16")
 
     rows = corpus_rows(FLAGS.seq_len, FLAGS.seed)
     batch = parallel.round_batch_to_mesh(FLAGS.batch_size, mesh)
+    shards = parallel.data_shards(mesh)
+    if pp > 1 and batch % (shards * pp):
+        # each data rank's rows split into pp microbatches
+        quantum = shards * pp
+        batch = -(-FLAGS.batch_size // quantum) * quantum
+        print(f"batch_size -> {batch} (divisible by {quantum}: data shards"
+              f" x pipeline microbatches)", file=sys.stderr)
     local = parallel.local_batch_size(batch, mesh)
     part = slice(mesh.data_index * local, (mesh.data_index + 1) * local)
     ds = data.Dataset([rows], batch, seed=FLAGS.seed)
@@ -158,11 +198,17 @@ def main(argv=None) -> int:
     if writer is not None:
         writer.close()
 
-    # eval the live and the EMA weights on held-out rows; generate
+    # eval the live and the EMA weights on held-out rows; generate.  Under
+    # pp both run on whole models built from the gathered stages.
     eval_rows = torch.from_numpy(rows[-64:]).to(device)
     live_params = train.gather_params(final)
+    ema_params = optim.ema_params(final.opt_state)
+    if pp > 1:
+        model = GPT(config, device=device)
+        model.load_state_dict(live_params)
+        live_params = dict(model.named_parameters())
     ema_model = GPT(config, device=device)
-    ema_model.load_state_dict(optim.ema_params(final.opt_state))
+    ema_model.load_state_dict(ema_params)
 
     @torch.no_grad()
     def eval_loss(m, params):

@@ -106,7 +106,8 @@ def gpt_params_from_jax(tree: Dict[str, Any], config: GPTConfig,
     """The port's ``GPT`` state dict from a JAX GPT parameter tree whose
     leaves are numpy arrays.  ``mesh``: this rank's blocks of every leaf
     under ``gpt_partition_rules(config, shard_kv=shard_kv)`` (``parallel.
-    shard_pytree``), the state dict of ``GPT(config, mesh=mesh,
+    shard_pytree``), and with ``pipeline_stages`` only this rank's
+    stage's layers: the state dict of ``GPT(config, mesh=mesh,
     shard_kv=shard_kv)``."""
     sd = {k: torch.from_numpy(np.array(v, np.float32))
           for k, v in _unstacked(tree, config.num_layers).items()}
@@ -116,9 +117,16 @@ def gpt_params_from_jax(tree: Dict[str, Any], config: GPTConfig,
                                                       shard_kv=shard_kv))
 
 
-def _unstacked(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
-    """The port's names -> leaves (layer ``i`` of a stacked one for
-    ``blocks.<i>.<path>``) of a JAX GPT parameter tree."""
+def _layer_list(layers) -> list:
+    """Layer indices: ``range(layers)`` of a count, else the sequence."""
+    return list(range(layers)) if isinstance(layers, int) else list(layers)
+
+
+def _unstacked(tree: Dict[str, Any], layers) -> Dict[str, Any]:
+    """The port's names -> leaves of a JAX GPT parameter tree: row ``j``
+    of a stacked leaf is ``blocks.<layers[j]>.<path>`` (``layers`` a
+    count: every layer; a pipeline stage's indices: its rows)."""
+    layers = _layer_list(layers)
     for key in tree:
         if key not in ("embeddings", "decoder", "ln_f", "lm_head"):
             raise ValueError(f"parameter {key!r} belongs to a GPT "
@@ -128,11 +136,11 @@ def _unstacked(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
     if "lm_head" in tree:
         sd["lm_head"] = tree["lm_head"]
     for path, leaf in _flatten(tree["decoder"]):
-        if leaf.shape[0] != num_layers:
+        if leaf.shape[0] != len(layers):
             raise ValueError(f"decoder leaf {path} leads with "
-                             f"{leaf.shape[0]}, not {num_layers} layers")
-        for i in range(num_layers):
-            sd[f"blocks.{i}.{path}"] = leaf[i]
+                             f"{leaf.shape[0]}, not {len(layers)} layers")
+        for j, i in enumerate(layers):
+            sd[f"blocks.{i}.{path}"] = leaf[j]
     return sd
 
 
@@ -147,12 +155,15 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor],
                     np.stack)
 
 
-def _stacked(state_dict: Mapping[str, Any], num_layers: int, tied: bool,
+def _stacked(state_dict: Mapping[str, Any], layers, tied: bool,
              leaf: Callable, stack: Callable) -> Dict[str, Any]:
     """The JAX GPT tree of a dict under the port's names: ``leaf(x)`` of
-    each entry, and ``stack([...])`` of a decoder leaf's layers."""
+    each entry, and ``stack([...])`` of a decoder leaf's layers, which
+    must be ``layers`` (a count: all of them; a pipeline stage's
+    indices)."""
+    layers = _layer_list(layers)
     tree: Dict[str, Any] = {"embeddings": {}, "ln_f": {}, "decoder": {}}
-    layers: Dict[str, Dict[int, Any]] = {}
+    by_path: Dict[str, Dict[int, Any]] = {}
     for name, t in state_dict.items():
         head, _, rest = name.partition(".")
         if name in ("word", "position"):
@@ -163,18 +174,18 @@ def _stacked(state_dict: Mapping[str, Any], num_layers: int, tied: bool,
             tree["ln_f"][rest] = leaf(t)
         elif head == "blocks":
             i, _, path = rest.partition(".")
-            layers.setdefault(path, {})[int(i)] = leaf(t)
+            by_path.setdefault(path, {})[int(i)] = leaf(t)
         else:
             raise ValueError(f"{name!r} is not a GPT parameter of the port")
-    for path, rows in layers.items():
-        if sorted(rows) != list(range(num_layers)):
+    for path, rows in by_path.items():
+        if sorted(rows) != layers:
             raise ValueError(f"decoder leaf {path} has layers {sorted(rows)}"
-                             f", not 0..{num_layers - 1}")
+                             f", not {layers[0]}..{layers[-1]}")
         node = tree["decoder"]
         *parents, last = path.split(".")
         for key in parents:
             node = node.setdefault(key, {})
-        node[last] = stack([rows[i] for i in range(num_layers)])
+        node[last] = stack([rows[i] for i in layers])
     return tree
 
 
@@ -293,10 +304,11 @@ def _is_gpt(names) -> bool:
     return "word" in names
 
 
-def _layers(names) -> int:
-    """The layer count of a GPT parameter dict, from its names."""
-    return 1 + max((int(n.split(".")[1]) for n in names
-                    if n.startswith("blocks.")), default=-1)
+def _layers(names) -> list:
+    """The layer indices of a GPT parameter dict, from its names (all of
+    them, or a pipeline stage's)."""
+    return sorted({int(n.split(".")[1]) for n in names
+                   if n.startswith("blocks.")})
 
 
 def _host_scalar(x) -> np.ndarray:
@@ -313,21 +325,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _to_jax(x, names, num_layers: int, leaf: Callable, stack: Callable):
+def _to_jax(x, names, layers, leaf: Callable, stack: Callable):
     if isinstance(x, dict):
         if names and set(x) == names:        # params-shaped: JAX layout
             if not _is_gpt(names):
                 return _nest({k: leaf(v) for k, v in x.items()})
-            return _stacked(x, num_layers, "lm_head" not in names, leaf,
-                            stack)
-        return {k: _to_jax(v, names, num_layers, leaf, stack)
+            return _stacked(x, layers, "lm_head" not in names, leaf, stack)
+        return {k: _to_jax(v, names, layers, leaf, stack)
                 for k, v in x.items()}
     if _is_namedtuple(x):
-        return type(x)(*(_to_jax(v, names, num_layers, leaf, stack)
+        return type(x)(*(_to_jax(v, names, layers, leaf, stack)
                          for v in x))
     if isinstance(x, (list, tuple)):
-        return type(x)(_to_jax(v, names, num_layers, leaf, stack)
-                       for v in x)
+        return type(x)(_to_jax(v, names, layers, leaf, stack) for v in x)
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
@@ -363,12 +373,12 @@ def _as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _from_jax(src, dst, names, num_layers: int):
+def _from_jax(src, dst, names, layers):
     if isinstance(dst, dict):
         if names and set(dst) == names:
-            src = (_unstacked(src, num_layers) if _is_gpt(names)
+            src = (_unstacked(src, layers) if _is_gpt(names)
                    else _flat(dict(src), ""))
-        out = {k: _from_jax(src[k], v, names, num_layers)
+        out = {k: _from_jax(src[k], v, names, layers)
                for k, v in dst.items()}
         if type(dst) is dict:
             return out
@@ -377,10 +387,10 @@ def _from_jax(src, dst, names, num_layers: int):
         return kept
     if _is_namedtuple(dst):
         return type(dst)(*(_from_jax(getattr(src, f), getattr(dst, f),
-                                     names, num_layers)
+                                     names, layers)
                            for f in dst._fields))
     if isinstance(dst, (list, tuple)):
-        return type(dst)(_from_jax(s, d, names, num_layers)
+        return type(dst)(_from_jax(s, d, names, layers)
                          for s, d in zip(src, dst))
     if dst is None:
         return None
@@ -409,11 +419,14 @@ def train_state_from_jax(tree: Any, state: Any) -> Any:
 
 def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:
     """Copy a JAX GPT parameter tree (numpy leaves) into ``model`` (its
-    blocks of it under tensor parallelism)."""
-    mesh = tensor_parallel.active(model.mesh)
+    blocks of it under tensor parallelism, its stage's layers under
+    pipeline parallelism)."""
+    mesh = (model.mesh if model.config.pipeline_stages > 1
+            else tensor_parallel.active(model.mesh))
     model.load_state_dict(gpt_params_from_jax(
         tree, model.config, mesh=mesh,
-        shard_kv=model._kv_on_tensor() if mesh is not None else None),
+        shard_kv=(model._kv_on_tensor()
+                  if tensor_parallel.active(mesh) is not None else None)),
         strict=True)
     return model
 

@@ -74,6 +74,24 @@ heads.  The paged paths, LoRA adapters, the int8 cache, MoE and
 ``seq_axis`` raise under T > 1 (ROADMAP Queue 1 item 7.2b; the paged
 engine takes no mesh in the JAX package either).
 
+Pipeline parallelism (``pipeline_stages`` S > 1, ``GPT(config, mesh=)``
+with a ``pipe`` axis of S ranks): the constructor draws the whole model,
+as at S = 1, then keeps this rank's stage, layers ``[s L/S, (s+1) L/S)``
+under their global names ``blocks.<i>`` (each marked with its
+``parallel.sharding.Stage``), beside the replicated embeddings, ``ln_f``
+and head.  ``apply`` and ``lm_loss_fn`` send the decoder through
+``parallel.pipeline.pipeline_apply`` (GPipe over
+``pipeline_microbatches`` microbatches, S when 0), so every rank of the
+line holds the hidden states and the loss; ``lm_1f1b_value_and_grad``
+is the hand-scheduled 1F1B pass.  Dropout in the stages draws from a
+generator derived from the step's after the embedding's draws and the
+stage index, so the embedding's masks are the same on every rank of
+the line and GPipe and 1F1B draw the same masks.  The KV-cache paths
+raise on a stage model: decode on a whole model built from
+``train.gather_params`` (the JAX package decodes from its global
+arrays).  MoE and ``seq_axis`` raise beside a pipeline, as in the JAX
+package.
+
 Numerics: TF32 stays off.  This module never sets
 ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.backends.cudnn.allow_tf32``, so a float32 model computes in full
@@ -83,6 +101,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import warnings
 from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
@@ -100,6 +120,7 @@ from ..ops.attention import (NEG_INF, _row_parallel, apply_rope,
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
+from ..parallel import pipeline as pipeline_lib
 from ..parallel import ring as ring_lib
 from ..parallel import sharding as sharding_lib
 from ..parallel import ring_flash as ring_flash_lib
@@ -259,15 +280,31 @@ class GPTConfig:
     # lm_loss_fn run this rank's shard of the sequence through ring-flash
     # attention over that axis (GPT(config, mesh=...)).  None: off
     seq_axis: Optional[str] = None
-    # the JAX package's split of the decoder over a "pipe" mesh axis: not
-    # ported (ROADMAP Queue 1 item 7.3); 0 or 1 is off
+    # pipeline parallelism (parallel/pipeline.py): the L decoder blocks as
+    # ``pipeline_stages`` same-shape stages of L/S blocks over the
+    # ``pipe_axis`` mesh axis (GPT(config, mesh=...)); the embeddings and
+    # the head run on every rank of the line.  0 or 1 is off
     pipeline_stages: int = 0
+    pipe_axis: str = "pipe"
+    # microbatches a step; 0 -> pipeline_stages
+    pipeline_microbatches: int = 0
 
     def __post_init__(self):
         if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                f"pipeline_stages={self.pipeline_stages}: the pipeline is "
-                f"not ported (ROADMAP Queue 1 item 7.3)")
+            if self.num_layers % self.pipeline_stages:
+                raise ValueError(
+                    f"num_layers {self.num_layers} not divisible by "
+                    f"pipeline_stages {self.pipeline_stages}")
+            if self.moe_experts > 0:
+                raise ValueError(
+                    "pipeline_stages with MoE is unsupported: the router "
+                    "aux-loss scalar cannot cross the same-shape pipeline "
+                    "stage contract (parallel/pipeline.py)")
+            if self.seq_axis is not None:
+                raise ValueError(
+                    "pipeline_stages with seq_axis (ring attention) is "
+                    "unsupported: the JAX package's ring cannot nest inside "
+                    "its pipe-manual region (ROADMAP Queue 1 item 7.3c)")
         if self.remat_policy not in _REMAT_SAVES:
             raise ValueError(f"remat_policy must be 'full', 'dots', or "
                              f"'dots_no_batch'; got {self.remat_policy!r}")
@@ -452,6 +489,14 @@ class GPT(nn.Module):
                                        or c.seq_axis not in mesh.shape):
             raise ValueError(f"seq_axis={c.seq_axis!r} needs GPT(config, "
                              f"mesh=...) with that axis; got {mesh}")
+        if c.pipeline_stages > 1:
+            if mesh is None or mesh.axis_size(c.pipe_axis) \
+                    != c.pipeline_stages:
+                raise ValueError(
+                    f"pipeline_stages={c.pipeline_stages} requires GPT("
+                    f"config, mesh=...) with a {c.pipe_axis!r} axis of that "
+                    f"many ranks; got {mesh}")
+            sharding_lib.check_mesh(mesh)
         self.mesh = mesh
         self.shard_kv = shard_kv
         # the tensor line (None at T = 1) and, with replicated kv
@@ -498,6 +543,34 @@ class GPT(nn.Module):
                 blk.moe = _MoE(c, device, generator)
         if self._line is not None:
             self._keep_blocks()
+        # the global indices of the layers this rank holds
+        self._layers = range(c.num_layers)
+        if c.pipeline_stages > 1:
+            self._keep_stage()
+
+    def _keep_stage(self) -> None:
+        """Keep this rank's stage of layers under their global names
+        (``blocks`` becomes a ``ModuleDict`` keyed by layer index), each
+        parameter marked with its ``Stage``."""
+        c = self.config
+        per = c.num_layers // c.pipeline_stages
+        lo = self.mesh.axis_index(c.pipe_axis) * per
+        self._layers = range(lo, lo + per)
+        self.blocks = nn.ModuleDict({str(i): self.blocks[i]
+                                     for i in self._layers})
+        rules = self.partition_rules()
+        for name, p in self.named_parameters():
+            stage = rules.stage_for(name)
+            if stage is not None:
+                sharding_lib.mark_block(p, stage)
+
+    def _refuse_stage(self, what: str) -> None:
+        if self.config.pipeline_stages > 1:
+            raise ValueError(
+                f"{what} on a pipeline stage's model (it holds layers "
+                f"{self._layers.start}..{self._layers.stop - 1} of "
+                f"{self.config.num_layers}): decode on a GPT built without "
+                f"pipeline_stages from train.gather_params(state)")
 
     def _keep_blocks(self) -> None:
         """Replace every parameter the rules cut over ``tensor`` by this
@@ -872,9 +945,30 @@ class GPT(nn.Module):
                                           device=self.device))
         qk_transform = None if rope_cs is None else (
             lambda q, k: (apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)))
+        if c.pipeline_stages > 1:
+            stage_params, stage_fn, gen = self._stage_bits(
+                P, attention_fn, qk_transform, generator, train)
+            x = pipeline_lib.pipeline_apply(
+                stage_fn, stage_params, x, self.mesh, self._microbatches(),
+                axis=c.pipe_axis, generator=gen)
+            aux_total = None
+        else:
+            x, aux_total = self._run_blocks(
+                P, x, [f"blocks.{i}." for i in range(c.num_layers)],
+                attention_fn, qk_transform, generator, train)
+        hidden = self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
+        if aux_total is None:
+            aux_total = torch.zeros((), device=self.device)
+        return hidden, aux_total
+
+    def _run_blocks(self, P: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    prefixes, attention_fn, qk_transform, generator, train):
+        """(x, the MoE aux summed, None for a dense FFN) after the blocks
+        whose tensors are ``P``'s entries under each of ``prefixes``, in
+        order; each through ``_checkpointed`` under ``remat``."""
+        c = self.config
         aux_total = None
-        for i in range(c.num_layers):
-            pre = f"blocks.{i}."
+        for pre in prefixes:
             names = [n for n in P if n.startswith(pre)]
 
             def block(x, *tensors, rel=[n[len(pre):] for n in names]):
@@ -890,10 +984,41 @@ class GPT(nn.Module):
                 x, aux = block(x, *tensors)
             if c.moe_experts:
                 aux_total = aux if aux_total is None else aux_total + aux
-        hidden = self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
-        if aux_total is None:
-            aux_total = torch.zeros((), device=self.device)
-        return hidden, aux_total
+        return x, aux_total
+
+    def _microbatches(self) -> int:
+        c = self.config
+        return c.pipeline_microbatches or c.pipeline_stages
+
+    def _stage_bits(self, P: Mapping[str, torch.Tensor], attention_fn,
+                    qk_transform, generator, train):
+        """(stage params, stage_fn, stage generator) of this rank's stage:
+        the params ``{"<j>.<path>": [1, ...]}`` (layer j of the stage, a
+        block of the pipeline's stacked params), ``stage_fn(params,
+        acts)`` running the stage's blocks, and the generator the stage's
+        dropout draws from: seeded from the step generator's state (after
+        the embedding's draws, so every call draws anew) and the stage
+        index, None without a generator."""
+        stage_params = {}
+        for j, i in enumerate(self._layers):
+            pre = f"blocks.{i}."
+            for n in P:
+                if n.startswith(pre):
+                    stage_params[f"{j}.{n[len(pre):]}"] = P[n][None]
+        gen = None
+        if generator is not None:
+            digest = hashlib.blake2b(
+                generator.get_state().numpy().tobytes()
+                + self._layers.start.to_bytes(8, "little"),
+                digest_size=8).digest()
+            gen = torch.Generator(generator.device).manual_seed(
+                int.from_bytes(digest, "little") % (2 ** 63))
+        prefixes = [f"{j}." for j in range(len(self._layers))]
+
+        def stage_fn(sp, acts):
+            return self._run_blocks(sp, acts, prefixes, attention_fn,
+                                    qk_transform, gen, train)[0]
+        return stage_params, stage_fn, gen
 
     def _norm_of(self, gamma: torch.Tensor, beta: Optional[torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
@@ -1042,6 +1167,100 @@ class GPT(nn.Module):
 
         return loss_fn
 
+    def lm_1f1b_value_and_grad(self, params: Mapping[str, torch.Tensor],
+                               batch: Mapping[str, torch.Tensor],
+                               generator: Optional[torch.Generator] = None,
+                               train: bool = True):
+        """The causal-LM training pass under the hand-scheduled 1F1B
+        pipeline -> ``(loss, grads)``: ``grads`` {name: gradient} of every
+        parameter in ``params`` (this rank's, the ``lm_loss_fn`` names),
+        what autograd through ``lm_loss_fn`` gives on the GPipe path, with
+        at most ``min(M, 2S - 1)`` stashed stage inputs a rank.
+
+        Composition, as the JAX package's: the embedding runs on every
+        rank under autograd and takes the pipeline's ``dx`` as its
+        cotangent; the stages run ``parallel.pipeline.
+        pipeline_value_and_grad``; ``ln_f``, the head and the cross
+        entropy are its loss with ``aux_params`` (their gradients come
+        back on every rank).  A tied word embedding adds both paths' grads.
+        Under a ``loss_mask`` each microbatch's masked mean weighs in by
+        its share of the mask's sum, so the loss is the batch's masked
+        mean.  ``loss_seq_chunk`` is not applied here (a warning says
+        so)."""
+        c = self.config
+        if c.pipeline_stages <= 1:
+            raise ValueError("lm_1f1b_value_and_grad requires "
+                             "pipeline_stages > 1")
+        if c.loss_seq_chunk:
+            warnings.warn(
+                "loss_seq_chunk is not applied on the 1F1B path: head_loss "
+                "builds full-width logits per microbatch (already 1/N of "
+                "the batch).  Use the GPipe path (the normal train step) "
+                "for chunked-loss memory savings.", stacklevel=2)
+        P = params
+        ids = batch["input_ids"].to(self.device).long()
+        inputs, targets = ids[:, :-1], ids[:, 1:]
+        length = inputs.shape[1]
+        mask = batch.get("loss_mask")
+        emb_names = ["word"] + (["position"] if self.position is not None
+                                else [])
+        with torch.enable_grad():
+            x = P["word"][inputs]
+            if self.position is not None:
+                x = x + P["position"][:length][None]
+            x = dropout(x, c.dropout_rate, generator, train).to(c.dtype)
+        attention_fn = self._attention_fn()
+        rope_cs = self._rope(torch.arange(length, device=self.device))
+        qk_transform = None if rope_cs is None else (
+            lambda q, k: (apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)))
+        stage_params, stage_fn, gen = self._stage_bits(
+            P, attention_fn, qk_transform, generator, train)
+        head_name = "word" if c.tied_head else "lm_head"
+        aux = {"gamma": P["ln_f.gamma"], "head": P[head_name]}
+        if "ln_f.beta" in P:
+            aux["beta"] = P["ln_f.beta"]
+
+        def head_loss(a, out, y_mb):
+            h = self._norm_of(a["gamma"], a.get("beta"), out)
+            m = y_mb.get("m")
+            nll, _ = _chunk_stats(h.reshape(-1, h.shape[-1]), a["head"],
+                                  y_mb["t"].reshape(-1),
+                                  None if m is None else m.reshape(-1))
+            if m is None:
+                return nll / y_mb["t"].numel()
+            return nll / torch.clamp(m.sum(), min=1e-9)
+
+        n_micro = self._microbatches()
+        y = {"t": targets}
+        weights = None
+        if mask is not None:
+            mask = mask.to(self.device).float()
+            y["m"] = mask
+            per_mb = mask.reshape(n_micro, -1).sum(dim=1)
+            weights = per_mb / torch.clamp(per_mb.sum(), min=1e-9)
+        loss, stage_grads, aux_grads, dx = \
+            pipeline_lib.pipeline_value_and_grad(
+                stage_fn, head_loss, stage_params, x.detach(), y, self.mesh,
+                n_micro, axis=c.pipe_axis, aux_params=aux, with_dx=True,
+                microbatch_weights=weights, generator=gen)
+        emb = dict(zip(emb_names, torch.autograd.grad(
+            x, [P[n] for n in emb_names], dx)))
+        grads = {"ln_f.gamma": aux_grads["gamma"]}
+        if "beta" in aux_grads:
+            grads["ln_f.beta"] = aux_grads["beta"]
+        grads.update(emb)
+        if c.tied_head:
+            grads["word"] = emb["word"] + aux_grads["head"].to(
+                emb["word"].dtype)
+        else:
+            grads["lm_head"] = aux_grads["head"]
+        for j, i in enumerate(self._layers):
+            pre = f"{j}."
+            for n, g in stage_grads.items():
+                if n.startswith(pre):
+                    grads[f"blocks.{i}.{n[len(pre):]}"] = g[0]
+        return loss, {n: grads[n] for n in P}
+
     # -- paged decode -----------------------------------------------------
     @torch.no_grad()
     def decode_step_slots_paged(self, kv: Dict[str, torch.Tensor],
@@ -1066,6 +1285,7 @@ class GPT(nn.Module):
         decodes under table row ``adapter_rows[r]``'s LoRA adapter (row 0
         the zero adapter; None: no adapter work).  Returns (logits [b,
         vocab] f32, kv); the pool is updated in place."""
+        self._refuse_stage("decode_step_slots_paged")
         self._refuse_tp("the paged KV cache")
         x = self._embed(token_ids, positions)[:, None, :]
         page_size = kv["k"].shape[2]
@@ -1107,6 +1327,7 @@ class GPT(nn.Module):
         ``adapters``/``adapter_rows`` [1]: the request's LoRA adapter, as
         in ``decode_step_slots_paged``.  Returns (logits, kv); the pool
         is updated in place."""
+        self._refuse_stage("decode_window_paged")
         self._refuse_tp("the paged KV cache")
         b, s = token_ids.shape
         if b != 1:
@@ -1150,6 +1371,7 @@ class GPT(nn.Module):
         dequantizes to 0), and ``pos``, the next column to write.  ``pos``
         is a host int (the JAX package keeps a device scalar), so every
         slice and mask of the decode path is built without a sync."""
+        self._refuse_stage("init_cache")
         c = self.config
         max_len = max_len or c.max_position
         dev = self.device
@@ -1406,6 +1628,7 @@ class GPT(nn.Module):
         real token): pads are masked from attention and each row's
         positions shift by its pad count; it does not compose with
         ``prefill_chunk``."""
+        self._refuse_stage("generate")
         if prefill_chunk is not None and prompt_valid is not None:
             raise ValueError("prefill_chunk does not compose with "
                              "prompt_valid (ragged prompts prefill as "
@@ -1483,6 +1706,7 @@ class GPT(nn.Module):
         with EOS at no cost; GNMT length penalty).  With ``eos_id`` the
         loop stops once every beam has finished and the rest reads EOS.
         ``prompt_valid``: LEFT-padded ragged prompts, as ``generate``."""
+        self._refuse_stage("beam_search")
         if prefill_chunk is not None and prompt_valid is not None:
             raise ValueError("prefill_chunk does not compose with "
                              "prompt_valid (ragged prompts prefill as "
@@ -1579,6 +1803,7 @@ class GPT(nn.Module):
         per-slot LoRA adapters, as in ``decode_step_slots_paged``.
         Returns (logits [b, vocab] f32, kv); the cache is written in
         place."""
+        self._refuse_stage("decode_step_slots")
         c = self.config
         max_len = kv["k"].shape[2]
         x = self._embed(token_ids, torch.clamp(
@@ -1624,8 +1849,11 @@ def gpt_partition_rules(config: GPTConfig, fsdp: bool = False,
     the remaining large dim of each matrix over ``fsdp`` (the word
     embedding's dim 1, the attention output's last, ``w_out``'s dim 1);
     keys and values shard over ``tensor`` only under plain MHA unless
-    ``shard_kv`` says otherwise.  A MoE config raises (ROADMAP Queue 1
-    item 7.2b: the expert axis)."""
+    ``shard_kv`` says otherwise.  With ``pipeline_stages`` S > 1 the
+    table gives layer ``i``'s leaves to stage ``i // (L / S)`` of
+    ``pipe_axis`` (``PartitionRules.stage_for``), where the JAX package
+    puts the axis on the stacked leaves' leading layer dim.  A MoE config
+    raises (ROADMAP Queue 1 item 7.2b: the expert axis)."""
     c = config
     if c.moe_experts:
         raise NotImplementedError(
@@ -1652,4 +1880,5 @@ def gpt_partition_rules(config: GPTConfig, fsdp: bool = False,
         (blk + r"ffn\.w_out\.bias$", (None,)),
         (blk + r"attention\.out\.bias$", (None,)),
         (blk + r"ln_[12]\.(gamma|beta)$", (None,)),
-    ])
+    ], stages=((r"^blocks\.(\d+)\.", c.num_layers, c.pipeline_stages,
+                c.pipe_axis) if c.pipeline_stages > 1 else None))

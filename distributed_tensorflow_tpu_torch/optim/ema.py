@@ -126,7 +126,10 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
     shadow cut by ``train.shard_train_state`` over ``fsdp`` is gathered
     over its line into whole tensors (one all-gather; every rank of the
     line must call), for eval and ``generate``; one cut over ``tensor``
-    stays the blocks, which a tensor-parallel model reads."""
+    stays the blocks, which a tensor-parallel model reads; a pipeline
+    stage's gathers every stage's layers over the ``pipe`` line into the
+    whole model's (one all-gather), which a model built without the
+    pipeline loads."""
     try:
         state = opt_state.inner["ema"]
     except (TypeError, KeyError):
@@ -136,4 +139,6 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
     shadow = state.shadow
     if isinstance(shadow, ShardedDict) and shadow.line == "fsdp":
         return dp_lib.gather_shards(value, shadow.layout, shadow.mesh)
+    if isinstance(shadow, ShardedDict) and shadow.line == "pipe":
+        return dp_lib.gather_stages(value, shadow.layout, shadow.mesh)
     return value

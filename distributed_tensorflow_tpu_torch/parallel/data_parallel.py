@@ -15,11 +15,12 @@ In the port the JAX package's two spellings, ``make_train_step(mesh=
 ``train/step.py`` calls ``all_reduce_mean`` when its mesh has a process
 group, and ``make_psum_train_step`` is a name for it.
 
-The ranks that average are the replicas: on a mesh with a ``tensor`` axis
-of more than one rank, the ranks of this rank's ``data`` line (those that
-share its ``tensor`` coordinate and so hold the same blocks), never the
-whole mesh, whose sum would add blocks of different ranks; a data line
-of one issues no all-reduce (``replicas``).
+The ranks that average are the replicas: on a mesh with a ``tensor`` or
+a ``pipe`` axis of more than one rank, the ranks of this rank's ``data``
+line (those that share its ``tensor`` and ``pipe`` coordinates and so
+hold the same blocks or stage), never the whole mesh, whose sum would
+add blocks or layers of different ranks; a data line of one issues no
+all-reduce (``replicas``).
 
 Weighted losses: a loss function that reports ``metrics["loss_weight"]``
 (a masked mean's normaliser, such as the token or mask count) is a
@@ -57,6 +58,10 @@ gradient norm and the count of non-finite elements sum the blocks'
 squares and counts over the ``fsdp`` line (``line_sum``, one all-reduce
 of two numbers) and count each uncut leaf once.
 
+A pipeline stage's layers (``parallel.sharding.Stage``) gather into the
+whole model over the ``pipe`` line with ONE ``all_gather_into_tensor``
+(``gather_stages``), for eval and ``generate`` on a whole model.
+
 ``LAUNCHES`` counts the collectives issued by kind: ``all_reduce``,
 ``all_gather``, ``reduce_scatter`` and ``stats_all_reduce``, and those of
 ``parallel/tensor_parallel.py`` as ``tp_all_reduce`` and
@@ -65,12 +70,14 @@ of two numbers) and count each uncut leaf once.
 from __future__ import annotations
 
 import collections
+import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["LAUNCHES", "all_reduce_mean", "gather_shards", "line_sum",
+__all__ = ["LAUNCHES", "all_reduce_mean", "gather_shards", "gather_stages",
+           "line_sum",
            "make_psum_train_step", "reduce_scatter_mean", "replicas"]
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -91,9 +98,9 @@ def _unflat(flat: torch.Tensor, like: List[torch.Tensor]
 
 def replicas(mesh) -> Tuple[object, int]:
     """(the process group the gradients average over, its rank count):
-    the whole mesh's group, or under a ``tensor`` axis of more than one
-    rank this rank's ``data`` line (None for a line of one)."""
-    if mesh.axis_size("tensor") > 1:
+    the whole mesh's group, or under a ``tensor`` or ``pipe`` axis of more
+    than one rank this rank's ``data`` line (None for a line of one)."""
+    if mesh.axis_size("tensor") > 1 or mesh.axis_size("pipe") > 1:
         return mesh.axis_group("data"), mesh.axis_size("data")
     return mesh.group, mesh.size
 
@@ -188,6 +195,50 @@ def gather_shards(shards: Mapping[str, torch.Tensor], layout, mesh,
         lo += t.numel()
         res[n] = dst
     return res
+
+
+@torch.no_grad()
+def gather_stages(values: Mapping[str, torch.Tensor], layout, mesh
+                  ) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of the whole model from this rank's: the layers of
+    every stage of the ``pipe`` line (``layout[name]`` a
+    ``parallel.sharding.Stage``; names ``<prefix>.<layer>.<path>``) from
+    ONE ``all_gather_into_tensor`` over the line, this rank's own layers
+    and every other entry as they are.  Every rank of the line must
+    call."""
+    from .sharding import Stage
+    stage = [n for n in values if isinstance(layout.get(n), Stage)]
+    if not stage:
+        return dict(values)
+    first = min(layout[n].layer for n in stage)
+
+    def rel(n):
+        m = re.match(rf"^(.*?\.){layout[n].layer}(\..*)$", n)
+        return layout[n].layer - first, m.group(1), m.group(2)
+    order = sorted(stage, key=rel)
+    dtypes = {values[n].dtype for n in order}
+    if len(dtypes) != 1:
+        raise TypeError(f"gather_stages over layers of types {dtypes}")
+    s0 = layout[order[0]]
+    parts = mesh.axis_size(s0.line)
+    per = s0.layers // parts
+    flat = torch.cat([values[n].detach().reshape(-1) for n in order])
+    buf = flat.new_empty(parts * flat.numel())
+    dist.all_gather_into_tensor(buf, flat, group=mesh.axis_group(s0.line))
+    LAUNCHES["all_gather"] += 1
+    buf = buf.view(parts, -1)
+    own = set(stage)
+    out = {n: t for n, t in values.items() if n not in own}
+    for r in range(parts):
+        lo = 0
+        for n in order:
+            j, head, tail = rel(n)
+            t = values[n]
+            name = f"{head}{r * per + j}{tail}"
+            out[name] = (t if r == s0.stage else
+                         buf[r, lo:lo + t.numel()].view(t.shape).clone())
+            lo += t.numel()
+    return out
 
 
 def reduce_scatter_mean(grads: Mapping[str, torch.Tensor],

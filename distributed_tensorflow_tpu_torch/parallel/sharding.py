@@ -16,12 +16,15 @@ on the devices.  Here every rank holds its own block of each leaf:
 the device at this rank's place in the mesh.  A dim that its axes do not
 divide raises ``ValueError``, as the JAX package's ``device_put`` does.
 
-The axes a leaf may be cut over are ``data``, ``fsdp`` and ``tensor``.
+The axes a leaf may be cut over are ``data``, ``fsdp``, ``tensor`` and
+``pipe`` (a stacked leaf's leading stage dim, ``parallel/pipeline.py``).
 An ``expert`` axis of more than one rank raises ``NotImplementedError``
-(ROADMAP Queue 1 item 7.2b: the MoE's expert axis), as do a ``pipe``
-axis (item 7.3, the pipeline), a ``seq`` axis beside ``fsdp`` (item 7.5)
-and ``tensor`` beside ``fsdp`` or ``seq`` (item 7.2b).  ``parallel/
-mesh.py`` holds ``named_sharding``, ``replicated`` and ``logical_to_mesh``.
+(ROADMAP Queue 1 item 7.2b: the MoE's expert axis), as do a ``seq`` axis
+beside ``fsdp`` (item 7.5), ``tensor`` beside ``fsdp`` or ``seq`` (item
+7.2b) and ``pipe`` beside ``fsdp``, ``tensor`` or ``seq`` (items 7.3a,
+7.3b, 7.3c): a pipeline runs beside ``data`` alone, as the JAX
+package's ``examples/train_gpt.py`` runs it.  ``parallel/mesh.py`` holds
+``named_sharding``, ``replicated`` and ``logical_to_mesh``.
 
 The layouts of ``train.shard_train_state``: a leaf cut along one dim over
 one line (``Shard``: the dim, this rank's start and length, the dim's
@@ -34,6 +37,18 @@ into; under tensor parallelism the blocks themselves, which the model
 computes on).  A tensor-parallel model keeps its blocks as its
 parameters, each marked with its ``Shard`` (``mark_block``), so the
 placement knows a block from a whole leaf.
+
+A pipeline stage's layers (``GPT(config, mesh=)`` with
+``pipeline_stages``) are whole leaves that only the ranks of one stage
+hold: the model keeps its stage's layers under their global names, each
+marked with its ``Stage`` (the layer, the layer count, the stage, the
+line), and a rule table with ``stages`` says which stage holds each
+layer (``PartitionRules.stage_for``; ``shard_pytree`` keeps this rank's
+stage's layers only).  Their layout is the ``Stage``: a ``ShardedDict``
+over ``pipe`` gathers them over the line into the whole model
+(``parallel.data_parallel.gather_stages``), sums their squares over it
+for the global norm, and writes each stage's layers once into a sharded
+checkpoint.
 """
 from __future__ import annotations
 
@@ -43,7 +58,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, \
 
 import torch
 
-__all__ = ["PartitionRules", "Shard", "ShardedDict", "block_of",
+__all__ = ["PartitionRules", "Shard", "ShardedDict", "Stage", "block_of",
            "check_mesh", "cut_blocks", "mark_block", "marked_shard",
            "prune_spec", "shard_pytree", "tree_paths", "zero_shard"]
 
@@ -52,11 +67,14 @@ Rules = Sequence[Tuple[str, Spec]]
 
 # the ROADMAP item that ports each axis the port cannot cut over yet
 _UNPORTED = {"expert": "7.2b (the MoE's expert axis)",
-             "pipe": "7.3 (the pipeline)",
              "seq": "7.5 (ZeRO beside a seq axis)"}
 # axes that may not be larger than 1 beside a tensor axis of more than 1
 _BESIDE_TENSOR = {"fsdp": "7.2b (tensor beside fsdp: two cut dims)",
                   "seq": "7.2b (tensor beside seq)"}
+# axes that may not be larger than 1 beside a pipe axis of more than 1
+_BESIDE_PIPE = {"fsdp": "7.3a (pipe beside fsdp)",
+                "tensor": "7.3b (pipe beside tensor)",
+                "seq": "7.3c (pipe beside seq)"}
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -99,12 +117,41 @@ def tree_paths(tree) -> List[str]:
     return [p for p, _ in _leaves(tree)]
 
 
+class Stage(NamedTuple):
+    """A whole leaf of layer ``layer`` (of ``layers``) that only the ranks
+    of pipeline stage ``stage`` on the ``line`` axis hold."""
+    layer: int
+    layers: int
+    stage: int
+    line: str = "pipe"
+
+
 class PartitionRules:
     """Ordered (regex, spec) table; the first match wins, no match
-    replicates (``()``)."""
+    replicates (``()``).  ``stages``: ``(pattern, layers, stages, axis)``
+    for a pipelined stack, the pattern's first group a path's layer
+    index: layer ``i`` of ``layers`` lives on stage ``i // (layers /
+    stages)`` of ``axis``, as the JAX package's rules put ``axis`` on the
+    stacked leaves' leading layer dim."""
 
-    def __init__(self, rules: Rules):
+    def __init__(self, rules: Rules, stages=None):
         self.rules = [(re.compile(pat), tuple(spec)) for pat, spec in rules]
+        self.stages = None
+        if stages is not None:
+            pat, layers, n, axis = stages
+            self.stages = (re.compile(pat), int(layers), int(n), axis)
+
+    def stage_for(self, path: str) -> Optional[Stage]:
+        """The ``Stage`` of a pipelined layer's leaf, None for any other
+        path (or without ``stages``)."""
+        if self.stages is None:
+            return None
+        pat, layers, n, axis = self.stages
+        m = pat.search(path)
+        if m is None:
+            return None
+        layer = int(m.group(1))
+        return Stage(layer, layers, layer // (layers // n), axis)
 
     def spec_for(self, path: str) -> Spec:
         for pat, spec in self.rules:
@@ -125,6 +172,13 @@ def _refuse(mesh, axes, what: str) -> None:
     """Raise for a ``tensor`` axis (named in ``axes``) beside ``fsdp`` or
     ``seq``, and for an axis of ``axes`` larger than 1 on ``mesh`` that
     the port cannot cut over yet."""
+    if mesh.axis_size("pipe") > 1:
+        for a, item in _BESIDE_PIPE.items():
+            if mesh.axis_size(a) > 1:
+                raise NotImplementedError(
+                    f"{what}: a 'pipe' axis of {mesh.axis_size('pipe')} "
+                    f"ranks beside a {a!r} axis of {mesh.axis_size(a)}: "
+                    f"not ported (ROADMAP Queue 1 item {item})")
     if "tensor" in axes and mesh.axis_size("tensor") > 1:
         for a, item in _BESIDE_TENSOR.items():
             if mesh.axis_size(a) > 1:
@@ -141,8 +195,9 @@ def _refuse(mesh, axes, what: str) -> None:
 
 def check_mesh(mesh) -> None:
     """Raise unless every axis of ``mesh`` larger than 1 is ``data``,
-    ``fsdp`` or ``tensor``, and ``tensor`` is not beside ``fsdp``: the
-    layouts ``train.shard_train_state`` places."""
+    ``fsdp``, ``tensor`` or ``pipe``, ``tensor`` is not beside ``fsdp``
+    and ``pipe`` is beside ``data`` alone: the layouts
+    ``train.shard_train_state`` places."""
     _refuse(mesh, mesh.shape, "a sharded layout")
 
 
@@ -187,22 +242,43 @@ def _cut(t: torch.Tensor, block) -> torch.Tensor:
     return view.detach().clone(memory_format=torch.contiguous_format)
 
 
+def _on_this_stage(path: str, rules: PartitionRules, mesh) -> bool:
+    """Whether this rank holds ``path``: every leaf but a pipelined
+    layer's, which only its stage's ranks hold (on a ``pipe`` line of
+    more than one rank, whose size must be the rules' stage count)."""
+    stage = rules.stage_for(path)
+    if stage is None or mesh.axis_size(stage.line) == 1:
+        return True
+    n = rules.stages[2]
+    if mesh.axis_size(stage.line) != n:
+        raise ValueError(f"rules for {n} pipeline stages over a "
+                         f"{stage.line!r} axis of "
+                         f"{mesh.axis_size(stage.line)} ranks")
+    return stage.stage == mesh.axis_index(stage.line)
+
+
 def shard_pytree(params, mesh, rules: PartitionRules):
     """This rank's block of every leaf of ``params`` (a dict of tensors,
     flat or nested) under the rule table: each a contiguous tensor of its
-    own, or the leaf itself where the spec keeps it whole."""
+    own, or the leaf itself where the spec keeps it whole; a pipelined
+    layer's leaves only on the ranks of its stage (``_on_this_stage``)."""
     def place(tree, prefix):
-        return {k: (place(v, f"{prefix}{k}/") if isinstance(v, Mapping)
-                    else _cut(v, block_of(v.shape,
-                                          rules.spec_for(f"{prefix}{k}"),
-                                          mesh)))
-                for k, v in tree.items()}
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, Mapping):
+                out[k] = place(v, path + "/")
+            elif _on_this_stage(path, rules, mesh):
+                out[k] = _cut(v, block_of(v.shape, rules.spec_for(path),
+                                          mesh))
+        return out
     return place(params, "")
 
 
 class Shard(NamedTuple):
     """A leaf cut along ``dim`` over the ``line`` axis: this rank holds
-    ``[start, start + length)`` of the dim's ``size``."""
+    ``[start, start + length)`` of the dim's ``size``.  (A pipeline
+    stage's layer is a ``Stage``, not a cut.)"""
     dim: int
     start: int
     length: int
@@ -246,15 +322,17 @@ def zero_shard(shape: Sequence[int], spec: Spec, mesh) -> Optional[Shard]:
     return Shard(d, start, length, int(shape[d]), names[0])
 
 
-def mark_block(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+def mark_block(t: torch.Tensor, shard) -> torch.Tensor:
     """Mark ``t`` as this rank's block ``shard`` of a whole leaf (a
-    tensor-parallel model's parameter); returns ``t``."""
+    tensor-parallel model's parameter), or as a pipeline stage's layer
+    (a ``Stage``); returns ``t``."""
     t.block_shard = shard
     return t
 
 
-def marked_shard(t: torch.Tensor) -> Optional[Shard]:
-    """The ``Shard`` ``mark_block`` gave ``t``, or None for a whole leaf."""
+def marked_shard(t: torch.Tensor):
+    """The ``Shard`` or ``Stage`` ``mark_block`` gave ``t``, or None for a
+    whole leaf that every rank holds."""
     return getattr(t, "block_shard", None)
 
 
@@ -292,12 +370,14 @@ class ShardedDict(dict):
 
     @property
     def cut(self) -> bool:
-        """Whether any leaf is cut (never on lines of one rank)."""
+        """Whether any leaf is cut, or a stage's layer (never on lines of
+        one rank)."""
         return any(s is not None for s in self.layout.values())
 
     @property
     def line(self) -> Optional[str]:
-        """The axis the cut leaves are cut over (``fsdp`` or ``tensor``;
-        never both), None when nothing is cut."""
+        """The axis the cut leaves are cut over (``fsdp``, ``tensor`` or
+        ``pipe`` for a pipeline stage's layers; never two), None when
+        nothing is cut."""
         lines = {s.line for s in self.layout.values() if s is not None}
         return lines.pop() if lines else None

@@ -12,8 +12,9 @@ from .precision import (DynamicLossScale, LossScaled, NoLossScale, Policy,
                         StaticLossScale, attach_loss_scale)
 from .session import TrainSession, TrainState
 from .sharded_checkpoint import restore_sharded, save_sharded
-from .step import (gather_params, init_train_state, make_custom_train_step,
-                   make_eval_step, make_masked_eval_step,
+from .step import (gather_params, init_train_state, make_1f1b_train_step,
+                   make_custom_train_step, make_eval_step,
+                   make_masked_eval_step,
                    make_multi_train_step, make_train_step,
                    shard_train_state)
 
@@ -24,7 +25,8 @@ __all__ = ["checkpoint", "hooks", "precision", "sharded_checkpoint",
            "StopAtStepHook", "SummaryHook", "TraceHook", "WatchdogHook", "DynamicLossScale", "LossScaled",
            "NoLossScale", "Policy", "StaticLossScale", "attach_loss_scale",
            "TrainSession", "TrainState", "gather_params",
-           "init_train_state", "make_custom_train_step", "make_eval_step",
+           "init_train_state", "make_1f1b_train_step",
+           "make_custom_train_step", "make_eval_step",
            "make_masked_eval_step", "make_multi_train_step",
            "make_train_step", "restore_sharded", "save_sharded",
            "shard_train_state"]

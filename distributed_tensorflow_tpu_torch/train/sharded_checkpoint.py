@@ -23,7 +23,11 @@ it is the box ``[0:L, a:b, ...]`` built from its per-layer blocks.  A
 block of a ZeRO layout (``train.shard_train_state``) is written by the
 first rank of its ``data`` line (``replica_id == 0`` in the JAX
 package), a whole leaf and every host value by the chief, so each
-element is written once.  Restore writes each block IN PLACE into the
+element is written once.  A pipeline stage's layers (a ``Stage`` layout)
+are the box ``[a:b, ...]`` of their stacked leaf, written by the first
+rank of the stage's ``data`` line: each stage's layers once, and a
+restore onto another layout (a whole model on one rank) reads every
+stage's box.  Restore writes each block IN PLACE into the
 target's tensors; the next step's gather rebuilds the full parameters.
 """
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from ..models import convert
 from ..obs import goodput as goodput_lib
-from ..parallel.sharding import ShardedDict
+from ..parallel.sharding import ShardedDict, Stage
 from . import checkpoint as _plain
 
 __all__ = ["save_sharded", "restore_sharded", "is_sharded_checkpoint",
@@ -69,18 +73,22 @@ class _Piece:
     """One leaf of the JAX tree as this process holds it: its chunk
     (``data``: None for a restore target), the leaf's global shape, the
     chunk's start and shape in it, its type, and whether this process
-    writes it."""
+    writes it; a pipeline stage's layer also its index and the layer
+    count (its stack's leading dim)."""
     data: Optional[torch.Tensor]
     shape: Tuple[int, ...]
     start: Tuple[int, ...]
     chunk: Tuple[int, ...]
     dtype: torch.dtype
     owner: bool
+    layer: Optional[int] = None
+    layers: Optional[int] = None
 
 
 def _blocks(tree, out: Dict[int, Any]) -> None:
-    """{id(tensor): (its ``Shard``, the first rank of its data line)} of
-    every block of a ZeRO layout in ``tree``."""
+    """{id(tensor): (its ``Shard`` or ``Stage``, the first rank of its data
+    line)} of every block of a ZeRO layout and every layer of a pipeline
+    stage in ``tree``."""
     if isinstance(tree, ShardedDict):
         first = tree.mesh.axis_index("data") == 0
         for name, t in tree.items():
@@ -107,6 +115,9 @@ def _pieces(tree, pid: int, with_data: bool) -> Any:
             return _Piece(data, shape, (0,) * len(shape), shape, t.dtype,
                           pid == 0)
         shard, first = blocks[id(t)]
+        if isinstance(shard, Stage):
+            return _Piece(data, shape, (0,) * len(shape), shape, t.dtype,
+                          first, shard.layer, shard.layers)
         start = [0] * len(shape)
         start[shard.dim] = shard.start
         return _Piece(data, shard.full_shape(shape), tuple(start), shape,
@@ -116,7 +127,14 @@ def _pieces(tree, pid: int, with_data: bool) -> Any:
         r = rows[0]
         data = (torch.stack([x.data.detach() for x in rows]) if with_data
                 else None)
-        return _Piece(data, (len(rows),) + r.shape, (0,) + r.start,
+        if r.layer is None:
+            return _Piece(data, (len(rows),) + r.shape, (0,) + r.start,
+                          (len(rows),) + r.chunk, r.dtype, r.owner)
+        if [x.layer for x in rows] != list(range(r.layer,
+                                                 r.layer + len(rows))):
+            raise ValueError("a pipeline stage's layers are not one run: "
+                             f"{[x.layer for x in rows]}")
+        return _Piece(data, (r.layers,) + r.shape, (r.layer,) + r.start,
                       (len(rows),) + r.chunk, r.dtype, r.owner)
 
     return convert.train_state_to_jax(tree, leaf=leaf, stack=stack)

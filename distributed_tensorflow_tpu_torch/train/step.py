@@ -11,7 +11,8 @@ and metrics over ``(x, y)`` batches (``example.py``'s builders);
 group, metrics stacked to ``[K]``: the JAX package scans the single step
 inside one program, here the same step runs K times) and
 ``make_masked_eval_step`` (per-example loss and metrics weighted by a
-validity mask); and ``init_train_state``.  The JAX step is one
+validity mask); ``make_1f1b_train_step`` (a pipelined GPT's gradients
+from the hand-scheduled 1F1B pass); and ``init_train_state``.  The JAX step is one
 jit-compiled program over a donated state; here PyTorch runs eagerly and
 the parameters are the model's own tensors, updated in place under
 ``torch.no_grad()``, which is what donation buys there.  Metrics stay on the device as tensors.
@@ -41,8 +42,8 @@ over the line (``GPT.lm_loss_fn``, ``Bert.mlm_loss_fn`` with
 ``seq_axis``), or on the gathered output of ``apply``, so each rank
 holds the line's loss.  The ops that cross the line scale the gradients
 so that the same single all-reduce's mean is the global batch's
-(``parallel/ring.py`` says how).  Pipeline and expert axes of more than
-one rank raise.
+(``parallel/ring.py`` says how).  An expert axis of more than one rank
+raises.
 
 ZeRO over ``fsdp`` (``shard_train_state``, the JAX package's
 placement): each rank keeps its block of every leaf the partition rules
@@ -83,11 +84,25 @@ numbers) and count each replicated leaf once; Adam runs on the blocks.
 A ``tensor`` axis beside ``fsdp`` or ``seq`` raises (ROADMAP Queue 1 item
 7.2b).  On a line of one the model and the step are the plain ones.
 
+Pipeline parallelism (a mesh with ``pipe`` x ``data`` axes and a state
+placed by ``shard_train_state`` from a model built on that mesh, whose
+parameters are its stage's layers and the replicated embeddings and
+head): every rank of a ``pipe`` line passes the same rows of the batch
+(``Mesh.data_index``); the model's GPipe forward returns the last
+stage's output on every rank, so each computes the same loss and the
+same gradients of the replicated leaves.  As under tensor parallelism,
+the step averages over the ``data`` line only, and the global norm sums
+the stage layers' squares over the ``pipe`` line (one all-reduce of two
+numbers) and counts each replicated leaf once; Adam runs on the rank's
+own leaves.  ``pipe`` beside ``fsdp``, ``tensor`` or ``seq`` raises
+(ROADMAP Queue 1 items 7.3a-c).
+
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
 for microbatch ``i`` when ``accum_steps > 1``, and with the replica
-folded in over a mesh (the rank's index over every axis but ``tensor``:
-its ``data`` and ``seq`` coordinates): deterministic, resume-stable and
+folded in over a mesh (the rank's index over every axis but ``pipe`` and
+``tensor``: its ``data`` and ``seq`` coordinates): deterministic,
+resume-stable and
 unique, as the JAX step folds the step (and the microbatch, and in its
 ``make_psum_train_step`` the replica) into its key.  Every rank of a
 ``tensor`` line draws the same bits, so the replicated residual stream
@@ -134,8 +149,8 @@ from .session import TrainState
 
 __all__ = ["TrainState", "gather_params", "init_train_state",
            "make_custom_train_step", "make_eval_step",
-           "make_masked_eval_step", "make_multi_train_step",
-           "make_train_step", "shard_train_state"]
+           "make_1f1b_train_step", "make_masked_eval_step",
+           "make_multi_train_step", "make_train_step", "shard_train_state"]
 
 
 def _step_generator(seed: int, step: int, device: torch.device,
@@ -190,17 +205,28 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
     A ZeRO cut (over ``fsdp``) keeps the model's whole tensors as
     ``full``, which the step gathers the blocks into; a tensor-parallel
     cut's ``full`` is the blocks (a cut whole leaf's block requires
-    gradients, as its leaf did).  On lines of one rank nothing is cut.
-    Only ``data``, ``fsdp`` and ``tensor`` may be larger than 1, and not
-    ``tensor`` beside ``fsdp`` (``parallel/sharding.py``)."""
+    gradients, as its leaf did), and so is a pipeline stage's (its layers
+    marked with their ``Stage``, the rest whole).  On lines of one rank
+    nothing is cut.  Only ``data``, ``fsdp``, ``tensor`` and ``pipe`` may
+    be larger than 1, not ``tensor`` beside ``fsdp``, and ``pipe`` beside
+    ``data`` alone (``parallel/sharding.py``)."""
     sharding_lib.check_mesh(mesh)
     params = state.params
     if isinstance(params, sharding_lib.ShardedDict):
         raise ValueError("the state is sharded already")
     marked = {n: sharding_lib.marked_shard(p) for n, p in params.items()}
+    for n in params:
+        stage = rules.stage_for(n)
+        if stage is not None and mesh.axis_size(stage.line) > 1 \
+                and marked[n] != stage:
+            raise ValueError(f"{n} is layer {stage.layer} of a pipelined "
+                             f"stack, marked {marked[n]}: build the model "
+                             f"with GPT(config, mesh=) of this mesh")
     layout = {n: marked[n] or sharding_lib.zero_shard(
         tuple(p.shape), rules.spec_for(n), mesh) for n, p in params.items()}
     for n, s in marked.items():
+        if isinstance(s, sharding_lib.Stage):
+            continue
         want = None if s is None else sharding_lib.zero_shard(
             s.full_shape(params[n].shape), rules.spec_for(n), mesh)
         if want != s:
@@ -235,27 +261,49 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
         return sub
 
     blocks = {n: take(n, p) for n, p in params.items()}
-    tensor = any(s is not None and s.line == "tensor"
-                 for s in layout.values())
+    # the model computes on its blocks (tensor) or its stage (pipe)
+    own = any(s is not None and s.line in ("tensor", "pipe")
+              for s in layout.values())
     shards = sharding_lib.ShardedDict(blocks, layout, mesh,
-                                      full=dict(blocks) if tensor
-                                      else params)
+                                      full=dict(blocks) if own else params)
     return state._replace(params=shards, opt_state=place(state.opt_state))
 
 
 def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
-    """The parameters the model computes on, of a training state: under a
-    ZeRO layout every rank gathers its blocks into the model's own whole
-    tensors (one all-gather over the ``fsdp`` line; every rank must
-    call), which eval and ``generate`` then read; under a tensor-parallel
-    layout the blocks themselves; otherwise ``state.params``."""
+    """The parameters eval and ``generate`` read, of a training state:
+    under a ZeRO layout every rank gathers its blocks into the model's own
+    whole tensors (one all-gather over the ``fsdp`` line; every rank must
+    call); under a tensor-parallel layout the blocks themselves; under a
+    pipeline stage's the whole model's parameters on every rank (one
+    all-gather over the ``pipe`` line: this rank's tensors and copies of
+    the other stages' layers), which a model built without the pipeline
+    loads (``load_state_dict``); otherwise ``state.params``."""
     params = state.params
     if not isinstance(params, sharding_lib.ShardedDict):
         return params
+    if params.line == "pipe":
+        return dp_lib.gather_stages(params, params.layout, params.mesh)
+    return _compute_params(params)
+
+
+def _compute_params(params) -> Dict[str, torch.Tensor]:
+    """The tensors a step computes on, of a ``ShardedDict`` of parameters:
+    the whole leaves gathered in place under ZeRO, the blocks or the
+    stage themselves under tensor or pipeline parallelism."""
     if params.line == "fsdp":
         dp_lib.gather_shards(params, params.layout, params.mesh,
                              out=params.full)
     return dict(params.full)
+
+
+def _replica(mesh) -> Optional[int]:
+    """The replica folded into the dropout generator: this rank's index
+    over every axis but ``pipe`` (the outermost) and ``tensor`` (the
+    innermost), so a pipe line and a tensor line each draw one stream."""
+    if mesh is None or mesh.group is None:
+        return None
+    rest = mesh.rank % (mesh.size // mesh.axis_size("pipe"))
+    return rest // mesh.axis_size("tensor")
 
 
 def _metric_dict(metric_fns, preds, y) -> Dict[str, torch.Tensor]:
@@ -473,20 +521,17 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                          "updates; drop skip_nonfinite")
     pol = prec_lib.policy(policy) if policy is not None else None
     if mesh is not None:
-        other = {a: n for a, n in mesh.shape.items()
-                 if n > 1 and a not in ("data", "fsdp", "seq", "tensor")}
+        other = {a: n for a, n in mesh.shape.items() if n > 1 and a
+                 not in ("data", "fsdp", "seq", "tensor", "pipe")}
         if other:
             raise NotImplementedError(
-                f"make_custom_train_step over mesh axes {other}: pipeline "
-                f"and expert parallelism are not ported yet (ROADMAP Queue "
-                f"1 items 7.3, 7.2b)")
-        if mesh.axis_size("tensor") > 1:
+                f"make_custom_train_step over mesh axes {other}: expert "
+                f"parallelism is not ported yet (ROADMAP Queue 1 item "
+                f"7.2b)")
+        if mesh.axis_size("tensor") > 1 or mesh.axis_size("pipe") > 1:
             sharding_lib.check_mesh(mesh)
     dp = mesh if mesh is not None and mesh.group is not None else None
-    # the replica: this rank's index over every axis but tensor (the
-    # innermost), so a tensor line draws one dropout stream
-    replica = (dp.rank // dp.axis_size("tensor") if dp is not None
-               else None)
+    replica = _replica(dp)
     moments = (functools.partial(layers.cross_rank_moments, dp)
                if dp is not None and dp.size > 1 else contextlib.nullcontext)
 
@@ -544,12 +589,13 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         step's mesh, or None for a plain state."""
         zero = state.params
         if not isinstance(zero, sharding_lib.ShardedDict):
-            if mesh is not None and mesh.axis_size("tensor") > 1:
-                raise ValueError(
-                    "a step over a tensor axis of "
-                    f"{mesh.axis_size('tensor')} ranks needs the state "
-                    "placed by train.shard_train_state(state, mesh, "
-                    "model.partition_rules())")
+            for axis in ("tensor", "pipe"):
+                if mesh is not None and mesh.axis_size(axis) > 1:
+                    raise ValueError(
+                        f"a step over a {axis} axis of "
+                        f"{mesh.axis_size(axis)} ranks needs the state "
+                        "placed by train.shard_train_state(state, mesh, "
+                        "model.partition_rules())")
             return None
         if zero.cut:
             if mesh is None or mesh.shape != zero.mesh.shape \
@@ -567,7 +613,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         zero = zero_of(state)
-        params = state.params if zero is None else gather_params(state)
+        params = state.params if zero is None else _compute_params(zero)
         cut = zero is not None and zero.cut
         zero_cut = cut and zero.line == "fsdp"
         seen = {}
@@ -639,7 +685,8 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                 grads, grad_clip_norm, norm=stats(grads)[0] if cut else None)
             metrics["grad_norm"] = gnorm
         # the update runs on the blocks (the parameters themselves when
-        # the state is plain, tensor-parallel or on a line of one rank)
+        # the state is plain, tensor-parallel, a pipeline stage's or on a
+        # line of one rank)
         own = params if zero is None else zero
         if apply:
             updates, new_opt_state = optimizer.update(grads, state.opt_state,
@@ -656,5 +703,59 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         return TrainState(step=state.step + 1, params=own,
                           opt_state=new_opt_state,
                           model_state=new_model_state), metrics
+
+    return step
+
+
+def make_1f1b_train_step(model, optimizer: opt_lib.Optimizer, seed: int = 0,
+                         grad_clip_norm: Optional[float] = None) -> Callable:
+    """``step(state, batch) -> (new_state, metrics)`` whose gradients come
+    from the model's hand-scheduled 1F1B pipeline pass
+    (``model.lm_1f1b_value_and_grad(params, batch, generator, train)``:
+    ``models.gpt.GPT`` with ``pipeline_stages > 1``), at most ``min(M,
+    2S - 1)`` stashed stage inputs a rank instead of the GPipe path's M
+    microbatches' activations.  Metrics: ``loss`` and, with
+    ``grad_clip_norm``, ``grad_norm`` (before clipping), as the JAX
+    package's.  The state is placed by ``shard_train_state`` on the
+    model's mesh (a plain state on a mesh of one); the dropout generator
+    is the custom step's, the gradients and loss are averaged over the
+    ``data`` line (weighted by the ``loss_mask`` count when the batch has
+    one), the norm is global over the ``pipe`` line, and Adam runs on the
+    rank's own leaves."""
+    mesh = model.mesh
+    dp = mesh if mesh is not None and mesh.group is not None else None
+    replica = _replica(dp)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        zero = state.params
+        cut = isinstance(zero, sharding_lib.ShardedDict) and zero.cut
+        params = (_compute_params(zero)
+                  if isinstance(zero, sharding_lib.ShardedDict) else zero)
+        device = next(iter(params.values())).device
+        loss, grads = model.lm_1f1b_value_and_grad(
+            params, batch, _step_generator(seed, state.step, device, None,
+                                           replica), True)
+        metrics: Dict[str, Any] = {}
+        if dp is not None:
+            mask = batch.get("loss_mask")
+            weight = (None if mask is None
+                      else mask.to(device).float().sum())
+            grads, loss, metrics = dp_lib.all_reduce_mean(grads, loss, {},
+                                                          dp, weight)
+            metrics.pop("loss_weight", None)
+        metrics = {"loss": loss, **metrics}
+        if grad_clip_norm is not None:
+            norm = (_global_stats(grads, zero.layout, dp)[0] if cut
+                    else None)
+            grads, gnorm = opt_lib.clip_by_global_norm(
+                grads, grad_clip_norm, norm=norm)
+            metrics["grad_norm"] = gnorm
+        own = zero if isinstance(zero, sharding_lib.ShardedDict) else params
+        updates, new_opt_state = optimizer.update(grads, state.opt_state,
+                                                  own)
+        opt_lib.apply_updates(own, updates)
+        return TrainState(step=state.step + 1, params=own,
+                          opt_state=new_opt_state,
+                          model_state=state.model_state), metrics
 
     return step

@@ -9,8 +9,13 @@
   ``generated:`` lines print and a complete sharded checkpoint of every
   process is on disk.  The two ranks resume from it at step 8 when run
   again to step 10, and print the same lines.
-- ``--family=llama`` runs; ``--pipeline_stages=2`` raises
-  ``NotImplementedError`` naming ROADMAP item 7.3.
+- ``--family=llama`` runs; ``--pipeline_stages=2`` in one process exits
+  naming the device count it does not divide, as the JAX script does.
+- ``--pipeline_stages=2`` on two gloo ranks (``{"pipe": 2, "data": 1}``)
+  under ``--pp_schedule=gpipe`` and ``=1f1b`` at once, then the GPipe
+  run again to step 10, restored from its checkpoint at step 8: the
+  exit-code rule, the mesh, eval and ``generated:`` lines equal on both
+  ranks, and a complete sharded checkpoint.
 - The first batch equals the JAX script's (the same corpus and
   ``Dataset`` from ``--seed``).
 """
@@ -55,7 +60,8 @@ def test_one_process(tmp_path, capsys, family):
 
 
 def test_pipeline_stages_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="7.3"):
+    with pytest.raises(SystemExit, match="does not divide the device "
+                                         "count 1"):
         train_gpt.main(ARGS + ["--pipeline_stages=2",
                                f"--log_dir={tmp_path}"])
 
@@ -68,6 +74,11 @@ def _free_port():
 
 def _two_ranks(args, timeout=240):
     """(rc, stdout, stderr) of each of 2 ranks of the entry point."""
+    return _wait(_start_two(args), timeout)
+
+
+def _start_two(args):
+    """Two ranks of the entry point, started."""
     port = _free_port()
     procs = []
     for r in range(2):
@@ -78,6 +89,11 @@ def _two_ranks(args, timeout=240):
              "distributed_tensorflow_tpu_torch.examples.train_gpt"] + args,
             cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _wait(procs, timeout=240):
+    """(rc, stdout, stderr) of each process; a hang kills them."""
     try:
         outs = [p.communicate(timeout=timeout) for p in procs]
         return [(p.returncode, out, err)
@@ -102,6 +118,31 @@ def test_two_ranks_train_save_and_resume(tmp_path):
                 assert (f"Restored checkpoint ckpt-{resumed:010d} at step "
                         f"{resumed}") in out
         path = sharded_checkpoint.all_sharded_checkpoints(str(tmp_path))[-1]
+        assert os.path.basename(path) == f"ckpt-{steps:010d}"
+        with open(os.path.join(path, "manifest.json")) as f:
+            assert json.load(f)["process_count"] == 2
+        assert sharded_checkpoint.verify_sharded(path) == (True, "")
+
+
+def test_two_ranks_pipeline_stages(tmp_path):
+    base = ["--device=cpu", "--batch_size=16", "--pipeline_stages=2"]
+    started = {s: _start_two(base + [f"--log_dir={tmp_path / s}",
+                                     "--steps=8", f"--pp_schedule={s}"])
+               for s in ("gpipe", "1f1b")}
+    done = {s: _wait(p) for s, p in started.items()}
+    done["resume"] = _two_ranks(base + [f"--log_dir={tmp_path / 'gpipe'}",
+                                        "--steps=10"])
+    for name, runs in done.items():
+        for rc, out, err in runs:
+            assert _ok(rc, err), err[-2000:]
+            assert "mesh={'pipe': 2, 'data': 1}" in err
+            assert "eval loss:" in out and "generated:" in out
+            if name == "resume":
+                assert "Restored checkpoint ckpt-0000000008 at step 8" in out
+        assert runs[0][1] == runs[1][1]
+    for name, steps in (("gpipe", 10), ("1f1b", 8)):
+        path = sharded_checkpoint.all_sharded_checkpoints(
+            str(tmp_path / name))[-1]
         assert os.path.basename(path) == f"ckpt-{steps:010d}"
         with open(os.path.join(path, "manifest.json")) as f:
             assert json.load(f)["process_count"] == 2
