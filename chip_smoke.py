@@ -240,7 +240,7 @@ no result lines:
    Adam launches exactly 6 a step and nothing else; beside it one epoch
    of the same ``fit`` timed, profiled (busy share) and its host syncs
    counted.  (d) ``...outline_keras`` at its defaults but
-   ``CIFAR_EPOCHS`` (4 epochs of batch 256 on the synthetic CIFAR-10,
+   ``CIFAR_EPOCHS`` (3 epochs of batch 256 on the synthetic CIFAR-10,
    crop + flip): final val accuracy
    above 0.35, examples/s, the augment's host ms a batch, Adam 12 a
    step; one epoch probed as in (c).  (e) ``...outline_tensorflow`` at
@@ -530,6 +530,29 @@ no result lines:
    ``mesh={'pipe': 2, 'data': 1}``, live and EMA eval loss below ln 256,
    the ``generated:`` line, a complete sharded checkpoint; the GPipe run
    again with more steps resumes from it.
+29. ep (after phase 28): the expert axis and the vision zoo on a mesh.
+   (c) First the flash kernels at ViT-B/16's rank heads ([64, 197, 6 of
+   12 heads, 64] bf16, bidirectional), forward and whole backward
+   against their plain versions, timed beside them, SDPA and the bound.
+   Then two ranks of this script (``--ranks-for=ep``) on the one card
+   over gloo with CUDA tensors run (b) while this process runs (a).  (a)
+   A line of one at full width: bench_gpt_moe's MoE GPT (GPT-2 small, 8
+   experts, top-2, remat "full") in f32 and as the row has it in bf16 on
+   ``{"expert": 1}``, ViT-B/16 at 224 (bf16) on ``{"tensor": 1}`` and
+   ResNet-50 at 224 (f32, TF32 off) without a mesh, ``EP_WARMUP`` +
+   ``EP_STEPS`` steps an arm at the cut batches ``EP_MOE_BATCH`` x 256,
+   ``EP_VIT_BATCH`` and ``EP_RESNET_BATCH``, the router jitter on: exact
+   launches a step (phase 23 (b)'s and phase 22 (d)'s), no collective.
+   (b) The same models from the same weights and batches on the two
+   ranks, which draw (a)'s jitter (a mesh of one replica folds none into
+   the step's generator): the MoE GPTs on ``{"expert": 2}``, ViT-B/16
+   and ResNet-50 on ``{"tensor": 2}``: both ranks' losses equal, the
+   first losses, the first gradient norm and the parameters' gap after
+   the first step against their movement within each arm's
+   ``EP_LIMITS`` of (a)'s, each rank's kernel launches and the lines'
+   collectives exact a step (``ep_collectives``).  ``--ep-seeds`` runs
+   (a) and (b) alone over several seeds and logs what each arm reads
+   there (the readings ``EP_LIMITS`` comes from).
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -549,14 +572,17 @@ arm, and on the Adam record ``zero_shard``, (b)'s block times;
 arms and (b)'s two ranks, and on the flash records ``tp_shapes``, the
 times at the ranks' shapes; ``pp_launches`` for the training kernels of
 phase 28 (a)'s two ranks under both schedules, and on the flash records
-``pp_shapes``, the times at a microbatch's shape), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+``pp_shapes``, the times at a microbatch's shape; ``ep_launches`` for the
+training kernels of phase 29's (a) arms and (b)'s two ranks, whose (c)
+rows join ``tp_shapes``), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -689,8 +715,8 @@ CIFAR_SHAPES = ((3, 3, 3, 32), (32,), (3, 3, 32, 32), (32,),
 MNIST_SHAPES = ((784, 128), (128,), (128, 10), (10,))
 # (d) outline_keras runs CIFAR_EPOCHS of its epochs (10 until phase 27 came
 # and needed the room: the 4th epoch's val accuracy read 0.9812 against
-# the gate's 0.35 on an H100 80GB HBM3)
-CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 4, 1024, 5
+# the gate's 0.35 on an H100 80GB HBM3; 4 until phase 29 needed more)
+CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 3, 1024, 5
 CIFAR_ACC, MNIST_ACC = 0.35, 0.9
 SEQ_REF_STEPS, SEQ_REF_BATCH = 5, 64
 # (c) example2's entry point runs EX2_EPOCHS of its 50 (the first epoch
@@ -6192,6 +6218,16 @@ def _resnet_reference(torch, np):
         raise AssertionError("ResNet: card and CPU disagree")
 
 
+def vit_per_step(L):
+    """ViT's training kernels a step: the flash kernels once a layer,
+    LayerNorm 2 a layer and the final one, Adam once a leaf (the patch
+    kernel and bias, the CLS token, the positions, 16 a layer, the final
+    norm's two and the head's two)."""
+    return {"flash_forward": L, "flash_backward_dkv": L,
+            "flash_backward_dq": L, "layernorm": 2 * L + 1,
+            "fused_adam": 4 + 16 * L + 4}
+
+
 def _vit_base(torch, np, args, smi):
     """(d): ViT-B/16 at 224, bf16, batch 64, adamw(1e-4), clip 1.0."""
     from distributed_tensorflow_tpu_torch import (TrainState, adamw,
@@ -6209,10 +6245,7 @@ def _vit_base(torch, np, args, smi):
             .cuda(), torch.from_numpy(rng.integers(0, 1000, b)).cuda())
     (losses, wall, peak), _, counts = _zoo_driven(
         torch, lambda: _zoo_steps(torch, np, step, state, data))
-    L = model.config.num_layers
-    per_step = {"flash_forward": L, "flash_backward_dkv": L,
-                "flash_backward_dq": L, "layernorm": 2 * L + 1,
-                "fused_adam": 4 + 16 * L + 4}
+    per_step = vit_per_step(model.config.num_layers)
     step_ms = wall / ZOO_STEPS * 1e3
     log({"zoo": "(d) vit_b16", "batch": b, "tokens": 197,
          "steps": ZOO_STEPS, "step_ms": step_ms,
@@ -6703,21 +6736,31 @@ def _family_train_arm(torch, np, args, smi, name, config, per_step,
     return model, counts, out
 
 
+def moe_config(torch):
+    """bench_gpt_moe's row: GPT-2 small with FAM_EXPERTS experts, top
+    FAM_TOP_K, remat "full", bf16, dropout 0, positions of FAM_SEQ."""
+    from distributed_tensorflow_tpu_torch import gpt_small
+    return gpt_small(dtype=torch.bfloat16, dropout_rate=0.0, remat=True,
+                     remat_policy="full", moe_experts=FAM_EXPERTS,
+                     moe_top_k=FAM_TOP_K, max_position=FAM_SEQ)
+
+
+def moe_per_step(L):
+    """The MoE GPT's training kernels a step under remat "full": the flash
+    forward twice a layer (the recomputation runs it again), dK/dV and dQ
+    once; LayerNorm 2 a layer + ln_f, and 2 a layer again; Adam once a
+    leaf: word, position, ln_f's two, and 17 a layer (a MoE block has 5
+    FFN leaves where a dense one has 4)."""
+    return {"flash_forward": 2 * L, "flash_backward_dkv": L,
+            "flash_backward_dq": L, "layernorm": 4 * L + 1,
+            "fused_adam": 4 + 17 * L}
+
+
 def _family_moe_train(torch, np, args, smi):
     """(b): bench_gpt_moe's row; returns the counts."""
-    from distributed_tensorflow_tpu_torch import gpt_small
     from distributed_tensorflow_tpu_torch.models import gpt as gpt_mod
-    config = gpt_small(dtype=torch.bfloat16, dropout_rate=0.0, remat=True,
-                       remat_policy="full", moe_experts=FAM_EXPERTS,
-                       moe_top_k=FAM_TOP_K, max_position=FAM_SEQ)
-    L = config.num_layers
-    # the flash forward twice a layer (the recomputation runs it again),
-    # dK/dV and dQ once; LayerNorm 2 a layer + ln_f, and 2 a layer again;
-    # Adam once a leaf: word, position, ln_f's two, and 17 a layer (a MoE
-    # block has 5 FFN leaves where a dense one has 4)
-    per_step = {"flash_forward": 2 * L, "flash_backward_dkv": L,
-                "flash_backward_dq": L, "layernorm": 4 * L + 1,
-                "fused_adam": 4 + 17 * L}
+    config = moe_config(torch)
+    per_step = moe_per_step(config.num_layers)
     model, counts, out = _family_train_arm(
         torch, np, args, smi, "(b) gpt2-small moe 8x top-2", config,
         per_step, keys=("moe_aux",))
@@ -7729,10 +7772,11 @@ def _sp_counts(torch):
 
 
 def _sp_steps(torch, np, step, state, batch, warmup=SP_WARMUP,
-              steps=SP_STEPS):
+              steps=SP_STEPS, after_first=None):
     """``warmup`` + ``steps`` steps on one batch (SP_WARMUP + SP_STEPS
     unless given): (losses, the first step's gradient norm, timed seconds
-    of the last ``steps``, peak GB)."""
+    of the last ``steps``, peak GB).  ``after_first()``, when given, runs
+    after the first step (a warm-up step: untimed)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -7744,6 +7788,8 @@ def _sp_steps(torch, np, step, state, batch, warmup=SP_WARMUP,
         losses.append(m["loss"])
         if i == 0:
             grad_norm = m["grad_norm"]
+            if after_first is not None:
+                after_first()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [float(x) for x in losses]
@@ -8404,7 +8450,9 @@ def check_zero(torch, np, args, smi):
 # 10.4 and 12.4 at the start), first gradient norms within 4.5e-5, gaps
 # 0.024-0.032 of the movement, decoded logits within 1.2e-5; the
 # tolerances are about 10x, 10x, 3x and 8x those.
-TP_WARMUP, TP_STEPS = 2, 3
+# (2 + 3 until phase 29 needed the room: a rank's BERT-base step takes
+# 2.4-4.3 s of gloo's host copies)
+TP_WARMUP, TP_STEPS = 1, 2
 TP_BERT_BATCH, TP_BERT_SEQ = 128, 128
 TP_LLAMA_LAYERS, TP_LLAMA_BATCH, TP_LLAMA_SEQ = 2, 4, 512
 TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-2, 5e-4, 0.1
@@ -8913,7 +8961,8 @@ def check_tp(torch, np, args, smi):
 # kernels are timed at a microbatch's shape beside their plain versions,
 # SDPA and the bound.  Files under PP_DIR, removed at the phase's end.
 PP_STAGES, PP_MICRO, PP_LAYERS = 2, 8, 12
-PP_WARMUP, PP_STEPS = 1, 3
+# (1 + 3 until phase 29 needed the room)
+PP_WARMUP, PP_STEPS = 1, 2
 PP_LOSS_TOL, PP_GRAD_TOL, PP_PARAM_TOL, PP_SCHED_TOL = 1e-2, 5e-3, 0.1, 0.05
 PP_SAMPLE = 8
 PP_ENTRY_STEPS = (20, 24)
@@ -9258,6 +9307,435 @@ def check_pp(torch, np, args, smi):
     return dict(launches), rows
 
 
+# -- phase 29: the expert axis and the vision zoo on a mesh -------------------
+# (c) first, on a quiet card: the flash kernels at ViT-B/16's rank heads
+# ([64, 197, 6 of 12 heads, 64] bf16, bidirectional), forward and whole
+# backward against their plain versions, timed beside them, SDPA and the
+# bound (a ``tp_shapes`` row).  Then two ranks of this script
+# (``--ranks-for=ep``) start on the one card over gloo with CUDA tensors
+# (NCCL refuses two ranks on one device) and run (b) while this process
+# runs (a), the one-rank arms (b) is held to.  (a) A line of one at full
+# width: bench_gpt_moe's MoE GPT (phase 23 (b)'s config: GPT-2 small, 8
+# experts, top-2, remat "full") in f32 ("moe") and in the row's bf16
+# ("moe_bf16") on ``{"expert": 1}`` at EP_MOE_BATCH rows of FAM_SEQ,
+# ViT-B/16 at 224 on ``{"tensor": 1}`` at EP_VIT_BATCH images (bf16,
+# ``adamw(1e-4)``, clip 1.0), and ResNet-50 at 224 without a mesh at
+# EP_RESNET_BATCH images (phase 22 (f)'s ``momentum(0.1, 0.9)``, clip
+# 1.0, in f32 with TF32 off), EP_WARMUP + EP_STEPS steps an arm from
+# ``--seed``'s weights on one batch, the MoE's router jitter on: the
+# launches a step exactly phase 23 (b)'s and phase 22 (d)'s
+# (``moe_per_step``, ``vit_per_step``), no collective.  (a)'s step times
+# share the card with (b)'s ranks.  (b) The same models from the same
+# weights and batches on two ranks: the MoE GPTs on ``{"expert": 2}`` (4
+# experts a rank), ViT-B/16 and ResNet-50 on ``{"tensor": 2}``.  Neither
+# mesh has more than one replica, so the step folds no replica into its
+# generator and the ranks draw (a)'s jitter.  Both ranks' losses equal at
+# every step; within the arm's EP_LIMITS of (a)'s: the first ``losses``
+# losses, the first gradient norm (relative) and the parameters' gap
+# after the first step over their movement (2-norms over every
+# EP_SAMPLE-th element of the blocks a rank holds; phase 27's measure;
+# None: logged, not held); each rank's kernel launches and the lines'
+# collectives exact a step (``ep_collectives``).
+#
+# Why the first step: the ranks sum in another order than one card (an
+# expert line adds its ranks' partial outputs; a cuDNN convolution's
+# order changes with its output channel count), and the steps after the
+# first amplify that rounding by the model's own sensitivity, not by the
+# cut: a token whose top-2 choice sits within it routes elsewhere, and
+# the capacity's drops follow; 53 convolutions and norms at momentum 0.1
+# magnify it.  Adam's first step moves an element by about lr whatever
+# its gradient, so one whose gradient rounds across zero moves the other
+# way: that sets the gap after one step.  The bf16 MoE's partial outputs
+# round to bf16 before the line's f32 sum, where one card sums its
+# experts' bf16 products in one einsum: a token's routing flips already
+# in the first forward (``moe_aux`` apart by 1.9e-5 to 2.4e-4 at the
+# first step), so its arm holds the first loss and gradient norm, and
+# logs the gap (0.53 to 0.57 of the movement).  ``--ep-seeds 0,1,2,3``
+# read at these batches (H100 80GB HBM3, 700 W; PERF.md, PR 22), the
+# largest of the four seeds: MoE f32 loss 2.9e-6, gradient norm 3.5e-7,
+# gap 1.35e-5 (its third loss, unchecked, once 1.75e-3 apart where
+# ``moe_aux`` moved by 1.6e-4: a flip); MoE bf16 first loss 5.7e-3,
+# gradient norm 0.0125; ViT 1.2e-4, 6.2e-5, 0.041; ResNet-50 4.6e-3,
+# 5.5e-4, 0.027.  The limits are about 10x those, the gaps' 11x, 2.4x
+# and 3.7x (ViT: Adam's first step moves a flipped element by 2 lr;
+# ResNet-50 under momentum: on the CPU a 1e-7 change of the plain
+# ``resnet_cifar``'s input moves its first step about as far as the cut
+# does, so the gap reads the model's sensitivity).
+# The batches are cut from the bench rows' (48 x 256, 64 and 256
+# images); the widths are not cut.  Files under EP_DIR, removed at the
+# phase's end.  The ranks' step times measure gloo's copies through the
+# host, not a parallel speed.
+EP_MOE_BATCH, EP_VIT_BATCH, EP_RESNET_BATCH = 4, 8, 8
+EP_WARMUP, EP_STEPS = 1, 2
+# each arm's limits: losses checked, loss (absolute), gradient norm
+# (relative), parameter gap over movement
+EP_LIMITS = {
+    "moe": {"losses": 2, "loss": 3e-5, "grad": 4e-6, "param": 1.5e-4},
+    "moe_bf16": {"losses": 1, "loss": 6e-2, "grad": 0.13, "param": None},
+    "vit": {"losses": 2, "loss": 1.2e-3, "grad": 6e-4, "param": 0.1},
+    "resnet": {"losses": 2, "loss": 5e-2, "grad": 5e-3, "param": 0.1}}
+EP_SAMPLE = {"moe": 16, "moe_bf16": 16, "vit": 8, "resnet": 4}
+# (b)'s arms: (name, kind, mesh axes)
+EP_ARMS = (("moe", "moe", {"expert": 2}),
+           ("moe_bf16", "moe_bf16", {"expert": 2}),
+           ("vit", "vit", {"tensor": 2}),
+           ("resnet", "resnet", {"tensor": 2}))
+EP_RANK_TIMEOUT_S = 600
+EP_DIR = Path("build") / "ep"
+
+
+def ep_collectives(kind):
+    """The collectives of one training step of (b)'s arm ``kind`` on a
+    line of 2 (no data line, so no gradient all-reduce and no sum of a
+    batch statistic, ``batch_all_reduce``: a data line of D adds 1 a MoE
+    layer forward, 1 again in its recomputation and 1 backward, 2 a
+    ResNet norm; the clip's norm one stats all-reduce).  MoE on the expert line: per layer the output's
+    sum forward, again in the recomputation, and the tokens' and gates'
+    gradient sum backward.  ViT on the tensor line: forward the patch
+    embedding's gather, the attention output's and the FFN's sums a
+    layer, the cross entropy's two all-reduces and the argmax's gather;
+    backward the column-parallel inputs' gradient sums (2 a layer, the
+    patch convolution's and the head's).  ResNet-50 on the tensor line:
+    a gather of each of its 53 convolutions' outputs and one of their
+    norms' moving moments, one of the logits; a gradient sum of each
+    convolution's input (with its norm's gamma and beta) and the
+    head's."""
+    none = {"all_reduce": 0, "batch_all_reduce": 0}
+    if kind.startswith("moe"):
+        return {"ep_all_reduce": 3 * 12, "stats_all_reduce": 1,
+                "tp_all_reduce": 0, "tp_all_gather": 0, **none}
+    if kind == "vit":
+        L = 12
+        return {"tp_all_reduce": 2 * L + 2 + 2 * L + 2,
+                "tp_all_gather": 2, "stats_all_reduce": 1,
+                "ep_all_reduce": 0, **none}
+    convs = 1 + 16 * 3 + 4
+    return {"tp_all_gather": 2 * convs + 1, "tp_all_reduce": convs + 1,
+            "stats_all_reduce": 1, "ep_all_reduce": 0, **none}
+
+
+def _ep_per_step(kind):
+    """(a)'s and (b)'s training kernels a step (every rank's the same)."""
+    if kind.startswith("moe"):
+        return moe_per_step(12)
+    if kind == "vit":
+        return vit_per_step(12)
+    # ResNet-50: cuDNN's convolutions and the momentum update, no kernel
+    return dict.fromkeys(("flash_forward", "flash_backward_dkv",
+                          "flash_backward_dq", "layernorm", "fused_adam"),
+                         0)
+
+
+def _ep_counts(torch):
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel
+    counts = _train_counts(torch)
+    counts.update(data_parallel.LAUNCHES)
+    return counts
+
+
+def _ep_build(torch, np, seed, kind, mesh):
+    """(params, state, step, batch) of one arm of (a) or (b) from
+    ``seed``'s weights and batch, on ``mesh`` (None: no mesh); under a
+    mesh the state placed by ``shard_train_state``."""
+    from distributed_tensorflow_tpu_torch import (GPT, TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  optim, train)
+    from distributed_tensorflow_tpu_torch.models import resnet, vit
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    model_state = ()
+    if kind.startswith("moe"):
+        config = moe_config(torch)
+        if kind == "moe":
+            config = dataclasses.replace(config, dtype=torch.float32)
+        model = GPT(config, device="cuda", generator=gen, mesh=mesh)
+        params = dict(model.named_parameters())
+        opt, rules = adamw(TRAIN_LR), model.partition_rules()
+        step = make_custom_train_step(model.lm_loss_fn(), opt, seed=seed,
+                                      mesh=mesh, grad_clip_norm=1.0)
+        batch = _train_batch(torch, np, seed, EP_MOE_BATCH, FAM_SEQ,
+                             config.vocab_size, "cuda")
+    elif kind == "vit":
+        model = vit.ViT(vit.ViTConfig(dtype=torch.bfloat16), mesh)
+        params = model.init(gen)
+        opt, rules = adamw(ZOO_LR, mask=model.decay_mask), \
+            model.partition_rules()
+        step = make_custom_train_step(model.loss_fn(), opt, seed=seed,
+                                      mesh=mesh, grad_clip_norm=1.0)
+        b = EP_VIT_BATCH
+        batch = (torch.from_numpy(rng.random((b, 224, 224, 3), np.float32))
+                 .cuda(), torch.from_numpy(rng.integers(0, 1000, b)).cuda())
+    else:
+        model = resnet.resnet50(num_classes=1000, mesh=mesh)
+        params, model_state = model.init(gen, (224, 224, 3))
+        opt, rules = optim.momentum(0.1, beta=0.9), \
+            resnet.ResNet.partition_rules()
+        step = train.make_train_step(
+            model, "sparse_categorical_crossentropy", opt, seed=seed,
+            mesh=mesh, grad_clip_norm=1.0)
+        b = EP_RESNET_BATCH
+        batch = (torch.from_numpy(rng.random((b, 224, 224, 3), np.float32))
+                 .cuda(), torch.from_numpy(rng.integers(0, 1000, b)).cuda())
+    state = TrainState.create(params, opt.init(params), model_state)
+    if mesh is not None:
+        state = train.shard_train_state(state, mesh, rules)
+    return params, state, step, batch
+
+
+@contextlib.contextmanager
+def _no_tf32(torch):
+    """cuDNN's convolutions in full f32 within the block."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _ep_arm(torch, np, seed, kind, mesh, first, start=None):
+    """One arm's run: its record (with the MoE's ``moe_aux`` a step,
+    which moves by about E (P_a - P_b) / tokens when a token's first
+    choice flips from expert b to a, and by rounding otherwise).
+    ``first(params)`` runs on the parameters after the first step;
+    ``start``, when given, is filled with a copy of them before it.
+    ResNet's convolutions run without TF32."""
+    params, state, step, batch = _ep_build(torch, np, seed, kind, mesh)
+    if start is not None:
+        start.update({k: p.detach().clone() for k, p in params.items()})
+    aux = []
+
+    def stepped(state, batch):
+        state, m = step(state, batch)
+        if "moe_aux" in m:
+            aux.append(m["moe_aux"])
+        return state, m
+    with (_no_tf32(torch) if kind == "resnet"
+          else contextlib.nullcontext()):
+        (losses, grad_norm, wall, peak), _, counts = _driven(
+            torch, lambda: _sp_steps(torch, np, stepped, state, batch,
+                                     EP_WARMUP, EP_STEPS,
+                                     lambda: first(params)), _ep_counts)
+    n_steps = EP_WARMUP + EP_STEPS
+    rec = {"losses": losses, "grad_norm": grad_norm,
+           "moe_aux": [float(a) for a in aux],
+           "step_ms": wall / EP_STEPS * 1e3, "peak_memory_gb": peak,
+           "batch": (batch["input_ids"] if kind.startswith("moe")
+                     else batch[0]).shape[0],
+           "launches": counts,
+           "launches_expected": {k: n * n_steps for k, n in
+                                 _ep_per_step(kind).items()}}
+    del params, state, step, batch
+    return rec
+
+
+def _ep_sample(t, box, n):
+    """Every n-th element of ``t``'s block ``box`` ((start, length) a
+    dim; None: ``t`` is the block), flat, on the card."""
+    t = t.detach()
+    if box is not None:
+        for d, (lo, length) in enumerate(box):
+            t = t.narrow(d, lo, length)
+    return t.contiguous().reshape(-1)[::n].float()
+
+
+def ep_rank_main(args) -> int:
+    """One rank of (b), a process of this script: the arms of EP_ARMS
+    over gloo, results to EP_DIR (``rank<r>.json``,
+    ``rank<r>_<arm>.pt``: each leaf's box and its sample)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import parallel
+    from distributed_tensorflow_tpu_torch.parallel import sharding
+    r = args.rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{args.rank_port}",
+        world_size=2, rank=r,
+        timeout=datetime.timedelta(seconds=EP_RANK_TIMEOUT_S))
+    try:
+        out = {}
+        for name, kind, axes in EP_ARMS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh = parallel.make_mesh(axes)
+            samples = {}
+
+            def first(params, kind=kind, samples=samples):
+                for k, p in params.items():
+                    s = sharding.marked_shard(p)
+                    box = [(0, n) for n in p.shape]
+                    for part in (() if s is None else s.parts):
+                        box[part.dim] = (part.start, part.length)
+                    samples[k] = (box, _ep_sample(p, None, EP_SAMPLE[kind])
+                                  .to("cpu", copy=True))
+            out[name] = _ep_arm(torch, np, args.seed, kind, mesh, first)
+            torch.save(samples, EP_DIR / f"rank{r}_{name}.pt")
+        (EP_DIR / f"rank{r}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _ep_gap(kind, ranks, start, final):
+    """(b)'s parameter check of one arm: the 2-norm of every sampled
+    element's gap to (a)'s parameters after the first step over that of
+    their movement from the start, and the largest element gap."""
+    n = EP_SAMPLE[kind]
+    gap = move = worst = 0.0
+    for samples in ranks:
+        for k, (box, got) in samples.items():
+            want = _ep_sample(final[k], box, n).double()
+            was = _ep_sample(start[k], box, n).double()
+            d = got.to(want.device).double() - want
+            gap += float((d ** 2).sum())
+            move += float(((want - was) ** 2).sum())
+            worst = max(worst, float(d.abs().max()))
+    return math.sqrt(gap / move), worst
+
+
+def _ep_flash_rows(torch, args, smi):
+    """(c): the flash kernels at ViT-B/16's rank heads."""
+    from distributed_tensorflow_tpu_torch.ops.kernels import \
+        flash_attention as fa
+    label = "vit_b16 tp2"
+    rows = {label: _zoo_flash_case(
+        torch, fa, torch.Generator("cuda").manual_seed(args.seed), label,
+        ZOO_VIT_BATCH, 197, 6, 64, torch.bfloat16, None, args.iters)}
+    for recs in rows.values():
+        for rec in recs.values():
+            rec["card"] = smi
+    return rows
+
+
+def check_ep(torch, np, args, smi, flash=True):
+    """Phase 29, the expert axis and the vision zoo on a mesh: returns
+    (the kernels' launches over (a)'s arms and (b)'s ranks, the flash
+    timing rows at ViT-B/16's rank heads; none without ``flash``)."""
+    from distributed_tensorflow_tpu_torch import parallel
+    t_phase = time.perf_counter()
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    EP_DIR.mkdir(parents=True)
+    rows = _ep_flash_rows(torch, args, smi) if flash else {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _start_ranks(args, _free_port(), phase="ep")
+    launches = collections.Counter()
+    try:
+        refs = {}
+        for name, kind, axes in EP_ARMS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = {a: 1 for a in axes}
+            mesh = None if kind == "resnet" else parallel.make_mesh(one)
+            start, after = {}, {}
+
+            def first(params, after=after):
+                after.update({k: p.detach().clone()
+                              for k, p in params.items()})
+            rec = _ep_arm(torch, np, args.seed, kind, mesh, first, start)
+            log({"ep": f"(a) {name}", "mesh": one if mesh else None,
+                 "steps": EP_STEPS, **rec, "card": smi})
+            _zoo_expect(f"ep (a) {name}", rec["launches"],
+                        rec["launches_expected"])
+            extra = {k: v for k, v in rec["launches"].items()
+                     if k not in rec["launches_expected"] and v}
+            if extra:
+                raise AssertionError(f"ep (a) {name}: collectives on a "
+                                     f"line of one: {extra}")
+            launches.update({k: v for k, v in rec["launches"].items()
+                             if k in rec["launches_expected"]})
+            refs[name] = (rec, start, after)
+        _tp_wait(ranks, "ep (b) ranks")
+        ranks_s = time.perf_counter() - t0
+        results = [json.loads((EP_DIR / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        n_steps = EP_WARMUP + EP_STEPS
+        failed = []
+        for name, kind, axes in EP_ARMS:
+            plain, start, final = refs[name]
+            per_rank = [res[name] for res in results]
+            want = {k: n * n_steps for k, n in ep_collectives(kind).items()}
+            want.update(per_rank[0]["launches_expected"])
+            for r, rec in enumerate(per_rank):
+                _zoo_expect(f"ep (b) {name} rank {r}", rec["launches"], want)
+                launches.update({k: v for k, v in rec["launches"].items()
+                                 if k in _ep_per_step(kind)})
+            samples = [torch.load(EP_DIR / f"rank{r}_{name}.pt")
+                       for r in range(2)]
+            param_err, param_max = _ep_gap(kind, samples, start, final)
+            lim = EP_LIMITS[kind]
+            # the first losses: each reads at most one update
+            loss_err = max(abs(x - y) for x, y in
+                           zip(per_rank[0]["losses"][:lim["losses"]],
+                               plain["losses"]))
+            grad_err = (abs(per_rank[0]["grad_norm"] - plain["grad_norm"])
+                        / plain["grad_norm"])
+            check = {"ep": f"(b) {name}", "mesh": axes, "ranks": 2,
+                     "batch": plain["batch"],
+                     "losses": [rec["losses"] for rec in per_rank],
+                     "plain_losses": plain["losses"],
+                     "moe_aux": [rec["moe_aux"] for rec in per_rank],
+                     "plain_moe_aux": plain["moe_aux"],
+                     "losses_checked": lim["losses"],
+                     "loss_err": loss_err, "loss_tol": lim["loss"],
+                     "grad_norm_rel_err": grad_err, "grad_tol": lim["grad"],
+                     "param_gap_over_move": param_err,
+                     "param_tol": lim["param"],
+                     "param_max_abs_err": param_max,
+                     "peak_memory_gb": [rec["peak_memory_gb"]
+                                        for rec in per_rank],
+                     "plain_peak_memory_gb": plain["peak_memory_gb"],
+                     "step_ms": [rec["step_ms"] for rec in per_rank],
+                     "plain_step_ms": plain["step_ms"],
+                     "collectives_a_step": {
+                         k: per_rank[0]["launches"].get(k, 0) // n_steps
+                         for k in ep_collectives(kind)},
+                     "launches": per_rank[0]["launches"], "card": smi}
+            log(check)
+            if not (per_rank[0]["losses"] == per_rank[1]["losses"]
+                    and loss_err <= lim["loss"] and grad_err <= lim["grad"]
+                    and (lim["param"] is None
+                         or param_err <= lim["param"])):
+                failed.append(name)
+        # every arm checked and logged before the first failure raises
+        if failed:
+            raise AssertionError(f"ep (b) {failed}: two ranks disagree "
+                                 f"with the one-rank model (logged above)")
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    log({"phase": "ep", "seconds": time.perf_counter() - t_phase,
+         "ranks_seconds": ranks_s, "launches": dict(launches)})
+    return dict(launches), rows
+
+
+def ep_spread(torch, np, args, smi) -> int:
+    """``--ep-seeds``: phase 29's (a) and (b) once for each seed, every
+    arm's check logged, a seed that fails a limit logged and passed over
+    (the spread EP_LIMITS are set from); 1 when any seed failed."""
+    failed = []
+    for seed in [int(x) for x in args.ep_seeds.split(",")]:
+        args.seed = seed
+        try:
+            check_ep(torch, np, args, smi, flash=False)
+        except AssertionError as e:
+            failed.append(seed)
+            log({"ep_seed": seed, "failed": str(e)[:2000]})
+    log({"phase": "ep spread", "seeds": args.ep_seeds, "failed": failed})
+    return 1 if failed else 0
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -9276,9 +9754,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the engine and training phases; "
                     "tables to DIR")
-    # a rank of phase 27 or 28 (``--ranks-for=tp|pp``), started by the
-    # phase itself
-    ap.add_argument("--ranks-for", choices=("tp", "pp"), default=None,
+    ap.add_argument("--ep-seeds", metavar="S,S,...",
+                    help="run only phase 29's (a) and (b), once a seed, "
+                    "and log each arm's readings (no result line)")
+    # a rank of phase 27, 28 or 29 (``--ranks-for=tp|pp|ep``), started by
+    # the phase itself
+    ap.add_argument("--ranks-for", choices=("tp", "pp", "ep"), default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -9291,7 +9772,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.ranks_for is not None:
-        return {"tp": tp_rank_main, "pp": pp_rank_main}[args.ranks_for](args)
+        return {"tp": tp_rank_main, "pp": pp_rank_main,
+                "ep": ep_rank_main}[args.ranks_for](args)
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.ops.kernels import _build
@@ -9305,6 +9787,8 @@ def main(argv=None) -> int:
 
     secs = _build.build()
     log({"phase": "build", "seconds": secs, "dir": str(_build.BUILD_DIR)})
+    if args.ep_seeds:
+        return ep_spread(torch, np, args, smi)
     log_backward_resources(_build)
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))
@@ -9364,6 +9848,8 @@ def main(argv=None) -> int:
     zero_launches, zero_shard = check_zero(torch, np, args, smi)
     tp_launches, tp_rows = check_tp(torch, np, args, smi)
     pp_launches, pp_rows = check_pp(torch, np, args, smi)
+    ep_launches, ep_rows = check_ep(torch, np, args, smi)
+    tp_rows.update(ep_rows)
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -9433,7 +9919,8 @@ def main(argv=None) -> int:
                        if "tp_shapes" in r else {}),
                     pp_launches=pp_launches.get(k, 0),
                     **({"pp_shapes": r["pp_shapes"]}
-                       if "pp_shapes" in r else {}))
+                       if "pp_shapes" in r else {}),
+                    ep_launches=ep_launches.get(k, 0))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -189,13 +189,20 @@ def _stacked(state_dict: Mapping[str, Any], layers, tied: bool,
     return tree
 
 
-def stack_params_from_jax(tree: Mapping[str, Any], device="cpu"
+def stack_params_from_jax(tree: Mapping[str, Any], device="cpu",
+                          rules=None, mesh=None
                           ) -> Dict[str, torch.Tensor]:
     """A ``Stack``'s flat parameter dict (f32 leaf tensors on ``device``
     that require gradients) from the JAX package's nested tree of a
-    ``Stack`` (numpy leaves)."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
-            .requires_grad_(True) for k, v in _flat(dict(tree), "").items()}
+    ``Stack`` (numpy leaves).  ``mesh`` with a ``tensor`` axis: this
+    rank's blocks (marked) under ``rules`` (``ResNet.partition_rules()``),
+    the parameters of ``ResNet(..., mesh=mesh)``."""
+    params = {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+              .requires_grad_(True)
+              for k, v in _flat(dict(tree), "").items()}
+    if tensor_parallel.size(mesh) == 1:
+        return params
+    return cut_blocks(params, rules, mesh)
 
 
 def stack_params_to_jax(params: Mapping[str, torch.Tensor]
@@ -272,9 +279,15 @@ def bert_params_to_jax(params: Mapping[str, torch.Tensor],
 
 
 def vit_params_from_jax(tree: Mapping[str, Any], config,
-                        device="cpu") -> Dict[str, torch.Tensor]:
-    """A ``ViT``'s parameters from the JAX ``ViT.init`` tree."""
-    return _layered_from_jax(tree, ViT(config).stacks, device)
+                        device="cpu", mesh=None
+                        ) -> Dict[str, torch.Tensor]:
+    """A ``ViT``'s parameters from the JAX ``ViT.init`` tree; ``mesh``
+    with a ``tensor`` axis: this rank's blocks (marked), the parameters
+    of ``ViT(config, mesh=mesh)``."""
+    params = _layered_from_jax(tree, ViT(config).stacks, device)
+    if tensor_parallel.size(mesh) == 1:
+        return params
+    return cut_blocks(params, ViT(config, mesh).partition_rules(), mesh)
 
 
 def vit_params_to_jax(params: Mapping[str, torch.Tensor],
@@ -419,10 +432,12 @@ def train_state_from_jax(tree: Any, state: Any) -> Any:
 
 def load_jax_params(model: GPT, tree: Dict[str, Any]) -> GPT:
     """Copy a JAX GPT parameter tree (numpy leaves) into ``model`` (its
-    blocks of it under tensor parallelism, its stage's layers under
-    pipeline parallelism)."""
-    mesh = (model.mesh if model.config.pipeline_stages > 1
-            else tensor_parallel.active(model.mesh))
+    blocks of it under tensor or expert parallelism, its stage's layers
+    under pipeline parallelism)."""
+    cut = (model.config.pipeline_stages > 1
+           or tensor_parallel.active(model.mesh) is not None
+           or tensor_parallel.active(model.mesh, "expert") is not None)
+    mesh = model.mesh if cut else None
     model.load_state_dict(gpt_params_from_jax(
         tree, model.config, mesh=mesh,
         shard_kv=(model._kv_on_tensor()

@@ -70,9 +70,23 @@ parallel cross entropy and argmax; ``logits()`` gathers them whole.
 Keys and values shard with the queries under plain MHA or ``shard_kv``;
 otherwise they replicate and each rank's query heads read their group's
 kv heads (``tensor_parallel.kv_heads``).  The cache holds the rank's kv
-heads.  The paged paths, LoRA adapters, the int8 cache, MoE and
+heads.  The paged paths, LoRA adapters, the int8 cache and
 ``seq_axis`` raise under T > 1 (ROADMAP Queue 1 item 7.2b; the paged
 engine takes no mesh in the JAX package either).
+
+Expert parallelism (a MoE config, ``GPT(config, mesh=...)`` with an
+``expert`` axis of X > 1 ranks, beside ``data`` or ``tensor``): the
+constructor keeps this rank's ``E/X`` experts of every block's bank
+(and, on a tensor line, their hidden dim's block) under
+``partition_rules``, whose MoE rows are ``ops.moe.moe_partition_rules``;
+every FFN passes the mesh to ``apply_moe``, which routes whole on every
+rank and sums the ranks' experts over the line (``ops/moe.py``), so
+``moe_aux``, ``moe_dropped`` and the loss come out equal on every rank
+of the line.  In a train step over a mesh with a batch line of more than
+one rank, the training forward reads that line once as it starts
+(``parallel.data_parallel.batch_group``) and passes it to every MoE
+layer, whose ``aux_loss`` then takes the global batch's router
+statistics, in a block that ``remat`` recomputes in the backward too.
 
 Pipeline parallelism (``pipeline_stages`` S > 1, ``GPT(config, mesh=)``
 with a ``pipe`` axis of S ranks): the constructor draws the whole model,
@@ -111,7 +125,7 @@ from torch import nn
 
 from ..ops import decoding as dec
 from ..ops import quant
-from ..ops.moe import apply_moe, init_moe
+from ..ops.moe import apply_moe, init_moe, moe_partition_rules
 from ..ops.attention import (NEG_INF, _row_parallel, apply_rope,
                              attention_core, causal_mask,
                              dot_product_attention, dropout, ffn_core,
@@ -120,6 +134,7 @@ from ..ops.attention import (NEG_INF, _row_parallel, apply_rope,
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.kernels import fused as fused_lib
 from ..ops.kernels import paged_attention as paged_lib
+from ..parallel import data_parallel as dp_lib
 from ..parallel import pipeline as pipeline_lib
 from ..parallel import ring as ring_lib
 from ..parallel import sharding as sharding_lib
@@ -473,7 +488,9 @@ class GPT(nn.Module):
     rank of the axis builds the same weights and ``apply`` /
     ``lm_loss_fn`` compute its shard of the sequence; with a ``tensor``
     axis of more than one rank, the model keeps this rank's blocks and
-    computes tensor-parallel (module docstring).  ``shard_kv``: the kv
+    computes tensor-parallel, and a MoE config with an ``expert`` axis
+    of more than one rank keeps this rank's experts (module docstring).
+    ``shard_kv``: the kv
     projections shard over ``tensor`` (True) or replicate (False); None
     shards them under plain MHA only, as ``partition_rules``.
     """
@@ -502,11 +519,14 @@ class GPT(nn.Module):
         # the tensor line (None at T = 1) and, with replicated kv
         # projections, the kv heads this rank's queries read
         self._line = tp_lib.active(mesh)
+        # the expert line (None at X = 1): the MoE banks' experts cut
+        self._experts = tp_lib.active(mesh, "expert")
         self._kv_heads = None
+        if self._experts is not None:
+            sharding_lib.check_mesh(mesh)
         if self._line is not None:
             sharding_lib.check_mesh(mesh)
             for what, on in (("seq_axis", c.seq_axis is not None),
-                             ("moe_experts", c.moe_experts > 0),
                              ("kv_cache_dtype='int8'",
                               c.kv_cache_dtype == "int8")):
                 if on:
@@ -541,7 +561,7 @@ class GPT(nn.Module):
         if c.moe_experts:
             for blk in self.blocks:
                 blk.moe = _MoE(c, device, generator)
-        if self._line is not None:
+        if self._line is not None or self._experts is not None:
             self._keep_blocks()
         # the global indices of the layers this rank holds
         self._layers = range(c.num_layers)
@@ -573,10 +593,11 @@ class GPT(nn.Module):
                 f"pipeline_stages from train.gather_params(state)")
 
     def _keep_blocks(self) -> None:
-        """Replace every parameter the rules cut over ``tensor`` by this
-        rank's block of it (a new parameter, marked with its ``Shard``)."""
+        """Replace every parameter the rules cut over ``tensor`` or
+        ``expert`` by this rank's block of it (a new parameter, marked
+        with its ``Shard`` or ``Blocks``)."""
         blocks = sharding_lib.cut_blocks(dict(self.named_parameters()),
-                                         self.partition_rules(), self._line)
+                                         self.partition_rules(), self.mesh)
         for name, t in blocks.items():
             shard = sharding_lib.marked_shard(t)
             if shard is None:
@@ -586,7 +607,7 @@ class GPT(nn.Module):
             setattr(module, leaf, sharding_lib.mark_block(
                 nn.Parameter(t.detach()), shard))
         c = self.config
-        if not self._kv_on_tensor():
+        if self._line is not None and not self._kv_on_tensor():
             self._kv_heads = tp_lib.kv_heads(c.num_heads, c.kv_heads,
                                              self._line)
 
@@ -620,21 +641,25 @@ class GPT(nn.Module):
 
     def _ffn_of(self, dense: Optional[Callable], moe, h: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                batch_group=None):
         """The FFN on normed ``h``, dense or MoE, shared by the training
         and KV-cache paths so their arithmetic cannot differ.  Dense:
         ``dense(name) -> (kernel, bias)`` of ``w_in``, ``w_out`` (and
         ``w_gate``); MoE: ``moe`` the ``ops.moe`` tree, routed with ``h``'s
         leading dim as the group (one row a group: a decode token is
-        never dropped, and a window routes its own tokens only).  Returns
-        (out, aux): aux the weighted router loss ``moe_aux_weight *
-        aux_loss + moe_z_weight * router_z_loss`` (f32), 0.0 when
-        dense."""
+        never dropped, and a window routes its own tokens only; over the
+        model's expert and tensor lines, as ``apply_moe(mesh=)``
+        computes it; the router statistics over ``batch_group``).
+        Returns (out, aux): aux the weighted router loss
+        ``moe_aux_weight * aux_loss + moe_z_weight * router_z_loss``
+        (f32), 0.0 when dense."""
         c = self.config
         if moe is not None:
             y, m = apply_moe(moe, h, k=c.moe_top_k,
                              capacity_factor=c.moe_capacity_factor,
-                             train=train, generator=generator)
+                             train=train, generator=generator,
+                             mesh=self.mesh, batch_group=batch_group)
             return y, (c.moe_aux_weight * m["aux_loss"]
                        + c.moe_z_weight * m["router_z_loss"])
         if c.ffn_activation == "swiglu":
@@ -953,19 +978,26 @@ class GPT(nn.Module):
                 axis=c.pipe_axis, generator=gen)
             aux_total = None
         else:
+            # the train step's batch line, read here and passed down: a
+            # block recomputed in the backward (remat) runs outside the
+            # step's cross_rank_moments
             x, aux_total = self._run_blocks(
                 P, x, [f"blocks.{i}." for i in range(c.num_layers)],
-                attention_fn, qk_transform, generator, train)
+                attention_fn, qk_transform, generator, train,
+                dp_lib.batch_group())
         hidden = self._norm_of(P["ln_f.gamma"], P.get("ln_f.beta"), x)
         if aux_total is None:
             aux_total = torch.zeros((), device=self.device)
         return hidden, aux_total
 
     def _run_blocks(self, P: Mapping[str, torch.Tensor], x: torch.Tensor,
-                    prefixes, attention_fn, qk_transform, generator, train):
+                    prefixes, attention_fn, qk_transform, generator, train,
+                    batch_group=None):
         """(x, the MoE aux summed, None for a dense FFN) after the blocks
         whose tensors are ``P``'s entries under each of ``prefixes``, in
-        order; each through ``_checkpointed`` under ``remat``."""
+        order; each through ``_checkpointed`` under ``remat``.
+        ``batch_group``: the batch line the MoE's router statistics sum
+        over (``ops.moe.apply_moe``)."""
         c = self.config
         aux_total = None
         for pre in prefixes:
@@ -974,7 +1006,7 @@ class GPT(nn.Module):
             def block(x, *tensors, rel=[n[len(pre):] for n in names]):
                 return self._train_block(dict(zip(rel, tensors)), x,
                                          attention_fn, qk_transform,
-                                         generator, train)
+                                         generator, train, batch_group)
             tensors = [P[n] for n in names]
             if c.remat:
                 x, aux = _checkpointed(block, generator,
@@ -1032,7 +1064,8 @@ class GPT(nn.Module):
                                          self.config.layer_norm_eps)
 
     def _train_block(self, bp: Mapping[str, torch.Tensor], x: torch.Tensor,
-                     attention_fn: Callable, qk_transform, generator, train):
+                     attention_fn: Callable, qk_transform, generator, train,
+                     batch_group=None):
         """One decoder block of the training forward over its tensors
         ``bp`` (names relative to ``blocks.<i>.``): (x, the FFN's aux)."""
         c = self.config
@@ -1053,7 +1086,8 @@ class GPT(nn.Module):
             lambda n: bp["moe." + n])
         y, aux = self._ffn_of(lambda n: (bp[f"ffn.{n}.kernel"],
                                          bp.get(f"ffn.{n}.bias")),
-                              moe, norm("ln_2", x), train, generator)
+                              moe, norm("ln_2", x), train, generator,
+                              batch_group)
         return x + dropout(y, c.dropout_rate, generator, train), aux
 
     def _lm_stats(self, head: torch.Tensor, hidden: torch.Tensor,
@@ -1852,13 +1886,12 @@ def gpt_partition_rules(config: GPTConfig, fsdp: bool = False,
     ``shard_kv`` says otherwise.  With ``pipeline_stages`` S > 1 the
     table gives layer ``i``'s leaves to stage ``i // (L / S)`` of
     ``pipe_axis`` (``PartitionRules.stage_for``), where the JAX package
-    puts the axis on the stacked leaves' leading layer dim.  A MoE config
-    raises (ROADMAP Queue 1 item 7.2b: the expert axis)."""
+    puts the axis on the stacked leaves' leading layer dim.  A MoE config's
+    banks take ``ops.moe.moe_partition_rules``'s rows per layer
+    (``blocks.<i>.moe.experts.w_in`` ``("expert", None, "tensor")``, the
+    router replicated), where the JAX package prepends the stacked layer
+    dim to each."""
     c = config
-    if c.moe_experts:
-        raise NotImplementedError(
-            "partition_rules of a MoE config: the expert rules are not "
-            "ported (ROADMAP Queue 1 item 7.2b)")
     f = "fsdp" if fsdp else None
     kv_on_tensor = (shard_kv if shard_kv is not None
                     else c.kv_heads == c.num_heads)
@@ -1880,5 +1913,6 @@ def gpt_partition_rules(config: GPTConfig, fsdp: bool = False,
         (blk + r"ffn\.w_out\.bias$", (None,)),
         (blk + r"attention\.out\.bias$", (None,)),
         (blk + r"ln_[12]\.(gamma|beta)$", (None,)),
-    ], stages=((r"^blocks\.(\d+)\.", c.num_layers, c.pipeline_stages,
+    ] + [(blk + r"moe\." + pat, spec)
+         for pat, spec in moe_partition_rules()], stages=((r"^blocks\.(\d+)\.", c.num_layers, c.pipeline_stages,
                 c.pipe_axis) if c.pipeline_stages > 1 else None))

@@ -14,7 +14,22 @@ encoder unstacked (``encoder.<i>.<path>``).  Every LayerNorm goes through
 the LayerNorm kernel and every attention through the flash kernel,
 non-causal and unmasked; 197 tokens at 224/16 is three 64-row tiles and
 a ragged one.  ``ViTConfig.use_flash`` is the JAX package's gate and has
-no effect.  ``partition_rules`` waits for the parallelism slice.
+no effect.
+
+``partition_rules(fsdp=)`` is the JAX table over the port's names.  With
+``fsdp=True`` it gives ZeRO its blocks (``train.shard_train_state`` on
+an ``fsdp`` axis; the model itself stays whole).  Tensor parallelism
+(``ViT(config, mesh=...)`` with a ``tensor`` axis of T > 1 ranks,
+beside ``data``): ``init`` draws the whole model and returns this rank's
+blocks, and the model computes on them as ``Bert`` does: the patch
+convolution column-parallel (this rank's output channels, with its
+slice of the replicated bias, gathered whole over the line before the
+CLS token and the positions), Megatron attention and FFN
+(``ops.attention.attention_core(mesh=)``, ``models.bert.ffn``), and the
+head cut over the classes (its replicated bias sliced the same way):
+``loss_fn`` takes ``tensor_parallel.vocab_parallel_cross_entropy`` and
+``vocab_parallel_argmax`` of the cut logits, ``apply`` gathers them
+whole.
 """
 from __future__ import annotations
 
@@ -28,9 +43,10 @@ from ..ops import losses as loss_lib
 from ..ops.attention import attention_core, dropout, resolve_activation
 from ..ops.kernels import flash_attention as flash_lib
 from ..ops.layers import _nhwc_conv
-from .bert import (_PARALLEL, attention_params, ffn, init_attention,
-                   init_ffn, init_ln, layer_norm, stacked_decay_mask,
-                   trainable)
+from ..parallel import sharding as sharding_lib
+from ..parallel import tensor_parallel as tp_lib
+from .bert import (attention_params, ffn, init_attention, init_ffn,
+                   init_ln, layer_norm, stacked_decay_mask, trainable)
 from .gpt import _checkpointed
 
 __all__ = ["ViTConfig", "ViT", "vit_base", "vit_tiny"]
@@ -86,10 +102,16 @@ def vit_tiny(**kw) -> "ViT":
 
 class ViT:
     """Functional ViT: ``init(generator) -> params``, ``apply(params,
-    images)``, ``loss_fn``."""
+    images)``, ``loss_fn``.  ``mesh``: a ``parallel.Mesh`` with a
+    ``tensor`` axis for tensor parallelism (module docstring)."""
 
-    def __init__(self, config: ViTConfig):
+    def __init__(self, config: ViTConfig, mesh=None):
         self.config = config
+        self.mesh = mesh
+        # the tensor line, None at T = 1
+        self.line = tp_lib.active(mesh)
+        if self.line is not None:
+            sharding_lib.check_mesh(mesh)
         self.stacks = {"encoder": config.num_layers}
 
     def decay_mask(self, params: Mapping[str, torch.Tensor]
@@ -102,7 +124,9 @@ class ViT:
              ) -> Dict[str, torch.Tensor]:
         """Patch kernel lecun-normal, positions and encoder kernels
         truncated normal (std 0.02), CLS token, biases and head zero,
-        norms identity; drawn from ``generator`` on its device."""
+        norms identity; drawn from ``generator`` on its device.  Under
+        tensor parallelism the whole model is drawn and this rank's
+        blocks returned."""
         c = self.config
         if c.image_size % c.patch_size:
             raise ValueError(f"image_size {c.image_size} not divisible by "
@@ -133,7 +157,11 @@ class ViT:
         params.update(init_ln(d, "final_ln", dev))
         params.update({"head.kernel": zeros((d, c.num_classes)),
                        "head.bias": zeros((c.num_classes,))})
-        return trainable(params)
+        params = trainable(params)
+        if self.line is None:
+            return params
+        return sharding_lib.cut_blocks(params, self.partition_rules(),
+                                       self.line)
 
     def _encoder_layer(self, p: Mapping[str, torch.Tensor], x, generator,
                        train):
@@ -143,30 +171,43 @@ class ViT:
         y = attention_core(
             attention_params(p, "attention"), y,
             dropout_rate=c.dropout_rate, generator=generator, train=train,
-            attention_fn=flash_lib.make_flash_attention_fn(causal=False))
+            attention_fn=flash_lib.make_flash_attention_fn(causal=False),
+            mesh=self.line)
         x = x + dropout(y, c.dropout_rate, generator, train)
         y = ffn(p, "ffn", layer_norm(p, "ffn.ln", x, c.layer_norm_eps),
-                c.act_fn)
+                c.act_fn, self.line)
         return x + dropout(y, c.dropout_rate, generator, train)
 
-    def apply(self, params: Mapping[str, torch.Tensor], images, *,
-              train: bool = False, rng: Optional[torch.Generator] = None,
-              return_features: bool = False) -> torch.Tensor:
-        """NHWC images -> [batch, num_classes] f32 logits; with
-        ``return_features`` the final-LN token sequence [batch, 1 +
-        n_patches, hidden] instead."""
+    def _column(self, params: Mapping[str, torch.Tensor], prefix: str,
+                x: torch.Tensor, linear: Callable) -> torch.Tensor:
+        """``linear(x, kernel) + bias`` of ``<prefix>.kernel`` /
+        ``.bias``; under tensor parallelism this rank's output columns
+        (the kernel's last dim is its block) with its slice of the
+        replicated bias, whose gradient the line sums with x's."""
+        kernel = params[prefix + ".kernel"]
+        bias = params[prefix + ".bias"]
+        if self.line is None:
+            return linear(x, kernel) + bias.to(x.dtype)
+        n = kernel.shape[-1]
+        x, bias = tp_lib.copy_to_line(x, self.line, bias)
+        at = tp_lib.index(self.line) * n
+        return linear(x, kernel) + bias[at:at + n].to(x.dtype)
+
+    def _features(self, params, images, train, rng):
+        """The final-LN token sequence [batch, 1 + n_patches, hidden]."""
         c = self.config
         if train and c.dropout_rate > 0.0 and rng is None:
             raise ValueError("ViT.apply(train=True) requires a generator "
                              "(rng) for dropout")
         dev = params["pos_embed"].device
         p = c.patch_size
-        x = _nhwc_conv(torch.as_tensor(images, device=dev).to(c.dtype),
-                       params["patch_embed.kernel"].to(c.dtype), (p, p),
-                       "VALID")
+        x = self._column(
+            params, "patch_embed",
+            torch.as_tensor(images, device=dev).to(c.dtype),
+            lambda x, k: _nhwc_conv(x, k.to(c.dtype), (p, p), "VALID"))
+        x = tp_lib.gather_from_line(x, self.line)
         b = x.shape[0]
-        x = x.reshape(b, -1, c.hidden_size) \
-            + params["patch_embed.bias"].to(c.dtype)
+        x = x.reshape(b, -1, c.hidden_size)
         cls = params["cls_token"].to(c.dtype).expand(b, 1, c.hidden_size)
         x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(c.dtype)
         x = dropout(x, c.dropout_rate, rng, train)
@@ -182,27 +223,67 @@ class ViT:
                 x = _checkpointed(layer, rng, None, x, *tensors)
             else:
                 x = layer(x, *tensors)
-        x = layer_norm(params, "final_ln", x, c.layer_norm_eps)
+        return layer_norm(params, "final_ln", x, c.layer_norm_eps)
+
+    def _local_logits(self, features, params) -> torch.Tensor:
+        """The head's f32 logits of this rank's classes (all of them at
+        T = 1) from the CLS token."""
+        cls_out = features[:, 0]
+        return self._column(params, "head", cls_out,
+                            lambda x, k: x @ k.to(x.dtype)).float()
+
+    def apply(self, params: Mapping[str, torch.Tensor], images, *,
+              train: bool = False, rng: Optional[torch.Generator] = None,
+              return_features: bool = False) -> torch.Tensor:
+        """NHWC images -> [batch, num_classes] f32 logits (gathered whole
+        over a tensor line); with ``return_features`` the final-LN token
+        sequence [batch, 1 + n_patches, hidden] instead."""
+        x = self._features(params, images, train, rng)
         if return_features:
             return x
-        cls_out = x[:, 0]
-        logits = (cls_out @ params["head.kernel"].to(cls_out.dtype)
-                  + params["head.bias"].to(cls_out.dtype))
-        return logits.float()
+        return tp_lib.gather_from_line(self._local_logits(x, params),
+                                       self.line)
 
     def loss_fn(self) -> Callable:
         """``train.make_custom_train_step``'s contract; ``batch`` is
-        ``(images, integer labels)``; metric ``accuracy``."""
+        ``(images, integer labels)``; metric ``accuracy``.  Under tensor
+        parallelism the logits stay cut over the classes, into the
+        vocabulary-parallel cross entropy and argmax."""
         def loss_fn(params, model_state, batch, generator, train):
             images, labels = batch
             labels = labels.to(params["pos_embed"].device).long()
-            logits = self.apply(params, images, train=train, rng=generator)
-            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
-                logits, labels)
+            logits = self._local_logits(
+                self._features(params, images, train, generator), params)
+            if self.line is None:
+                loss = loss_lib.softmax_cross_entropy_with_integer_labels(
+                    logits, labels)
+            else:
+                loss = tp_lib.vocab_parallel_cross_entropy(
+                    logits, labels, self.line).mean()
             with torch.no_grad():
-                accuracy = (logits.argmax(-1) == labels).float().mean()
+                accuracy = (tp_lib.vocab_parallel_argmax(logits, self.line)
+                            == labels).float().mean()
             return loss, ({"accuracy": accuracy}, model_state)
         return loss_fn
 
-    def partition_rules(self, fsdp: bool = False):
-        raise NotImplementedError(f"ViT.partition_rules: {_PARALLEL}")
+    def partition_rules(self, fsdp: bool = False
+                        ) -> sharding_lib.PartitionRules:
+        """The JAX package's table (``ViT.partition_rules``) over the
+        port's per-layer names: the BERT layout (heads and the FFN's
+        hidden dim over ``tensor``), the patch kernel's output channels
+        and the head's classes over ``tensor``; ``fsdp=True`` cuts the
+        other large dim of each matrix over ``fsdp``."""
+        f = "fsdp" if fsdp else None
+        enc = r"^encoder\.\d+\."
+        return sharding_lib.PartitionRules([
+            (r"^patch_embed\.kernel$", (None, None, None, "tensor")),
+            (enc + r"attention\.(query|key|value)\.kernel$",
+             (f, "tensor", None)),
+            (enc + r"attention\.(query|key|value)\.bias$",
+             ("tensor", None)),
+            (enc + r"attention\.out\.kernel$", ("tensor", None, f)),
+            (enc + r"ffn\.w_in\.kernel$", (f, "tensor")),
+            (enc + r"ffn\.w_in\.bias$", ("tensor",)),
+            (enc + r"ffn\.w_out\.kernel$", ("tensor", f)),
+            (r"^head\.kernel$", (f, "tensor")),
+        ])

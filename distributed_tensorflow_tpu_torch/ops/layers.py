@@ -38,11 +38,17 @@ Conventions, as in the JAX package:
 * ``BatchNorm`` normalises with the moments of the global batch, as the
   JAX package's jit over a sharded batch does: under a data-parallel
   mesh of more than one rank (``train.make_custom_train_step(mesh=...)``
-  enters ``cross_rank_moments`` around its loss function) each rank
-  all-reduces its shard's sums of x and x^2 and its row count through an
-  autograd function (``_AllReduceSum``) whose backward all-reduces the
-  gradients of the sums, so the gradients are the global batch's too,
-  and shards of different sizes stay exact.
+  enters ``parallel.data_parallel.cross_rank_moments`` around its loss
+  function) each rank sums its shard's x and x^2 and its row count over
+  the batch line (``data_parallel.batch_sum``, whose backward sums the
+  gradients of the sums), so the gradients are the global batch's too,
+  and shards of different sizes stay exact.  The batch line is the
+  ranks that hold other rows of the same channels (``data_parallel.
+  batch_group``: the mesh's replicas, its ``data`` line beside a
+  ``tensor`` axis, where a tensor-parallel ResNet's ranks hold different
+  channel blocks), never a whole mesh whose ranks hold different
+  channels.  The layer reads the line as it runs (no model in the port
+  recomputes a ``BatchNorm`` in its backward).
 * ``LayerNorm(fused=True)`` and ``fused="auto"`` run the LayerNorm
   kernel (``ops.kernels.fused.fused_layernorm``; its plain version on a
   CPU tensor); the JAX package's TPU-only ``"auto"`` gate is not ported:
@@ -51,14 +57,13 @@ Conventions, as in the JAX package:
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import data_parallel as dp_lib
 from . import activations as act_lib
 from . import initializers as init_lib
 from .kernels import fused as fused_lib
@@ -562,49 +567,12 @@ class GlobalAvgPool(Layer):
         return x.mean(dim=(1, 2)), state
 
 
-# the data-parallel mesh whose ranks a training BatchNorm reduces its
-# batch moments over (None: the batch a rank holds is the whole batch)
-_MOMENTS_MESH: contextvars.ContextVar = contextvars.ContextVar(
-    "batch_moments_mesh", default=None)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """The sum of ``x`` over ``group``'s ranks, and in the backward the sum
-    of the ranks' gradients.  ``torch.distributed.nn.functional
-    .all_reduce`` computes the same, but importing that module keeps
-    every gloo group's threads alive past ``destroy_process_group``, and
-    a rank then aborts at exit now and then."""
-
-    @staticmethod
-    def forward(ctx, group, x):
-        ctx.group = group
-        x = x.clone(memory_format=torch.contiguous_format)
-        torch.distributed.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return None, _AllReduceSum.apply(ctx.group, grad)
-
-
-@contextlib.contextmanager
-def cross_rank_moments(mesh):
-    """Within the block, a training ``BatchNorm`` takes the moments of the
-    global batch over ``mesh``'s process group (the train step enters it
-    around the forward on a mesh of more than one rank)."""
-    token = _MOMENTS_MESH.set(mesh)
-    try:
-        yield
-    finally:
-        _MOMENTS_MESH.reset(token)
-
-
 class BatchNorm(Layer):
     """Batch normalization over every dim but the last, with running
     moments (``mean``, ``var``) as state.  In training the batch's f32
     moments (``var = max(E[x^2] - E[x]^2, 0)``) normalise, and the state
     moves by ``momentum``; in eval the state normalises.  Under
-    ``cross_rank_moments`` the batch is the global one (module
+    ``parallel.data_parallel.cross_rank_moments`` the batch is the global one (module
     docstring).  ``axis_name`` is kept for the JAX signature and the
     config."""
 
@@ -637,15 +605,15 @@ class BatchNorm(Layer):
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mesh = _MOMENTS_MESH.get()
-            if mesh is None:
+            group = dp_lib.batch_group()
+            if group is None:
                 mean = xf.mean(dim=axes)
                 mean_sq = torch.square(xf).mean(dim=axes)
             else:
                 d = x.shape[-1]
-                sums = _AllReduceSum.apply(mesh.group, torch.cat([
+                sums = dp_lib.batch_sum(torch.cat([
                     xf.sum(dim=axes), torch.square(xf).sum(dim=axes),
-                    xf.new_full((1,), xf.numel() // d)]))
+                    xf.new_full((1,), xf.numel() // d)]), group)
                 mean = sums[:d] / sums[-1]
                 mean_sq = sums[d:2 * d] / sums[-1]
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)

@@ -11,12 +11,42 @@ Tokens over an expert's capacity are dropped (their output is zeros):
 the caller adds the residual, so a dropped token passes through
 unchanged.  ``aux_loss`` (Switch load balancing, ``E * sum_e f_e P_e``,
 1.0 at perfect balance) and ``router_z_loss`` are for the caller to add
-to the training loss.
+to the training loss.  Given the batch line (``apply_moe(...,
+batch_group=)``, the group of ``parallel.data_parallel.batch_group()``
+that a model reads as its training forward starts), ``f_e`` and ``P_e``
+are the global batch's, as the JAX package's jit over a sharded batch
+takes them: each rank sums its sums of them and its token count over
+the line (``data_parallel.batch_sum``, whose backward sums the
+gradients), so the product of means is the global batch's and not the
+mean of the ranks' products.
 
 The train-time router jitter draws from an explicit ``torch.Generator``;
 its bits differ from ``jax.random``'s, as ``ops.attention.dropout``'s do.
-``moe_partition_rules`` (expert parallelism over a mesh axis) is not
-ported: the port has no tensor sharding yet.
+
+Expert parallelism (``apply_moe(..., mesh=)`` with an ``expert`` axis of
+X ranks, the bank cut by ``moe_partition_rules``: experts over
+``expert``, the FFN's hidden dim over ``tensor``).  The JAX layout cuts
+the batch over ``data`` (and ``fsdp``) only, never over ``expert``, so
+every rank of an expert line holds the same tokens, and the port
+computes what the JAX partitioner computes there; no all-to-all
+dispatch is needed, and none is issued:
+
+* the router's logits and softmax, the top-k dispatch and the capacity
+  are computed whole on every rank, from the global expert count, so
+  the dispatch plan is the same across the line (every rank draws the
+  same jitter: the train step folds no expert coordinate into its
+  generator);
+* a rank takes its ``E/X`` experts' slice of ``dispatch`` and
+  ``combine`` and runs its experts (their hidden dim column-parallel
+  over a ``tensor`` line of more than one rank, ended by
+  ``reduce_from_line`` before ``b_out``), so its output is a partial
+  sum, which ``reduce_from_line`` over ``expert`` ends;
+* ``copy_to_line`` over ``expert`` enters the region on the tokens and
+  on the router probabilities that build ``combine``, so the tokens' and
+  the router's gradients add the ranks' parts.  ``aux_loss`` and
+  ``router_z_loss`` read the probabilities and logits from before it:
+  every rank computes them whole, and their gradient is not summed X
+  times.
 """
 from __future__ import annotations
 
@@ -25,6 +55,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import data_parallel as dp_lib
+from ..parallel import tensor_parallel as tp_lib
 from . import activations as act_lib
 from . import initializers as init_lib
 
@@ -57,11 +89,18 @@ def init_moe(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def moe_partition_rules():
-    """Not ported: expert sharding needs the tensor-parallel rules, which
-    wait for the port's parallelism (ROADMAP Queue 1 item 7)."""
-    raise NotImplementedError(
-        "moe_partition_rules is not ported: expert parallelism waits for "
-        "the port's sharding (ROADMAP Queue 1 item 7)")
+    """(regex, spec) rows for ``parallel.PartitionRules``, the JAX table:
+    experts over ``expert``, the FFN hidden dim over ``tensor``, the
+    router replicated.  The patterns match a nested tree's ``/`` paths
+    (``experts/w_in``) and a model's ``.`` names (``blocks.0.moe.experts.
+    w_in``) alike."""
+    return [
+        (r"experts[./]w_in$", ("expert", None, "tensor")),
+        (r"experts[./]b_in$", ("expert", "tensor")),
+        (r"experts[./]w_out$", ("expert", "tensor", None)),
+        (r"experts[./]b_out$", ("expert", None)),
+        (r"router[./]", ()),
+    ]
 
 
 def _jitter_noise(x: torch.Tensor, generator: torch.Generator,
@@ -119,7 +158,7 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, *, k: int = 2,
               group_size: Optional[int] = None, activation="gelu",
               train: bool = False,
               generator: Optional[torch.Generator] = None,
-              jitter: float = 1e-2
+              jitter: float = 1e-2, mesh=None, batch_group=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [..., d_model] -> (y [..., d_model], metrics).
 
@@ -137,13 +176,28 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, *, k: int = 2,
     caller adds to the loss, weighted ~1e-2 / ~1e-3) and
     ``dropped_fraction``.  ``jitter``: with ``train`` and a
     ``generator``, the router input is multiplied by uniform noise in
-    ``[1 - jitter, 1 + jitter)``."""
+    ``[1 - jitter, 1 + jitter)``.
+
+    ``mesh``: a ``parallel.Mesh`` whose ``expert`` axis (and ``tensor``
+    axis) cut the bank as ``moe_partition_rules`` says: ``params``
+    holds this rank's experts (and their hidden dim's block), ``x`` the
+    same tokens on every rank of both lines (module docstring); ``y`` and
+    the metrics come out whole and equal on every rank.  ``batch_group``:
+    the process group of the ranks that hold the batch's other rows
+    (``parallel.data_parallel.batch_group``); ``aux_loss`` then reads the
+    global batch's ``f_e`` and ``P_e`` (module docstring)."""
     act = act_lib.get(activation)
     *lead, d = x.shape
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
     ex = params["experts"]
-    e = ex["w_in"].shape[0]
+    # the global expert count (the router's), and this rank's experts
+    e = params["router"]["kernel"].shape[1]
+    local = ex["w_in"].shape[0]
+    if e % local or e // local != tp_lib.size(mesh, "expert"):
+        raise ValueError(f"{local} experts of {e} on this rank of an "
+                         f"expert line of {tp_lib.size(mesh, 'expert')}")
+    first = tp_lib.index(mesh, "expert") * local
     if group_size is None:
         group_size = t // x.shape[0] if x.dim() >= 3 else t
     if t % group_size:
@@ -160,20 +214,36 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, *, k: int = 2,
     logits32 = logits.float()
     probs = torch.softmax(logits32, dim=-1)
 
-    dispatch, combine, top1 = _top_k_dispatch(probs, k, capacity)
+    # the expert line's region: the tokens' and the gates' gradients add
+    # the ranks' parts (one all-reduce of both)
+    tok_in, probs_in = tp_lib.copy_to_line(tok, mesh, probs, axis="expert")
+    dispatch, combine, top1 = _top_k_dispatch(probs_in, k, capacity)
     kept = dispatch.sum()
-    dispatch = dispatch.to(x.dtype)
-    combine = combine.to(x.dtype)
+    dispatch = dispatch[:, :, first:first + local].to(x.dtype)
+    combine = combine[:, :, first:first + local].to(x.dtype)
 
-    staged = torch.einsum("gsec,gsd->gecd", dispatch, tok)
+    staged = torch.einsum("gsec,gsd->gecd", dispatch, tok_in)
+    staged = tp_lib.copy_to_line(staged, mesh)
     h = act(torch.einsum("gecd,edf->gecf", staged, ex["w_in"].to(x.dtype))
             + ex["b_in"].to(x.dtype)[None, :, None, :])
-    out_e = (torch.einsum("gecf,efd->gecd", h, ex["w_out"].to(x.dtype))
-             + ex["b_out"].to(x.dtype)[None, :, None, :])
-    y = torch.einsum("gsec,gecd->gsd", combine, out_e)
+    out_e = (tp_lib.reduce_from_line(
+        torch.einsum("gecf,efd->gecd", h, ex["w_out"].to(x.dtype)), mesh)
+        + ex["b_out"].to(x.dtype)[None, :, None, :])
+    y = tp_lib.reduce_from_line(
+        torch.einsum("gsec,gecd->gsd", combine, out_e), mesh, axis="expert")
 
-    frac_tokens = top1.mean(dim=(0, 1))                          # f_e
-    mean_probs = probs.mean(dim=(0, 1))                          # P_e
+    if batch_group is None:
+        frac_tokens = top1.mean(dim=(0, 1))                      # f_e
+        mean_probs = probs.mean(dim=(0, 1))                      # P_e
+    else:
+        # the global batch's f_e and P_e, as the JAX package's jit over a
+        # batch sharded on the mesh computes them
+        sums = dp_lib.batch_sum(torch.cat([
+            top1.sum(dim=(0, 1)), probs.sum(dim=(0, 1)),
+            probs.new_full((1,), probs.shape[0] * probs.shape[1])]),
+            batch_group)
+        frac_tokens = sums[:e] / sums[-1]
+        mean_probs = sums[e:2 * e] / sums[-1]
     z = torch.logsumexp(logits32, dim=-1)
     metrics = {
         "aux_loss": e * torch.sum(frac_tokens * mean_probs),

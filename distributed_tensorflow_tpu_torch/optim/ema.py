@@ -126,7 +126,9 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
     shadow cut by ``train.shard_train_state`` over ``fsdp`` is gathered
     over its line into whole tensors (one all-gather; every rank of the
     line must call), for eval and ``generate``; one cut over ``tensor``
-    stays the blocks, which a tensor-parallel model reads; a pipeline
+    stays the blocks, which a tensor-parallel model reads; a MoE bank cut
+    over ``expert`` is gathered whole along its expert dim over that line
+    (one all-gather), as ``train.gather_params`` does; a pipeline
     stage's gathers every stage's layers over the ``pipe`` line into the
     whole model's (one all-gather), which a model built without the
     pipeline loads."""
@@ -137,8 +139,13 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
                          "optimizer with optim.with_ema)") from None
     value = _value(state)
     shadow = state.shadow
-    if isinstance(shadow, ShardedDict) and shadow.line == "fsdp":
-        return dp_lib.gather_shards(value, shadow.layout, shadow.mesh)
-    if isinstance(shadow, ShardedDict) and shadow.line == "pipe":
+    if not isinstance(shadow, ShardedDict):
+        return value
+    if shadow.line == "pipe":
         return dp_lib.gather_stages(value, shadow.layout, shadow.mesh)
+    # a tensor line's blocks stay; fsdp's and expert's gather
+    for line in ("fsdp", "expert"):
+        if line in (shadow.line or ""):
+            return dp_lib.gather_shards(value, shadow.layout, shadow.mesh,
+                                        axis=line)
     return value

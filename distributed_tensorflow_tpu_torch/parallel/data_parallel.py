@@ -15,12 +15,13 @@ In the port the JAX package's two spellings, ``make_train_step(mesh=
 ``train/step.py`` calls ``all_reduce_mean`` when its mesh has a process
 group, and ``make_psum_train_step`` is a name for it.
 
-The ranks that average are the replicas: on a mesh with a ``tensor`` or
-a ``pipe`` axis of more than one rank, the ranks of this rank's ``data``
-line (those that share its ``tensor`` and ``pipe`` coordinates and so
-hold the same blocks or stage), never the whole mesh, whose sum would
-add blocks or layers of different ranks; a data line of one issues no
-all-reduce (``replicas``).
+The ranks that average are the replicas: on a mesh with a ``tensor``,
+an ``expert`` or a ``pipe`` axis of more than one rank, the ranks of
+this rank's ``data`` line (those that share its ``tensor``, ``expert``
+and ``pipe`` coordinates and so hold the same blocks, experts or stage),
+never the whole mesh, whose sum would add blocks or layers of different
+ranks (and divide an expert's gradient by the expert line's size); a
+data line of one issues no all-reduce (``replicas``).
 
 Weighted losses: a loss function that reports ``metrics["loss_weight"]``
 (a masked mean's normaliser, such as the token or mask count) is a
@@ -60,25 +61,38 @@ of two numbers) and count each uncut leaf once.
 
 A pipeline stage's layers (``parallel.sharding.Stage``) gather into the
 whole model over the ``pipe`` line with ONE ``all_gather_into_tensor``
-(``gather_stages``), for eval and ``generate`` on a whole model.
+(``gather_stages``), for eval and ``generate`` on a whole model; a MoE
+bank's expert blocks gather whole over the ``expert`` line as ZeRO's
+blocks do over ``fsdp`` (``gather_shards(axis="expert")``).
+
+The statistics of the global batch that a forward needs (a training
+``BatchNorm``'s moments, a MoE layer's router load) are sums over the
+batch line (``batch_group``: the replicas of the mesh the train step
+enters with ``cross_rank_moments``), through ``batch_sum``, an
+all-reduce whose backward sums the ranks' gradients.
 
 ``LAUNCHES`` counts the collectives issued by kind: ``all_reduce``,
-``all_gather``, ``reduce_scatter`` and ``stats_all_reduce``, and those of
+``all_gather``, ``reduce_scatter``, ``stats_all_reduce`` and
+``batch_all_reduce`` (``batch_sum``, forward and backward), and those of
 ``parallel/tensor_parallel.py`` as ``tp_all_reduce`` and
-``tp_all_gather``.
+``tp_all_gather`` on the tensor line, ``ep_all_reduce`` and
+``ep_all_gather`` on the expert line.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["LAUNCHES", "all_reduce_mean", "gather_shards", "gather_stages",
-           "line_sum",
-           "make_psum_train_step", "reduce_scatter_mean", "replicas"]
+__all__ = ["LAUNCHES", "all_reduce_mean", "batch_group", "batch_sum",
+           "cross_rank_moments", "gather_shards", "gather_stages",
+           "line_sum", "make_psum_train_step", "reduce_scatter_mean",
+           "replicas"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -98,11 +112,69 @@ def _unflat(flat: torch.Tensor, like: List[torch.Tensor]
 
 def replicas(mesh) -> Tuple[object, int]:
     """(the process group the gradients average over, its rank count):
-    the whole mesh's group, or under a ``tensor`` or ``pipe`` axis of more
-    than one rank this rank's ``data`` line (None for a line of one)."""
-    if mesh.axis_size("tensor") > 1 or mesh.axis_size("pipe") > 1:
+    the whole mesh's group, or under a ``tensor``, ``expert`` or ``pipe``
+    axis of more than one rank this rank's ``data`` line (None for a line
+    of one)."""
+    if any(mesh.axis_size(a) > 1 for a in ("tensor", "expert", "pipe")):
         return mesh.axis_group("data"), mesh.axis_size("data")
     return mesh.group, mesh.size
+
+
+# the mesh of the train step whose loss function runs (None outside one)
+_STEP_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "step_mesh", default=None)
+
+
+@contextlib.contextmanager
+def cross_rank_moments(mesh):
+    """Within the block, ``batch_group()`` is ``mesh``'s batch line: the
+    train step enters it around its loss function on a mesh of more than
+    one rank, so that a training ``BatchNorm`` takes the moments of the
+    global batch and a MoE GPT its router statistics."""
+    token = _STEP_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _STEP_MESH.reset(token)
+
+
+def batch_group(mesh=None):
+    """The process group of the ranks that hold the other rows of this
+    rank's batch: ``mesh``'s replicas (``replicas``), by default those of
+    the mesh the running train step entered (``cross_rank_moments``);
+    None outside a step and for a line of one.  A model reads it once, as
+    its forward starts, and passes it down: a recomputation in the
+    backward (``remat``) runs outside the step's block."""
+    mesh = _STEP_MESH.get() if mesh is None else mesh
+    return None if mesh is None else replicas(mesh)[0]
+
+
+class _BatchSum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``'s ranks, and in the backward the sum
+    of the ranks' gradients; each direction counts one
+    ``batch_all_reduce``.  ``torch.distributed.nn.functional.all_reduce``
+    computes the same, but importing that module keeps every gloo group's
+    threads alive past ``destroy_process_group``, and a rank then aborts
+    at exit now and then."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        LAUNCHES["batch_all_reduce"] += 1
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _BatchSum.apply(ctx.group, grad)
+
+
+def batch_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the batch line ``group`` (``batch_group``), ``x``
+    itself for None; differentiable: the backward sums the ranks'
+    gradients, so a statistic of the global batch trains as one."""
+    return x if group is None else _BatchSum.apply(group, x)
 
 
 def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
@@ -163,34 +235,41 @@ def make_psum_train_step(model, loss, optimizer, mesh, axis: str = "data",
 
 @torch.no_grad()
 def gather_shards(shards: Mapping[str, torch.Tensor], layout, mesh,
-                  out: Optional[Mapping[str, torch.Tensor]] = None
-                  ) -> Dict[str, torch.Tensor]:
-    """{name: the whole leaf} of ``shards`` ({name: this rank's block},
-    cut as ``layout`` says): the cut ones joined along their dims from ONE
-    ``all_gather_into_tensor`` over the ``fsdp`` line, written in place
-    into ``out[name]`` when given (the model's parameters) or into new
-    tensors; an uncut entry is itself.  Every rank of the line must
-    call."""
-    cut = [n for n in shards if layout[n] is not None]
+                  out: Optional[Mapping[str, torch.Tensor]] = None,
+                  axis: str = "fsdp") -> Dict[str, torch.Tensor]:
+    """{name: the leaf whole along its ``axis`` dim} of ``shards`` ({name:
+    this rank's block, cut as ``layout`` says}): every leaf cut over
+    ``axis`` (a ``Shard``, or a part of a ``parallel.sharding.Blocks``)
+    joined from ONE ``all_gather_into_tensor`` over the ``axis`` line,
+    written in place into ``out[name]`` when given (the model's
+    parameters) or into new tensors; every other entry is itself (a leaf
+    also cut over another line stays that line's block).  Every rank of
+    the line must call."""
+    from .sharding import Stage
+    cut = {n: p for n in shards
+           if layout.get(n) is not None
+           and not isinstance(layout[n], Stage)
+           for p in layout[n].parts if p.line == axis}
     res = dict(shards)
-    if not cut:
+    parts = mesh.axis_size(axis)
+    if not cut or parts == 1:
         return res
     dtypes = {shards[n].dtype for n in cut}
     if len(dtypes) != 1:
         raise TypeError(f"gather_shards over blocks of types {dtypes}")
-    flat = torch.cat([shards[n].reshape(-1) for n in cut])
-    parts = mesh.axis_size("fsdp")
+    flat = torch.cat([shards[n].detach().reshape(-1) for n in cut])
     buf = flat.new_empty(parts * flat.numel())
-    dist.all_gather_into_tensor(buf, flat, group=mesh.axis_group("fsdp"))
+    dist.all_gather_into_tensor(buf, flat, group=mesh.axis_group(axis))
     LAUNCHES["all_gather"] += 1
     buf = buf.view(parts, -1)
     lo = 0
-    for n in cut:
-        t, s = shards[n], layout[n]
-        dst = (out[n] if out is not None
-               else t.new_empty(s.full_shape(t.shape)))
+    for n, p in cut.items():
+        t = shards[n]
+        shape = list(t.shape)
+        shape[p.dim] = p.length * parts
+        dst = out[n] if out is not None else t.new_empty(shape)
         for r in range(parts):
-            dst.narrow(s.dim, r * s.length, s.length).copy_(
+            dst.narrow(p.dim, r * p.length, p.length).copy_(
                 buf[r, lo:lo + t.numel()].view(t.shape))
         lo += t.numel()
         res[n] = dst

@@ -16,20 +16,25 @@ on the devices.  Here every rank holds its own block of each leaf:
 the device at this rank's place in the mesh.  A dim that its axes do not
 divide raises ``ValueError``, as the JAX package's ``device_put`` does.
 
-The axes a leaf may be cut over are ``data``, ``fsdp``, ``tensor`` and
-``pipe`` (a stacked leaf's leading stage dim, ``parallel/pipeline.py``).
-An ``expert`` axis of more than one rank raises ``NotImplementedError``
-(ROADMAP Queue 1 item 7.2b: the MoE's expert axis), as do a ``seq`` axis
-beside ``fsdp`` (item 7.5), ``tensor`` beside ``fsdp`` or ``seq`` (item
-7.2b) and ``pipe`` beside ``fsdp``, ``tensor`` or ``seq`` (items 7.3a,
-7.3b, 7.3c): a pipeline runs beside ``data`` alone, as the JAX
-package's ``examples/train_gpt.py`` runs it.  ``parallel/mesh.py`` holds
+The axes a leaf may be cut over are ``data``, ``fsdp``, ``tensor``,
+``expert`` (a MoE bank's leading expert dim, ``ops/moe.py``) and ``pipe``
+(a stacked leaf's leading stage dim, ``parallel/pipeline.py``).  These
+raise ``NotImplementedError``, each naming its ROADMAP Queue 1 item: a
+``seq`` axis beside ``fsdp`` (item 7.5), ``tensor`` beside ``fsdp`` or
+``seq`` (item 7.2b), ``expert`` beside ``fsdp`` (7.2c) or ``seq`` (7.2d),
+and ``pipe`` beside ``fsdp``, ``tensor``, ``seq`` or ``expert`` (items
+7.3a-d): a pipeline runs beside ``data`` alone, as the JAX package's
+``examples/train_gpt.py`` runs it.  ``expert`` runs beside ``data`` and
+beside ``tensor``.  ``parallel/mesh.py`` holds
 ``named_sharding``, ``replicated`` and ``logical_to_mesh``.
 
 The layouts of ``train.shard_train_state``: a leaf cut along one dim over
 one line (``Shard``: the dim, this rank's start and length, the dim's
 full size, the line: ``fsdp`` for ZeRO, ``tensor`` for tensor
-parallelism) or kept whole (None).  A ``ShardedDict`` is a params-shaped
+parallelism, ``expert`` for a MoE bank's experts), along two dims over
+the ``expert`` and the ``tensor`` line (``Blocks``, one ``Shard`` a
+dim: a bank's ``w_in`` on ``{"expert": X, "tensor": T}``) or kept whole
+(None).  A ``ShardedDict`` is a params-shaped
 dict of this rank's blocks with that layout beside it (``layout``,
 ``mesh``, and for the parameters themselves ``full``: under ZeRO the
 model's own whole tensors, which the train step gathers the blocks
@@ -58,23 +63,27 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, \
 
 import torch
 
-__all__ = ["PartitionRules", "Shard", "ShardedDict", "Stage", "block_of",
-           "check_mesh", "cut_blocks", "mark_block", "marked_shard",
-           "prune_spec", "shard_pytree", "tree_paths", "zero_shard"]
+__all__ = ["Blocks", "PartitionRules", "Shard", "ShardedDict", "Stage",
+           "block_of", "check_mesh", "cut_blocks", "lines_of", "mark_block",
+           "marked_shard", "prune_spec", "shard_pytree", "tree_paths",
+           "zero_shard"]
 
 Spec = Tuple[Any, ...]
 Rules = Sequence[Tuple[str, Spec]]
 
 # the ROADMAP item that ports each axis the port cannot cut over yet
-_UNPORTED = {"expert": "7.2b (the MoE's expert axis)",
-             "seq": "7.5 (ZeRO beside a seq axis)"}
+_UNPORTED = {"seq": "7.5 (ZeRO beside a seq axis)"}
 # axes that may not be larger than 1 beside a tensor axis of more than 1
 _BESIDE_TENSOR = {"fsdp": "7.2b (tensor beside fsdp: two cut dims)",
                   "seq": "7.2b (tensor beside seq)"}
 # axes that may not be larger than 1 beside a pipe axis of more than 1
 _BESIDE_PIPE = {"fsdp": "7.3a (pipe beside fsdp)",
                 "tensor": "7.3b (pipe beside tensor)",
-                "seq": "7.3c (pipe beside seq)"}
+                "seq": "7.3c (pipe beside seq)",
+                "expert": "7.3d (pipe beside expert)"}
+# axes that may not be larger than 1 beside an expert axis of more than 1
+_BESIDE_EXPERT = {"fsdp": "7.2c (expert beside fsdp)",
+                  "seq": "7.2d (expert beside seq)"}
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -169,22 +178,22 @@ class PartitionRules:
 
 
 def _refuse(mesh, axes, what: str) -> None:
-    """Raise for a ``tensor`` axis (named in ``axes``) beside ``fsdp`` or
-    ``seq``, and for an axis of ``axes`` larger than 1 on ``mesh`` that
-    the port cannot cut over yet."""
-    if mesh.axis_size("pipe") > 1:
-        for a, item in _BESIDE_PIPE.items():
+    """Raise for a ``pipe`` axis beside any cut axis, a ``tensor`` or an
+    ``expert`` axis (named in ``axes``) beside an axis it cannot run
+    beside, and for an axis of ``axes`` larger than 1 on ``mesh`` that the
+    port cannot cut over yet."""
+    beside = [("pipe", _BESIDE_PIPE)]
+    beside += [(a, table) for a, table in (("tensor", _BESIDE_TENSOR),
+                                           ("expert", _BESIDE_EXPERT))
+               if a in axes]
+    for axis, table in beside:
+        if mesh.axis_size(axis) == 1:
+            continue
+        for a, item in table.items():
             if mesh.axis_size(a) > 1:
                 raise NotImplementedError(
-                    f"{what}: a 'pipe' axis of {mesh.axis_size('pipe')} "
+                    f"{what}: a {axis!r} axis of {mesh.axis_size(axis)} "
                     f"ranks beside a {a!r} axis of {mesh.axis_size(a)}: "
-                    f"not ported (ROADMAP Queue 1 item {item})")
-    if "tensor" in axes and mesh.axis_size("tensor") > 1:
-        for a, item in _BESIDE_TENSOR.items():
-            if mesh.axis_size(a) > 1:
-                raise NotImplementedError(
-                    f"{what}: a 'tensor' axis of {mesh.axis_size('tensor')}"
-                    f" ranks beside a {a!r} axis of {mesh.axis_size(a)}: "
                     f"not ported (ROADMAP Queue 1 item {item})")
     for a in axes:
         if a in _UNPORTED and mesh.axis_size(a) > 1:
@@ -195,9 +204,9 @@ def _refuse(mesh, axes, what: str) -> None:
 
 def check_mesh(mesh) -> None:
     """Raise unless every axis of ``mesh`` larger than 1 is ``data``,
-    ``fsdp``, ``tensor`` or ``pipe``, ``tensor`` is not beside ``fsdp``
-    and ``pipe`` is beside ``data`` alone: the layouts
-    ``train.shard_train_state`` places."""
+    ``fsdp``, ``tensor``, ``expert`` or ``pipe``, neither ``tensor`` nor
+    ``expert`` is beside ``fsdp`` or ``seq``, and ``pipe`` is beside
+    ``data`` alone: the layouts ``train.shard_train_state`` places."""
     _refuse(mesh, mesh.shape, "a sharded layout")
 
 
@@ -296,30 +305,73 @@ class Shard(NamedTuple):
         shape[self.dim] = self.size
         return tuple(shape)
 
+    @property
+    def parts(self) -> Tuple["Shard", ...]:
+        return (self,)
 
-def zero_shard(shape: Sequence[int], spec: Spec, mesh) -> Optional[Shard]:
+
+class Blocks(NamedTuple):
+    """A leaf cut along several dims, each over its own line: ``parts``
+    holds one ``Shard`` a dim, in dim order (a MoE bank's ``w_in`` [E, D,
+    F] on ``{"expert": X, "tensor": T}``: dim 0 over ``expert``, dim 2
+    over ``tensor``)."""
+    parts: Tuple[Shard, ...]
+
+    @property
+    def line(self) -> str:
+        return "+".join(p.line for p in self.parts)
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        view = t.detach()
+        for p in self.parts:
+            view = view.narrow(p.dim, p.start, p.length)
+        return view.clone(memory_format=torch.contiguous_format)
+
+    def full_shape(self, shard_shape: Sequence[int]) -> Tuple[int, ...]:
+        for p in self.parts:
+            shard_shape = p.full_shape(shard_shape)
+        return tuple(shard_shape)
+
+
+def lines_of(s) -> Tuple[str, ...]:
+    """The lines a layout entry is cut over (``()`` for a whole leaf)."""
+    if s is None:
+        return ()
+    if isinstance(s, Stage):
+        return (s.line,)
+    return tuple(p.line for p in s.parts)
+
+
+def zero_shard(shape: Sequence[int], spec: Spec, mesh):
     """The layout of a leaf: None when ``spec`` keeps it whole on ``mesh``,
     else its ``Shard`` over the one axis that cuts it (``fsdp``: a ZeRO
-    block; ``tensor``: a tensor-parallel block).  Raises
-    ``NotImplementedError`` for a cut the step cannot run (over ``data``,
-    along two dims, or over two axes)."""
+    block; ``tensor``: a tensor-parallel block; ``expert``: a MoE bank's
+    experts), or its ``Blocks`` when the ``expert`` and the ``tensor``
+    line each cut a dim.  Raises ``NotImplementedError`` for a cut the
+    step cannot run (over ``data``, over two axes on one dim, or along
+    two dims other than that pair)."""
     block = block_of(shape, spec, mesh)
     cut = [d for d, ((_, n), size) in enumerate(zip(block, shape))
            if n != size]
     if not cut:
         return None
     spec = prune_spec(spec, mesh)
-    names = [a for a in _names(spec[cut[0]]) if mesh.axis_size(a) > 1]
-    if len(cut) > 1 or names not in (["fsdp"], ["tensor"]):
-        how = ("along two dims" if len(cut) > 1
-               else "over " + ", ".join(names))
+    names = [[a for a in _names(spec[d]) if mesh.axis_size(a) > 1]
+             for d in cut]
+    lines = [n[0] if len(n) == 1 else None for n in names]
+    ok = (lines[0] in ("fsdp", "tensor", "expert") if len(cut) == 1
+          else sorted(lines, key=str) == ["expert", "tensor"])
+    if not ok:
+        how = ("along dims " + ", ".join(map(str, cut)) if len(cut) > 1
+               else "over " + ", ".join(names[0]))
         raise NotImplementedError(
             f"spec {spec} cuts a leaf of shape {tuple(shape)} {how}: a "
-            f"step cuts along one dim over the 'fsdp' or the 'tensor' line "
-            f"only (ROADMAP Queue 1 item 7.2b)")
-    d = cut[0]
-    start, length = block[d]
-    return Shard(d, start, length, int(shape[d]), names[0])
+            f"step cuts along one dim over the 'fsdp', 'tensor' or "
+            f"'expert' line, or along two over 'expert' and 'tensor' "
+            f"(ROADMAP Queue 1 item 7.2b)")
+    parts = tuple(Shard(d, block[d][0], block[d][1], int(shape[d]), line)
+                  for d, line in zip(cut, lines))
+    return parts[0] if len(parts) == 1 else Blocks(parts)
 
 
 def mark_block(t: torch.Tensor, shard) -> torch.Tensor:
@@ -339,9 +391,10 @@ def marked_shard(t: torch.Tensor):
 def cut_blocks(params: Mapping[str, torch.Tensor], rules: "PartitionRules",
                mesh) -> Dict[str, torch.Tensor]:
     """{name: this rank's block} of whole ``params`` over ``mesh``'s
-    ``tensor`` axis: each cut leaf a contiguous copy marked with its
-    ``Shard`` (``requires_grad`` as its leaf), each uncut one the leaf
-    itself.  A dim T does not divide raises ``ValueError``."""
+    ``tensor`` and ``expert`` axes: each cut leaf a contiguous copy marked
+    with its ``Shard`` or ``Blocks`` (``requires_grad`` as its leaf), each
+    uncut one the leaf itself.  A dim its line does not divide raises
+    ``ValueError``."""
     check_mesh(mesh)
     out = {}
     for name, p in params.items():
@@ -376,8 +429,10 @@ class ShardedDict(dict):
 
     @property
     def line(self) -> Optional[str]:
-        """The axis the cut leaves are cut over (``fsdp``, ``tensor`` or
-        ``pipe`` for a pipeline stage's layers; never two), None when
-        nothing is cut."""
-        lines = {s.line for s in self.layout.values() if s is not None}
-        return lines.pop() if lines else None
+        """The axis the cut leaves are cut over (``fsdp``, ``tensor``,
+        ``expert`` or ``pipe`` for a pipeline stage's layers), ``"expert+
+        tensor"`` when the experts and the tensor line cut leaves, None
+        when nothing is cut."""
+        lines = sorted({a for s in self.layout.values()
+                        for a in lines_of(s)})
+        return "+".join(lines) if lines else None

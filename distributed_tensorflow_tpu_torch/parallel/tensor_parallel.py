@@ -41,6 +41,11 @@ function is the identity and issues nothing.  ``parallel.data_parallel.
 LAUNCHES`` counts the collectives under ``tp_all_reduce`` and
 ``tp_all_gather``.
 
+The line is the ``tensor`` axis unless a function is given ``axis=``:
+the MoE's expert line (``ops/moe.py``) enters and ends its region with
+the same ``copy_to_line`` and ``reduce_from_line`` over ``"expert"``,
+counted apart as ``ep_all_reduce`` and ``ep_all_gather``.
+
 ``kv_heads`` says which kv heads a rank's query heads read when the
 kv projections replicate (the MQA recipe, ``kv_heads < num_heads``
 without ``shard_kv``).
@@ -55,62 +60,65 @@ import torch.nn.functional as F
 
 from .data_parallel import LAUNCHES
 
-__all__ = ["active", "copy_to_line", "gather_from_line", "kv_heads",
+__all__ = ["active", "copy_to_line", "gather_from_line", "gather_state",
+           "kv_heads",
            "reduce_from_line", "size", "index", "vocab_parallel_argmax",
            "vocab_parallel_cross_entropy", "vocab_parallel_embed"]
 
 AXIS = "tensor"
+# the LAUNCHES prefix of each line's collectives
+_KIND = {"tensor": "tp", "expert": "ep"}
 
 
-def size(mesh) -> int:
-    """Ranks on the ``tensor`` axis (1 without a mesh)."""
-    return 1 if mesh is None else mesh.axis_size(AXIS)
+def size(mesh, axis: str = AXIS) -> int:
+    """Ranks on ``axis`` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.axis_size(axis)
 
 
-def index(mesh) -> int:
-    """This rank's coordinate on the ``tensor`` axis."""
-    return 0 if mesh is None else mesh.axis_index(AXIS)
+def index(mesh, axis: str = AXIS) -> int:
+    """This rank's coordinate on ``axis``."""
+    return 0 if mesh is None else mesh.axis_index(axis)
 
 
-def active(mesh):
-    """``mesh`` when its ``tensor`` axis has more than one rank, else None
-    (the models' switch between the plain and the tensor-parallel path)."""
-    return mesh if size(mesh) > 1 else None
+def active(mesh, axis: str = AXIS):
+    """``mesh`` when its ``axis`` has more than one rank, else None (the
+    models' switch between the plain and the parallel path)."""
+    return mesh if size(mesh, axis) > 1 else None
 
 
-def _all_reduce(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM
-                ) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, mesh, op=dist.ReduceOp.SUM,
+                axis: str = AXIS) -> torch.Tensor:
     """A new f32 tensor holding ``t`` reduced over the line."""
     buf = t.to(torch.float32, memory_format=torch.contiguous_format,
                copy=True)
-    dist.all_reduce(buf, op=op, group=mesh.axis_group(AXIS))
-    LAUNCHES["tp_all_reduce"] += 1
+    dist.all_reduce(buf, op=op, group=mesh.axis_group(axis))
+    LAUNCHES[f"{_KIND[axis]}_all_reduce"] += 1
     return buf
 
 
-def _all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, mesh, axis: str = AXIS) -> torch.Tensor:
     """[T, *t.shape] f32: every rank's ``t``, in line order."""
     src = t.to(torch.float32, memory_format=torch.contiguous_format,
                copy=True)
-    parts = [torch.empty_like(src) for _ in range(size(mesh))]
-    dist.all_gather(parts, src, group=mesh.axis_group(AXIS))
-    LAUNCHES["tp_all_gather"] += 1
+    parts = [torch.empty_like(src) for _ in range(size(mesh, axis))]
+    dist.all_gather(parts, src, group=mesh.axis_group(axis))
+    LAUNCHES[f"{_KIND[axis]}_all_gather"] += 1
     return torch.stack(parts)
 
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, *xs):
-        ctx.mesh = mesh
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *grads):
         like = [g for g in grads if g is not None]
         if not like:
-            return (None,) + grads
+            return (None, None) + grads
         flat = _all_reduce(torch.cat([g.reshape(-1).float() for g in like]),
-                           ctx.mesh)
+                           ctx.mesh, axis=ctx.axis)
         out, lo = [], 0
         for g in grads:
             if g is None:
@@ -118,56 +126,70 @@ class _Copy(torch.autograd.Function):
                 continue
             out.append(flat[lo:lo + g.numel()].view(g.shape).to(g.dtype))
             lo += g.numel()
-        return (None, *out)
+        return (None, None, *out)
 
 
-def copy_to_line(x: torch.Tensor, mesh, *also: torch.Tensor):
+def copy_to_line(x: torch.Tensor, mesh, *also: torch.Tensor,
+                 axis: str = AXIS):
     """``x`` unchanged; its gradient (and those of ``also``, replicated
     weights read in the same region) summed over the line by ONE
     all-reduce in the backward.  Returns ``x``, or ``(x, *also)`` when
     ``also`` is given."""
-    if size(mesh) == 1:
+    if size(mesh, axis) == 1:
         return x if not also else (x, *also)
-    out = _Copy.apply(mesh, x, *also)
+    out = _Copy.apply(mesh, axis, x, *also)
     return out[0] if not also else out
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _all_reduce(x, mesh).to(x.dtype)
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis=axis).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def reduce_from_line(x: torch.Tensor, mesh) -> torch.Tensor:
+def reduce_from_line(x: torch.Tensor, mesh, axis: str = AXIS
+                     ) -> torch.Tensor:
     """The sum of every rank's ``x`` (one all-reduce); the gradient passes
     through unchanged."""
-    if size(mesh) == 1:
+    if size(mesh, axis) == 1:
         return x
-    return _Reduce.apply(x, mesh)
+    return _Reduce.apply(x, mesh, axis)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.n, ctx.r = x.shape[-1], index(mesh)
-        parts = _all_gather(x, mesh).to(x.dtype)
+    def forward(ctx, x, mesh, axis):
+        ctx.n, ctx.r = x.shape[-1], index(mesh, axis)
+        parts = _all_gather(x, mesh, axis).to(x.dtype)
         return torch.cat(list(parts), dim=-1)
 
     @staticmethod
     def backward(ctx, g):
-        return g[..., ctx.r * ctx.n:(ctx.r + 1) * ctx.n].contiguous(), None
+        return (g[..., ctx.r * ctx.n:(ctx.r + 1) * ctx.n].contiguous(),
+                None, None)
 
 
-def gather_from_line(x: torch.Tensor, mesh) -> torch.Tensor:
+def gather_from_line(x: torch.Tensor, mesh, axis: str = AXIS
+                     ) -> torch.Tensor:
     """Every rank's ``x`` joined along the last dim in line order (one
     all-gather); the gradient of this rank's columns comes back."""
-    if size(mesh) == 1:
+    if size(mesh, axis) == 1:
         return x
-    return _Gather.apply(x, mesh)
+    return _Gather.apply(x, mesh, axis)
+
+
+@torch.no_grad()
+def gather_state(t: torch.Tensor, mesh, axis: str = AXIS) -> torch.Tensor:
+    """Every rank's ``t`` joined along the last dim in line order, outside
+    autograd (state, not activations: a BatchNorm's moving moments of
+    this rank's channels), in ``t``'s type."""
+    if size(mesh, axis) == 1:
+        return t
+    return torch.cat(list(_all_gather(t, mesh, axis)), dim=-1).to(t.dtype)
 
 
 def vocab_parallel_embed(ids: torch.Tensor, word: torch.Tensor,

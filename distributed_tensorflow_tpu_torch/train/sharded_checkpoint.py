@@ -20,10 +20,11 @@ The port's state goes through ``models.convert.train_state_to_jax`` as
 the plain checkpoint's does: the paths and global shapes are the JAX
 tree's, so a decoder leaf is stacked ``[L, ...]`` and a rank's chunk of
 it is the box ``[0:L, a:b, ...]`` built from its per-layer blocks.  A
-block of a ZeRO layout (``train.shard_train_state``) is written by the
-first rank of its ``data`` line (``replica_id == 0`` in the JAX
-package), a whole leaf and every host value by the chief, so each
-element is written once.  A pipeline stage's layers (a ``Stage`` layout)
+block of a ZeRO, tensor- or expert-parallel layout
+(``train.shard_train_state``; a MoE bank's block on ``expert`` x
+``tensor`` is a box cut along two dims) is written by the first rank of
+its ``data`` line (``replica_id == 0`` in the JAX package), a whole leaf
+and every host value by the chief, so each element is written once.  A pipeline stage's layers (a ``Stage`` layout)
 are the box ``[a:b, ...]`` of their stacked leaf, written by the first
 rank of the stage's ``data`` line: each stage's layers once, and a
 restore onto another layout (a whole model on one rank) reads every
@@ -119,7 +120,8 @@ def _pieces(tree, pid: int, with_data: bool) -> Any:
             return _Piece(data, shape, (0,) * len(shape), shape, t.dtype,
                           first, shard.layer, shard.layers)
         start = [0] * len(shape)
-        start[shard.dim] = shard.start
+        for part in shard.parts:
+            start[part.dim] = part.start
         return _Piece(data, shard.full_shape(shape), tuple(start), shape,
                       t.dtype, first)
 

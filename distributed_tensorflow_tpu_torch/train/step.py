@@ -31,8 +31,9 @@ differ; a plain mean needs equal shards, which
 average from its partitioner (a global-mean loss over a batch sharded on
 the mesh's ``data`` axis).  A ``BatchNorm`` takes the global batch's
 moments there: ``make_custom_train_step`` runs every loss function under
-``ops.layers.cross_rank_moments``, so the norm's forward all-reduces its
-shard's sums and its backward the gradients of them.
+``parallel.data_parallel.cross_rank_moments``, so the norm's forward
+sums its shard's sums over the batch line and its backward the
+gradients of them (a MoE GPT's router statistics likewise).
 
 Sequence parallelism (a mesh from ``parallel.make_mesh`` with ``data`` x
 ``seq`` axes, ``fsdp`` counted as ``data``): every rank of a seq line
@@ -42,8 +43,7 @@ over the line (``GPT.lm_loss_fn``, ``Bert.mlm_loss_fn`` with
 ``seq_axis``), or on the gathered output of ``apply``, so each rank
 holds the line's loss.  The ops that cross the line scale the gradients
 so that the same single all-reduce's mean is the global batch's
-(``parallel/ring.py`` says how).  An expert axis of more than one rank
-raises.
+(``parallel/ring.py`` says how).
 
 ZeRO over ``fsdp`` (``shard_train_state``, the JAX package's
 placement): each rank keeps its block of every leaf the partition rules
@@ -84,6 +84,19 @@ numbers) and count each replicated leaf once; Adam runs on the blocks.
 A ``tensor`` axis beside ``fsdp`` or ``seq`` raises (ROADMAP Queue 1 item
 7.2b).  On a line of one the model and the step are the plain ones.
 
+Expert parallelism (a mesh with ``data`` x ``expert`` or ``expert`` x
+``tensor`` axes and a state placed by ``shard_train_state`` from a MoE
+``GPT`` built on that mesh): each rank keeps its experts of every MoE
+bank (``parallel/sharding.py``'s ``Shard`` over ``expert``, or
+``Blocks`` over ``expert`` and ``tensor``), every rank of an ``expert``
+line passes the same rows of the batch and holds the whole loss
+(``ops/moe.py`` says how).  As under tensor parallelism, the step
+averages the gradients over the ``data`` line only (never over the
+expert line, which would divide the experts' gradients by its size),
+and the global norm sums each block's squares over every line that cuts
+it (one all-reduce a line) and counts each replicated leaf once.
+``expert`` beside ``fsdp`` or ``seq`` raises (items 7.2c, 7.2d).
+
 Pipeline parallelism (a mesh with ``pipe`` x ``data`` axes and a state
 placed by ``shard_train_state`` from a model built on that mesh, whose
 parameters are its stage's layers and the replicated embeddings and
@@ -100,16 +113,19 @@ own leaves.  ``pipe`` beside ``fsdp``, ``tensor`` or ``seq`` raises
 Dropout randomness: a ``torch.Generator`` on the parameters' device,
 seeded from ``(seed, step)`` for every step, from ``(seed, step, i)``
 for microbatch ``i`` when ``accum_steps > 1``, and with the replica
-folded in over a mesh (the rank's index over every axis but ``pipe`` and
-``tensor``: its ``data`` and ``seq`` coordinates): deterministic,
-resume-stable and
+folded in over a mesh of more than one replica (the rank's index over
+every axis but ``pipe``, ``expert`` and ``tensor``: its ``data``,
+``fsdp`` and ``seq`` coordinates): deterministic, resume-stable and
 unique, as the JAX step folds the step (and the microbatch, and in its
 ``make_psum_train_step`` the replica) into its key.  Every rank of a
-``tensor`` line draws the same bits, so the replicated residual stream
-stays equal across the line; a head-sharded activation (the attention
-context) draws its mask at the whole heads' shape and keeps its own
-heads' part, so under tensor parallelism every mask is the one the same
-replica draws at T = 1.  The bits differ from ``jax.random``'s, so parity
+``tensor``, an ``expert`` or a ``pipe`` line draws the same bits (so
+every rank of an expert line routes with the same router jitter into
+the same dispatch plan), so the replicated residual stream stays equal
+across the line, and a mesh of one replica draws what the same step
+without a mesh draws; a head-sharded activation (the attention context)
+draws its mask at the whole heads' shape and keeps its own heads' part,
+so under tensor parallelism every mask is the one the same replica
+draws at T = 1.  The bits differ from ``jax.random``'s, so parity
 with the JAX package is tested at dropout rate 0.
 
 The reported loss under ``loss_scale`` is the loss itself, not the
@@ -137,7 +153,6 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..obs import device as obs_device
-from ..ops import layers
 from ..ops import losses as loss_lib
 from ..ops import metrics as metric_lib
 from ..optim import optimizers as opt_lib
@@ -205,10 +220,11 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
     A ZeRO cut (over ``fsdp``) keeps the model's whole tensors as
     ``full``, which the step gathers the blocks into; a tensor-parallel
     cut's ``full`` is the blocks (a cut whole leaf's block requires
-    gradients, as its leaf did), and so is a pipeline stage's (its layers
-    marked with their ``Stage``, the rest whole).  On lines of one rank
-    nothing is cut.  Only ``data``, ``fsdp``, ``tensor`` and ``pipe`` may
-    be larger than 1, not ``tensor`` beside ``fsdp``, and ``pipe`` beside
+    gradients, as its leaf did), and so is an expert-parallel one's and
+    a pipeline stage's (its layers marked with their ``Stage``, the rest
+    whole).  On lines of one rank nothing is cut.  Only ``data``,
+    ``fsdp``, ``tensor``, ``expert`` and ``pipe`` may be larger than 1,
+    not ``tensor`` or ``expert`` beside ``fsdp``, and ``pipe`` beside
     ``data`` alone (``parallel/sharding.py``)."""
     sharding_lib.check_mesh(mesh)
     params = state.params
@@ -241,7 +257,7 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
         if cuts[n] is None:
             return t
         block = cuts[n].take(t)
-        if cuts[n].line == "tensor":
+        if cuts[n].line != "fsdp":
             block.requires_grad_(t.requires_grad)
         return block
 
@@ -261,9 +277,10 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
         return sub
 
     blocks = {n: take(n, p) for n, p in params.items()}
-    # the model computes on its blocks (tensor) or its stage (pipe)
-    own = any(s is not None and s.line in ("tensor", "pipe")
-              for s in layout.values())
+    # the model computes on its blocks (tensor, expert) or its stage
+    # (pipe)
+    own = any(a in ("tensor", "expert", "pipe")
+              for s in layout.values() for a in sharding_lib.lines_of(s))
     shards = sharding_lib.ShardedDict(blocks, layout, mesh,
                                       full=dict(blocks) if own else params)
     return state._replace(params=shards, opt_state=place(state.opt_state))
@@ -273,16 +290,24 @@ def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
     """The parameters eval and ``generate`` read, of a training state:
     under a ZeRO layout every rank gathers its blocks into the model's own
     whole tensors (one all-gather over the ``fsdp`` line; every rank must
-    call); under a tensor-parallel layout the blocks themselves; under a
-    pipeline stage's the whole model's parameters on every rank (one
-    all-gather over the ``pipe`` line: this rank's tensors and copies of
-    the other stages' layers), which a model built without the pipeline
-    loads (``load_state_dict``); otherwise ``state.params``."""
+    call); under a tensor-parallel layout the blocks themselves; under an
+    expert-parallel one every MoE bank whole along its expert dim (one
+    all-gather over the ``expert`` line: new tensors), so on ``data`` x
+    ``expert`` the whole model, which a model built without the mesh
+    loads, and on ``expert`` x ``tensor`` a tensor-parallel model's
+    blocks; under a pipeline stage's the whole model's parameters on
+    every rank (one all-gather over the ``pipe`` line: this rank's
+    tensors and copies of the other stages' layers), which a model built
+    without the pipeline loads (``load_state_dict``); otherwise
+    ``state.params``."""
     params = state.params
     if not isinstance(params, sharding_lib.ShardedDict):
         return params
     if params.line == "pipe":
         return dp_lib.gather_stages(params, params.layout, params.mesh)
+    if "expert" in (params.line or ""):
+        return dp_lib.gather_shards(params, params.layout, params.mesh,
+                                    axis="expert")
     return _compute_params(params)
 
 
@@ -298,12 +323,17 @@ def _compute_params(params) -> Dict[str, torch.Tensor]:
 
 def _replica(mesh) -> Optional[int]:
     """The replica folded into the dropout generator: this rank's index
-    over every axis but ``pipe`` (the outermost) and ``tensor`` (the
-    innermost), so a pipe line and a tensor line each draw one stream."""
-    if mesh is None or mesh.group is None:
+    over ``data``, ``fsdp`` and ``seq`` (row-major), every axis but
+    ``pipe``, ``expert`` and ``tensor``, so a pipe line, an expert line
+    and a tensor line each draw one stream; None (the stream of a step
+    without a mesh) when those axes hold one replica."""
+    if mesh is None or mesh.group is None or all(
+            mesh.axis_size(a) == 1 for a in ("data", "fsdp", "seq")):
         return None
-    rest = mesh.rank % (mesh.size // mesh.axis_size("pipe"))
-    return rest // mesh.axis_size("tensor")
+    out = 0
+    for a in ("data", "fsdp", "seq"):
+        out = out * mesh.axis_size(a) + mesh.axis_index(a)
+    return out
 
 
 def _metric_dict(metric_fns, preds, y) -> Dict[str, torch.Tensor]:
@@ -453,17 +483,30 @@ def make_masked_eval_step(model, loss,
 def _global_stats(grads: Mapping[str, torch.Tensor], layout, mesh
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(norm, non-finite count) of a sharded step's gradients over the
-    whole model: the cut blocks' squares and counts summed over their
-    line (one all-reduce of both), each uncut leaf counted once."""
+    whole model: the cut blocks' squares and counts summed over every
+    line that cuts them (one all-reduce a line, which carries the sums of
+    each group of leaves cut over it: a leaf cut over ``expert`` and
+    ``tensor`` is summed over both, one after the other), each uncut leaf
+    counted once."""
     def sums(names):
-        return (sum(torch.sum(torch.square(grads[n].float())) for n in names),
-                sum(torch.sum(~torch.isfinite(grads[n])).float()
-                    for n in names))
-    cut = [n for n in grads if layout[n] is not None]
-    line = dp_lib.line_sum(torch.stack(sums(cut)), mesh,
-                           layout[cut[0]].line)
-    sq, bad = sums([n for n in grads if layout[n] is None])
-    return torch.sqrt(line[0] + sq), line[1] + bad
+        zero = torch.zeros((), device=grads[names[0]].device)
+        return torch.stack([
+            sum((torch.sum(torch.square(grads[n].float())) for n in names),
+                zero),
+            sum((torch.sum(~torch.isfinite(grads[n])).float()
+                 for n in names), zero)])
+    groups: Dict[Tuple[str, ...], list] = {}
+    for n in grads:
+        groups.setdefault(tuple(sorted(sharding_lib.lines_of(layout[n]))),
+                          []).append(n)
+    vals = {key: sums(names) for key, names in groups.items()}
+    for line in sorted({a for key in vals for a in key}):
+        keys = [key for key in vals if line in key]
+        summed = dp_lib.line_sum(torch.stack([vals[k] for k in keys]), mesh,
+                                 line)
+        vals.update(zip(keys, summed))
+    total = sum(vals.values())
+    return torch.sqrt(total[0]), total[1]
 
 
 def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
@@ -521,18 +564,12 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                          "updates; drop skip_nonfinite")
     pol = prec_lib.policy(policy) if policy is not None else None
     if mesh is not None:
-        other = {a: n for a, n in mesh.shape.items() if n > 1 and a
-                 not in ("data", "fsdp", "seq", "tensor", "pipe")}
-        if other:
-            raise NotImplementedError(
-                f"make_custom_train_step over mesh axes {other}: expert "
-                f"parallelism is not ported yet (ROADMAP Queue 1 item "
-                f"7.2b)")
-        if mesh.axis_size("tensor") > 1 or mesh.axis_size("pipe") > 1:
+        if any(mesh.axis_size(a) > 1 for a in ("tensor", "expert",
+                                                "pipe")):
             sharding_lib.check_mesh(mesh)
     dp = mesh if mesh is not None and mesh.group is not None else None
     replica = _replica(dp)
-    moments = (functools.partial(layers.cross_rank_moments, dp)
+    moments = (functools.partial(dp_lib.cross_rank_moments, dp)
                if dp is not None and dp.size > 1 else contextlib.nullcontext)
 
     def grad_of(params, model_state, batch, gen, ls):
@@ -589,7 +626,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         step's mesh, or None for a plain state."""
         zero = state.params
         if not isinstance(zero, sharding_lib.ShardedDict):
-            for axis in ("tensor", "pipe"):
+            for axis in ("tensor", "expert", "pipe"):
                 if mesh is not None and mesh.axis_size(axis) > 1:
                     raise ValueError(
                         f"a step over a {axis} axis of "

@@ -258,5 +258,11 @@ def test_init_and_partition_rules():
         assert float(w.abs().max()) <= limit
         assert not torch.equal(w[0], w[1])
     assert float(tree["experts"]["b_in"].abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tmoe.moe_partition_rules()
+    # the JAX table row by row: the same specs, the patterns taking a
+    # nested tree's "/" and a model's "." alike
+    rows = tmoe.moe_partition_rules()
+    jrows = jmoe.moe_partition_rules()
+    assert [tuple(spec) for _, spec in rows] == \
+        [tuple(spec) for _, spec in jrows]
+    for (pat, _), (jpat, _) in zip(rows, jrows):
+        assert pat.replace("[./]", "/") == jpat

@@ -298,5 +298,5 @@ def test_swiglu_refusal_and_partition_rules():
     with pytest.raises(ValueError, match="swiglu"):
         jgpt_mod.GPTConfig(ffn_activation="swiglu", moe_experts=4)
     from distributed_tensorflow_tpu_torch import ops
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ops.moe_partition_rules()
+    assert ops.moe_partition_rules()[0] == (r"experts[./]w_in$",
+                                            ("expert", None, "tensor"))

@@ -299,15 +299,14 @@ def test_config_refusals_in_both_packages():
 
 @pytest.mark.parametrize("axes, item", [
     ({"pipe": 2, "fsdp": 2}, "7.3a"), ({"pipe": 2, "tensor": 2}, "7.3b"),
-    ({"pipe": 2, "seq": 2}, "7.3c"), ({"pipe": 2, "expert": 2}, "7.2b")])
+    ({"pipe": 2, "seq": 2}, "7.3c"), ({"pipe": 2, "expert": 2}, "7.3d")])
 def test_pipe_beside_another_axis_raises(axes, item):
     config = gpt_tiny(num_layers=4, pipeline_stages=2)
     mesh = _virtual(axes)
     with pytest.raises(NotImplementedError, match=item):
         sharding.check_mesh(mesh)
-    if item != "7.2b":
-        with pytest.raises(NotImplementedError, match=item):
-            GPT(config, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match=item):
+        GPT(config, device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match=item):
         train.make_custom_train_step(lambda *a: None, optim.adamw(1e-3),
                                      mesh=mesh)

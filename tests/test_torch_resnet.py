@@ -179,5 +179,17 @@ def test_resnet50_blocks_match_jax_in_eval():
 
 
 def test_partition_rules_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tresnet.ResNet.partition_rules()
+    """The JAX table cuts every conv's output channels over ``tensor``;
+    with ``fsdp=True`` it cuts the input channels over ``fsdp``, which the
+    stem's 3 do not divide over 2 ranks (the JAX package's
+    ``device_put`` raises there too: tests/test_torch_tp_vision.py)."""
+    from distributed_tensorflow_tpu_torch import parallel
+    from distributed_tensorflow_tpu_torch.parallel import sharding
+    rules = tresnet.ResNet.partition_rules()
+    assert rules.spec_for("stage0_block0.conv2.kernel") == (
+        None, None, None, "tensor")
+    assert rules.spec_for("stage0_block0.bn2.gamma") == ()
+    mesh = parallel.Mesh(2, 0, None, axes={"fsdp": 2}, lines={})
+    with pytest.raises(ValueError, match="divisible by 2"):
+        sharding.block_of((3, 3, 3, 32), tresnet.ResNet.partition_rules(
+            fsdp=True).spec_for("stem.kernel"), mesh)

@@ -318,8 +318,8 @@ def test_config_checks():
     model.mesh = four
     with pytest.raises(ValueError, match="not divisible"):
         model.apply(torch.zeros(1, 6, dtype=torch.long))
-    # the step takes data, fsdp, seq and tensor; tensor beside seq and
-    # the expert axis are not ported
+    # the step takes data, fsdp, seq, tensor and expert; tensor or expert
+    # beside seq is not ported
     from distributed_tensorflow_tpu_torch import adamw, make_custom_train_step
     with pytest.raises(NotImplementedError, match="tensor"):
         make_custom_train_step(model.lm_loss_fn(), adamw(1e-3),
@@ -329,8 +329,9 @@ def test_config_checks():
                                                   lines={}))
     with pytest.raises(NotImplementedError, match="expert"):
         make_custom_train_step(model.lm_loss_fn(), adamw(1e-3),
-                               mesh=parallel.Mesh(2, 0, None,
-                                                  axes={"expert": 2},
+                               mesh=parallel.Mesh(4, 0, None,
+                                                  axes={"expert": 2,
+                                                        "seq": 2},
                                                   lines={}))
 
 

@@ -362,9 +362,9 @@ def test_refusals_under_tensor():
     """What tensor parallelism does not run raises, naming ROADMAP Queue 1
     item 7.2b; a plain state refuses a tensor-parallel step."""
     mesh = _virtual({"tensor": 2}, 0)
-    for kw in (dict(kv_cache_dtype="int8"), dict(moe_experts=2)):
-        with pytest.raises(NotImplementedError, match="7.2b"):
-            GPT(gpt_tiny(**kw), device="cpu", mesh=mesh)
+    # (a MoE config runs under tensor now: tests/test_torch_expert.py)
+    with pytest.raises(NotImplementedError, match="7.2b"):
+        GPT(gpt_tiny(kv_cache_dtype="int8"), device="cpu", mesh=mesh)
     beside = _virtual({"seq": 2, "tensor": 2}, 0)
     with pytest.raises(NotImplementedError, match="7.2b"):
         GPT(gpt_tiny(seq_axis="seq"), device="cpu", mesh=beside)

@@ -141,5 +141,8 @@ def test_params_to_jax_inverts_params_from_jax():
     init = model.init(torch.Generator())
     assert {k: v.shape for k, v in init.items()} == \
         {k: v.shape for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        model.partition_rules()
+    # the JAX table over the port's names (every leaf in
+    # tests/test_torch_tp_vision.py)
+    assert model.partition_rules().spec_for("encoder.1.ffn.w_in.kernel") \
+        == tuple(jmodel.partition_rules().spec_for(
+            "encoder/ffn/w_in/kernel"))[1:] == (None, "tensor")

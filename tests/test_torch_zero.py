@@ -142,7 +142,7 @@ def test_unported_axes_and_configs_raise():
     opt = optim.adamw(1e-3)
     state = TrainState.create(params, opt.init(params))
     for axes, item in (({"fsdp": 2, "tensor": 2}, "7.2b"),
-                       ({"fsdp": 2, "expert": 2}, "7.2b"),
+                       ({"fsdp": 2, "expert": 2}, "7.2c"),
                        ({"pipe": 2, "fsdp": 2}, "7.3a"),
                        ({"fsdp": 2, "seq": 2}, "7.5")):
         with pytest.raises(NotImplementedError, match=item):
@@ -156,9 +156,11 @@ def test_unported_axes_and_configs_raise():
     with pytest.raises(NotImplementedError, match="7.2b"):
         sharding.block_of((8, 8), ("tensor", "fsdp"),
                           _virtual({"fsdp": 2, "tensor": 2}, 0))
+    # a MoE config's table takes the expert rows, which a ZeRO mesh
+    # prunes to whole banks
     moe = GPT(gpt_tiny_cfg(moe_experts=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="7.2b"):
-        moe.partition_rules(fsdp=True)
+    assert moe.partition_rules(fsdp=True).spec_for(
+        "blocks.0.moe.experts.w_in") == ("expert", None, "tensor")
     # the pipeline is ported; a MoE config beside it stays refused, as in
     # the JAX package
     assert GPTConfig(pipeline_stages=2).pipeline_stages == 2

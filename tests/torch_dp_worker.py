@@ -158,7 +158,7 @@ def run_bn_rank(rank, world, port, params, xs, ys, ragged, out_path):
         _, bn_state = bn.init(torch.Generator().manual_seed(0),
                               (ragged.shape[-1],))
         rows = slice(0, 3) if rank == 0 else slice(3, None)
-        with ops.layers.cross_rank_moments(mesh):
+        with parallel.data_parallel.cross_rank_moments(mesh):
             y_ragged, bn_new = bn.apply({"gamma": torch.ones(ragged.shape[-1]),
                                          "beta": torch.zeros(ragged.shape[-1])},
                                         bn_state,
