@@ -553,6 +553,31 @@ no result lines:
    collectives exact a step (``ep_collectives``).  ``--ep-seeds`` runs
    (a) and (b) alone over several seeds and logs what each arm reads
    there (the readings ``EP_LIMITS`` comes from).
+30. tpf (after phase 29): seq2seq under tensor parallelism, ``tensor``
+   beside ``fsdp``.  First, on a quiet card, Adam at the word
+   embedding's fsdp part of its tensor block ([16064, 256] f32) and
+   LayerNorm at a rank's rows ([2048, 512] f32), each against its plain
+   version, timed beside it, ``AdamW(fused=True)`` or ``F.layer_norm``
+   and the bound.  Then four ranks of this script (``--ranks-for=tpf``)
+   on the one card over gloo with CUDA tensors run (b) to (d) while this
+   process runs (a) and (b)'s reference.  (a) A line of one at full
+   width: ``Seq2SeqConfig()`` in bf16 on ``{"data": 1, "fsdp": 1,
+   "tensor": 1}`` under ``partition_rules(fsdp=True)``, zoo (g)'s batch,
+   against the plain model from the same weights, the arms in turns:
+   losses, the norm and every parameter bit-equal, LayerNorm 32 and Adam
+   259 launches a step, no collective; step ms, tokens/s and peak
+   memory.  (b) The same model in f32 (TF32 off) on ``{"fsdp": 2,
+   "tensor": 2}``: every rank's losses equal; the first losses, the first
+   gradient norm and the parameters' gap after the first step against
+   their movement within ``TPF_LIMITS`` of a plain f32 run; each rank's
+   kernel launches and the lines' collectives exact a step
+   (``tpf_collectives``); each rank's peak memory below (a)'s.  (c) The
+   ranks' sharded checkpoint restores bit-equal onto their layout and
+   onto a whole model here; ``verify_sharded`` passes.  (d) Greedy
+   ``generate`` on the ranks gives the card's plain model's tokens (zoo
+   (g)'s 2 + 2-layer f32 copy).  ``--tpf-seeds`` runs the phase alone
+   (without the kernel times) over several seeds and logs its readings
+   (the readings ``TPF_LIMITS`` comes from).
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -574,8 +599,11 @@ times at the ranks' shapes; ``pp_launches`` for the training kernels of
 phase 28 (a)'s two ranks under both schedules, and on the flash records
 ``pp_shapes``, the times at a microbatch's shape; ``ep_launches`` for the
 training kernels of phase 29's (a) arms and (b)'s two ranks, whose (c)
-rows join ``tp_shapes``), the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+rows join ``tp_shapes``; ``tpf_launches`` for the training kernels of
+phase 30's (a) arms, (b)'s reference and its four ranks, and on the
+Adam and LayerNorm records ``tpf_shapes``, the times at a rank's
+shapes), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -952,9 +980,9 @@ def time_library_backwards(torch, args, smi):
     return out
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -6354,6 +6382,17 @@ def _resnet50(torch, np, args, smi):
     torch.cuda.empty_cache()
 
 
+def s2s_per_step(c):
+    """A seq2seq training step's kernel launches (every rank's alike):
+    dense attention (no flash); LayerNorm 2 an encoder layer, 3 a decoder
+    layer and each stack's final; Adam once a leaf."""
+    return {"flash_forward": 0,
+            "layernorm": 2 * c.num_encoder_layers
+            + 3 * c.num_decoder_layers + 2,
+            "fused_adam": 3 + 16 * c.num_encoder_layers
+            + 26 * c.num_decoder_layers + 4}
+
+
 def _seq2seq(torch, np, args, smi):
     """(g): Seq2SeqConfig() at full width, bf16, batch 32 of 128 source
     and 128 target tokens, adamw(1e-4), clip 1.0; then greedy generate of
@@ -6376,13 +6415,7 @@ def _seq2seq(torch, np, args, smi):
                                                      (b, n + 1))).cuda()}
     (losses, wall, peak), _, counts = _zoo_driven(
         torch, lambda: _zoo_steps(torch, np, step, state, data))
-    # dense attention (no flash); LayerNorm 2 an encoder layer, 3 a
-    # decoder layer and each stack's final; Adam once a leaf
-    per_step = {"flash_forward": 0,
-                "layernorm": 2 * c.num_encoder_layers
-                + 3 * c.num_decoder_layers + 2,
-                "fused_adam": 3 + 16 * c.num_encoder_layers
-                + 26 * c.num_decoder_layers + 4}
+    per_step = s2s_per_step(c)
     step_ms = wall / ZOO_STEPS * 1e3
     log({"zoo": "(g) seq2seq", "batch": b, "src": n, "tgt": n,
          "steps": ZOO_STEPS, "step_ms": step_ms,
@@ -8146,14 +8179,14 @@ def _zero_session(torch, np, args, smi, batch):
     torch.cuda.empty_cache()
 
 
-def _zero_adam_shard(torch, args, smi):
-    """The Adam kernel at the word embedding's block on a line of 4
-    ([50257, 192]: dim 1 cut), as ``adamw`` calls it: against its plain
-    version, its ms and graph ms, the plain ms, ``AdamW(fused=True)``'s,
-    the bound (28 bytes an element)."""
+def _zero_adam_shard(torch, args, smi, shape=(50257, 768 // ZERO_VIRTUAL),
+                     tag=("zero", "(b) fused_adam at a block")):
+    """The Adam kernel at a block (phase 26: the word embedding's on a
+    line of 4, [50257, 192], dim 1 cut), as ``adamw`` calls it: against
+    its plain version, its ms and graph ms, the plain ms,
+    ``AdamW(fused=True)``'s, the bound (28 bytes an element)."""
     from distributed_tensorflow_tpu_torch.ops.kernels import fused
     gen = torch.Generator("cuda").manual_seed(args.seed)
-    shape = (50257, 768 // ZERO_VIRTUAL)
     kw = dict(lr=TRAIN_LR, weight_decay=0.01, tf14_eps=True,
               return_delta=True)
     p, g, m = (torch.randn(shape, generator=gen, device="cuda")
@@ -8187,7 +8220,7 @@ def _zero_adam_shard(torch, args, smi):
                fused=True).step, args.iters),
            "library_graph_ms": lib_graph, "bound_ms": b_ms,
            "bound_by": b_by}
-    log({"zero": "(b) fused_adam at a block", **rec,
+    log({tag[0]: tag[1], **rec,
          **({"library_graph_note": why} if why else {}),
          "library": "torch.optim.AdamW(fused=True).step()", "card": smi})
     return rec
@@ -8750,14 +8783,14 @@ def _free_port() -> int:
 
 
 def _start_ranks(args, port, phase="tp", env_extra=None, module=None,
-                 argv=()):
-    """Two processes: this script's ranks of ``phase`` (``--ranks-for``;
-    ``module`` None) or ``python -m module argv`` with the cluster's
-    environment."""
+                 argv=(), world=2):
+    """``world`` processes: this script's ranks of ``phase``
+    (``--ranks-for``; ``module`` None) or ``python -m module argv`` with
+    the cluster's environment."""
     import os
     root = Path(__file__).resolve().parent
     procs = []
-    for r in range(2):
+    for r in range(world):
         if module is None:
             cmd = [sys.executable, str(Path(__file__).resolve()),
                    f"--ranks-for={phase}", f"--rank={r}",
@@ -8766,7 +8799,7 @@ def _start_ranks(args, port, phase="tp", env_extra=None, module=None,
         else:
             cmd = [sys.executable, "-m", module, *argv]
             env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
-                       NUM_PROCESSES="2", PROCESS_ID=str(r),
+                       NUM_PROCESSES=str(world), PROCESS_ID=str(r),
                        **(env_extra or {}))
         procs.append(subprocess.Popen(cmd, cwd=root, env=env,
                                       stdout=subprocess.PIPE,
@@ -9484,13 +9517,17 @@ def _ep_build(torch, np, seed, kind, mesh):
 
 @contextlib.contextmanager
 def _no_tf32(torch):
-    """cuDNN's convolutions in full f32 within the block."""
-    saved = torch.backends.cudnn.allow_tf32
+    """cuDNN's convolutions and cuBLAS's f32 products in full f32 within
+    the block."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _ep_arm(torch, np, seed, kind, mesh, first, start=None):
@@ -9581,11 +9618,11 @@ def ep_rank_main(args) -> int:
     return 0
 
 
-def _ep_gap(kind, ranks, start, final):
+def _ep_gap(n, ranks, start, final):
     """(b)'s parameter check of one arm: the 2-norm of every sampled
-    element's gap to (a)'s parameters after the first step over that of
-    their movement from the start, and the largest element gap."""
-    n = EP_SAMPLE[kind]
+    element (every ``n``-th of a block) gap to (a)'s parameters after the
+    first step over that of their movement from the start, and the
+    largest element gap."""
     gap = move = worst = 0.0
     for samples in ranks:
         for k, (box, got) in samples.items():
@@ -9667,7 +9704,8 @@ def check_ep(torch, np, args, smi, flash=True):
                                  if k in _ep_per_step(kind)})
             samples = [torch.load(EP_DIR / f"rank{r}_{name}.pt")
                        for r in range(2)]
-            param_err, param_max = _ep_gap(kind, samples, start, final)
+            param_err, param_max = _ep_gap(EP_SAMPLE[kind], samples, start,
+                                           final)
             lim = EP_LIMITS[kind]
             # the first losses: each reads at most one update
             loss_err = max(abs(x - y) for x, y in
@@ -9736,6 +9774,457 @@ def ep_spread(torch, np, args, smi) -> int:
     return 1 if failed else 0
 
 
+# -- phase 30: seq2seq under tensor parallelism, tensor beside fsdp -----------
+# The kernels first, on a quiet card, at the shapes a rank of (b) gives
+# them: Adam at the word embedding's fsdp part of its tensor block
+# ([32128 / 2, 512 / 2] f32) beside ``AdamW(fused=True)``, LayerNorm at a
+# rank's rows (16 rows of 128 tokens: [2048, 512] f32, eps 1e-6) beside
+# ``F.layer_norm``, each against its plain version, with the bound.  Then
+# four ranks of this script (``--ranks-for=tpf``) start on the one card
+# over gloo with CUDA tensors and run (b) to (d) while this process runs
+# (a) and (b)'s reference.  (a) A line of one at full width:
+# ``Seq2SeqConfig()`` (vocab 32128, d 512, 6 + 6 layers, 8 heads, FFN 2048)
+# in bf16 on ``{"data": 1, "fsdp": 1, "tensor": 1}`` under
+# ``partition_rules(fsdp=True)``, zoo (g)'s batch (ZOO_S2S_BATCH x
+# ZOO_S2S_LEN source and target tokens), ``adamw(1e-4)``, clip 1.0,
+# against the plain model from the same weights on the same batch, the
+# arms in turns (line, plain, plain, line), TPF_WARMUP + TPF_STEPS steps
+# each: a line of one runs the plain code, so the losses, the gradient
+# norm and every parameter are equal to the bit; LayerNorm 32 and Adam
+# 259 launches a step (``s2s_per_step``), no collective.  Step ms,
+# tokens/s and peak memory are logged; they share the card with (b)'s
+# ranks.  (b) The same model from the same weights and batch in f32 with
+# TF32 off on ``{"fsdp": 2, "tensor": 2}`` (each rank 16 rows, 4 of the 8
+# heads, the fsdp part of each tensor block), held to a plain f32 run of
+# this process: every rank's losses equal; within TPF_LIMITS the first
+# ``losses`` losses, the first gradient norm (relative) and the
+# parameters' gap after the first step over their movement (2-norms over
+# every TPF_SAMPLE-th element of the blocks a rank holds; phase 29's
+# measure); each rank's kernel launches and the lines' collectives exact
+# a step (``tpf_collectives``); each rank's peak memory below (a)'s.
+# (c) The ranks save a sharded checkpoint of (b)'s state; it restores
+# bit-equal onto the same layout (on the ranks) and onto a whole f32
+# model here (every TPF_SAMPLE-th element of every block), and
+# ``verify_sharded`` passes (each box written once).  (d) Greedy
+# ``generate`` of ZOO_S2S_GEN tokens on zoo (g)'s 2 + 2-layer f32 copy
+# (weights 5x, so the tokens vary) on the ranks' mesh: every rank's
+# tokens are the card's plain model's.  Files under TPF_DIR, removed at
+# the phase's end.  The ranks' step times measure gloo's copies through
+# the host, not a parallel speed.  ``--tpf-seeds 0,1,2`` read (H100 80GB
+# HBM3, 700 W; PERF.md), the largest of the three seeds: first
+# two losses 9.5e-7 apart (one f32 ulp at 10.4), gradient norm 2.5e-7,
+# gap 2.5e-5 of the movement; TPF_LIMITS are about 10x those.
+TPF_WARMUP, TPF_STEPS = 1, 2
+TPF_AXES = {"fsdp": 2, "tensor": 2}
+TPF_RANKS = 4
+# losses checked, loss (absolute), gradient norm (relative), parameter gap
+# over movement
+TPF_LIMITS = {"losses": 2, "loss": 1e-5, "grad": 2.5e-6, "param": 2.5e-4}
+TPF_SAMPLE = 16
+TPF_ADAM_SHAPE = (32128 // TPF_AXES["tensor"], 512 // TPF_AXES["fsdp"])
+TPF_LN_ROWS = ZOO_S2S_BATCH // TPF_AXES["fsdp"] * ZOO_S2S_LEN
+TPF_RANK_TIMEOUT_S = 600
+TPF_DIR = Path("build") / "tpf"
+
+
+def tpf_collectives(c):
+    """The collectives of one training step of seq2seq ``c`` on
+    TPF_AXES.  The tensor line: forward the two embeddings' sums, 2
+    row-parallel sums an encoder layer and 3 a decoder layer, the cross
+    entropy's 2 all-reduces and the argmax's gather; backward 2
+    column-parallel gradient sums an encoder layer and 3 a decoder layer,
+    the memory's one (it comes onto the line once a decode) and the
+    head's.  The fsdp line: one all-gather of the parameters' parts, one
+    reduce-scatter of the gradients; the clip's norm one stats all-reduce
+    a line; no data line, so no gradient all-reduce."""
+    e, d = c.num_encoder_layers, c.num_decoder_layers
+    return {"tp_all_reduce": 2 * (2 * e + 3 * d) + 6, "tp_all_gather": 1,
+            "all_gather": 1, "reduce_scatter": 1, "stats_all_reduce": 2,
+            "all_reduce": 0, "batch_all_reduce": 0, "ep_all_reduce": 0}
+
+
+def _tpf_batch(torch, np, seed, vocab, mesh=None):
+    """Zoo (g)'s batch from ``seed`` (this rank's rows under ``mesh``)."""
+    rng = np.random.default_rng(seed)
+    b, n = ZOO_S2S_BATCH, ZOO_S2S_LEN
+    data = {"src_ids": rng.integers(2, vocab, (b, n)),
+            "tgt_ids": rng.integers(2, vocab, (b, n + 1))}
+    if mesh is not None:
+        from distributed_tensorflow_tpu_torch.parallel import data_shards
+        k = b // data_shards(mesh)
+        data = {key: v[mesh.data_index * k:(mesh.data_index + 1) * k]
+                for key, v in data.items()}
+    return {key: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for key, v in data.items()}
+
+
+def _tpf_build(torch, np, seed, mesh, dtype):
+    """(config, state, step, batch) of an arm: ``Seq2SeqConfig()`` in
+    ``dtype`` from ``seed``'s weights, on ``mesh`` (None: the plain
+    model) placed by ``partition_rules(fsdp=True)``."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  train)
+    from distributed_tensorflow_tpu_torch.models import seq2seq
+    c = seq2seq.Seq2SeqConfig(dtype=dtype, dropout_rate=0.0)
+    model = seq2seq.Seq2Seq(c, mesh)
+    params = model.init(torch.Generator("cuda").manual_seed(seed))
+    opt = adamw(ZOO_LR, mask=model.decay_mask)
+    state = TrainState.create(params, opt.init(params))
+    if mesh is not None:
+        state = train.shard_train_state(state, mesh,
+                                        model.partition_rules(fsdp=True))
+    step = make_custom_train_step(model.seq2seq_loss_fn(), opt, seed=seed,
+                                  mesh=mesh, grad_clip_norm=1.0)
+    return c, state, step, _tpf_batch(torch, np, seed, c.vocab_size, mesh)
+
+
+def _tpf_arm(torch, np, seed, mesh, dtype, first=None, start=None):
+    """One arm's run: (its record, its state after the steps).
+    ``first(state)`` runs after the first step; ``start``, when given, is
+    filled with a copy of the parameters before it."""
+    c, state, step, batch = _tpf_build(torch, np, seed, mesh, dtype)
+    if start is not None:
+        start.update({k: p.detach().clone() for k, p in state.params.items()})
+    last = [state]
+
+    def stepped(state, batch):
+        last[0], m = step(state, batch)
+        return last[0], m
+    (losses, grad_norm, wall, peak), _, counts = _driven(
+        torch, lambda: _sp_steps(
+            torch, np, stepped, state, batch, TPF_WARMUP, TPF_STEPS,
+            None if first is None else lambda: first(last[0])), _ep_counts)
+    rows = batch["src_ids"].shape[0]
+    step_s = wall / TPF_STEPS
+    rec = {"losses": losses, "grad_norm": grad_norm,
+           "step_ms": step_s * 1e3,
+           "tokens_per_s": rows * ZOO_S2S_LEN / step_s,
+           "peak_memory_gb": peak, "batch": rows, "launches": counts,
+           "launches_expected": {k: n * (TPF_WARMUP + TPF_STEPS)
+                                 for k, n in s2s_per_step(c).items()}}
+    return rec, last[0]
+
+
+def _tpf_boxes(state):
+    """{name: (its box in the whole leaf, its block)} of a state's
+    parameters (a plain state's: the whole leaves)."""
+    layout = getattr(state.params, "layout", {})
+    out = {}
+    for k, t in state.params.items():
+        box = [(0, n) for n in t.shape]
+        s = layout.get(k)
+        for part in (() if s is None else s.parts):
+            box[part.dim] = (part.start, part.length)
+        out[k] = (box, t)
+    return out
+
+
+def _tpf_samples(state):
+    """{name: (box, every TPF_SAMPLE-th element of the block, on the
+    host)}."""
+    return {k: (box, _ep_sample(t, None, TPF_SAMPLE).to("cpu", copy=True))
+            for k, (box, t) in _tpf_boxes(state).items()}
+
+
+def _tpf_generate(torch, np, seed, mesh):
+    """(d): greedy tokens of zoo (g)'s 2 + 2-layer f32 copy (seed 1's
+    weights, 5x) over ``mesh`` (None: the plain model), on the card."""
+    from distributed_tensorflow_tpu_torch.models import seq2seq
+    small = seq2seq.Seq2Seq(seq2seq.Seq2SeqConfig(
+        num_encoder_layers=2, num_decoder_layers=2, dropout_rate=0.0), mesh)
+    init = small.init(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        params = {k: (v * 5.0 if v.dim() > 1 else v).detach().cuda()
+                  for k, v in init.items()}
+    rng = np.random.default_rng(seed + 1)
+    src = torch.from_numpy(rng.integers(2, small.config.vocab_size,
+                                        (2, 24))).cuda()
+    valid = torch.ones((2, 24), dtype=torch.int32, device="cuda")
+    valid[1, 15:] = 0
+    return small.generate(params, src, ZOO_S2S_GEN,
+                          src_valid=valid).cpu().tolist()
+
+
+def tpf_rank_main(args) -> int:
+    """One rank of (b) to (d), a process of this script: results to
+    TPF_DIR (``rank<r>.json``; ``rank<r>_first.pt`` and
+    ``rank<r>_final.pt``: each block's box and its sample after the first
+    step and after the last)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import parallel
+    from distributed_tensorflow_tpu_torch.train import sharded_checkpoint
+    r = args.rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{args.rank_port}",
+        world_size=TPF_RANKS, rank=r,
+        timeout=datetime.timedelta(seconds=TPF_RANK_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh(TPF_AXES)
+        first = {}
+        with _no_tf32(torch):
+            rec, state = _tpf_arm(
+                torch, np, args.seed, mesh, torch.float32,
+                lambda st: first.update(_tpf_samples(st)))
+            torch.save(first, TPF_DIR / f"rank{r}_first.pt")
+            torch.save(_tpf_samples(state), TPF_DIR / f"rank{r}_final.pt")
+            # (c) the sharded checkpoint, restored onto a fresh placement
+            ckpt = TPF_DIR / "ckpt"
+            t0 = time.perf_counter()
+            sharded_checkpoint.save_sharded(str(ckpt), int(state.step),
+                                            state)
+            dist.barrier()
+            rec["save_s"] = time.perf_counter() - t0
+            fresh = _tpf_build(torch, np, args.seed, mesh, torch.float32)[1]
+            t0 = time.perf_counter()
+            restored = sharded_checkpoint.restore_sharded(
+                fresh, sharded_checkpoint.all_sharded_checkpoints(
+                    str(ckpt))[-1])
+            rec["restore_s"] = time.perf_counter() - t0
+            inner = state.opt_state.inner
+            rec["restored_equal"] = all(
+                torch.equal(restored.params[k], state.params[k])
+                and torch.equal(restored.opt_state.inner["m"][k],
+                                inner["m"][k])
+                and torch.equal(restored.opt_state.inner["v"][k],
+                                inner["v"][k]) for k in state.params)
+            rec["restored_step"] = int(restored.step)
+            del fresh, restored, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (d)
+            rec["tokens"] = _tpf_generate(torch, np, args.seed, mesh)
+        (TPF_DIR / f"rank{r}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tpf_kernel_rows(torch, args, smi):
+    """The kernels at a rank's shapes: {kernel: {case: record}}."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    shape = list(TPF_ADAM_SHAPE)
+    adam = _zero_adam_shard(torch, args, smi, TPF_ADAM_SHAPE,
+                            ("tpf", f"fused_adam at {shape} f32"))
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    rows, d, eps = TPF_LN_ROWS, 512, 1e-6
+    x = torch.randn(rows, d, generator=gen, device="cuda") * 2 + 0.5
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    err = (fused.fused_layernorm(x, gamma, beta, eps)
+           - fused.layernorm_plain(x, gamma, beta, eps)).abs().max().item()
+    if not err <= F32_TOL:
+        raise AssertionError(f"layernorm at [{rows}, {d}] f32: {err}")
+
+    def kern():
+        return fused.fused_layernorm(x, gamma, beta, eps)
+
+    def lib():
+        return F.layer_norm(x, (d,), gamma, beta, eps)
+    b_ms, b_by = bound_ms(2 * x.numel() * 4 + 2 * d * 4, 8.0 * x.numel(),
+                          F32_FLOPS_PER_S)
+    ln = {"shape": [rows, d], "max_abs_err": err,
+          "ms": time_ms(torch, kern, args.iters),
+          "graph_ms": graph_ms(torch, kern, args.iters),
+          "plain_ms": time_ms(torch, lambda: fused.layernorm_plain(
+              x, gamma, beta, eps), max(5, args.iters // 10)),
+          "library_ms": time_ms(torch, lib, args.iters),
+          "library_graph_ms": graph_ms(torch, lib, args.iters),
+          "library": "F.layer_norm", "bound_ms": b_ms, "bound_by": b_by,
+          "card": smi}
+    log({"tpf": f"layernorm at [{rows}, {d}] f32", **ln})
+    adam["card"] = smi
+    return {"fused_adam": {f"adam {shape} f32": adam},
+            "layernorm": {f"layernorm [{rows}, {d}] f32": ln}}
+
+
+def _tpf_line_of_one(torch, np, args, smi):
+    """(a): returns (the launches over its arms, its largest peak GB)."""
+    from distributed_tensorflow_tpu_torch import parallel
+    one = parallel.make_mesh({"data": 1, "fsdp": 1, "tensor": 1})
+    launches = collections.Counter()
+    peak, prev = 0.0, None
+    for arm in ("line", "plain", "plain", "line"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, state = _tpf_arm(torch, np, args.seed,
+                              one if arm == "line" else None, torch.bfloat16)
+        log({"tpf": f"(a) {arm}", "mesh": dict(one.shape) if arm == "line"
+             else None, "steps": TPF_STEPS, **rec, "card": smi})
+        _zoo_expect(f"tpf (a) {arm}", rec["launches"],
+                    rec["launches_expected"])
+        extra = {k: v for k, v in rec["launches"].items()
+                 if k not in rec["launches_expected"] and v}
+        if extra:
+            raise AssertionError(f"tpf (a) {arm}: collectives on a line of "
+                                 f"one: {extra}")
+        launches.update({k: v for k, v in rec["launches"].items()
+                         if k in rec["launches_expected"]})
+        peak = max(peak, rec["peak_memory_gb"])
+        now = (rec["losses"], rec["grad_norm"],
+               {k: p.detach().clone() for k, p in state.params.items()})
+        del state
+        if prev is not None and prev[0] is not None:
+            same = (prev[0] == now[0] and prev[1] == now[1] and all(
+                torch.equal(prev[2][k], now[2][k]) for k in now[2]))
+            log({"tpf": "(a) line against plain", "bit_equal": same})
+            if not same:
+                raise AssertionError("tpf (a): a line of one differs from "
+                                     "the plain model")
+            now = (None,)
+        prev = now
+    return launches, peak
+
+
+def check_tpf(torch, np, args, smi, timings=True):
+    """Phase 30, seq2seq under tensor parallelism and tensor beside fsdp:
+    returns (the kernels' launches over (a)'s arms, (b)'s reference and
+    its ranks, the kernel rows at a rank's shapes; none without
+    ``timings``)."""
+    from distributed_tensorflow_tpu_torch.train import sharded_checkpoint
+    t_phase = time.perf_counter()
+    shutil.rmtree(TPF_DIR, ignore_errors=True)
+    TPF_DIR.mkdir(parents=True)
+    rows = _tpf_kernel_rows(torch, args, smi) if timings else {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _start_ranks(args, _free_port(), phase="tpf", world=TPF_RANKS)
+    try:
+        launches, line_peak = _tpf_line_of_one(torch, np, args, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        start, after = {}, {}
+        with _no_tf32(torch):
+            plain, _ = _tpf_arm(
+                torch, np, args.seed, None, torch.float32,
+                lambda st: after.update({k: p.detach().clone() for k, p in
+                                         st.params.items()}), start)
+        log({"tpf": "(b) plain f32 reference", "steps": TPF_STEPS,
+             **plain, "card": smi})
+        _zoo_expect("tpf (b) plain f32 reference", plain["launches"],
+                    plain["launches_expected"])
+        launches.update({k: v for k, v in plain["launches"].items()
+                         if k in plain["launches_expected"]})
+        _tp_wait(ranks, "tpf (b) ranks")
+        ranks_s = time.perf_counter() - t0
+        results = [json.loads((TPF_DIR / f"rank{r}.json").read_text())
+                   for r in range(TPF_RANKS)]
+        from distributed_tensorflow_tpu_torch.models.seq2seq import \
+            Seq2SeqConfig
+        c = Seq2SeqConfig()
+        n_steps = TPF_WARMUP + TPF_STEPS
+        want = {k: n * n_steps for k, n in tpf_collectives(c).items()}
+        want.update(results[0]["launches_expected"])
+        for r, rec in enumerate(results):
+            _zoo_expect(f"tpf (b) rank {r}", rec["launches"], want)
+            launches.update({k: v for k, v in rec["launches"].items()
+                             if k in s2s_per_step(c)})
+        firsts = [torch.load(TPF_DIR / f"rank{r}_first.pt")
+                  for r in range(TPF_RANKS)]
+        param_err, param_max = _ep_gap(TPF_SAMPLE, firsts, start, after)
+        del start, after
+        lim = TPF_LIMITS
+        loss_err = max(abs(x - y) for x, y in
+                       zip(results[0]["losses"][:lim["losses"]],
+                           plain["losses"]))
+        grad_err = (abs(results[0]["grad_norm"] - plain["grad_norm"])
+                    / plain["grad_norm"])
+        peaks = [rec["peak_memory_gb"] for rec in results]
+        check = {"tpf": "(b) fsdp 2 x tensor 2", "mesh": TPF_AXES,
+                 "ranks": TPF_RANKS, "batch": plain["batch"],
+                 "losses": [rec["losses"] for rec in results],
+                 "plain_losses": plain["losses"],
+                 "losses_checked": lim["losses"], "loss_err": loss_err,
+                 "loss_tol": lim["loss"], "grad_norm_rel_err": grad_err,
+                 "grad_tol": lim["grad"], "param_gap_over_move": param_err,
+                 "param_tol": lim["param"], "param_max_abs_err": param_max,
+                 "peak_memory_gb": peaks, "line_of_one_peak_gb": line_peak,
+                 "step_ms": [rec["step_ms"] for rec in results],
+                 "plain_step_ms": plain["step_ms"],
+                 "collectives_a_step": {
+                     k: results[0]["launches"].get(k, 0) // n_steps
+                     for k in tpf_collectives(c)},
+                 "launches": results[0]["launches"], "card": smi}
+        log(check)
+        if not (all(rec["losses"] == results[0]["losses"]
+                    for rec in results)
+                and loss_err <= lim["loss"] and grad_err <= lim["grad"]
+                and param_err <= lim["param"]
+                and all(p < line_peak for p in peaks)):
+            raise AssertionError("tpf (b): four ranks disagree with the "
+                                 "one-rank model (logged above)")
+        # (c) the checkpoint onto a whole model in this process
+        path = sharded_checkpoint.all_sharded_checkpoints(
+            str(TPF_DIR / "ckpt"))[-1]
+        ok, why = sharded_checkpoint.verify_sharded(path)
+        whole = _tpf_build(torch, np, args.seed, None, torch.float32)[1]
+        whole = sharded_checkpoint.restore_sharded(whole, path)
+        boxes = _tpf_boxes(whole)
+        equal = True
+        for r in range(TPF_RANKS):
+            for k, (box, got) in torch.load(
+                    TPF_DIR / f"rank{r}_final.pt").items():
+                want_s = _ep_sample(boxes[k][1], box, TPF_SAMPLE).cpu()
+                equal = equal and torch.equal(got, want_s)
+        del whole, boxes
+        log({"tpf": "(c) sharded checkpoint", "verify": [ok, why],
+             "ranks_restored_equal": [rec["restored_equal"]
+                                      for rec in results],
+             "restored_step": [rec["restored_step"] for rec in results],
+             "whole_restore_equal": equal,
+             "save_s": [rec["save_s"] for rec in results],
+             "restore_s": [rec["restore_s"] for rec in results]})
+        if not (ok and equal and all(rec["restored_equal"]
+                                     and rec["restored_step"] == n_steps
+                                     for rec in results)):
+            raise AssertionError("tpf (c): the sharded checkpoint does not "
+                                 "round-trip (logged above)")
+        # (d)
+        plain_tokens = _tpf_generate(torch, np, args.seed, None)
+        same = [rec["tokens"] == plain_tokens for rec in results]
+        log({"tpf": "(d) greedy generate, ranks against the card's plain "
+             "model", "tokens_equal": same,
+             "distinct_tokens": len({t for row in plain_tokens
+                                     for t in row})})
+        if not all(same):
+            raise AssertionError("tpf (d): the ranks' tokens differ")
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TPF_DIR, ignore_errors=True)
+    log({"phase": "tpf", "seconds": time.perf_counter() - t_phase,
+         "ranks_seconds": ranks_s, "launches": dict(launches)})
+    return dict(launches), rows
+
+
+def tpf_spread(torch, np, args, smi) -> int:
+    """``--tpf-seeds``: phase 30 once for each seed without the kernel
+    rows, its checks logged; a seed that fails is logged and passed over
+    (the spread TPF_LIMITS are set from); 1 when any seed failed."""
+    failed = []
+    for seed in [int(x) for x in args.tpf_seeds.split(",")]:
+        args.seed = seed
+        try:
+            check_tpf(torch, np, args, smi, timings=False)
+        except AssertionError as e:
+            failed.append(seed)
+            log({"tpf_seed": seed, "failed": str(e)[:2000]})
+    log({"phase": "tpf spread", "seeds": args.tpf_seeds, "failed": failed})
+    return 1 if failed else 0
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -9757,10 +10246,13 @@ def main(argv=None) -> int:
     ap.add_argument("--ep-seeds", metavar="S,S,...",
                     help="run only phase 29's (a) and (b), once a seed, "
                     "and log each arm's readings (no result line)")
-    # a rank of phase 27, 28 or 29 (``--ranks-for=tp|pp|ep``), started by
-    # the phase itself
-    ap.add_argument("--ranks-for", choices=("tp", "pp", "ep"), default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--tpf-seeds", metavar="S,S,...",
+                    help="run only phase 30 without its kernel rows, once "
+                    "a seed, and log its readings (no result line)")
+    # a rank of phase 27, 28, 29 or 30 (``--ranks-for=tp|pp|ep|tpf``),
+    # started by the phase itself
+    ap.add_argument("--ranks-for", choices=("tp", "pp", "ep", "tpf"),
+                    default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-port", type=int, default=None,
@@ -9772,8 +10264,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.ranks_for is not None:
-        return {"tp": tp_rank_main, "pp": pp_rank_main,
-                "ep": ep_rank_main}[args.ranks_for](args)
+        return {"tp": tp_rank_main, "pp": pp_rank_main, "ep": ep_rank_main,
+                "tpf": tpf_rank_main}[args.ranks_for](args)
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.ops.kernels import _build
@@ -9789,6 +10281,8 @@ def main(argv=None) -> int:
     log({"phase": "build", "seconds": secs, "dir": str(_build.BUILD_DIR)})
     if args.ep_seeds:
         return ep_spread(torch, np, args, smi)
+    if args.tpf_seeds:
+        return tpf_spread(torch, np, args, smi)
     log_backward_resources(_build)
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))
@@ -9850,6 +10344,9 @@ def main(argv=None) -> int:
     pp_launches, pp_rows = check_pp(torch, np, args, smi)
     ep_launches, ep_rows = check_ep(torch, np, args, smi)
     tp_rows.update(ep_rows)
+    tpf_launches, tpf_rows = check_tpf(torch, np, args, smi)
+    for k, rows in tpf_rows.items():
+        records[k]["tpf_shapes"] = rows
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -9920,7 +10417,10 @@ def main(argv=None) -> int:
                     pp_launches=pp_launches.get(k, 0),
                     **({"pp_shapes": r["pp_shapes"]}
                        if "pp_shapes" in r else {}),
-                    ep_launches=ep_launches.get(k, 0))
+                    ep_launches=ep_launches.get(k, 0),
+                    tpf_launches=tpf_launches.get(k, 0),
+                    **({"tpf_shapes": r["tpf_shapes"]}
+                       if "tpf_shapes" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

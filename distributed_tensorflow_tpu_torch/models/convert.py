@@ -297,9 +297,15 @@ def vit_params_to_jax(params: Mapping[str, torch.Tensor],
 
 
 def seq2seq_params_from_jax(tree: Mapping[str, Any], config,
-                            device="cpu") -> Dict[str, torch.Tensor]:
-    """A ``Seq2Seq``'s parameters from the JAX ``Seq2Seq.init`` tree."""
-    return _layered_from_jax(tree, Seq2Seq(config).stacks, device)
+                            device="cpu", mesh=None
+                            ) -> Dict[str, torch.Tensor]:
+    """A ``Seq2Seq``'s parameters from the JAX ``Seq2Seq.init`` tree;
+    ``mesh`` with a ``tensor`` axis: this rank's blocks (marked), the
+    parameters of ``Seq2Seq(config, mesh=mesh)``."""
+    params = _layered_from_jax(tree, Seq2Seq(config).stacks, device)
+    if tensor_parallel.size(mesh) == 1:
+        return params
+    return cut_blocks(params, Seq2Seq(config, mesh).partition_rules(), mesh)
 
 
 def seq2seq_params_to_jax(params: Mapping[str, torch.Tensor],

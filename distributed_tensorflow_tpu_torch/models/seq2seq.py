@@ -22,6 +22,23 @@ every row has finished (``ops.decoding.decode_loop``: one host read a
 step) and the rest is padded.  ``beam_search`` flattens the beams into
 the batch for the decoder and ranks them as the JAX package does
 (``ops.decoding``'s stable beam helpers).
+
+Tensor parallelism (``Seq2Seq(config, mesh=...)`` with a ``tensor`` axis
+of T > 1 ranks; ``partition_rules`` is the JAX package's table): ``init``
+draws the whole model, as at T = 1, and returns this rank's blocks
+(marked, ``parallel.sharding.mark_block``), as ``models/bert.py`` does.
+The word embedding is looked up vocabulary-parallel on both sides; the
+encoder's self-attention, the decoder's self- and cross-attention and
+every FFN are Megatron's (``ops/attention.py``).  The encoder's memory
+comes onto the tensor line once a ``decode`` call (one ``copy_to_line``,
+whose backward is one all-reduce of the memory's gradient for every
+layer together), and each layer's cross-attention projects its heads'
+keys and values from it.  The tied head's logits stay cut over the
+vocabulary into the vocabulary-parallel cross entropy and argmax of
+``seq2seq_loss_fn``; ``logits`` gathers them whole, so ``generate`` and
+``beam_search`` run on every rank of the line and give the plain
+model's tokens.  A mesh with ``fsdp`` beside ``tensor`` trains under
+``train.shard_train_state`` with ``partition_rules(fsdp=True)``.
 """
 from __future__ import annotations
 
@@ -29,13 +46,13 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..ops import decoding as dec
 from ..ops import initializers as init_lib
-from ..ops import losses as loss_lib
 from ..ops.attention import (attention_core, causal_mask, dropout,
                              padding_mask, resolve_activation)
+from ..parallel import sharding as sharding_lib
+from ..parallel import tensor_parallel as tp_lib
 from .bert import (attention_params, ffn, init_attention, init_ffn, init_ln,
                    layer_norm, stacked_decay_mask, trainable)
 from .gpt import _checkpointed
@@ -78,10 +95,16 @@ _gelu = resolve_activation("gelu_approx")
 class Seq2Seq:
     """Functional encoder-decoder: ``init(generator) -> params``;
     ``encode`` / ``decode`` / ``logits`` / ``seq2seq_loss_fn`` /
-    ``generate``."""
+    ``generate``.  ``mesh``: a ``parallel.Mesh``, with a ``tensor`` axis
+    for tensor parallelism (module docstring)."""
 
-    def __init__(self, config: Seq2SeqConfig):
+    def __init__(self, config: Seq2SeqConfig, mesh=None):
         self.config = config
+        self.mesh = mesh
+        if mesh is not None:
+            sharding_lib.check_mesh(mesh)
+        # the tensor line, None at T = 1
+        self.line = tp_lib.active(mesh)
         self.stacks = {"encoder": config.num_encoder_layers,
                        "decoder": config.num_decoder_layers}
 
@@ -94,7 +117,9 @@ class Seq2Seq:
     def init(self, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
         """Truncated normal (std 0.02) embeddings and kernels, zero biases,
-        identity norms; drawn from ``generator`` on its device."""
+        identity norms; drawn from ``generator`` on its device.  Under
+        tensor parallelism the whole model is drawn and this rank's
+        blocks returned."""
         c = self.config
         dev = init_lib._device(generator)
         trunc = init_lib.truncated_normal(0.02)
@@ -128,7 +153,11 @@ class Seq2Seq:
             params.update(init_ffn(draw, d, i, pre + ".ffn", zeros))
         params.update(init_ln(d, "ln_enc_f", dev))
         params.update(init_ln(d, "ln_dec_f", dev))
-        return trainable(params)
+        params = trainable(params)
+        if self.line is None:
+            return params
+        return sharding_lib.cut_blocks(params, self.partition_rules(),
+                                       self.line)
 
     # -- blocks -----------------------------------------------------------
     def _ln(self, p, name, x):
@@ -139,25 +168,28 @@ class Seq2Seq:
         a = attention_core(attention_params(p, "attention"),
                            self._ln(p, "ln_1", x), mask=src_mask,
                            dropout_rate=c.dropout_rate, generator=generator,
-                           train=train)
+                           train=train, mesh=self.line)
         x = x + dropout(a, c.dropout_rate, generator, train)
-        f = ffn(p, "ffn", self._ln(p, "ln_2", x), _gelu)
+        f = ffn(p, "ffn", self._ln(p, "ln_2", x), _gelu, self.line)
         return x + dropout(f, c.dropout_rate, generator, train)
 
     def _dec_block(self, p, x, memory, self_mask, cross_mask, generator,
                    train):
+        """One decoder layer; ``memory`` is on the tensor line already
+        (``decode``)."""
         c = self.config
         a = attention_core(attention_params(p, "self_attention"),
                            self._ln(p, "ln_1", x), mask=self_mask,
                            dropout_rate=c.dropout_rate, generator=generator,
-                           train=train)
+                           train=train, mesh=self.line)
         x = x + dropout(a, c.dropout_rate, generator, train)
         ca = attention_core(attention_params(p, "cross_attention"),
                             self._ln(p, "ln_x", x), kv=memory,
                             mask=cross_mask, dropout_rate=c.dropout_rate,
-                            generator=generator, train=train)
+                            generator=generator, train=train,
+                            mesh=self.line)
         x = x + dropout(ca, c.dropout_rate, generator, train)
-        f = ffn(p, "ffn", self._ln(p, "ln_2", x), _gelu)
+        f = ffn(p, "ffn", self._ln(p, "ln_2", x), _gelu, self.line)
         return x + dropout(f, c.dropout_rate, generator, train)
 
     def _stack(self, params, side: str, n: int, block: Callable, x,
@@ -193,7 +225,8 @@ class Seq2Seq:
         self._check_rng(train, rng, "encode")
         dev = params["embeddings.word"].device
         ids = torch.as_tensor(src_ids, device=dev).long()
-        x = F.embedding(ids, params["embeddings.word"])
+        x = tp_lib.vocab_parallel_embed(ids, params["embeddings.word"],
+                                        self.line)
         x = x + params["embeddings.enc_position"][:ids.shape[1]][None]
         x = dropout(x, c.dropout_rate, rng, train).to(c.dtype)
         mask = (None if src_valid is None
@@ -207,13 +240,16 @@ class Seq2Seq:
                src_valid=None, *, train: bool = False,
                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """-> hidden [b, t, d]: causal self-attention, then
-        cross-attention into ``memory``."""
+        cross-attention into ``memory`` (brought onto a tensor line once
+        here, for every layer)."""
         c = self.config
         self._check_rng(train, rng, "decode")
         dev = params["embeddings.word"].device
         ids = torch.as_tensor(tgt_ids, device=dev).long()
         t = ids.shape[1]
-        x = F.embedding(ids, params["embeddings.word"])
+        memory = tp_lib.copy_to_line(memory, self.line)
+        x = tp_lib.vocab_parallel_embed(ids, params["embeddings.word"],
+                                        self.line)
         x = x + params["embeddings.dec_position"][:t][None]
         x = dropout(x, c.dropout_rate, rng, train).to(c.dtype)
         self_mask = causal_mask(t, device=dev)
@@ -226,11 +262,20 @@ class Seq2Seq:
                         x, rng)
         return self._ln(params, "ln_dec_f", x)
 
-    def logits(self, params: Mapping[str, torch.Tensor],
-               hidden: torch.Tensor) -> torch.Tensor:
-        """Tied head -> [..., vocab] f32."""
+    def _local_logits(self, params: Mapping[str, torch.Tensor],
+                      hidden: torch.Tensor) -> torch.Tensor:
+        """The tied head's f32 logits of this rank's vocabulary rows (all
+        of them at T = 1)."""
+        hidden = tp_lib.copy_to_line(hidden, self.line)
         return (hidden @ params["embeddings.word"].T.to(hidden.dtype)
                 ).float()
+
+    def logits(self, params: Mapping[str, torch.Tensor],
+               hidden: torch.Tensor) -> torch.Tensor:
+        """Tied head -> [..., vocab] f32 (gathered whole over a tensor
+        line)."""
+        return tp_lib.gather_from_line(self._local_logits(params, hidden),
+                                       self.line)
 
     # -- training ---------------------------------------------------------
     def seq2seq_loss_fn(self) -> Callable:
@@ -239,7 +284,10 @@ class Seq2Seq:
         shifted by one), optional ``src_valid`` [b, s] and ``loss_mask``
         [b, t - 1].  Metrics: ``token_accuracy``, and under a mask
         ``loss_weight``.  The encoder and the decoder draw their dropout
-        from the one generator, in that order."""
+        from the one generator, in that order.  Under tensor parallelism
+        the logits stay cut over the vocabulary (the vocabulary-parallel
+        cross entropy and argmax), and every rank of the line holds the
+        whole loss."""
         def loss_fn(params, model_state, batch, generator, train):
             dev = params["embeddings.word"].device
             src_valid = batch.get("src_valid")
@@ -248,15 +296,20 @@ class Seq2Seq:
             tgt = torch.as_tensor(batch["tgt_ids"], device=dev).long()
             hidden = self.decode(params, memory, tgt[:, :-1], src_valid,
                                  train=train, rng=generator)
-            logits = self.logits(params, hidden)
+            logits = self._local_logits(params, hidden)
             targets = tgt[:, 1:]
             mask = batch.get("loss_mask")
-            if mask is not None:
+            nll = tp_lib.vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                self.line).reshape(targets.shape)
+            if mask is None:
+                loss = nll.mean()
+            else:
                 mask = torch.as_tensor(mask, device=dev).float()
-            loss = loss_lib.softmax_cross_entropy_with_integer_labels(
-                logits, targets, where=mask)
+                loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1e-9)
             with torch.no_grad():
-                hits = (logits.argmax(-1) == targets).float()
+                hits = (tp_lib.vocab_parallel_argmax(logits, self.line)
+                        == targets).float()
                 if mask is None:
                     metrics = {"token_accuracy": hits.mean()}
                 else:
@@ -368,3 +421,27 @@ class Seq2Seq:
         best = dec.rank_beams(scores, seqs[:, :, 1:], eos_id, T,
                               length_penalty)
         return seqs[torch.arange(b, device=dev), best, 1:]
+
+    # -- sharding ---------------------------------------------------------
+    def partition_rules(self, fsdp: bool = False
+                        ) -> sharding_lib.PartitionRules:
+        """The JAX package's Megatron table (``Seq2Seq.partition_rules``)
+        over the port's per-layer names (a layer leaf's spec without the
+        JAX tree's leading layer dim): the heads of every attention (the
+        encoder's, the decoder's self- and cross-attention) and the FFN's
+        hidden dim on ``tensor``, the word embedding's vocabulary too;
+        ``fsdp=True`` cuts each matrix's other large dim over ``fsdp``.
+        No match replicates (positions, norms, the output biases)."""
+        f = "fsdp" if fsdp else None
+        att = r"^(encoder|decoder)\.\d+\.(self_|cross_)?attention\."
+        ffn_ = r"^(encoder|decoder)\.\d+\.ffn\."
+        return sharding_lib.PartitionRules([
+            (r"^embeddings\.word$", ("tensor", f)),
+            (r"^embeddings\.(enc|dec)_position$", (None, None)),
+            (att + r"(query|key|value)\.kernel$", (f, "tensor", None)),
+            (att + r"(query|key|value)\.bias$", ("tensor", None)),
+            (att + r"out\.kernel$", ("tensor", None, f)),
+            (ffn_ + r"w_in\.kernel$", (f, "tensor")),
+            (ffn_ + r"w_in\.bias$", ("tensor",)),
+            (ffn_ + r"w_out\.kernel$", ("tensor", f)),
+        ])

@@ -25,8 +25,13 @@ rank's ``h/T`` heads, ``[d, h/T, hd]`` kernels) into the inner kernel on
 the local heads, then the row-parallel output (``[h/T, hd, d]``) summed
 over the line, its bias added once after the sum; ``ffn_core`` and
 ``ffn_swiglu_core`` are the column-parallel ``w_in`` (and ``w_gate``)
-into the row-parallel ``w_out``.  On a line of one they are the plain
-bodies.
+into the row-parallel ``w_out``.  Cross-attention under tensor
+parallelism projects the queries of this rank's heads from ``x`` and its
+keys and values from the memory, which the caller has brought onto the
+line itself (``tensor_parallel.copy_to_line``): seq2seq brings it once a
+decoder pass, so the memory's gradient is summed over the line by one
+all-reduce for every layer together, not one a layer.  On a line of one
+they are the plain bodies.
 """
 from __future__ import annotations
 
@@ -155,7 +160,11 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
     ``dot_product_attention`` or the flash kernel
     (``ops.kernels.flash_attention.make_flash_attention_fn``).
     ``kv``: a memory sequence [b, s_k, d] for cross-attention (keys and
-    values project from it, queries from ``x``).
+    values project from it, queries from ``x``); under a tensor line the
+    caller passes it through ``tensor_parallel.copy_to_line`` first, once
+    for every layer that reads it (its backward, one all-reduce counted
+    as ``tp_all_reduce``, sums the layers' gradients of it over the
+    line), and this rank's key and value blocks project its heads.
     ``qk_transform(q, k) -> (q, k)`` runs after the projections (RoPE).
     Grouped
     kv heads are broadcast only for a kernel that does not take them
@@ -170,10 +179,6 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
     line = tp_lib.active(mesh)
     kvp = {n: dict(params[n]) for n in ("key", "value")}
     if line is not None:
-        if kv is not None:
-            raise NotImplementedError("cross-attention under tensor "
-                                      "parallelism (ROADMAP Queue 1 item "
-                                      "7.2b: seq2seq)")
         reps = [] if kv_heads is None else [
             (n, w) for n in ("key", "value") for w in ("kernel", "bias")
             if kvp[n].get(w) is not None]

@@ -44,11 +44,11 @@ Conventions, as in the JAX package:
   gradients of the sums), so the gradients are the global batch's too,
   and shards of different sizes stay exact.  The batch line is the
   ranks that hold other rows of the same channels (``data_parallel.
-  batch_group``: the mesh's replicas, its ``data`` line beside a
-  ``tensor`` axis, where a tensor-parallel ResNet's ranks hold different
-  channel blocks), never a whole mesh whose ranks hold different
-  channels.  The layer reads the line as it runs (no model in the port
-  recomputes a ``BatchNorm`` in its backward).
+  batch_group``: the mesh's replicas, its ``data`` x ``fsdp`` plane
+  beside a ``tensor`` axis, where a tensor-parallel ResNet's ranks hold
+  different channel blocks), never a whole mesh whose ranks hold
+  different channels.  The layer reads the line as it runs (no model in
+  the port recomputes a ``BatchNorm`` in its backward).
 * ``LayerNorm(fused=True)`` and ``fused="auto"`` run the LayerNorm
   kernel (``ops.kernels.fused.fused_layernorm``; its plain version on a
   CPU tensor); the JAX package's TPU-only ``"auto"`` gate is not ported:

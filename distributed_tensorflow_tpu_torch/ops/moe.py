@@ -12,7 +12,7 @@ the caller adds the residual, so a dropped token passes through
 unchanged.  ``aux_loss`` (Switch load balancing, ``E * sum_e f_e P_e``,
 1.0 at perfect balance) and ``router_z_loss`` are for the caller to add
 to the training loss.  Given the batch line (``apply_moe(...,
-batch_group=)``, the group of ``parallel.data_parallel.batch_group()``
+batch_group=)``, the groups of ``parallel.data_parallel.batch_group()``
 that a model reads as its training forward starts), ``f_e`` and ``P_e``
 are the global batch's, as the JAX package's jit over a sharded batch
 takes them: each rank sums its sums of them and its token count over
@@ -183,7 +183,7 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, *, k: int = 2,
     holds this rank's experts (and their hidden dim's block), ``x`` the
     same tokens on every rank of both lines (module docstring); ``y`` and
     the metrics come out whole and equal on every rank.  ``batch_group``:
-    the process group of the ranks that hold the batch's other rows
+    the process groups of the ranks that hold the batch's other rows
     (``parallel.data_parallel.batch_group``); ``aux_loss`` then reads the
     global batch's ``f_e`` and ``P_e`` (module docstring)."""
     act = act_lib.get(activation)

@@ -125,8 +125,10 @@ def ema_params(opt_state: OptState) -> Dict[str, torch.Tensor]:
     """The averaged parameters of a ``with_ema`` optimizer's state.  A
     shadow cut by ``train.shard_train_state`` over ``fsdp`` is gathered
     over its line into whole tensors (one all-gather; every rank of the
-    line must call), for eval and ``generate``; one cut over ``tensor``
-    stays the blocks, which a tensor-parallel model reads; a MoE bank cut
+    line must call), for eval and ``generate``, and beside a ``tensor``
+    axis its ``fsdp`` parts into tensor blocks (the same all-gather);
+    one cut over ``tensor`` alone stays the blocks, which a
+    tensor-parallel model reads; a MoE bank cut
     over ``expert`` is gathered whole along its expert dim over that line
     (one all-gather), as ``train.gather_params`` does; a pipeline
     stage's gathers every stage's layers over the ``pipe`` line into the

@@ -17,11 +17,13 @@ group, and ``make_psum_train_step`` is a name for it.
 
 The ranks that average are the replicas: on a mesh with a ``tensor``,
 an ``expert`` or a ``pipe`` axis of more than one rank, the ranks of
-this rank's ``data`` line (those that share its ``tensor``, ``expert``
-and ``pipe`` coordinates and so hold the same blocks, experts or stage),
-never the whole mesh, whose sum would add blocks or layers of different
-ranks (and divide an expert's gradient by the expert line's size); a
-data line of one issues no all-reduce (``replicas``).
+this rank's ``data`` x ``fsdp`` plane (those that share its ``tensor``,
+``expert`` and ``pipe`` coordinates and so hold the same blocks, experts
+or stage), never the whole mesh, whose sum would add blocks or layers of
+different ranks (and divide an expert's gradient by the expert line's
+size).  No one group spans that plane, so a sum over it is an
+all-reduce over this rank's ``fsdp`` line, then one over its ``data``
+line; a line of one issues none (``replicas``).
 
 Weighted losses: a loss function that reports ``metrics["loss_weight"]``
 (a masked mean's normaliser, such as the token or mask count) is a
@@ -54,10 +56,17 @@ the whole of the uncut gradients, the loss, the metrics and the weight,
 so the scatter leaves each rank the line's sums of its own blocks and of
 all the rest); then, with a ``data`` axis of more than one rank, ONE
 all-reduce of that segment over this rank's ``data`` line, and the
-division by the summed weight or the rank count, as above.  The global
-gradient norm and the count of non-finite elements sum the blocks'
-squares and counts over the ``fsdp`` line (``line_sum``, one all-reduce
-of two numbers) and count each uncut leaf once.
+division by the summed weight or the replica count (``data`` x
+``fsdp``), as above.  The global gradient norm and the count of
+non-finite elements sum the blocks' squares and counts over the
+``fsdp`` line (``line_sum``, one all-reduce of two numbers) and count
+each uncut leaf once.  Beside a ``tensor`` axis the same two collectives
+act on the ``fsdp`` part of each tensor block (a ``Blocks`` over
+``fsdp`` and ``tensor``): the gather joins the parts into the model's
+tensor blocks, the scatter cuts each block's gradient along its ``fsdp``
+dim, and a leaf that only ``tensor`` cuts rides whole in every segment,
+as an uncut leaf does, so it is summed over the ``fsdp`` line and then
+the ``data`` line; nothing is summed over ``tensor``.
 
 A pipeline stage's layers (``parallel.sharding.Stage``) gather into the
 whole model over the ``pipe`` line with ONE ``all_gather_into_tensor``
@@ -110,14 +119,18 @@ def _unflat(flat: torch.Tensor, like: List[torch.Tensor]
     return out
 
 
-def replicas(mesh) -> Tuple[object, int]:
-    """(the process group the gradients average over, its rank count):
-    the whole mesh's group, or under a ``tensor``, ``expert`` or ``pipe``
-    axis of more than one rank this rank's ``data`` line (None for a line
-    of one)."""
+def replicas(mesh) -> Tuple[Tuple[object, ...], int]:
+    """(the process groups the gradients sum over, one after the other;
+    the replica count): the whole mesh's group, or under a ``tensor``,
+    ``expert`` or ``pipe`` axis of more than one rank this rank's
+    ``fsdp`` line and then its ``data`` line (the lines of more than one
+    rank; none on a plane of one)."""
     if any(mesh.axis_size(a) > 1 for a in ("tensor", "expert", "pipe")):
-        return mesh.axis_group("data"), mesh.axis_size("data")
-    return mesh.group, mesh.size
+        groups = tuple(g for g in (mesh.axis_group("fsdp"),
+                                   mesh.axis_group("data"))
+                       if g is not None)
+        return groups, mesh.axis_size("data") * mesh.axis_size("fsdp")
+    return (() if mesh.group is None else (mesh.group,)), mesh.size
 
 
 # the mesh of the train step whose loss function runs (None outside one)
@@ -139,42 +152,45 @@ def cross_rank_moments(mesh):
 
 
 def batch_group(mesh=None):
-    """The process group of the ranks that hold the other rows of this
-    rank's batch: ``mesh``'s replicas (``replicas``), by default those of
-    the mesh the running train step entered (``cross_rank_moments``);
-    None outside a step and for a line of one.  A model reads it once, as
-    its forward starts, and passes it down: a recomputation in the
-    backward (``remat``) runs outside the step's block."""
+    """The process groups of the ranks that hold the other rows of this
+    rank's batch, a tuple summed over one after the other: ``mesh``'s
+    replicas (``replicas``), by default those of the mesh the running
+    train step entered (``cross_rank_moments``); None outside a step and
+    for a plane of one.  A model reads it once, as its forward starts,
+    and passes it down: a recomputation in the backward (``remat``) runs
+    outside the step's block."""
     mesh = _STEP_MESH.get() if mesh is None else mesh
-    return None if mesh is None else replicas(mesh)[0]
+    return None if mesh is None else (replicas(mesh)[0] or None)
 
 
 class _BatchSum(torch.autograd.Function):
-    """The sum of ``x`` over ``group``'s ranks, and in the backward the sum
-    of the ranks' gradients; each direction counts one
-    ``batch_all_reduce``.  ``torch.distributed.nn.functional.all_reduce``
-    computes the same, but importing that module keeps every gloo group's
-    threads alive past ``destroy_process_group``, and a rank then aborts
-    at exit now and then."""
+    """The sum of ``x`` over the ranks of ``groups`` (one all-reduce a
+    group), and in the backward the sum of the ranks' gradients; each
+    all-reduce counts one ``batch_all_reduce``.
+    ``torch.distributed.nn.functional.all_reduce`` computes the same, but
+    importing that module keeps every gloo group's threads alive past
+    ``destroy_process_group``, and a rank then aborts at exit now and
+    then."""
 
     @staticmethod
-    def forward(ctx, group, x):
-        ctx.group = group
+    def forward(ctx, groups, x):
+        ctx.groups = groups
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x, group=group)
-        LAUNCHES["batch_all_reduce"] += 1
+        for group in groups:
+            dist.all_reduce(x, group=group)
+            LAUNCHES["batch_all_reduce"] += 1
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return None, _BatchSum.apply(ctx.group, grad)
+        return None, _BatchSum.apply(ctx.groups, grad)
 
 
-def batch_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` summed over the batch line ``group`` (``batch_group``), ``x``
-    itself for None; differentiable: the backward sums the ranks'
+def batch_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed over the batch line's ``groups`` (``batch_group``),
+    ``x`` itself for None; differentiable: the backward sums the ranks'
     gradients, so a statistic of the global batch trains as one."""
-    return x if group is None else _BatchSum.apply(group, x)
+    return x if groups is None else _BatchSum.apply(tuple(groups), x)
 
 
 def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
@@ -184,13 +200,14 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """(grads, loss, metrics), each the global batch's mean over the
     replicas of ``mesh`` (``replicas``), with one all-reduce of a flat f32
-    bucket; every tensor comes back in its own shape and dtype.
+    bucket a group (the ``fsdp`` line, then the ``data`` line, beside a
+    ``tensor`` axis); every tensor comes back in its own shape and dtype.
     ``weight``: this rank's loss weight (module docstring), None for a
     plain mean; with it, ``metrics["loss_weight"]`` comes back as the
-    global weight.  A tensor-parallel mesh's data line of one issues
-    nothing and changes nothing."""
-    group, n = replicas(mesh)
-    if group is None:
+    global weight.  A tensor-parallel mesh's plane of one issues nothing
+    and changes nothing."""
+    groups, n = replicas(mesh)
+    if not groups:
         metrics = dict(metrics)
         if weight is not None:
             metrics["loss_weight"] = weight
@@ -203,8 +220,9 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
     if weight is not None:
         w = weight.reshape(1).float()
         flat = torch.cat([flat * w, w])
-    dist.all_reduce(flat, group=group)
-    LAUNCHES["all_reduce"] += 1
+    for group in groups:
+        dist.all_reduce(flat, group=group)
+        LAUNCHES["all_reduce"] += 1
     if weight is None:
         total = flat.new_full((1,), float(n))
     else:
@@ -245,11 +263,9 @@ def gather_shards(shards: Mapping[str, torch.Tensor], layout, mesh,
     parameters) or into new tensors; every other entry is itself (a leaf
     also cut over another line stays that line's block).  Every rank of
     the line must call."""
-    from .sharding import Stage
+    from .sharding import part_on
     cut = {n: p for n in shards
-           if layout.get(n) is not None
-           and not isinstance(layout[n], Stage)
-           for p in layout[n].parts if p.line == axis}
+           if (p := part_on(layout.get(n), axis)) is not None}
     res = dict(shards)
     parts = mesh.axis_size(axis)
     if not cut or parts == 1:
@@ -326,21 +342,25 @@ def reduce_scatter_mean(grads: Mapping[str, torch.Tensor],
                         weight: Optional[torch.Tensor] = None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                    Dict[str, torch.Tensor]]:
-    """(grads, loss, metrics), each the global batch's mean over every
-    rank of ``mesh``, a cut gradient as this rank's block of it (the
-    module docstring says how: one reduce-scatter over the ``fsdp`` line,
-    one all-reduce over the ``data`` line when it has more than one
-    rank).  ``weight`` as in ``all_reduce_mean``."""
+    """(grads, loss, metrics), each the global batch's mean over the
+    replicas of ``mesh`` (its ``data`` x ``fsdp`` ranks), a gradient cut
+    over ``fsdp`` as this rank's block of it (the ``fsdp`` part of a
+    tensor block beside a ``tensor`` axis; the module docstring says how:
+    one reduce-scatter over the ``fsdp`` line, one all-reduce over the
+    ``data`` line when it has more than one rank); every other gradient
+    in its own shape.  ``weight`` as in ``all_reduce_mean``."""
+    from .sharding import part_on
     names = list(grads)
-    cut = [n for n in names if layout[n] is not None]
-    whole = [n for n in names if layout[n] is None]
+    part = {n: part_on(layout[n], "fsdp") for n in names}
+    cut = [n for n in names if part[n] is not None]
+    whole = [n for n in names if part[n] is None]
     keys = list(metrics)
     rest = [grads[n] for n in whole] + [loss] + [metrics[k] for k in keys]
     tail = _flat(rest)
     w = None if weight is None else weight.reshape(1).float()
     def blocks(r):
-        return [grads[n].narrow(layout[n].dim, r * layout[n].length,
-                                layout[n].length) for n in cut]
+        return [grads[n].narrow(part[n].dim, r * part[n].length,
+                                part[n].length) for n in cut]
     segments = []
     for r in range(mesh.axis_size("fsdp")):
         seg = torch.cat([_flat(blocks(r)), tail])
@@ -354,7 +374,8 @@ def reduce_scatter_mean(grads: Mapping[str, torch.Tensor],
         dist.all_reduce(flat, group=data)
         LAUNCHES["all_reduce"] += 1
     if w is None:
-        total = flat.new_full((1,), float(mesh.size))
+        total = flat.new_full((1,), float(mesh.axis_size("data")
+                                          * mesh.axis_size("fsdp")))
     else:
         total, flat = torch.clamp(flat[-1:], min=1e-9), flat[:-1]
     out = _unflat(flat / total, blocks(0) + rest)

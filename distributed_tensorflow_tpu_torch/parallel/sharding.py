@@ -20,26 +20,30 @@ The axes a leaf may be cut over are ``data``, ``fsdp``, ``tensor``,
 ``expert`` (a MoE bank's leading expert dim, ``ops/moe.py``) and ``pipe``
 (a stacked leaf's leading stage dim, ``parallel/pipeline.py``).  These
 raise ``NotImplementedError``, each naming its ROADMAP Queue 1 item: a
-``seq`` axis beside ``fsdp`` (item 7.5), ``tensor`` beside ``fsdp`` or
-``seq`` (item 7.2b), ``expert`` beside ``fsdp`` (7.2c) or ``seq`` (7.2d),
-and ``pipe`` beside ``fsdp``, ``tensor``, ``seq`` or ``expert`` (items
-7.3a-d): a pipeline runs beside ``data`` alone, as the JAX package's
-``examples/train_gpt.py`` runs it.  ``expert`` runs beside ``data`` and
-beside ``tensor``.  ``parallel/mesh.py`` holds
-``named_sharding``, ``replicated`` and ``logical_to_mesh``.
+``seq`` axis beside ``fsdp`` (item 7.5), ``tensor`` beside ``seq`` (item
+7.2b), ``expert`` beside ``fsdp`` (7.2c) or ``seq`` (7.2d), and ``pipe``
+beside ``fsdp``, ``tensor``, ``seq`` or ``expert`` (items 7.3a-d): a
+pipeline runs beside ``data`` alone, as the JAX package's
+``examples/train_gpt.py`` runs it.  ``tensor`` runs beside ``data`` and
+``fsdp``; ``expert`` beside ``data`` and ``tensor``.  ``parallel/mesh.py``
+holds ``named_sharding``, ``replicated`` and ``logical_to_mesh``.
 
 The layouts of ``train.shard_train_state``: a leaf cut along one dim over
 one line (``Shard``: the dim, this rank's start and length, the dim's
 full size, the line: ``fsdp`` for ZeRO, ``tensor`` for tensor
 parallelism, ``expert`` for a MoE bank's experts), along two dims over
-the ``expert`` and the ``tensor`` line (``Blocks``, one ``Shard`` a
-dim: a bank's ``w_in`` on ``{"expert": X, "tensor": T}``) or kept whole
-(None).  A ``ShardedDict`` is a params-shaped
-dict of this rank's blocks with that layout beside it (``layout``,
-``mesh``, and for the parameters themselves ``full``: under ZeRO the
-model's own whole tensors, which the train step gathers the blocks
-into; under tensor parallelism the blocks themselves, which the model
-computes on).  A tensor-parallel model keeps its blocks as its
+the ``expert`` and the ``tensor`` line or over the ``fsdp`` and the
+``tensor`` line (``Blocks``, one ``Shard`` a dim, each with its start in
+the whole leaf: a bank's ``w_in`` on ``{"expert": X, "tensor": T}``; a
+query kernel [d, h, hd] on ``{"fsdp": F, "tensor": T}``, dim 0 over
+``fsdp`` and dim 1 over ``tensor``) or kept whole (None).  A
+``ShardedDict`` is a params-shaped dict of this rank's blocks with that
+layout beside it (``layout``, ``mesh``, and for the parameters
+themselves ``full``: under ZeRO the model's own whole tensors, which the
+train step gathers the blocks into; under tensor parallelism the blocks
+themselves, which the model computes on; under ``fsdp`` x ``tensor`` the
+model's tensor blocks and whole leaves, which the step gathers the
+``fsdp`` parts into).  A tensor-parallel model keeps its blocks as its
 parameters, each marked with its ``Shard`` (``mark_block``), so the
 placement knows a block from a whole leaf.
 
@@ -65,8 +69,8 @@ import torch
 
 __all__ = ["Blocks", "PartitionRules", "Shard", "ShardedDict", "Stage",
            "block_of", "check_mesh", "cut_blocks", "lines_of", "mark_block",
-           "marked_shard", "prune_spec", "shard_pytree", "tree_paths",
-           "zero_shard"]
+           "marked_shard", "part_on", "prune_spec", "shard_pytree",
+           "tree_paths", "without", "zero_shard"]
 
 Spec = Tuple[Any, ...]
 Rules = Sequence[Tuple[str, Spec]]
@@ -74,8 +78,7 @@ Rules = Sequence[Tuple[str, Spec]]
 # the ROADMAP item that ports each axis the port cannot cut over yet
 _UNPORTED = {"seq": "7.5 (ZeRO beside a seq axis)"}
 # axes that may not be larger than 1 beside a tensor axis of more than 1
-_BESIDE_TENSOR = {"fsdp": "7.2b (tensor beside fsdp: two cut dims)",
-                  "seq": "7.2b (tensor beside seq)"}
+_BESIDE_TENSOR = {"seq": "7.2b (tensor beside seq)"}
 # axes that may not be larger than 1 beside a pipe axis of more than 1
 _BESIDE_PIPE = {"fsdp": "7.3a (pipe beside fsdp)",
                 "tensor": "7.3b (pipe beside tensor)",
@@ -205,8 +208,9 @@ def _refuse(mesh, axes, what: str) -> None:
 def check_mesh(mesh) -> None:
     """Raise unless every axis of ``mesh`` larger than 1 is ``data``,
     ``fsdp``, ``tensor``, ``expert`` or ``pipe``, neither ``tensor`` nor
-    ``expert`` is beside ``fsdp`` or ``seq``, and ``pipe`` is beside
-    ``data`` alone: the layouts ``train.shard_train_state`` places."""
+    ``expert`` is beside ``seq``, ``expert`` is not beside ``fsdp``, and
+    ``pipe`` is beside ``data`` alone: the layouts
+    ``train.shard_train_state`` places."""
     _refuse(mesh, mesh.shape, "a sharded layout")
 
 
@@ -314,7 +318,8 @@ class Blocks(NamedTuple):
     """A leaf cut along several dims, each over its own line: ``parts``
     holds one ``Shard`` a dim, in dim order (a MoE bank's ``w_in`` [E, D,
     F] on ``{"expert": X, "tensor": T}``: dim 0 over ``expert``, dim 2
-    over ``tensor``)."""
+    over ``tensor``; a FFN's ``w_in`` [d, f] on ``{"fsdp": F, "tensor":
+    T}``: dim 0 over ``fsdp``, dim 1 over ``tensor``)."""
     parts: Tuple[Shard, ...]
 
     @property
@@ -342,14 +347,34 @@ def lines_of(s) -> Tuple[str, ...]:
     return tuple(p.line for p in s.parts)
 
 
+def part_on(s, line: str) -> Optional[Shard]:
+    """The ``Shard`` of a layout entry over ``line``, None when ``line``
+    does not cut it."""
+    if s is None or isinstance(s, Stage):
+        return None
+    return next((p for p in s.parts if p.line == line), None)
+
+
+def without(s, line: str):
+    """A layout entry less its part over ``line``: the block it is a part
+    of (a ``Blocks`` over ``fsdp`` and ``tensor`` less ``fsdp`` is its
+    tensor ``Shard``; a ZeRO ``Shard`` less ``fsdp`` is None, the whole
+    leaf)."""
+    if part_on(s, line) is None:
+        return s
+    rest = tuple(p for p in s.parts if p.line != line)
+    return None if not rest else rest[0] if len(rest) == 1 else Blocks(rest)
+
+
 def zero_shard(shape: Sequence[int], spec: Spec, mesh):
     """The layout of a leaf: None when ``spec`` keeps it whole on ``mesh``,
     else its ``Shard`` over the one axis that cuts it (``fsdp``: a ZeRO
     block; ``tensor``: a tensor-parallel block; ``expert``: a MoE bank's
-    experts), or its ``Blocks`` when the ``expert`` and the ``tensor``
-    line each cut a dim.  Raises ``NotImplementedError`` for a cut the
-    step cannot run (over ``data``, over two axes on one dim, or along
-    two dims other than that pair)."""
+    experts), or its ``Blocks`` when the ``tensor`` line cuts one dim
+    and the ``expert`` or the ``fsdp`` line another.  Raises
+    ``NotImplementedError`` for a cut the step cannot run (over
+    ``data``, over two axes on one dim, or along two dims other than
+    those pairs)."""
     block = block_of(shape, spec, mesh)
     cut = [d for d, ((_, n), size) in enumerate(zip(block, shape))
            if n != size]
@@ -360,15 +385,16 @@ def zero_shard(shape: Sequence[int], spec: Spec, mesh):
              for d in cut]
     lines = [n[0] if len(n) == 1 else None for n in names]
     ok = (lines[0] in ("fsdp", "tensor", "expert") if len(cut) == 1
-          else sorted(lines, key=str) == ["expert", "tensor"])
+          else sorted(lines, key=str) in (["expert", "tensor"],
+                                          ["fsdp", "tensor"]))
     if not ok:
         how = ("along dims " + ", ".join(map(str, cut)) if len(cut) > 1
                else "over " + ", ".join(names[0]))
         raise NotImplementedError(
             f"spec {spec} cuts a leaf of shape {tuple(shape)} {how}: a "
             f"step cuts along one dim over the 'fsdp', 'tensor' or "
-            f"'expert' line, or along two over 'expert' and 'tensor' "
-            f"(ROADMAP Queue 1 item 7.2b)")
+            f"'expert' line, or along two over 'tensor' and 'expert' or "
+            f"'fsdp' (ROADMAP Queue 1 item 7.2b)")
     parts = tuple(Shard(d, block[d][0], block[d][1], int(shape[d]), line)
                   for d, line in zip(cut, lines))
     return parts[0] if len(parts) == 1 else Blocks(parts)
@@ -430,9 +456,10 @@ class ShardedDict(dict):
     @property
     def line(self) -> Optional[str]:
         """The axis the cut leaves are cut over (``fsdp``, ``tensor``,
-        ``expert`` or ``pipe`` for a pipeline stage's layers), ``"expert+
-        tensor"`` when the experts and the tensor line cut leaves, None
-        when nothing is cut."""
+        ``expert`` or ``pipe`` for a pipeline stage's layers), the lines
+        joined by ``+`` in name order when several cut leaves
+        (``"expert+tensor"``, ``"fsdp+tensor"``), None when nothing is
+        cut."""
         lines = sorted({a for s in self.layout.values()
                         for a in lines_of(s)})
         return "+".join(lines) if lines else None

@@ -22,14 +22,18 @@ tree's, so a decoder leaf is stacked ``[L, ...]`` and a rank's chunk of
 it is the box ``[0:L, a:b, ...]`` built from its per-layer blocks.  A
 block of a ZeRO, tensor- or expert-parallel layout
 (``train.shard_train_state``; a MoE bank's block on ``expert`` x
-``tensor`` is a box cut along two dims) is written by the first rank of
-its ``data`` line (``replica_id == 0`` in the JAX package), a whole leaf
-and every host value by the chief, so each element is written once.  A pipeline stage's layers (a ``Stage`` layout)
-are the box ``[a:b, ...]`` of their stacked leaf, written by the first
-rank of the stage's ``data`` line: each stage's layers once, and a
-restore onto another layout (a whole model on one rank) reads every
-stage's box.  Restore writes each block IN PLACE into the
-target's tensors; the next step's gather rebuilds the full parameters.
+``tensor`` and the ``fsdp`` part of a tensor block on ``fsdp`` x
+``tensor`` are boxes cut along two dims, each dim's start the whole
+leaf's) is written by the rank at index 0 of every axis that does not
+cut it (the first rank of its ``data`` line for a box cut over every
+other axis: ``replica_id == 0`` in the JAX package), a whole leaf and
+every host value by the chief, so each element is written once.  A
+pipeline stage's layers (a ``Stage`` layout) are the box ``[a:b, ...]``
+of their stacked leaf, written by the first rank of the stage's
+``data`` line: each stage's layers once, and a restore onto another
+layout (a whole model on one rank) reads every stage's box.  Restore
+writes each block IN PLACE into the target's tensors; the next step's
+gather rebuilds the full parameters.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ import torch
 
 from ..models import convert
 from ..obs import goodput as goodput_lib
-from ..parallel.sharding import ShardedDict, Stage
+from ..parallel.sharding import ShardedDict, Stage, lines_of
 from . import checkpoint as _plain
 
 __all__ = ["save_sharded", "restore_sharded", "is_sharded_checkpoint",
@@ -87,14 +91,21 @@ class _Piece:
 
 
 def _blocks(tree, out: Dict[int, Any]) -> None:
-    """{id(tensor): (its ``Shard`` or ``Stage``, the first rank of its data
-    line)} of every block of a ZeRO layout and every layer of a pipeline
-    stage in ``tree``."""
+    """{id(tensor): (its ``Shard``, ``Blocks`` or ``Stage``, whether this
+    rank writes it)} of every block of a ZeRO, tensor- or
+    expert-parallel layout and every layer of a pipeline stage in
+    ``tree``: the rank at index 0 of every axis that does not cut the
+    leaf writes it (the first rank of its ``data`` line, and beside
+    ``fsdp`` the first of its ``fsdp`` line too for a leaf that only
+    ``tensor`` cuts), so each box is written once."""
     if isinstance(tree, ShardedDict):
-        first = tree.mesh.axis_index("data") == 0
+        mesh = tree.mesh
         for name, t in tree.items():
-            if tree.layout[name] is not None:
-                out[id(t)] = (tree.layout[name], first)
+            s = tree.layout[name]
+            if s is not None:
+                lines = lines_of(s)
+                out[id(t)] = (s, all(mesh.axis_index(a) == 0
+                                     for a in mesh.shape if a not in lines))
         return
     if isinstance(tree, dict):
         for v in tree.values():

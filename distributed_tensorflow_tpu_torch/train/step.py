@@ -81,8 +81,23 @@ blocks; none on a line of one), weighted by a ``loss_weight`` summed over
 that line; the global norm and the non-finite count sum each block's
 squares and counts over the ``tensor`` line (one all-reduce of two
 numbers) and count each replicated leaf once; Adam runs on the blocks.
-A ``tensor`` axis beside ``fsdp`` or ``seq`` raises (ROADMAP Queue 1 item
-7.2b).  On a line of one the model and the step are the plain ones.
+A ``tensor`` axis beside ``seq`` raises (ROADMAP Queue 1 item 7.2b).  On
+a line of one the model and the step are the plain ones.
+
+Tensor beside ZeRO (a ``data`` x ``fsdp`` x ``tensor`` mesh, a model built
+on it and its rules with ``fsdp=True``): each rank keeps the ``fsdp``
+part of each of its tensor blocks (``parallel.sharding.Blocks`` over
+``fsdp`` and ``tensor``), its tensor blocks of the leaves only
+``tensor`` cuts, the ``fsdp`` block of the leaves only ``fsdp`` cuts (a
+replicated kv kernel) and the rest whole.  The step gathers the ``fsdp``
+parts into the model's tensor blocks and whole leaves (one all-gather
+over the ``fsdp`` line), the model computes on its blocks as under
+tensor parallelism, and the gradients go through the ZeRO
+reduce-scatter over ``fsdp`` and the mean over ``data``: a leaf with an
+``fsdp`` part comes back as that part, every other leaf summed over
+``fsdp`` and then ``data``; nothing is summed over ``tensor`` beyond
+what the model's own ``copy_to_line`` backwards sum.  The global norm
+sums each group of leaves over every line that cuts it.
 
 Expert parallelism (a mesh with ``data`` x ``expert`` or ``expert`` x
 ``tensor`` axes and a state placed by ``shard_train_state`` from a MoE
@@ -222,10 +237,13 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
     cut's ``full`` is the blocks (a cut whole leaf's block requires
     gradients, as its leaf did), and so is an expert-parallel one's and
     a pipeline stage's (its layers marked with their ``Stage``, the rest
-    whole).  On lines of one rank nothing is cut.  Only ``data``,
-    ``fsdp``, ``tensor``, ``expert`` and ``pipe`` may be larger than 1,
-    not ``tensor`` or ``expert`` beside ``fsdp``, and ``pipe`` beside
-    ``data`` alone (``parallel/sharding.py``)."""
+    whole).  Under ``fsdp`` x ``tensor`` a model's block is cut along
+    its ``fsdp`` dim too and ``full`` is the model's own parameters (its
+    marked tensor blocks and whole leaves), which the step gathers the
+    ``fsdp`` parts into.  On lines of one rank nothing is cut.  Only
+    ``data``, ``fsdp``, ``tensor``, ``expert`` and ``pipe`` may be larger
+    than 1, not ``expert`` beside ``fsdp``, and ``pipe`` beside ``data``
+    alone (``parallel/sharding.py``)."""
     sharding_lib.check_mesh(mesh)
     params = state.params
     if isinstance(params, sharding_lib.ShardedDict):
@@ -241,23 +259,34 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
     layout = {n: marked[n] or sharding_lib.zero_shard(
         tuple(p.shape), rules.spec_for(n), mesh) for n, p in params.items()}
     for n, s in marked.items():
-        if isinstance(s, sharding_lib.Stage):
+        if s is None and {"tensor", "expert"} & set(
+                sharding_lib.lines_of(layout[n])):
+            raise ValueError(f"{n} is a whole leaf, but the rules cut it as "
+                             f"{layout[n]}: a model computes on its blocks "
+                             f"only when built with the mesh (GPT(config, "
+                             f"mesh=), Bert(config, mesh), ...)")
+        if s is None or isinstance(s, sharding_lib.Stage):
             continue
-        want = None if s is None else sharding_lib.zero_shard(
-            s.full_shape(params[n].shape), rules.spec_for(n), mesh)
-        if want != s:
+        want = sharding_lib.zero_shard(s.full_shape(params[n].shape),
+                                       rules.spec_for(n), mesh)
+        # beside a tensor axis the rules also cut the block over fsdp
+        if sharding_lib.without(want, "fsdp") != s:
             raise ValueError(f"{n} is a block {s}, but the rules cut it as "
                              f"{want}: build the model and the rules with "
                              f"the same mesh and shard_kv")
-    # the leaves this placement cuts (a marked block is cut already)
-    cuts = {n: layout[n] if marked[n] is None else None for n in params}
+        layout[n] = want
+    # what this placement cuts of each leaf: a whole leaf's layout, or the
+    # fsdp part of a marked block (whose start along its own dim is the
+    # whole leaf's, the block being whole along it)
+    cuts = {n: layout[n] if marked[n] is None
+            else sharding_lib.part_on(layout[n], "fsdp") for n in params}
     names = set(params)
 
     def take(n, t):
         if cuts[n] is None:
             return t
         block = cuts[n].take(t)
-        if cuts[n].line != "fsdp":
+        if "fsdp" not in sharding_lib.lines_of(cuts[n]):
             block.requires_grad_(t.requires_grad)
         return block
 
@@ -278,9 +307,9 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
 
     blocks = {n: take(n, p) for n, p in params.items()}
     # the model computes on its blocks (tensor, expert) or its stage
-    # (pipe)
-    own = any(a in ("tensor", "expert", "pipe")
-              for s in layout.values() for a in sharding_lib.lines_of(s))
+    # (pipe), into which a ZeRO cut beside them gathers
+    lines = {a for s in layout.values() for a in sharding_lib.lines_of(s)}
+    own = bool(lines & {"tensor", "expert", "pipe"}) and "fsdp" not in lines
     shards = sharding_lib.ShardedDict(blocks, layout, mesh,
                                       full=dict(blocks) if own else params)
     return state._replace(params=shards, opt_state=place(state.opt_state))
@@ -290,7 +319,8 @@ def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
     """The parameters eval and ``generate`` read, of a training state:
     under a ZeRO layout every rank gathers its blocks into the model's own
     whole tensors (one all-gather over the ``fsdp`` line; every rank must
-    call); under a tensor-parallel layout the blocks themselves; under an
+    call), beside a ``tensor`` axis into the model's tensor blocks; under
+    a tensor-parallel layout the blocks themselves; under an
     expert-parallel one every MoE bank whole along its expert dim (one
     all-gather over the ``expert`` line: new tensors), so on ``data`` x
     ``expert`` the whole model, which a model built without the mesh
@@ -313,9 +343,11 @@ def gather_params(state: TrainState) -> Dict[str, torch.Tensor]:
 
 def _compute_params(params) -> Dict[str, torch.Tensor]:
     """The tensors a step computes on, of a ``ShardedDict`` of parameters:
-    the whole leaves gathered in place under ZeRO, the blocks or the
+    the whole leaves gathered in place under ZeRO (beside a ``tensor``
+    axis the model's tensor blocks, from their ``fsdp`` parts: one
+    all-gather over the ``fsdp`` line either way), the blocks or the
     stage themselves under tensor or pipeline parallelism."""
-    if params.line == "fsdp":
+    if "fsdp" in (params.line or ""):
         dp_lib.gather_shards(params, params.layout, params.mesh,
                              out=params.full)
     return dict(params.full)
@@ -652,7 +684,7 @@ def make_custom_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
         zero = zero_of(state)
         params = state.params if zero is None else _compute_params(zero)
         cut = zero is not None and zero.cut
-        zero_cut = cut and zero.line == "fsdp"
+        zero_cut = cut and "fsdp" in zero.line
         seen = {}
 
         def stats(g):

@@ -368,9 +368,12 @@ def test_refusals_under_tensor():
     beside = _virtual({"seq": 2, "tensor": 2}, 0)
     with pytest.raises(NotImplementedError, match="7.2b"):
         GPT(gpt_tiny(seq_axis="seq"), device="cpu", mesh=beside)
-    with pytest.raises(NotImplementedError, match="7.2b"):
-        GPT(gpt_tiny(), device="cpu", mesh=_virtual({"fsdp": 2,
-                                                     "tensor": 2}, 0))
+    # beside fsdp the model keeps its tensor blocks, cut as on a tensor
+    # line alone
+    beside_fsdp = GPT(gpt_tiny(), device="cpu",
+                      mesh=_virtual({"fsdp": 2, "tensor": 2}, 1))
+    assert sharding.marked_shard(beside_fsdp.word) == sharding.Shard(
+        0, 256, 256, 512, "tensor")
     model = GPT(gpt_tiny(dropout_rate=0.0), device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="7.2b"):
         model.decode_window_paged({}, torch.zeros(1, 2, dtype=torch.long),

@@ -141,21 +141,45 @@ def test_unported_axes_and_configs_raise():
     params = dict(model.named_parameters())
     opt = optim.adamw(1e-3)
     state = TrainState.create(params, opt.init(params))
-    for axes, item in (({"fsdp": 2, "tensor": 2}, "7.2b"),
+    for axes, item in (({"seq": 2, "tensor": 2}, "7.2b"),
                        ({"fsdp": 2, "expert": 2}, "7.2c"),
                        ({"pipe": 2, "fsdp": 2}, "7.3a"),
                        ({"fsdp": 2, "seq": 2}, "7.5")):
         with pytest.raises(NotImplementedError, match=item):
             train.shard_train_state(state, _virtual(axes, 0),
                                     model.partition_rules(fsdp=True))
-    # a tensor axis cuts now (rank 1 sits at tensor 1); beside fsdp, or
-    # over both axes at once, it still raises
+    # tensor beside fsdp places: a model built on rank 3 of the mesh keeps
+    # its tensor blocks, the state their fsdp parts, the moments alike;
+    # a whole model's leaves under those rules raise
+    tf = _virtual({"fsdp": 2, "tensor": 2}, 3)
+    with pytest.raises(ValueError, match="mesh"):
+        train.shard_train_state(state, tf, model.partition_rules(fsdp=True))
+    tp_model = GPT(gpt_tiny_cfg(), device="cpu", mesh=tf)
+    tp_params = dict(tp_model.named_parameters())
+    placed = train.shard_train_state(
+        TrainState.create(tp_params, opt.init(tp_params)), tf,
+        tp_model.partition_rules(fsdp=True))
+    assert placed.params.line == "fsdp+tensor"
+    assert placed.params.full["word"] is tp_params["word"]
+    d = gpt_tiny_cfg().hidden_size
+    word = placed.params.layout["word"]
+    assert [(p.dim, p.start, p.length, p.line) for p in word.parts] == [
+        (0, 256, 256, "tensor"), (1, d // 2, d // 2, "fsdp")]
+    assert torch.equal(placed.params["word"],
+                       tp_params["word"].detach()[:, d // 2:])
+    assert placed.opt_state.inner["m"]["word"].shape == (256, d // 2)
+    # a tensor axis cuts (rank 1 sits at tensor 1), and beside fsdp a
+    # leaf is cut over both along two dims; over both axes on one dim it
+    # still raises
     assert sharding.block_of((8, 8), ("tensor", None),
                              _virtual({"data": 2, "tensor": 2}, 1)) == [
         (4, 4), (0, 8)]
+    assert sharding.block_of((8, 8), ("tensor", "fsdp"),
+                             _virtual({"fsdp": 2, "tensor": 2}, 1)) == [
+        (4, 4), (0, 4)]
     with pytest.raises(NotImplementedError, match="7.2b"):
-        sharding.block_of((8, 8), ("tensor", "fsdp"),
-                          _virtual({"fsdp": 2, "tensor": 2}, 0))
+        sharding.zero_shard((8, 8), (("fsdp", "tensor"), None),
+                            _virtual({"fsdp": 2, "tensor": 2}, 0))
     # a MoE config's table takes the expert rows, which a ZeRO mesh
     # prunes to whole banks
     moe = GPT(gpt_tiny_cfg(moe_experts=2), device="cpu")
@@ -415,6 +439,16 @@ def test_cut_state_refuses_what_it_cannot_do():
     with pytest.raises(NotImplementedError, match="lamb"):
         train.make_custom_train_step(model.lm_loss_fn(), opt,
                                      mesh=state.params.mesh)(state, batch)
+    # so does a state cut over fsdp beside tensor
+    tf = _virtual({"fsdp": 2, "tensor": 2}, 0)
+    tp_model = GPT(gpt_tiny_cfg(), device="cpu", mesh=tf)
+    tp_params = dict(tp_model.named_parameters())
+    tf_state = train.shard_train_state(
+        TrainState.create(tp_params, opt.init(tp_params)), tf,
+        tp_model.partition_rules(fsdp=True))
+    with pytest.raises(NotImplementedError, match="lamb"):
+        train.make_custom_train_step(tp_model.lm_loss_fn(), opt,
+                                     mesh=tf)(tf_state, batch)
     # the plain checkpoint refuses it
     with pytest.raises(ValueError, match="sharded_checkpoint"):
         train.checkpoint.save("/nonexistent", 0, state)
