@@ -210,7 +210,7 @@ no result lines:
    samples/s) and profiled (the card's busy share, ``obs.device
    .device_busy``); then ``python -m distributed_tensorflow_tpu_torch
    .example`` run in-process at ``example.py``'s configuration for 50
-   epochs, or 10 when that epoch's time says 50 would not fit
+   epochs, or 8 when that epoch's time says 50 would not fit
    ``XOR_BUDGET_S``: the last printed val accuracy above 0.95, Adam
    launches exactly 6 a step and no other kernel, a checkpoint at the
    last step and the graph record in the event file.  (d) The entry point
@@ -235,12 +235,12 @@ no result lines:
    5 ``train_on_batch`` steps, and the MNIST MLP for 5 ``TrainSession``
    steps (``CONV_TOL``, ``SEQ_*`` tolerances).  (c) ``python -m
    distributed_tensorflow_tpu_torch.example2`` in-process at its defaults
-   but ``EX2_EPOCHS`` (8 of 50 epochs): val accuracy at each epoch line,
+   but ``EX2_EPOCHS`` (7 of 50 epochs): val accuracy at each epoch line,
    the first above 0.95,
    Adam launches exactly 6 a step and nothing else; beside it one epoch
    of the same ``fit`` timed, profiled (busy share) and its host syncs
    counted.  (d) ``...outline_keras`` at its defaults but
-   ``CIFAR_EPOCHS`` (3 epochs of batch 256 on the synthetic CIFAR-10,
+   ``CIFAR_EPOCHS`` (2 epochs of batch 256 on the synthetic CIFAR-10,
    crop + flip): final val accuracy
    above 0.35, examples/s, the augment's host ms a batch, Adam 12 a
    step; one epoch probed as in (c).  (e) ``...outline_tensorflow`` at
@@ -578,6 +578,29 @@ no result lines:
    (g)'s 2 + 2-layer f32 copy).  ``--tpf-seeds`` runs the phase alone
    (without the kernel times) over several seeds and logs its readings
    (the readings ``TPF_LIMITS`` comes from).
+31. tsp (after phase 30): ``tensor`` beside ``seq``, the JAX package's
+   multi-chip BERT mesh ``{"seq": 2, "tensor": 2}``.  (a) First, on a
+   quiet card, the ring-flash block routes at a rank's heads on a
+   virtual ring of 2 (BERT-base [16, 256, 6, 64] bf16 with the key
+   plane; the Llama recipe [2, 1024, 16 q / 4 kv, 128] bf16, full and
+   diag), forward and dQ + dK/dV, and LayerNorm at a rank's rows ([4096,
+   768] f32), each against its plain version, timed beside it, SDPA or
+   ``F.layer_norm`` and the bound; then (d)'s plain reference.  Four
+   ranks of this script (``--ranks-for=tsp``) on the one card over gloo
+   with CUDA tensors run (c) and (d) while this process runs (b) and
+   (c)'s reference.  (b) BERT-base MLM (16 x 512, key padding, bf16) on
+   ``{"seq": 1, "tensor": 1}`` against the same model on ``{"seq": 1}``,
+   in turns: bit-equal, exact launches, no collective.  (c) The same
+   model in f32 (TF32 off) on ``{"seq": 2, "tensor": 2}``: every rank's
+   losses equal; the first losses, the first gradient norm and the
+   parameters' gap after the first step against their movement within
+   ``TSP_LIMITS`` of a plain f32 run; each rank's kernel launches and the
+   lines' collectives exact a step (``tsp_collectives``).  (d) The Llama
+   recipe at Llama-3-8B's widths (2 layers, 2 x 2048, bf16,
+   ``shard_kv=True``), forward and loss on the ranks' mesh: every rank's
+   loss equal and within ``TSP_LLAMA_TOL`` of the plain model's, the
+   launches by route exact.  ``--tsp-seeds`` runs the phase alone
+   (without (a)) over several seeds and logs its readings.
 
 The last lines are the kernels' JSON record (``launches`` from phases 4,
 6 and 9; ``decode_launches`` for the kernels phases 11, 12 and 14 ran;
@@ -602,8 +625,10 @@ training kernels of phase 29's (a) arms and (b)'s two ranks, whose (c)
 rows join ``tp_shapes``; ``tpf_launches`` for the training kernels of
 phase 30's (a) arms, (b)'s reference and its four ranks, and on the
 Adam and LayerNorm records ``tpf_shapes``, the times at a rank's
-shapes), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+shapes; ``tsp_launches`` for the kernels of phase 31's (b) arms, (c)'s
+reference and ranks and (d)'s plain model and ranks, and on the flash
+and LayerNorm records ``tsp_shapes``, (a)'s times at a rank's shapes),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -695,7 +720,8 @@ ACCUM_FIRST_TOL, ACCUM_LOSS_TOL = 1e-4, 3e-3
 # XOR_EPOCHS (the reference's default) when one measured epoch says that
 # (c) and (d) fit XOR_BUDGET_S, else XOR_EPOCHS_SHORT (6,000 steps; the
 # JAX package's convergence test passes 0.95 in about 9,600; the card's
-# runs passed it at epoch 5 and read 0.976 at epoch 10); the last val
+# runs passed it at epoch 5 and read 0.976 at epoch 10; 8 since phase 31
+# came, when a whole run took 1,127 s on a slow host with 10); the last val
 # accuracy must pass XOR_ACC
 # (the reference's oracle, tests/test_convergence.py).  The budget keeps
 # the whole script near half its time limit: 50 epochs took 106 s of an
@@ -708,7 +734,7 @@ XOR_SHAPES = ((64, 128), (128,), (128, 128), (128,), (128, 32), (32,))
 # 600-step epoch, and the steps of an epoch are alike
 PROBE_PROFILED_PART = 4
 XOR_BATCH, XOR_STEPS_PER_EPOCH = 50, 600
-XOR_EPOCHS, XOR_EPOCHS_SHORT, XOR_BUDGET_S, XOR_ACC = 50, 10, 60.0, 0.95
+XOR_EPOCHS, XOR_EPOCHS_SHORT, XOR_BUDGET_S, XOR_ACC = 50, 8, 60.0, 0.95
 # (b) card against CPU in f32 with TF32 off, 20 steps of adam(1e-3):
 # losses within 1e-6 relative (summation order in the GEMMs and the
 # mean), parameters within 1e-5 absolute; (e) the data-parallel step at
@@ -743,15 +769,16 @@ CIFAR_SHAPES = ((3, 3, 3, 32), (32,), (3, 3, 32, 32), (32,),
 MNIST_SHAPES = ((784, 128), (128,), (128, 10), (10,))
 # (d) outline_keras runs CIFAR_EPOCHS of its epochs (10 until phase 27 came
 # and needed the room: the 4th epoch's val accuracy read 0.9812 against
-# the gate's 0.35 on an H100 80GB HBM3; 4 until phase 29 needed more)
-CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 3, 1024, 5
+# the gate's 0.35 on an H100 80GB HBM3; 4 until phase 29 needed more, 3
+# until phase 31 did: the 2nd read 0.9519)
+CIFAR_BATCH, CIFAR_EPOCHS, MNIST_BATCH, MNIST_EPOCHS = 256, 2, 1024, 5
 CIFAR_ACC, MNIST_ACC = 0.35, 0.9
 SEQ_REF_STEPS, SEQ_REF_BATCH = 5, 64
 # (c) example2's entry point runs EX2_EPOCHS of its 50 (the first epoch
 # past 0.95 was the 6th in every card run, and the 10th read 0.976; 50
-# took 98 s, 20 took 46-63 s; 10 until phase 27 needed the room: the 8th
-# read 0.9685 on an H100 80GB HBM3)
-EX2_EPOCHS = 8
+# took 98 s, 20 took 46-63 s; 10 until phase 27 needed the room, 8 until
+# phase 31 did: the 7th read 0.9673 on an H100 80GB HBM3)
+EX2_EPOCHS = 7
 CONV_TOL, SEQ_GRAD_TOL, SEQ_CNN_LOSS_RTOL = 1e-5, 3e-5, 1e-5
 SEQ_STEPS_LOSS_RTOL, SEQ_UPDATE_TOL = 1e-2, 0.3
 SEQ_LOSS_RTOL, SEQ_PARAM_TOL = 1e-5, 1e-5
@@ -7655,12 +7682,13 @@ def _sp_valid(torch, b, s, ring, dev, gen):
     return torch.arange(s, device=dev)[None, :] < lengths[:, None]
 
 
-def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal):
-    """(a) at one shape: the virtual ring against the plain whole-sequence
-    flash (forward, lse, dQ, dK, dV; phase 3's bf16 tolerance), exact
-    launches by route, no NaN; then each block route timed beside its
-    plain version, SDPA at the block shape and the bound.  Returns the
-    routes' records."""
+def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal,
+                  ring=SP_RING):
+    """(a) at one shape: the virtual ring of ``ring`` ranks against the
+    plain whole-sequence flash (forward, lse, dQ, dK, dV; phase 3's bf16
+    tolerance), exact launches by route, no NaN; then each block route
+    timed beside its plain version, SDPA at the block shape and the
+    bound.  Returns the routes' records."""
     import torch.nn.functional as F
 
     from distributed_tensorflow_tpu_torch.ops.kernels import \
@@ -7673,16 +7701,16 @@ def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal):
         return torch.randn(b, s, heads, hd, generator=gen,
                            device=dev).to(torch.bfloat16)
     q, k, v, do = rnd(h), rnd(hk), rnd(hk), rnd(h)
-    valid = None if causal else _sp_valid(torch, b, s, SP_RING, dev, gen)
+    valid = None if causal else _sp_valid(torch, b, s, ring, dev, gen)
     fa.LAUNCHES.clear()
     rf.LAUNCHES.clear()
-    got = virtual_ring_flash(torch, q, k, v, valid, do, SP_RING, causal)
+    got = virtual_ring_flash(torch, q, k, v, valid, do, ring, causal)
     torch.cuda.synchronize()
     launches = dict(rf.LAUNCHES)
     kernel_launches = {n: fa.LAUNCHES[n] for n in (
         "flash_forward", "flash_backward_dq", "flash_backward_dkv")}
-    n_full = SP_RING * (SP_RING - 1) // 2 if causal else SP_RING ** 2
-    n_diag = SP_RING if causal else 0
+    n_full = ring * (ring - 1) // 2 if causal else ring ** 2
+    n_diag = ring if causal else 0
     want_launches = {f"{p}_{r}": n for p in ("forward", "dq", "dkv")
                      for r, n in (("full", n_full), ("diag", n_diag)) if n}
     want_out, want_lse = fa.flash_forward_plain(q, k, v, valid, causal)
@@ -7698,7 +7726,7 @@ def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal):
     log({"check": "ring_flash virtual ring", "case": name,
          "shape": f"q[{b},{s},{h},{hd}] kv heads {hk} bf16 "
                   f"{'causal' if causal else 'bidirectional kv_valid'}",
-         "ring": SP_RING, "errors": errs, "launches": launches,
+         "ring": ring, "errors": errs, "launches": launches,
          "expected_launches": want_launches,
          "kernel_launches": kernel_launches, "nan": nan,
          "finite": finite, "card": smi})
@@ -7715,7 +7743,7 @@ def _sp_ring_case(torch, args, smi, name, b, s, h, hk, hd, causal):
 
     # the block routes at the block shape: rank 1 holding rank 0's block
     # (full) and rank 0 its own (diag), from that rank's global lse and D
-    n = s // SP_RING
+    n = s // ring
     q0, k0, v0, do0 = (x[:, :n].contiguous() for x in (q, k, v, do))
     val0 = None if valid is None else valid[:, :n].contiguous()
     out0, lse0 = fa.flash_forward(q0, k0, v0, val0, causal)
@@ -10008,39 +10036,11 @@ def tpf_rank_main(args) -> int:
 
 def _tpf_kernel_rows(torch, args, smi):
     """The kernels at a rank's shapes: {kernel: {case: record}}."""
-    import torch.nn.functional as F
-
-    from distributed_tensorflow_tpu_torch.ops.kernels import fused
     shape = list(TPF_ADAM_SHAPE)
     adam = _zero_adam_shard(torch, args, smi, TPF_ADAM_SHAPE,
                             ("tpf", f"fused_adam at {shape} f32"))
-    gen = torch.Generator("cuda").manual_seed(args.seed)
-    rows, d, eps = TPF_LN_ROWS, 512, 1e-6
-    x = torch.randn(rows, d, generator=gen, device="cuda") * 2 + 0.5
-    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
-    err = (fused.fused_layernorm(x, gamma, beta, eps)
-           - fused.layernorm_plain(x, gamma, beta, eps)).abs().max().item()
-    if not err <= F32_TOL:
-        raise AssertionError(f"layernorm at [{rows}, {d}] f32: {err}")
-
-    def kern():
-        return fused.fused_layernorm(x, gamma, beta, eps)
-
-    def lib():
-        return F.layer_norm(x, (d,), gamma, beta, eps)
-    b_ms, b_by = bound_ms(2 * x.numel() * 4 + 2 * d * 4, 8.0 * x.numel(),
-                          F32_FLOPS_PER_S)
-    ln = {"shape": [rows, d], "max_abs_err": err,
-          "ms": time_ms(torch, kern, args.iters),
-          "graph_ms": graph_ms(torch, kern, args.iters),
-          "plain_ms": time_ms(torch, lambda: fused.layernorm_plain(
-              x, gamma, beta, eps), max(5, args.iters // 10)),
-          "library_ms": time_ms(torch, lib, args.iters),
-          "library_graph_ms": graph_ms(torch, lib, args.iters),
-          "library": "F.layer_norm", "bound_ms": b_ms, "bound_by": b_by,
-          "card": smi}
-    log({"tpf": f"layernorm at [{rows}, {d}] f32", **ln})
+    rows, d = TPF_LN_ROWS, 512
+    ln = _ln_row(torch, args, smi, rows, d, 1e-6, "tpf")
     adam["card"] = smi
     return {"fused_adam": {f"adam {shape} f32": adam},
             "layernorm": {f"layernorm [{rows}, {d}] f32": ln}}
@@ -10225,6 +10225,493 @@ def tpf_spread(torch, np, args, smi) -> int:
     return 1 if failed else 0
 
 
+# -- phase 31: tensor beside seq ----------------------------------------------
+# The JAX package's multi-chip BERT mesh, ``{"seq": 2, "tensor": 2}``: a
+# rank's Megatron blocks on its shard of the sequence, ring-flash over its
+# seq line on its heads.  (a) The kernels at a rank's shapes, timed in this
+# process before the ranks start: the ring-flash block routes on a virtual
+# ring of 2 (phase 25's ``_sp_ring_case``: the forward, and dQ + dK/dV
+# from the global lse and D, beside their plain versions, SDPA on the same
+# block and its autograd backward replayed from a graph at the end of the
+# run, and the bound) at BERT-base's rank heads (block [16, 256, 6, 64]
+# bf16, full route, the key plane) and at the Llama recipe's (Llama-3-8B
+# widths: block [2, 1024, 16 q / 4 kv, 128] bf16, full and diag routes),
+# and LayerNorm at a rank's rows of (c) ([4096, 768] f32, eps 1e-12)
+# beside ``F.layer_norm``.  (d)'s plain reference runs next (Llama-3-8B
+# widths cut to TSP_LLAMA_LAYERS layers, batch TSP_LLAMA_BATCH x
+# TSP_LLAMA_LEN, bf16: its loss kept on the host, the model freed), then
+# four ranks of this script (``--ranks-for=tsp``) start on the one card
+# over gloo with CUDA tensors and run (c) and (d) while this process runs
+# (b) and (c)'s reference.  (b) BERT-base MLM at full width on a line of
+# one, ``{"seq": 1, "tensor": 1}`` with ``seq_axis``, TSP_BERT_BATCH x
+# TSP_BERT_LEN with key padding, bf16, adamw(1e-4), clip 1.0, against the
+# same model on ``{"seq": 1}`` (no tensor axis), the arms in turns (line,
+# plain, plain, line), TSP_WARMUP + TSP_STEPS steps each: a line of one
+# runs the same code, so the losses, the gradient norm and every parameter
+# are equal to the bit; the kernels' launches exact.  (c) The same model
+# from the same weights and batch in f32 with TF32 off on ``{"seq": 2,
+# "tensor": 2}`` (each rank 256 positions of the 16 rows and 6 of the 12
+# heads; the rows whose keys on rank 1's block are all padding give that
+# block no weight), held to a plain f32 run of this process (the model
+# without ``seq_axis``): every rank's losses equal; within TSP_LIMITS the
+# first ``losses`` losses, the first gradient norm (relative) and the
+# parameters' gap after the first step over their movement (phase 29's
+# measure over every TSP_SAMPLE-th element of the blocks a rank holds);
+# each rank's kernel launches and the lines' collectives exact a step
+# (``tsp_collectives``); each rank's peak memory logged beside (b)'s.
+# (d) The Llama recipe's forward and loss (``shard_kv=True``: a rank's 16
+# of the 32 query heads and 4 of the 8 kv heads, its 1024 positions) on
+# the ranks' mesh against the plain model's loss: every rank's equal,
+# within TSP_LLAMA_TOL of the plain one.  Why forward only: a training
+# step here would all-reduce about 3 GB of f32 gradients a rank through
+# host memory over gloo (tens of seconds a step, ~12 GB of state a rank);
+# the four-rank Llama step waits for a four-card cell (ROADMAP).  Files
+# under TSP_DIR, removed at the phase's end.  The ranks' step times
+# measure gloo's copies through the host, not a parallel speed.
+# ``--tsp-seeds 0,1,2`` read (H100 80GB HBM3, 700 W; PERF.md), the largest
+# of the three seeds: first two losses 9.5e-7 apart (one f32 ulp at
+# 10.4), gradient norm 9.7e-8, gap 1.6e-5 of the movement, (d)'s loss
+# 2.8e-4 from the plain model's; TSP_LIMITS and TSP_LLAMA_TOL are about
+# 10x those.
+TSP_WARMUP, TSP_STEPS = 1, 2
+TSP_AXES = {"seq": 2, "tensor": 2}
+TSP_RANKS = 4
+TSP_BERT_BATCH, TSP_BERT_LEN = 16, 512
+TSP_LLAMA_LAYERS, TSP_LLAMA_BATCH, TSP_LLAMA_LEN = 2, 2, 2048
+# losses checked, loss (absolute), gradient norm (relative), parameter gap
+# over movement
+TSP_LIMITS = {"losses": 2, "loss": 1e-5, "grad": 1e-6, "param": 1.6e-4}
+TSP_LLAMA_TOL = 2.8e-3
+TSP_SAMPLE = 16
+TSP_RANK_TIMEOUT_S = 600
+TSP_DIR = Path("build") / "tsp"
+
+
+def tsp_collectives(layers):
+    """The collectives of one training step of BERT (``layers`` layers)
+    on TSP_AXES.  The tensor line: forward the embedding's sum, 2
+    row-parallel sums a layer, the cross entropy's 2 all-reduces and the
+    MLM transform's and the argmax's gathers; backward 2 column-parallel
+    gradient sums a layer, the MLM transform's and the head's.  The seq
+    line: the ring's rotations (one a layer forward, two backward: the
+    blocks' one and the accumulators' way home), each rotated tensor
+    staged through host memory on its way out and in (gloo: forward K, V
+    and the key plane; backward those and the dK/dV accumulators, then the
+    accumulators home: 20 copies a layer) and the loss's sum; the
+    gradient mean over the seq line (``data_parallel.replicas``) and the
+    clip's norm over the tensor line.  No data line."""
+    return {"tp_all_reduce": 4 * layers + 5, "tp_all_gather": 2,
+            "seq_p2p": 3 * layers, "seq_p2p_host": 20 * layers,
+            "seq_all_reduce": 1,
+            "seq_all_gather": 0, "all_reduce": 1, "stats_all_reduce": 1,
+            "batch_all_reduce": 0, "ep_all_reduce": 0}
+
+
+def _tsp_counts(torch):
+    """The kernels' launches by ring route (phase 25's reader), RMSNorm's,
+    and the collectives: ``parallel.data_parallel``'s and the seq line's
+    (``parallel.ring``'s, as ``seq_<kind>``)."""
+    from distributed_tensorflow_tpu_torch.parallel import data_parallel, ring
+    counts = _sp_counts(torch)
+    counts.update(data_parallel.LAUNCHES)
+    counts.update({f"seq_{k}": n for k, n in ring.LAUNCHES.items()})
+    return counts
+
+
+def _tsp_bert_per_step(ring):
+    """BERT-base's kernel launches a step on a rank of a seq ring of
+    ``ring`` ranks (0: the model without ``seq_axis``, no ring): flash
+    forward, dK/dV and dQ once a layer and block (bidirectional: every
+    block full, ``ring`` a layer), LayerNorm the embeddings', 2 a layer
+    and the MLM head's, Adam once a leaf (phase 22's 204)."""
+    L = 12
+    flash = max(ring, 1) * L
+    return {"flash_forward": flash, "flash_backward_dkv": flash,
+            "flash_backward_dq": flash, "layernorm": 2 * L + 2,
+            "rmsnorm": 0, "fused_adam": 204, "ring_forward_full": ring * L,
+            "ring_dq_full": ring * L, "ring_dkv_full": ring * L,
+            "ring_forward_diag": 0, "ring_dq_diag": 0, "ring_dkv_diag": 0}
+
+
+def _tsp_bert_build(torch, np, seed, mesh, dtype):
+    """(config, state, step, batch) of a BERT-base MLM arm from ``seed``'s
+    weights: with ``seq_axis`` on ``mesh`` (the state placed by the
+    model's rules), or without it and a mesh (None); the batch has
+    ragged key padding, its first row's keys all in the first quarter,
+    and a 15% MLM mask on the real tokens."""
+    from distributed_tensorflow_tpu_torch import (TrainState, adamw,
+                                                  make_custom_train_step,
+                                                  train)
+    from distributed_tensorflow_tpu_torch.models.bert import Bert, BertConfig
+    c = BertConfig(dtype=dtype, dropout_rate=0.0,
+                   seq_axis=None if mesh is None else "seq")
+    model = Bert(c, mesh)
+    params = model.init(torch.Generator("cuda").manual_seed(seed))
+    opt = adamw(TRAIN_LR, mask=model.decay_mask)
+    state = TrainState.create(params, opt.init(params))
+    if mesh is not None:
+        state = train.shard_train_state(state, mesh, model.partition_rules())
+    step = make_custom_train_step(model.mlm_loss_fn(), opt, seed=seed,
+                                  mesh=mesh, grad_clip_norm=1.0)
+    rng = np.random.default_rng(seed)
+    b, s = TSP_BERT_BATCH, TSP_BERT_LEN
+    lengths = rng.integers(s // 4, s + 1, b)
+    lengths[0] = s // 4 + 3
+    real = np.arange(s)[None] < lengths[:, None]
+    batch = {"input_ids": rng.integers(0, c.vocab_size, (b, s)),
+             "labels": rng.integers(0, c.vocab_size, (b, s)),
+             "mlm_mask": (rng.random((b, s)) < 0.15) & real,
+             "attention_mask": real}
+    batch = {k: torch.from_numpy(v.astype(np.int32)).cuda()
+             for k, v in batch.items()}
+    return c, state, step, batch
+
+
+def _tsp_bert_arm(torch, np, seed, mesh, dtype, first=None, start=None):
+    """One BERT arm's run: (its record, its state after the steps).
+    ``first(state)`` runs after the first step; ``start``, when given, is
+    filled with a copy of the parameters before it."""
+    c, state, step, batch = _tsp_bert_build(torch, np, seed, mesh, dtype)
+    if start is not None:
+        start.update({k: p.detach().clone() for k, p in state.params.items()})
+    last = [state]
+
+    def stepped(state, batch):
+        last[0], m = step(state, batch)
+        return last[0], m
+    (losses, grad_norm, wall, peak), _, counts = _driven(
+        torch, lambda: _sp_steps(
+            torch, np, stepped, state, batch, TSP_WARMUP, TSP_STEPS,
+            None if first is None else lambda: first(last[0])), _tsp_counts)
+    n_steps = TSP_WARMUP + TSP_STEPS
+    ring = 0 if mesh is None else mesh.axis_size("seq")
+    step_s = wall / TSP_STEPS
+    rec = {"losses": losses, "grad_norm": grad_norm,
+           "step_ms": step_s * 1e3,
+           "tokens_per_s": TSP_BERT_BATCH * TSP_BERT_LEN / step_s,
+           "peak_memory_gb": peak, "batch": TSP_BERT_BATCH,
+           "launches": counts,
+           "launches_expected": {k: n * n_steps for k, n in
+                                 _tsp_bert_per_step(ring).items()}}
+    return rec, last[0]
+
+
+def _tsp_llama(torch, np, seed, mesh):
+    """(d): (the loss of the Llama recipe's forward, its launches, peak
+    GB) at Llama-3-8B's widths cut to TSP_LLAMA_LAYERS layers, bf16,
+    ``shard_kv=True``, on ``mesh`` with ``seq_axis`` (None: the plain
+    model), weights from ``seed``; the model is freed before it
+    returns."""
+    from distributed_tensorflow_tpu_torch import GPT, llama3_8b
+    config = llama3_8b(dtype=torch.bfloat16, num_layers=TSP_LLAMA_LAYERS,
+                       max_position=TSP_LLAMA_LEN)
+    if mesh is not None:
+        config = dataclasses.replace(config, seq_axis="seq")
+    model = GPT(config, device="cuda", mesh=mesh, shard_kv=True,
+                generator=torch.Generator("cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed + 2)
+    ids = torch.from_numpy(rng.integers(
+        0, config.vocab_size, (TSP_LLAMA_BATCH, TSP_LLAMA_LEN + 1))).cuda()
+    params = dict(model.named_parameters())
+    loss_fn = model.lm_loss_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (loss, _), _, counts = _driven(
+            torch, lambda: loss_fn(params, (), {"input_ids": ids}, None,
+                                   False), _tsp_counts)
+    out = float(loss)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, params, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts, peak
+
+
+def _tsp_llama_expected(seq_index):
+    """(d)'s kernel launches and collectives on the rank at ``seq_index``
+    of a causal ring of 2 (None: the plain model): rank 0 of the line
+    holds its own block only (diag), rank 1 rank 0's too (full); RMSNorm
+    2 a layer and ``ln_f``.  The tensor line: the embedding's sum, 2
+    row-parallel sums a layer, the cross entropy's 2 all-reduces and the
+    argmax's gather; the seq line: one rotation a layer (K and V staged
+    through host memory out and in) and the loss's sum."""
+    L = TSP_LLAMA_LAYERS
+    full = 0 if seq_index is None else seq_index * L
+    want = {"flash_forward": L + full, "ring_forward_full": full,
+            "ring_forward_diag": 0 if seq_index is None else L,
+            "rmsnorm": 2 * L + 1, "layernorm": 0, "fused_adam": 0,
+            "flash_backward_dq": 0, "flash_backward_dkv": 0}
+    if seq_index is not None:
+        want.update({"tp_all_reduce": 2 * L + 3, "tp_all_gather": 1,
+                     "seq_p2p": L, "seq_p2p_host": 4 * L,
+                     "seq_all_reduce": 1, "all_reduce": 0})
+    return want
+
+
+def tsp_rank_main(args) -> int:
+    """One rank of (c) and (d), a process of this script: results to
+    TSP_DIR (``rank<r>.json``; ``rank<r>_first.pt``: each block's box and
+    its sample after (c)'s first step)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import parallel
+    r = args.rank
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{args.rank_port}",
+        world_size=TSP_RANKS, rank=r,
+        timeout=datetime.timedelta(seconds=TSP_RANK_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh(TSP_AXES)
+        first = {}
+        with _no_tf32(torch):
+            rec, state = _tsp_bert_arm(
+                torch, np, args.seed, mesh, torch.float32,
+                lambda st: first.update(_tpf_samples(st)))
+        torch.save(first, TSP_DIR / f"rank{r}_first.pt")
+        rec["coords"] = [mesh.axis_index("seq"), mesh.axis_index("tensor")]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        loss, counts, peak = _tsp_llama(torch, np, args.seed, mesh)
+        rec["llama"] = {"loss": loss, "launches": counts,
+                        "peak_memory_gb": peak}
+        (TSP_DIR / f"rank{r}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _ln_row(torch, args, smi, rows, d, eps, phase):
+    """LayerNorm at ``[rows, d]`` f32 against its plain version: its ms
+    and graph ms beside the plain version's, ``F.layer_norm``'s and the
+    bound; logged under ``phase``."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.ops.kernels import fused
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    x = torch.randn(rows, d, generator=gen, device="cuda") * 2 + 0.5
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    err = (fused.fused_layernorm(x, gamma, beta, eps)
+           - fused.layernorm_plain(x, gamma, beta, eps)).abs().max().item()
+    if not err <= F32_TOL:
+        raise AssertionError(f"layernorm at [{rows}, {d}] f32: {err}")
+
+    def kern():
+        return fused.fused_layernorm(x, gamma, beta, eps)
+
+    def lib():
+        return F.layer_norm(x, (d,), gamma, beta, eps)
+    b_ms, b_by = bound_ms(2 * x.numel() * 4 + 2 * d * 4, 8.0 * x.numel(),
+                          F32_FLOPS_PER_S)
+    ln = {"shape": [rows, d], "max_abs_err": err,
+          "ms": time_ms(torch, kern, args.iters),
+          "graph_ms": graph_ms(torch, kern, args.iters),
+          "plain_ms": time_ms(torch, lambda: fused.layernorm_plain(
+              x, gamma, beta, eps), max(5, args.iters // 10)),
+          "library_ms": time_ms(torch, lib, args.iters),
+          "library_graph_ms": graph_ms(torch, lib, args.iters),
+          "library": "F.layer_norm", "bound_ms": b_ms, "bound_by": b_by,
+          "card": smi}
+    log({phase: f"layernorm at [{rows}, {d}] f32", **ln})
+    return ln
+
+
+def _tsp_kernel_rows(torch, args, smi):
+    """(a): ({case: the ring routes' records}, the LayerNorm record)."""
+    from distributed_tensorflow_tpu_torch import llama3_8b
+    ll = llama3_8b()
+    t = TSP_AXES["tensor"]
+    routes = {
+        "bert_base tsp": _sp_ring_case(
+            torch, args, smi, "bert_base tsp", TSP_BERT_BATCH, TSP_BERT_LEN,
+            12 // t, 12 // t, 64, False, ring=TSP_AXES["seq"]),
+        "llama3_8b tsp": _sp_ring_case(
+            torch, args, smi, "llama3_8b tsp", TSP_LLAMA_BATCH,
+            TSP_LLAMA_LEN, ll.num_heads // t, ll.kv_heads // t, ll.head_dim,
+            True, ring=TSP_AXES["seq"])}
+    rows = TSP_BERT_BATCH * TSP_BERT_LEN // TSP_AXES["seq"]
+    ln = _ln_row(torch, args, smi, rows, 768, 1e-12, "tsp")
+    return routes, ln
+
+
+def _tsp_line_of_one(torch, np, args, smi):
+    """(b): returns (the launches over its arms, its largest peak GB)."""
+    from distributed_tensorflow_tpu_torch import parallel
+    meshes = {"line": parallel.make_mesh({"seq": 1, "tensor": 1}),
+              "plain": parallel.make_mesh({"seq": 1})}
+    launches = collections.Counter()
+    peak, prev = 0.0, None
+    for arm in ("line", "plain", "plain", "line"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, state = _tsp_bert_arm(torch, np, args.seed, meshes[arm],
+                                   torch.bfloat16)
+        log({"tsp": f"(b) {arm}", "mesh": meshes[arm].shape,
+             "steps": TSP_STEPS, **rec, "card": smi})
+        _zoo_expect(f"tsp (b) {arm}", rec["launches"],
+                    rec["launches_expected"])
+        extra = {k: v for k, v in rec["launches"].items()
+                 if k not in rec["launches_expected"] and v}
+        if extra:
+            raise AssertionError(f"tsp (b) {arm}: collectives on a line of "
+                                 f"one: {extra}")
+        launches.update({k: v for k, v in rec["launches"].items()
+                         if k in rec["launches_expected"]})
+        peak = max(peak, rec["peak_memory_gb"])
+        now = (rec["losses"], rec["grad_norm"],
+               {k: p.detach().clone() for k, p in state.params.items()})
+        del state
+        if prev is not None and prev[0] is not None:
+            same = (prev[0] == now[0] and prev[1] == now[1] and all(
+                torch.equal(prev[2][k], now[2][k]) for k in now[2]))
+            log({"tsp": "(b) line against plain", "bit_equal": same})
+            if not same:
+                raise AssertionError("tsp (b): a line of one differs from "
+                                     "the model without a tensor axis")
+            now = (None,)
+        prev = now
+    return launches, peak
+
+
+def check_tsp(torch, np, args, smi, timings=True):
+    """Phase 31, tensor beside seq: returns (the kernels' launches over
+    (b)'s arms, (c)'s reference and ranks and (d)'s ranks, the ring
+    routes' records by case and LayerNorm's record of (a); none without
+    ``timings``)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(TSP_DIR, ignore_errors=True)
+    TSP_DIR.mkdir(parents=True)
+    routes, ln = _tsp_kernel_rows(torch, args, smi) if timings else ({},
+                                                                     None)
+    torch.cuda.empty_cache()
+    plain_llama, counts, llama_peak = _tsp_llama(torch, np, args.seed, None)
+    _zoo_expect("tsp (d) plain", counts, _tsp_llama_expected(None))
+    launches = collections.Counter({k: v for k, v in counts.items()
+                                    if not k.startswith("ring_")})
+    t0 = time.perf_counter()
+    ranks = _start_ranks(args, _free_port(), phase="tsp", world=TSP_RANKS)
+    try:
+        line_launches, line_peak = _tsp_line_of_one(torch, np, args, smi)
+        launches.update(line_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        start, after = {}, {}
+        with _no_tf32(torch):
+            plain, _ = _tsp_bert_arm(
+                torch, np, args.seed, None, torch.float32,
+                lambda st: after.update({k: p.detach().clone() for k, p in
+                                         st.params.items()}), start)
+        log({"tsp": "(c) plain f32 reference", "steps": TSP_STEPS,
+             **plain, "card": smi})
+        _zoo_expect("tsp (c) plain f32 reference", plain["launches"],
+                    plain["launches_expected"])
+        launches.update({k: v for k, v in plain["launches"].items()
+                         if k in plain["launches_expected"]})
+        _tp_wait(ranks, "tsp (c) ranks")
+        ranks_s = time.perf_counter() - t0
+        results = [json.loads((TSP_DIR / f"rank{r}.json").read_text())
+                   for r in range(TSP_RANKS)]
+        n_steps = TSP_WARMUP + TSP_STEPS
+        want = {k: n * n_steps for k, n in tsp_collectives(12).items()}
+        want.update(results[0]["launches_expected"])
+        for r, rec in enumerate(results):
+            _zoo_expect(f"tsp (c) rank {r}", rec["launches"], want)
+            launches.update({k: v for k, v in rec["launches"].items()
+                             if k in rec["launches_expected"]})
+        firsts = [torch.load(TSP_DIR / f"rank{r}_first.pt")
+                  for r in range(TSP_RANKS)]
+        param_err, param_max = _ep_gap(TSP_SAMPLE, firsts, start, after)
+        del start, after
+        lim = TSP_LIMITS
+        loss_err = max(abs(x - y) for x, y in
+                       zip(results[0]["losses"][:lim["losses"]],
+                           plain["losses"]))
+        grad_err = (abs(results[0]["grad_norm"] - plain["grad_norm"])
+                    / plain["grad_norm"])
+        check = {"tsp": "(c) seq 2 x tensor 2", "mesh": TSP_AXES,
+                 "ranks": TSP_RANKS, "batch": plain["batch"],
+                 "losses": [rec["losses"] for rec in results],
+                 "plain_losses": plain["losses"],
+                 "losses_checked": lim["losses"], "loss_err": loss_err,
+                 "loss_tol": lim["loss"], "grad_norm_rel_err": grad_err,
+                 "grad_tol": lim["grad"], "param_gap_over_move": param_err,
+                 "param_tol": lim["param"], "param_max_abs_err": param_max,
+                 "peak_memory_gb": [rec["peak_memory_gb"]
+                                    for rec in results],
+                 "line_of_one_peak_gb": line_peak,
+                 "step_ms": [rec["step_ms"] for rec in results],
+                 "plain_step_ms": plain["step_ms"],
+                 "collectives_a_step": {
+                     k: results[0]["launches"].get(k, 0) // n_steps
+                     for k in tsp_collectives(12)},
+                 "launches": results[0]["launches"], "card": smi}
+        log(check)
+        if not (all(rec["losses"] == results[0]["losses"]
+                    for rec in results)
+                and loss_err <= lim["loss"] and grad_err <= lim["grad"]
+                and param_err <= lim["param"]):
+            raise AssertionError("tsp (c): four ranks disagree with the "
+                                 "one-rank model (logged above)")
+        # (d)
+        losses = [rec["llama"]["loss"] for rec in results]
+        for r, rec in enumerate(results):
+            got = rec["llama"]["launches"]
+            _zoo_expect(f"tsp (d) rank {r}", got,
+                        _tsp_llama_expected(rec["coords"][0]))
+            launches.update({k: v for k, v in got.items()
+                             if k in _tsp_llama_expected(0)
+                             and not k.startswith("ring_")})
+        llama_err = max(abs(x - plain_llama) for x in losses)
+        log({"tsp": "(d) llama recipe forward, seq 2 x tensor 2, shard_kv",
+             "layers": TSP_LLAMA_LAYERS,
+             "batch": [TSP_LLAMA_BATCH, TSP_LLAMA_LEN], "losses": losses,
+             "plain_loss": plain_llama, "loss_err": llama_err,
+             "loss_tol": TSP_LLAMA_TOL,
+             "peak_memory_gb": [rec["llama"]["peak_memory_gb"]
+                                for rec in results],
+             "plain_peak_memory_gb": llama_peak, "card": smi})
+        if not (len(set(losses)) == 1 and llama_err <= TSP_LLAMA_TOL):
+            raise AssertionError("tsp (d): the ranks' Llama loss disagrees "
+                                 "with the plain model's (logged above)")
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TSP_DIR, ignore_errors=True)
+    launches = {k: v for k, v in launches.items()
+                if k in _FAMILY_KERNELS}
+    log({"phase": "tsp", "seconds": time.perf_counter() - t_phase,
+         "ranks_seconds": ranks_s, "launches": launches})
+    return launches, routes, ln
+
+
+def tsp_spread(torch, np, args, smi) -> int:
+    """``--tsp-seeds``: phase 31 once for each seed without the kernel
+    rows, its checks logged; a seed that fails is logged and passed over
+    (the spread TSP_LIMITS are set from); 1 when any seed failed."""
+    failed = []
+    for seed in [int(x) for x in args.tsp_seeds.split(",")]:
+        args.seed = seed
+        try:
+            check_tsp(torch, np, args, smi, timings=False)
+        except AssertionError as e:
+            failed.append(seed)
+            log({"tsp_seed": seed, "failed": str(e)[:2000]})
+    log({"phase": "tsp spread", "seeds": args.tsp_seeds, "failed": failed})
+    return 1 if failed else 0
+
+
 def _kernel_rows(prof):
     """(kernel name, device us, count) rows of a profile, largest first:
     kernels only, since an operator's row repeats its kernels' time."""
@@ -10249,9 +10736,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tpf-seeds", metavar="S,S,...",
                     help="run only phase 30 without its kernel rows, once "
                     "a seed, and log its readings (no result line)")
-    # a rank of phase 27, 28, 29 or 30 (``--ranks-for=tp|pp|ep|tpf``),
-    # started by the phase itself
-    ap.add_argument("--ranks-for", choices=("tp", "pp", "ep", "tpf"),
+    ap.add_argument("--tsp-seeds", metavar="S,S,...",
+                    help="run only phase 31 without its kernel rows, once "
+                    "a seed, and log its readings (no result line)")
+    # a rank of phase 27, 28, 29, 30 or 31
+    # (``--ranks-for=tp|pp|ep|tpf|tsp``), started by the phase itself
+    ap.add_argument("--ranks-for", choices=("tp", "pp", "ep", "tpf", "tsp"),
                     default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -10265,7 +10755,8 @@ def main(argv=None) -> int:
         return 2
     if args.ranks_for is not None:
         return {"tp": tp_rank_main, "pp": pp_rank_main, "ep": ep_rank_main,
-                "tpf": tpf_rank_main}[args.ranks_for](args)
+                "tpf": tpf_rank_main,
+                "tsp": tsp_rank_main}[args.ranks_for](args)
     import numpy as np
 
     from distributed_tensorflow_tpu_torch.ops.kernels import _build
@@ -10283,6 +10774,8 @@ def main(argv=None) -> int:
         return ep_spread(torch, np, args, smi)
     if args.tpf_seeds:
         return tpf_spread(torch, np, args, smi)
+    if args.tsp_seeds:
+        return tsp_spread(torch, np, args, smi)
     log_backward_resources(_build)
     records = check_kernels(torch, args)
     records.update(check_llama_kernels(torch, args))
@@ -10347,6 +10840,9 @@ def main(argv=None) -> int:
     tpf_launches, tpf_rows = check_tpf(torch, np, args, smi)
     for k, rows in tpf_rows.items():
         records[k]["tpf_shapes"] = rows
+    tsp_launches, tsp_routes, tsp_ln = check_tsp(torch, np, args, smi)
+    records["layernorm"]["tsp_shapes"] = {
+        f"layernorm {tsp_ln['shape']} f32": tsp_ln}
     if args.profile:
         from distributed_tensorflow_tpu_torch import GPT, gpt_small
         profile_engine(torch, np, args, smi, GPT(
@@ -10355,7 +10851,7 @@ def main(argv=None) -> int:
         profile_training(torch, np, args, smi)
     # the last work on the card (see _LIB_BACKWARDS)
     lib_backwards = time_library_backwards(torch, args, smi)
-    for case, recs in sp_routes.items():
+    for case, recs in list(sp_routes.items()) + list(tsp_routes.items()):
         for route, rec in recs.items():
             if route.startswith("backward"):
                 rec["library_graph_ms"] = lib_backwards.get(
@@ -10366,9 +10862,11 @@ def main(argv=None) -> int:
     for kernel, part in (("flash_forward", "forward"),
                          ("flash_backward_dq", "backward"),
                          ("flash_backward_dkv", "backward")):
-        records[kernel]["sp_routes"] = {
-            f"{case} {route}": rec for case, recs in sp_routes.items()
-            for route, rec in recs.items() if route.startswith(part)}
+        for key, case_routes in (("sp_routes", sp_routes),
+                                 ("tsp_shapes", tsp_routes)):
+            records[kernel][key] = {
+                f"{case} {route}": rec for case, recs in case_routes.items()
+                for route, rec in recs.items() if route.startswith(part)}
         for key, shape_rows in (("tp_shapes", tp_rows),
                                 ("pp_shapes", pp_rows)):
             records[kernel][key] = {
@@ -10420,7 +10918,10 @@ def main(argv=None) -> int:
                     ep_launches=ep_launches.get(k, 0),
                     tpf_launches=tpf_launches.get(k, 0),
                     **({"tpf_shapes": r["tpf_shapes"]}
-                       if "tpf_shapes" in r else {}))
+                       if "tpf_shapes" in r else {}),
+                    tsp_launches=tsp_launches.get(k, 0),
+                    **({"tsp_shapes": r["tsp_shapes"]}
+                       if "tsp_shapes" in r else {}))
                for k, r in records.items()]
     log({"total_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,7 +48,7 @@ rank's slice of the replicated bias), gathered whole over the line
 before the transform's LayerNorm and the classifier; the MLM logits stay
 cut over the vocabulary (with ``mlm.output_bias``'s block) into the
 vocabulary-parallel cross entropy and argmax.  ``mlm_logits`` gathers
-them whole.  ``seq_axis`` beside it raises (ROADMAP Queue 1 item 7.2b).
+them whole.
 
 Sequence parallelism (``seq_axis`` with ``Bert(config, mesh=...)``):
 every rank of the axis passes the global batch and computes its shard
@@ -58,6 +58,15 @@ rotating with K/V; ``apply`` gathers the global output, so the pooler's
 ``[CLS]`` is the global position 0.  ``mlm_loss_fn`` never gathers: its
 sums (nll, hits) are summed over the axis and divided by the global mask
 weight, so the loss equals the dense one on every rank of the axis.
+
+Both at once (``seq_axis`` on a mesh with a ``tensor`` axis of T > 1,
+``{"seq": S, "tensor": T}`` or with ``data``: the JAX package's
+multi-chip mesh): a rank runs its Megatron blocks on its sequence shard,
+the ring-flash ring of its seq line carrying its ``h/T`` heads and the
+key plane; ``apply`` gathers over ``seq`` (the pooler reads the global
+``[CLS]``) and the column-parallel heads over ``tensor``;
+``mlm_loss_fn`` scores the shard's masked positions with the
+vocabulary-parallel cross entropy and sums over ``seq``, as each alone.
 """
 from __future__ import annotations
 
@@ -80,10 +89,6 @@ from .gpt import _REMAT_SAVES, _checkpointed
 
 __all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
            "mlm_gather_flops_correction"]
-
-# the refusal of the encoders whose tensor parallelism is not ported
-_PARALLEL = ("not ported yet: tensor parallelism of this model is ROADMAP "
-             "Queue 1 item 7.2b")
 
 Params = Dict[str, torch.Tensor]
 
@@ -267,10 +272,6 @@ class Bert:
         self.line = tp_lib.active(mesh)
         if self.line is not None:
             sharding_lib.check_mesh(mesh)
-            if config.seq_axis is not None:
-                raise NotImplementedError(
-                    "seq_axis under a tensor axis: not ported (ROADMAP "
-                    "Queue 1 item 7.2b)")
         # the layer lists kept unstacked, with their lengths
         self.stacks = {"encoder": config.num_layers}
 

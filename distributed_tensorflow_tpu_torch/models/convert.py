@@ -63,6 +63,7 @@ checkpoints.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import types
@@ -265,17 +266,23 @@ def bert_params_from_jax(tree: Mapping[str, Any], config,
                          ) -> Dict[str, torch.Tensor]:
     """A ``Bert``'s parameters from the JAX ``Bert.init`` tree; ``mesh``
     with a ``tensor`` axis: this rank's blocks (marked), the parameters
-    of ``Bert(config, mesh=mesh)``."""
-    params = _layered_from_jax(tree, Bert(config).stacks, device)
+    of ``Bert(config, mesh=mesh)`` (beside a ``seq`` axis too: a
+    ``seq_axis`` config's weights are the same)."""
+    params = _layered_from_jax(tree, _bert_stacks(config), device)
     if tensor_parallel.size(mesh) == 1:
         return params
     return cut_blocks(params, Bert(config, mesh).partition_rules(), mesh)
 
 
+def _bert_stacks(config) -> Dict[str, int]:
+    """``Bert.stacks`` of ``config``, whatever its ``seq_axis``."""
+    return Bert(dataclasses.replace(config, seq_axis=None)).stacks
+
+
 def bert_params_to_jax(params: Mapping[str, torch.Tensor],
                        config) -> Dict[str, Any]:
     """The JAX ``Bert`` tree of the port's parameters (or gradients)."""
-    return _layered_to_jax(params, Bert(config).stacks)
+    return _layered_to_jax(params, _bert_stacks(config))
 
 
 def vit_params_from_jax(tree: Mapping[str, Any], config,

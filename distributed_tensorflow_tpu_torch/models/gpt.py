@@ -70,9 +70,21 @@ parallel cross entropy and argmax; ``logits()`` gathers them whole.
 Keys and values shard with the queries under plain MHA or ``shard_kv``;
 otherwise they replicate and each rank's query heads read their group's
 kv heads (``tensor_parallel.kv_heads``).  The cache holds the rank's kv
-heads.  The paged paths, LoRA adapters, the int8 cache and
-``seq_axis`` raise under T > 1 (ROADMAP Queue 1 item 7.2b; the paged
-engine takes no mesh in the JAX package either).
+heads.  The paged paths, LoRA adapters and the int8 cache raise under
+T > 1 (ROADMAP Queue 1 item 7.2b; the paged engine takes no mesh in the
+JAX package either).
+
+Tensor beside sequence parallelism (``seq_axis`` on a mesh with a
+``tensor`` axis too, ``{"seq": S, "tensor": T}`` or with ``data``): a
+rank computes its blocks on its shard of the sequence.  The embedding is
+vocabulary-parallel on the shard's ids, RoPE (or the learned positions)
+at the shard's global offset; a block's attention is ring-flash over the
+rank's seq line on its ``h/T`` query heads and the kv heads they read;
+``lm_loss_fn`` takes the vocabulary-parallel cross entropy of the
+shard's tokens, sums it over the seq line and reports its share of the
+weight; ``apply`` gathers the hidden over the seq line and ``logits()``
+over the tensor line, as the JAX package's partial-manual ring leaves
+its heads to the partitioner.
 
 Expert parallelism (a MoE config, ``GPT(config, mesh=...)`` with an
 ``expert`` axis of X > 1 ranks, beside ``data`` or ``tensor``): the
@@ -353,9 +365,9 @@ class GPTConfig:
             # a MoE group is a whole row (ops/moe.py): routing a shard
             # alone would change which tokens overflow the capacity
             raise NotImplementedError(
-                "moe_experts with seq_axis is not ported: the MoE routes "
-                "each sequence as one group, and a sequence shard alone "
-                "would drop other tokens")
+                "moe_experts with seq_axis is not ported (ROADMAP Queue 1 "
+                "item 7.4): the MoE routes each sequence as one group, and "
+                "a sequence shard alone would drop other tokens")
 
     @property
     def head_dim(self) -> int:
@@ -487,9 +499,10 @@ class GPT(nn.Module):
     ``mesh`` (a ``parallel.Mesh``): naming ``config.seq_axis``, every
     rank of the axis builds the same weights and ``apply`` /
     ``lm_loss_fn`` compute its shard of the sequence; with a ``tensor``
-    axis of more than one rank, the model keeps this rank's blocks and
-    computes tensor-parallel, and a MoE config with an ``expert`` axis
-    of more than one rank keeps this rank's experts (module docstring).
+    axis of more than one rank (beside ``seq_axis`` or not), the model
+    keeps this rank's blocks and computes tensor-parallel, and a MoE
+    config with an ``expert`` axis of more than one rank keeps this
+    rank's experts (module docstring).
     ``shard_kv``: the kv
     projections shard over ``tensor`` (True) or replicate (False); None
     shards them under plain MHA only, as ``partition_rules``.
@@ -526,14 +539,11 @@ class GPT(nn.Module):
             sharding_lib.check_mesh(mesh)
         if self._line is not None:
             sharding_lib.check_mesh(mesh)
-            for what, on in (("seq_axis", c.seq_axis is not None),
-                             ("kv_cache_dtype='int8'",
-                              c.kv_cache_dtype == "int8")):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} under a tensor axis of "
-                        f"{tp_lib.size(mesh)}: not ported (ROADMAP Queue 1 "
-                        f"item 7.2b)")
+            if c.kv_cache_dtype == "int8":
+                raise NotImplementedError(
+                    f"kv_cache_dtype='int8' under a tensor axis of "
+                    f"{tp_lib.size(mesh)}: not ported (ROADMAP Queue 1 "
+                    f"item 7.2b)")
         self.word = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size,
                                              device=device))
         if c.position_embedding == "learned":

@@ -174,8 +174,13 @@ def attention_core(params: Mapping[str, Mapping[str, torch.Tensor]],
     hold this rank's blocks.  ``kv_heads``: None when the key and value
     kernels are this rank's blocks too; else they replicate and this
     rank's queries read those kv heads (``tensor_parallel.kv_heads``),
-    whose gradients the line sums.  The context's dropout mask is drawn
-    at the whole heads' shape (``tensor_parallel.dropout_block``)."""
+    whose gradients the line sums; the slice is taken of the kernels,
+    before the projection, so only those kv heads reach
+    ``attention_fn`` (under ``seq_axis`` the ring-flash ring, which
+    rotates them).  The context's dropout mask is drawn at the whole
+    heads' shape of ``x``'s positions (``tensor_parallel.dropout_block``;
+    under ``seq_axis`` a sequence shard's, from the step's generator,
+    which folds in the seq coordinate and not the tensor one)."""
     line = tp_lib.active(mesh)
     kvp = {n: dict(params[n]) for n in ("key", "value")}
     if line is not None:

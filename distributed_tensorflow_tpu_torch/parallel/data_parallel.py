@@ -17,13 +17,17 @@ group, and ``make_psum_train_step`` is a name for it.
 
 The ranks that average are the replicas: on a mesh with a ``tensor``,
 an ``expert`` or a ``pipe`` axis of more than one rank, the ranks of
-this rank's ``data`` x ``fsdp`` plane (those that share its ``tensor``,
-``expert`` and ``pipe`` coordinates and so hold the same blocks, experts
-or stage), never the whole mesh, whose sum would add blocks or layers of
-different ranks (and divide an expert's gradient by the expert line's
-size).  No one group spans that plane, so a sum over it is an
-all-reduce over this rank's ``fsdp`` line, then one over its ``data``
-line; a line of one issues none (``replicas``).
+this rank's ``data`` x ``fsdp`` x ``seq`` grid (those that share its
+``tensor``, ``expert`` and ``pipe`` coordinates and so hold the same
+blocks, experts or stage), never the whole mesh, whose sum would add
+blocks or layers of different ranks (and divide an expert's gradient by
+the expert line's size).  The ranks of a ``seq`` line hold the same
+blocks and compute on different positions of the same rows, and the
+sequence ops scale their gradients for a mean over the line (below), so
+the line is a replica line as the ``data`` line is.  No one group spans
+that grid, so a sum over it is an all-reduce over this rank's ``fsdp``
+line, then its ``seq`` line, then its ``data`` line; a line of one
+issues none (``replicas``).
 
 Weighted losses: a loss function that reports ``metrics["loss_weight"]``
 (a masked mean's normaliser, such as the token or mask count) is a
@@ -92,6 +96,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import math
 import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -123,13 +128,13 @@ def replicas(mesh) -> Tuple[Tuple[object, ...], int]:
     """(the process groups the gradients sum over, one after the other;
     the replica count): the whole mesh's group, or under a ``tensor``,
     ``expert`` or ``pipe`` axis of more than one rank this rank's
-    ``fsdp`` line and then its ``data`` line (the lines of more than one
-    rank; none on a plane of one)."""
+    ``fsdp`` line, its ``seq`` line and then its ``data`` line (the lines
+    of more than one rank; none on a grid of one)."""
     if any(mesh.axis_size(a) > 1 for a in ("tensor", "expert", "pipe")):
-        groups = tuple(g for g in (mesh.axis_group("fsdp"),
-                                   mesh.axis_group("data"))
+        lines = ("fsdp", "seq", "data")
+        groups = tuple(g for g in map(mesh.axis_group, lines)
                        if g is not None)
-        return groups, mesh.axis_size("data") * mesh.axis_size("fsdp")
+        return groups, math.prod(mesh.axis_size(a) for a in lines)
     return (() if mesh.group is None else (mesh.group,)), mesh.size
 
 
@@ -152,8 +157,9 @@ def cross_rank_moments(mesh):
 
 
 def batch_group(mesh=None):
-    """The process groups of the ranks that hold the other rows of this
-    rank's batch, a tuple summed over one after the other: ``mesh``'s
+    """The process groups of the ranks that hold the rest of this rank's
+    batch (its other rows, and on a ``seq`` line its other positions), a
+    tuple summed over one after the other: ``mesh``'s
     replicas (``replicas``), by default those of the mesh the running
     train step entered (``cross_rank_moments``); None outside a step and
     for a plane of one.  A model reads it once, as its forward starts,
@@ -200,8 +206,8 @@ def all_reduce_mean(grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """(grads, loss, metrics), each the global batch's mean over the
     replicas of ``mesh`` (``replicas``), with one all-reduce of a flat f32
-    bucket a group (the ``fsdp`` line, then the ``data`` line, beside a
-    ``tensor`` axis); every tensor comes back in its own shape and dtype.
+    bucket a group (the ``fsdp``, the ``seq`` and the ``data`` line, beside
+    a ``tensor`` axis); every tensor comes back in its own shape and dtype.
     ``weight``: this rank's loss weight (module docstring), None for a
     plain mean; with it, ``metrics["loss_weight"]`` comes back as the
     global weight.  A tensor-parallel mesh's plane of one issues nothing

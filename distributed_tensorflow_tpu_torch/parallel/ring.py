@@ -38,14 +38,27 @@ mean over the line is the whole; one used after a gather (a loss on
 every rank; and a replicated input of ``ring_attention_sharded`` gets
 its global gradient.
 
+Beside a ``tensor`` axis (``{"seq": S, "tensor": T}``, the JAX
+package's multi-chip mesh with ``data``) the ring's group is this rank's
+``seq`` line at its ``tensor`` index (``Mesh.axis_group("seq")``; the
+mesh puts ``tensor`` innermost), so each ring carries one tensor rank's
+heads.  The tensor line's collectives (``parallel/tensor_parallel.py``)
+act within a sequence shard and scale nothing: every rank of a tensor
+line holds the same R-scaled gradient of its shard's replicated
+activations, ``copy_to_line`` sums the ranks' parts of it once, and
+``reduce_from_line`` passes it through, so a block's gradient on a rank
+is R times the part through its shard's tokens, and the train step's
+mean over the ``seq`` line (``data_parallel.replicas``) makes it whole.
+
 The rotation is differentiable (``_Rotate``: its backward sends the
 gradients the other way round), so autograd carries the plain ring's
 gradients, as ``lax.ppermute``'s transpose does.  A ring of one does no
 communication.  ``sum_seq`` reduces a loss's sums over the line, and
 ``weight_share`` is a rank's share of a loss weight the line holds
 alike.  ``LAUNCHES`` counts the collectives issued: ``"p2p"`` (one
-``batch_isend_irecv`` a rotation), ``"all_gather"`` and
-``"all_reduce"``.
+``batch_isend_irecv`` a rotation), ``"p2p_host"`` (each staged host
+copy of a rotated CUDA tensor under gloo, where ranks share a card),
+``"all_gather"`` and ``"all_reduce"``.
 """
 from __future__ import annotations
 
@@ -65,12 +78,14 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 class Ring(NamedTuple):
     """A ring over a process group: its size, this rank's index on it, the
-    group, and the global ranks of the next and previous members."""
+    group, the global ranks of the next and previous members, and
+    whether the group's backend is gloo."""
     size: int
     index: int
     group: object
     next: Optional[int]
     prev: Optional[int]
+    gloo: bool = False
 
 
 def ring_of(group) -> Ring:
@@ -82,7 +97,8 @@ def ring_of(group) -> Ring:
     size, index = dist.get_world_size(group), dist.get_rank(group)
     return Ring(size, index, group,
                 dist.get_global_rank(group, (index + 1) % size),
-                dist.get_global_rank(group, (index - 1) % size))
+                dist.get_global_rank(group, (index - 1) % size),
+                dist.get_backend(group) == "gloo")
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -91,30 +107,52 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host buffer shaped as ``t``."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
 def rotate(tensors: Sequence[Optional[torch.Tensor]], ring: Ring,
            backward: bool = False) -> List[Optional[torch.Tensor]]:
     """Every tensor sent to the next rank of the ring and the previous
     rank's received in its place (``backward``: the other way round), in
     one ``batch_isend_irecv``; None stays None.  On a ring of one the
-    tensors come back as they are."""
+    tensors come back as they are.  Under gloo, whose ``send``/``recv``
+    take CPU tensors only, a CUDA tensor is staged through a pinned host
+    buffer each way (``parallel/pipeline.py`` stages its exchange so
+    too); under NCCL nothing is staged."""
     if ring.size == 1:
         return list(tensors)
     dst, src = (ring.prev, ring.next) if backward else (ring.next, ring.prev)
-    ops, out = [], []
+    ops, recvs = [], []
     for tag, t in enumerate(tensors):
         if t is None:
-            out.append(None)
+            recvs.append(None)
             continue
         send = _wire(t)
-        recv = torch.empty_like(send)
+        staged = ring.gloo and send.is_cuda
+        if staged:
+            send = _host(send).copy_(send)
+            LAUNCHES["p2p_host"] += 1
+        recv = _host(send) if staged else torch.empty_like(send)
         ops.append(dist.P2POp(dist.isend, send, dst, group=ring.group,
                               tag=tag))
         ops.append(dist.P2POp(dist.irecv, recv, src, group=ring.group,
                               tag=tag))
-        out.append(recv.view(torch.bool) if t.dtype == torch.bool else recv)
+        recvs.append((recv, t))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     LAUNCHES["p2p"] += 1
+    out = []
+    for got in recvs:
+        if got is None:
+            out.append(None)
+            continue
+        recv, t = got
+        if recv.device != t.device:
+            recv = recv.to(t.device)
+            LAUNCHES["p2p_host"] += 1
+        out.append(recv.view(torch.bool) if t.dtype == torch.bool else recv)
     return out
 
 

@@ -24,7 +24,12 @@ outputs merged by their row logsumexp.
   rotate WITH their K/V blocks and, after one more rotation, are home.
 
 GQA: K and V rotate with their ``hk`` heads; the kernels map each query
-head to its kv head, so no broadcast is built.  ``block_q`` / ``block_k``
+head to its kv head, so no broadcast is built.  Under tensor parallelism
+a rank's ring carries its ``h/T`` query heads and the kv heads they read
+(its block of them, or with replicated kv projections the group's slice
+that ``tensor_parallel.kv_heads`` takes before the projection), so only
+those rotate, and local query head i reads local kv head ``i // (h_local
+/ hk_local)`` at every step of the ring.  ``block_q`` / ``block_k``
 are the JAX signature's Pallas tile sizes, accepted and unused (the
 kernels pick their own tiles), as is ``interpret``.
 

@@ -18,15 +18,18 @@ divide raises ``ValueError``, as the JAX package's ``device_put`` does.
 
 The axes a leaf may be cut over are ``data``, ``fsdp``, ``tensor``,
 ``expert`` (a MoE bank's leading expert dim, ``ops/moe.py``) and ``pipe``
-(a stacked leaf's leading stage dim, ``parallel/pipeline.py``).  These
-raise ``NotImplementedError``, each naming its ROADMAP Queue 1 item: a
-``seq`` axis beside ``fsdp`` (item 7.5), ``tensor`` beside ``seq`` (item
-7.2b), ``expert`` beside ``fsdp`` (7.2c) or ``seq`` (7.2d), and ``pipe``
-beside ``fsdp``, ``tensor``, ``seq`` or ``expert`` (items 7.3a-d): a
-pipeline runs beside ``data`` alone, as the JAX package's
-``examples/train_gpt.py`` runs it.  ``tensor`` runs beside ``data`` and
-``fsdp``; ``expert`` beside ``data`` and ``tensor``.  ``parallel/mesh.py``
-holds ``named_sharding``, ``replicated`` and ``logical_to_mesh``.
+(a stacked leaf's leading stage dim, ``parallel/pipeline.py``); a ``seq``
+axis cuts activations, never a leaf.  These raise
+``NotImplementedError``, each naming its ROADMAP Queue 1 item: a ``seq``
+axis beside ``fsdp`` (item 7.5, with or without a ``tensor`` axis),
+``expert`` beside ``fsdp`` (7.2c) or ``seq`` (7.2d), and ``pipe`` beside
+``fsdp``, ``tensor``, ``seq`` or ``expert`` (items 7.3a-d): a pipeline
+runs beside ``data`` alone, as the JAX package's ``examples/train_gpt.py``
+runs it.  ``tensor`` runs beside ``data``, ``fsdp`` and ``seq`` (the JAX
+package's multi-chip mesh ``{"data": 2, "seq": 2, "tensor": 2}``: a
+rank's tensor blocks, its heads inside the ring of its seq line);
+``expert`` beside ``data`` and ``tensor``.  ``parallel/mesh.py`` holds
+``named_sharding``, ``replicated`` and ``logical_to_mesh``.
 
 The layouts of ``train.shard_train_state``: a leaf cut along one dim over
 one line (``Shard``: the dim, this rank's start and length, the dim's
@@ -75,18 +78,17 @@ __all__ = ["Blocks", "PartitionRules", "Shard", "ShardedDict", "Stage",
 Spec = Tuple[Any, ...]
 Rules = Sequence[Tuple[str, Spec]]
 
-# the ROADMAP item that ports each axis the port cannot cut over yet
-_UNPORTED = {"seq": "7.5 (ZeRO beside a seq axis)"}
-# axes that may not be larger than 1 beside a tensor axis of more than 1
-_BESIDE_TENSOR = {"seq": "7.2b (tensor beside seq)"}
-# axes that may not be larger than 1 beside a pipe axis of more than 1
-_BESIDE_PIPE = {"fsdp": "7.3a (pipe beside fsdp)",
-                "tensor": "7.3b (pipe beside tensor)",
-                "seq": "7.3c (pipe beside seq)",
-                "expert": "7.3d (pipe beside expert)"}
-# axes that may not be larger than 1 beside an expert axis of more than 1
-_BESIDE_EXPERT = {"fsdp": "7.2c (expert beside fsdp)",
-                  "seq": "7.2d (expert beside seq)"}
+# the axes that may not be larger than 1 beside an axis of more than 1,
+# each with the ROADMAP Queue 1 item that ports the pair: beside a pipe or
+# a seq axis whatever a spec cuts, beside an expert axis where a spec
+# cuts over it
+_BESIDE = {"pipe": {"fsdp": "7.3a (pipe beside fsdp)",
+                    "tensor": "7.3b (pipe beside tensor)",
+                    "seq": "7.3c (pipe beside seq)",
+                    "expert": "7.3d (pipe beside expert)"},
+           "seq": {"fsdp": "7.5 (ZeRO beside a seq axis)"},
+           "expert": {"fsdp": "7.2c (expert beside fsdp)",
+                      "seq": "7.2d (expert beside seq)"}}
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -181,16 +183,11 @@ class PartitionRules:
 
 
 def _refuse(mesh, axes, what: str) -> None:
-    """Raise for a ``pipe`` axis beside any cut axis, a ``tensor`` or an
-    ``expert`` axis (named in ``axes``) beside an axis it cannot run
-    beside, and for an axis of ``axes`` larger than 1 on ``mesh`` that the
-    port cannot cut over yet."""
-    beside = [("pipe", _BESIDE_PIPE)]
-    beside += [(a, table) for a, table in (("tensor", _BESIDE_TENSOR),
-                                           ("expert", _BESIDE_EXPERT))
-               if a in axes]
-    for axis, table in beside:
-        if mesh.axis_size(axis) == 1:
+    """Raise for a ``pipe`` or a ``seq`` axis beside an axis it cannot run
+    beside, and for an ``expert`` axis (named in ``axes``) likewise."""
+    for axis, table in _BESIDE.items():
+        if mesh.axis_size(axis) == 1 or (axis == "expert"
+                                         and axis not in axes):
             continue
         for a, item in table.items():
             if mesh.axis_size(a) > 1:
@@ -198,18 +195,13 @@ def _refuse(mesh, axes, what: str) -> None:
                     f"{what}: a {axis!r} axis of {mesh.axis_size(axis)} "
                     f"ranks beside a {a!r} axis of {mesh.axis_size(a)}: "
                     f"not ported (ROADMAP Queue 1 item {item})")
-    for a in axes:
-        if a in _UNPORTED and mesh.axis_size(a) > 1:
-            raise NotImplementedError(
-                f"{what} with a {a!r} axis of {mesh.axis_size(a)} ranks: "
-                f"not ported (ROADMAP Queue 1 item {_UNPORTED[a]})")
 
 
 def check_mesh(mesh) -> None:
     """Raise unless every axis of ``mesh`` larger than 1 is ``data``,
-    ``fsdp``, ``tensor``, ``expert`` or ``pipe``, neither ``tensor`` nor
-    ``expert`` is beside ``seq``, ``expert`` is not beside ``fsdp``, and
-    ``pipe`` is beside ``data`` alone: the layouts
+    ``fsdp``, ``tensor``, ``expert``, ``pipe`` or ``seq``, ``seq`` is not
+    beside ``fsdp``, ``expert`` is beside neither ``fsdp`` nor ``seq``,
+    and ``pipe`` is beside ``data`` alone: the layouts
     ``train.shard_train_state`` places."""
     _refuse(mesh, mesh.shape, "a sharded layout")
 

@@ -26,7 +26,9 @@ block of a ZeRO, tensor- or expert-parallel layout
 ``tensor`` are boxes cut along two dims, each dim's start the whole
 leaf's) is written by the rank at index 0 of every axis that does not
 cut it (the first rank of its ``data`` line for a box cut over every
-other axis: ``replica_id == 0`` in the JAX package), a whole leaf and
+other axis, and of its ``seq`` line too beside a ``seq`` axis, whose
+ranks hold the same blocks: ``replica_id == 0`` in the JAX package), a
+whole leaf and
 every host value by the chief, so each element is written once.  A
 pipeline stage's layers (a ``Stage`` layout) are the box ``[a:b, ...]``
 of their stacked leaf, written by the first rank of the stage's

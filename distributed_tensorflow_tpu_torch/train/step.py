@@ -81,8 +81,18 @@ blocks; none on a line of one), weighted by a ``loss_weight`` summed over
 that line; the global norm and the non-finite count sum each block's
 squares and counts over the ``tensor`` line (one all-reduce of two
 numbers) and count each replicated leaf once; Adam runs on the blocks.
-A ``tensor`` axis beside ``seq`` raises (ROADMAP Queue 1 item 7.2b).  On
-a line of one the model and the step are the plain ones.
+On a line of one the model and the step are the plain ones.
+
+Tensor beside sequence parallelism (a ``seq`` x ``tensor`` or ``data`` x
+``seq`` x ``tensor`` mesh, a model with ``seq_axis`` built on it): the
+ranks of a ``seq`` line hold the same blocks, each computing them on its
+shard of the sequence, and the sequence ops scale their gradients for a
+mean over the line (``parallel/ring.py``), so the step averages over
+the ``seq`` line and then the ``data`` line (``replicas``: two
+all-reduces, a line of one issuing none), weighted by the loss weight
+shares the model reports; the global norm and the non-finite count sum
+the blocks' squares over the ``tensor`` line once the gradients are the
+replicas' mean, and count each replicated leaf once.
 
 Tensor beside ZeRO (a ``data`` x ``fsdp`` x ``tensor`` mesh, a model built
 on it and its rules with ``fsdp=True``): each rank keeps the ``fsdp``
@@ -240,10 +250,10 @@ def shard_train_state(state: TrainState, mesh, rules) -> TrainState:
     whole).  Under ``fsdp`` x ``tensor`` a model's block is cut along
     its ``fsdp`` dim too and ``full`` is the model's own parameters (its
     marked tensor blocks and whole leaves), which the step gathers the
-    ``fsdp`` parts into.  On lines of one rank nothing is cut.  Only
-    ``data``, ``fsdp``, ``tensor``, ``expert`` and ``pipe`` may be larger
-    than 1, not ``expert`` beside ``fsdp``, and ``pipe`` beside ``data``
-    alone (``parallel/sharding.py``)."""
+    ``fsdp`` parts into.  On lines of one rank nothing is cut, and a
+    ``seq`` axis cuts no leaf.  ``seq`` may not be beside ``fsdp``,
+    ``expert`` beside ``fsdp`` or ``seq``, and ``pipe`` runs beside
+    ``data`` alone (``parallel/sharding.py``)."""
     sharding_lib.check_mesh(mesh)
     params = state.params
     if isinstance(params, sharding_lib.ShardedDict):

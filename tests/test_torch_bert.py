@@ -266,8 +266,9 @@ def test_default_decay_mask_takes_no_encoder_name_as_stacked():
 
 def test_parallel_options_raise():
     """``seq_axis`` runs now, and needs a mesh naming the axis; tensor
-    parallelism runs on the JAX package's table, and beside ``seq_axis``
-    it still raises."""
+    parallelism runs on the JAX package's table, beside ``seq_axis`` too
+    (``tests/test_torch_tp_sp.py`` trains it); beside ``seq`` and
+    ``fsdp`` at once it raises, naming ROADMAP Queue 1 item 7.5."""
     with pytest.raises(ValueError, match="mesh"):
         tbert.bert_tiny(seq_axis="seq")
     rules = tbert.bert_tiny().partition_rules()
@@ -276,5 +277,8 @@ def test_parallel_options_raise():
         jrules.spec_for("encoder/ffn/w_in/kernel"))[1:] == (None, "tensor")
     mesh = parallel.Mesh(4, 0, None, axes={"seq": 2, "tensor": 2},
                          lines={})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.2b"):
-        tbert.Bert(tbert.BertConfig(seq_axis="seq"), mesh)
+    assert tbert.Bert(tbert.BertConfig(seq_axis="seq"), mesh).line is mesh
+    beside_fsdp = parallel.Mesh(8, 0, None, axes={"fsdp": 2, "seq": 2,
+                                                  "tensor": 2}, lines={})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.5"):
+        tbert.Bert(tbert.BertConfig(seq_axis="seq"), beside_fsdp)

@@ -360,14 +360,22 @@ def test_line_of_one_is_the_plain_model():
 
 def test_refusals_under_tensor():
     """What tensor parallelism does not run raises, naming ROADMAP Queue 1
-    item 7.2b; a plain state refuses a tensor-parallel step."""
+    item 7.2b (or 7.5 beside seq and fsdp); a plain state refuses a
+    tensor-parallel step."""
     mesh = _virtual({"tensor": 2}, 0)
     # (a MoE config runs under tensor now: tests/test_torch_expert.py)
     with pytest.raises(NotImplementedError, match="7.2b"):
         GPT(gpt_tiny(kv_cache_dtype="int8"), device="cpu", mesh=mesh)
-    beside = _virtual({"seq": 2, "tensor": 2}, 0)
-    with pytest.raises(NotImplementedError, match="7.2b"):
-        GPT(gpt_tiny(seq_axis="seq"), device="cpu", mesh=beside)
+    # beside seq the model keeps its tensor blocks, cut as on a tensor
+    # line alone (tests/test_torch_tp_sp.py trains it); beside seq and
+    # fsdp at once it raises, naming ROADMAP Queue 1 item 7.5
+    beside_seq = GPT(gpt_tiny(seq_axis="seq"), device="cpu",
+                     mesh=_virtual({"seq": 2, "tensor": 2}, 3))
+    assert sharding.marked_shard(beside_seq.word) == sharding.Shard(
+        0, 256, 256, 512, "tensor")
+    with pytest.raises(NotImplementedError, match="7.5"):
+        GPT(gpt_tiny(seq_axis="seq"), device="cpu",
+            mesh=_virtual({"fsdp": 2, "seq": 2, "tensor": 2}, 0))
     # beside fsdp the model keeps its tensor blocks, cut as on a tensor
     # line alone
     beside_fsdp = GPT(gpt_tiny(), device="cpu",

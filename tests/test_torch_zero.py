@@ -141,13 +141,21 @@ def test_unported_axes_and_configs_raise():
     params = dict(model.named_parameters())
     opt = optim.adamw(1e-3)
     state = TrainState.create(params, opt.init(params))
-    for axes, item in (({"seq": 2, "tensor": 2}, "7.2b"),
+    for axes, item in (({"fsdp": 2, "seq": 2, "tensor": 2}, "7.5"),
                        ({"fsdp": 2, "expert": 2}, "7.2c"),
                        ({"pipe": 2, "fsdp": 2}, "7.3a"),
                        ({"fsdp": 2, "seq": 2}, "7.5")):
         with pytest.raises(NotImplementedError, match=item):
             train.shard_train_state(state, _virtual(axes, 0),
                                     model.partition_rules(fsdp=True))
+    # tensor beside seq places: a model built on the mesh keeps its
+    # tensor blocks, and the state is cut over the tensor line alone
+    ts = _virtual({"seq": 2, "tensor": 2}, 3)
+    ts_model = GPT(gpt_tiny_cfg(seq_axis="seq"), device="cpu", mesh=ts)
+    ts_params = dict(ts_model.named_parameters())
+    assert train.shard_train_state(
+        TrainState.create(ts_params, opt.init(ts_params)), ts,
+        ts_model.partition_rules(fsdp=True)).params.line == "tensor"
     # tensor beside fsdp places: a model built on rank 3 of the mesh keeps
     # its tensor blocks, the state their fsdp parts, the moments alike;
     # a whole model's leaves under those rules raise
