@@ -43,8 +43,12 @@ __all__ = ["BUILD_DIR", "CSRC", "bind", "build", "check", "cxx", "load",
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# --split-compile=0 optimizes a source's kernels on every core at once
+# (paged_attention.cu's 42 kernels were the whole build's longest pole);
+# every kernel's registers, stack and spills are the same (ptxas -v)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

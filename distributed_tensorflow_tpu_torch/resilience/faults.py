@@ -17,11 +17,12 @@ Fault catalog (docs/RESILIENCE.md).  All 14 kinds are accepted; the port
 wires the sites of the first eight (``checkpoint.save``: corrupt_checkpoint
 and save_oserror; the prefetch producer: poison_batch and kill_prefetch;
 ``TrainSession.run_step``: nan_grads; the serve scheduler's pump:
-stall_tick and wedge_replica; its token delivery: fail_decode).  The
-fleet kinds' sites (the router's pump for kill_replica and
-correlated_kill, the page wire's ``InProcessLink`` for drop_chunk,
-corrupt_chunk, stall_wire and kill_host, the launcher's poll for
-kill_host) come with the fleet slice; their ``on_*`` hooks are here.
+stall_tick and wedge_replica; its token delivery: fail_decode) and the
+fleet's: the router's pump for kill_replica and correlated_kill (the
+fleet simulator arms correlated_kill on the active plan as its trace's
+schedule comes due), the page wire's ``InProcessLink`` for drop_chunk,
+corrupt_chunk, stall_wire and kill_host, and the launcher's poll for
+kill_host (``on_host_poll``: the launcher SIGKILLs the matched host).
 
 ==================  =========================================================
 kind                effect (trigger field ``at``)
